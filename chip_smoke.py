@@ -18,7 +18,16 @@ sm_90a) and the CUDA toolkit. Phases, each printing what it found:
     from a seeded generator), 3 bfloat16 requests and 1 float32 request of
     the interactive-segmentation path (segment_prefill + point_segment),
     launch counters, latency, peak memory.
-Then the kernels JSON line, the nvidia-smi line, and the final status line.
+ 6. automatic mask generation: a small ViT with SAM's full-width decoder on
+    the CPU (plain versions) against the card (kernels); then SAM ViT-B at
+    full width on 1024x1024 images (a 32x32 point grid, 256 prompts a
+    chunk): the deterministic sweep (thresholds and NMS off) in bfloat16,
+    1 warm and 3 timed images, one float32 image, and one bfloat16 image
+    with the upstream thresholds (0.88 / 0.95 / NMS 0.7).
+Each path (5 and 6) runs with every launch counter set to 0 just before it
+and read just after. Then the kernels JSON line (``launches``: the sum over
+both paths; ``launches_by_path``: each path's own count), the nvidia-smi
+line, and the final status line.
 Any failure exits non-zero before the final line. No jax, no ullsam_tpu.
 """
 
@@ -191,6 +200,82 @@ def check_kernels(card: str) -> dict:
     return rows
 
 
+DECODER_KERNELS = (
+    ("decode_masks", "ullsam_tpu_torch/csrc/decoder_twt.cu",
+     "ullsam_tpu/ops/pallas/decoder.py:835"),
+    ("two_way_transformer", "ullsam_tpu_torch/csrc/decoder_twt.cu",
+     "ullsam_tpu/ops/pallas/decoder.py:637"),
+    ("upscale_hypernet_stats", "ullsam_tpu_torch/csrc/decoder_upscale.cu",
+     "ullsam_tpu/ops/pallas/decoder.py:107"),
+    ("upscale_hypernet", "ullsam_tpu_torch/csrc/decoder_upscale.cu",
+     "ullsam_tpu/ops/pallas/decoder.py:98"))
+
+
+def check_decoder_kernels(card: str) -> dict:
+    """B4-B7 against their plain versions at the AMG chunk of SAM ViT-B
+    (256 prompts, 64x64 grid, 7 tokens, 3 masks), in bf16 and f32; the
+    statistics exactly against the plain statistics of the kernel's own
+    logits. No single PyTorch call computes any of them (library_ms null)."""
+    import torch
+    from ullsam_tpu_torch.ops.kernels import decoder as D
+    from ullsam_tpu_torch.tools.main_path import (AMG_CHUNK, decoder_cases,
+                                                  decoder_outputs)
+
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    rows = {name: {"name": name, "route": "cuda", "source": source,
+                   "replaces": replaces}
+            for name, source, replaces in DECODER_KERNELS}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        cases = decoder_cases(dtype, gen, **AMG_CHUNK)
+        for name, _, _ in DECODER_KERNELS:
+            args, kw, flops, nbytes = cases[name]
+            kernel, plain = getattr(D, name), getattr(D, name + "_plain")
+            got = kernel(*args, **kw)
+            ref = plain(*args, **kw)
+            torch.cuda.synchronize()
+            g_f, g_i, logits = decoder_outputs(name, got)
+            r_f, _, _ = decoder_outputs(name, ref)
+            err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(g_f, r_f))
+            rel = max(float((a.float() - b.float()).abs().max()
+                            / b.float().abs().max()) for a, b in zip(g_f, r_f))
+            finite = all(bool(torch.isfinite(a).all()) for a in g_f)
+            exact = g_i is None or all(
+                torch.equal(a, b) for a, b in zip(
+                    g_i, D.upscale_stats_plain(logits, kw["thr"], kw["off"])))
+            ok = finite and rel <= tol[dtype] and exact
+            say(f"[kernels] {name} {dname}: max_abs_err={err:.3e} "
+                f"max_rel_err={rel:.3e} (relative to max|plain|; tol "
+                f"{tol[dtype]:.0e}), statistics "
+                f"{'n/a' if g_i is None else 'exact' if exact else 'DIFFER'}"
+                f" {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"{name} {dname} disagrees with its plain version")
+            del got, ref, g_f, r_f, g_i, logits
+            ms = cuda_time_ms(lambda: kernel(*args, **kw), iters=5,
+                              warmup=1)
+            plain_ms = cuda_time_ms(lambda: plain(*args, **kw), iters=2,
+                                    warmup=1)
+            b_ms, b_by = bound_ms(flops, nbytes, dtype)
+            say(f"[kernels] {name} {dname}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, library n/a, bound {b_ms:.4f} ms "
+                f"({b_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; "
+                f"data-sheet peaks at 700 W, card: {card}), "
+                f"{flops / ms / 1e9:.1f} TFLOP/s")
+            entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            if dtype == torch.bfloat16:
+                rows[name].update(entry)
+            else:
+                rows[name]["float32"] = entry
+        del cases, args
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5: the port's main path
 # ---------------------------------------------------------------------------
@@ -280,7 +365,7 @@ def small_reference_check() -> None:
         fail(f"small model GPU vs CPU max_abs_err {worst:.3e} > 1e-3")
 
 
-def main_path() -> dict:
+def main_path() -> None:
     import numpy as np
     import torch
     from ullsam_tpu_torch.core.config import (FusionConfig, internlm2_1_8b,
@@ -332,18 +417,13 @@ def main_path() -> dict:
             f"{(peak - weights) / 2**30:.3f} GiB for the requests")
         return lat, per_req, first
 
-    VB.window_attn.launches = 0
-    FA.vit_flash_attn.launches = 0
-    lat, per_req, bf16_first = serve(model16, "bf16", reqs)
+    _, per_req, bf16_first = serve(model16, "bf16", reqs)
     del model16
     torch.cuda.empty_cache()
     model32.to("cuda")
     say("[main] float32 request (TF32 off for matmuls and convolutions)")
     _, per_req32, f32_first = serve(model32, "f32", reqs[:1])
     per_req += per_req32
-    launches = {"window_attn": VB.window_attn.launches,
-                "vit_flash_attn": FA.vit_flash_attn.launches}
-    say(f"[main] launches over 4 requests: {launches}")
     if any(p != (8, 4) for p in per_req):
         fail(f"expected +8 window_attn / +4 vit_flash_attn per request, got "
              f"{per_req}")
@@ -354,7 +434,185 @@ def main_path() -> dict:
             f"{rel:.3e}")
     agree = float((bf16_first[2] > 0.5).eq(f32_first[2] > 0.5).float().mean())
     say(f"[main] bf16 vs f32, request 0, mask pixel agreement {agree:.4f}")
-    return {"launches": launches, "latency_ms": lat}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: automatic mask generation
+# ---------------------------------------------------------------------------
+
+
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port by its name (each keeps .launches)."""
+    from ullsam_tpu_torch.ops.kernels import decoder as D
+    from ullsam_tpu_torch.ops.kernels import flash_attention as FA
+    from ullsam_tpu_torch.ops.kernels import vit_block as VB
+    return {"window_attn": VB.window_attn,
+            "vit_flash_attn": FA.vit_flash_attn,
+            **{k.__name__: k for k in D.KERNELS}}
+
+
+def launch_counts() -> dict:
+    return {name: k.launches for name, k in kernel_wrappers().items()}
+
+
+def reset_counts() -> None:
+    for k in kernel_wrappers().values():
+        k.launches = 0
+
+
+def amg_small_reference_check() -> None:
+    """A small ViT (hd = 64, padded windows, a global block) with SAM's
+    full-width mask decoder, so every kernel takes it: the AMG of one small
+    image on the CPU (plain versions) and on the card (kernels), float32,
+    from the same weights."""
+    import numpy as np
+    import torch
+    from ullsam_tpu_torch.core.config import (MaskDecoderConfig,
+                                              PromptEncoderConfig, SamConfig,
+                                              ViTConfig)
+    from ullsam_tpu_torch.inference.amg import AutomaticMaskGenerator
+    from ullsam_tpu_torch.models.sam.sam import Sam
+    from ullsam_tpu_torch.ops import layers as L
+
+    cfg = SamConfig(
+        vit=ViTConfig(img_size=256, patch_size=16, embed_dim=128, depth=3,
+                      num_heads=2, out_chans=256, window_size=14,
+                      global_attn_indexes=(1,)),
+        prompt_encoder=PromptEncoderConfig(image_embedding_size=(16, 16),
+                                           input_image_size=(256, 256)),
+        mask_decoder=MaskDecoderConfig())
+    cpu = Sam(cfg, device="cpu")
+    gen = torch.Generator()
+    gen.manual_seed(SEED)
+    L.init_module_(cpu, gen)
+    gpu = Sam(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    image = np.random.default_rng(SEED).integers(0, 256, (200, 240, 3),
+                                                 dtype=np.uint8)
+    kw = dict(points_per_side=4, points_per_batch=16, pred_iou_thresh=0.0,
+              stability_score_thresh=0.0, box_nms_thresh=1.0, max_masks=48)
+    ref_m, ref = AutomaticMaskGenerator(cfg, cpu, **kw).generate_dense(image)
+    before = launch_counts()
+    got_m, got = AutomaticMaskGenerator(cfg, gpu, **kw).generate_dense(image)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    if any(after[k] == before[k] for k in after):
+        fail(f"small AMG did not launch every kernel: {before} -> {after}")
+    if len(got["candidate"]) != len(ref["candidate"]):
+        fail(f"small AMG: {len(got['candidate'])} masks on the card, "
+             f"{len(ref['candidate'])} on the CPU")
+    o_r, o_g = np.argsort(ref["candidate"]), np.argsort(got["candidate"])
+    if not np.array_equal(ref["candidate"][o_r], got["candidate"][o_g]):
+        fail("small AMG: the card and the CPU kept different candidates")
+    d_iou = float(np.abs(ref["iou_preds"][o_r] - got["iou_preds"][o_g]).max())
+    d_st = float(np.abs(ref["stability"][o_r] - got["stability"][o_g]).max())
+    agree = float((ref_m.numpy()[o_r] == got_m.cpu().numpy()[o_g]).mean())
+    say(f"[reference] small AMG ({len(o_r)} masks), CPU plain vs GPU "
+        f"kernels: iou max diff {d_iou:.3e}, stability max diff {d_st:.3e},"
+        f" mask pixel agreement {agree:.6f}")
+    # float32 with TF32 off: summation order only; a pixel may flip where
+    # an upscaled logit lies within rounding of the threshold
+    if d_iou > 1e-4 or d_st > 1e-4 or agree < 0.999:
+        fail("small AMG: GPU kernels disagree with the CPU plain versions")
+
+
+def amg_main_path() -> None:
+    """SAM ViT-B at full width (random weights from the seed), 1024x1024
+    uint8 images, a 32x32 point grid in chunks of 256 prompts, at most 256
+    masks an image."""
+    import numpy as np
+    import torch
+    from ullsam_tpu_torch.core.config import sam_vit_b
+    from ullsam_tpu_torch.inference.amg import AutomaticMaskGenerator
+    from ullsam_tpu_torch.models.sam.sam import Sam
+    from ullsam_tpu_torch.ops import layers as L
+    from ullsam_tpu_torch.tools.main_path import amg_inputs
+
+    cfg = sam_vit_b()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    model32 = Sam(cfg, device="cuda")
+    L.init_module_(model32, gen)
+    model16 = Sam(cfg, device="cuda", dtype=torch.bfloat16)
+    model16.load_state_dict(model32.state_dict())
+    model32.to("cpu")  # one model on the card at a time, for its memory
+    torch.cuda.empty_cache()
+    images = amg_inputs(np.random.default_rng(SEED), 5)
+    sweep = dict(points_per_side=32, points_per_batch=256, max_masks=256)
+    off = dict(pred_iou_thresh=0.0, stability_score_thresh=0.0,
+               box_nms_thresh=1.0)
+
+    def run(generator, image, tag):
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        masks, data = generator.generate_dense(image)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        d = {k: v - before[k] for k, v in launch_counts().items()}
+        n = len(data["iou_preds"])
+        if (masks.dtype != torch.bool or tuple(masks.shape) != (n, 1024, 1024)
+                or not np.isfinite(data["iou_preds"]).all()
+                or not np.isfinite(data["stability"]).all()):
+            fail(f"AMG {tag}: masks {tuple(masks.shape)} {masks.dtype}")
+        say(f"[amg] {tag}: {n} masks, latency {ms:.1f} ms (host clock, ends "
+            f"in synchronize), launches {d}")
+        return ms, d, masks, data
+
+    g16 = AutomaticMaskGenerator(cfg, model16, **sweep, **off)
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run(g16, images[0], "bf16 warm image")
+    timed = [run(g16, img, f"bf16 image {i}")
+             for i, img in enumerate(images[1:4], 1)]
+    peak = torch.cuda.max_memory_allocated()
+    want = {"window_attn": 8, "vit_flash_attn": 4, "decode_masks": 4,
+            "two_way_transformer": 4, "upscale_hypernet_stats": 4,
+            "upscale_hypernet": 4}
+    for _, d, _, data in timed:
+        if d != want:
+            fail(f"AMG launches per image {d}, expected {want}")
+        if len(data["iou_preds"]) != 256:
+            fail(f"deterministic AMG committed {len(data['iou_preds'])} "
+                 f"masks, expected 256")
+    total_s = sum(t[0] for t in timed) / 1e3
+    n_masks = sum(len(t[3]["iou_preds"]) for t in timed)
+    say(f"[amg] bf16 deterministic sweep (thresholds and NMS off), 3 timed "
+        f"images: {n_masks / total_s:.1f} masks/s, {3 / total_s:.3f} "
+        f"images/s, latency {', '.join(f'{t[0]:.1f}' for t in timed)} ms")
+    say(f"[amg] bf16: weights {weights / 2**30:.3f} GiB resident, peak "
+        f"{peak / 2**30:.3f} GiB (max_memory_allocated), so "
+        f"{(peak - weights) / 2**30:.3f} GiB for the sweep")
+
+    _, _, m16, d16 = timed[0]
+    model16.to("cpu")
+    torch.cuda.empty_cache()
+    model32.to("cuda")
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, _, m32, d32 = run(AutomaticMaskGenerator(cfg, model32, **sweep, **off),
+                         images[1], "f32 image 1 (TF32 off)")
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[amg] f32: weights {weights / 2**30:.3f} GiB resident, peak "
+        f"{peak / 2**30:.3f} GiB, so {(peak - weights) / 2**30:.3f} GiB for "
+        f"the sweep")
+    both, i16, i32 = np.intersect1d(d16["candidate"], d32["candidate"],
+                                    return_indices=True)
+    agree = float((m16[torch.from_numpy(i16).cuda()]
+                   == m32[torch.from_numpy(i32).cuda()]).float().mean())
+    d_iou = float(np.abs(d16["iou_preds"][i16] - d32["iou_preds"][i32]).max())
+    say(f"[amg] bf16 vs f32, image 1: {len(both)} of 256 candidates in "
+        f"both, on them mask pixel agreement {agree:.4f}, iou max diff "
+        f"{d_iou:.3e}")
+    del m16, m32
+    model32.to("cpu")
+    torch.cuda.empty_cache()
+    model16.to("cuda")
+    upstream = AutomaticMaskGenerator(cfg, model16, **sweep)
+    run(upstream, images[4], "bf16 image 4, upstream thresholds 0.88 / 0.95 "
+        "/ NMS 0.7 (random weights commit few masks)")
 
 
 def main() -> None:
@@ -393,10 +651,21 @@ def main() -> None:
     say("[device] torch.backends.cuda.matmul.allow_tf32 = False, "
         "torch.backends.cudnn.allow_tf32 = False")
     rows = check_kernels(smi)
+    rows.update(check_decoder_kernels(smi))
     small_reference_check()
-    main = main_path()
+    amg_small_reference_check()
+    by_path = {}
+    for path, drive in (("interactive", main_path), ("amg", amg_main_path)):
+        reset_counts()
+        drive()
+        by_path[path] = launch_counts()
+        say(f"[main] launches on the {path} path: {by_path[path]}")
+    launches = {name: sum(c[name] for c in by_path.values()) for name in rows}
+    if not all(launches.values()):
+        fail(f"a kernel of the main path never launched: {launches}")
     for name, row in rows.items():
-        row["launches"] = main["launches"][name]
+        row["launches"] = launches[name]
+        row["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
     say(json.dumps({"kernels": list(rows.values())}))
     say(smi_line())
     say(json.dumps({"ok": True, "device": {

@@ -85,12 +85,55 @@ def test_vit_flash_attn_kernel_matches_plain(cuda, dt, BH, KH, KW):
     assert _rel_err(lse, rlse) <= 1e-5
 
 
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,HW,M,T", [
+    (3, 32, 3, 7),      # the JAX package's kernel test shape
+    (1, 64, 1, 4),      # one prompt, single mask, the 64x64 grid
+    (3, 32, 4, 16),     # every mask token, 16 tokens
+    (256, 64, 3, 7)])   # the AMG chunk of SAM ViT-B
+def test_decoder_kernels_match_plain(cuda, dt, B, HW, M, T):
+    """B4, B5, B6, B7 against their plain versions; statistics exactly
+    against the plain statistics of the kernel's own logits."""
+    from ullsam_tpu_torch.ops.kernels import decoder as D
+    from ullsam_tpu_torch.tools.main_path import (decoder_cases,
+                                                  decoder_outputs)
+    cases = decoder_cases(getattr(torch, dt), cuda, B=B, H=HW, W=HW, T=T,
+                          M=M)
+    for name, (args, kw, _, _) in cases.items():
+        kernel, plain = getattr(D, name), getattr(D, name + "_plain")
+        before = kernel.launches
+        got = kernel(*args, **kw)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1, name
+        ref = plain(*args, **kw)
+        g_f, g_i, logits = decoder_outputs(name, got)
+        r_f, _, _ = decoder_outputs(name, ref)
+        for a, b in zip(g_f, r_f):
+            assert a.shape == b.shape and bool(torch.isfinite(a).all())
+            assert _rel_err(a, b) <= TOL[dt], name
+        if g_i is not None:
+            for a, b in zip(g_i, D.upscale_stats_plain(logits, kw["thr"],
+                                                       kw["off"])):
+                assert torch.equal(a, b), name
+
+
 def test_wrappers_raise_on_unsupported_cuda_shapes(cuda):
     from ullsam_tpu_torch.ops.kernels import flash_attention as FA
     q = torch.zeros(1, 96, 32, device="cuda")   # D != 64, N % 64 != 0
     rel = torch.zeros(1, 96, 8, device="cuda")
     with pytest.raises(ValueError):
         FA.vit_flash_attn(q, q, q, rel, rel[..., :12].contiguous())
+    from ullsam_tpu_torch.ops.kernels import decoder as D
+    from ullsam_tpu_torch.tools.main_path import decoder_cases
+    cases = decoder_cases(torch.float32, cuda, B=2, H=8, W=8, T=7, M=3)
+    (w, src, pe, tokens), kw, _, _ = cases["decode_masks"]
+    with pytest.raises(ValueError):       # 17 tokens
+        D.decode_masks(w, src, pe, tokens.repeat(1, 3, 1)[:, :17], **kw)
+    with pytest.raises(ValueError):       # 5 masks
+        D.decode_masks(w, src, pe, tokens, **dict(kw, m_lo=0, M=5))
+    (w, keys, hyper), kw, _, _ = cases["upscale_hypernet"]
+    with pytest.raises(ValueError):       # hypernet width 16, not C / 8
+        D.upscale_hypernet(w, keys, hyper[..., :16].contiguous(), **kw)
 
 
 def test_small_model_on_card_matches_cpu(cuda):
@@ -113,3 +156,46 @@ def test_small_model_on_card_matches_cpu(cuda):
         ref = cpu(x)
         got = gpu(x.cuda())
     assert _rel_err(got.cpu(), ref) <= 1e-4
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_per_image_batch_runs_upscale_kernels(cuda, dt):
+    """One embedding per prompt at SAM's decoder width: the module
+    transformer, then B7 (``predict_masks_cols``) and B6
+    (``predict_masks_cols_stats``), against the same decoder's plain
+    ``predict_masks``; statistics exactly against the plain statistics of
+    the kernel's own logits."""
+    from ullsam_tpu_torch.core.config import MaskDecoderConfig
+    from ullsam_tpu_torch.models.sam.mask_decoder import (MaskDecoder,
+                                                          stats_from_kernel)
+    from ullsam_tpu_torch.ops.kernels import decoder as D
+    from ullsam_tpu_torch.ops.layers import init_module_
+    dtype = getattr(torch, dt)
+    cfg = MaskDecoderConfig()
+    md = MaskDecoder(cfg, device="cuda")
+    init_module_(md, cuda)
+    md = md.to(dtype)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=cuda, device="cuda").to(dtype)
+
+    emb, dense, pe = r(2, 32, 32, 256), r(2, 32, 32, 256), r(1, 32, 32, 256)
+    sparse = r(2, 2, 256)
+    counts = {k.__name__: k.launches for k in D.KERNELS}
+    with torch.no_grad():
+        masks, iou = md.predict_masks_cols(emb, pe, sparse, dense, True)
+        masks2, iou2, (stab, boxes) = md.predict_masks_cols_stats(
+            emb, pe, sparse, dense, True, thr=0.0, off=1.0)
+        ref, ref_iou = md.predict_masks(emb, pe, sparse, dense)
+    torch.cuda.synchronize()
+    assert {k.__name__: k.launches - counts[k.__name__]
+            for k in D.KERNELS} == {
+        "decode_masks": 0, "two_way_transformer": 0,
+        "upscale_hypernet_stats": 1, "upscale_hypernet": 2}
+    assert masks.shape == (2, 3, 128, 128)
+    assert _rel_err(masks, ref[:, 1:]) <= TOL[dt]
+    assert _rel_err(iou, ref_iou[:, 1:]) <= TOL[dt]
+    assert torch.equal(iou, iou2)
+    assert _rel_err(masks2, masks) <= TOL[dt]
+    want = stats_from_kernel(*D.upscale_stats_plain(masks2, 0.0, 1.0))
+    assert torch.equal(stab, want[0]) and torch.equal(boxes, want[1])

@@ -2,8 +2,9 @@
 
 ``fusion_state_dict_from_jax(params_np, cfg)`` maps the JAX fusion param
 pytree (as numpy arrays) to this package's state dict under the reference
-checkpoint names. It is the inverse of ``ullsam_tpu/convert/torch_sam.py``
-and ``torch_internlm2.py``:
+checkpoint names; ``sam_state_dict_from_jax(params_np, cfg)`` does the same
+for a standalone SAM (``sam_init`` / ``build_sam`` params). They are the
+inverse of ``ullsam_tpu/convert/torch_sam.py`` and ``torch_internlm2.py``:
 
   * Linear kernel [in, out]              -> weight [out, in]
   * Conv kernel HWIO                     -> weight OIHW
@@ -23,7 +24,7 @@ import torch
 from torch import nn
 
 from ullsam_tpu_torch.core.config import (FusionConfig, InternLM2Config,
-                                          MaskDecoderConfig)
+                                          MaskDecoderConfig, SamConfig)
 
 Arrays = Dict[str, np.ndarray]
 
@@ -162,6 +163,23 @@ def _proj_mlp_arrays(p: Mapping, prefix: str) -> Arrays:
     return out
 
 
+def _tensors(arrays: Arrays) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, copy=True))
+            for k, v in arrays.items()}
+
+
+def sam_state_dict_from_jax(params_np: Mapping, cfg: SamConfig
+                            ) -> Dict[str, torch.Tensor]:
+    """JAX SAM params {'image_encoder', 'prompt_encoder', 'mask_decoder'}
+    (numpy leaves) -> the state dict of ``models.sam.sam.Sam``."""
+    arrays = image_encoder_arrays(params_np["image_encoder"],
+                                  "image_encoder.")
+    arrays.update(prompt_encoder_arrays(params_np["prompt_encoder"]))
+    arrays.update(mask_decoder_arrays(params_np["mask_decoder"],
+                                      cfg.mask_decoder))
+    return _tensors(arrays)
+
+
 def fusion_state_dict_from_jax(params_np: Mapping, cfg: FusionConfig
                                ) -> Dict[str, torch.Tensor]:
     """JAX fusion params {'sam', 'llm', 'mlp1', 'mlp2'} (numpy leaves) ->
@@ -177,8 +195,7 @@ def fusion_state_dict_from_jax(params_np: Mapping, cfg: FusionConfig
                                    "fusion.language_model."))
     arrays.update(_proj_mlp_arrays(params_np["mlp1"], "fusion.mlp1."))
     arrays.update(_proj_mlp_arrays(params_np["mlp2"], "fusion.mlp2."))
-    return {k: torch.from_numpy(np.array(v, copy=True))
-            for k, v in arrays.items()}
+    return _tensors(arrays)
 
 
 def load_reference_state_dict(module: nn.Module, arrays: Mapping,

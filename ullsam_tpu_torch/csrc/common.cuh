@@ -29,6 +29,12 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
+// v rounded to T's precision (the plain version's cast points)
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return to_f(from_f<T>(v));
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -12,7 +12,7 @@ from torch import nn
 from ullsam_tpu_torch.core.config import SamConfig
 from ullsam_tpu_torch.core.device import resolve_device
 from ullsam_tpu_torch.models.sam.image_encoder import ImageEncoder
-from ullsam_tpu_torch.models.sam.mask_decoder import MaskDecoder
+from ullsam_tpu_torch.models.sam.mask_decoder import MaskDecoder, SharedImage
 from ullsam_tpu_torch.models.sam.prompt_encoder import PromptEncoder
 from ullsam_tpu_torch.ops.resize import sam_postprocess_resize
 
@@ -73,3 +73,47 @@ def postprocess_masks(masks: Tensor, input_size: Tuple[int, int],
     """Low-res logits -> original size (resize, crop the pad, resize)."""
     return sam_postprocess_resize(masks.float(), cfg.vit.img_size,
                                   input_size, original_size)
+
+
+def shared_image(prompt_encoder: PromptEncoder, mask_decoder: MaskDecoder,
+                 image_embedding: Tensor) -> SharedImage:
+    """The decoder kernels' view of one image embedding [1, g, g, C] with
+    the no-mask dense prompt: made once per image, passed to every chunk's
+    ``decode_masks_cols`` / ``decode_masks_stats``."""
+    _, dense = prompt_encoder()
+    return mask_decoder.shared_image(image_embedding,
+                                     prompt_encoder.get_dense_pe(), dense)
+
+
+def decode_masks_cols(prompt_encoder: PromptEncoder,
+                      mask_decoder: MaskDecoder, image_embedding: Tensor,
+                      points: Tuple[Tensor, Tensor],
+                      multimask_output: bool = True,
+                      shared: Optional[SharedImage] = None
+                      ) -> Tuple[Tensor, Tensor]:
+    """Point prompts against one image embedding [1, g, g, C] with the
+    shared no-mask dense prompt (``dense[:1]``; ``shared`` from
+    ``shared_image`` if the caller made it): (low-res logits of the
+    selected masks [B, M, 4g, 4g], iou [B, M]) through B5 + B7. The
+    counterpart of the JAX ``decode_masks_cols``, in the spatial layout."""
+    sparse, dense = prompt_encoder(points=points)
+    return mask_decoder.predict_masks_cols(
+        image_embedding, prompt_encoder.get_dense_pe(), sparse, dense[:1],
+        multimask_output=multimask_output, shared=shared)
+
+
+def decode_masks_stats(prompt_encoder: PromptEncoder,
+                       mask_decoder: MaskDecoder, image_embedding: Tensor,
+                       points: Tuple[Tensor, Tensor],
+                       multimask_output: bool = True,
+                       stability_offset: float = 1.0,
+                       mask_threshold: float = 0.0,
+                       shared: Optional[SharedImage] = None):
+    """``decode_masks_cols`` through B4, plus (stability [B, M], low-res
+    boxes [B, M, 4]) at ``mask_threshold`` / ``stability_offset``:
+    (masks, iou, (stability, boxes))."""
+    sparse, dense = prompt_encoder(points=points)
+    return mask_decoder.predict_masks_cols_stats(
+        image_embedding, prompt_encoder.get_dense_pe(), sparse, dense[:1],
+        multimask_output=multimask_output, thr=mask_threshold,
+        off=stability_offset, shared=shared)

@@ -28,7 +28,7 @@ from typing import Dict, Optional
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "_build")
-SOURCES = ("window_attn", "vit_flash_attn")
+SOURCES = ("window_attn", "vit_flash_attn", "decoder_twt", "decoder_upscale")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

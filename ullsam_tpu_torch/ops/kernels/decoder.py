@@ -1,0 +1,652 @@
+"""B4-B7: the SAM mask decoder for many prompts against one shared image
+embedding (the automatic-mask-generation sweep).
+
+* B5 ``two_way_transformer(w, src, pe, tokens)`` -> (q [B, T, C], keys
+  [B*N, C]): the depth-2 TwoWayTransformer of every prompt's tokens against
+  the shared embedding ``src`` [N, C] (image embedding + no-mask prompt) and
+  its positional encoding ``pe`` [N, C]. Replaces
+  ``ullsam_tpu/ops/pallas/decoder.py`` ``_twt_kernel``.
+* B7 ``upscale_hypernet(w, keys, hyper, H, W)`` -> logits [B, M, 4H, 4W]:
+  two k = s = 2 transposed convs with grouped LayerNorm and GELU, then the
+  hypernetwork dot. Replaces ``_upscale_kernel``.
+* B6 ``upscale_hypernet_stats(..., thr, off)``: B7 plus the mask statistics
+  (hi / lo pixel counts at thr +- off, row / column occupancy at thr).
+  Replaces ``_upscale_stats_kernel`` + ``_stats_of_block``.
+* B4 ``decode_masks(w, src, pe, tokens, ...)``: B5, the hypernet MLPs of the
+  selected mask tokens (contiguous from ``m_lo``), then B6. Replaces
+  ``_decode_kernel`` (``fused_decode_masks``).
+
+Each is a chain of hand-written CUDA kernels (``csrc/decoder_twt.cu``,
+``csrc/decoder_upscale.cu``; their notes say what bounds them): every
+product runs in ``decoder_gemm``; attention, LayerNorm, GELU, the hypernet
+dot and the statistics in kernels of their own. The chain is written once
+(``_twt``, ``_upscale``, ``_decode``) over a set of primitive operations:
+``_CUDA`` launches the kernels, ``_PLAIN`` is the same operation in plain
+PyTorch with the same rounding points, so each wrapper's plain version
+(``*_plain``) is the chain on ``_PLAIN``. A wrapper given CPU tensors runs
+the plain version; given CUDA tensors it launches the kernels or raises.
+The shared image-side projections (the JAX package's ``_twt_prologue``) are
+plain matmuls, ``image_side``: a caller that decodes many chunks of prompts
+against one image (the sweep) computes them once and passes them to every
+chunk's ``two_way_transformer`` / ``decode_masks`` as ``image``; without it
+each call computes them itself.
+
+Rounding points (the working dtype is that of ``src``): every GEMM output
+once from f32 with its bias and residual added in f32; LayerNorm outputs;
+attention probabilities and outputs; the upscale's first product stays f32
+through its grouped LayerNorm and exact GELU, the second is rounded, its
+GELU (tanh in bf16, erf in f32, as ``layers.gelu``) rounded again before the
+hypernet dot. Counters: B4, B5, B6 and B7 each count their CUDA launches;
+B4 runs B5 and B6, and B6 runs B7, so each stage counts too.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ullsam_tpu_torch.ops import layers as L
+from ullsam_tpu_torch.ops.kernels import build
+
+Tensor = torch.Tensor
+Weights = Dict[str, Tensor]
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+UPSCALE_LN_EPS = 1e-6
+
+
+# ---------------------------------------------------------------------------
+# weights
+# ---------------------------------------------------------------------------
+
+
+def pack_weights(md, dtype: torch.dtype) -> Weights:
+    """The ``MaskDecoder`` ``md``'s weights at ``dtype`` in the layouts the
+    chain takes: linear weights ``[out, in]``; the self-attention's q|k|v
+    and the per-prompt image-side projections concatenated along out; the
+    transposed convs as per-pixel matmuls (rows (di, dj, c) of convT1,
+    (ei, ej, c) of convT2) with their biases tiled to match."""
+    w: Weights = {}
+
+    def put(name, lin):
+        w[name + "_w"] = lin.weight.detach().to(dtype).contiguous()
+        w[name + "_b"] = lin.bias.detach().to(dtype).contiguous()
+
+    tw = md.transformer
+    for i, blk in enumerate(tw.layers):
+        p = f"l{i}."
+        sa = blk.self_attn
+        w[p + "sa_w"] = torch.cat([sa.q_proj.weight, sa.k_proj.weight,
+                                   sa.v_proj.weight]).detach().to(dtype)
+        w[p + "sa_b"] = torch.cat([sa.q_proj.bias, sa.k_proj.bias,
+                                   sa.v_proj.bias]).detach().to(dtype)
+        put(p + "sa_out", sa.out_proj)
+        t2i, i2t = blk.cross_attn_token_to_image, blk.cross_attn_image_to_token
+        put(p + "t2i_q", t2i.q_proj)
+        put(p + "t2i_k", t2i.k_proj)
+        put(p + "t2i_v", t2i.v_proj)
+        put(p + "t2i_out", t2i.out_proj)
+        put(p + "mlp1", blk.mlp.lin1)
+        put(p + "mlp2", blk.mlp.lin2)
+        put(p + "i2t_q", i2t.q_proj)
+        put(p + "i2t_k", i2t.k_proj)
+        put(p + "i2t_v", i2t.v_proj)
+        put(p + "i2t_out", i2t.out_proj)
+        for n in ("norm1", "norm2", "norm3", "norm4"):
+            put(p + n, getattr(blk, n))
+    fin = tw.final_attn_token_to_image
+    put("fin_q", fin.q_proj)
+    put("fin_k", fin.k_proj)
+    put("fin_v", fin.v_proj)
+    put("fin_out", fin.out_proj)
+    put("fin_norm", tw.norm_final_attn)
+    for i, mlp in enumerate(md.output_hypernetworks_mlps):
+        for j, lin in enumerate(mlp.layers):
+            put(f"hyper{i}.{j}", lin)
+    up = md.output_upscaling
+    W1, W2 = up[0].weight.detach(), up[3].weight.detach()   # [in, out, 2, 2]
+    w["up1_w"] = W1.permute(2, 3, 1, 0).reshape(-1, W1.shape[0]).to(
+        dtype).contiguous()
+    w["up1_b"] = up[0].bias.detach().repeat(4).to(dtype)
+    w["up2_w"] = W2.permute(2, 3, 1, 0).reshape(-1, W2.shape[0]).to(
+        dtype).contiguous()
+    w["up2_b"] = up[3].bias.detach().repeat(4).to(dtype)
+    put("up_ln", up[1])
+    # the per-prompt image-side projections of block 2 (k | v | q_img) and
+    # of the final attention (k | v), one GEMM each
+    w["img2_w"] = torch.cat([w["l1.t2i_k_w"], w["l1.t2i_v_w"],
+                             w["l1.i2t_q_w"]])
+    w["imgf_w"] = torch.cat([w["fin_k_w"], w["fin_v_w"]])
+    return w
+
+
+def _lin32(x: Tensor, w: Weights, name: str) -> Tensor:
+    """x @ W^T + b in f32 (the shared per-image projections)."""
+    return x.float() @ w[name + "_w"].float().T + w[name + "_b"].float()
+
+
+# ---------------------------------------------------------------------------
+# primitive operations: plain PyTorch and the CUDA kernels
+# ---------------------------------------------------------------------------
+
+
+def _heads_split(x: Tensor, batch: int, heads: int) -> Tensor:
+    """[batch * n, h * d] -> [batch, h, n, d] in f32."""
+    n = x.shape[0] // batch
+    return x.reshape(batch, n, heads, -1).transpose(1, 2).float()
+
+
+def _heads_merge(x: Tensor, dtype) -> Tensor:
+    """[batch, h, n, d] -> [batch * n, h * d] at dtype."""
+    b, h, n, d = x.shape
+    return x.transpose(1, 2).reshape(b * n, h * d).to(dtype)
+
+
+def _attend(q: Tensor, k: Tensor, v: Tensor, qb: int, kb: int,
+            heads: int) -> Tensor:
+    """Per-head softmax(q k^T d^-1/2) v with q [qb * n, h d] and k, v
+    [kb * m, h d]; a batch of 1 is shared by the other side's batch. The
+    probabilities are rounded to q's dtype before p.v."""
+    qh = _heads_split(q, qb, heads)
+    kh, vh = _heads_split(k, kb, heads), _heads_split(v, kb, heads)
+    logits = qh @ kh.transpose(-1, -2) * qh.shape[-1] ** -0.5
+    p = torch.softmax(logits, dim=-1).to(q.dtype).float()
+    return _heads_merge(p @ vh, q.dtype)
+
+
+class _PlainOps:
+    """The primitive operations in plain PyTorch."""
+
+    @staticmethod
+    def gemm(a, w, b=None, res=None, relu=False, out_f32=False):
+        y = a.float() @ w.float().T
+        if b is not None:
+            y = y + b.float()
+        if res is not None:
+            y = (y.view(-1, res.shape[0], y.shape[1]) + res.float()).view(
+                y.shape)
+        if relu:
+            y = y.relu()
+        return y if out_f32 else y.to(a.dtype)
+
+    @staticmethod
+    def ln(x, w, b, eps):
+        return L.layer_norm(x, w, b, eps=eps)
+
+    @staticmethod
+    def self_attn(q, k, v, B, heads):
+        """Each prompt's tokens q, k, v [B*T, C] among themselves."""
+        return _attend(q, k, v, B, B, heads)
+
+    @staticmethod
+    def t2i(q, k, v, B, heads, shared):
+        """Token -> image: q [B*T, Cd] against k, v [N, Cd] (shared) or
+        [B*N, Cd] (per prompt) -> [B*T, Cd]."""
+        return _attend(q, k, v, B, 1 if shared else B, heads)
+
+    @staticmethod
+    def i2t(qi, kt, vt, B, heads, shared):
+        """Image -> token: qi [N, Cd] (shared) or [B*N, Cd] against each
+        prompt's tokens kt, vt [B*T, Cd] -> [B*N, Cd]."""
+        return _attend(qi, kt, vt, 1 if shared else B, B, heads)
+
+    @staticmethod
+    def ln_gelu(u, w, b, eps, dtype):
+        """Grouped LayerNorm of u [R, C] f32 over its four C/4 groups
+        (one-pass statistics), exact GELU, at dtype."""
+        g = u.view(u.shape[0], 4, -1)
+        m1 = g.mean(-1, keepdim=True)
+        var = ((g * g).mean(-1, keepdim=True) - m1 * m1).clamp_min(0.0)
+        y = (g - m1) * torch.rsqrt(var + eps) * w.float() + b.float()
+        return F.gelu(y).reshape(u.shape).to(dtype)
+
+    @staticmethod
+    def upscale_out(u2, hyper, H, W):
+        """u2 [B*H*W, 16 * C8] (sub-pixels (di, dj, ei, ej)), hyper
+        [B, M, C8] -> logits [B, M, 4H, 4W]."""
+        B, M, C8 = hyper.shape
+        g = L.gelu(u2).float().view(B, H, W, 2, 2, 2, 2, C8)
+        out = torch.einsum("bhwijklc,bmc->bmhikwjl", g, hyper.float())
+        return out.reshape(B, M, 4 * H, 4 * W).to(u2.dtype)
+
+    @staticmethod
+    def stats(logits, thr, off):
+        """(counts [B, M, 2] of logits > thr + off and > thr - off, rowany
+        [B, M, 4H], colany [B, M, 4W] of logits > thr), int32."""
+        x = logits.float()
+        hi = (x > thr + off).sum((-2, -1))
+        lo = (x > thr - off).sum((-2, -1))
+        z = x > thr
+        return (torch.stack([hi, lo], -1).int(), z.any(-1).int(),
+                z.any(-2).int())
+
+
+_fns: Dict[str, object] = {}
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+_SIGNATURES = {
+    "decoder_gemm": ("decoder_twt", [_I, _I, _P, _P, _P, _P, _I, _P, _I, _I,
+                                     _I, _I, _P]),
+    "decoder_ln": ("decoder_twt", [_I, _P, _P, _P, _P, _LL, _I, _F, _P]),
+    "decoder_self_attn": ("decoder_twt", [_I, _P, _I, _P, _I, _P, _I, _P, _I,
+                                          _I, _I, _I, _F, _P]),
+    "decoder_t2i_scratch": ("decoder_twt", [_I, _I, _I, _I]),
+    "decoder_t2i": ("decoder_twt", [_I, _P, _P, _P, _I, _LL, _P, _P, _I, _I,
+                                    _I, _I, _I, _F, _P]),
+    "decoder_i2t": ("decoder_twt", [_I, _P, _I, _LL, _P, _P, _P, _I, _I, _I,
+                                    _I, _I, _F, _P]),
+    "decoder_ln_gelu": ("decoder_upscale", [_I, _P, _P, _P, _P, _LL, _I, _F,
+                                            _P]),
+    "decoder_upscale_out": ("decoder_upscale", [_I, _P, _P, _P, _I, _I, _I,
+                                                _I, _I, _I, _P]),
+    "decoder_mask_stats": ("decoder_upscale", [_I, _P, _LL, _I, _I, _F, _F,
+                                               _F, _P, _P, _P, _P]),
+}
+
+
+def _fn(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        lib, argtypes = _SIGNATURES[name]
+        fn = getattr(build.load(lib), name)
+        fn.argtypes = argtypes
+        fn.restype = _LL if name == "decoder_t2i_scratch" else _I
+        _fns[name] = fn
+    return fn
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _rows(t: Tensor) -> int:
+    """Row stride of a 2-D tensor whose rows are contiguous and 16-byte
+    aligned (the attention kernels read 16 values of a head at a time)."""
+    if (t.dim() != 2 or t.stride(1) != 1 or t.data_ptr() % 16
+            or t.stride(0) * t.element_size() % 16):
+        raise ValueError(f"decoder: expected 2-D rows with unit stride and "
+                         f"16-byte alignment, got {tuple(t.shape)} "
+                         f"strides {t.stride()}")
+    return t.stride(0)
+
+
+def _launch(name: str, ref: Tensor, *args) -> None:
+    with torch.cuda.device(ref.device):
+        stream = torch.cuda.current_stream(ref.device).cuda_stream
+        err = _fn(name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+class _CudaOps:
+    """The same operations as ``_PlainOps`` on the hand-written kernels."""
+
+    @staticmethod
+    def gemm(a, w, b=None, res=None, relu=False, out_f32=False):
+        M, K = a.shape
+        N = w.shape[0]
+        for t in (a, w, b, res):
+            if t is not None and not t.is_contiguous():
+                raise ValueError("decoder_gemm: operands must be contiguous")
+        dt = torch.float32 if out_f32 else a.dtype
+        out = torch.empty((M, N), device=a.device, dtype=dt)
+        _launch("decoder_gemm", a, _DTYPE_CODE[a.dtype], int(out_f32),
+                _ptr(a), _ptr(w), _ptr(b), _ptr(res),
+                0 if res is None else res.shape[0], _ptr(out), M, N, K,
+                int(relu))
+        return out
+
+    @staticmethod
+    def ln(x, w, b, eps):
+        y = torch.empty_like(x)
+        _launch("decoder_ln", x, _DTYPE_CODE[x.dtype], _ptr(x), _ptr(w),
+                _ptr(b), _ptr(y), x.shape[0], x.shape[1], eps)
+        return y
+
+    @staticmethod
+    def self_attn(q, k, v, B, heads):
+        BT, C = q.shape
+        o = torch.empty((BT, C), device=q.device, dtype=q.dtype)
+        _launch("decoder_self_attn", q, _DTYPE_CODE[q.dtype], _ptr(q),
+                _rows(q), _ptr(k), _rows(k), _ptr(v), _rows(v), _ptr(o), B,
+                BT // B, C, heads, (C // heads) ** -0.5)
+        return o
+
+    @staticmethod
+    def t2i(q, k, v, B, heads, shared):
+        BT, Cd = q.shape
+        T = BT // B
+        N = k.shape[0] if shared else k.shape[0] // B
+        ld = _rows(k)
+        if _rows(v) != ld:
+            raise ValueError("decoder_t2i: k and v need one row stride")
+        part = torch.empty(_fn("decoder_t2i_scratch")(B, N, T, heads),
+                           device=q.device, dtype=torch.float32)
+        o = torch.empty((BT, Cd), device=q.device, dtype=q.dtype)
+        _launch("decoder_t2i", q, _DTYPE_CODE[q.dtype], _ptr(q), _ptr(k),
+                _ptr(v), ld, 0 if shared else N * ld, _ptr(part), _ptr(o), B,
+                N, T, heads, Cd, (Cd // heads) ** -0.5)
+        return o
+
+    @staticmethod
+    def i2t(qi, kt, vt, B, heads, shared):
+        BT, Cd = kt.shape
+        N = qi.shape[0] if shared else qi.shape[0] // B
+        ld = _rows(qi)
+        o = torch.empty((B * N, Cd), device=qi.device, dtype=qi.dtype)
+        _launch("decoder_i2t", qi, _DTYPE_CODE[qi.dtype], _ptr(qi), ld,
+                0 if shared else N * ld, _ptr(kt), _ptr(vt), _ptr(o), B, N,
+                BT // B, heads, Cd, (Cd // heads) ** -0.5)
+        return o
+
+    @staticmethod
+    def ln_gelu(u, w, b, eps, dtype):
+        y = torch.empty(u.shape, device=u.device, dtype=dtype)
+        _launch("decoder_ln_gelu", u, _DTYPE_CODE[dtype], _ptr(u), _ptr(w),
+                _ptr(b), _ptr(y), u.shape[0], u.shape[1], eps)
+        return y
+
+    @staticmethod
+    def upscale_out(u2, hyper, H, W):
+        B, M, C8 = hyper.shape
+        out = torch.empty((B, M, 4 * H, 4 * W), device=u2.device,
+                          dtype=u2.dtype)
+        _launch("decoder_upscale_out", u2, _DTYPE_CODE[u2.dtype], _ptr(u2),
+                _ptr(hyper), _ptr(out), B, H * W, H, W, M, C8)
+        return out
+
+    @staticmethod
+    def stats(logits, thr, off):
+        B, M, H4, W4 = logits.shape
+        dev = logits.device
+        counts = torch.zeros((B, M, 2), device=dev, dtype=torch.int32)
+        rowany = torch.zeros((B, M, H4), device=dev, dtype=torch.int32)
+        colany = torch.zeros((B, M, W4), device=dev, dtype=torch.int32)
+        _launch("decoder_mask_stats", logits, _DTYPE_CODE[logits.dtype],
+                _ptr(logits), B * M, H4, W4, thr + off, thr - off, thr,
+                _ptr(counts), _ptr(rowany), _ptr(colany))
+        return counts, rowany, colany
+
+
+_PLAIN, _CUDA = _PlainOps(), _CudaOps()
+
+
+# ---------------------------------------------------------------------------
+# the chains
+# ---------------------------------------------------------------------------
+
+
+def _add(a: Tensor, b: Tensor) -> Tensor:
+    """a + b rounded to a's dtype (the reference adds in the dtype)."""
+    return (a.float() + b.float()).to(a.dtype)
+
+
+def image_side(w: Weights, src: Tensor, pe: Tensor) -> Weights:
+    """The transformer's work on the shared image alone, once per image
+    (the JAX package's ``_twt_prologue``), in plain matmuls: block 1's keys,
+    values and image queries, and the encoding's share of block 2's and the
+    final attention's per-prompt image-side projections with their biases
+    folded in, so that each prompt's projections are one GEMM with this as
+    the shared residual. src, pe [N, C] -> {"src", "k1", "v1", "qi1",
+    "res2", "resf"} at src's dtype."""
+    dt = src.dtype
+    N, Cd = src.shape[0], w["l0.t2i_q_w"].shape[0]
+    src = src.contiguous()
+    src_pe = _add(src, pe)
+    pe32 = pe.float()
+    return {
+        "src": src,
+        "k1": _lin32(src_pe, w, "l0.t2i_k").to(dt),
+        "v1": _lin32(src, w, "l0.t2i_v").to(dt),
+        "qi1": _lin32(src_pe, w, "l0.i2t_q").to(dt),
+        "res2": torch.cat([_lin32(pe32, w, "l1.t2i_k"),
+                           w["l1.t2i_v_b"].float().expand(N, Cd),
+                           _lin32(pe32, w, "l1.i2t_q")], dim=1).to(dt),
+        "resf": torch.cat([_lin32(pe32, w, "fin_k"),
+                           w["fin_v_b"].float().expand(N, Cd)],
+                          dim=1).to(dt)}
+
+
+def _twt(ops, w: Weights, img: Weights, tokens: Tensor, heads: int,
+         eps: float) -> Tuple[Tensor, Tensor]:
+    """Depth-2 TwoWayTransformer of tokens [B, T, C] against the shared
+    image ``img`` (``image_side``) -> (q [B, T, C], keys [B*N, C])."""
+    B, T, C = tokens.shape
+    Cd = w["l0.t2i_q_w"].shape[0]
+    tok = tokens.reshape(B * T, C)
+
+    def nrm(x, name):
+        return ops.ln(x, w[name + "_w"], w[name + "_b"], eps)
+
+    def lin(x, name, **kw):
+        return ops.gemm(x, w[name + "_w"], w[name + "_b"], **kw)
+
+    # block 1: self-attention without positional encoding or residual
+    qkv = ops.gemm(tok, w["l0.sa_w"], w["l0.sa_b"])
+    o = ops.self_attn(qkv[:, :C], qkv[:, C:2 * C], qkv[:, 2 * C:], B, heads)
+    q = nrm(lin(o, "l0.sa_out"), "l0.norm1")
+    o = ops.t2i(lin(_add(q, tok), "l0.t2i_q"), img["k1"], img["v1"], B,
+                heads, True)
+    q = nrm(lin(o, "l0.t2i_out", res=q), "l0.norm2")
+    q = nrm(lin(lin(q, "l0.mlp1", relu=True), "l0.mlp2", res=q), "l0.norm3")
+    o = ops.i2t(img["qi1"], lin(_add(q, tok), "l0.i2t_k"),
+                lin(q, "l0.i2t_v"), B, heads, True)
+    keys = nrm(lin(o, "l0.i2t_out", res=img["src"]), "l0.norm4")  # [B*N, C]
+    prj = ops.gemm(keys, w["img2_w"], res=img["res2"])  # k | v | q_img
+
+    # block 2
+    qpe = _add(q, tok)
+    qk = ops.gemm(qpe, w["l1.sa_w"][:2 * C], w["l1.sa_b"][:2 * C])
+    v = ops.gemm(q, w["l1.sa_w"][2 * C:], w["l1.sa_b"][2 * C:])
+    o = ops.self_attn(qk[:, :C], qk[:, C:], v, B, heads)
+    q = nrm(lin(o, "l1.sa_out", res=q), "l1.norm1")
+    o = ops.t2i(lin(_add(q, tok), "l1.t2i_q"), prj[:, :Cd], prj[:, Cd:2 * Cd],
+                B, heads, False)
+    q = nrm(lin(o, "l1.t2i_out", res=q), "l1.norm2")
+    q = nrm(lin(lin(q, "l1.mlp1", relu=True), "l1.mlp2", res=q), "l1.norm3")
+    o = ops.i2t(prj[:, 2 * Cd:], lin(_add(q, tok), "l1.i2t_k"),
+                lin(q, "l1.i2t_v"), B, heads, False)
+    del prj
+    keys = nrm(lin(o, "l1.i2t_out", res=keys), "l1.norm4")
+
+    # final token -> image attention
+    prj = ops.gemm(keys, w["imgf_w"], res=img["resf"])  # [B*N, 2 Cd]: k | v
+    o = ops.t2i(lin(_add(q, tok), "fin_q"), prj[:, :Cd], prj[:, Cd:], B,
+                heads, False)
+    q = nrm(lin(o, "fin_out", res=q), "fin_norm")
+    return q.view(B, T, C), keys
+
+
+def _upscale(ops, w: Weights, keys: Tensor, hyper: Tensor, H: int,
+             W: int) -> Tensor:
+    """keys [B*H*W, C], hyper [B, M, C/8] -> logits [B, M, 4H, 4W]."""
+    R = keys.shape[0]
+    u1 = ops.gemm(keys, w["up1_w"], w["up1_b"], out_f32=True)    # [R, C]
+    u1 = ops.ln_gelu(u1, w["up_ln_w"], w["up_ln_b"], UPSCALE_LN_EPS,
+                     keys.dtype)
+    # one row per (pixel, sub-pixel group (di, dj)): [4R, C/4] -> [4R, 4 C8]
+    u2 = ops.gemm(u1.view(4 * R, -1), w["up2_w"], w["up2_b"])
+    return ops.upscale_out(u2.view(R, -1), hyper, H, W)
+
+
+def _hyper(ops, w: Weights, q: Tensor, m_lo: int, M: int) -> Tensor:
+    """The hypernet MLPs of mask tokens m_lo .. m_lo + M - 1 of q [B, T, C]
+    -> [B, M, C/8]."""
+    outs = []
+    for m in range(m_lo, m_lo + M):
+        x = q[:, 1 + m].contiguous()
+        x = ops.gemm(x, w[f"hyper{m}.0_w"], w[f"hyper{m}.0_b"], relu=True)
+        x = ops.gemm(x, w[f"hyper{m}.1_w"], w[f"hyper{m}.1_b"], relu=True)
+        outs.append(ops.gemm(x, w[f"hyper{m}.2_w"], w[f"hyper{m}.2_b"]))
+    return torch.stack(outs, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# the wrappers: plain versions, shape checks, launch counters
+# ---------------------------------------------------------------------------
+
+
+def _check_twt(w: Weights, src: Tensor, pe: Tensor, tokens: Tensor,
+               heads: int) -> None:
+    """The kernels take SAM's decoder widths: C = 32 heads, Cd = 16 heads,
+    C % 128 == 0, MLP width % 32 == 0, 1 <= T <= 16 tokens."""
+    N, C = src.shape
+    B, T, Ct = tokens.shape
+    Cd, mlp = w["l0.t2i_q_w"].shape[0], w["l0.mlp1_w"].shape[0]
+    if (Ct != C or tuple(pe.shape) != (N, C) or C != 32 * heads
+            or Cd != 16 * heads or C % 128 or mlp % 32 or not 1 <= T <= 16):
+        raise ValueError(f"decoder kernels: unsupported shape C={C} Cd={Cd} "
+                         f"heads={heads} mlp={mlp} T={T} (tokens "
+                         f"{tuple(tokens.shape)}, src {tuple(src.shape)}, "
+                         f"pe {tuple(pe.shape)})")
+    _check_dtypes(src, pe, tokens)
+
+
+def _check_up(w: Weights, keys: Tensor, hyper: Tensor, H: int,
+              W: int) -> None:
+    """1 <= M <= 4 masks, C % 128 == 0, hypernet width C / 8."""
+    R, C = keys.shape
+    B, M, C8 = hyper.shape
+    if (R != B * H * W or C % 128 or C8 * 8 != C or not 1 <= M <= 4
+            or tuple(w["up1_w"].shape) != (C, C)):
+        raise ValueError(f"decoder kernels: unsupported upscale shape keys "
+                         f"{tuple(keys.shape)} hyper {tuple(hyper.shape)} "
+                         f"H={H} W={W}")
+    _check_dtypes(keys, hyper)
+
+
+def _check_dtypes(*ts: Tensor) -> None:
+    ref = ts[0]
+    if ref.dtype not in _DTYPE_CODE or any(
+            t.dtype != ref.dtype or t.device != ref.device for t in ts):
+        raise ValueError("decoder kernels: unsupported dtype or device mix "
+                         + ", ".join(f"{t.dtype} on {t.device}" for t in ts))
+
+
+def _cuda_ops(name: str, ref: Tensor):
+    """_CUDA for a CUDA tensor (the CPU's plain path is taken before);
+    anything else raises."""
+    if ref.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {ref.device}")
+    return _CUDA
+
+
+def two_way_transformer_plain(w: Weights, src: Tensor, pe: Tensor,
+                              tokens: Tensor, *, heads: int, eps: float,
+                              image: Optional[Weights] = None
+                              ) -> Tuple[Tensor, Tensor]:
+    img = image_side(w, src, pe) if image is None else image
+    return _twt(_PLAIN, w, img, tokens, heads, eps)
+
+
+def two_way_transformer(w: Weights, src: Tensor, pe: Tensor, tokens: Tensor,
+                        *, heads: int, eps: float,
+                        image: Optional[Weights] = None
+                        ) -> Tuple[Tensor, Tensor]:
+    """B5: (q [B, T, C], keys [B*N, C]) of tokens [B, T, C] against the
+    shared src, pe [N, C]; weights from ``pack_weights``, ``image`` from
+    ``image_side(w, src, pe)`` (computed here when None)."""
+    if src.device.type == "cpu":
+        return two_way_transformer_plain(w, src, pe, tokens, heads=heads,
+                                         eps=eps, image=image)
+    _check_twt(w, src, pe, tokens, heads)
+    ops = _cuda_ops("two_way_transformer", src)
+    img = image_side(w, src, pe) if image is None else image
+    out = _twt(ops, w, img, tokens.contiguous(), heads, eps)
+    two_way_transformer.launches += 1
+    return out
+
+
+def upscale_hypernet_plain(w: Weights, keys: Tensor, hyper: Tensor, *,
+                           H: int, W: int) -> Tensor:
+    return _upscale(_PLAIN, w, keys, hyper, H, W)
+
+
+def upscale_hypernet(w: Weights, keys: Tensor, hyper: Tensor, *, H: int,
+                     W: int) -> Tensor:
+    """B7: keys [B*H*W, C], hyper [B, M, C/8] -> logits [B, M, 4H, 4W]."""
+    if keys.device.type == "cpu":
+        return upscale_hypernet_plain(w, keys, hyper, H=H, W=W)
+    _check_up(w, keys, hyper, H, W)
+    out = _upscale(_cuda_ops("upscale_hypernet", keys), w, keys.contiguous(),
+                   hyper.contiguous(), H, W)
+    upscale_hypernet.launches += 1
+    return out
+
+
+def upscale_stats_plain(logits: Tensor, thr: float, off: float):
+    """B6's statistics of given logits [B, M, 4H, 4W] in plain PyTorch:
+    (counts [B, M, 2], rowany [B, M, 4H], colany [B, M, 4W]) int32."""
+    return _PLAIN.stats(logits, thr, off)
+
+
+def upscale_hypernet_stats_plain(w: Weights, keys: Tensor, hyper: Tensor, *,
+                                 H: int, W: int, thr: float, off: float):
+    logits = upscale_hypernet_plain(w, keys, hyper, H=H, W=W)
+    return (logits, *_PLAIN.stats(logits, thr, off))
+
+
+def upscale_hypernet_stats(w: Weights, keys: Tensor, hyper: Tensor, *,
+                           H: int, W: int, thr: float, off: float):
+    """B6: B7 plus (counts [B, M, 2] (hi, lo) int32, rowany [B, M, 4H],
+    colany [B, M, 4W] int32) of the logits: counts of logits > thr + off
+    and > thr - off, occupancy of logits > thr."""
+    if keys.device.type == "cpu":
+        return upscale_hypernet_stats_plain(w, keys, hyper, H=H, W=W,
+                                            thr=thr, off=off)
+    _check_up(w, keys, hyper, H, W)
+    ops = _cuda_ops("upscale_hypernet_stats", keys)
+    logits = upscale_hypernet(w, keys, hyper, H=H, W=W)
+    out = (logits, *ops.stats(logits, float(thr), float(off)))
+    upscale_hypernet_stats.launches += 1
+    return out
+
+
+def _decode(ops, twt, up_stats, w, src, pe, tokens, H, W, heads, eps, m_lo,
+            M, thr, off, image):
+    q, keys = twt(w, src, pe, tokens, heads=heads, eps=eps, image=image)
+    hyper = _hyper(ops, w, q, m_lo, M)
+    return (q, *up_stats(w, keys, hyper, H=H, W=W, thr=thr, off=off))
+
+
+def decode_masks_plain(w: Weights, src: Tensor, pe: Tensor, tokens: Tensor,
+                       *, H: int, W: int, heads: int, eps: float, m_lo: int,
+                       M: int, thr: float, off: float,
+                       image: Optional[Weights] = None):
+    return _decode(_PLAIN, two_way_transformer_plain,
+                   upscale_hypernet_stats_plain, w, src, pe, tokens, H, W,
+                   heads, eps, m_lo, M, thr, off, image)
+
+
+def decode_masks(w: Weights, src: Tensor, pe: Tensor, tokens: Tensor, *,
+                 H: int, W: int, heads: int, eps: float, m_lo: int, M: int,
+                 thr: float, off: float, image: Optional[Weights] = None):
+    """B4: the whole per-prompt decode of tokens [B, T, C] against the
+    shared src, pe [H*W, C] (``image`` as B5's): (q [B, T, C], logits
+    [B, M, 4H, 4W] of mask tokens m_lo .. m_lo + M - 1, counts, rowany,
+    colany as B6's)."""
+    if src.device.type == "cpu":
+        return decode_masks_plain(w, src, pe, tokens, H=H, W=W, heads=heads,
+                                  eps=eps, m_lo=m_lo, M=M, thr=thr, off=off,
+                                  image=image)
+    _check_twt(w, src, pe, tokens, heads)
+    C = src.shape[1]
+    if not 1 <= M <= 4 or src.shape[0] != H * W or C // 8 > 64:
+        raise ValueError(f"decoder kernels: unsupported M={M} or grid "
+                         f"{H}x{W} for src {tuple(src.shape)}")
+    out = _decode(_cuda_ops("decode_masks", src), two_way_transformer,
+                  upscale_hypernet_stats, w, src, pe, tokens, H, W, heads,
+                  eps, m_lo, M, thr, off, image)
+    decode_masks.launches += 1
+    return out
+
+
+two_way_transformer.launches = 0
+upscale_hypernet.launches = 0
+upscale_hypernet_stats.launches = 0
+decode_masks.launches = 0
+KERNELS = (decode_masks, two_way_transformer, upscale_hypernet_stats,
+           upscale_hypernet)

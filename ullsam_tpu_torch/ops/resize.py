@@ -61,3 +61,15 @@ def sam_postprocess_resize(masks: Tensor, model_size: int,
     mw = sam_postprocess_matrix(masks.shape[-1], model_size, input_hw[1],
                                 out_hw[1], masks.device)
     return resize2d(masks, mh, mw)
+
+
+def bilinear_resize_nhwc(x: Tensor, out_h: int, out_w: int) -> Tensor:
+    """[B, H, W, C] -> f32 [B, out_h, out_w, C] bilinear (torch semantics),
+    rows first, as ``ullsam_tpu/ops/resize.py`` ``bilinear_resize_nhwc``."""
+    x = x.float()
+    if (out_h, out_w) == (x.shape[1], x.shape[2]):
+        return x
+    mh = _bilinear_matrix(out_h, x.shape[1], x.device)
+    mw = _bilinear_matrix(out_w, x.shape[2], x.device)
+    y = torch.einsum("ih,bhwc->biwc", mh, x)
+    return torch.einsum("jw,biwc->bijc", mw, y)

@@ -71,3 +71,104 @@ def request_inputs(cfg: FusionConfig, rng: np.random.Generator,
     labels = np.ones((1, n_clicks), np.int64)
     labels[0, 1:] = rng.integers(0, 2, n_clicks - 1)
     return pixels, ids, coords, labels
+
+
+# ---------------------------------------------------------------------------
+# the automatic-mask-generation sweep (B4-B7)
+# ---------------------------------------------------------------------------
+
+# one AMG chunk of SAM ViT-B: 256 point prompts against the 64x64 embedding,
+# T = 7 tokens (iou, 4 mask tokens, the point and its pad), M = 3 masks
+AMG_CHUNK = dict(B=256, H=64, W=64, T=7, M=3)
+
+
+def decoder_flops(B: int, N: int, T: int, M: int, C: int = 256,
+                  Cd: int = 128, mlp: int = 2048) -> dict:
+    """Multiply-add operations (2 per MAC) of each decoder kernel, counted
+    from its products: {"twt", "hyper", "upscale", "decode"}."""
+    shared = 2 * N * C * Cd * 6            # k1, v1, qi1 and pe's shares
+    tok_block = 2 * B * T * (4 * C * C + 2 * T * C + 2 * C * Cd
+                             + 2 * N * Cd + 2 * C * mlp + 2 * C * Cd)
+    img_block = 2 * B * N * (2 * T * Cd + Cd * C)
+    final = 2 * B * N * C * 2 * Cd + 2 * B * T * (2 * C * Cd + 2 * N * Cd)
+    twt = (shared + 2 * tok_block + 2 * img_block + 2 * B * N * C * 3 * Cd
+           + final)
+    C8 = C // 8
+    upscale = 2 * B * N * (C * C + C * C // 2 + 16 * C8 * M)
+    hyper = 2 * B * M * (2 * C * C + C * C8)
+    return {"twt": twt, "hyper": hyper, "upscale": upscale,
+            "decode": twt + hyper + upscale}
+
+
+def decoder_cases(dtype: torch.dtype, gen: torch.Generator, B: int = 256,
+                  H: int = 64, W: int = 64, T: int = 7, M: int = 3):
+    """B4, B5, B6 and B7 at one decoder shape (default: the AMG chunk of
+    SAM ViT-B's full-width decoder, weights drawn from ``gen``): a dict
+    name -> (args, kwargs, flops, bytes)."""
+    from ullsam_tpu_torch.core.config import MaskDecoderConfig
+    from ullsam_tpu_torch.models.sam.mask_decoder import MaskDecoder
+    from ullsam_tpu_torch.ops import layers as L
+    from ullsam_tpu_torch.ops.kernels import decoder as D
+
+    cfg = MaskDecoderConfig()
+    md = MaskDecoder(cfg, device=gen.device)
+    L.init_module_(md, gen)
+    w = D.pack_weights(md, dtype)
+    C, N = cfg.transformer_dim, H * W
+    m_lo = 1 if M < cfg.num_mask_tokens else 0
+
+    def r(*shape, s=1.0):
+        return (torch.randn(*shape, generator=gen, device=gen.device)
+                * s).to(dtype)
+
+    src, pe, tokens = r(N, C, s=0.5), r(N, C, s=0.5), r(B, T, C, s=0.5)
+    keys, hyper = r(B * N, C), r(B, M, C // 8, s=0.5)
+    eb = src.element_size()
+    fl = decoder_flops(B, N, T, M, C)
+
+    def nbytes(*ts):
+        return sum(t.numel() for t in ts) * eb
+
+    w_twt = [v for k, v in w.items() if k.startswith(("l0.", "l1.", "fin_"))]
+    w_up = [v for k, v in w.items() if k.startswith("up")]
+    w_hyp = [w[f"hyper{m}.{j}_{x}"] for m in range(m_lo, m_lo + M)
+             for j in range(3) for x in "wb"]
+    logits = B * M * 16 * N
+    stats = B * M * (2 + 4 * H + 4 * W) * 4
+    twt_kw = dict(heads=cfg.transformer_num_heads, eps=cfg.ln_eps)
+    up_kw = dict(H=H, W=W)
+    st_kw = dict(H=H, W=W, thr=0.0, off=1.0)
+    return {
+        "decode_masks": (
+            (w, src, pe, tokens), dict(**twt_kw, **st_kw, m_lo=m_lo, M=M),
+            fl["decode"], nbytes(src, pe, tokens, tokens, *w_twt, *w_hyp,
+                                 *w_up) + logits * eb + stats),
+        "two_way_transformer": (
+            (w, src, pe, tokens), twt_kw, fl["twt"],
+            nbytes(src, pe, tokens, tokens, keys, *w_twt)),
+        "upscale_hypernet_stats": (
+            (w, keys, hyper), st_kw, fl["upscale"],
+            nbytes(keys, hyper, *w_up) + logits * eb + stats),
+        "upscale_hypernet": (
+            (w, keys, hyper), up_kw, fl["upscale"],
+            nbytes(keys, hyper, *w_up) + logits * eb),
+    }
+
+
+def amg_inputs(rng: np.random.Generator, n_images: int, size: int = 1024):
+    """``n_images`` uint8 images [size, size, 3] from ``rng``."""
+    return [rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
+            for _ in range(n_images)]
+
+
+def decoder_outputs(name: str, out):
+    """(float outputs, int statistics or None, logits or None) of a decoder
+    kernel's result, for comparing a kernel with its plain version: the
+    statistics must equal the plain statistics of the kernel's own logits."""
+    if name == "decode_masks":
+        return out[:2], out[2:], out[1]
+    if name == "upscale_hypernet_stats":
+        return out[:1], out[1:], out[0]
+    if name == "two_way_transformer":
+        return out, None, None
+    return (out,), None, out

@@ -1,6 +1,7 @@
 """Where the time goes on the card: torch.profiler over the port's kernels
-at the main path's shapes and over one full segmentation request (inputs
-from ``tools/main_path.py``, as ``chip_smoke.py`` checks and times them).
+at the main path's shapes, over one full segmentation request and over one
+automatic-mask-generation image (inputs from ``tools/main_path.py``, as
+``chip_smoke.py`` checks and times them).
 
     python -m ullsam_tpu_torch.tools.profile_kernels [--out DIR]
 
@@ -23,11 +24,17 @@ from torch.profiler import ProfilerActivity, profile
 
 from ullsam_tpu_torch.core.config import (FusionConfig, internlm2_1_8b,
                                           sam_vit_b)
+from ullsam_tpu_torch.inference.amg import AutomaticMaskGenerator
+from ullsam_tpu_torch.models.sam.sam import Sam
 from ullsam_tpu_torch.models.ullsam import chat
 from ullsam_tpu_torch.models.ullsam import fusion as F
+from ullsam_tpu_torch.ops import layers as L
+from ullsam_tpu_torch.ops.kernels import decoder as D
 from ullsam_tpu_torch.ops.kernels import flash_attention as FA
 from ullsam_tpu_torch.ops.kernels import vit_block as VB
-from ullsam_tpu_torch.tools.main_path import (request_inputs, vit_flash_case,
+from ullsam_tpu_torch.tools.main_path import (AMG_CHUNK, amg_inputs,
+                                              decoder_cases, request_inputs,
+                                              vit_flash_case,
                                               window_attn_case)
 
 
@@ -79,6 +86,22 @@ def main() -> None:
         b2, _, _, _ = vit_flash_case(dtype, gen)
         _region(f"vit_flash_attn_{dn}", lambda: FA.vit_flash_attn(*b2),
                 args.out)
+
+        b4, kw, _, _ = decoder_cases(dtype, gen, **AMG_CHUNK)["decode_masks"]
+        _region(f"decode_masks_{dn}", lambda: D.decode_masks(*b4, **kw),
+                args.out, top=20)
+
+    sam = Sam(sam_vit_b(), device="cuda")
+    L.init_module_(sam, gen)
+    amg = AutomaticMaskGenerator(
+        sam_vit_b(), sam.to(torch.bfloat16), points_per_side=32,
+        points_per_batch=256, pred_iou_thresh=0.0, stability_score_thresh=0.0,
+        box_nms_thresh=1.0, max_masks=256)
+    image = amg_inputs(np.random.default_rng(0), 1)[0]
+    _region("amg_image_bfloat16", lambda: amg.generate_dense(image),
+            args.out, iters=2, top=25)
+    del sam, amg
+    torch.cuda.empty_cache()
 
     cfg = FusionConfig(sam=sam_vit_b(), llm=internlm2_1_8b())
     model = F.build_ullsam(cfg, dtype=torch.bfloat16, seed=0)
