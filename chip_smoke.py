@@ -24,10 +24,19 @@ sm_90a) and the CUDA toolkit. Phases, each printing what it found:
     chunk): the deterministic sweep (thresholds and NMS off) in bfloat16,
     1 warm and 3 timed images, one float32 image, and one bfloat16 image
     with the upstream thresholds (0.88 / 0.95 / NMS 0.7).
-Each path (5 and 6) runs with every launch counter set to 0 just before it
-and read just after. Then the kernels JSON line (``launches``: the sum over
-both paths; ``launches_by_path``: each path's own count), the nvidia-smi
-line, and the final status line.
+ 7. the segmentation train step: a small uLLSAM trained one f32 step on the
+    CPU (plain versions) and on the card (kernels) from the same weights
+    and batch, loss and every gradient compared; then the flagship (SAM
+    ViT-B + frozen InternLM2-1.8B) at full width in bfloat16 without remat,
+    1 warm and 3 timed steps on the batch of
+    benchmarks/bench_train_step.py, then from the same starting weights a
+    float32 step with remat, two float32 steps and two bfloat16 steps with
+    remat; step 1 with remat is held to step 1 without it in loss and grad
+    norm (float32: rtol 1e-4 each; bfloat16: 1e-4 and 1e-2).
+Each path (5, 6 and 7) runs with every launch counter set to 0 just before
+it and read just after. Then the kernels JSON line (``launches``: the sum
+over the paths; ``launches_by_path``: each path's own count), the
+nvidia-smi line, and the final status line.
 Any failure exits non-zero before the final line. No jax, no ullsam_tpu.
 """
 
@@ -276,6 +285,127 @@ def check_decoder_kernels(card: str) -> dict:
     return rows
 
 
+TRAIN_KERNELS = (
+    ("window_attn_core", "ullsam_tpu_torch/csrc/window_attn.cu",
+     "ullsam_tpu/ops/pallas/flash_attention.py:1033"),
+    ("window_attn_core_bwd", "ullsam_tpu_torch/csrc/window_attn_bwd.cu",
+     "ullsam_tpu/ops/pallas/flash_attention.py:1194"),
+    ("vit_flash_attn_bwd", "ullsam_tpu_torch/csrc/vit_flash_bwd.cu",
+     "ullsam_tpu/ops/pallas/flash_attention.py:812"))
+
+
+def _sdpa_ms(q, k, v, bias, backward: bool) -> float:
+    """The library yardstick: scaled_dot_product_attention with the bias
+    materialized; with ``backward`` the time of forward + backward (every
+    input, the bias included, requiring grad) less the forward's."""
+    import torch
+    import torch.nn.functional as F
+    ins = [t.detach().requires_grad_(backward) for t in (q, k, v, bias)]
+
+    def fwd():
+        return F.scaled_dot_product_attention(ins[0], ins[1], ins[2],
+                                              attn_mask=ins[3])
+    t_fwd = cuda_time_ms(fwd, iters=5, warmup=1)
+    if not backward:
+        return t_fwd
+    g = torch.randn_like(q)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), ins, g)
+    return cuda_time_ms(fwd_bwd, iters=5, warmup=1) - t_fwd
+
+
+def check_train_kernels(card: str) -> dict:
+    """B3, B8 and B9 against their plain versions at the train step's
+    shapes (ViT-B's 25 windows x 12 heads of 14x14 tokens; its global
+    blocks, 12 heads over 4096 tokens), in bf16 and f32, every output
+    compared. The library yardstick is scaled_dot_product_attention with
+    the materialized bias: forward for B3, backward for B8 and B9."""
+    import torch
+    from ullsam_tpu_torch.ops.kernels import flash_attention as FA
+    from ullsam_tpu_torch.ops.kernels import window_attention as WA
+    from ullsam_tpu_torch.tools.main_path import (FLASH_BWD, WINDOW_CORE,
+                                                  vit_flash_bwd_case,
+                                                  window_core_case)
+
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    rows = {name: {"name": name, "route": "cuda", "source": source,
+                   "replaces": replaces}
+            for name, source, replaces in TRAIN_KERNELS}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        fwd, bwd, wflops, wbytes = window_core_case(dtype, gen,
+                                                    **WINDOW_CORE)
+        fargs, fflops, fbytes = vit_flash_bwd_case(dtype, gen, **FLASH_BWD)
+        Bw, ws, nh = (WINDOW_CORE[k] for k in ("Bw", "ws", "nh"))
+        n = ws * ws
+        for name, kernel, plain, args, flops, nbytes in (
+                ("window_attn_core", WA.window_attn_core,
+                 WA.window_attn_core_plain, fwd, wflops["fwd"],
+                 wbytes["fwd"]),
+                ("window_attn_core_bwd", WA.window_attn_core_bwd,
+                 WA.window_attn_core_bwd_plain, bwd, wflops["bwd"],
+                 wbytes["bwd"]),
+                ("vit_flash_attn_bwd", FA.vit_flash_attn_bwd,
+                 FA.vit_flash_attn_bwd_plain, fargs, fflops, fbytes)):
+            got, ref = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            outs = got if isinstance(got, tuple) else (got,)
+            refs = ref if isinstance(ref, tuple) else (ref,)
+            errs = [float((a.float() - b.float()).abs().max())
+                    for a, b in zip(outs, refs)]
+            rel = max(e / max(float(b.float().abs().max()), 1e-30)
+                      for e, b in zip(errs, refs))
+            ok = (rel <= tol[dtype]
+                  and all(bool(torch.isfinite(a).all()) for a in outs))
+            say(f"[kernels] {name} {dname}: max_abs_err={max(errs):.3e} "
+                f"max_rel_err={rel:.3e} over {len(outs)} output(s) "
+                f"(relative to max|plain|; tol {tol[dtype]:.0e}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"{name} {dname} disagrees with its plain version")
+            del got, ref, outs, refs
+            big = name == "vit_flash_attn_bwd"
+            ms = cuda_time_ms(lambda: kernel(*args), iters=5 if big else 20)
+            plain_ms = cuda_time_ms(lambda: plain(*args), iters=2,
+                                    warmup=1)
+            if big:
+                q, k, v, rh, rw = args[:5]
+                BH, N, _ = q.shape
+                bias = (rh.float()[..., :, None] + rw.float()[..., None, :]
+                        ).reshape(1, BH, N, N).to(dtype)
+                lib_ms = _sdpa_ms(q[None], k[None], v[None], bias, True)
+            else:
+                from ullsam_tpu_torch.ops.kernels.window_attention import (
+                    _rel_terms, _split_heads)
+                q, k, v = (t.to(dtype) for t in _split_heads(args[0], n, 64))
+                rel_h, rel_w = _rel_terms(q.float(), args[1].float(),
+                                          args[2].float(), ws, ws)
+                bias = (rel_h[..., :, None] + rel_w[..., None, :]).flatten(
+                    -2).to(dtype)
+                lib_ms = _sdpa_ms(q, k, v, bias,
+                                  name == "window_attn_core_bwd")
+            del bias
+            torch.cuda.empty_cache()
+            b_ms, b_by = bound_ms(flops, nbytes, dtype)
+            say(f"[kernels] {name} {dname}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}: {flops / 1e9:.2f} GFLOP, "
+                f"{nbytes / 1e6:.1f} MB; data-sheet peaks at 700 W, card: "
+                f"{card}), {flops / ms / 1e9:.1f} TFLOP/s")
+            entry = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+            if dtype == torch.bfloat16:
+                rows[name].update(entry)
+            else:
+                rows[name]["float32"] = entry
+        del fwd, bwd, fargs, args
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5: the port's main path
 # ---------------------------------------------------------------------------
@@ -305,22 +435,14 @@ def run_request(model, cfg, inputs):
     return ms, dense, feats, mask, probs, iou
 
 
-def small_reference_check() -> None:
-    """A small uLLSAM (hd = 64 so both kernels take it; a padded window
-    grid and a global block) from one set of weights: plain versions on the
-    CPU against the kernels on the card, in float32."""
-    import numpy as np
-    import torch
+def small_config():
+    """A small uLLSAM that every ViT kernel takes: hd = 64, a padded 16x16
+    grid in 14x14 windows, one global block; a 2-layer LLM."""
     from ullsam_tpu_torch.core.config import (FusionConfig, InternLM2Config,
                                               MaskDecoderConfig,
                                               PromptEncoderConfig, SamConfig,
                                               ViTConfig)
-    from ullsam_tpu_torch.models.ullsam import fusion as F
-    from ullsam_tpu_torch.ops.kernels import flash_attention as FA
-    from ullsam_tpu_torch.ops.kernels import vit_block as VB
-    from ullsam_tpu_torch.tools.main_path import request_inputs
-
-    cfg = FusionConfig(
+    return FusionConfig(
         sam=SamConfig(
             vit=ViTConfig(img_size=256, patch_size=16, embed_dim=128,
                           depth=3, num_heads=2, out_chans=64, window_size=14,
@@ -336,6 +458,19 @@ def small_reference_check() -> None:
                             intermediate_size=128, num_hidden_layers=2,
                             num_attention_heads=4, num_key_value_heads=2),
         vit_feature_dim=64, img_context_token_id=100)
+
+
+def small_reference_check() -> None:
+    """A small uLLSAM (hd = 64 so both kernels take it; a padded window
+    grid and a global block) from one set of weights: plain versions on the
+    CPU against the kernels on the card, in float32."""
+    import numpy as np
+    from ullsam_tpu_torch.models.ullsam import fusion as F
+    from ullsam_tpu_torch.ops.kernels import flash_attention as FA
+    from ullsam_tpu_torch.ops.kernels import vit_block as VB
+    from ullsam_tpu_torch.tools.main_path import request_inputs
+
+    cfg = small_config()
     cpu = F.build_ullsam(cfg, device="cpu", seed=SEED)
     gpu = F.ULLSAM(cfg, device="cuda")
     gpu.load_state_dict(cpu.state_dict())
@@ -446,9 +581,13 @@ def kernel_wrappers() -> dict:
     from ullsam_tpu_torch.ops.kernels import decoder as D
     from ullsam_tpu_torch.ops.kernels import flash_attention as FA
     from ullsam_tpu_torch.ops.kernels import vit_block as VB
+    from ullsam_tpu_torch.ops.kernels import window_attention as WA
     return {"window_attn": VB.window_attn,
             "vit_flash_attn": FA.vit_flash_attn,
-            **{k.__name__: k for k in D.KERNELS}}
+            **{k.__name__: k for k in D.KERNELS},
+            "window_attn_core": WA.window_attn_core,
+            "window_attn_core_bwd": WA.window_attn_core_bwd,
+            "vit_flash_attn_bwd": FA.vit_flash_attn_bwd}
 
 
 def launch_counts() -> dict:
@@ -496,7 +635,8 @@ def amg_small_reference_check() -> None:
     got_m, got = AutomaticMaskGenerator(cfg, gpu, **kw).generate_dense(image)
     torch.cuda.synchronize()
     after = launch_counts()
-    if any(after[k] == before[k] for k in after):
+    train_only = {name for name, _, _ in TRAIN_KERNELS}
+    if any(after[k] == before[k] for k in after if k not in train_only):
         fail(f"small AMG did not launch every kernel: {before} -> {after}")
     if len(got["candidate"]) != len(ref["candidate"]):
         fail(f"small AMG: {len(got['candidate'])} masks on the card, "
@@ -549,7 +689,8 @@ def amg_main_path() -> None:
         masks, data = generator.generate_dense(image)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        d = {k: v - before[k] for k, v in launch_counts().items()}
+        d = {k: v - before[k] for k, v in launch_counts().items()
+             if v != before[k]}
         n = len(data["iou_preds"])
         if (masks.dtype != torch.bool or tuple(masks.shape) != (n, 1024, 1024)
                 or not np.isfinite(data["iou_preds"]).all()
@@ -615,6 +756,232 @@ def amg_main_path() -> None:
         "/ NMS 0.7 (random weights commit few masks)")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the segmentation train step
+# ---------------------------------------------------------------------------
+
+TRAIN_PER_STEP = {"window_attn": 8, "window_attn_core": 8,
+                  "window_attn_core_bwd": 8, "vit_flash_attn": 4,
+                  "vit_flash_attn_bwd": 4}
+
+
+def grad_gap(ref: dict, got: dict):
+    """(worst, name): the largest max|got - ref| of a gradient tensor over
+    its own max|ref|, that scale floored at 1e-3 of the largest |ref|
+    anywhere (so a tensor whose gradient is rounding noise, such as an
+    attention k-projection bias, is held to 1e-6 of that at a 1e-3 limit)."""
+    top = max(float(g.abs().max()) for g in ref.values())
+    worst, worst_name = 0.0, ""
+    for n, g in ref.items():
+        scale = max(float(g.abs().max()), 1e-3 * top)
+        err = float((got[n] - g).abs().max()) / scale
+        if err > worst:
+            worst, worst_name = err, n
+    return worst, worst_name
+
+
+def train_small_reference_check() -> None:
+    """One f32 train step of the small uLLSAM on the CPU (plain versions)
+    and on the card (B1, B3, B8, B2, B9) from the same weights and batch:
+    the loss within rtol 1e-4 and each trainable parameter's gradient
+    within 1e-3 of the largest |gradient| of that tensor (f32 with TF32
+    off: summation order only), except that tensors whose gradient is
+    rounding noise (the attention k-projection biases: exactly zero, the
+    softmax being shift-invariant) are held to 1e-6 of the largest
+    gradient anywhere."""
+    import numpy as np
+    import torch
+    from ullsam_tpu_torch.models.ullsam import fusion as F
+    from ullsam_tpu_torch.tools.main_path import train_batch
+    from ullsam_tpu_torch.train import step as S
+
+    cfg = small_config()
+    tcfg = S.TrainConfig(total_steps=100, remat=False)
+    cpu = F.build_ullsam(cfg, device="cpu", seed=SEED)
+    gpu = F.ULLSAM(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    batch = train_batch(cfg, np.random.default_rng(SEED), n_inst=2,
+                        text_len=8)
+    res = []
+    for model in (cpu, gpu):
+        opt = S.make_trainable_optimizer(model, tcfg)
+        before = launch_counts()
+        m = S.make_train_step(cfg, tcfg, model, opt)(batch)
+        torch.cuda.synchronize()
+        d = {k: v - before[k] for k, v in launch_counts().items() if v -
+             before[k]}
+        grads = {n: p.grad.detach().cpu() for n, p in zip(opt.names,
+                                                          opt.params)
+                 if p.grad is not None}
+        res.append((m, grads, d))
+    (m_c, g_c, d_c), (m_g, g_g, d_g) = res
+    if d_c or any(not d_g.get(k) for k in TRAIN_PER_STEP):
+        fail(f"small train step launches: CPU {d_c}, card {d_g}")
+    rel_loss = abs(float(m_g["loss"]) - float(m_c["loss"])) / abs(
+        float(m_c["loss"]))
+    worst, worst_name = grad_gap(g_c, g_g)
+    say(f"[train] small uLLSAM, one f32 step, CPU plain vs card kernels: "
+        f"loss {float(m_c['loss']):.6f} vs {float(m_g['loss']):.6f} (rel "
+        f"{rel_loss:.2e}), grad_norm {float(m_c['grad_norm']):.6f} vs "
+        f"{float(m_g['grad_norm']):.6f}; {len(g_c)} gradient tensors, worst "
+        f"{worst:.2e} of max|grad| ({worst_name}); card launches {d_g}")
+    if rel_loss > 1e-4 or worst > 1e-3 or set(g_c) != set(g_g):
+        fail("small train step: the card and the CPU disagree")
+
+
+def train_main_path() -> None:
+    """SAM ViT-B + InternLM2-1.8B at full width (random weights from the
+    seed), bfloat16 parameters and moments, remat off: 1 warm and 3 timed
+    steps on the flagship batch; then, from the same starting weights, a
+    float32 step with remat, two float32 steps and two bfloat16 steps with
+    remat, step 1 with remat held to step 1 without it (``hold``)."""
+    import numpy as np
+    import torch
+    from ullsam_tpu_torch.core.config import (FusionConfig, internlm2_1_8b,
+                                              sam_vit_b)
+    from ullsam_tpu_torch.models.ullsam import fusion as F
+    from ullsam_tpu_torch.tools.main_path import train_batch
+    from ullsam_tpu_torch.train import step as S
+
+    cfg = FusionConfig(sam=sam_vit_b(), llm=internlm2_1_8b())
+    t0 = time.perf_counter()
+    model32 = F.build_ullsam(cfg, device="cuda", seed=SEED)
+    model16 = F.ULLSAM(cfg, device="cuda", dtype=torch.bfloat16)
+    model16.load_state_dict(model32.state_dict())
+    model32.to("cpu")
+    torch.cuda.empty_cache()
+    batch = train_batch(cfg, np.random.default_rng(SEED))
+    tcfg = S.TrainConfig(total_steps=100, remat=False)
+    llm = model16.fusion.language_model
+    frozen = [p.detach().to("cpu", copy=True) for p in llm.parameters()]
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated()
+    opt = S.make_trainable_optimizer(model16, tcfg)
+    moments = torch.cuda.memory_allocated() - weights
+    n_train = sum(p.numel() for p in opt.params)
+    n_all = sum(p.numel() for p in model16.parameters())
+    say(f"[train] flagship bf16: {n_all / 1e9:.3f} B params, "
+        f"{n_train / 1e6:.1f} M trainable, weights {weights / 2**30:.3f} "
+        f"GiB, moments {moments / 2**30:.3f} GiB, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    step = S.make_train_step(cfg, tcfg, model16, opt)
+    batch = S.batch_on(model16, batch)  # device-resident, as a loader's
+
+    def run(tag):
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = step(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        d = {k: v - before[k] for k, v in launch_counts().items()
+             if v - before[k]}
+        vals = {k: float(v) for k, v in m.items()}
+        if not all(np.isfinite(list(vals.values()))):
+            fail(f"train {tag}: non-finite metrics {vals}")
+        say(f"[train] bf16 {tag}: {ms:.1f} ms (host clock, ends in "
+            f"synchronize), loss {vals['loss']:.6f}, grad_norm "
+            f"{vals['grad_norm']:.6f}, iou {vals['iou']:.4f}, launches {d}")
+        return ms, vals, d
+
+    torch.cuda.reset_peak_memory_stats()
+    _, first, _ = run("step 1 (warm, lr 0)")
+    snap = [p.detach().clone() for p in opt.params]
+    timed = [run(f"step {i}") for i in (2, 3, 4)]
+    peak = torch.cuda.max_memory_allocated()
+    for _, _, d in timed:
+        if d != TRAIN_PER_STEP:
+            fail(f"train launches per step {d}, expected {TRAIN_PER_STEP}")
+    moved = sum(not torch.equal(a, p) for a, p in zip(snap, opt.params))
+    same = all(torch.equal(a, p.detach().cpu())
+               for a, p in zip(frozen, llm.parameters()))
+    say(f"[train] bf16: {moved} of {len(snap)} trainable tensors moved "
+        f"over steps 2-4; frozen LLM weights bit-identical: {same}")
+    if not moved or not same:
+        fail("train: trainable weights did not move or frozen ones did")
+    lat = [t[0] for t in timed]
+    say(f"[train] bf16 flagship step (SAM ViT-B + InternLM2-1.8B, b=1, "
+        f"1088 tokens, 4 instances x 2 points, 1024x1024 masks, remat off):"
+        f" {', '.join(f'{x:.1f}' for x in lat)} ms, mean "
+        f"{sum(lat) / 3:.1f} ms; peak {peak / 2**30:.3f} GiB, so "
+        f"{(peak - weights - moments) / 2**30:.3f} GiB above weights and "
+        f"moments")
+    del model16, opt, step, snap, frozen, llm
+    torch.cuda.empty_cache()
+
+    def steps(model, tc, tag, n):
+        """Steps 1 (lr 0, so the weights stay as they were) to ``n`` of a
+        fresh optimizer, each printed beside the bf16 step of its number;
+        returns the metrics and the gradients of step 1."""
+        opt = S.make_trainable_optimizer(model, tc)
+        st = S.make_train_step(cfg, tc, model, opt)
+        out = None
+        for i in range(1, n + 1):
+            before = launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            m = {k: float(v) for k, v in st(batch).items()}
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            d = {k: v - before[k] for k, v in launch_counts().items()
+                 if v - before[k]}
+            if not all(np.isfinite(list(m.values()))):
+                fail(f"train {tag}: non-finite metrics")
+            ref = first if i == 1 else second
+            say(f"[train] {tag} step {i}: {ms:.1f} ms, loss {m['loss']:.6f}"
+                f" ({m['loss'] - ref['loss']:+.2e} vs bf16 step {i}), "
+                f"grad_norm {m['grad_norm']:.6f} "
+                f"({m['grad_norm'] - ref['grad_norm']:+.2e}), peak "
+                f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} "
+                f"GiB above the step's start, launches {d}")
+            out = out or (m, {name: p.grad.detach().clone()
+                              for name, p in zip(opt.names, opt.params)
+                              if p.grad is not None})
+        return out
+
+    def hold(got, ref, rtols, what, grads=False):
+        """Fail unless ``got``'s loss and grad norm are within ``rtols``
+        (loss, grad norm) of ``ref``'s, relative, and, with ``grads``, each
+        gradient tensor within 1e-3 as in ``grad_gap``."""
+        errs = [abs(got[0][k] - ref[0][k]) / abs(ref[0][k])
+                for k in ("loss", "grad_norm")]
+        msg = (f"[train] {what}, step 1: loss rel {errs[0]:.2e} (rtol "
+               f"{rtols[0]:g}), grad_norm rel {errs[1]:.2e} (rtol "
+               f"{rtols[1]:g})")
+        bad = any(e > t for e, t in zip(errs, rtols))
+        if grads:
+            worst, name = grad_gap(ref[1], got[1])
+            msg += (f"; {len(ref[1])} gradient tensors, worst {worst:.2e} "
+                    f"of max|grad| ({name}; tol 1e-3)")
+            bad = bad or worst > 1e-3 or set(got[1]) != set(ref[1])
+        say(msg)
+        if bad:
+            fail(f"train: {what} disagree at step 1")
+
+    second = timed[0][1]
+    remat = S.TrainConfig(total_steps=100, remat=True)
+    # all from the starting weights (the f32 model's remat step has lr 0;
+    # its step 2 without remat moves its own weights, last)
+    model16 = F.ULLSAM(cfg, device="cuda", dtype=torch.bfloat16)
+    model16.load_state_dict(model32.state_dict())
+    model32.to("cuda")
+    f32_remat = steps(model32, remat, "f32 (TF32 off) with remat", 1)
+    f32 = steps(model32, tcfg, "f32 (TF32 off)", 2)
+    # remat runs the windowed blocks through B1's plain version and the
+    # global blocks' B2 twice: in f32 only the summation order differs
+    hold(f32_remat, f32, (1e-4, 1e-4), "f32 remat vs no remat", grads=True)
+    del model32, f32_remat, f32
+    torch.cuda.empty_cache()
+    # in bf16 the plain version rounds as B1 does but flips roundings where
+    # the two sum in another order; the bf16 step's own distance from the
+    # f32 step (printed above: about 3e-6 in loss, 4e-3 in grad norm) is
+    # the scale of that noise
+    hold(steps(model16, remat, "bf16 with remat", 2), (first, None),
+         (1e-4, 1e-2), "bf16 remat vs no remat")
+
+
 def main() -> None:
     try:
         import torch
@@ -652,10 +1019,13 @@ def main() -> None:
         "torch.backends.cudnn.allow_tf32 = False")
     rows = check_kernels(smi)
     rows.update(check_decoder_kernels(smi))
+    rows.update(check_train_kernels(smi))
     small_reference_check()
     amg_small_reference_check()
+    train_small_reference_check()
     by_path = {}
-    for path, drive in (("interactive", main_path), ("amg", amg_main_path)):
+    for path, drive in (("interactive", main_path), ("amg", amg_main_path),
+                        ("train", train_main_path)):
         reset_counts()
         drive()
         by_path[path] = launch_counts()

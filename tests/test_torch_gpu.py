@@ -199,3 +199,94 @@ def test_per_image_batch_runs_upscale_kernels(cuda, dt):
     assert _rel_err(masks2, masks) <= TOL[dt]
     want = stats_from_kernel(*D.upscale_stats_plain(masks2, 0.0, 1.0))
     assert torch.equal(stab, want[0]) and torch.equal(boxes, want[1])
+
+
+def _window_core_inputs(gen, dtype, Bw, ws, nh):
+    def r(*shape, s=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * s).to(dtype)
+    n, C = ws * ws, nh * 64
+    return (r(Bw * n, 3 * C, s=0.5), r(ws, ws, 64, s=0.2),
+            r(ws, ws, 64, s=0.2), r(Bw * n, C, s=0.5))
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Bw,ws,nh", [(25, 14, 12),   # ViT-B main path
+                                      (4, 8, 2), (3, 5, 1)])
+def test_window_core_kernels_match_plain(cuda, dt, Bw, ws, nh):
+    """B3 and B8 against their plain versions (every output)."""
+    from ullsam_tpu_torch.ops.kernels import window_attention as WA
+    qkv, rh, rw, do = _window_core_inputs(cuda, getattr(torch, dt), Bw, ws,
+                                          nh)
+    before = (WA.window_attn_core.launches, WA.window_attn_core_bwd.launches)
+    o = WA.window_attn_core(qkv, rh, rw)
+    grads = WA.window_attn_core_bwd(qkv, rh, rw, do)
+    torch.cuda.synchronize()
+    assert (WA.window_attn_core.launches,
+            WA.window_attn_core_bwd.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    assert _rel_err(o, WA.window_attn_core_plain(qkv, rh, rw)) <= TOL[dt]
+    for a, b in zip(grads, WA.window_attn_core_bwd_plain(qkv, rh, rw, do)):
+        assert a.dtype == b.dtype and bool(torch.isfinite(a).all())
+        assert _rel_err(a, b) <= TOL[dt]
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("BH,KH", [(12, 64), (2, 16)])
+def test_vit_flash_bwd_kernel_matches_plain(cuda, dt, BH, KH):
+    """B9 against its plain version on dq, dk, dv, drel_h and drel_w, with
+    lse from B2 and dd = sum(do * o)."""
+    from ullsam_tpu_torch.ops.kernels import flash_attention as FA
+    dtype = getattr(torch, dt)
+    N, D = KH * 64, 64
+    q, k, v, do = (torch.randn(BH, N, D, generator=cuda, device="cuda")
+                   .to(dtype) for _ in range(4))
+    rh, rw = ((torch.randn(BH, N, K, generator=cuda, device="cuda") * 0.5)
+              .to(dtype) for K in (KH, 64))
+    o, lse = FA.vit_flash_attn(q, k, v, rh, rw)
+    dd = (do.float() * o.float()).sum(-1)
+    before = FA.vit_flash_attn_bwd.launches
+    got = FA.vit_flash_attn_bwd(q, k, v, rh, rw, do, lse, dd)
+    torch.cuda.synchronize()
+    assert FA.vit_flash_attn_bwd.launches == before + 1
+    ref = FA.vit_flash_attn_bwd_plain(q, k, v, rh, rw, do, lse, dd)
+    for name, a, b in zip(("dq", "dk", "dv", "drel_h", "drel_w"), got, ref):
+        assert a.dtype == b.dtype and bool(torch.isfinite(a).all()), name
+        assert _rel_err(a, b) <= TOL[dt], (name, _rel_err(a, b))
+
+
+@pytest.mark.parametrize("remat,want", [
+    (False, [2, 2, 2, 1, 1]),   # B1, B3, B8, B2, B9
+    (True, [0, 0, 0, 2, 1])])   # windows plain; B2 forward + recompute
+def test_image_encoder_gradients_on_card_match_cpu(cuda, remat, want):
+    """A backward through a small ImageEncoder (hd = 64, padded windows, a
+    global block) gives the same gradients on the card (kernels) as on the
+    CPU (plain versions), f32, for every parameter and the input, with and
+    without remat."""
+    from ullsam_tpu_torch.core.config import ViTConfig
+    from ullsam_tpu_torch.models.sam.image_encoder import ImageEncoder
+    from ullsam_tpu_torch.ops.kernels import flash_attention as FA
+    from ullsam_tpu_torch.ops.kernels import vit_block as VB
+    from ullsam_tpu_torch.ops.kernels import window_attention as WA
+    from ullsam_tpu_torch.ops.layers import init_module_
+    cfg = ViTConfig(img_size=256, patch_size=16, embed_dim=128, depth=3,
+                    num_heads=2, out_chans=32, window_size=14,
+                    global_attn_indexes=(1,))
+    cpu = ImageEncoder(cfg, device="cpu")
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    init_module_(cpu, gen)
+    gpu = ImageEncoder(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.randn(1, 256, 256, 3, generator=gen)
+    w = torch.randn(1, 16, 16, 32, generator=gen)
+    kernels = (VB.window_attn, WA.window_attn_core, WA.window_attn_core_bwd,
+               FA.vit_flash_attn, FA.vit_flash_attn_bwd)
+    before = [k.launches for k in kernels]
+    xs = [x.clone().requires_grad_(), x.cuda().requires_grad_()]
+    for m, xi in zip((cpu, gpu), xs):
+        (m(xi, remat=remat) * w.to(xi.device)).sum().backward()
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == want
+    assert _rel_err(xs[1].grad.cpu(), xs[0].grad) <= 1e-4
+    for (name, a), b in zip(cpu.named_parameters(), gpu.parameters()):
+        assert _rel_err(b.grad.cpu(), a.grad) <= 1e-4, name

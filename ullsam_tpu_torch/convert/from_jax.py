@@ -214,3 +214,77 @@ def load_reference_state_dict(module: nn.Module, arrays: Mapping,
             dtype=ref.dtype, device=ref.device)
     module.load_state_dict(sd, strict=True)
     return module
+
+
+# ---------------------------------------------------------------------------
+# torch parameter name -> JAX param path
+# ---------------------------------------------------------------------------
+
+# module-path renames, applied in order to the dotted module path of a
+# parameter (the inverse of the converters above)
+_MODULE_RENAMES = (
+    (r"^fusion\.vision_model\b", "sam.image_encoder"),
+    (r"^prompt_encoder\b", "sam.prompt_encoder"),
+    (r"^mask_decoder\b", "sam.mask_decoder"),
+    (r"^fusion\.language_model\b", "llm"),
+    (r"^fusion\.(mlp[12])\.0$", r"\1.ln"),
+    (r"^fusion\.(mlp[12])\.1$", r"\1.fc1"),
+    (r"^fusion\.(mlp[12])\.3$", r"\1.fc2"),
+    (r"\.patch_embed\.proj$", ".patch_embed"),
+    (r"\.mlp\.lin1$", ".mlp.fc1"),
+    (r"\.mlp\.lin2$", ".mlp.fc2"),
+    (r"\.neck\.0$", ".neck.conv1"), (r"\.neck\.1$", ".neck.ln1"),
+    (r"\.neck\.2$", ".neck.conv2"), (r"\.neck\.3$", ".neck.ln2"),
+    (r"\.pe_layer$", ""),
+    (r"\.point_embeddings\.\d+$", ".point_embeds"),
+    (r"\.not_a_point_embed$", ".not_a_point"),
+    (r"\.no_mask_embed$", ".no_mask"),
+    (r"\.mask_downscaling\.0$", ".mask_downscaling.conv1"),
+    (r"\.mask_downscaling\.1$", ".mask_downscaling.ln1"),
+    (r"\.mask_downscaling\.3$", ".mask_downscaling.conv2"),
+    (r"\.mask_downscaling\.4$", ".mask_downscaling.ln2"),
+    (r"\.mask_downscaling\.6$", ".mask_downscaling.conv3"),
+    (r"\.cross_attn_token_to_image\b", ".cross_attn_t2i"),
+    (r"\.cross_attn_image_to_token\b", ".cross_attn_i2t"),
+    (r"\.final_attn_token_to_image\b", ".final_attn_t2i"),
+    (r"\.norm_final_attn$", ".norm_final"),
+    (r"\.(q|k|v|out)_proj$", r".\1"),
+    (r"\.output_upscaling\.0$", ".upscale.convt1"),
+    (r"\.output_upscaling\.1$", ".upscale.ln"),
+    (r"\.output_upscaling\.3$", ".upscale.convt2"),
+    (r"\.output_hypernetworks_mlps\.", ".hyper_mlps."),
+    (r"\.iou_prediction_head\.", ".iou_head."),
+    (r"^llm\.model\.layers\.\d+\.(attention\.|feed_forward\.)?", "llm.layers."),
+    (r"^llm\.model\.", "llm."),
+)
+_LEAF_RENAMES = {"positional_encoding_gaussian_matrix": "pe_gaussian",
+                 "llm_scale_factor": "llm_scale"}
+
+
+def jax_param_paths(model: nn.Module) -> Dict[str, str]:
+    """{torch parameter name: the dotted path of the same leaf in the JAX
+    package's param tree} for a ``ULLSAM``, e.g. ``fusion.vision_model.
+    neck.1.weight`` -> ``sam.image_encoder.neck.ln1.scale``. Stacked JAX
+    leaves (the LLM's layers, the prompt encoder's ``point_embeds``) take
+    several torch names. JAX's path regexes (trainable, no-decay) are
+    matched against these paths."""
+    import re
+    from ullsam_tpu_torch.ops import layers as L
+
+    out = {}
+    for mname, mod in model.named_modules():
+        for pname, _ in mod.named_parameters(recurse=False):
+            path = mname
+            for pat, rep in _MODULE_RENAMES:
+                path = re.sub(pat, rep, path)
+            if isinstance(mod, (L.LayerNorm, L.RMSNorm)):
+                leaf = {"weight": "scale"}.get(pname, pname)
+            elif isinstance(mod, (L.Linear, L.Conv2d, L.ConvTranspose2x2)):
+                leaf = {"weight": "kernel"}.get(pname, pname)
+            elif isinstance(mod, L.Embedding):
+                leaf = None
+            else:
+                leaf = _LEAF_RENAMES.get(pname, pname)
+            out[f"{mname}.{pname}" if mname else pname] = (
+                path if leaf is None else f"{path}.{leaf}")
+    return out

@@ -36,6 +36,12 @@
 // bf16 rounding points match vit_block.py:231-290: LN output cast before
 // qkv, qkv cast after its bias, p cast before p.v, o_h cast before proj;
 // the residual sum is f32.
+//
+// B3, the attention core alone (window_attn_core_forward below), replaces
+// ullsam_tpu/ops/pallas/flash_attention.py `_vit_window_kernel`: the
+// forward recompute inside B1's gradient. It is step 3 above on a caller's
+// qkv [Bw*n, 3C] (natural layout: no 128-lane head slots, no selection
+// matmuls). Its gradient, B8, is window_attn_bwd.cu.
 #include "attn_fma.cuh"
 #include "attn_mma.cuh"
 #include "gemm.cuh"
@@ -390,5 +396,33 @@ extern "C" int window_attn_forward(
                                   rw, ybuf, qkvbuf, obuf, out, Bw, n, C, nh,
                                   hd, kh, kw, eps, nwx, nwy, Hv, Wv, masked,
                                   st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// B3: the attention core alone. qkv [Bw*n, 3C], rh [kh, kh, hd],
+// rw [kw, kw, hd], out [Bw*n, C], all of dtype (0 = float32, 1 = bfloat16).
+// Returns 0 or a cudaError_t.
+extern "C" int window_attn_core_forward(int dtype, const void* qkv,
+                                        const void* rh, const void* rw,
+                                        void* out, int Bw, int n, int C,
+                                        int nh, int hd, int kh, int kw,
+                                        void* stream) {
+  using namespace ullsam;
+  if (n > kAttnMaxKeys || kh * kw != n || kh + kw > kAttnMaxRel ||
+      hd != kHeadDim || nh * hd != C)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float scale = 1.0f / sqrtf((float)hd);
+  if (dtype == kF32)
+    return attn_core<kHeadDim>(
+        static_cast<const float*>(qkv), static_cast<const float*>(rh),
+        static_cast<const float*>(rw), static_cast<float*>(out), Bw, n, C, nh,
+        kh, kw, scale, st);
+  if (dtype == kBF16)
+    return attn_core<kHeadDim>(static_cast<const __nv_bfloat16*>(qkv),
+                               static_cast<const __nv_bfloat16*>(rh),
+                               static_cast<const __nv_bfloat16*>(rw),
+                               static_cast<__nv_bfloat16*>(out), Bw, n, C,
+                               nh, kh, kw, scale, st);
   return (int)cudaErrorInvalidValue;
 }

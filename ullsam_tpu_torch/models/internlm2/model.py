@@ -17,6 +17,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ullsam_tpu_torch.core.config import InternLM2Config
 from ullsam_tpu_torch.core.device import resolve_device
@@ -148,10 +149,13 @@ def internlm2_forward(lm: InternLM2ForCausalLM, cfg: InternLM2Config,
                       inputs_embeds: Optional[Tensor] = None,
                       attention_mask: Optional[Tensor] = None,
                       position_ids: Optional[Tensor] = None,
-                      output_hidden_states: bool = False) -> dict:
+                      output_hidden_states: bool = False,
+                      remat: bool = False) -> dict:
     """Full-sequence forward -> {'logits' [B, S, V], 'last_hidden' [B, S, H]
     (post final norm), and with output_hidden_states 'hidden_states'
-    [L, B, S, H], the input of each layer}."""
+    [L, B, S, H], the input of each layer}. Differentiable in the
+    activations whether or not the weights are frozen; ``remat`` checkpoints
+    each layer (``torch.utils.checkpoint``)."""
     x = inputs_embeds if inputs_embeds is not None else embed_tokens(
         lm, input_ids)
     B, S, _ = x.shape
@@ -167,7 +171,10 @@ def internlm2_forward(lm: InternLM2ForCausalLM, cfg: InternLM2Config,
     for layer in lm.model.layers:
         if output_hidden_states:
             hidden.append(x)
-        x = layer(x, cos, sin, kmask)
+        if remat:
+            x = checkpoint(layer, x, cos, sin, kmask, use_reentrant=False)
+        else:
+            x = layer(x, cos, sin, kmask)
     last_hidden = lm.model.norm(x)
     out = {"logits": lm.output(last_hidden), "last_hidden": last_hidden}
     if output_hidden_states:

@@ -11,7 +11,17 @@ Input [B, img, img, 3] NHWC (normalized) -> [B, grid, grid, out_chans] NHWC.
 * Global blocks keep the rel-pos bias factored (rel_h, rel_w) and run B2
   (``ops/kernels/flash_attention.vit_flash_attn``).
 On CUDA tensors the two kernels launch; on CPU tensors their plain
-versions run.
+versions run. Both go through ``torch.autograd.Function``s, so gradients
+flow: B1's backward recomputes its chain with the attention core as B3
+and differentiates that by B8; B2's backward is B9.
+
+``forward(x, remat=True)`` checkpoints every block
+(``torch.utils.checkpoint``) with the JAX package's routing under remat
+(``image_encoder.py:376-403``): windowed blocks run B1's plain version
+``window_attn_plain`` under autograd where the JAX package runs its XLA
+block, global blocks still run B2 / B9. The plain version keeps B1's
+rounding points, so in bfloat16 it rounds where B1 does rather than where
+the JAX XLA block does; in float32 the two are the same function.
 """
 
 from __future__ import annotations
@@ -21,13 +31,15 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ullsam_tpu_torch.core.config import ViTConfig
 from ullsam_tpu_torch.core.device import resolve_device
 from ullsam_tpu_torch.ops import attention as A
 from ullsam_tpu_torch.ops import layers as L
-from ullsam_tpu_torch.ops.kernels.flash_attention import vit_flash_attn
-from ullsam_tpu_torch.ops.kernels.vit_block import window_attn
+from ullsam_tpu_torch.ops.kernels.flash_attention import vit_flash_attention
+from ullsam_tpu_torch.ops.kernels.vit_block import (window_attn_block,
+                                                     window_attn_plain)
 
 Tensor = torch.Tensor
 
@@ -99,21 +111,25 @@ class Block(nn.Module):
         else:
             rel_h = q.new_zeros((B * nh, H, W, H), dtype=torch.float32)
             rel_w = q.new_zeros((B * nh, H, W, W), dtype=torch.float32)
-        rel_h = rel_h.reshape(B * nh, N, H).to(x.dtype).contiguous()
-        rel_w = rel_w.reshape(B * nh, N, W).to(x.dtype).contiguous()
-        o, _ = vit_flash_attn(q, k, v, rel_h, rel_w)
+        # f32 factors: the Function casts them to x.dtype inside, so
+        # their gradients stay f32
+        o = vit_flash_attention(q, k, v, rel_h.reshape(B * nh, N, H),
+                                rel_w.reshape(B * nh, N, W))
         o = o.reshape(B, nh, H, W, hd).permute(0, 2, 3, 1, 4).reshape(
             B, H, W, C)
         return self._mlp_half(x + self.attn.proj(o))
 
-    def forward_windows(self, xw: Tensor, geom) -> Tensor:
-        """Windowed block on pre-partitioned windows [Bw, ws, ws, C] via B1;
+    def forward_windows(self, xw: Tensor, geom, plain: bool = False
+                        ) -> Tensor:
+        """Windowed block on pre-partitioned windows [Bw, ws, ws, C] via B1
+        (``plain``: via B1's plain version, differentiated by autograd);
         geom = (nwx, nwy, Hv, Wv, masked)."""
         Bw, ws, _, C = xw.shape
         nwx, nwy, Hv, Wv, masked = geom
         rh, rw = self.attn.rel_tables(ws, ws, xw.dtype)
         a = self.attn
-        h = window_attn(
+        attn = window_attn_plain if plain else window_attn_block
+        h = attn(
             xw.reshape(Bw, ws * ws, C), self.norm1.weight, self.norm1.bias,
             a.qkv.weight, a.qkv.bias, a.proj.weight, a.proj.bias, rh, rw,
             num_heads=self.num_heads, eps=self.norm1.eps, nwx=nwx, nwy=nwy,
@@ -187,27 +203,33 @@ class ImageEncoder(nn.Module):
         w = conv.weight.permute(0, 2, 3, 1).reshape(conv.weight.shape[0], -1)
         return L.linear(cols, w, conv.bias)
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, remat: bool = False) -> Tensor:
         cfg = self.cfg
         x = self.patch_embed_apply(x)
         if cfg.use_abs_pos:
             x = x + self.pos_embed.to(x.dtype)
         ws = cfg.window_size
+
+        def run(fn, *args):
+            if remat:
+                return checkpoint(fn, *args, use_reentrant=False)
+            return fn(*args)
+
         i = 0
         while i < cfg.depth:
             if self.blocks[i].window_size == 0:
-                x = self.blocks[i].forward_global(x)
+                x = run(self.blocks[i].forward_global, x)
                 i += 1
                 continue
             # a run of windowed blocks: partition once
             j = i
             while j < cfg.depth and self.blocks[j].window_size != 0:
                 j += 1
-            B, H, W, _ = x.shape
+            H, W = x.shape[1:3]
             xw, pad_hw = window_partition(x, ws)
             geom = (pad_hw[1] // ws, pad_hw[0] // ws, H, W, pad_hw != (H, W))
             for blk in self.blocks[i:j]:
-                xw = blk.forward_windows(xw, geom)
+                xw = run(blk.forward_windows, xw, geom, remat)
             x = window_unpartition(xw, ws, pad_hw, (H, W))
             i = j
         n = self.neck

@@ -25,14 +25,18 @@ LABEL_PAD, LABEL_NEG, LABEL_POS, LABEL_BOX_TL, LABEL_BOX_BR = -1, 0, 1, 2, 3
 
 
 class PositionEmbeddingRandom(nn.Module):
+    """The Gaussian frequency matrix is a parameter, as in the JAX package,
+    whose train step updates it (the reference keeps it as a buffer); the
+    state-dict name is the same either way."""
+
     def __init__(self, d: int, *, device=None, dtype=None):
         super().__init__()
-        self.register_buffer("positional_encoding_gaussian_matrix",
-                             torch.empty(2, d // 2, device=device,
-                                         dtype=dtype))
+        self.positional_encoding_gaussian_matrix = nn.Parameter(
+            torch.empty(2, d // 2, device=device, dtype=dtype))
 
     def init_(self, gen: torch.Generator) -> None:
-        self.positional_encoding_gaussian_matrix.normal_(generator=gen)
+        with torch.no_grad():
+            self.positional_encoding_gaussian_matrix.normal_(generator=gen)
 
     def encode(self, coords01: Tensor) -> Tensor:
         """Fourier features of coords in [0, 1]^2 -> [..., d] (f32)."""

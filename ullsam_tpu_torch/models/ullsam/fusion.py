@@ -113,12 +113,18 @@ def pixel_unshuffle(x: Tensor, scale: float, ps_version: str = "v2") -> Tensor:
 # ---------------------------------------------------------------------------
 
 
-def extract_feature(model: ULLSAM, cfg: FusionConfig,
-                    pixel_values: Tensor) -> Tuple[Tensor, Tensor]:
+def extract_feature(model: ULLSAM, cfg: FusionConfig, pixel_values: Tensor,
+                    stop_vision_gradient: bool = True,
+                    remat: bool = False) -> Tuple[Tensor, Tensor]:
     """pixel_values [B, S, S, 3] -> (vit_tokens [B, T, llm_hidden],
-    sam_features [B, 64, 64, 256]); computed in the vision tower's dtype."""
+    sam_features [B, 64, 64, 256]); computed in the vision tower's dtype.
+    ``stop_vision_gradient`` detaches the features (no gradient reaches the
+    tower); ``remat`` checkpoints the tower's blocks."""
     vm = model.fusion.vision_model
-    feats = vm(pixel_values.to(vm.patch_embed.proj.weight.dtype))
+    feats = vm(pixel_values.to(vm.patch_embed.proj.weight.dtype),
+               remat=remat)
+    if stop_vision_gradient:
+        feats = feats.detach()
     x = pixel_shuffle(feats, cfg.downsample_ratio, cfg.ps_version)
     x = x.reshape(x.shape[0], -1, x.shape[-1])
     return model.fusion.mlp1(x), feats
@@ -165,16 +171,24 @@ def fusion_forward(model: ULLSAM, cfg: FusionConfig, pixel_values: Tensor,
                    input_ids: Tensor,
                    attention_mask: Optional[Tensor] = None,
                    labels: Optional[Tensor] = None,
-                   output_dense_prompt: bool = False) -> dict:
-    """One fused forward. Returns {'logits' [B, N, V], 'image_embeddings'
-    [B, 64, 64, 256], and 'loss' (CE with shift, ignore -100) when labels
-    are given, 'dense_prompt' [B, 64, 64, 256] when asked}."""
-    vit_tokens, sam_feats = extract_feature(model, cfg, pixel_values)
+                   output_dense_prompt: bool = False,
+                   stop_vision_gradient: bool = True, remat: bool = False,
+                   remat_llm: Optional[bool] = None) -> dict:
+    """One fused forward (``fusion.py:187-256``). Returns {'logits'
+    [B, N, V], 'image_embeddings' [B, 64, 64, 256], and 'loss' (CE with
+    shift, ignore -100) when labels are given, 'dense_prompt'
+    [B, 64, 64, 256] when asked}. Under grad: ``stop_vision_gradient``
+    keeps gradients out of the vision tower, ``remat`` checkpoints its
+    blocks and ``remat_llm`` (default: ``remat``) the LLM's layers."""
+    vit_tokens, sam_feats = extract_feature(
+        model, cfg, pixel_values, stop_vision_gradient=stop_vision_gradient,
+        remat=remat)
     lm = model.fusion.language_model
     embeds = scatter_image_embeds(input_ids, LLM.embed_tokens(lm, input_ids),
                                   vit_tokens, cfg.img_context_token_id)
-    out = LLM.internlm2_forward(lm, cfg.llm, inputs_embeds=embeds,
-                                attention_mask=attention_mask)
+    out = LLM.internlm2_forward(
+        lm, cfg.llm, inputs_embeds=embeds, attention_mask=attention_mask,
+        remat=remat if remat_llm is None else remat_llm)
     result = {"logits": out["logits"], "image_embeddings": sam_feats}
     if labels is not None:
         logits = out["logits"][:, :-1].float()

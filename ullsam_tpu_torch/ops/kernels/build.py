@@ -28,12 +28,14 @@ from typing import Dict, Optional
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "_build")
-SOURCES = ("window_attn", "vit_flash_attn", "decoder_twt", "decoder_upscale")
+SOURCES = ("window_attn", "vit_flash_attn", "decoder_twt", "decoder_upscale",
+           "window_attn_bwd", "vit_flash_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[tuple, object] = {}
 
 
 def nvcc_path() -> str:
@@ -105,3 +107,23 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(build_all((name,))[name])
             _libs[name] = lib
         return lib
+
+
+def function(lib: str, name: str, argtypes, restype=ctypes.c_int):
+    """The C entry point ``name`` of library ``lib`` with its argument and
+    result types declared (pointers and the stream as c_void_p, so ctypes
+    never cuts them to 32 bits); bound once, then cached."""
+    fn = _fns.get((lib, name))
+    if fn is None:
+        fn = getattr(load(lib), name)
+        fn.argtypes, fn.restype = argtypes, restype
+        _fns[(lib, name)] = fn
+    return fn
+
+
+def aligned(t):
+    """``t`` contiguous and 16-byte aligned, as the kernels take their
+    operands (a gradient handed to a backward may be a strided or offset
+    view); copies only when it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()

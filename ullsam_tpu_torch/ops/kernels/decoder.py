@@ -224,7 +224,6 @@ class _PlainOps:
                 z.any(-2).int())
 
 
-_fns: Dict[str, object] = {}
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _SIGNATURES = {
@@ -248,14 +247,9 @@ _SIGNATURES = {
 
 
 def _fn(name: str):
-    fn = _fns.get(name)
-    if fn is None:
-        lib, argtypes = _SIGNATURES[name]
-        fn = getattr(build.load(lib), name)
-        fn.argtypes = argtypes
-        fn.restype = _LL if name == "decoder_t2i_scratch" else _I
-        _fns[name] = fn
-    return fn
+    lib, argtypes = _SIGNATURES[name]
+    return build.function(lib, name, argtypes,
+                          _LL if name == "decoder_t2i_scratch" else _I)
 
 
 def _ptr(t):

@@ -13,6 +13,11 @@ launches the hand-written Hopper kernel ``csrc/window_attn.cu`` (see the
 note there: operation-bound; bf16 on the tensor cores, float32 by FMA);
 on a CPU tensor it runs ``window_attn_plain``, the same function in plain
 PyTorch. There is no fallback from the kernel to the plain version.
+
+``window_attn_block`` is the differentiable entry: a
+``torch.autograd.Function`` (``WindowAttn``) whose forward is B1 and whose
+backward recomputes the chain with B3 and differentiates it by B8
+(``window_attention.py``), on both devices.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 
 from ullsam_tpu_torch.ops import layers as L
 from ullsam_tpu_torch.ops.kernels import build
+from ullsam_tpu_torch.ops.kernels import window_attention as WA
 
 Tensor = torch.Tensor
 
@@ -43,6 +49,33 @@ def window_pad_mask(Bw: int, n: int, kh: int, kw: int, nwx: int, nwy: int,
     return ((row < Hv) & (col < Wv)).float()[..., None]
 
 
+def _window_chain(x: Tensor, norm_w: Tensor, norm_b: Tensor,
+                  qkv_w: Tensor, qkv_b: Optional[Tensor], proj_w: Tensor,
+                  proj_b: Optional[Tensor], rh: Tensor, rw: Tensor, core, *,
+                  eps: float, nwx: int, nwy: int, Hv: int, Wv: int,
+                  masked: bool) -> Tensor:
+    """LN1 -> pad mask -> qkv -> ``core`` (B3 or its plain version) -> proj
+    + residual, with the kernel's rounding points: LN output and qkv (after
+    its bias) rounded to x.dtype, products accumulated in f32, the residual
+    sum in f32."""
+    dt = x.dtype
+    Bw, n, C = x.shape
+    kh, kw = rh.shape[0], rw.shape[0]
+    y = L.layer_norm(x, norm_w, norm_b, eps=eps)
+    if masked:
+        y = (y.float() * window_pad_mask(Bw, n, kh, kw, nwx, nwy, Hv, Wv,
+                                         x.device)).to(dt)
+    qkv = torch.matmul(y.float(), qkv_w.to(dt).float().T)
+    if qkv_b is not None:
+        qkv = qkv + qkv_b.to(dt).float()
+    o = core(qkv.to(dt).reshape(Bw * n, 3 * C), rh.to(dt), rw.to(dt))
+    out = x.float() + torch.matmul(o.float(), proj_w.to(dt).float().T
+                                   ).reshape(Bw, n, C)
+    if proj_b is not None:
+        out = out + proj_b.to(dt).float()
+    return out.to(dt)
+
+
 def window_attn_plain(x: Tensor, norm_w: Tensor, norm_b: Tensor,
                       qkv_w: Tensor, qkv_b: Optional[Tensor], proj_w: Tensor,
                       proj_b: Optional[Tensor], rh: Tensor, rw: Tensor, *,
@@ -51,33 +84,10 @@ def window_attn_plain(x: Tensor, norm_w: Tensor, norm_b: Tensor,
     """The function of the kernel in plain PyTorch, with the same rounding
     points: LN output, qkv (after its bias), p and o are rounded to
     x.dtype; products accumulate in f32; the residual sum is f32."""
-    dt = x.dtype
-    Bw, n, C = x.shape
-    nh = num_heads
-    hd = C // nh
-    kh, kw = rh.shape[0], rw.shape[0]
-    f32 = torch.float32
-    y = L.layer_norm(x, norm_w, norm_b, eps=eps)
-    if masked:
-        y = (y.float() * window_pad_mask(Bw, n, kh, kw, nwx, nwy, Hv, Wv,
-                                         x.device)).to(dt)
-    qkv = torch.matmul(y.float(), qkv_w.to(dt).float().T)
-    if qkv_b is not None:
-        qkv = qkv + qkv_b.to(dt).float()
-    qkv = qkv.to(dt).float().reshape(Bw, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
-    q, k, v = qkv[0], qkv[1], qkv[2]                   # [Bw, nh, n, hd]
-    r_q = q.reshape(Bw, nh, kh, kw, hd)
-    rel_h = torch.einsum("bnyxd,ykd->bnyxk", r_q, rh.to(dt).to(f32))
-    rel_w = torch.einsum("bnyxd,xkd->bnyxk", r_q, rw.to(dt).to(f32))
-    bias = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(Bw, nh, n, n)
-    logits = torch.matmul(q, k.transpose(-1, -2)) * (hd ** -0.5) + bias
-    p = torch.softmax(logits, dim=-1).to(dt).float()
-    o = torch.matmul(p, v).to(dt).float()              # [Bw, nh, n, hd]
-    o = o.permute(0, 2, 1, 3).reshape(Bw, n, C)
-    out = x.float() + torch.matmul(o, proj_w.to(dt).float().T)
-    if proj_b is not None:
-        out = out + proj_b.to(dt).float()
-    return out.to(dt)
+    del num_heads  # the tables' head dim gives it
+    return _window_chain(x, norm_w, norm_b, qkv_w, qkv_b, proj_w, proj_b,
+                         rh, rw, WA.window_attn_core_plain, eps=eps, nwx=nwx,
+                         nwy=nwy, Hv=Hv, Wv=Wv, masked=masked)
 
 
 def _check(t: Optional[Tensor], name: str, shape, x: Tensor) -> None:
@@ -94,19 +104,11 @@ def _check(t: Optional[Tensor], name: str, shape, x: Tensor) -> None:
                          f"16-byte aligned")
 
 
-_fn = None
-
-
 def _kernel():
-    global _fn
-    if _fn is None:
-        fn = build.load("window_attn").window_attn_forward
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([i] + [p] * 13 + [i] * 7 + [ctypes.c_float]
-                       + [i] * 5 + [p])
-        fn.restype = i
-        _fn = fn
-    return _fn
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return build.function("window_attn", "window_attn_forward",
+                          [i] + [p] * 13 + [i] * 7 + [ctypes.c_float]
+                          + [i] * 5 + [p])
 
 
 def window_attn(x: Tensor, norm_w: Tensor, norm_b: Tensor, qkv_w: Tensor,
@@ -169,3 +171,50 @@ def window_attn(x: Tensor, norm_w: Tensor, norm_b: Tensor, qkv_w: Tensor,
 
 
 window_attn.launches = 0
+
+
+class WindowAttn(torch.autograd.Function):
+    """B1 with its gradient, as ``vit_block.py:348-405`` (``_window_attn_fwd``
+    / ``_window_attn_bwd`` / ``_window_attn_hybrid``): the forward launches
+    B1 (its plain version on the CPU) and saves only its inputs; the
+    backward recomputes LN1 -> pad mask -> qkv in PyTorch, the attention core
+    through B3's Function, then proj + residual, and returns the gradient of
+    that chain, so the attention core's gradient is B8."""
+
+    @staticmethod
+    def forward(ctx, x, norm_w, norm_b, qkv_w, qkv_b, proj_w, proj_b, rh, rw,
+                kw_):
+        ctx.kw_ = kw_
+        ctx.save_for_backward(x, norm_w, norm_b, qkv_w, qkv_b, proj_w, proj_b,
+                              rh, rw)
+        return window_attn(x, norm_w, norm_b, qkv_w, qkv_b, proj_w, proj_b,
+                           rh, rw, **kw_)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        kw_ = dict(ctx.kw_)
+        kw_.pop("num_heads")
+        wrt = [t is not None and need
+               for t, need in zip(saved, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(w) if t is not None else None
+                   for t, w in zip(saved, wrt)]
+            out = _window_chain(*ins, WA.window_attention, **kw_)
+            targets = [t for t, w in zip(ins, wrt) if w]
+            grads = iter(torch.autograd.grad(out, targets, g)
+                         if targets else ())
+        return tuple(next(grads) if w else None for w in wrt) + (None,)
+
+
+def window_attn_block(x: Tensor, norm_w: Tensor, norm_b: Tensor,
+                      qkv_w: Tensor, qkv_b: Optional[Tensor], proj_w: Tensor,
+                      proj_b: Optional[Tensor], rh: Tensor, rw: Tensor, *,
+                      num_heads: int, eps: float, nwx: int, nwy: int, Hv: int,
+                      Wv: int, masked: bool) -> Tensor:
+    """Differentiable ``window_attn`` (arguments as there): B1 forward; B3
+    and B8 in the backward."""
+    kw_ = dict(num_heads=num_heads, eps=eps, nwx=nwx, nwy=nwy, Hv=Hv, Wv=Wv,
+               masked=masked)
+    return WindowAttn.apply(x, norm_w, norm_b, qkv_w, qkv_b, proj_w, proj_b,
+                            rh, rw, kw_)

@@ -57,6 +57,100 @@ def vit_flash_case(dtype: torch.dtype, gen: torch.Generator):
     return args, {}, flops, nbytes
 
 
+# ---------------------------------------------------------------------------
+# the train step's backward kernels (B3, B8, B9)
+# ---------------------------------------------------------------------------
+
+# B3 / B8: the ViT-B windows of one 1024x1024 image: 25 windows of 14x14,
+# 12 heads of 64
+WINDOW_CORE = dict(Bw=25, ws=14, nh=12)
+# B9: the ViT-B global blocks: 12 heads over the 64x64 grid
+FLASH_BWD = dict(BH=12, KH=64, KW=64)
+
+
+def window_core_flops(Bw: int, ws: int, nh: int, hd: int = 64) -> dict:
+    """Operations (2 per multiply-add) of B3 and B8 over Bw windows of
+    n = ws*ws tokens: B3 = q.k and p.v plus the rel-pos terms; B8 = five
+    n x n x hd products (s, dp, dv, dq, dk), the recomputed rel-pos terms,
+    their share of dq and the table gradients."""
+    n, rl = ws * ws, 2 * ws
+    per = Bw * nh
+    rel = 2 * per * n * rl * hd
+    return {"fwd": per * 4 * n * n * hd + rel,
+            "bwd": per * 10 * n * n * hd + 3 * rel}
+
+
+def flash_bwd_flops(BH: int, N: int, D: int = 64) -> int:
+    """B9: the five products of 2 N^2 D per head that the gradient needs
+    (s, dp, dv, dq, dk). The two-kernel split recomputes s and dp in both
+    kernels, so the kernels do 7/5 of this."""
+    return 10 * BH * N * N * D
+
+
+def window_core_case(dtype: torch.dtype, gen: torch.Generator, Bw: int = 25,
+                     ws: int = 14, nh: int = 12):
+    """B3 and B8 inputs: qkv [Bw*n, 3C], rh, rw [ws, ws, 64], do
+    [Bw*n, C]; returns (args_fwd, args_bwd, flops, bytes) with flops and
+    bytes dicts keyed "fwd" / "bwd"."""
+    n, C, hd = ws * ws, nh * 64, 64
+
+    def r(*shape, s=1.0):
+        return (torch.randn(*shape, generator=gen, device=gen.device)
+                * s).to(dtype)
+
+    qkv, rh, rw, do = (r(Bw * n, 3 * C, s=0.5), r(ws, ws, hd, s=0.2),
+                       r(ws, ws, hd, s=0.2), r(Bw * n, C, s=0.5))
+    eb = qkv.element_size()
+    tables = (rh.numel() + rw.numel()) * eb
+    nbytes = {"fwd": (qkv.numel() + Bw * n * C) * eb + tables,
+              "bwd": (2 * qkv.numel() + do.numel()) * eb + tables
+              + (rh.numel() + rw.numel()) * 4}
+    return ((qkv, rh, rw), (qkv, rh, rw, do),
+            window_core_flops(Bw, ws, nh, hd), nbytes)
+
+
+def vit_flash_bwd_case(dtype: torch.dtype, gen: torch.Generator,
+                       BH: int = 12, KH: int = 64, KW: int = 64):
+    """B9 inputs at the ViT-B global blocks: q, k, v, do [12, 4096, 64],
+    rel_h, rel_w [12, 4096, 64], and the forward's lse and dd = sum(do * o)
+    (made by B2, or by its plain version on the CPU); returns (args, flops,
+    bytes)."""
+    from ullsam_tpu_torch.ops.kernels import flash_attention as FA
+    N, D = KH * KW, 64
+
+    def r(*shape, s=1.0):
+        return (torch.randn(*shape, generator=gen, device=gen.device)
+                * s).to(dtype)
+
+    q, k, v, do = (r(BH, N, D) for _ in range(4))
+    rh, rw = r(BH, N, KH, s=0.5), r(BH, N, KW, s=0.5)
+    o, lse = FA.vit_flash_attn(q, k, v, rh, rw)
+    dd = (do.float() * o.float()).sum(-1)
+    eb = q.element_size()
+    nbytes = (7 * q.numel() + rh.numel() + rw.numel()) * eb \
+        + 2 * lse.numel() * 4 + (rh.numel() + rw.numel()) * 4
+    return (q, k, v, rh, rw, do, lse, dd), flash_bwd_flops(BH, N, D), nbytes
+
+
+def train_batch(cfg: FusionConfig, rng: np.random.Generator,
+                n_inst: int = 4, n_pts: int = 2, text_len: int = 64):
+    """The flagship train batch of ``benchmarks/bench_train_step.py``: one
+    S x S image (pixels in [0, 255)), 1024 image tokens + ``text_len``,
+    ``n_inst`` instances of ``n_pts`` positive points, S x S masks."""
+    S = cfg.sam.vit.img_size
+    n = cfg.num_image_token
+    ids = np.full((1, n + text_len), 11, np.int64)
+    ids[0, 2:2 + n] = cfg.img_context_token_id
+    return {"pixel_values": (rng.random((1, S, S, 3)) * 255).astype(
+                np.float32),
+            "input_ids": ids, "attention_mask": np.ones_like(ids),
+            "point_coords": (rng.random((1, n_inst, n_pts, 2)) * S).astype(
+                np.float32),
+            "point_labels": np.ones((1, n_inst, n_pts), np.int64),
+            "masks": rng.random((1, n_inst, S, S)) > 0.7,
+            "instance_valid": np.ones((1, n_inst), np.float32)}
+
+
 def request_inputs(cfg: FusionConfig, rng: np.random.Generator,
                    n_clicks: int, text_len: int = 64):
     """(pixels [1, S, S, 3] f32, input_ids [1, 1024 + text_len] with the

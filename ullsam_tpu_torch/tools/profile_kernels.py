@@ -1,7 +1,7 @@
 """Where the time goes on the card: torch.profiler over the port's kernels
-at the main path's shapes, over one full segmentation request and over one
-automatic-mask-generation image (inputs from ``tools/main_path.py``, as
-``chip_smoke.py`` checks and times them).
+at the main path's shapes, over one full segmentation request, one
+automatic-mask-generation image and one flagship train step (inputs from
+``tools/main_path.py``, as ``chip_smoke.py`` checks and times them).
 
     python -m ullsam_tpu_torch.tools.profile_kernels [--out DIR]
 
@@ -32,10 +32,15 @@ from ullsam_tpu_torch.ops import layers as L
 from ullsam_tpu_torch.ops.kernels import decoder as D
 from ullsam_tpu_torch.ops.kernels import flash_attention as FA
 from ullsam_tpu_torch.ops.kernels import vit_block as VB
-from ullsam_tpu_torch.tools.main_path import (AMG_CHUNK, amg_inputs,
+from ullsam_tpu_torch.ops.kernels import window_attention as WA
+from ullsam_tpu_torch.tools.main_path import (AMG_CHUNK, FLASH_BWD,
+                                              WINDOW_CORE, amg_inputs,
                                               decoder_cases, request_inputs,
+                                              train_batch, vit_flash_bwd_case,
                                               vit_flash_case,
-                                              window_attn_case)
+                                              window_attn_case,
+                                              window_core_case)
+from ullsam_tpu_torch.train import step as S
 
 
 def _region(name: str, fn, out_dir, iters: int = 3, top: int = 12) -> None:
@@ -59,7 +64,8 @@ def _region(name: str, fn, out_dir, iters: int = 3, top: int = 12) -> None:
     busy = sum(r[0] for r in rows)
     print(f"== {name}: wall {wall:.3f} ms/iter, device busy {busy:.3f} "
           f"ms/iter ({100 * busy / wall:.1f}%), idle "
-          f"{max(wall - busy, 0):.3f} ms")
+          f"{max(wall - busy, 0):.3f} ms, {sum(r[1] for r in rows)} device "
+          f"kernels and copies/iter")
     for ms, count, key in rows[:top]:
         print(f"   {ms:9.4f} ms  x{count:<4d} {key[:90]}")
     if out_dir:
@@ -87,6 +93,14 @@ def main() -> None:
         _region(f"vit_flash_attn_{dn}", lambda: FA.vit_flash_attn(*b2),
                 args.out)
 
+        _, b8, _, _ = window_core_case(dtype, gen, **WINDOW_CORE)
+        _region(f"window_attn_core_bwd_{dn}",
+                lambda: WA.window_attn_core_bwd(*b8), args.out)
+        b9, _, _ = vit_flash_bwd_case(dtype, gen, **FLASH_BWD)
+        _region(f"vit_flash_attn_bwd_{dn}",
+                lambda: FA.vit_flash_attn_bwd(*b9), args.out)
+        del b8, b9
+
         b4, kw, _, _ = decoder_cases(dtype, gen, **AMG_CHUNK)["decode_masks"]
         _region(f"decode_masks_{dn}", lambda: D.decode_masks(*b4, **kw),
                 args.out, top=20)
@@ -113,6 +127,15 @@ def main() -> None:
         chat.point_segment(model, cfg, feats, dense, coords, labels)
 
     _region("request_bfloat16", request, args.out, iters=2, top=25)
+
+    # the flagship train step (bf16 parameters and moments, remat off); the
+    # updates run at lr 0 only on the first step, so later ones move weights
+    tcfg = S.TrainConfig(total_steps=100, remat=False)
+    step = S.make_train_step(cfg, tcfg, model,
+                             S.make_trainable_optimizer(model, tcfg))
+    batch = S.batch_on(model, train_batch(cfg, np.random.default_rng(0)))
+    _region("train_step_bfloat16", lambda: step(batch), args.out, iters=2,
+            top=30)
 
 
 if __name__ == "__main__":
