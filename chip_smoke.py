@@ -33,8 +33,18 @@ sm_90a) and the CUDA toolkit. Phases, each printing what it found:
     float32 step with remat, two float32 steps and two bfloat16 steps with
     remat; step 1 with remat is held to step 1 without it in loss and grad
     norm (float32: rtol 1e-4 each; bfloat16: 1e-4 and 1e-2).
-Each path (5, 6 and 7) runs with every launch counter set to 0 just before
-it and read just after. Then the kernels JSON line (``launches``: the sum
+ 8. packed LLM fine-tuning (``--mode sft --pack --max_length 2560``): B10
+    and B11 against their plain versions at the path's shapes (phase 3's
+    checks); a small uLLSAM whose LLM has head dim 128, one f32 sft step on
+    a packed row of S = 2560 (the real B10 dispatch) on the CPU (plain
+    versions) and on the card (kernels), loss within 1e-5 relative and
+    every gradient within 1e-3 of its max; then the flagship at full width
+    in bfloat16 (the LLM, mlp1 and mlp2 train, SAM frozen, remat on), 1 warm
+    and 3 timed steps on one packed row of two samples (1124 + 1224 tokens,
+    two images), with exact launches per step, and one bfloat16
+    interactive segment_prefill with a 2560-token prompt.
+Each path (5, 6, 7 and 8) runs with every launch counter set to 0 just
+before it and read just after. Then the kernels JSON line (``launches``: the sum
 over the paths; ``launches_by_path``: each path's own count), the
 nvidia-smi line, and the final status line.
 Any failure exits non-zero before the final line. No jax, no ullsam_tpu.
@@ -294,24 +304,26 @@ TRAIN_KERNELS = (
      "ullsam_tpu/ops/pallas/flash_attention.py:812"))
 
 
-def _sdpa_ms(q, k, v, bias, backward: bool) -> float:
+def _sdpa_ms(q, k, v, bias, backward: bool, **kw) -> float:
     """The library yardstick: scaled_dot_product_attention with the bias
-    materialized; with ``backward`` the time of forward + backward (every
-    input, the bias included, requiring grad) less the forward's."""
+    (or boolean mask) materialized; with ``backward`` the time of forward +
+    backward (every float input, a float bias included, requiring grad)
+    less the forward's. ``kw`` goes to the call (``enable_gqa``)."""
     import torch
     import torch.nn.functional as F
-    ins = [t.detach().requires_grad_(backward) for t in (q, k, v, bias)]
+    ins = [t.detach().requires_grad_(backward and t.is_floating_point())
+           for t in (q, k, v, bias)]
 
     def fwd():
         return F.scaled_dot_product_attention(ins[0], ins[1], ins[2],
-                                              attn_mask=ins[3])
+                                              attn_mask=ins[3], **kw)
     t_fwd = cuda_time_ms(fwd, iters=5, warmup=1)
     if not backward:
         return t_fwd
     g = torch.randn_like(q)
 
     def fwd_bwd():
-        torch.autograd.grad(fwd(), ins, g)
+        torch.autograd.grad(fwd(), [t for t in ins if t.requires_grad], g)
     return cuda_time_ms(fwd_bwd, iters=5, warmup=1) - t_fwd
 
 
@@ -402,6 +414,92 @@ def check_train_kernels(card: str) -> dict:
             else:
                 rows[name]["float32"] = entry
         del fwd, bwd, fargs, args
+        torch.cuda.empty_cache()
+    return rows
+
+
+LLM_KERNELS = (
+    ("llm_flash_attn", "ullsam_tpu_torch/csrc/llm_flash_attn.cu",
+     "ullsam_tpu/ops/pallas/flash_attention.py:395"),
+    ("llm_flash_attn_bwd", "ullsam_tpu_torch/csrc/llm_flash_bwd.cu",
+     "ullsam_tpu/ops/pallas/flash_attention.py:622"))
+
+
+def check_llm_kernels(card: str) -> dict:
+    """B10 and B11 against their plain versions at the packed sft path's
+    shape (one row of S = 2560, 16 query heads of 128 over 8 kv heads, the
+    segment boundaries at 1124 and 2348), in bf16 and f32, every output
+    compared (lse on the rows that have a valid key). The bound counts the
+    valid same-segment pairs these segment ids give; the causal half the
+    TPU kernel's tiles cover is printed beside it. The library yardstick is
+    scaled_dot_product_attention with the boolean block-diagonal causal
+    mask materialized and enable_gqa: forward for B10, backward for B11."""
+    import torch
+    from ullsam_tpu_torch.ops.kernels import llm_flash_attention as LF
+    from ullsam_tpu_torch.tools.main_path import LLM_FLASH, llm_flash_case
+
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    rows = {name: {"name": name, "route": "cuda", "source": source,
+                   "replaces": replaces}
+            for name, source, replaces in LLM_KERNELS}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        fwd, bwd, kw, flops, nbytes = llm_flash_case(dtype, gen, **LLM_FLASH)
+        q, k, v, seg, _ = fwd
+        S = q.shape[1]
+        mask = ((seg[0][:, None] == seg[0][None, :])
+                & torch.ones(S, S, dtype=torch.bool, device="cuda").tril())
+        for name, kernel, plain, args, direction in (
+                ("llm_flash_attn", LF.llm_flash_attn,
+                 LF.llm_flash_attn_plain, fwd, "fwd"),
+                ("llm_flash_attn_bwd", LF.llm_flash_attn_bwd,
+                 LF.llm_flash_attn_bwd_plain, bwd, "bwd")):
+            got, ref = kernel(*args, **kw), plain(*args, **kw)
+            torch.cuda.synchronize()
+            if name == "llm_flash_attn":
+                live = ref[1] > LF.NEG_INF / 2
+                got = (got[0], got[1][live])
+                ref = (ref[0], ref[1][live])
+            errs = [float((a.float() - b.float()).abs().max())
+                    for a, b in zip(got, ref)]
+            rel = max(e / max(float(b.float().abs().max()), 1e-30)
+                      for e, b in zip(errs, ref))
+            ok = (rel <= tol[dtype]
+                  and all(bool(torch.isfinite(a).all()) for a in got))
+            say(f"[kernels] {name} {dname}: max_abs_err={max(errs):.3e} "
+                f"max_rel_err={rel:.3e} over {len(got)} output(s) "
+                f"(relative to max|plain|; tol {tol[dtype]:.0e}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"{name} {dname} disagrees with its plain version")
+            del got, ref
+            ms = cuda_time_ms(lambda: kernel(*args, **kw), iters=20)
+            plain_ms = cuda_time_ms(lambda: plain(*args, **kw), iters=3,
+                                    warmup=1)
+            lib_ms = _sdpa_ms(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), mask[None, None],
+                              direction == "bwd", enable_gqa=True)
+            torch.cuda.empty_cache()
+            fl = flops[direction]
+            b_ms, b_by = bound_ms(fl, nbytes[direction], dtype)
+            c_ms, _ = bound_ms(flops[direction + "_causal"],
+                               nbytes[direction], dtype)
+            say(f"[kernels] {name} {dname}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}: {fl / 1e9:.2f} GFLOP of same-segment"
+                f" pairs, {nbytes[direction] / 1e6:.1f} MB; over the causal "
+                f"half, {flops[direction + '_causal'] / 1e9:.2f} GFLOP, "
+                f"{c_ms:.4f} ms; data-sheet peaks at 700 W, card: {card}), "
+                f"{fl / ms / 1e9:.1f} TFLOP/s of the same-segment work")
+            entry = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+            if dtype == torch.bfloat16:
+                rows[name].update(entry)
+            else:
+                rows[name]["float32"] = entry
+        del fwd, bwd, args, mask
         torch.cuda.empty_cache()
     return rows
 
@@ -580,6 +678,7 @@ def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port by its name (each keeps .launches)."""
     from ullsam_tpu_torch.ops.kernels import decoder as D
     from ullsam_tpu_torch.ops.kernels import flash_attention as FA
+    from ullsam_tpu_torch.ops.kernels import llm_flash_attention as LF
     from ullsam_tpu_torch.ops.kernels import vit_block as VB
     from ullsam_tpu_torch.ops.kernels import window_attention as WA
     return {"window_attn": VB.window_attn,
@@ -587,7 +686,9 @@ def kernel_wrappers() -> dict:
             **{k.__name__: k for k in D.KERNELS},
             "window_attn_core": WA.window_attn_core,
             "window_attn_core_bwd": WA.window_attn_core_bwd,
-            "vit_flash_attn_bwd": FA.vit_flash_attn_bwd}
+            "vit_flash_attn_bwd": FA.vit_flash_attn_bwd,
+            "llm_flash_attn": LF.llm_flash_attn,
+            "llm_flash_attn_bwd": LF.llm_flash_attn_bwd}
 
 
 def launch_counts() -> dict:
@@ -635,7 +736,7 @@ def amg_small_reference_check() -> None:
     got_m, got = AutomaticMaskGenerator(cfg, gpu, **kw).generate_dense(image)
     torch.cuda.synchronize()
     after = launch_counts()
-    train_only = {name for name, _, _ in TRAIN_KERNELS}
+    train_only = {name for name, _, _ in TRAIN_KERNELS + LLM_KERNELS}
     if any(after[k] == before[k] for k in after if k not in train_only):
         fail(f"small AMG did not launch every kernel: {before} -> {after}")
     if len(got["candidate"]) != len(ref["candidate"]):
@@ -982,6 +1083,181 @@ def train_main_path() -> None:
          (1e-4, 1e-2), "bf16 remat vs no remat")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: packed LLM fine-tuning
+# ---------------------------------------------------------------------------
+
+PACKED_PER_STEP = {"llm_flash_attn": 48, "llm_flash_attn_bwd": 24,
+                   "window_attn": 8, "vit_flash_attn": 4}
+
+
+def packed_small_reference_check() -> None:
+    """One f32 sft step of a small uLLSAM whose LLM has head dim 128 (hidden
+    256, 2 heads over 1 kv head, 2 layers) on one packed row of S = 2560
+    (two samples of 1124 and 1224 tokens, two images), so the LLM dispatches
+    to B10 / B11 as the flagship does: the CPU (plain versions) against the
+    card (kernels) from the same weights, the loss within 1e-5 relative and
+    every gradient tensor as ``grad_gap`` holds it, within 1e-3 (f32 with
+    TF32 off: summation order only)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from ullsam_tpu_torch.core.config import InternLM2Config
+    from ullsam_tpu_torch.models.ullsam import fusion as F
+    from ullsam_tpu_torch.tools.main_path import (SFT_TRAIN,
+                                                  packed_train_batch)
+    from ullsam_tpu_torch.train import step as S
+
+    cfg = dataclasses.replace(small_config(), llm=InternLM2Config(
+        vocab_size=128, hidden_size=256, intermediate_size=256,
+        num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1))
+    tcfg = S.TrainConfig(total_steps=100, **SFT_TRAIN)
+    cpu = F.build_ullsam(cfg, device="cpu", seed=SEED)
+    gpu = F.ULLSAM(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    batch = packed_train_batch(cfg, np.random.default_rng(SEED))
+    res = []
+    for model in (cpu, gpu):
+        opt = S.make_trainable_optimizer(model, tcfg)
+        before = launch_counts()
+        t = time.perf_counter()
+        m = S.make_train_step(cfg, tcfg, model, opt)(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        d = {k: v - before[k] for k, v in launch_counts().items() if v -
+             before[k]}
+        grads = {n: p.grad.detach().cpu() for n, p in zip(opt.names,
+                                                          opt.params)
+                 if p.grad is not None}
+        res.append((m, grads, d, ms))
+    (m_c, g_c, d_c, ms_c), (m_g, g_g, d_g, ms_g) = res
+    want = {"llm_flash_attn": 4, "llm_flash_attn_bwd": 2, "window_attn": 2,
+            "vit_flash_attn": 1}
+    if d_c or d_g != want:
+        fail(f"small packed step launches: CPU {d_c}, card {d_g}, expected "
+             f"{want} on the card")
+    rel_loss = abs(float(m_g["loss"]) - float(m_c["loss"])) / abs(
+        float(m_c["loss"]))
+    worst, worst_name = grad_gap(g_c, g_g)
+    say(f"[packed] small uLLSAM (LLM head dim 128), one f32 sft step on a "
+        f"packed row of 2560, CPU plain vs card kernels: loss "
+        f"{float(m_c['loss']):.6f} vs {float(m_g['loss']):.6f} (rel "
+        f"{rel_loss:.2e}, tol 1e-5), grad_norm {float(m_c['grad_norm']):.6f} "
+        f"vs {float(m_g['grad_norm']):.6f}; {len(g_c)} gradient tensors, "
+        f"worst {worst:.2e} of max|grad| ({worst_name}; tol 1e-3); CPU "
+        f"{ms_c:.0f} ms, card {ms_g:.0f} ms; card launches {d_g}")
+    if rel_loss > 1e-5 or worst > 1e-3 or set(g_c) != set(g_g):
+        fail("small packed step: the card and the CPU disagree")
+
+
+def packed_main_path() -> None:
+    """SAM ViT-B + InternLM2-1.8B at full width (random weights from the
+    seed), bfloat16 parameters and moments, the sft settings (the LLM,
+    mlp1 and mlp2 train, SAM frozen, remat on): 1 warm and 3 timed steps on
+    one packed row (S = 2560: 1124 + 1224 tokens, two 1024x1024 images);
+    then one bfloat16 segment_prefill with a 2560-token prompt."""
+    import numpy as np
+    import torch
+    from ullsam_tpu_torch.core.config import (FusionConfig, internlm2_1_8b,
+                                              sam_vit_b)
+    from ullsam_tpu_torch.models.ullsam import chat
+    from ullsam_tpu_torch.models.ullsam import fusion as F
+    from ullsam_tpu_torch.tools.main_path import (SFT_TRAIN,
+                                                  packed_train_batch,
+                                                  request_inputs)
+    from ullsam_tpu_torch.train import step as S
+
+    cfg = FusionConfig(sam=sam_vit_b(), llm=internlm2_1_8b())
+    t0 = time.perf_counter()
+    model = F.build_ullsam(cfg, device="cuda", dtype=torch.bfloat16,
+                           seed=SEED)
+    tcfg = S.TrainConfig(total_steps=100, **SFT_TRAIN)
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated()
+    opt = S.make_trainable_optimizer(model, tcfg)
+    moments = torch.cuda.memory_allocated() - weights
+    trained = set(opt.names)
+    frozen = {n: p.detach().to("cpu", copy=True)
+              for n, p in model.named_parameters() if n not in trained}
+    n_train = sum(p.numel() for p in opt.params)
+    n_all = sum(p.numel() for p in model.parameters())
+    say(f"[packed] flagship bf16 sft: {n_train / 1e9:.3f} B trainable "
+        f"(LLM, mlp1, mlp2) of {n_all / 1e9:.3f} B, weights "
+        f"{weights / 2**30:.3f} GiB, moments {moments / 2**30:.3f} GiB, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    step = S.make_train_step(cfg, tcfg, model, opt)
+    batch = S.batch_on(model, packed_train_batch(
+        cfg, np.random.default_rng(SEED)))
+
+    def run(tag):
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = step(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        d = {k: v - before[k] for k, v in launch_counts().items()
+             if v - before[k]}
+        vals = {k: float(v) for k, v in m.items()}
+        if not all(np.isfinite(list(vals.values()))):
+            fail(f"packed {tag}: non-finite metrics {vals}")
+        say(f"[packed] bf16 {tag}: {ms:.1f} ms (host clock, ends in "
+            f"synchronize), loss {vals['loss']:.6f}, grad_norm "
+            f"{vals['grad_norm']:.6f}, launches {d}")
+        return ms, d
+
+    torch.cuda.reset_peak_memory_stats()
+    run("step 1 (warm, lr 0)")
+    snap = [p.detach().clone() for p in opt.params]
+    timed = [run(f"step {i}") for i in (2, 3, 4)]
+    peak = torch.cuda.max_memory_allocated()
+    for _, d in timed:
+        if d != PACKED_PER_STEP:
+            fail(f"packed launches per step {d}, expected {PACKED_PER_STEP}")
+    llm = [i for i, n in enumerate(opt.names)
+           if n.startswith("fusion.language_model.")]
+    moved = sum(not torch.equal(snap[i], opt.params[i]) for i in llm)
+    same = all(torch.equal(p.detach().cpu(), frozen[n])
+               for n, p in model.named_parameters() if n not in trained)
+    say(f"[packed] bf16: {moved} of {len(llm)} LLM tensors moved over steps "
+        f"2-4; frozen SAM weights bit-identical: {same}")
+    if not moved or not same:
+        fail("packed: the LLM weights did not move or frozen ones did")
+    lat = [t[0] for t in timed]
+    say(f"[packed] bf16 flagship sft step (SAM ViT-B + InternLM2-1.8B, one "
+        f"packed row of 2560 tokens, two images, remat on): "
+        f"{', '.join(f'{x:.1f}' for x in lat)} ms, mean "
+        f"{sum(lat) / 3:.1f} ms, {2560 * 3 / sum(lat) * 1e3:.0f} tokens/s; "
+        f"peak {peak / 2**30:.3f} GiB (max_memory_allocated), so "
+        f"{(peak - weights - moments) / 2**30:.3f} GiB above weights and "
+        f"moments")
+    del opt, step, snap, frozen, batch
+    torch.cuda.empty_cache()
+
+    n_img = cfg.num_image_token
+    pixels, ids, _, _ = request_inputs(cfg, np.random.default_rng(SEED), 1,
+                                       text_len=2560 - n_img)
+    before = launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    dense, feats = chat.segment_prefill(model, cfg, pixels, ids)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    d = {k: v - before[k] for k, v in launch_counts().items()
+         if v - before[k]}
+    g = cfg.feature_hw
+    for x in (dense, feats):
+        if (tuple(x.shape) != (1, g, g, cfg.vit_feature_dim)
+                or not bool(torch.isfinite(x).all())):
+            fail(f"long prefill: output {tuple(x.shape)} not finite or "
+                 f"wrong shape")
+    want = {"llm_flash_attn": 24, "window_attn": 8, "vit_flash_attn": 4}
+    say(f"[packed] bf16 segment_prefill, {ids.shape[1]}-token prompt: "
+        f"{ms:.1f} ms (host clock, ends in synchronize), launches {d}")
+    if d != want:
+        fail(f"long prefill launches {d}, expected {want}")
+
+
 def main() -> None:
     try:
         import torch
@@ -1020,12 +1296,15 @@ def main() -> None:
     rows = check_kernels(smi)
     rows.update(check_decoder_kernels(smi))
     rows.update(check_train_kernels(smi))
+    rows.update(check_llm_kernels(smi))
     small_reference_check()
     amg_small_reference_check()
     train_small_reference_check()
+    packed_small_reference_check()
     by_path = {}
     for path, drive in (("interactive", main_path), ("amg", amg_main_path),
-                        ("train", train_main_path)):
+                        ("train", train_main_path),
+                        ("packed", packed_main_path)):
         reset_counts()
         drive()
         by_path[path] = launch_counts()

@@ -290,3 +290,107 @@ def test_image_encoder_gradients_on_card_match_cpu(cuda, remat, want):
     assert _rel_err(xs[1].grad.cpu(), xs[0].grad) <= 1e-4
     for (name, a), b in zip(cpu.named_parameters(), gpu.parameters()):
         assert _rel_err(b.grad.cpu(), a.grad) <= 1e-4, name
+
+
+def _llm_segments(B, S, kind):
+    """(q_seg, kv_seg) [B, S] int32 on the card: "padded" left padding on
+    row 0 and a second segment on row 1 (tests/test_kernels.py's);
+    "packed" the sft path's row (1124 + 1224 tokens, 212 pad; boundaries
+    off the 64-row tiles); "empty" a query segment no key has and a run of
+    queries whose segment's keys all come later."""
+    import numpy as np
+    from ullsam_tpu_torch.tools.main_path import packed_segments
+    if kind == "packed":
+        seg = packed_segments((1124, 1224), S, B)
+        return (torch.from_numpy(seg).cuda(),) * 2
+    seg = np.ones((B, S), np.int32)
+    seg[0, :50] = 0
+    seg[-1, S * 2 // 3:] = 2
+    q_seg, kv_seg = seg.copy(), seg.copy()
+    if kind == "empty":
+        q_seg[0, 60:70] = 7
+        q_seg[-1, :40] = 3
+        kv_seg[-1, 40:80] = 3
+    return torch.from_numpy(q_seg).cuda(), torch.from_numpy(kv_seg).cuda()
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,nh,nkv,D,kind", [
+    (2, 300, 8, 4, 64, "padded"),     # the JAX kernel tests' shape
+    (1, 2560, 16, 8, 128, "packed"),  # the packed sft path
+    (2, 130, 4, 1, 128, "empty")])    # group 4, rows with no valid key
+def test_llm_flash_kernels_match_plain(cuda, dt, causal, B, S, nh, nkv, D,
+                                       kind):
+    """B10 (o, lse) and B11 (dq, dk, dv) against their plain versions; rows
+    with no valid key exactly o = 0, lse = -1e30 on both."""
+    from ullsam_tpu_torch.ops.kernels import llm_flash_attention as LF
+    dtype = getattr(torch, dt)
+    q, do = (torch.randn(B, S, nh, D, generator=cuda, device="cuda")
+             .to(dtype) for _ in range(2))
+    k, v = (torch.randn(B, S, nkv, D, generator=cuda, device="cuda")
+            .to(dtype) for _ in range(2))
+    q_seg, kv_seg = _llm_segments(B, S, kind)
+    before = (LF.llm_flash_attn.launches, LF.llm_flash_attn_bwd.launches)
+    o, lse = LF.llm_flash_attn(q, k, v, q_seg, kv_seg, nkv, causal)
+    dd = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    got = LF.llm_flash_attn_bwd(q, k, v, q_seg, kv_seg, do, lse, dd, nkv,
+                                causal)
+    torch.cuda.synchronize()
+    assert (LF.llm_flash_attn.launches, LF.llm_flash_attn_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    ro, rlse = LF.llm_flash_attn_plain(q, k, v, q_seg, kv_seg, nkv, causal)
+    live = rlse > LF.NEG_INF / 2
+    assert torch.equal(lse > LF.NEG_INF / 2, live)
+    assert bool((o.transpose(1, 2)[~live] == 0).all())
+    assert _rel_err(o, ro) <= TOL[dt]
+    assert _rel_err(lse[live], rlse[live]) <= 1e-5
+    ref = LF.llm_flash_attn_bwd_plain(q, k, v, q_seg, kv_seg, do, lse, dd,
+                                      nkv, causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == b.dtype and bool(torch.isfinite(a).all()), name
+        assert _rel_err(a, b) <= TOL[dt], (name, _rel_err(a, b))
+
+
+def test_packed_llm_gradients_on_card_match_cpu(cuda, monkeypatch):
+    """A small InternLM2 (head dim 128, GQA 2:1) over two packed rows with
+    padding, through the flash route (``LLM_FLASH_MIN`` lowered so B10 /
+    B11 run at S = 200) and with remat: the loss over valid rows and every
+    weight gradient, f32, card kernels against CPU plain versions."""
+    import numpy as np
+    from ullsam_tpu_torch.core.config import InternLM2Config
+    from ullsam_tpu_torch.models.internlm2 import model as M
+    from ullsam_tpu_torch.ops.kernels import llm_flash_attention as LF
+    from ullsam_tpu_torch.ops.layers import init_module_
+    monkeypatch.setattr(M, "LLM_FLASH_MIN", 1)
+    cfg = InternLM2Config(vocab_size=96, hidden_size=256,
+                          intermediate_size=256, num_hidden_layers=2,
+                          num_attention_heads=2, num_key_value_heads=1)
+    cpu = M.InternLM2ForCausalLM(cfg, device="cpu")
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    init_module_(cpu, gen)
+    gpu = M.InternLM2ForCausalLM(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(3, 96, (2, 200)))
+    seg = torch.zeros(2, 200, dtype=torch.long)
+    seg[0, :90], seg[0, 90:170] = 1, 2
+    seg[1, :130], seg[1, 130:] = 1, 2
+    w = torch.randn(2, 200, 96, generator=gen) * (seg != 0)[..., None]
+    before = (LF.llm_flash_attn.launches, LF.llm_flash_attn_bwd.launches)
+    losses = []
+    for m in (cpu, gpu):
+        dev = next(m.parameters()).device
+        out = M.internlm2_forward(m, cfg, input_ids=ids.to(dev),
+                                  segment_ids=seg.to(dev), remat=True)
+        loss = (out["logits"] * w.to(dev)).sum()
+        loss.backward()
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    # 2 layers: forward and the remat recompute, then one backward each
+    assert (LF.llm_flash_attn.launches - before[0],
+            LF.llm_flash_attn_bwd.launches - before[1]) == (4, 2)
+    assert abs(losses[1] - losses[0]) <= 1e-4 * abs(losses[0])
+    for (name, a), b in zip(cpu.named_parameters(), gpu.parameters()):
+        assert _rel_err(b.grad.cpu(), a.grad) <= 1e-4, name

@@ -3,17 +3,30 @@
 
 RMSNorm in f32, RoPE with linear / dynamic-NTK scaling, GQA through the
 fused ``wqkv`` packing without ``repeat_kv``, SwiGLU, f32 softmax, untied
-output head. Layers are a ``ModuleList``. Causality is a boolean [S, T]
-compare and key padding a [B, 1, T] additive term: no [S, T] f32 mask is
-ever built. Attention is plain matmul + softmax; the LLM's flash kernel
-(B10) takes over from S >= 2048 in a later slice.
+output head. Layers are a ``ModuleList``.
+
+Attention takes one of two routes, as the JAX package dispatches them
+(``model.py:315-335``):
+* below ``LLM_FLASH_MIN`` tokens, plain matmul + softmax: causality is a
+  boolean [S, T] compare, key padding a [B, 1, T] additive term and packed
+  segments a [B, S, T] equality, so no [S, T] f32 mask is ever built;
+* from ``LLM_FLASH_MIN`` on, the flash kernel B10
+  (``ops/kernels/llm_flash_attention.py``; its gradient is B11) with the
+  segment ids, or the padding mask, as both query and key segments.
+The two differ only on padding rows (id 0): the flash route lets them
+attend each other, the plain route gives their keys -1e9. Valid rows, the
+loss and every gradient agree.
+
+``segment_ids`` [B, S] (0 = padding) is the packed-rows mode: several
+documents share one row, tokens attend only within their own segment and
+RoPE positions restart at each segment.
 
 Layouts: activations [B, S, H]; q/k/v [B, S, heads, head_dim].
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -22,11 +35,14 @@ from torch.utils.checkpoint import checkpoint
 from ullsam_tpu_torch.core.config import InternLM2Config
 from ullsam_tpu_torch.core.device import resolve_device
 from ullsam_tpu_torch.ops import layers as L
+from ullsam_tpu_torch.ops.kernels.llm_flash_attention import (
+    llm_flash_attention)
 from ullsam_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 
 Tensor = torch.Tensor
 
 NEG_INF = -1e9  # additive mask value (f32 logits)
+LLM_FLASH_MIN = 2048  # sequence length from which attention runs B10
 
 
 class Attention(nn.Module):
@@ -65,13 +81,22 @@ class DecoderLayer(nn.Module):
         self.cfg = cfg
 
     def forward(self, x: Tensor, cos: Tensor, sin: Tensor,
-                kmask: Tensor) -> Tensor:
+                kmask: Optional[Tensor], seg: Optional[Tensor] = None,
+                flash: bool = False) -> Tensor:
+        """``flash``: attention through B10 with ``seg`` [B, S] int32 as
+        both segment ids (``kmask`` unused); else the plain route, with
+        ``seg`` (packed rows) or None."""
         cfg = self.cfg
         B, S, _ = x.shape
         h = self.attention_norm(x)
         q, k, v = split_wqkv(self.attention.wqkv(h), cfg)
         q, k = apply_rope(q, k, cos, sin)
-        attn = gqa_attention(q, k, v, kmask, cfg, causal=True)
+        if flash:
+            attn = llm_flash_attention(q, k, v, seg, seg,
+                                       cfg.num_key_value_heads, causal=True)
+        else:
+            attn = gqa_attention(q, k, v, kmask, cfg, causal=True,
+                                 seg=None if seg is None else (seg, seg))
         x = x + self.attention.wo(attn.reshape(B, S, cfg.hidden_size))
         return x + self.feed_forward(self.ffn_norm(x))
 
@@ -117,12 +142,14 @@ def split_wqkv(qkv: Tensor, cfg: InternLM2Config):
 
 
 def gqa_attention(q: Tensor, k: Tensor, v: Tensor, kmask: Optional[Tensor],
-                  cfg: InternLM2Config, *, causal: bool = False) -> Tensor:
+                  cfg: InternLM2Config, *, causal: bool = False,
+                  seg: Optional[Tuple[Tensor, Tensor]] = None) -> Tensor:
     """Grouped-query attention without repeat_kv.
 
     q [B, S, nh, hd]; k, v [B, T, n_kv, hd]; kmask additive [B, 1, T] or
-    None; causal applies q_pos >= kv_pos (S == T). Logits and softmax in
-    f32; probabilities cast to v.dtype. Returns [B, S, nh, hd]."""
+    None; causal applies q_pos >= kv_pos (S == T); seg = (seg_q [B, S],
+    seg_k [B, T]) confines attention to equal packed segments. Logits and
+    softmax in f32; probabilities cast to v.dtype. Returns [B, S, nh, hd]."""
     B, S, nh, hd = q.shape
     T = k.shape[1]
     nkv, g = cfg.num_key_value_heads, cfg.num_kv_groups
@@ -137,6 +164,9 @@ def gqa_attention(q: Tensor, k: Tensor, v: Tensor, kmask: Optional[Tensor],
         qpos = torch.arange(S, device=q.device)[:, None]
         kpos = torch.arange(T, device=q.device)[None, :]
         logits = logits.masked_fill(qpos < kpos, NEG_INF)
+    if seg is not None:
+        same = seg[0][:, :, None] == seg[1][:, None, :]      # [B, S, T]
+        logits = logits.masked_fill(~same[:, None, None], NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.matmul(probs.reshape(B, nkv, g * S, T),
                        v.permute(0, 2, 1, 3))           # [B, nkv, g*S, hd]
@@ -144,21 +174,41 @@ def gqa_attention(q: Tensor, k: Tensor, v: Tensor, kmask: Optional[Tensor],
     return out.reshape(B, S, nh, hd).to(q.dtype)
 
 
+def segment_positions(segment_ids: Tensor) -> Tensor:
+    """RoPE positions that restart at each packed segment: index - (index
+    of its segment's first token), 0 on padding (id 0)."""
+    B, S = segment_ids.shape
+    same = segment_ids[:, 1:] == segment_ids[:, :-1]
+    run = torch.cat([torch.zeros_like(same[:, :1]), same], dim=-1).long()
+    idx = torch.arange(S, device=segment_ids.device)[None]
+    start = torch.cummax(idx * (1 - run), dim=-1).values
+    return (idx - start) * (segment_ids != 0).long()
+
+
 def internlm2_forward(lm: InternLM2ForCausalLM, cfg: InternLM2Config,
                       input_ids: Optional[Tensor] = None,
                       inputs_embeds: Optional[Tensor] = None,
                       attention_mask: Optional[Tensor] = None,
                       position_ids: Optional[Tensor] = None,
+                      segment_ids: Optional[Tensor] = None,
                       output_hidden_states: bool = False,
                       remat: bool = False) -> dict:
     """Full-sequence forward -> {'logits' [B, S, V], 'last_hidden' [B, S, H]
     (post final norm), and with output_hidden_states 'hidden_states'
     [L, B, S, H], the input of each layer}. Differentiable in the
     activations whether or not the weights are frozen; ``remat`` checkpoints
-    each layer (``torch.utils.checkpoint``)."""
+    each layer (``torch.utils.checkpoint``; under it the flash route runs B10
+    again in the backward). ``segment_ids`` [B, S] (0 = padding) packs
+    several documents into a row: it replaces ``attention_mask`` by
+    ``segment_ids != 0`` and, unless ``position_ids`` are given, restarts
+    the positions at each segment."""
     x = inputs_embeds if inputs_embeds is not None else embed_tokens(
         lm, input_ids)
     B, S, _ = x.shape
+    if segment_ids is not None:
+        attention_mask = (segment_ids != 0).int()
+        if position_ids is None:
+            position_ids = segment_positions(segment_ids)
     if attention_mask is None:
         attention_mask = torch.ones((B, S), dtype=torch.int32,
                                     device=x.device)
@@ -166,15 +216,24 @@ def internlm2_forward(lm: InternLM2ForCausalLM, cfg: InternLM2Config,
         # position = cumsum of the padding mask - 1, clamped at 0
         position_ids = (torch.cumsum(attention_mask, dim=-1) - 1).clamp_min(0)
     cos, sin = rope_cos_sin(cfg, position_ids, ntk_seq_len=S)
-    kmask = torch.where(attention_mask.bool(), 0.0, NEG_INF).float()[:, None]
+    flash = S >= LLM_FLASH_MIN
+    seg = (segment_ids if segment_ids is not None else attention_mask)
+    seg = seg.to(torch.int32).contiguous()
+    kmask = None
+    if not flash:
+        kmask = torch.where(attention_mask.bool(), 0.0,
+                            NEG_INF).float()[:, None]
+        if segment_ids is None:
+            seg = None
     hidden = []
     for layer in lm.model.layers:
         if output_hidden_states:
             hidden.append(x)
         if remat:
-            x = checkpoint(layer, x, cos, sin, kmask, use_reentrant=False)
+            x = checkpoint(layer, x, cos, sin, kmask, seg, flash,
+                           use_reentrant=False)
         else:
-            x = layer(x, cos, sin, kmask)
+            x = layer(x, cos, sin, kmask, seg, flash)
     last_hidden = lm.model.norm(x)
     out = {"logits": lm.output(last_hidden), "last_hidden": last_hidden}
     if output_hidden_states:

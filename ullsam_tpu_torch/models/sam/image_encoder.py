@@ -19,7 +19,8 @@ and differentiates that by B8; B2's backward is B9.
 (``torch.utils.checkpoint``) with the JAX package's routing under remat
 (``image_encoder.py:376-403``): windowed blocks run B1's plain version
 ``window_attn_plain`` under autograd where the JAX package runs its XLA
-block, global blocks still run B2 / B9. The plain version keeps B1's
+block, global blocks still run B2 / B9. Where no gradient flows through
+the tower, remat has nothing to save and the tower runs without it. The plain version keeps B1's
 rounding points, so in bfloat16 it rounds where B1 does rather than where
 the JAX XLA block does; in float32 the two are the same function.
 """
@@ -205,6 +206,12 @@ class ImageEncoder(nn.Module):
 
     def forward(self, x: Tensor, remat: bool = False) -> Tensor:
         cfg = self.cfg
+        # remat trades a recompute for the activations a backward would
+        # keep; a tower that carries no gradient (frozen, as in the
+        # language-only training modes, or under no_grad) keeps none, so it
+        # runs as without remat, through B1 and B2
+        remat = remat and torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters()))
         x = self.patch_embed_apply(x)
         if cfg.use_abs_pos:
             x = x + self.pos_embed.to(x.dtype)

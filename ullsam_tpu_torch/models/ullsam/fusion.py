@@ -171,6 +171,7 @@ def fusion_forward(model: ULLSAM, cfg: FusionConfig, pixel_values: Tensor,
                    input_ids: Tensor,
                    attention_mask: Optional[Tensor] = None,
                    labels: Optional[Tensor] = None,
+                   segment_ids: Optional[Tensor] = None,
                    output_dense_prompt: bool = False,
                    stop_vision_gradient: bool = True, remat: bool = False,
                    remat_llm: Optional[bool] = None) -> dict:
@@ -179,7 +180,17 @@ def fusion_forward(model: ULLSAM, cfg: FusionConfig, pixel_values: Tensor,
     shift, ignore -100) when labels are given, 'dense_prompt'
     [B, 64, 64, 256] when asked}. Under grad: ``stop_vision_gradient``
     keeps gradients out of the vision tower, ``remat`` checkpoints its
-    blocks and ``remat_llm`` (default: ``remat``) the LLM's layers."""
+    blocks and ``remat_llm`` (default: ``remat``) the LLM's layers.
+
+    ``segment_ids`` [B, N] (0 = padding) is the packed-rows mode: several
+    samples share a row, attention stays within each segment, RoPE restarts
+    per segment and the CE shift is masked at segment boundaries.
+    ``pixel_values`` then carries all the packed images in token-stream
+    order (``scatter_image_embeds`` consumes them so); the dense prompt
+    needs one image per row and is not available."""
+    if segment_ids is not None and output_dense_prompt:
+        raise ValueError("fusion_forward: the dense prompt needs one image "
+                         "per row; it is not available for packed rows")
     vit_tokens, sam_feats = extract_feature(
         model, cfg, pixel_values, stop_vision_gradient=stop_vision_gradient,
         remat=remat)
@@ -188,12 +199,15 @@ def fusion_forward(model: ULLSAM, cfg: FusionConfig, pixel_values: Tensor,
                                   vit_tokens, cfg.img_context_token_id)
     out = LLM.internlm2_forward(
         lm, cfg.llm, inputs_embeds=embeds, attention_mask=attention_mask,
+        segment_ids=segment_ids,
         remat=remat if remat_llm is None else remat_llm)
     result = {"logits": out["logits"], "image_embeddings": sam_feats}
     if labels is not None:
         logits = out["logits"][:, :-1].float()
         targets = labels[:, 1:]
         valid = targets != -100
+        if segment_ids is not None:  # never predict across a boundary
+            valid &= segment_ids[:, :-1] == segment_ids[:, 1:]
         safe = torch.where(valid, targets, 0).long()
         logp = torch.log_softmax(logits, dim=-1)
         nll = -logp.gather(-1, safe[..., None])[..., 0]

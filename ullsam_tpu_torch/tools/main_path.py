@@ -6,6 +6,9 @@ Each kernel case returns (args, kwargs, flops, bytes): inputs drawn from
 ``gen`` on its device at the SAM ViT-B + InternLM2-1.8B main-path shape,
 the operations the call does, and the bytes it must move (each input read
 once, each output written once).
+
+The packed LLM fine-tuning path (``--mode sft --pack``) has its own batch,
+``packed_train_batch``, and kernel cases, ``llm_flash_case`` (B10, B11).
 """
 
 from __future__ import annotations
@@ -266,3 +269,105 @@ def decoder_outputs(name: str, out):
     if name == "two_way_transformer":
         return out, None, None
     return (out,), None, out
+
+
+# ---------------------------------------------------------------------------
+# packed LLM fine-tuning (B10, B11)
+# ---------------------------------------------------------------------------
+
+# one packed row of the sft path: two samples of 1124 and 1224 tokens (each
+# a 1024-token image run plus text) and 212 pad tokens, S = 2560; the
+# segment boundaries fall mid-tile, at 1124 and 2348
+PACKED_ROW = dict(lengths=(1124, 1224), S=2560)
+# B10 / B11 there: InternLM2-1.8B's 16 query heads of 128 over 8 kv heads
+LLM_FLASH = dict(B=1, S=2560, nh=16, nkv=8, D=128)
+# the TrainConfig fields the JAX CLI sets for --mode sft (cli.py:180-195):
+# language CE only, the LLM, mlp1 and mlp2 train, SAM frozen; remat stays
+# at its default, on
+SFT_TRAIN = dict(seg_weight=0.0, llm_weight=1.0, use_llm_hidden_states=False,
+                 trainable_patterns=(r"llm\..*", r"mlp1\..*", r"mlp2\..*"))
+
+
+def packed_train_batch(cfg: FusionConfig, rng: np.random.Generator,
+                       lengths=PACKED_ROW["lengths"],
+                       S: int = PACKED_ROW["S"]):
+    """One packed row of ``len(lengths)`` samples, as
+    ``data.packing.pack_examples`` builds it: sample i is a start token,
+    the image's ``num_image_token`` <IMG_CONTEXT> run and text up to
+    ``lengths[i]`` tokens (synthetic ids, no tokenizer), segment id i + 1;
+    pad (id 0) to S. Labels are the ids, -100 on image and pad tokens;
+    pixel_values [len(lengths), img, img, 3] in [0, 255)."""
+    n_img, ctx = cfg.num_image_token, cfg.img_context_token_id
+    seg = packed_segments(lengths, S).astype(np.int64)
+    ids = np.zeros((1, S), np.int64)
+    off = 0
+    for n in lengths:
+        row = rng.integers(3, min(cfg.llm.vocab_size, ctx), n)
+        row[0] = 1
+        row[1:1 + n_img] = ctx
+        ids[0, off:off + n] = row
+        off += n
+    labels = np.where((ids == ctx) | (seg == 0), -100, ids)
+    img = cfg.sam.vit.img_size
+    return {"pixel_values": (rng.random((len(lengths), img, img, 3))
+                             * 255).astype(np.float32),
+            "input_ids": ids, "segment_ids": seg, "labels": labels}
+
+
+def packed_segments(lengths=PACKED_ROW["lengths"], S: int = PACKED_ROW["S"],
+                    B: int = 1) -> np.ndarray:
+    """Segment ids [B, S] of a packed row: 1, 2, ... per sample, 0 after."""
+    if sum(lengths) > S:
+        raise ValueError(f"samples of {sum(lengths)} tokens overflow S={S}")
+    seg = np.zeros((B, S), np.int32)
+    off = 0
+    for i, n in enumerate(lengths):
+        seg[:, off:off + n] = i + 1
+        off += n
+    return seg
+
+
+def llm_flash_flops(seg: np.ndarray, nh: int, D: int, causal: bool = True):
+    """{"fwd", "bwd"} operations (2 per multiply-add) that B10 and B11 need
+    for these segment ids: 2 products (q.k, p.v) of 2 D per valid (query,
+    key) pair and head forward, 5 backward (s, dp, dv, dq, dk); a pair is
+    valid when the segments match (and key <= query when causal). Also
+    {"fwd_causal", "bwd_causal"}: the same over every pair at or below the
+    diagonal, the causal half the TPU kernel's tiles cover."""
+    pairs = 0
+    S = seg.shape[-1]
+    for row in seg:
+        _, counts = np.unique(row, return_counts=True)
+        pairs += int(sum(c * (c + 1) // 2 if causal else c * c
+                         for c in counts))
+    half = seg.shape[0] * (S * S / 2 if causal else S * S)
+    return {"fwd": 4 * D * nh * pairs, "bwd": 10 * D * nh * pairs,
+            "fwd_causal": 4 * D * nh * half, "bwd_causal": 10 * D * nh * half}
+
+
+def llm_flash_case(dtype: torch.dtype, gen: torch.Generator, B: int = 1,
+                   S: int = 2560, nh: int = 16, nkv: int = 8, D: int = 128,
+                   lengths=PACKED_ROW["lengths"]):
+    """B10 and B11 inputs at the packed sft path's shape: q [B, S, nh, D],
+    k, v [B, S, nkv, D], segment ids of the packed row, and for B11 do plus
+    the forward's lse and dd = sum(do * o) (made by B10, or by its plain
+    version on the CPU). Returns (fwd args, bwd args, kwargs, flops dict of
+    ``llm_flash_flops``, bytes dict {"fwd", "bwd"})."""
+    from ullsam_tpu_torch.ops.kernels import llm_flash_attention as LF
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device=gen.device).to(dtype)
+
+    seg_np = packed_segments(lengths, S, B)
+    seg = torch.from_numpy(seg_np).to(gen.device)
+    q, k, v, do = r(B, S, nh, D), r(B, S, nkv, D), r(B, S, nkv, D), \
+        r(B, S, nh, D)
+    kw = dict(num_kv_heads=nkv, causal=True)
+    o, lse = LF.llm_flash_attn(q, k, v, seg, seg, **kw)
+    dd = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    eb = q.element_size()
+    qb, kvb, rows = q.numel() * eb, k.numel() * eb, B * nh * S * 4
+    nbytes = {"fwd": 2 * qb + 2 * kvb + 2 * seg.numel() * 4 + rows,
+              "bwd": 3 * qb + 4 * kvb + 2 * seg.numel() * 4 + 2 * rows}
+    return ((q, k, v, seg, seg), (q, k, v, seg, seg, do, lse, dd), kw,
+            llm_flash_flops(seg_np, nh, D), nbytes)

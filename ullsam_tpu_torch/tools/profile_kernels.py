@@ -1,7 +1,8 @@
 """Where the time goes on the card: torch.profiler over the port's kernels
 at the main path's shapes, over one full segmentation request, one
-automatic-mask-generation image and one flagship train step (inputs from
-``tools/main_path.py``, as ``chip_smoke.py`` checks and times them).
+automatic-mask-generation image, one flagship train step and one packed
+sft step (inputs from ``tools/main_path.py``, as ``chip_smoke.py`` checks
+and times them).
 
     python -m ullsam_tpu_torch.tools.profile_kernels [--out DIR]
 
@@ -31,12 +32,17 @@ from ullsam_tpu_torch.models.ullsam import fusion as F
 from ullsam_tpu_torch.ops import layers as L
 from ullsam_tpu_torch.ops.kernels import decoder as D
 from ullsam_tpu_torch.ops.kernels import flash_attention as FA
+from ullsam_tpu_torch.ops.kernels import llm_flash_attention as LF
 from ullsam_tpu_torch.ops.kernels import vit_block as VB
 from ullsam_tpu_torch.ops.kernels import window_attention as WA
 from ullsam_tpu_torch.tools.main_path import (AMG_CHUNK, FLASH_BWD,
-                                              WINDOW_CORE, amg_inputs,
-                                              decoder_cases, request_inputs,
-                                              train_batch, vit_flash_bwd_case,
+                                              LLM_FLASH, SFT_TRAIN,
+                                              WINDOW_CORE,
+                                              amg_inputs, decoder_cases,
+                                              llm_flash_case,
+                                              packed_train_batch,
+                                              request_inputs, train_batch,
+                                              vit_flash_bwd_case,
                                               vit_flash_case,
                                               window_attn_case,
                                               window_core_case)
@@ -100,6 +106,12 @@ def main() -> None:
         _region(f"vit_flash_attn_bwd_{dn}",
                 lambda: FA.vit_flash_attn_bwd(*b9), args.out)
         del b8, b9
+        b10, b11, kw, _, _ = llm_flash_case(dtype, gen, **LLM_FLASH)
+        _region(f"llm_flash_attn_{dn}", lambda: LF.llm_flash_attn(*b10, **kw),
+                args.out)
+        _region(f"llm_flash_attn_bwd_{dn}",
+                lambda: LF.llm_flash_attn_bwd(*b11, **kw), args.out)
+        del b10, b11
 
         b4, kw, _, _ = decoder_cases(dtype, gen, **AMG_CHUNK)["decode_masks"]
         _region(f"decode_masks_{dn}", lambda: D.decode_masks(*b4, **kw),
@@ -136,6 +148,17 @@ def main() -> None:
     batch = S.batch_on(model, train_batch(cfg, np.random.default_rng(0)))
     _region("train_step_bfloat16", lambda: step(batch), args.out, iters=2,
             top=30)
+    del step, batch
+
+    # the packed sft step (--mode sft --pack, S = 2560): the LLM, mlp1 and
+    # mlp2 train with bf16 moments, SAM frozen, remat on
+    tcfg = S.TrainConfig(total_steps=100, **SFT_TRAIN)
+    step = S.make_train_step(cfg, tcfg, model,
+                             S.make_trainable_optimizer(model, tcfg))
+    batch = S.batch_on(model, packed_train_batch(cfg,
+                                                 np.random.default_rng(0)))
+    _region("packed_sft_step_bfloat16", lambda: step(batch), args.out,
+            iters=2, top=30)
 
 
 if __name__ == "__main__":

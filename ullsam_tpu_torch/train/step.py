@@ -192,7 +192,10 @@ def seg_loss_fn(model: F.ULLSAM, cfg: FusionConfig, tcfg: TrainConfig,
     """Loss of one batch: pixel_values [B, S, S, 3], input_ids [B, N],
     attention_mask [B, N], labels [B, N] (optional), point_coords
     [B, I, P, 2], point_labels [B, I, P], masks [B, I, Hm, Wm],
-    instance_valid [B, I]. Returns (total, metrics)."""
+    instance_valid [B, I]. Returns (total, metrics). A packed batch
+    (``data/packing.py``; the language-only modes) carries segment_ids
+    [B, N] in place of attention_mask and all its images in pixel_values
+    [n_images, S, S, 3]."""
     batch = batch_on(model, batch)
     if tcfg.instance_matching != "indexed":
         raise NotImplementedError(
@@ -202,7 +205,7 @@ def seg_loss_fn(model: F.ULLSAM, cfg: FusionConfig, tcfg: TrainConfig,
     out = F.fusion_forward(
         model, cfg, batch["pixel_values"], batch["input_ids"],
         attention_mask=batch.get("attention_mask"),
-        labels=batch.get("labels"),
+        labels=batch.get("labels"), segment_ids=batch.get("segment_ids"),
         output_dense_prompt=tcfg.use_llm_hidden_states and seg,
         stop_vision_gradient=False, remat=tcfg.remat,
         remat_llm=(tcfg.remat_llm if tcfg.remat_llm is not None
