@@ -43,8 +43,21 @@ sm_90a) and the CUDA toolkit. Phases, each printing what it found:
     and 3 timed steps on one packed row of two samples (1124 + 1224 tokens,
     two images), with exact launches per step, and one bfloat16
     interactive segment_prefill with a 2560-token prompt.
-Each path (5, 6, 7 and 8) runs with every launch counter set to 0 just
-before it and read just after. Then the kernels JSON line (``launches``: the sum
+ 9. caption generation with the int8 weight-only LLM: B12 against its plain
+    version at every shape of InternLM2-1.8B's linears on the caption path:
+    decode at batch 1 and 8, prefill of the 1152-token prompt at batch 1
+    and 8 (M = 1152, 9216), bf16 and f32 (phase 3's checks; decode with the
+    weight cold in L2); a small uLLSAM with its LLM quantized, 16 greedy
+    tokens of ``caption_ids`` with an image on the CPU (plain versions) and
+    on the card (kernels), tokens identical and each step's logits within
+    1e-4 of their max; then the flagship at full width in bfloat16
+    (``caption_ids``, 256 new tokens, 1024 image + 64 text tokens padded to
+    1152): 1 warm + 1 timed request and a left-padded batch of 8, then with
+    ``quantize_llm_int8``, 1 warm + 3 timed and a batch of 8, each with
+    prefill and per-step decode times, tokens/s, peak memory and exact
+    launches (int8: B12 121 a decode step and in the prefill; bf16: none).
+Each path (5-9) runs with every launch counter set to 0 just before it and
+read just after. Then the kernels JSON line (``launches``: the sum
 over the paths; ``launches_by_path``: each path's own count), the
 nvidia-smi line, and the final status line.
 Any failure exits non-zero before the final line. No jax, no ullsam_tpu.
@@ -678,6 +691,7 @@ def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port by its name (each keeps .launches)."""
     from ullsam_tpu_torch.ops.kernels import decoder as D
     from ullsam_tpu_torch.ops.kernels import flash_attention as FA
+    from ullsam_tpu_torch.ops.kernels import int8_matmul as Q
     from ullsam_tpu_torch.ops.kernels import llm_flash_attention as LF
     from ullsam_tpu_torch.ops.kernels import vit_block as VB
     from ullsam_tpu_torch.ops.kernels import window_attention as WA
@@ -688,7 +702,8 @@ def kernel_wrappers() -> dict:
             "window_attn_core_bwd": WA.window_attn_core_bwd,
             "vit_flash_attn_bwd": FA.vit_flash_attn_bwd,
             "llm_flash_attn": LF.llm_flash_attn,
-            "llm_flash_attn_bwd": LF.llm_flash_attn_bwd}
+            "llm_flash_attn_bwd": LF.llm_flash_attn_bwd,
+            "w8a16_matmul": Q.w8a16_matmul}
 
 
 def launch_counts() -> dict:
@@ -736,7 +751,8 @@ def amg_small_reference_check() -> None:
     got_m, got = AutomaticMaskGenerator(cfg, gpu, **kw).generate_dense(image)
     torch.cuda.synchronize()
     after = launch_counts()
-    train_only = {name for name, _, _ in TRAIN_KERNELS + LLM_KERNELS}
+    train_only = {name for name, _, _ in TRAIN_KERNELS + LLM_KERNELS
+                  + (W8A16_KERNEL,)}
     if any(after[k] == before[k] for k in after if k not in train_only):
         fail(f"small AMG did not launch every kernel: {before} -> {after}")
     if len(got["candidate"]) != len(ref["candidate"]):
@@ -1258,6 +1274,298 @@ def packed_main_path() -> None:
         fail(f"long prefill launches {d}, expected {want}")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: caption generation with the int8 weight-only LLM
+# ---------------------------------------------------------------------------
+
+W8A16_KERNEL = ("w8a16_matmul", "ullsam_tpu_torch/csrc/w8a16_matmul.cu",
+                "ullsam_tpu/ops/pallas/int8_matmul.py:29")
+# B12 launches of one decode step of InternLM2-1.8B, and of one prefill:
+# wqkv, wo, w1, w3, w2 in each of 24 layers, and the vocab head
+B12_PER_PASS = 5 * 24 + 1
+
+
+def _copies(t, min_bytes: int = 128 << 20) -> list:
+    """``t`` and clones of it, together at least ``min_bytes``: a launch
+    that cycles through them finds its weight outside the 50 MB L2, as each
+    decode step does (it streams 1.7 GB of weights between two uses of
+    one)."""
+    n = max(1, -(-min_bytes // (t.numel() * t.element_size())))
+    return [t] + [t.clone() for _ in range(n - 1)]
+
+
+def _graph_ms(call, weights: list, reps: int = 3) -> float:
+    """Device time of one ``call(w)``, w cycling through ``weights``: the
+    launches are captured in a CUDA graph and replayed, so the time is the
+    card's and not the host's (a decode-size launch takes the host longer
+    to issue than the card to run)."""
+    import torch
+    n = max(20, 2 * len(weights))
+    for w in weights[:2]:
+        call(w)  # warm-up: build, caches
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            call(weights[i % len(weights)])
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * n)
+
+
+def check_w8a16_kernel(card: str) -> dict:
+    """B12 against its plain version on the card at every case of
+    ``tools/main_path.w8a16_cases`` (each of InternLM2-1.8B's linears at
+    the decode batches 1 and 8 and at the prefill of the caption prompt,
+    M = 1152 and 9216: the head's last N tile is ragged there), x in bf16
+    and f32: the f32 output within 1e-5 of max|plain| (int8 -> x's type is
+    exact, only the summation order differs), and with a bias and the cast
+    to x's type (the main path's variant) within one step of that type at
+    max|plain| (bf16: 2^(e - 8) for max|plain| in [2^(e-1), 2^e), up to 2^-7
+    of it: two f32 sums that differ in their last bits can round to
+    neighbouring values; f32: 1e-5 of max|plain|). Decode kernel and library times are device times (``_graph_ms``) with a
+    cold L2 (the weight cycles through copies); a prefill launch runs for
+    milliseconds, so CUDA events around 3 calls time it. The library
+    yardstick is F.linear on the dequantized weight in x's type (2 bytes a
+    weight in bf16): no PyTorch call computes W8A16 with f32 scales, and
+    the port never calls it."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+    from ullsam_tpu_torch.ops.kernels import int8_matmul as Q
+    from ullsam_tpu_torch.tools.main_path import (W8A16_DECODE_M, w8a16_case,
+                                                  w8a16_cases)
+
+    name, source, replaces = W8A16_KERNEL
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "cases": []}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        for M, N, K in w8a16_cases():
+            (x, q, s), _, flops, nbytes = w8a16_case(dtype, gen, M, N, K)
+            bias = torch.randn(N, generator=gen, device="cuda")
+            got, ref = Q.w8a16_matmul(x, q, s), Q.w8a16_matmul_plain(x, q, s)
+            got_c = Q.w8a16_matmul(x, q, s, bias, out_dtype=dtype)
+            ref_c = Q.w8a16_matmul_plain(x, q, s, bias, dtype)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            rel = err / float(ref.abs().max())
+            top = float(ref_c.float().abs().max())
+            rel_c = float((got_c.float() - ref_c.float()).abs().max()) / top
+            step = (2.0 ** (math.frexp(top)[1] - 8) / top
+                    if dtype == torch.bfloat16 else 1e-5)
+            ok = (bool(torch.isfinite(got).all()) and rel <= 1e-5
+                  and rel_c <= step)
+            say(f"[kernels] {name} {dname} M={M} N={N} K={K}: max_abs_err="
+                f"{err:.3e} max_rel_err={rel:.3e} (f32 output, relative to "
+                f"max|plain|; tol 1e-05), with bias and cast to {dname} "
+                f"{rel_c:.3e} (tol {step:.3e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"{name} {dname} M={M} N={N} K={K} disagrees with its "
+                     f"plain version")
+            del got, ref, got_c, ref_c
+            w_lib = (q.to(dtype) * s[:, None]).to(dtype)
+            if M in W8A16_DECODE_M:
+                ms = _graph_ms(lambda w: Q.w8a16_matmul(x, w, s), _copies(q))
+                lib_ms = _graph_ms(lambda w: F.linear(x, w), _copies(w_lib))
+            else:
+                ms = cuda_time_ms(lambda: Q.w8a16_matmul(x, q, s), iters=3,
+                                  warmup=1)
+                lib_ms = cuda_time_ms(lambda: F.linear(x, w_lib), iters=3,
+                                      warmup=1)
+            plain_ms = cuda_time_ms(lambda: Q.w8a16_matmul_plain(x, q, s),
+                                    iters=3, warmup=1)
+            del w_lib
+            torch.cuda.empty_cache()
+            b_ms, b_by = bound_ms(flops, nbytes, dtype)
+            say(f"[kernels] {name} {dname} M={M} N={N} K={K}: kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (F.linear "
+                f"on the dequantized {dname} weight) {lib_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}: {flops / 1e9:.3f} GFLOP, "
+                f"{nbytes / 1e6:.2f} MB; data-sheet peaks at 700 W, card: "
+                f"{card}), {nbytes / ms / 1e6:.1f} GB/s, "
+                f"{flops / ms / 1e9:.1f} TFLOP/s")
+            entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+            row["cases"].append({"dtype": dname, "M": M, "N": N, "K": K,
+                                 **entry})
+            # the row's own numbers: w1, a layer's largest linear, at batch 1
+            if (M, N, K) == (1, 8192, 2048):
+                if dtype == torch.bfloat16:
+                    row.update(entry)
+                else:
+                    row["float32"] = entry
+            del x, q, s, bias
+        torch.cuda.empty_cache()
+    return {name: row}
+
+
+def caption_small_reference_check() -> None:
+    """The small uLLSAM (LLM hidden 64, MLP 128, 2 layers; ViT hd 64) with
+    an image, its LLM quantized on each device, f32: ``caption_ids`` of two
+    left-padded prompts, 16 greedy tokens, on the CPU (plain versions) and
+    on the card (B12 in every int8 linear, B1 and B2 in the encoder): the
+    int8 weights and the tokens identical, each step's logits within 1e-4
+    of their max."""
+    import numpy as np
+    import torch
+    from ullsam_tpu_torch.models.internlm2.generate import GenerationConfig
+    from ullsam_tpu_torch.models.internlm2.quant import quantize_llm_int8
+    from ullsam_tpu_torch.models.ullsam import chat
+    from ullsam_tpu_torch.models.ullsam import fusion as F
+
+    cfg = small_config()
+    cpu = F.build_ullsam(cfg, device="cpu", seed=SEED)
+    gpu = F.ULLSAM(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    for m in (cpu, gpu):
+        quantize_llm_int8(m.fusion.language_model)
+    same_q = all(torch.equal(a, b.cpu()) for (n, a), b in zip(
+        cpu.state_dict().items(), gpu.state_dict().values())
+        if n.endswith("qweight"))
+    rng = np.random.default_rng(SEED)
+    rows = [[1, 11] + [cfg.img_context_token_id] * cfg.num_image_token
+            + rng.integers(3, 100, n).tolist() for n in (6, 13)]
+    ids, mask = chat.left_pad(rows, cfg.llm.pad_token_id)
+    pixels = rng.standard_normal((1, 256, 256, 3)).astype(np.float32)
+    gen = GenerationConfig(max_new_tokens=16, eos_token_id=-1)
+    res = []
+    for m in (cpu, gpu):
+        logits = []
+        before = launch_counts()
+        toks, lens = chat.caption_ids(
+            m, cfg, pixels, ids, mask, gen,
+            step_hook=lambda i, lg: logits.append(lg.float().cpu()))
+        torch.cuda.synchronize()
+        d = {k: v - before[k] for k, v in launch_counts().items()
+             if v - before[k]}
+        res.append((toks.cpu(), logits, d))
+    (t_c, l_c, d_c), (t_g, l_g, d_g) = res
+    want = {"w8a16_matmul": 11 * 16, "window_attn": 2, "vit_flash_attn": 1}
+    worst = max(float((b - a).abs().max() / a.abs().max())
+                for a, b in zip(l_c, l_g))
+    say(f"[caption] small uLLSAM, int8 LLM, f32, 2 prompts of {ids.shape[1]} "
+        f"tokens, 16 greedy tokens, CPU plain vs card kernels: int8 weights "
+        f"equal {same_q}, tokens equal {torch.equal(t_c, t_g)}, logits worst "
+        f"{worst:.2e} of max (tol 1e-4); card launches {d_g}")
+    if d_c or d_g != want:
+        fail(f"small caption launches: CPU {d_c}, card {d_g}, expected "
+             f"{want} on the card")
+    if not same_q or not torch.equal(t_c, t_g) or worst > 1e-4:
+        fail("small caption: the card and the CPU disagree")
+
+
+def caption_main_path() -> None:
+    """SAM ViT-B + InternLM2-1.8B at full width (random bf16 weights from
+    the seed), ``caption_ids`` with ``GenerationConfig(max_new_tokens=256)``
+    on one 1024x1024 image and 1024 <IMG_CONTEXT> + 64 text tokens
+    (left-padded to 1152): bf16, 1 warm + 1 timed request at batch 1 and
+    one left-padded batch-8 request; then the LLM quantized in place
+    (``quantize_llm_int8``), 1 warm + 3 timed requests at batch 1 and one
+    batch-8 request. Exact launches: int8, B12 121 a decode step and 121 in
+    the prefill (with the encoder's B1 8 and B2 4, once a request); bf16,
+    no B12."""
+    import numpy as np
+    import torch
+    from ullsam_tpu_torch.core.config import (FusionConfig, internlm2_1_8b,
+                                              sam_vit_b)
+    from ullsam_tpu_torch.models.internlm2.generate import GenerationConfig
+    from ullsam_tpu_torch.models.internlm2.quant import quantize_llm_int8
+    from ullsam_tpu_torch.models.ullsam import chat
+    from ullsam_tpu_torch.models.ullsam import fusion as F
+    from ullsam_tpu_torch.tools.main_path import (CAPTION_BATCH_TEXT,
+                                                  caption_inputs)
+
+    cfg = FusionConfig(sam=sam_vit_b(), llm=internlm2_1_8b())
+    t0 = time.perf_counter()
+    model = F.build_ullsam(cfg, device="cuda", dtype=torch.bfloat16,
+                           seed=SEED)
+    torch.cuda.synchronize()
+    say(f"[caption] flagship bf16 built in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED)
+    one = caption_inputs(cfg, rng)
+    eight = caption_inputs(cfg, rng, CAPTION_BATCH_TEXT)
+    gen = GenerationConfig(max_new_tokens=256)
+    encode = {"window_attn": 8, "vit_flash_attn": 4}
+
+    def run(tag, inputs, b12):
+        """One request: prefill (image encode, embeddings, LLM prefill and
+        the first token) and decode times from the step hook, launches of
+        the prefill and of every decode step, held to the exact counts."""
+        marks = []
+        before = launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        toks, lens = chat.caption_ids(
+            model, cfg, *inputs, gen=gen,
+            step_hook=lambda i, lg: marks.append((time.perf_counter(),
+                                                  launch_counts())))
+        end = time.perf_counter()
+        peak = torch.cuda.max_memory_allocated() - base
+        counts = [before] + [c for _, c in marks]
+        diffs = [{k: b[k] - a[k] for k in b if b[k] != a[k]}
+                 for a, b in zip(counts, counts[1:])]
+        want_pre = dict(encode, **({"w8a16_matmul": B12_PER_PASS} if b12
+                                   else {}))
+        want_dec = {"w8a16_matmul": B12_PER_PASS} if b12 else {}
+        bad = [d for d in diffs[1:] if d != want_dec]
+        B, n_tok = toks.shape[0], int(lens.sum())
+        steps = len(marks) - 1
+        pre_ms = (marks[0][0] - t) * 1e3
+        dec_ms = (marks[-1][0] - marks[0][0]) * 1e3 / max(steps, 1)
+        total = end - t
+        if toks.shape != (B, 256) or not bool((lens >= 1).all()):
+            fail(f"caption {tag}: tokens {tuple(toks.shape)}")
+        say(f"[caption] {tag}: batch {B}, {inputs[1].shape[1]}-token "
+            f"left-padded prompts ({int(inputs[2].sum())} valid tokens), "
+            f"prefill {pre_ms:.1f} ms (image encode + embeddings + LLM "
+            f"prefill + first token), {steps} decode steps at "
+            f"{dec_ms:.3f} ms a step, {n_tok} tokens generated (through the "
+            f"first EOS), {n_tok / total:.1f} tok/s over the request "
+            f"({total * 1e3:.1f} ms; {B * 1e3 / dec_ms:.1f} tok/s in decode),"
+            f" peak {peak / 2**30:.3f} GiB above the weights; launches "
+            f"prefill {diffs[0]}, decode step {diffs[1] if steps else {}}")
+        if diffs[0] != want_pre or bad:
+            fail(f"caption {tag}: launches prefill {diffs[0]} (expected "
+                 f"{want_pre}), decode steps off {want_dec}: {bad[:2]}")
+        return toks.cpu(), lens.cpu(), pre_ms, dec_ms
+
+    w16 = torch.cuda.memory_allocated()
+    run("bf16 warm request", one, False)
+    t16, _, _, _ = run("bf16 request", one, False)
+    run("bf16 batch-8 request", eight, False)
+    lm = model.fusion.language_model
+    torch.cuda.synchronize()
+    quantize_llm_int8(lm)
+    torch.cuda.empty_cache()
+    w8 = torch.cuda.memory_allocated()
+    say(f"[caption] weights {w16 / 2**30:.3f} GiB in bf16, {w8 / 2**30:.3f} "
+        f"GiB with the LLM's linears int8 (memory_allocated)")
+    run("int8 warm request", one, True)
+    timed = [run(f"int8 request {i}", one, True) for i in (1, 2, 3)]
+    run("int8 batch-8 request", eight, True)
+    t8 = timed[0][0]
+    agree = int((t8 == t16).sum())
+    say(f"[caption] int8 vs bf16, batch 1: {agree} of 256 greedy tokens "
+        f"agree position by position (printed only)")
+    say(f"[caption] int8 batch 1: prefill "
+        f"{', '.join(f'{r[2]:.1f}' for r in timed)} ms; decode "
+        f"{', '.join(f'{r[3]:.3f}' for r in timed)} ms a step")
+    del model, lm
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     try:
         import torch
@@ -1297,14 +1605,17 @@ def main() -> None:
     rows.update(check_decoder_kernels(smi))
     rows.update(check_train_kernels(smi))
     rows.update(check_llm_kernels(smi))
+    rows.update(check_w8a16_kernel(smi))
     small_reference_check()
     amg_small_reference_check()
     train_small_reference_check()
     packed_small_reference_check()
+    caption_small_reference_check()
     by_path = {}
     for path, drive in (("interactive", main_path), ("amg", amg_main_path),
                         ("train", train_main_path),
-                        ("packed", packed_main_path)):
+                        ("packed", packed_main_path),
+                        ("caption", caption_main_path)):
         reset_counts()
         drive()
         by_path[path] = launch_counts()

@@ -394,3 +394,135 @@ def test_packed_llm_gradients_on_card_match_cpu(cuda, monkeypatch):
     assert abs(losses[1] - losses[0]) <= 1e-4 * abs(losses[0])
     for (name, a), b in zip(cpu.named_parameters(), gpu.parameters()):
         assert _rel_err(b.grad.cpu(), a.grad) <= 1e-4, name
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,N,K", [
+    (1, 8192, 2048),    # decode, w1 at batch 1
+    (8, 2053, 8192),    # decode, batch 8, ragged N, K tiled in shared memory
+    (3, 200, 48),       # K not a multiple of 32, N not of 8
+    (1152, 4100, 2048),  # prefill (tensor cores in bf16), ragged N
+    (40, 300, 80)])     # prefill, K % 32 == 16
+def test_w8a16_kernel_matches_plain(cuda, dt, M, N, K):
+    """B12 against its plain version: the f32 output within 1e-5 of
+    max|plain| (exact products, only the summation order differs); with a
+    bias and the cast to x's dtype, within one step of that dtype."""
+    from ullsam_tpu_torch.ops.kernels import int8_matmul as Q
+    from ullsam_tpu_torch.tools.main_path import w8a16_case
+    dtype = getattr(torch, dt)
+    (x, q, s), _, _, _ = w8a16_case(dtype, cuda, M, N, K)
+    bias = torch.randn(N, generator=cuda, device="cuda")
+    before = Q.w8a16_matmul.launches
+    got = Q.w8a16_matmul(x, q, s)
+    got_cast = Q.w8a16_matmul(x, q, s, bias, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert Q.w8a16_matmul.launches == before + 2
+    assert got.dtype == torch.float32 and got_cast.dtype == dtype
+    assert _rel_err(got, Q.w8a16_matmul_plain(x, q, s)) <= 1e-5
+    step = 2.0 ** -8 if dtype == torch.bfloat16 else 1e-5
+    assert _rel_err(got_cast, Q.w8a16_matmul_plain(x, q, s, bias,
+                                                   dtype)) <= step
+
+
+def test_w8a16_wrapper_refusals(cuda):
+    from ullsam_tpu_torch.ops.kernels import int8_matmul as Q
+    x = torch.randn(2, 64, device="cuda")
+    q = torch.randint(-127, 128, (32, 64), device="cuda", dtype=torch.int8)
+    s = torch.rand(32, device="cuda")
+    before = Q.w8a16_matmul.launches
+    with pytest.raises(ValueError):       # qweight not contiguous
+        Q.w8a16_matmul(x, q.t().contiguous().t(), s)
+    with pytest.raises(ValueError):       # K = 40, not a multiple of 16
+        Q.w8a16_matmul(x[:, :40].contiguous(), q[:, :40].contiguous(), s)
+    with pytest.raises(ValueError):       # qscale on the CPU
+        Q.w8a16_matmul(x, q, s.cpu())
+    with pytest.raises(ValueError):       # float16 x
+        Q.w8a16_matmul(x.half(), q, s)
+    assert Q.w8a16_matmul.launches == before
+
+
+def test_quant_linear_checks_x_on_each_call(cuda):
+    """A ``QuantLinear`` on the card launches B12 for a good x and raises
+    for an x of another dtype or K, and after a ``.to(dtype)`` of the
+    module cast its f32 scales."""
+    from ullsam_tpu_torch.ops import layers as L
+    from ullsam_tpu_torch.ops.kernels import int8_matmul as Q
+    q = torch.randint(-127, 128, (32, 64), device="cuda", dtype=torch.int8)
+    lin = L.QuantLinear(q, torch.rand(32, device="cuda"))
+    x = torch.randn(2, 3, 64, device="cuda")
+    before = Q.w8a16_matmul.launches
+    y = lin(x)
+    assert Q.w8a16_matmul.launches == before + 1
+    assert _rel_err(y, Q.w8a16_matmul_plain(
+        x.reshape(6, 64), q, lin.qscale).reshape(2, 3, 32)) <= 1e-5
+    for bad in (x.half(), x[..., :48].contiguous()):
+        with pytest.raises(ValueError):
+            lin(bad)
+    lin.to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        lin(x.bfloat16())
+    assert Q.w8a16_matmul.launches == before + 1
+
+
+def test_quantized_caption_on_card_matches_cpu(cuda):
+    """A small uLLSAM (LLM hidden 64, MLP 128) with its LLM quantized on
+    each device, f32: ``caption_ids`` with an image gives the same int8
+    weights, the same 12 greedy tokens on the card (B12 in every linear) as
+    on the CPU (plain versions), each step's logits within 1e-4 of their
+    max."""
+    import numpy as np
+    from ullsam_tpu_torch.core.config import (FusionConfig, InternLM2Config,
+                                              MaskDecoderConfig,
+                                              PromptEncoderConfig, SamConfig,
+                                              ViTConfig)
+    from ullsam_tpu_torch.models.internlm2.generate import GenerationConfig
+    from ullsam_tpu_torch.models.internlm2.quant import quantize_llm_int8
+    from ullsam_tpu_torch.models.ullsam import chat
+    from ullsam_tpu_torch.models.ullsam import fusion as F
+    from ullsam_tpu_torch.ops.kernels import int8_matmul as Q
+    cfg = FusionConfig(
+        sam=SamConfig(
+            vit=ViTConfig(img_size=256, patch_size=16, embed_dim=128,
+                          depth=3, num_heads=2, out_chans=64, window_size=14,
+                          global_attn_indexes=(1,)),
+            prompt_encoder=PromptEncoderConfig(
+                embed_dim=64, image_embedding_size=(16, 16),
+                input_image_size=(256, 256)),
+            mask_decoder=MaskDecoderConfig(transformer_dim=64,
+                                           transformer_mlp_dim=128,
+                                           transformer_num_heads=2,
+                                           iou_head_hidden_dim=32)),
+        llm=InternLM2Config(vocab_size=128, hidden_size=64,
+                            intermediate_size=128, num_hidden_layers=2,
+                            num_attention_heads=4, num_key_value_heads=2),
+        vit_feature_dim=64, img_context_token_id=100)
+    cpu = F.build_ullsam(cfg, device="cpu", seed=0)
+    gpu = F.ULLSAM(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    for m in (cpu, gpu):
+        quantize_llm_int8(m.fusion.language_model)
+    for (name, a), b in zip(cpu.state_dict().items(),
+                            gpu.state_dict().values()):
+        if name.endswith("qweight"):
+            assert torch.equal(a, b.cpu()), name
+    rng = np.random.default_rng(0)
+    rows = [[1, 11] + [100] * cfg.num_image_token + [7] * n for n in (6, 9)]
+    ids, mask = chat.left_pad(rows, 0)
+    pixels = rng.standard_normal((1, 256, 256, 3)).astype(np.float32)
+    gen = GenerationConfig(max_new_tokens=12, eos_token_id=-1)
+    res = []
+    for m in (cpu, gpu):
+        logits = []
+        toks, lens = chat.caption_ids(
+            m, cfg, pixels, ids, mask, gen,
+            step_hook=lambda i, lg: logits.append(lg.float().cpu()))
+        res.append((toks.cpu(), lens.cpu(), logits))
+    before = Q.w8a16_matmul.launches
+    chat.caption_ids(gpu, cfg, pixels, ids, mask, gen)
+    torch.cuda.synchronize()
+    # 11 linears (2 layers x 5 + the head) in the prefill and 11 decode steps
+    assert Q.w8a16_matmul.launches - before == 11 * 12
+    assert torch.equal(res[0][0], res[1][0]) and torch.equal(res[0][1],
+                                                             res[1][1])
+    for a, b in zip(res[0][2], res[1][2]):
+        assert _rel_err(b, a) <= 1e-4

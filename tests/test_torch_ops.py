@@ -19,6 +19,7 @@ from ullsam_tpu.ops import layers as JL
 from ullsam_tpu.ops import resize as JR
 from ullsam_tpu.ops import rope as JRope
 from ullsam_tpu_torch.core.config import InternLM2Config as TLLM
+from ullsam_tpu_torch.models.internlm2 import model as TM
 from ullsam_tpu_torch.ops import attention as TA
 from ullsam_tpu_torch.ops import layers as TL
 from ullsam_tpu_torch.ops import resize as TR
@@ -62,8 +63,11 @@ def test_rms_norm_linear_swiglu_conv():
     ref = JL.swiglu({"w1": {"kernel": jnp.asarray(w1)},
                      "w3": {"kernel": jnp.asarray(w3)},
                      "w2": {"kernel": jnp.asarray(w2)}}, jnp.asarray(x))
-    assert_close(TL.swiglu(T(x), T(w1.T.copy()), T(w3.T.copy()),
-                           T(w2.T.copy())), ref, atol=1e-5, name="swiglu")
+    ffn = TM.FeedForward(TLLM(hidden_size=16, intermediate_size=32),
+                         device="cpu")
+    for lin, k in ((ffn.w1, w1), (ffn.w3, w3), (ffn.w2, w2)):
+        lin.weight.data.copy_(T(k.T.copy()))
+    assert_close(ffn(T(x)), ref, atol=1e-5, name="swiglu")
     img = rng.standard_normal((2, 9, 9, 4)).astype(np.float32)
     ck = rng.standard_normal((3, 3, 4, 6)).astype(np.float32)  # HWIO
     cb = rng.standard_normal(6).astype(np.float32)

@@ -10,6 +10,7 @@ inverse of ``ullsam_tpu/convert/torch_sam.py`` and ``torch_internlm2.py``:
   * Conv kernel HWIO                     -> weight OIHW
   * ConvTranspose kernel [kh, kw, I, O]  -> weight [I, O, kh, kw]
   * stacked LLM layers [L, ...]          -> model.layers.{i}.*
+  * int8 LLM qweight [.., in, out]       -> qweight [out, in] (+ qscale)
 
 ``load_reference_state_dict`` loads a reference-named state dict (such as
 the golden fixtures) into a module as it is.
@@ -132,14 +133,33 @@ def mask_decoder_arrays(p: Mapping, cfg: MaskDecoderConfig,
     return out
 
 
+def _llm_lin(out: Arrays, name: str, p: Mapping, i=None) -> None:
+    """A JAX LLM linear (layer ``i`` of a stacked one) -> ``name.weight``
+    [out, in], or, quantized (``quantize_llm_int8``), ``name.qweight``
+    [out, in] int8 and ``name.qscale``; the bias as it is."""
+    def take(a):
+        a = np.asarray(a)
+        return a if i is None else a[i]
+
+    if "qweight" in p:
+        out[f"{name}.qweight"] = take(p["qweight"]).T
+        out[f"{name}.qscale"] = take(p["qscale"])
+    else:
+        out[f"{name}.weight"] = take(p["kernel"]).T
+    if "bias" in p:
+        out[f"{name}.bias"] = take(p["bias"])
+
+
 def internlm2_arrays(p: Mapping, cfg: InternLM2Config,
                      prefix: str = "") -> Arrays:
+    """The InternLM2 tree, full precision or quantized (a quantized tree
+    loads into a model after ``models/internlm2/quant.quantize_llm_int8``)."""
     out: Arrays = {
         f"{prefix}model.tok_embeddings.weight":
             np.asarray(p["tok_embeddings"]),
         f"{prefix}model.norm.weight": np.asarray(p["norm"]["scale"]),
-        f"{prefix}output.weight": np.asarray(p["output"]["kernel"]).T,
     }
+    _llm_lin(out, f"{prefix}output", p["output"])
     lay = p["layers"]
     for i in range(cfg.num_hidden_layers):
         n = f"{prefix}model.layers.{i}."
@@ -149,9 +169,7 @@ def internlm2_arrays(p: Mapping, cfg: InternLM2Config,
         for src, dst in (("wqkv", "attention.wqkv"), ("wo", "attention.wo"),
                          ("w1", "feed_forward.w1"), ("w3", "feed_forward.w3"),
                          ("w2", "feed_forward.w2")):
-            out[n + dst + ".weight"] = np.asarray(lay[src]["kernel"][i]).T
-            if "bias" in lay[src]:
-                out[n + dst + ".bias"] = np.asarray(lay[src]["bias"][i])
+            _llm_lin(out, n + dst, lay[src], i)
     return out
 
 

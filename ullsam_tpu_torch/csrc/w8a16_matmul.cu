@@ -1,0 +1,528 @@
+// B12: weight-only int8 matmul (W8A16) for the LLM's linears.
+//
+//     out[m, n] = cast((sum_k x[m, k] * q[n, k]) * scale[n] + bias[n])
+//
+// x [M, K] float32 or bfloat16, q [N, K] int8 (the natural [out, in]
+// weight), scale [N] f32 (per output channel), bias [N] f32 or none; the
+// sum in f32, the result rounded once to f32 or to x's type. int8 -> f32 is
+// exact (|q| <= 127), so a bf16 x gives exact products and only the order
+// of the sums differs from the plain version. Replaces the TPU kernel
+// ullsam_tpu/ops/pallas/int8_matmul.py `_w8a16_kernel` (scale on the f32
+// sum; the bias and the cast are the JAX linear's epilogue,
+// ullsam_tpu/ops/layers.py:76-81, fused here).
+//
+// What bounds it on an H100, and what the design does about it:
+//   * Decode (M <= 16): memory-bound. K.N int8 bytes stream once per call
+//     (w1 at M = 1: 16.8 MB, 5.0 us at 3.35 TB/s). w8a16_gemv gives each
+//     warp R whole rows of q; a lane reads 16 bytes of each row per step
+//     (a warp: 512 contiguous bytes a row) with streaming loads, four
+//     16-byte loads in flight a lane, and blocks stay resident (persistent
+//     grid sized by the occupancy API). x lives in shared
+//     memory in its own type, in 16-byte vectors laid out chunk-major so
+//     that the lanes' reads are conflict-free; K is tiled when M x K does
+//     not fit in 96 KB. Each x vector read serves R rows. The FMAs are f32;
+//     int8 -> f32 is one byte-permute into the mantissa of 2^23 and one
+//     subtraction (no conversion instruction); the scale is applied to the
+//     warp-reduced sum.
+//   * Prefill (M > 16): operation-bound at the path's shapes (M = 1152: 38.7
+//     GFLOP for w1 against 16.8 MB). bf16 x runs w8a16_gemm_mma, the
+//     tensor-core GEMM of gemm.cuh (128 x 128 tiles, k-tile 32, mma.sync
+//     m16n8k16, f32 accumulation) whose int8 tile is staged by cp.async and
+//     converted to bf16 in shared memory before ldmatrix; f32 x runs
+//     w8a16_gemm_f32, gemm.cuh's CUDA-core FMA GEMM with the int8 tile
+//     converted as it is stashed.
+//   * N is ragged (the 92,553-column head runs here too), masked by bounds
+//     checks; K must be a multiple of 16 (one 16-byte int8 vector), which the
+//     C entry and the wrapper check.
+// Later work: wgmma with TMA for prefill, split-K for the short-N decode
+// shapes, a fused gate/up pair.
+#include <algorithm>
+
+#include "gemm.cuh"
+
+namespace ullsam {
+namespace {
+
+// int8 x4 (one word) -> 4 exact floats: b ^ 0x80 = b + 128 in [1, 255]
+// placed in the mantissa of 2^23, minus 2^23 + 128
+__device__ __forceinline__ void i8x4_to_f32(uint32_t w, float* f) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) -
+           8388736.f;
+}
+
+__device__ __forceinline__ void i8x16_to_f32(uint4 w, float* f) {
+  i8x4_to_f32(w.x, f);
+  i8x4_to_f32(w.y, f + 4);
+  i8x4_to_f32(w.z, f + 8);
+  i8x4_to_f32(w.w, f + 12);
+}
+
+// one 16-byte vector of x as floats: 8 bf16 or 4 f32
+__device__ __forceinline__ void vec_to_f32(uint4 v, float* f,
+                                           const __nv_bfloat16*) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void vec_to_f32(uint4 v, float* f, const float*) {
+  f[0] = __uint_as_float(v.x);
+  f[1] = __uint_as_float(v.y);
+  f[2] = __uint_as_float(v.z);
+  f[3] = __uint_as_float(v.w);
+}
+
+__device__ __forceinline__ void store_out(void* out, size_t i, float v,
+                                          int out_f32, const float*) {
+  static_cast<float*>(out)[i] = v;
+}
+__device__ __forceinline__ void store_out(void* out, size_t i, float v,
+                                          int out_f32, const __nv_bfloat16*) {
+  if (out_f32)
+    static_cast<float*>(out)[i] = v;
+  else
+    static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16(v);
+}
+
+// ---- decode: M <= MM <= 16 ----------------------------------------------
+constexpr int kGemvWarps = 8, kGemvThreads = kGemvWarps * 32;
+constexpr int kXSmemBudget = 96 * 1024;
+
+// x[:, k0:k0+kn] -> shared memory, 16-byte vectors ordered [m][v][chunk]
+// (v: the vector within a 16-element chunk, VPC of them), nck chunks a row
+template <typename T>
+__device__ __forceinline__ void fill_x(uint4* xs, const T* __restrict__ x,
+                                       int M, int K, int k0, int kn,
+                                       int nck) {
+  constexpr int VPV = 16 / sizeof(T), VPC = 16 / VPV;
+  const int per_row = kn / VPV;
+  for (int i = threadIdx.x; i < M * per_row; i += kGemvThreads) {
+    const int m = i / per_row, r = i - m * per_row;
+    const int c = r / VPC, v = r - c * VPC;
+    xs[(m * VPC + v) * nck + c] = *reinterpret_cast<const uint4*>(
+        x + (size_t)m * K + k0 + r * VPV);
+  }
+}
+
+// U = 4 / R chunks of each of the warp's R rows are loaded at once: four
+// 16-byte loads in flight a lane whatever R
+template <typename T, int MM, int R, int U = 4 / R>
+__global__ void __launch_bounds__(kGemvThreads)
+    w8a16_gemv(const T* __restrict__ x, const int8_t* __restrict__ q,
+               const float* __restrict__ scale,
+               const float* __restrict__ bias, void* __restrict__ out,
+               int out_f32, int M, int N, int K, int KT) {
+  constexpr int VPV = 16 / sizeof(T), VPC = 16 / VPV;
+  extern __shared__ uint4 xs[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int groups = (N + kGemvWarps * R - 1) / (kGemvWarps * R);
+  const int nck = KT / 16;
+  const bool resident = KT >= K;
+  if (resident) {
+    fill_x(xs, x, M, K, 0, K, nck);
+    __syncthreads();
+  }
+  for (int grp = blockIdx.x; grp < groups; grp += gridDim.x) {
+    const int row0 = (grp * kGemvWarps + warp) * R;
+    float acc[R][MM];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int m = 0; m < MM; ++m) acc[r][m] = 0.f;
+    for (int k0 = 0; k0 < K; k0 += KT) {
+      const int kn = min(KT, K - k0);
+      if (!resident) {
+        __syncthreads();  // every warp is done with the previous tile
+        fill_x(xs, x, M, K, k0, kn, nck);
+        __syncthreads();
+      }
+      const int nc = kn / 16;
+      for (int c0 = lane; c0 < nc; c0 += 32 * U) {
+        // all U x R loads issued before any is used
+        uint4 raw[U][R];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const int c = c0 + 32 * u;
+            raw[u][r] = row0 + r < N && c < nc
+                            ? __ldcs(reinterpret_cast<const uint4*>(
+                                  q + (size_t)(row0 + r) * K + k0 + c * 16))
+                            : make_uint4(0u, 0u, 0u, 0u);
+          }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int c = c0 + 32 * u;
+          if (c >= nc) break;
+          float w[R][16];
+#pragma unroll
+          for (int r = 0; r < R; ++r) i8x16_to_f32(raw[u][r], w[r]);
+#pragma unroll
+          for (int m = 0; m < MM; ++m) {
+            if (m >= M) break;
+#pragma unroll
+            for (int v = 0; v < VPC; ++v) {
+              float xf[VPV];
+              vec_to_f32(xs[(m * VPC + v) * nck + c], xf,
+                         static_cast<const T*>(nullptr));
+#pragma unroll
+              for (int r = 0; r < R; ++r)
+#pragma unroll
+                for (int j = 0; j < VPV; ++j)
+                  acc[r][m] = fmaf(w[r][v * VPV + j], xf[j], acc[r][m]);
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int n = row0 + r;
+#pragma unroll
+      for (int m = 0; m < MM; ++m) {
+        if (m >= M) break;
+        const float s = warp_sum(acc[r][m]);
+        if (lane == 0 && n < N) {
+          float y = s * scale[n];
+          if (bias) y += bias[n];
+          store_out(out, (size_t)m * N + n, y, out_f32,
+                    static_cast<const T*>(nullptr));
+        }
+      }
+    }
+  }
+}
+
+// ---- prefill, bf16: tensor-core GEMM with the int8 tile converted -------
+// gemm.cuh's gemm_nt_bf16_mma, with B staged as int8 (128 rows x 32 bytes,
+// one 16-byte cp.async a thread) and converted into one bf16 tile before
+// the ldmatrix reads. Chunks past K are zero-filled (K % 16 == 0).
+template <typename OutT>
+__global__ void __launch_bounds__(256)
+    w8a16_gemm_mma(const __nv_bfloat16* __restrict__ A,
+                   const int8_t* __restrict__ Q,
+                   const float* __restrict__ scale,
+                   const float* __restrict__ bias, OutT* __restrict__ out,
+                   int M, int N, int K) {
+  __shared__ __align__(16) __nv_bfloat16 As[2][kMmaBM * kMmaLd];
+  __shared__ __align__(16) int8_t Bq[2][kMmaBN * kMmaBK];
+  __shared__ __align__(16) __nv_bfloat16 Bs[kMmaBN * kMmaLd];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps of 64 x 32
+  const int m0 = blockIdx.y * kMmaBM, n0 = blockIdx.x * kMmaBN;
+
+  auto load = [&](int stage, int k0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {  // 128 rows x 4 chunks of 8 bf16, twice
+      const int c = tid + i * 256, row = c >> 2, ch = (c & 3) * 8;
+      const int gm = m0 + row;
+      const bool ok = gm < M && k0 + ch < K;
+      cp_async16(smem_u32(&As[stage][row * kMmaLd + ch]),
+                 A + (size_t)(ok ? gm : 0) * K + (ok ? k0 + ch : 0), ok);
+    }
+    {  // 128 rows x 2 chunks of 16 int8
+      const int row = tid >> 1, ch = (tid & 1) * 16, gn = n0 + row;
+      const bool ok = gn < N && k0 + ch < K;
+      cp_async16(smem_u32(&Bq[stage][row * kMmaBK + ch]),
+                 Q + (size_t)(ok ? gn : 0) * K + (ok ? k0 + ch : 0), ok);
+    }
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+
+  const int KT = (K + kMmaBK - 1) / kMmaBK;
+  load(0, 0);
+  cp_async_commit();
+  for (int kt = 0; kt < KT; ++kt) {
+    if (kt + 1 < KT) {
+      load((kt + 1) & 1, (kt + 1) * kMmaBK);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    {  // this thread's 16 int8 -> 16 bf16 (exact)
+      const int row = tid >> 1, ch = (tid & 1) * 16;
+      float f[16];
+      i8x16_to_f32(*reinterpret_cast<const uint4*>(
+                       &Bq[kt & 1][row * kMmaBK + ch]),
+                   f);
+      uint4* dst = reinterpret_cast<uint4*>(&Bs[row * kMmaLd + ch]);
+      dst[0] = make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
+                          pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
+      dst[1] = make_uint4(pack_bf16(f[8], f[9]), pack_bf16(f[10], f[11]),
+                          pack_bf16(f[12], f[13]), pack_bf16(f[14], f[15]));
+    }
+    __syncthreads();
+    const __nv_bfloat16* as = As[kt & 1];
+#pragma unroll
+    for (int kk = 0; kk < kMmaBK; kk += 16) {
+      uint32_t af[4][4], bfr[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        const int row = wm * 64 + mi * 16 + (lane & 15);
+        ldmatrix_x4(af[mi],
+                    smem_u32(as + row * kMmaLd + kk + (lane >> 4) * 8));
+      }
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj) {
+        const int row = wn * 32 + nj * 16 + (lane & 7) + ((lane >> 4) << 3);
+        uint32_t r[4];
+        ldmatrix_x4(r, smem_u32(Bs + row * kMmaLd + kk +
+                                ((lane >> 3) & 1) * 8));
+        bfr[2 * nj][0] = r[0];
+        bfr[2 * nj][1] = r[1];
+        bfr[2 * nj + 1][0] = r[2];
+        bfr[2 * nj + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          mma_bf16_16816(acc[mi][ni], af[mi], bfr[ni]);
+    }
+    __syncthreads();
+  }
+
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int m = m0 + wm * 64 + mi * 16 + g + hf * 8;
+        if (m >= M) continue;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {  // N is ragged: one column at a time
+          const int nn = n0 + wn * 32 + ni * 8 + 2 * t + e;
+          if (nn >= N) continue;
+          float v = acc[mi][ni][2 * hf + e] * scale[nn];
+          if (bias) v += bias[nn];
+          out[(size_t)m * N + nn] = from_f<OutT>(v);
+        }
+      }
+}
+
+// ---- prefill, f32: CUDA-core FMA GEMM (true f32) with int8 B ------------
+// gemm.cuh's gemm_nt_f32; each thread fetches 4 int8 of B per k-tile
+// (K % 8 == 0) and stashes them as floats.
+__global__ void __launch_bounds__(256)
+    w8a16_gemm_f32(const float* __restrict__ A, const int8_t* __restrict__ Q,
+                   const float* __restrict__ scale,
+                   const float* __restrict__ bias, float* __restrict__ out,
+                   int M, int N, int K) {
+  __shared__ __align__(16) float As[2][kGemmBK][kGemmBM + 4];
+  __shared__ __align__(16) float Bs[2][kGemmBK][kGemmBN + 4];
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * kGemmBM, n0 = blockIdx.x * kGemmBN;
+  const int lrow = tid >> 1, lk = (tid & 1) * 4;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int gm = m0 + lrow, gn = n0 + lrow;
+  const auto fetch_a = [&](int k0) {
+    return gm < M ? *reinterpret_cast<const float4*>(A + (size_t)gm * K +
+                                                     k0 + lk)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+  const auto fetch_b = [&](int k0) {
+    float f[4] = {0.f, 0.f, 0.f, 0.f};
+    if (gn < N)
+      i8x4_to_f32(*reinterpret_cast<const uint32_t*>(Q + (size_t)gn * K +
+                                                     k0 + lk),
+                  f);
+    return make_float4(f[0], f[1], f[2], f[3]);
+  };
+  const auto stash = [&](float (*S)[kGemmBM + 4], float4 v) {
+    S[lk][lrow] = v.x;
+    S[lk + 1][lrow] = v.y;
+    S[lk + 2][lrow] = v.z;
+    S[lk + 3][lrow] = v.w;
+  };
+  float4 ra = fetch_a(0), rb = fetch_b(0);
+  stash(As[0], ra);
+  stash(Bs[0], rb);
+  __syncthreads();
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  const int KT = K / kGemmBK;
+  for (int kt = 0; kt < KT; ++kt) {
+    const int cur = kt & 1;
+    if (kt + 1 < KT) {
+      ra = fetch_a((kt + 1) * kGemmBK);
+      rb = fetch_b((kt + 1) * kGemmBK);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kGemmBK; ++kk) {
+      const float* as = As[cur][kk];
+      const float* bs = Bs[cur][kk];
+      const float4 a0 = *reinterpret_cast<const float4*>(as + ty * 4);
+      const float4 a1 = *reinterpret_cast<const float4*>(as + 64 + ty * 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(bs + tx * 4);
+      const float4 b1 = *reinterpret_cast<const float4*>(bs + 64 + tx * 4);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
+    }
+    if (kt + 1 < KT) {
+      stash(As[cur ^ 1], ra);
+      stash(Bs[cur ^ 1], rb);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int nn = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
+      if (nn >= N) continue;
+      float v = acc[i][j] * scale[nn];
+      if (bias) v += bias[nn];
+      out[(size_t)m * N + nn] = v;
+    }
+  }
+}
+
+int num_sms() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+template <typename T, int MM, int R>
+int launch_gemv(const T* x, const int8_t* q, const float* scale,
+                const float* bias, void* out, int out_f32, int M, int N,
+                int K, cudaStream_t st) {
+  // the whole of x in shared memory if it fits in the budget, else K in
+  // equal tiles of whole 16-element chunks
+  const size_t row_bytes = (size_t)K * sizeof(T);
+  int KT = K;
+  if ((size_t)M * row_bytes > kXSmemBudget) {
+    const int tiles = (int)(((size_t)M * row_bytes + kXSmemBudget - 1) /
+                            kXSmemBudget);
+    KT = ((K + tiles - 1) / tiles + 15) / 16 * 16;
+  }
+  const int smem = M * KT * (int)sizeof(T);
+  // per shared-memory size in 4 KB steps (at most the 96 KB budget): the
+  // occupancy is queried once for each, not at every launch
+  static int attr_smem = 0, blocks_per_sm[kXSmemBudget / 4096 + 1] = {};
+  auto kernel = w8a16_gemv<T, MM, R>;
+  const int step = (smem + 4095) / 4096;
+  if (step * 4096 > attr_smem) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, step * 4096);
+    if (e != cudaSuccess) return (int)e;
+    attr_smem = step * 4096;
+  }
+  int& occ = blocks_per_sm[step];
+  if (occ == 0) {
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &occ, kernel, kGemvThreads, step * 4096);
+    if (e != cudaSuccess) return (int)e;
+    occ = std::max(occ, 1);
+  }
+  const int groups = (N + kGemvWarps * R - 1) / (kGemvWarps * R);
+  const int grid = std::min(groups, occ * num_sms());
+  kernel<<<grid, kGemvThreads, smem, st>>>(x, q, scale, bias, out, out_f32,
+                                           M, N, K, KT);
+  return (int)cudaGetLastError();
+}
+
+// rows a warp takes: the most of 4, 2, 1 that still gives every SM two
+// row groups of 8 warps
+int rows_per_warp(int N) {
+  const int want = 2 * num_sms();
+  for (int R = 4; R > 1; R >>= 1)
+    if ((N + kGemvWarps * R - 1) / (kGemvWarps * R) >= want) return R;
+  return 1;
+}
+
+template <typename T, int MM>
+int gemv_rows(const T* x, const int8_t* q, const float* scale,
+              const float* bias, void* out, int out_f32, int M, int N, int K,
+              cudaStream_t st) {
+  switch (rows_per_warp(N)) {
+    case 4:
+      return launch_gemv<T, MM, 4>(x, q, scale, bias, out, out_f32, M, N, K,
+                                   st);
+    case 2:
+      return launch_gemv<T, MM, 2>(x, q, scale, bias, out, out_f32, M, N, K,
+                                   st);
+    default:
+      return launch_gemv<T, MM, 1>(x, q, scale, bias, out, out_f32, M, N, K,
+                                   st);
+  }
+}
+
+template <typename T>
+int gemv(const T* x, const int8_t* q, const float* scale, const float* bias,
+         void* out, int out_f32, int M, int N, int K, cudaStream_t st) {
+  if (M == 1)
+    return gemv_rows<T, 1>(x, q, scale, bias, out, out_f32, M, N, K, st);
+  if (M <= 8)
+    return gemv_rows<T, 8>(x, q, scale, bias, out, out_f32, M, N, K, st);
+  return gemv_rows<T, 16>(x, q, scale, bias, out, out_f32, M, N, K, st);
+}
+
+}  // namespace
+}  // namespace ullsam
+
+using namespace ullsam;
+
+// x [M, K] (dtype kF32 / kBF16), q [N, K] int8, scale [N] f32, bias [N] f32
+// or null -> out [M, N], f32 when out_f32 else x's type. All contiguous and
+// 16-byte aligned; K % 16 == 0. Returns a cudaError_t code (0 = launched).
+extern "C" int w8a16_matmul(int dtype, const void* x, const void* q,
+                            const void* scale, const void* bias, void* out,
+                            int out_f32, int M, int N, int K,
+                            cudaStream_t st) {
+  if (M < 1 || N < 1 || K < 16 || K % 16) return (int)cudaErrorInvalidValue;
+  const int8_t* qw = static_cast<const int8_t*>(q);
+  const float* s = static_cast<const float*>(scale);
+  const float* b = static_cast<const float*>(bias);
+  if (dtype == kF32) {
+    const float* xf = static_cast<const float*>(x);
+    if (M <= 16) return gemv<float>(xf, qw, s, b, out, 1, M, N, K, st);
+    dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM);
+    w8a16_gemm_f32<<<grid, 256, 0, st>>>(xf, qw, s, b,
+                                         static_cast<float*>(out), M, N, K);
+    return (int)cudaGetLastError();
+  }
+  if (dtype != kBF16) return (int)cudaErrorInvalidValue;
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  if (M <= 16) return gemv<__nv_bfloat16>(xb, qw, s, b, out, out_f32, M, N, K,
+                                          st);
+  dim3 grid((N + kMmaBN - 1) / kMmaBN, (M + kMmaBM - 1) / kMmaBM);
+  if (out_f32)
+    w8a16_gemm_mma<float><<<grid, 256, 0, st>>>(
+        xb, qw, s, b, static_cast<float*>(out), M, N, K);
+  else
+    w8a16_gemm_mma<__nv_bfloat16><<<grid, 256, 0, st>>>(
+        xb, qw, s, b, static_cast<__nv_bfloat16*>(out), M, N, K);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,120 @@
+"""Autoregressive generation over the fixed-shape KV cache
+(``ullsam_tpu/models/internlm2/generate.py:28-65,129-189``).
+
+The JAX package runs prefill and an on-device ``while_loop``; here a host
+loop under ``torch.inference_mode()`` runs one decode step a token and stops
+once every row has produced EOS (reading the done flags back each step).
+Logit warpers (temperature -> top-k -> top-p) follow HF semantics; sampling
+draws from an explicit ``torch.Generator`` in place of the JAX key, so its
+draws differ from JAX's for the same seed (greedy decoding is identical).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from ullsam_tpu_torch.core.config import InternLM2Config
+from ullsam_tpu_torch.models.internlm2.model import (
+    InternLM2ForCausalLM, embed_tokens, init_cache, internlm2_decode_step,
+    internlm2_prefill)
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class GenerationConfig:
+    max_new_tokens: int = 256
+    do_sample: bool = False
+    temperature: float = 1.0
+    top_k: int = 0          # 0 = disabled
+    top_p: float = 1.0      # 1.0 = disabled
+    eos_token_id: int = 2
+    pad_token_id: int = 2
+
+
+def apply_warpers(logits: Tensor, gen: GenerationConfig) -> Tensor:
+    """temperature -> top-k -> top-p, HF ordering; logits [B, V] -> f32
+    with the dropped tokens at -inf."""
+    logits = logits.float()
+    if gen.temperature != 1.0:
+        logits = logits / gen.temperature
+    if gen.top_k > 0:
+        kth = torch.topk(logits, gen.top_k, dim=-1).values[..., -1:]
+        logits = logits.masked_fill(logits < kth, float("-inf"))
+    if gen.top_p < 1.0:
+        order = torch.argsort(-logits, dim=-1, stable=True)
+        probs = torch.softmax(logits.gather(-1, order), dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        keep_sorted = (cum - probs) < gen.top_p  # always keeps the top token
+        keep = torch.zeros_like(keep_sorted).scatter(-1, order, keep_sorted)
+        logits = logits.masked_fill(~keep, float("-inf"))
+    return logits
+
+
+def sample_token(logits: Tensor, gen: GenerationConfig,
+                 generator: Optional[torch.Generator] = None) -> Tensor:
+    """[B, V] -> [B] token ids: argmax, or a draw from the warped
+    distribution with ``generator``."""
+    if not gen.do_sample:
+        return torch.argmax(logits, dim=-1)
+    probs = torch.softmax(apply_warpers(logits, gen), dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def last_valid_index(attention_mask: Tensor) -> Tensor:
+    """Index of the last 1 in each row of a [B, S] mask."""
+    S = attention_mask.shape[-1]
+    return S - 1 - torch.argmax(attention_mask.flip(-1).int(), dim=-1)
+
+
+@torch.inference_mode()
+def generate(lm: InternLM2ForCausalLM, cfg: InternLM2Config,
+             gen: GenerationConfig, inputs_embeds: Tensor,
+             attention_mask: Tensor,
+             generator: Optional[torch.Generator] = None,
+             step_hook: Optional[Callable[[int, Tensor], None]] = None
+             ) -> Tuple[Tensor, Tensor]:
+    """Up to ``gen.max_new_tokens`` continuation tokens.
+
+    inputs_embeds [B, S, H] (image embeddings already scattered in);
+    attention_mask [B, S]. The cache holds S + max_new_tokens slots.
+    Returns (tokens [B, max_new_tokens] int32, pad_token_id after each
+    row's EOS; lengths [B] int32, through the first EOS or max_new_tokens).
+    ``step_hook(i, logits)``, when given, is called once token i has been
+    chosen from ``logits`` [B, V] and the done flags read back (so all work
+    of that step has finished): i = 0 after the prefill, then once per
+    decode step."""
+    B, S, _ = inputs_embeds.shape
+    T = gen.max_new_tokens
+    dev = inputs_embeds.device
+    cache = init_cache(cfg, B, S + T, dtype=inputs_embeds.dtype, device=dev)
+    mask = attention_mask.to(device=dev, dtype=torch.int32)
+    out, cache = internlm2_prefill(lm, cfg, inputs_embeds, mask, cache)
+    rows = torch.arange(B, device=dev)
+    logits = out["logits"][rows, last_valid_index(mask)]
+    del out
+    tok = sample_token(logits, gen, generator).int()
+    done = tok == gen.eos_token_id
+    buf = torch.full((B, T), gen.pad_token_id, dtype=torch.int32, device=dev)
+    buf[:, 0] = tok
+    step = 0
+    while True:
+        finished = bool(done.all())
+        if step_hook is not None:
+            step_hook(step, logits)
+        step += 1
+        if finished or step >= T:
+            break
+        emb = embed_tokens(lm, tok)[:, None, :].to(inputs_embeds.dtype)
+        logits, cache = internlm2_decode_step(lm, cfg, emb, cache)
+        nxt = sample_token(logits, gen, generator).int()
+        tok = torch.where(done, gen.pad_token_id, nxt).int()
+        buf[:, step] = tok
+        done = done | (tok == gen.eos_token_id)
+    is_eos = buf == gen.eos_token_id
+    lengths = torch.where(is_eos.any(-1), torch.argmax(is_eos.int(), -1) + 1,
+                          T).int()
+    return buf, lengths

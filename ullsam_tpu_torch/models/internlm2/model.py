@@ -1,5 +1,6 @@
-"""InternLM2 decoder-only LLM, full-sequence forward without a cache
-(``ullsam_tpu/models/internlm2/model.py:75-353``).
+"""InternLM2 decoder-only LLM (``ullsam_tpu/models/internlm2/model.py``):
+the full-sequence forward without a cache (``:75-353``) and the KV-cache
+prefill / decode steps (``:142-154,361-528``).
 
 RMSNorm in f32, RoPE with linear / dynamic-NTK scaling, GQA through the
 fused ``wqkv`` packing without ``repeat_kv``, SwiGLU, f32 softmax, untied
@@ -26,9 +27,11 @@ Layouts: activations [B, S, H]; q/k/v [B, S, heads, head_dim].
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -66,7 +69,9 @@ class FeedForward(nn.Module):
         self.w2 = L.Linear(I, H, bias=False, **kw)
 
     def forward(self, x: Tensor) -> Tensor:
-        return L.swiglu(x, self.w1.weight, self.w3.weight, self.w2.weight)
+        """w2(silu(w1 x) * w3 x), the silu in f32 (``layers.py:320-327``);
+        each projection a ``Linear`` or a ``QuantLinear``."""
+        return self.w2(F.silu(self.w1(x).float()).to(x.dtype) * self.w3(x))
 
 
 class DecoderLayer(nn.Module):
@@ -82,16 +87,29 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x: Tensor, cos: Tensor, sin: Tensor,
                 kmask: Optional[Tensor], seg: Optional[Tensor] = None,
-                flash: bool = False) -> Tensor:
+                flash: bool = False,
+                cache: Optional[Tuple[Tensor, Tensor, int]] = None) -> Tensor:
         """``flash``: attention through B10 with ``seg`` [B, S] int32 as
         both segment ids (``kmask`` unused); else the plain route, with
-        ``seg`` (packed rows) or None."""
+        ``seg`` (packed rows) or None. ``cache`` = (k_cache, v_cache, slot):
+        the layer against a KV cache (``_layer_body`` with ``k_cache``,
+        ``model.py:194-206``): the new k / v [B, S, n_kv, hd] are written in
+        place into k_cache / v_cache [B, max_len, n_kv, hd] at slots
+        [slot, slot + S) (cast to the cache dtype), then plain attention runs
+        over every slot, the cache cast back to q's dtype, under ``kmask``
+        [B, S | 1, max_len], which carries causality."""
         cfg = self.cfg
         B, S, _ = x.shape
         h = self.attention_norm(x)
         q, k, v = split_wqkv(self.attention.wqkv(h), cfg)
         q, k = apply_rope(q, k, cos, sin)
-        if flash:
+        if cache is not None:
+            k_cache, v_cache, slot = cache
+            k_cache[:, slot:slot + S] = k
+            v_cache[:, slot:slot + S] = v
+            attn = gqa_attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype),
+                                 kmask, cfg)
+        elif flash:
             attn = llm_flash_attention(q, k, v, seg, seg,
                                        cfg.num_key_value_heads, causal=True)
         else:
@@ -146,8 +164,10 @@ def gqa_attention(q: Tensor, k: Tensor, v: Tensor, kmask: Optional[Tensor],
                   seg: Optional[Tuple[Tensor, Tensor]] = None) -> Tensor:
     """Grouped-query attention without repeat_kv.
 
-    q [B, S, nh, hd]; k, v [B, T, n_kv, hd]; kmask additive [B, 1, T] or
-    None; causal applies q_pos >= kv_pos (S == T); seg = (seg_q [B, S],
+    q [B, S, nh, hd]; k, v [B, T, n_kv, hd]; kmask additive [B, 1, T] (one
+    row for every query) or [B, S, T] (a row per query, the cache steps'
+    causal-and-padding mask), or None; causal applies q_pos >= kv_pos
+    (S == T); seg = (seg_q [B, S],
     seg_k [B, T]) confines attention to equal packed segments. Logits and
     softmax in f32; probabilities cast to v.dtype. Returns [B, S, nh, hd]."""
     B, S, nh, hd = q.shape
@@ -159,7 +179,7 @@ def gqa_attention(q: Tensor, k: Tensor, v: Tensor, kmask: Optional[Tensor],
     logits = torch.matmul(qg, kt) * hd ** -0.5          # [B, nkv, g*S, T]
     logits = logits.reshape(B, nkv, g, S, T)
     if kmask is not None:
-        logits = logits + kmask.reshape(B, 1, 1, 1, T)
+        logits = logits + kmask.reshape(B, 1, 1, kmask.shape[-2], T)
     if causal:
         qpos = torch.arange(S, device=q.device)[:, None]
         kpos = torch.arange(T, device=q.device)[None, :]
@@ -239,3 +259,89 @@ def internlm2_forward(lm: InternLM2ForCausalLM, cfg: InternLM2Config,
     if output_hidden_states:
         out["hidden_states"] = torch.stack(hidden)
     return out
+
+
+# ---------------------------------------------------------------------------
+# KV-cache prefill / decode (``model.py:142-154,361-528``)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class KVCache:
+    """The fixed-shape cache, preallocated once and written in place by
+    ``internlm2_prefill`` / ``internlm2_decode_step`` (the JAX package
+    returns a new cache each step)."""
+    k: Tensor      # [L, B, max_len, n_kv, hd]
+    v: Tensor      # [L, B, max_len, n_kv, hd]
+    mask: Tensor   # [B, max_len] int32 validity of the cache slots
+    index: int     # next write slot
+
+
+def init_cache(cfg: InternLM2Config, batch: int, max_len: int,
+               dtype: torch.dtype = torch.bfloat16,
+               device=None) -> KVCache:
+    shape = (cfg.num_hidden_layers, batch, max_len, cfg.num_key_value_heads,
+             cfg.head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   mask=torch.zeros((batch, max_len), dtype=torch.int32,
+                                    device=device),
+                   index=0)
+
+
+def causal_mask(attention_mask: Tensor, q_len: int, kv_len: int) -> Tensor:
+    """Additive [B, q_len, kv_len] f32 mask of causality and padding, the
+    queries at positions [0, q_len): attention_mask [B, kv_len] validity."""
+    dev = attention_mask.device
+    q_pos = torch.arange(q_len, device=dev)[:, None]
+    kv_pos = torch.arange(kv_len, device=dev)[None, :]
+    ok = (q_pos >= kv_pos)[None] & attention_mask[:, None, :].bool()
+    return torch.where(ok, 0.0, NEG_INF).float()
+
+
+def internlm2_prefill(lm: InternLM2ForCausalLM, cfg: InternLM2Config,
+                      inputs_embeds: Tensor, attention_mask: Tensor,
+                      cache: KVCache) -> Tuple[dict, KVCache]:
+    """Prefill the cache with a [B, S, H] prompt (S <= max_len), left or
+    right padded (attention_mask [B, S]): k / v go into slots [0, S) in
+    place, the cache mask becomes the prompt's, ``index`` S. Positions are
+    cumsum(mask) - 1 clamped at 0 and the dynamic-NTK length is the cache's
+    max_len, as in the decode steps. Attention runs the plain route over
+    all max_len slots (never B10, as in JAX). Returns ({'logits' [B, S, V],
+    'last_hidden' [B, S, H]}, cache)."""
+    x = inputs_embeds
+    B, S, _ = x.shape
+    max_len = cache.k.shape[2]
+    position_ids = (torch.cumsum(attention_mask, dim=-1) - 1).clamp_min(0)
+    cos, sin = rope_cos_sin(cfg, position_ids, ntk_seq_len=max_len)
+    cache.mask.zero_()
+    cache.mask[:, :S] = attention_mask
+    mask = causal_mask(cache.mask, S, max_len)
+    for i, layer in enumerate(lm.model.layers):
+        x = layer(x, cos, sin, mask, cache=(cache.k[i], cache.v[i], 0))
+    cache.index = S
+    last_hidden = lm.model.norm(x)
+    return {"logits": lm.output(last_hidden),
+            "last_hidden": last_hidden}, cache
+
+
+def internlm2_decode_step(lm: InternLM2ForCausalLM, cfg: InternLM2Config,
+                          token_embeds: Tensor, cache: KVCache
+                          ) -> Tuple[Tensor, KVCache]:
+    """One decode step, token_embeds [B, 1, H] -> (logits [B, V], cache):
+    the new token goes into slot ``cache.index`` of every row (in place) at
+    position sum(cache.mask) per row (right under left padding), with the
+    dynamic-NTK length max_len; attention reads the whole max_len window."""
+    max_len = cache.k.shape[2]
+    position_ids = cache.mask.sum(dim=-1, keepdim=True)          # [B, 1]
+    cos, sin = rope_cos_sin(cfg, position_ids, ntk_seq_len=max_len)
+    slot = cache.index
+    cache.mask[:, slot] = 1
+    # one query at the end of the sequence: no causal row constraint
+    mask = torch.where(cache.mask[:, None, :].bool(), 0.0, NEG_INF).float()
+    x = token_embeds
+    for i, layer in enumerate(lm.model.layers):
+        x = layer(x, cos, sin, mask, cache=(cache.k[i], cache.v[i], slot))
+    cache.index = slot + 1
+    logits = lm.output(lm.model.norm(x))[:, 0, :]
+    return logits, cache

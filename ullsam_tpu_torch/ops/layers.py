@@ -11,6 +11,8 @@ Mirrors ``ullsam_tpu/ops/layers.py`` (the numerics), in PyTorch idiom:
     channels up and two-pass below, exactly as ``layers.py:164-183``.
   * GELU is the exact erf form in f32 and the tanh form in bf16
     (``layers.py:241-253``); ``nn.GELU()`` alone would be erf in both.
+  * A weight-only int8 linear (``QuantLinear``) runs kernel B12 on the card
+    (``layers.py:51-81``).
 
 The modules only hold parameters under the reference checkpoint names
 (``weight``/``bias``) and call the functions; ``init_`` fills them from an
@@ -25,6 +27,10 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ullsam_tpu_torch.ops.kernels import build
+from ullsam_tpu_torch.ops.kernels.int8_matmul import (check_weights,
+                                                      w8a16_matmul_checked)
 
 Tensor = torch.Tensor
 
@@ -95,12 +101,20 @@ def mlp_block(x: Tensor, fc1_w: Tensor, fc1_b: Optional[Tensor],
     return linear(act(linear(x, fc1_w, fc1_b)), fc2_w, fc2_b)
 
 
-def swiglu(x: Tensor, w1: Tensor, w3: Tensor, w2: Tensor) -> Tensor:
-    """w2(silu(w1 x) * w3 x) with the silu in f32 (``layers.py:320-327``)."""
-    a = linear(x, w1)
-    b = linear(x, w3)
-    p = F.silu(a.float()).to(x.dtype) * b
-    return linear(p, w2)
+def linear_int8(x: Tensor, qweight: Tensor, qscale: Tensor,
+                bias: Optional[Tensor] = None) -> Tensor:
+    """Weight-only int8 linear (``layers.py:51-81``): x [..., in] @ int8
+    qweight [out, in] summed in f32, times the per-output-channel f32
+    qscale, plus the bias in f32, cast to x.dtype. Kernel B12 on a CUDA
+    tensor (it fuses the scale, bias and cast), its plain version on a CPU
+    tensor (``ops/kernels/int8_matmul.py``). The weights must have passed
+    ``check_weights`` (``QuantLinear`` checks its buffers when it is made);
+    x is checked on each call."""
+    x2 = build.aligned(x.reshape(-1, x.shape[-1]))
+    y = w8a16_matmul_checked(x2, qweight, qscale,
+                             None if bias is None else bias.float(),
+                             out_dtype=x.dtype)
+    return y.reshape(x.shape[:-1] + (qweight.shape[0],))
 
 
 def embedding(ids: Tensor, table: Tensor) -> Tensor:
@@ -136,6 +150,27 @@ class Linear(nn.Module):
 
     def forward(self, x: Tensor) -> Tensor:
         return linear(x, self.weight, self.bias)
+
+
+class QuantLinear(nn.Module):
+    """Weight-only int8 linear (W8A16): int8 ``qweight`` [out, in], f32
+    ``qscale`` [out] and the optional ``bias`` (kept in f32, exact), all
+    buffers: a quantized module is inference-only and has no parameters to
+    train. Made by ``models/internlm2/quant.py`` ``quantize_linear``; the
+    buffers are checked against what B12 takes here, once, and not again on
+    each call."""
+
+    def __init__(self, qweight: Tensor, qscale: Tensor,
+                 bias: Optional[Tensor] = None):
+        super().__init__()
+        bias = None if bias is None else bias.float().contiguous()
+        check_weights(qweight, qscale, bias)
+        self.register_buffer("qweight", qweight)
+        self.register_buffer("qscale", qscale)
+        self.register_buffer("bias", bias)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return linear_int8(x, self.qweight, self.qscale, self.bias)
 
 
 class Conv2d(nn.Module):

@@ -8,7 +8,9 @@ the operations the call does, and the bytes it must move (each input read
 once, each output written once).
 
 The packed LLM fine-tuning path (``--mode sft --pack``) has its own batch,
-``packed_train_batch``, and kernel cases, ``llm_flash_case`` (B10, B11).
+``packed_train_batch``, and kernel cases, ``llm_flash_case`` (B10, B11);
+caption generation its request, ``caption_inputs``, and the B12 cases,
+``w8a16_case`` at ``w8a16_cases()``.
 """
 
 from __future__ import annotations
@@ -371,3 +373,62 @@ def llm_flash_case(dtype: torch.dtype, gen: torch.Generator, B: int = 1,
               "bwd": 3 * qb + 4 * kvb + 2 * seg.numel() * 4 + 2 * rows}
     return ((q, k, v, seg, seg), (q, k, v, seg, seg, do, lse, dd), kw,
             llm_flash_flops(seg_np, nh, D), nbytes)
+
+
+# ---------------------------------------------------------------------------
+# caption generation with the int8 weight-only LLM (B12)
+# ---------------------------------------------------------------------------
+
+# InternLM2-1.8B's linears as (N, K) = (out, in): wqkv, wo, w1 and w3, w2,
+# the vocab head; each runs B12 once a decode step at batch M
+W8A16_LINEARS = ((4096, 2048), (2048, 2048), (8192, 2048), (2048, 8192),
+                 (92553, 2048))
+W8A16_DECODE_M = (1, 8)
+# ... and once a prefill, at M = 1152 tokens (the caption prompt) and 8 x
+# 1152 (the batch-8 request); there the head's last 128-column tile is
+# ragged (92553 % 128 = 9)
+W8A16_PREFILL_M = (1152, 9216)
+# the caption request: 1024 <IMG_CONTEXT> + 64 text tokens, and a batch of 8
+# with distinct text lengths; both left-pad to S = 1152
+CAPTION_TEXT = 64
+CAPTION_BATCH_TEXT = (64, 57, 50, 43, 36, 29, 22, 15)
+
+
+def w8a16_cases():
+    """(M, N, K) of every B12 case: each linear at the decode batches, then
+    at the prefill sizes."""
+    return [(M, N, K) for M in W8A16_DECODE_M + W8A16_PREFILL_M
+            for N, K in W8A16_LINEARS]
+
+
+def w8a16_case(dtype: torch.dtype, gen: torch.Generator, M: int, N: int,
+               K: int):
+    """B12 inputs drawn from ``gen``: x [M, K] ``dtype``, qweight [N, K]
+    int8 in [-127, 127], qscale [N] f32 (kwargs: none, the f32 output).
+    Returns (args, kwargs, flops, bytes): 2 M N K operations; x, the int8
+    weight and the scales read once, the f32 output written once."""
+    x = torch.randn(M, K, generator=gen, device=gen.device).to(dtype)
+    q = torch.randint(-127, 128, (N, K), generator=gen, device=gen.device,
+                      dtype=torch.int8)
+    s = torch.rand(N, generator=gen, device=gen.device) * 0.01 + 0.001
+    nbytes = M * K * x.element_size() + N * K + N * 4 + M * N * 4
+    return (x, q, s), {}, 2 * M * N * K, nbytes
+
+
+def caption_inputs(cfg: FusionConfig, rng: np.random.Generator,
+                   text_lens=(CAPTION_TEXT,)):
+    """(pixels [1, S, S, 3] f32, input_ids, attention_mask [B, N]) of a
+    caption request: row b is 2 text tokens, the ``num_image_token``
+    <IMG_CONTEXT> run and ``text_lens[b] - 2`` more text tokens (synthetic
+    ids, no tokenizer), left-padded with the pad id to a multiple of 128
+    (``chat.left_pad``). One image serves every row."""
+    from ullsam_tpu_torch.models.ullsam.chat import left_pad
+    S = cfg.sam.vit.img_size
+    n_img, ctx = cfg.num_image_token, cfg.img_context_token_id
+    rows = []
+    for n in text_lens:
+        text = rng.integers(3, min(cfg.llm.vocab_size, ctx), n - 2).tolist()
+        rows.append([1, 11] + [ctx] * n_img + text)
+    ids, mask = left_pad(rows, cfg.llm.pad_token_id)
+    pixels = rng.standard_normal((1, S, S, 3)).astype(np.float32)
+    return pixels, ids, mask

@@ -1,14 +1,19 @@
 """Where the time goes on the card: torch.profiler over the port's kernels
 at the main path's shapes, over one full segmentation request, one
-automatic-mask-generation image, one flagship train step and one packed
-sft step (inputs from ``tools/main_path.py``, as ``chip_smoke.py`` checks
-and times them).
+automatic-mask-generation image, one flagship train step, one packed sft
+step and steady caption decode steps in bf16 and with the int8 LLM (inputs
+from ``tools/main_path.py``, as ``chip_smoke.py`` checks and times them).
 
-    python -m ullsam_tpu_torch.tools.profile_kernels [--out DIR]
+    python -m ullsam_tpu_torch.tools.profile_kernels [--out DIR] [--only P]
+
+``--only P`` profiles just the regions whose names start with P (their
+set-up still runs).
 
 Prints, per profiled region, the CUDA kernels by total device time (the
 hand-written kernels' sub-kernels appear by name), the device-busy total
-and the region's wall time, so the idle share is wall - busy. Writes a
+and the region's wall time, so the idle share is wall - busy; for caption
+decode also the host time of one call of a decode-size linear, bf16
+``Linear`` against the int8 ``QuantLinear`` (B12). Writes a
 chrome trace per region under DIR when given. Needs a CUDA card; TF32 is
 off for float32.
 """
@@ -26,6 +31,8 @@ from torch.profiler import ProfilerActivity, profile
 from ullsam_tpu_torch.core.config import (FusionConfig, internlm2_1_8b,
                                           sam_vit_b)
 from ullsam_tpu_torch.inference.amg import AutomaticMaskGenerator
+from ullsam_tpu_torch.models.internlm2 import model as LLM
+from ullsam_tpu_torch.models.internlm2.quant import quantize_llm_int8
 from ullsam_tpu_torch.models.sam.sam import Sam
 from ullsam_tpu_torch.models.ullsam import chat
 from ullsam_tpu_torch.models.ullsam import fusion as F
@@ -38,7 +45,8 @@ from ullsam_tpu_torch.ops.kernels import window_attention as WA
 from ullsam_tpu_torch.tools.main_path import (AMG_CHUNK, FLASH_BWD,
                                               LLM_FLASH, SFT_TRAIN,
                                               WINDOW_CORE,
-                                              amg_inputs, decoder_cases,
+                                              amg_inputs, caption_inputs,
+                                              decoder_cases,
                                               llm_flash_case,
                                               packed_train_batch,
                                               request_inputs, train_batch,
@@ -49,7 +57,11 @@ from ullsam_tpu_torch.tools.main_path import (AMG_CHUNK, FLASH_BWD,
 from ullsam_tpu_torch.train import step as S
 
 
-def _region(name: str, fn, out_dir, iters: int = 3, top: int = 12) -> None:
+def _region(name: str, fn, args, iters: int = 3, top: int = 12) -> None:
+    """Profile ``fn`` as region ``name`` unless ``args.only`` excludes it;
+    a chrome trace goes to ``args.out`` when given."""
+    if not name.startswith(args.only):
+        return
     fn()  # warm up: builds, cuBLAS handles, caches
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -74,13 +86,27 @@ def _region(name: str, fn, out_dir, iters: int = 3, top: int = 12) -> None:
           f"kernels and copies/iter")
     for ms, count, key in rows[:top]:
         print(f"   {ms:9.4f} ms  x{count:<4d} {key[:90]}")
-    if out_dir:
-        prof.export_chrome_trace(os.path.join(out_dir, f"{name}.json"))
+    if args.out:
+        prof.export_chrome_trace(os.path.join(args.out, f"{name}.json"))
+
+
+def _host_us(fn, n: int = 200) -> float:
+    """Host time of one ``fn()`` call: ``n`` calls back to back with no
+    synchronize inside (the card runs them behind), after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / n
+    torch.cuda.synchronize()
+    return us
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="chrome trace directory")
+    ap.add_argument("--only", default="", help="region name prefix")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -94,28 +120,28 @@ def main() -> None:
         dn = str(dtype).replace("torch.", "")
         b1, kw, _, _ = window_attn_case(dtype, gen)
         _region(f"window_attn_{dn}", lambda: VB.window_attn(*b1, **kw),
-                args.out)
+                args)
         b2, _, _, _ = vit_flash_case(dtype, gen)
         _region(f"vit_flash_attn_{dn}", lambda: FA.vit_flash_attn(*b2),
-                args.out)
+                args)
 
         _, b8, _, _ = window_core_case(dtype, gen, **WINDOW_CORE)
         _region(f"window_attn_core_bwd_{dn}",
-                lambda: WA.window_attn_core_bwd(*b8), args.out)
+                lambda: WA.window_attn_core_bwd(*b8), args)
         b9, _, _ = vit_flash_bwd_case(dtype, gen, **FLASH_BWD)
         _region(f"vit_flash_attn_bwd_{dn}",
-                lambda: FA.vit_flash_attn_bwd(*b9), args.out)
+                lambda: FA.vit_flash_attn_bwd(*b9), args)
         del b8, b9
         b10, b11, kw, _, _ = llm_flash_case(dtype, gen, **LLM_FLASH)
         _region(f"llm_flash_attn_{dn}", lambda: LF.llm_flash_attn(*b10, **kw),
-                args.out)
+                args)
         _region(f"llm_flash_attn_bwd_{dn}",
-                lambda: LF.llm_flash_attn_bwd(*b11, **kw), args.out)
+                lambda: LF.llm_flash_attn_bwd(*b11, **kw), args)
         del b10, b11
 
         b4, kw, _, _ = decoder_cases(dtype, gen, **AMG_CHUNK)["decode_masks"]
         _region(f"decode_masks_{dn}", lambda: D.decode_masks(*b4, **kw),
-                args.out, top=20)
+                args, top=20)
 
     sam = Sam(sam_vit_b(), device="cuda")
     L.init_module_(sam, gen)
@@ -125,7 +151,7 @@ def main() -> None:
         box_nms_thresh=1.0, max_masks=256)
     image = amg_inputs(np.random.default_rng(0), 1)[0]
     _region("amg_image_bfloat16", lambda: amg.generate_dense(image),
-            args.out, iters=2, top=25)
+            args, iters=2, top=25)
     del sam, amg
     torch.cuda.empty_cache()
 
@@ -138,7 +164,7 @@ def main() -> None:
         dense, feats = chat.segment_prefill(model, cfg, pixels, ids)
         chat.point_segment(model, cfg, feats, dense, coords, labels)
 
-    _region("request_bfloat16", request, args.out, iters=2, top=25)
+    _region("request_bfloat16", request, args, iters=2, top=25)
 
     # the flagship train step (bf16 parameters and moments, remat off); the
     # updates run at lr 0 only on the first step, so later ones move weights
@@ -146,7 +172,7 @@ def main() -> None:
     step = S.make_train_step(cfg, tcfg, model,
                              S.make_trainable_optimizer(model, tcfg))
     batch = S.batch_on(model, train_batch(cfg, np.random.default_rng(0)))
-    _region("train_step_bfloat16", lambda: step(batch), args.out, iters=2,
+    _region("train_step_bfloat16", lambda: step(batch), args, iters=2,
             top=30)
     del step, batch
 
@@ -157,8 +183,45 @@ def main() -> None:
                              S.make_trainable_optimizer(model, tcfg))
     batch = S.batch_on(model, packed_train_batch(cfg,
                                                  np.random.default_rng(0)))
-    _region("packed_sft_step_bfloat16", lambda: step(batch), args.out,
+    _region("packed_sft_step_bfloat16", lambda: step(batch), args,
             iters=2, top=30)
+    del step, batch
+    torch.cuda.empty_cache()
+
+    # steady caption decode steps at batch 1 after the 1152-token prompt's
+    # prefill, bf16 then with the LLM's linears int8 (B12, 121 a step)
+    for tag in ("bfloat16", "int8"):
+        if tag == "int8":
+            quantize_llm_int8(model.fusion.language_model)
+            torch.cuda.empty_cache()
+        lm = model.fusion.language_model
+        pixels, ids, mask = caption_inputs(cfg, np.random.default_rng(0))
+        with torch.inference_mode():
+            ids_t = torch.from_numpy(ids).cuda()
+            embeds = chat.embeds_with_image(model, cfg, ids_t,
+                                            torch.from_numpy(pixels).cuda())
+            cache = LLM.init_cache(cfg.llm, 1, ids.shape[1] + 16,
+                                   dtype=embeds.dtype, device="cuda")
+            out, cache = LLM.internlm2_prefill(
+                lm, cfg.llm, embeds, torch.from_numpy(mask).cuda(), cache)
+            tok = out["logits"][:, -1].argmax(-1)
+            del out
+
+        def decode_step():
+            with torch.inference_mode():
+                emb = LLM.embed_tokens(lm, tok)[:, None]
+                LLM.internlm2_decode_step(lm, cfg.llm, emb, cache)
+
+        _region(f"caption_decode_{tag}", decode_step, args, iters=8,
+                top=25)
+        if "caption_host".startswith(args.only):
+            w1 = lm.model.layers[0].feed_forward.w1
+            x = torch.randn(1, 1, cfg.llm.hidden_size, device="cuda",
+                            dtype=embeds.dtype)
+            with torch.inference_mode():
+                print(f"== caption_host_{tag}: the w1 module at decode "
+                      f"({type(w1).__name__}) {_host_us(lambda: w1(x)):.1f} "
+                      f"us of host time a call (200 calls, no sync)")
 
 
 if __name__ == "__main__":
