@@ -56,7 +56,22 @@ sm_90a) and the CUDA toolkit. Phases, each printing what it found:
     ``quantize_llm_int8``, 1 warm + 3 timed and a batch of 8, each with
     prefill and per-step decode times, tokens/s, peak memory and exact
     launches (int8: B12 121 a decode step and in the prefill; bf16: none).
-Each path (5-9) runs with every launch counter set to 0 just before it and
+10. SAM ViT-H automatic mask generation: B1, B2 and B3 at head dim 80 and
+    the opt-in kernels B13 (fused LN + MLP), B14 (global attention read
+    from the qkv projection) and B15 (two-phase window attention) against
+    their plain versions at ViT-H's shapes (B13-B15 at ViT-B's too), bf16
+    and f32 (phase 3's checks); a small encoder with head dim 80 on the CPU
+    (plain versions) and on the card (kernels) under each route setting of
+    the JAX package's switches (default, ULLSAM_FUSED_VIT_MLP=1,
+    ULLSAM_PACKED_GLOBAL=1, ULLSAM_FUSED_VIT_ATTN=0, and that with
+    ULLSAM_WINDOW_TWOPHASE=1), f32 within 1e-4 of max|out|, exact launches;
+    then ``build_sam("vit_h")`` at full width (random weights from the
+    seed) on 1024x1024 images, the deterministic sweep: bf16 1 warm + 3
+    timed images with exact launches (B1 28, B2 4, B4-B7 4 an image), one
+    f32 image; the encode alone under each route setting (1 warm + 5 timed,
+    exact launches, each bf16 embedding against the default route's), and
+    one bf16 image with all four switches on (B13 32, B14 4, B15 28).
+Each path (5-10) runs with every launch counter set to 0 just before it and
 read just after. Then the kernels JSON line (``launches``: the sum
 over the paths; ``launches_by_path``: each path's own count), the
 nvidia-smi line, and the final status line.
@@ -703,7 +718,10 @@ def kernel_wrappers() -> dict:
             "vit_flash_attn_bwd": FA.vit_flash_attn_bwd,
             "llm_flash_attn": LF.llm_flash_attn,
             "llm_flash_attn_bwd": LF.llm_flash_attn_bwd,
-            "w8a16_matmul": Q.w8a16_matmul}
+            "w8a16_matmul": Q.w8a16_matmul,
+            "ln_mlp": VB.ln_mlp,
+            "vit_flash_attn_packed": FA.vit_flash_attn_packed,
+            "window_attn_core_twophase": WA.window_attn_core_twophase}
 
 
 def launch_counts() -> dict:
@@ -752,7 +770,7 @@ def amg_small_reference_check() -> None:
     torch.cuda.synchronize()
     after = launch_counts()
     train_only = {name for name, _, _ in TRAIN_KERNELS + LLM_KERNELS
-                  + (W8A16_KERNEL,)}
+                  + (W8A16_KERNEL,) + VIT_H_KERNELS}
     if any(after[k] == before[k] for k in after if k not in train_only):
         fail(f"small AMG did not launch every kernel: {before} -> {after}")
     if len(got["candidate"]) != len(ref["candidate"]):
@@ -1566,6 +1584,361 @@ def caption_main_path() -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 10: SAM ViT-H automatic mask generation
+# ---------------------------------------------------------------------------
+
+# the opt-in kernels: each runs on the ViT-H path behind its switch
+VIT_H_KERNELS = (
+    ("ln_mlp", "ullsam_tpu_torch/csrc/ln_mlp.cu",
+     "ullsam_tpu/ops/pallas/vit_block.py:60"),
+    ("vit_flash_attn_packed", "ullsam_tpu_torch/csrc/vit_flash_attn.cu",
+     "ullsam_tpu/ops/pallas/flash_attention.py:198"),
+    ("window_attn_core_twophase",
+     "ullsam_tpu_torch/csrc/window_attn_twophase.cu",
+     "ullsam_tpu/ops/pallas/flash_attention.py:1064"))
+
+def _errs(name: str, dname: str, got, ref, tol: float) -> float:
+    """max|kernel - plain| over every output; fails beyond ``tol`` of
+    max|plain| or on a non-finite value."""
+    import torch
+    outs = got if isinstance(got, tuple) else (got,)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    errs = [float((a.float() - b.float()).abs().max())
+            for a, b in zip(outs, refs)]
+    rel = max(e / max(float(b.float().abs().max()), 1e-30)
+              for e, b in zip(errs, refs))
+    ok = rel <= tol and all(bool(torch.isfinite(a).all()) for a in outs)
+    say(f"[vit_h] {name} {dname}: max_abs_err={max(errs):.3e} "
+        f"max_rel_err={rel:.3e} over {len(outs)} output(s) (relative to "
+        f"max|plain|; tol {tol:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{name} {dname} disagrees with its plain version")
+    return max(errs)
+
+
+def check_vit_h_kernels(card: str, rows: dict) -> dict:
+    """Phase 10 (a): B1, B2, B3 at head dim 80 (entries ``vit_h`` and
+    ``vit_h_float32`` of their rows) and B13, B14, B15 (their own rows at
+    ViT-H, entries ``vit_b`` / ``vit_b_float32`` at ViT-B) against their
+    plain versions at the path's shapes, bf16 and f32, each timed with its
+    plain version, the library yardstick and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from ullsam_tpu_torch.ops.kernels import flash_attention as FA
+    from ullsam_tpu_torch.ops.kernels import vit_block as VB
+    from ullsam_tpu_torch.ops.kernels import window_attention as WA
+    from ullsam_tpu_torch.ops.kernels.window_attention import (_rel_terms,
+                                                               _split_heads)
+    from ullsam_tpu_torch.tools.main_path import (
+        VIT_B, VIT_H, ln_mlp_case, vit_flash_case, vit_flash_packed_case,
+        window_attn_case, window_core_case)
+
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    opt_in = {name for name, _, _ in VIT_H_KERNELS}
+    for name, source, replaces in VIT_H_KERNELS:
+        rows[name] = {"name": name, "route": "cuda", "source": source,
+                      "replaces": replaces}
+
+    def window_lib(qkv, rh, rw, nh):
+        """SDPA with the window bias materialized (B3's yardstick)."""
+        ws, hd = rh.shape[0], rh.shape[-1]
+        q, k, v = (t.to(qkv.dtype) for t in _split_heads(qkv, ws * ws, hd))
+        rel_h, rel_w = _rel_terms(q.float(), rh.float(), rw.float(), ws, ws)
+        bias = (rel_h[..., :, None] + rel_w[..., None, :]).flatten(-2).to(
+            qkv.dtype)
+        return _sdpa_ms(q, k, v, bias, False)
+
+    def flash_lib(args):
+        q, k, v, rh, rw = args
+        BH, N, _ = q.shape
+        bias = (rh[..., :, None] + rw[..., None, :]).reshape(1, BH, N, N)
+        return _sdpa_ms(q[None], k[None], v[None], bias, False)
+
+    def packed_lib(args, nh):
+        qkv, rh, rw = args
+        B, N, C3 = qkv.shape
+        C = C3 // 3
+        q, k, v = (qkv[..., i * C:(i + 1) * C].view(B, N, nh, C // nh)
+                   .transpose(1, 2) for i in range(3))
+        bias = (rh[..., :, None] + rw[..., None, :]).reshape(B, nh, N, N)
+        return _sdpa_ms(q, k, v, bias, False)
+
+    def ln_mlp_lib(args, kw):
+        """The default route's chain of library calls (no single call
+        computes B13): layer_norm, linear, tanh-GELU, linear, residual."""
+        x, lw, lb, w1, b1, w2, b2 = args
+        C = x.shape[-1]
+        return cuda_time_ms(lambda: x + F.linear(F.gelu(F.linear(
+            F.layer_norm(x, (C,), lw, lb, kw["eps"]), w1, b1),
+            approximate="tanh"), w2, b2), iters=10)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        fwd, _, cflops, cbytes = window_core_case(dtype, gen, nh=16, hd=80)
+        cases = []
+        for tag, width in (("vit_h", VIT_H), ("vit_b", VIT_B)):
+            if tag == "vit_h":
+                a, kw, fl, nb = window_attn_case(dtype, gen, **width)
+                cases.append(("window_attn", tag, VB.window_attn,
+                              VB.window_attn_plain, a, kw, fl, nb, None))
+                a, kw, fl, nb = vit_flash_case(dtype, gen, **width)
+                cases.append(("vit_flash_attn", tag, FA.vit_flash_attn,
+                              FA.vit_flash_attn_plain, a, kw, fl, nb,
+                              lambda a=a: flash_lib(a)))
+                cases.append(("window_attn_core", tag, WA.window_attn_core,
+                              WA.window_attn_core_plain, fwd, {},
+                              cflops["fwd"], cbytes["fwd"],
+                              lambda: window_lib(*fwd, 16)))
+                twophase = fwd
+                tflops, tbytes = cflops["fwd"], cbytes["fwd"]
+            else:
+                twophase, _, f2, b2 = window_core_case(dtype, gen, nh=12,
+                                                       hd=64)
+                tflops, tbytes = f2["fwd"], b2["fwd"]
+            for T in (4900, 4096):  # a windowed and a global block
+                a, kw, fl, nb = ln_mlp_case(dtype, gen, T=T, **width)
+                cases.append(("ln_mlp", f"{tag}_T{T}", VB.ln_mlp,
+                              VB.ln_mlp_plain, a, kw, fl, nb,
+                              lambda a=a, kw=kw: ln_mlp_lib(a, kw)))
+            a, kw, fl, nb = vit_flash_packed_case(dtype, gen, **width)
+            cases.append(("vit_flash_attn_packed", tag,
+                          FA.vit_flash_attn_packed,
+                          FA.vit_flash_attn_packed_plain, a, kw, fl, nb,
+                          lambda a=a, nh=width["nh"]: packed_lib(a, nh)))
+            cases.append(("window_attn_core_twophase", tag,
+                          WA.window_attn_core_twophase,
+                          WA.window_attn_core_twophase_plain, twophase, {},
+                          tflops, tbytes,
+                          lambda t=twophase, nh=width["nh"]:
+                          window_lib(*t, nh)))
+        for name, tag, kernel, plain, args, kw, flops, nbytes, lib in cases:
+            got, ref = kernel(*args, **kw), plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = _errs(f"{name} ({tag})", dname, got, ref, tol[dtype])
+            del got, ref
+            ms = cuda_time_ms(lambda: kernel(*args, **kw), iters=10)
+            plain_ms = cuda_time_ms(lambda: plain(*args, **kw), iters=2,
+                                    warmup=1)
+            lib_ms = None if lib is None else lib()
+            torch.cuda.empty_cache()
+            b_ms, b_by = bound_ms(flops, nbytes, dtype)
+            say(f"[vit_h] {name} ({tag}) {dname}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, library "
+                f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+                f"{b_ms:.4f} ms ({b_by}: {flops / 1e9:.2f} GFLOP, "
+                f"{nbytes / 1e6:.1f} MB; data-sheet peaks at 700 W, card: "
+                f"{card}), {flops / ms / 1e9:.1f} TFLOP/s")
+            entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+            # an opt-in kernel's own numbers are ViT-H's (B13's: a windowed
+            # block's); every other case is an entry of its row
+            main = (name in opt_in and tag == ("vit_h_T4900" if name ==
+                                               "ln_mlp" else "vit_h"))
+            if main and dtype == torch.bfloat16:
+                rows[name].update(entry)
+            elif main:
+                rows[name]["float32"] = entry
+            else:
+                rows[name][tag if dtype == torch.bfloat16
+                          else f"{tag}_float32"] = entry
+        del cases, fwd, twophase
+        torch.cuda.empty_cache()
+    return rows
+
+
+def vit_h_small_config():
+    """An encoder that every ViT-H route's gate takes: 8 heads of 80 (C =
+    640, C % 128 == 0), a 32x32 grid (N = 1024) in 14x14 windows (padded
+    to 42x42: 9 windows, pad tokens masked), a windowed then a global
+    block."""
+    from ullsam_tpu_torch.core.config import ViTConfig
+    return ViTConfig(img_size=512, patch_size=16, embed_dim=640, depth=2,
+                     num_heads=8, out_chans=64, window_size=14,
+                     global_attn_indexes=(1,))
+
+
+def vit_h_small_reference_check() -> None:
+    """Phase 10 (b): the small hd-80 encoder from one set of weights, plain
+    versions on the CPU against the kernels on the card, float32, under
+    each route setting: within 1e-4 of max|out| (summation order), with
+    exactly the route's launches."""
+    import torch
+    from ullsam_tpu_torch.models.sam.image_encoder import ImageEncoder
+    from ullsam_tpu_torch.ops import layers as L
+    from ullsam_tpu_torch.tools.main_path import (VIT_H_ROUTES,
+                                                  route_launches, switches)
+
+    cfg = vit_h_small_config()
+    cpu = ImageEncoder(cfg, device="cpu")
+    gen = torch.Generator()
+    gen.manual_seed(SEED)
+    L.init_module_(cpu, gen)
+    gpu = ImageEncoder(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.randn(1, 512, 512, 3, generator=gen)
+    for route, env in VIT_H_ROUTES.items():
+        with switches(env), torch.no_grad():
+            ref = cpu(x)
+            before = launch_counts()
+            got = gpu(x.cuda())
+            torch.cuda.synchronize()
+            d = {k: v - before[k] for k, v in launch_counts().items()
+                 if v != before[k]}
+        rel = float((got.cpu() - ref).abs().max() / ref.abs().max())
+        say(f"[reference] small hd-80 encoder, route {route}, CPU plain vs "
+            f"GPU kernels: max_rel_err={rel:.3e} (tol 1e-4), launches {d}")
+        if d != route_launches(env, 1, 1):
+            fail(f"small hd-80 encoder, route {route}: launches {d}, "
+                 f"expected {route_launches(env, 1, 1)}")
+        if not rel <= 1e-4:
+            fail(f"small hd-80 encoder, route {route}: GPU vs CPU {rel:.3e}")
+
+
+def vit_h_main_path() -> None:
+    """Phase 10 (c): SAM ViT-H at full width (``build_sam("vit_h")``, random
+    weights from the seed), 1024x1024 uint8 images, 32x32 points in chunks
+    of 256, thresholds and NMS off, at most 256 masks."""
+    import numpy as np
+    import torch
+    from ullsam_tpu_torch.inference.amg import AutomaticMaskGenerator
+    from ullsam_tpu_torch.models.sam import sam as S
+    from ullsam_tpu_torch.models.sam.registry import build_sam
+    from ullsam_tpu_torch.tools.main_path import (VIT_H_ROUTES, amg_inputs,
+                                                  route_launches, switches)
+
+    t0 = time.perf_counter()
+    cfg, model32 = build_sam("vit_h", seed=SEED, device="cuda")
+    model16 = S.Sam(cfg, device="cuda", dtype=torch.bfloat16)
+    model16.load_state_dict(model32.state_dict())
+    model16.eval()
+    n_params = sum(p.numel() for p in model32.parameters())
+    model32.to("cpu")  # one model on the card at a time, for its memory
+    torch.cuda.empty_cache()
+    say(f"[vit_h] SAM ViT-H, {n_params / 1e6:.1f} M params, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    images = amg_inputs(np.random.default_rng(SEED), 4)
+    sweep = dict(points_per_side=32, points_per_batch=256, max_masks=256,
+                 pred_iou_thresh=0.0, stability_score_thresh=0.0,
+                 box_nms_thresh=1.0)
+    decoder = {"decode_masks": 4, "two_way_transformer": 4,
+               "upscale_hypernet_stats": 4, "upscale_hypernet": 4}
+
+    def run(generator, image, tag, want):
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        masks, data = generator.generate_dense(image)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        d = {k: v - before[k] for k, v in launch_counts().items()
+             if v != before[k]}
+        n = len(data["iou_preds"])
+        if (masks.dtype != torch.bool or tuple(masks.shape) != (n, 1024, 1024)
+                or n != 256 or not np.isfinite(data["iou_preds"]).all()
+                or not np.isfinite(data["stability"]).all()):
+            fail(f"ViT-H AMG {tag}: masks {tuple(masks.shape)} {masks.dtype}")
+        say(f"[vit_h] {tag}: {n} masks, latency {ms:.1f} ms (host clock, "
+            f"ends in synchronize), launches {d}")
+        if d != want:
+            fail(f"ViT-H AMG {tag}: launches {d}, expected {want}")
+        return ms, masks, data
+
+    default = dict(route_launches({}, 28, 4), **decoder)
+    g16 = AutomaticMaskGenerator(cfg, model16, **sweep)
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run(g16, images[0], "bf16 warm image", default)
+    timed = [run(g16, img, f"bf16 image {i}", default)
+             for i, img in enumerate(images[1:4], 1)]
+    peak = torch.cuda.max_memory_allocated()
+    total_s = sum(t[0] for t in timed) / 1e3
+    say(f"[vit_h] bf16 deterministic sweep (thresholds and NMS off), 3 timed "
+        f"images: {3 * 256 / total_s:.1f} masks/s, {3 / total_s:.3f} "
+        f"images/s, latency {', '.join(f'{t[0]:.1f}' for t in timed)} ms")
+    say(f"[vit_h] bf16: weights {weights / 2**30:.3f} GiB resident, peak "
+        f"{peak / 2**30:.3f} GiB (max_memory_allocated), so "
+        f"{(peak - weights) / 2**30:.3f} GiB for the sweep")
+
+    # the encode alone under each route setting, on image 1
+    x = S.preprocess(torch.from_numpy(images[1]).cuda().float()[None],
+                     cfg).to(torch.bfloat16)
+    embs = {}
+    for route, env in VIT_H_ROUTES.items():
+        want = route_launches(env, 28, 4)
+        with switches(env), torch.no_grad():
+            S.encode_image(model16.image_encoder, x)
+            lat = []
+            for _ in range(5):
+                before = launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                emb = S.encode_image(model16.image_encoder, x)
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t0) * 1e3)
+                d = {k: v - before[k] for k, v in launch_counts().items()
+                     if v != before[k]}
+                if d != want:
+                    fail(f"ViT-H encode, route {route}: launches {d}, "
+                         f"expected {want}")
+        if tuple(emb.shape) != (1, 64, 64, 256) or not bool(
+                torch.isfinite(emb).all()):
+            fail(f"ViT-H encode, route {route}: {tuple(emb.shape)}")
+        embs[route] = emb.float()
+        say(f"[vit_h] bf16 encode, route {route}: "
+            f"{', '.join(f'{t:.2f}' for t in lat)} ms (host clock, ends in "
+            f"synchronize; median {sorted(lat)[2]:.2f}), launches {d}")
+
+    every = dict(VIT_H_ROUTES["unfused_twophase"], ULLSAM_FUSED_VIT_MLP="1",
+                 ULLSAM_PACKED_GLOBAL="1")
+    with switches(every):
+        want = dict(route_launches(every, 28, 4), **decoder)
+        _, m_all, d_all = run(g16, images[1],
+                              "bf16 image 1, every switch on (B13, B14, "
+                              "B15)", want)
+    _, m_def, d_def = timed[0]
+    agree = float((m_all == m_def).float().mean())
+    d_iou = float(np.abs(d_all["iou_preds"] - d_def["iou_preds"]).max())
+    say(f"[vit_h] every switch vs default, image 1: mask pixel agreement "
+        f"{agree:.4f}, iou max diff {d_iou:.3e} (printed only)")
+    del m_all, m_def, timed
+
+    model16.to("cpu")
+    torch.cuda.empty_cache()
+    model32.to("cuda")
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run(AutomaticMaskGenerator(cfg, model32, **sweep), images[1],
+        "f32 image 1 (TF32 off)", default)
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[vit_h] f32: weights {weights / 2**30:.3f} GiB resident, peak "
+        f"{peak / 2**30:.3f} GiB, so {(peak - weights) / 2**30:.3f} GiB for "
+        f"the sweep")
+    with switches({}), torch.no_grad():
+        e32 = S.encode_image(model32.image_encoder, x.float()).float()
+    scale = float((embs["default"] - e32).norm() / e32.norm())
+    # a route rounds bf16 values at other points than the default route,
+    # so its distance from it is bf16 noise: held to 3x the default
+    # route's own distance from float32
+    tol = 3 * scale
+    say(f"[vit_h] bf16 default-route embedding vs f32: relative L2 "
+        f"{scale:.3e}; each route vs the default held to {tol:.3e}")
+    for route in VIT_H_ROUTES:
+        rel = float((embs[route] - embs["default"]).norm()
+                    / embs["default"].norm())
+        say(f"[vit_h] bf16 embedding, route {route} vs default: relative L2 "
+            f"{rel:.3e} {'ok' if rel <= tol else 'FAIL'}")
+        if not rel <= tol:
+            fail(f"ViT-H route {route}: embedding {rel:.3e} from the "
+                 f"default's (tol {tol:.3e})")
+    del model32, model16, embs
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     try:
         import torch
@@ -1606,16 +1979,19 @@ def main() -> None:
     rows.update(check_train_kernels(smi))
     rows.update(check_llm_kernels(smi))
     rows.update(check_w8a16_kernel(smi))
+    rows = check_vit_h_kernels(smi, rows)
     small_reference_check()
     amg_small_reference_check()
     train_small_reference_check()
     packed_small_reference_check()
     caption_small_reference_check()
+    vit_h_small_reference_check()
     by_path = {}
     for path, drive in (("interactive", main_path), ("amg", amg_main_path),
                         ("train", train_main_path),
                         ("packed", packed_main_path),
-                        ("caption", caption_main_path)):
+                        ("caption", caption_main_path),
+                        ("vit_h", vit_h_main_path)):
         reset_counts()
         drive()
         by_path[path] = launch_counts()

@@ -526,3 +526,179 @@ def test_quantized_caption_on_card_matches_cpu(cuda):
                                                              res[1][1])
     for a, b in zip(res[0][2], res[1][2]):
         assert _rel_err(b, a) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# SAM ViT-H: head dim 80 in B1-B3, and the opt-in kernels B13, B14, B15
+# ---------------------------------------------------------------------------
+
+def _vit_h_kernels():
+    from ullsam_tpu_torch.ops.kernels import flash_attention as FA
+    from ullsam_tpu_torch.ops.kernels import vit_block as VB
+    from ullsam_tpu_torch.ops.kernels import window_attention as WA
+    return {"window_attn": (VB.window_attn, VB.window_attn_plain),
+            "vit_flash_attn": (FA.vit_flash_attn, FA.vit_flash_attn_plain),
+            "window_attn_core": (WA.window_attn_core,
+                                 WA.window_attn_core_plain),
+            "ln_mlp": (VB.ln_mlp, VB.ln_mlp_plain),
+            "vit_flash_attn_packed": (FA.vit_flash_attn_packed,
+                                      FA.vit_flash_attn_packed_plain),
+            "window_attn_core_twophase": (WA.window_attn_core_twophase,
+                                          WA.window_attn_core_twophase_plain)}
+
+
+def _vit_h_case(name, width, dtype, gen):
+    """(args, kwargs) of kernel ``name`` at the main path's shapes of SAM
+    ``width`` ("vit_h": 16 heads of 80; "vit_b": 12 of 64)."""
+    from ullsam_tpu_torch.tools import main_path as MP
+    w = MP.VIT_H if width == "vit_h" else MP.VIT_B
+    if name in ("window_attn_core", "window_attn_core_twophase"):
+        fwd, _, _, _ = MP.window_core_case(dtype, gen, nh=w["nh"],
+                                           hd=w["C"] // w["nh"])
+        return fwd, {}
+    case = {"window_attn": MP.window_attn_case,
+            "vit_flash_attn": MP.vit_flash_case, "ln_mlp": MP.ln_mlp_case,
+            "vit_flash_attn_packed": MP.vit_flash_packed_case}[name]
+    args, kw, _, _ = case(dtype, gen, **w)
+    return args, kw
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name,width", [
+    ("window_attn", "vit_h"), ("vit_flash_attn", "vit_h"),
+    ("window_attn_core", "vit_h"), ("ln_mlp", "vit_h"),
+    ("vit_flash_attn_packed", "vit_h"), ("window_attn_core_twophase", "vit_h"),
+    ("ln_mlp", "vit_b"), ("vit_flash_attn_packed", "vit_b"),
+    ("window_attn_core_twophase", "vit_b")])
+def test_vit_h_kernels_match_plain(cuda, dt, name, width):
+    """B1, B2, B3 at head dim 80 and B13, B14, B15 at ViT-H's (and
+    ViT-B's) main-path shapes against their plain versions, every output;
+    each call launches its kernel once."""
+    kernel, plain = _vit_h_kernels()[name]
+    args, kw = _vit_h_case(name, width, getattr(torch, dt), cuda)
+    before = kernel.launches
+    got = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    ref = plain(*args, **kw)
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all())
+        assert _rel_err(a, b) <= TOL[dt]
+
+
+def test_vit_h_wrappers_refuse_unsupported(cuda):
+    """On the card the wrappers raise for what their kernels do not take,
+    with no fallback: head dim 96 in B1, B2, B3, B14 and B15; C % 32 in
+    B13; head dim 80 in B8 and B9 (not instantiated yet); and a
+    ``QuantLinear`` made on the CPU at a width B12 does not take (K = 72)
+    raises on its first call after ``.to("cuda")``."""
+    from ullsam_tpu_torch.ops import layers as L
+    from ullsam_tpu_torch.ops.kernels import flash_attention as FA
+    from ullsam_tpu_torch.ops.kernels import vit_block as VB
+    from ullsam_tpu_torch.ops.kernels import window_attention as WA
+    z = lambda *s: torch.zeros(*s, device="cuda")  # noqa: E731
+    C, ws = 192, 8
+    with pytest.raises(ValueError):
+        VB.window_attn(z(2, 64, C), z(C), z(C), z(3 * C, C), z(3 * C),
+                       z(C, C), z(C), z(ws, ws, 96), z(ws, ws, 96),
+                       num_heads=2, eps=1e-6, nwx=1, nwy=1, Hv=8, Wv=8,
+                       masked=False)
+    with pytest.raises(ValueError):
+        FA.vit_flash_attn(z(2, 1024, 96), z(2, 1024, 96), z(2, 1024, 96),
+                          z(2, 1024, 32), z(2, 1024, 32))
+    for core in (WA.window_attn_core, WA.window_attn_core_twophase):
+        with pytest.raises(ValueError):
+            core(z(128, 3 * C), z(ws, ws, 96), z(ws, ws, 96))
+    with pytest.raises(ValueError):
+        FA.vit_flash_attn_packed(z(1, 1024, 3 * C), z(2, 1024, 32),
+                                 z(2, 1024, 32), 2)
+    with pytest.raises(ValueError):
+        VB.ln_mlp(z(256, 40), z(40), z(40), z(160, 40), z(160), z(40, 160),
+                  z(40), eps=1e-6)
+    with pytest.raises(ValueError):
+        WA.window_attn_core_bwd(z(128, 480), z(ws, ws, 80), z(ws, ws, 80),
+                                z(128, 160))
+    q = z(2, 1024, 80)
+    with pytest.raises(ValueError):
+        FA.vit_flash_attn_bwd(q, q, q, z(2, 1024, 32), z(2, 1024, 32), q,
+                              z(2, 1024), z(2, 1024))
+    lin = L.QuantLinear(torch.randint(-127, 128, (8, 72), dtype=torch.int8),
+                        torch.rand(8))
+    lin(torch.randn(2, 72))  # the CPU takes any width
+    lin.to("cuda")
+    with pytest.raises(ValueError):
+        lin(torch.randn(2, 72, device="cuda"))
+
+
+@pytest.mark.parametrize("route", ["default", "fused_mlp", "packed_global",
+                                   "unfused_window", "unfused_twophase"])
+def test_hd80_encoder_on_card_matches_cpu(cuda, monkeypatch, route):
+    """A small encoder with head dim 80 that every route's gate takes (8
+    heads, C = 640, a 32x32 grid in padded 14x14 windows, a windowed and a
+    global block) from one set of weights, under each route setting of the
+    JAX package's switches: kernels on the card against plain versions on
+    the CPU, f32, with exactly the route's launches."""
+    from ullsam_tpu_torch.core.config import ViTConfig
+    from ullsam_tpu_torch.models.sam.image_encoder import ImageEncoder
+    from ullsam_tpu_torch.ops.layers import init_module_
+    from ullsam_tpu_torch.tools.main_path import (SWITCHES, VIT_H_ROUTES,
+                                                  route_launches)
+    env = VIT_H_ROUTES[route]
+    for k in SWITCHES:
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    cfg = ViTConfig(img_size=512, patch_size=16, embed_dim=640, depth=2,
+                    num_heads=8, out_chans=64, window_size=14,
+                    global_attn_indexes=(1,))
+    cpu = ImageEncoder(cfg, device="cpu")
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    init_module_(cpu, gen)
+    gpu = ImageEncoder(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.randn(1, 512, 512, 3, generator=gen)
+    kernels = {k: v[0] for k, v in _vit_h_kernels().items()}
+    before = {k: f.launches for k, f in kernels.items()}
+    with torch.no_grad():
+        ref = cpu(x)
+        got = gpu(x.cuda())
+    torch.cuda.synchronize()
+    d = {k: f.launches - before[k] for k, f in kernels.items()
+         if f.launches != before[k]}
+    assert d == route_launches(env, 1, 1)
+    assert _rel_err(got.cpu(), ref) <= 1e-4
+
+
+def test_packed_global_gradients_on_card_match_cpu(cuda, monkeypatch):
+    """B14's backward (split into heads, B9, repack) on the card against the
+    CPU's plain versions: a global block's attention at head dim 64 over a
+    32x32 grid, f32, x's and every parameter's gradient."""
+    from ullsam_tpu_torch.core.config import ViTConfig
+    from ullsam_tpu_torch.models.sam.image_encoder import Block
+    from ullsam_tpu_torch.ops.kernels import flash_attention as FA
+    from ullsam_tpu_torch.ops.layers import init_module_
+    monkeypatch.setenv("ULLSAM_PACKED_GLOBAL", "1")
+    cfg = ViTConfig(img_size=512, patch_size=16, embed_dim=128, depth=1,
+                    num_heads=2, window_size=0, global_attn_indexes=(0,))
+    cpu = Block(cfg, 0, device="cpu")
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    init_module_(cpu, gen)
+    gpu = Block(cfg, 0, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.randn(1, 32, 32, 128, generator=gen)
+    xs = [x.clone().requires_grad_(), x.cuda().requires_grad_()]
+    before = (FA.vit_flash_attn_packed.launches,
+              FA.vit_flash_attn_bwd.launches)
+    for m, xi in zip((cpu, gpu), xs):
+        (m.global_attention(xi) ** 2).sum().backward()
+    torch.cuda.synchronize()
+    assert (FA.vit_flash_attn_packed.launches - before[0],
+            FA.vit_flash_attn_bwd.launches - before[1]) == (1, 1)
+    assert _rel_err(xs[1].grad.cpu(), xs[0].grad) <= 1e-4
+    for (name, a), b in zip(cpu.attn.named_parameters(),
+                            gpu.attn.parameters()):
+        assert _rel_err(b.grad.cpu(), a.grad) <= 1e-4, name

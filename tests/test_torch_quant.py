@@ -32,7 +32,8 @@ from ullsam_tpu_torch.models.internlm2 import generate as TG
 from ullsam_tpu_torch.models.internlm2 import model as TM
 from ullsam_tpu_torch.models.internlm2 import quant as TQ
 from ullsam_tpu_torch.ops import layers as TL
-from ullsam_tpu_torch.ops.kernels.int8_matmul import (w8a16_matmul,
+from ullsam_tpu_torch.ops.kernels.int8_matmul import (check_weights,
+                                                      w8a16_matmul,
                                                       w8a16_matmul_plain)
 
 T = torch.from_numpy
@@ -104,8 +105,11 @@ def test_plain_b12_matches_xla_int8_linear(dt, with_bias):
                                  "qweight not int8", "qscale float64",
                                  "qscale shape", "bias shape"])
 def test_quant_linear_checks_its_buffers_when_made(bad):
-    """A ``QuantLinear`` holds its buffers to what B12 takes when it is made
-    (each call then checks only x), on any device."""
+    """``check_weights``, which a ``QuantLinear`` runs on its CUDA buffers
+    once, refuses each bad operand. A ``QuantLinear`` made on the CPU
+    refuses the bad types and shapes at once, and takes what only the
+    kernel cannot (K % 16, a strided weight): the plain version computes
+    those, as the JAX int8 linear does."""
     q = torch.randint(-127, 128, (32, 64), dtype=torch.int8)
     s, b = torch.rand(32), torch.rand(32)
     if bad == "qweight not contiguous":
@@ -121,7 +125,14 @@ def test_quant_linear_checks_its_buffers_when_made(bad):
     else:
         b = b[:16]
     with pytest.raises(ValueError):
-        TL.QuantLinear(q, s, b)
+        check_weights(q, s, b)
+    if bad in ("qweight not contiguous", "K % 16"):
+        lin = TL.QuantLinear(q, s, b)
+        x = torch.randn(3, q.shape[1])
+        assert torch.equal(lin(x), w8a16_matmul_plain(x, q, s, b, x.dtype))
+    else:
+        with pytest.raises(ValueError):
+            TL.QuantLinear(q, s, b)
 
 
 def test_quant_linear_keeps_bias_in_f32():
@@ -209,3 +220,24 @@ def test_quantized_forward_and_generate_match_jax():
                                  TM.embed_tokens(lm, T(ids)), T(mask))
     np.testing.assert_array_equal(toks_t.numpy(), np.asarray(toks_j))
     np.testing.assert_array_equal(lens_t.numpy(), np.asarray(lens_j))
+
+
+def test_quantize_any_width_on_cpu_matches_jax():
+    """A width B12 does not take (intermediate size 72: w2's K % 16 != 0)
+    quantizes on the CPU, and its logits match the JAX package's
+    ``quantize_llm_int8`` model within 1e-5 of their max (f32; the same
+    int8 weights, summation order only)."""
+    fields = dict(FIELDS, intermediate_size=72)
+    jcfg = JC.InternLM2Config(**fields)
+    p = jax_params_to_numpy(jax_init(JM.internlm2_init, 0, jcfg))
+    cfg = TC.InternLM2Config(**fields)
+    qtree = jax.tree_util.tree_map(np.asarray, JQ.quantize_llm_int8(p))
+    lm = TQ.quantize_llm_int8(_port_llm(p, cfg)).eval()
+    assert lm.model.layers[0].feed_forward.w2.qweight.shape == (64, 72)
+    ids = np.random.default_rng(2).integers(3, 128, (2, 10))
+    ref = JM.internlm2_forward(jax.tree_util.tree_map(jnp.asarray, qtree),
+                               jcfg, input_ids=jnp.asarray(ids))
+    with torch.no_grad():
+        out = TM.internlm2_forward(lm, cfg, input_ids=T(ids))
+    ref = np.asarray(ref["logits"])
+    assert _rel(out["logits"].numpy(), ref) <= 1e-5

@@ -5,7 +5,9 @@
 //
 // A [M, K] and W [N, K] row-major (W is the natural [out, in] weight), the
 // sums in f32, the result rounded once to the output type. act is the
-// identity or ReLU. `res_rows` lets one [res_rows, N] residual serve every
+// identity, ReLU, or the tanh-form GELU in f32 of the sum first rounded to
+// the output type (B13's fc1: fc1 + b1 is rounded, then GELU'd and rounded
+// again, as vit_block.py:60-70 does). `res_rows` lets one [res_rows, N] residual serve every
 // block of res_rows output rows (a per-image term shared by all prompts);
 // res_rows == M is the plain residual.
 //   * float32: gemm_nt_f32, true f32 on the CUDA cores (no TF32).
@@ -19,6 +21,22 @@ namespace ullsam {
 namespace {
 
 constexpr int kGemmBM = 128, kGemmBN = 128, kGemmBK = 8;
+
+// the epilogue's activation (the C entry points pass these as ints)
+enum GemmAct : int { kActNone = 0, kActRelu = 1, kActGeluTanh = 2 };
+
+// tanh-form GELU in f32 (vit_block.py `_gelu_tanh`)
+__device__ __forceinline__ float gelu_tanh(float f) {
+  const float inner = 0.7978845608028654f * (f + 0.044715f * (f * f * f));
+  return 0.5f * f * (1.f + tanhf(inner));
+}
+
+template <typename OutT>
+__device__ __forceinline__ float apply_act(float v, int act) {
+  if (act == kActRelu) return fmaxf(v, 0.f);
+  if (act == kActGeluTanh) return gelu_tanh(round_to<OutT>(v));
+  return v;
+}
 
 __device__ __forceinline__ void store_pair(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
@@ -39,7 +57,7 @@ __global__ void __launch_bounds__(256)
     gemm_nt_f32(const float* __restrict__ A, const float* __restrict__ B,
                 const float* __restrict__ bias, const float* __restrict__ res,
                 int res_rows, float* __restrict__ out, int M, int N, int K,
-                int relu) {
+                int act) {
   __shared__ __align__(16) float As[2][kGemmBK][kGemmBM + 4];
   __shared__ __align__(16) float Bs[2][kGemmBK][kGemmBN + 4];
   const int tid = threadIdx.x;
@@ -109,8 +127,7 @@ __global__ void __launch_bounds__(256)
       float v = acc[i][j];
       if (bias) v += bias[nn];
       if (rrow) v += rrow[nn];
-      if (relu) v = fmaxf(v, 0.f);
-      out[(size_t)m * N + nn] = v;
+      out[(size_t)m * N + nn] = apply_act<float>(v, act);
     }
   }
 }
@@ -128,7 +145,7 @@ __global__ void __launch_bounds__(256)
                      const __nv_bfloat16* __restrict__ B,
                      const __nv_bfloat16* __restrict__ bias,
                      const __nv_bfloat16* __restrict__ res, int res_rows,
-                     OutT* __restrict__ out, int M, int N, int K, int relu) {
+                     OutT* __restrict__ out, int M, int N, int K, int act) {
   __shared__ __align__(16) __nv_bfloat16 As[2][kMmaBM * kMmaLd];
   __shared__ __align__(16) __nv_bfloat16 Bs[2][kMmaBN * kMmaLd];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -217,31 +234,28 @@ __global__ void __launch_bounds__(256)
           v0 += __bfloat162float(res[r]);
           v1 += __bfloat162float(res[r + 1]);
         }
-        if (relu) {
-          v0 = fmaxf(v0, 0.f);
-          v1 = fmaxf(v1, 0.f);
-        }
-        store_pair(out + (size_t)m * N + nn, v0, v1);
+        store_pair(out + (size_t)m * N + nn, apply_act<OutT>(v0, act),
+                   apply_act<OutT>(v1, act));
       }
 }
 
 // f32: CUDA-core FMA GEMM (true f32); bf16: the tensor-core GEMM
 inline int gemm_nt(const float* A, const float* B, const float* bias,
                    const float* res, int res_rows, float* out, int M, int N,
-                   int K, int relu, cudaStream_t st) {
+                   int K, int act, cudaStream_t st) {
   dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM);
   gemm_nt_f32<<<grid, 256, 0, st>>>(A, B, bias, res, res_rows, out, M, N, K,
-                                    relu);
+                                    act);
   return (int)cudaGetLastError();
 }
 
 template <typename OutT>
 int gemm_nt(const __nv_bfloat16* A, const __nv_bfloat16* B,
             const __nv_bfloat16* bias, const __nv_bfloat16* res, int res_rows,
-            OutT* out, int M, int N, int K, int relu, cudaStream_t st) {
+            OutT* out, int M, int N, int K, int act, cudaStream_t st) {
   dim3 grid((N + kMmaBN - 1) / kMmaBN, (M + kMmaBM - 1) / kMmaBM);
   gemm_nt_bf16_mma<OutT><<<grid, 256, 0, st>>>(A, B, bias, res, res_rows, out,
-                                               M, N, K, relu);
+                                               M, N, K, act);
   return (int)cudaGetLastError();
 }
 

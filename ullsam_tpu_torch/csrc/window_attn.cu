@@ -13,12 +13,15 @@
 // cores in bf16 (mma.sync, f32 accumulate); float32 stays true f32 FMA on
 // the CUDA cores (no TF32), whose 67 TFLOP/s is then the ceiling.
 //
+// At SAM ViT-H (Bw = 25, n = 196, C = 1280, 16 heads of 80) a call is ~70
+// GFLOP; head dims 64 and 80 have their own instances of the attention core.
+//
 // Design: a chain of four kernels on one stream, each simple and right:
-//   1. ln_mask_kernel: one warp per token row; one-pass f32 LayerNorm
-//      (E[x], E[x^2]) and the zeroing of pad tokens' normed activations,
-//      with the window geometry (nwx, nwy, Hv, Wv) rebuilt from the row
-//      index. Pad keys stay in the softmax: they carry k = qkv bias, as in
-//      the reference's pad-after-norm.
+//   1. ln_mask_kernel (ln_rows.cuh): one warp per token row; one-pass f32
+//      LayerNorm (E[x], E[x^2]) and the zeroing of pad tokens' normed
+//      activations, with the window geometry (nwx, nwy, Hv, Wv) rebuilt
+//      from the row index. Pad keys stay in the softmax: they carry k = qkv
+//      bias, as in the reference's pad-after-norm.
 //   2. GEMM (gemm.cuh) against the natural [out, in] weight with a bias
 //      epilogue, for qkv and, with the f32 residual epilogue, for proj:
 //      gemm_nt_bf16_mma
@@ -45,49 +48,16 @@
 #include "attn_fma.cuh"
 #include "attn_mma.cuh"
 #include "gemm.cuh"
+#include "ln_rows.cuh"
 
 namespace ullsam {
 namespace {
 
-template <typename T>
-__global__ void __launch_bounds__(256)
-    ln_mask_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                   const T* __restrict__ b, T* __restrict__ y, int rows,
-                   int C, float eps, int n, int kh, int kw, int nwx, int nwy,
-                   int Hv, int Wv, int masked) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = blockIdx.x * 8 + warp;
-  if (r >= rows) return;
-  const T* xr = x + (size_t)r * C;
-  float s = 0.f, s2 = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    const float v = to_f(xr[c]);
-    s += v;
-    s2 += v * v;
-  }
-  s = warp_sum(s);
-  s2 = warp_sum(s2);
-  const float m1 = s / C;
-  const float var = fmaxf(s2 / C - m1 * m1, 0.f);
-  const float rstd = rsqrtf(var + eps);
-  bool valid = true;
-  if (masked) {
-    const int wi = (r / n) % (nwy * nwx);  // window index within its image
-    const int t = r % n;
-    const int row_img = (wi / nwx) * kh + t / kw;
-    const int col_img = (wi % nwx) * kw + t % kw;
-    valid = row_img < Hv && col_img < Wv;
-  }
-  T* yr = y + (size_t)r * C;
-  for (int c = lane; c < C; c += 32) {
-    const float v = (to_f(xr[c]) - m1) * rstd * to_f(w[c]) + to_f(b[c]);
-    yr[c] = from_f<T>(valid ? v : 0.f);
-  }
-}
-
 constexpr int kAttnMaxKeys = 256;  // n <= 256 tokens per window
-constexpr int kHeadDim = 64;       // SAM ViT-B/L heads
 constexpr int kAttnMaxRel = 64;    // kh + kw <= 64
+
+// head dims with an instantiated core: SAM ViT-B / L (64), ViT-H (80)
+inline bool head_dim_ok(int hd) { return hd == 64 || hd == 80; }
 
 // ---- f32 attention core on the CUDA cores ---------------------------------
 // grid (nh, Bw, ceil(n / 64)), 256 threads: 64 query rows of one (head,
@@ -338,6 +308,16 @@ int attn_core(const __nv_bfloat16* qkv, const __nv_bfloat16* rh,
   return (int)cudaGetLastError();
 }
 
+// the core at a runtime head dim (head_dim_ok checked by the caller)
+template <typename T>
+int attn_core_hd(int hd, const T* qkv, const T* rh, const T* rw, T* out,
+                 int Bw, int n, int C, int nh, int kh, int kw, float scale,
+                 cudaStream_t st) {
+  if (hd == 80)
+    return attn_core<80>(qkv, rh, rw, out, Bw, n, C, nh, kh, kw, scale, st);
+  return attn_core<64>(qkv, rh, rw, out, Bw, n, C, nh, kh, kw, scale, st);
+}
+
 template <typename T>
 int forward(const void* x_, const void* lnw, const void* lnb,
             const void* qkvw, const void* qkvb, const void* projw,
@@ -361,8 +341,7 @@ int forward(const void* x_, const void* lnw, const void* lnb,
   const float scale = 1.0f / sqrtf((float)hd);
   const T* rht = static_cast<const T*>(rh);
   const T* rwt = static_cast<const T*>(rw);
-  err = attn_core<kHeadDim>(qkv, rht, rwt, o, Bw, n, C, nh, kh, kw, scale,
-                           st);
+  err = attn_core_hd(hd, qkv, rht, rwt, o, Bw, n, C, nh, kh, kw, scale, st);
   if (err) return err;
   return gemm_nt(o, static_cast<const T*>(projw),
                     static_cast<const T*>(projb), x, static_cast<T*>(out), M,
@@ -383,7 +362,7 @@ extern "C" int window_attn_forward(
     void* out, int Bw, int n, int C, int nh, int hd, int kh, int kw,
     float eps, int nwx, int nwy, int Hv, int Wv, int masked, void* stream) {
   using namespace ullsam;
-  if (n > kAttnMaxKeys || kh + kw > kAttnMaxRel || hd != kHeadDim ||
+  if (n > kAttnMaxKeys || kh + kw > kAttnMaxRel || !head_dim_ok(hd) ||
       nh * hd != C || C % kMmaBK != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -409,20 +388,20 @@ extern "C" int window_attn_core_forward(int dtype, const void* qkv,
                                         void* stream) {
   using namespace ullsam;
   if (n > kAttnMaxKeys || kh * kw != n || kh + kw > kAttnMaxRel ||
-      hd != kHeadDim || nh * hd != C)
+      !head_dim_ok(hd) || nh * hd != C)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float scale = 1.0f / sqrtf((float)hd);
   if (dtype == kF32)
-    return attn_core<kHeadDim>(
-        static_cast<const float*>(qkv), static_cast<const float*>(rh),
-        static_cast<const float*>(rw), static_cast<float*>(out), Bw, n, C, nh,
-        kh, kw, scale, st);
+    return attn_core_hd(hd, static_cast<const float*>(qkv),
+                        static_cast<const float*>(rh),
+                        static_cast<const float*>(rw), static_cast<float*>(out),
+                        Bw, n, C, nh, kh, kw, scale, st);
   if (dtype == kBF16)
-    return attn_core<kHeadDim>(static_cast<const __nv_bfloat16*>(qkv),
-                               static_cast<const __nv_bfloat16*>(rh),
-                               static_cast<const __nv_bfloat16*>(rw),
-                               static_cast<__nv_bfloat16*>(out), Bw, n, C,
-                               nh, kh, kw, scale, st);
+    return attn_core_hd(hd, static_cast<const __nv_bfloat16*>(qkv),
+                        static_cast<const __nv_bfloat16*>(rh),
+                        static_cast<const __nv_bfloat16*>(rw),
+                        static_cast<__nv_bfloat16*>(out), Bw, n, C, nh, kh, kw,
+                        scale, st);
   return (int)cudaErrorInvalidValue;
 }

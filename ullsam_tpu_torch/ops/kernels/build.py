@@ -30,7 +30,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
 BUILD_DIR = os.path.join(CSRC, "_build")
 SOURCES = ("window_attn", "vit_flash_attn", "decoder_twt", "decoder_upscale",
            "window_attn_bwd", "vit_flash_bwd", "llm_flash_attn",
-           "llm_flash_bwd", "w8a16_matmul")
+           "llm_flash_bwd", "w8a16_matmul", "ln_mlp",
+           "window_attn_twophase")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

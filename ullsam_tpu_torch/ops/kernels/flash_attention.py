@@ -14,6 +14,16 @@ there: operation-bound; bf16 on the tensor cores, float32 by FMA); on a
 CPU tensor it runs ``vit_flash_attn_plain``. There is no fallback from the
 kernel.
 
+B14, ``vit_flash_attn_packed(qkv, rel_h, rel_w, nh)``, is B2's function
+read straight from the qkv projection [B, N, 3C] (head h of q, k, v at
+columns h*hd, C + h*hd, 2C + h*hd) and written into o [B, N, C] at column
+h*hd, the layout proj consumes: no head-split copy, no merge transpose. It
+replaces ``_vit_kernel_packed`` (entry ``vit_flash_attention_packed``),
+which the JAX package runs under ``ULLSAM_PACKED_GLOBAL=1``; its kernel is
+B2's body with other strides (``csrc/vit_flash_attn.cu``). Its gradient
+(``VitFlashPacked``) splits into heads and runs B9, as
+``_vit_flash_packed_bwd`` does. B2 and B14 take head dims 64 and 80, B9 64.
+
 B9, ``vit_flash_attn_bwd``, is its gradient (``_vit_bwd_dq_kernel`` and
 ``_vit_bwd_dkv_kernel``, through ``_vit_flash_bwd_impl``), launched from
 ``csrc/vit_flash_bwd.cu`` on a CUDA tensor. ``vit_flash_attention`` is the
@@ -33,6 +43,7 @@ from ullsam_tpu_torch.ops.kernels import build
 Tensor = torch.Tensor
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (64, 80)  # B2, B14: SAM ViT-B / L and ViT-H
 
 
 def vit_flash_attn_plain(q: Tensor, k: Tensor, v: Tensor, rel_h: Tensor,
@@ -68,7 +79,7 @@ def vit_flash_attn(q: Tensor, k: Tensor, v: Tensor, rel_h: Tensor,
     dtype, float32 or bfloat16). Returns (o [BH, N, D], lse [BH, N] f32).
 
     CPU tensors run ``vit_flash_attn_plain``; CUDA tensors launch the kernel
-    (D = 64, N % 64 == 0, KH, KW <= 64) or raise."""
+    (D = 64 or 80, N % 64 == 0, KH, KW <= 64) or raise."""
     if q.device.type == "cpu":
         return vit_flash_attn_plain(q, k, v, rel_h, rel_w)
     if q.device.type != "cuda":
@@ -77,7 +88,7 @@ def vit_flash_attn(q: Tensor, k: Tensor, v: Tensor, rel_h: Tensor,
         raise ValueError(f"vit_flash_attn: unsupported dtype {q.dtype}")
     BH, N, D = q.shape
     KH, KW = rel_h.shape[-1], rel_w.shape[-1]
-    if D != 64 or N % 64 or KH * KW != N or KH > 64 or KW > 64:
+    if D not in _HEAD_DIMS or N % 64 or KH * KW != N or KH > 64 or KW > 64:
         raise ValueError(f"vit_flash_attn: unsupported shape N={N} D={D} "
                          f"KH={KH} KW={KW}")
     for t, name, shape in ((q, "q", (BH, N, D)), (k, "k", (BH, N, D)),
@@ -110,6 +121,81 @@ def vit_flash_attn(q: Tensor, k: Tensor, v: Tensor, rel_h: Tensor,
 
 
 vit_flash_attn.launches = 0
+
+
+def _heads(t: Tensor, nh: int) -> Tensor:
+    """[B, N, nh*hd] -> [B*nh, N, hd], contiguous and 16-byte aligned (a
+    reshape of a permuted view may stay a view)."""
+    B, N, C = t.shape
+    return build.aligned(t.reshape(B, N, nh, C // nh).permute(0, 2, 1, 3)
+                         .reshape(B * nh, N, C // nh))
+
+
+def _merge(t: Tensor, B: int) -> Tensor:
+    """[B*nh, N, hd] -> [B, N, nh*hd]."""
+    BH, N, D = t.shape
+    return t.reshape(B, BH // B, N, D).permute(0, 2, 1, 3).reshape(B, N, -1)
+
+
+def vit_flash_attn_packed_plain(qkv: Tensor, rel_h: Tensor, rel_w: Tensor,
+                                nh: int) -> Tuple[Tensor, Tensor]:
+    """B14 in plain PyTorch: qkv [B, N, 3C] -> (o [B, N, C], lse [B*nh, N]
+    f32), B2's function and rounding points on each head."""
+    q, k, v = (_heads(t, nh) for t in qkv.chunk(3, dim=-1))
+    o, lse = vit_flash_attn_plain(q, k, v, rel_h, rel_w)
+    return _merge(o, qkv.shape[0]), lse
+
+
+def vit_flash_attn_packed(qkv: Tensor, rel_h: Tensor, rel_w: Tensor,
+                          nh: int) -> Tuple[Tensor, Tensor]:
+    """B14: qkv [B, N, 3C] (q | k | v, head h at h*hd of each, hd = C / nh,
+    64 or 80); rel_h [B*nh, N, KH], rel_w [B*nh, N, KW] (one dtype, float32
+    or bfloat16). Returns (o [B, N, C], lse [B*nh, N] f32).
+
+    CPU tensors run ``vit_flash_attn_packed_plain``; CUDA tensors launch
+    the kernel (N % 64 == 0, KH * KW == N, KH, KW <= 64) or raise."""
+    if qkv.device.type == "cpu":
+        return vit_flash_attn_packed_plain(qkv, rel_h, rel_w, nh)
+    name = "vit_flash_attn_packed"
+    if qkv.device.type != "cuda" or qkv.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name}: unsupported {qkv.dtype} on {qkv.device}")
+    B, N, C3 = qkv.shape
+    C = C3 // 3
+    D = C // nh
+    KH, KW = rel_h.shape[-1], rel_w.shape[-1]
+    if (C3 % 3 or D * nh != C or D not in _HEAD_DIMS or N % 64
+            or KH * KW != N or KH > 64 or KW > 64):
+        raise ValueError(f"{name}: unsupported shape qkv {tuple(qkv.shape)} "
+                         f"nh={nh} KH={KH} KW={KW}")
+    for t, what, shape in ((qkv, "qkv", (B, N, C3)),
+                           (rel_h, "rel_h", (B * nh, N, KH)),
+                           (rel_w, "rel_w", (B * nh, N, KW))):
+        if t.device != qkv.device or t.dtype != qkv.dtype:
+            raise ValueError(f"{name}: {what} is {t.dtype} on {t.device}, "
+                             f"expected {qkv.dtype} on {qkv.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {what} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} is not contiguous and 16-byte "
+                             f"aligned")
+    o = torch.empty((B, N, C), device=qkv.device, dtype=qkv.dtype)
+    lse = torch.empty((B * nh, N), device=qkv.device, dtype=torch.float32)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = build.function("vit_flash_attn", "vit_flash_attn_packed_forward",
+                        [i] + [p] * 5 + [i] * 6 + [ctypes.c_float, p])
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = fn(_DTYPE_CODE[qkv.dtype], qkv.data_ptr(), rel_h.data_ptr(),
+                 rel_w.data_ptr(), o.data_ptr(), lse.data_ptr(), B, nh, N, D,
+                 KH, KW, float(D ** -0.5), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    vit_flash_attn_packed.launches += 1
+    return o, lse
+
+
+vit_flash_attn_packed.launches = 0
 
 
 def _drel(ds: Tensor, KH: int, KW: int) -> Tuple[Tensor, Tensor]:
@@ -165,7 +251,8 @@ def vit_flash_attn_bwd(q: Tensor, k: Tensor, v: Tensor, rel_h: Tensor,
     drel_h [BH, N, KH] f32, drel_w [BH, N, KW] f32).
 
     CPU tensors run ``vit_flash_attn_bwd_plain``; CUDA tensors launch the
-    kernel (D = 64, KW dividing 64 and at least 8, KH <= 64) or raise."""
+    kernel (D = 64, KW dividing 64 and at least 8, KH <= 64) or raise: head
+    dim 80 (ViT-H) is not instantiated yet."""
     if q.device.type == "cpu":
         return vit_flash_attn_bwd_plain(q, k, v, rel_h, rel_w, do, lse, dd)
     if q.device.type != "cuda":
@@ -244,3 +331,38 @@ def vit_flash_attention(q: Tensor, k: Tensor, v: Tensor, rel_h: Tensor,
     """Differentiable B2 -> o [BH, N, D]; q, k, v contiguous at one dtype,
     rel_h / rel_w at any float dtype (float32 keeps drel in float32)."""
     return VitFlashAttention.apply(q, k, v, rel_h, rel_w)
+
+
+class VitFlashPacked(torch.autograd.Function):
+    """B14 forward; the backward splits qkv, o and the output gradient into
+    heads and runs B9, then packs dq, dk, dv back into dqkv [B, N, 3C]
+    (``_vit_flash_packed_bwd``). rel_h / rel_w arrive at any float dtype and
+    are cast to qkv.dtype inside, so their gradients keep their dtype."""
+
+    @staticmethod
+    def forward(ctx, qkv, rel_h, rel_w, nh):
+        rh, rw = (build.aligned(r.to(qkv.dtype)) for r in (rel_h, rel_w))
+        o, lse = vit_flash_attn_packed(qkv, rh, rw, nh)
+        ctx.nh = nh
+        ctx.rel_dtypes = (rel_h.dtype, rel_w.dtype)
+        ctx.save_for_backward(qkv, rh, rw, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, rh, rw, o, lse = ctx.saved_tensors
+        nh, B = ctx.nh, qkv.shape[0]
+        q, k, v = (_heads(t, nh) for t in qkv.chunk(3, dim=-1))
+        g, o = _heads(g, nh), _heads(o, nh)
+        dd = (g.float() * o.float()).sum(-1)
+        dq, dk, dv, drh, drw = vit_flash_attn_bwd(q, k, v, rh, rw, g, lse, dd)
+        dqkv = torch.cat([_merge(t, B) for t in (dq, dk, dv)], dim=-1)
+        return (dqkv, drh.to(ctx.rel_dtypes[0]), drw.to(ctx.rel_dtypes[1]),
+                None)
+
+
+def vit_flash_attention_packed(qkv: Tensor, rel_h: Tensor, rel_w: Tensor,
+                               nh: int) -> Tensor:
+    """Differentiable B14 -> o [B, N, C]; qkv contiguous, rel_h / rel_w at
+    any float dtype (float32 keeps drel in float32)."""
+    return VitFlashPacked.apply(qkv, rel_h, rel_w, nh)

@@ -17,8 +17,8 @@ decode memory-bound, prefill operation-bound; N ragged, K a multiple of 16)
 or raises; on a CPU tensor it runs ``w8a16_matmul_plain``. There is no
 fallback from the kernel: the card never dequantizes into a float matmul.
 ``check_weights`` holds the weight operands to what the kernel takes; the
-decode path's ``QuantLinear`` runs it once on its buffers and then calls
-``w8a16_matmul_checked``, which checks only x on each call.
+decode path's ``QuantLinear`` runs it once on its CUDA buffers and then
+calls ``w8a16_matmul_checked``, which checks only x on each call.
 """
 
 from __future__ import annotations
@@ -49,16 +49,20 @@ def w8a16_matmul_plain(x: Tensor, qweight: Tensor, qscale: Tensor,
 
 
 def check_weights(qweight: Tensor, qscale: Tensor,
-                  bias: Optional[Tensor] = None) -> None:
-    """Raise unless the kernel takes these as its weight operands: qweight
-    [N, K] int8 with K a multiple of 16, qscale [N] and bias [N] (or None)
-    f32, all on qweight's device, each contiguous and 16-byte aligned.
-    ``QuantLinear`` runs this once on its buffers, when it is made."""
-    if qweight.dim() != 2 or qweight.dtype != torch.int8 or \
-            qweight.shape[1] % 16:
+                  bias: Optional[Tensor] = None, *,
+                  kernel: bool = True) -> None:
+    """Raise unless these are weight operands of the function: qweight
+    [N, K] int8, qscale [N] and bias [N] (or None) f32, all on qweight's
+    device. With ``kernel`` (the default), also what the kernel alone needs:
+    K a multiple of 16 and every buffer contiguous and 16-byte aligned; the
+    plain version takes any width. ``QuantLinear`` runs the kernel's checks
+    on CUDA buffers once, and the shape checks on any device."""
+    if qweight.dim() != 2 or qweight.dtype != torch.int8:
         raise ValueError(f"w8a16_matmul: qweight is {qweight.dtype} "
-                         f"{tuple(qweight.shape)}; it must be int8 [N, K] "
-                         f"with K a multiple of 16")
+                         f"{tuple(qweight.shape)}; it must be int8 [N, K]")
+    if kernel and qweight.shape[1] % 16:
+        raise ValueError(f"w8a16_matmul: qweight {tuple(qweight.shape)}: "
+                         f"the kernel needs K a multiple of 16")
     N = qweight.shape[0]
     for name, t in (("qweight", qweight), ("qscale", qscale),
                     ("bias", bias)):
@@ -71,7 +75,7 @@ def check_weights(qweight: Tensor, qscale: Tensor,
         if t.device != qweight.device:
             raise ValueError(f"w8a16_matmul: {name} is on {t.device}, "
                              f"qweight on {qweight.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
+        if kernel and (not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(f"w8a16_matmul: {name} is not contiguous and "
                              f"16-byte aligned")
 

@@ -21,11 +21,18 @@ matmuls; here there are no pad lanes and no selection matmuls: the bias
 gradient is two small sums of ds per query row (``drel_h[i, r] = sum_c
 ds[i, r*kw + c]``, ``drel_w[i, c] = sum_r ds[i, r*kw + c]``).
 
+B15, ``window_attn_core_twophase``, computes B3's function in two phases
+(every head's logits of a window first, then softmax and p.v); it
+replaces ``_vit_window_kernel_twophase``, which the JAX package runs in
+B3's place under ``ULLSAM_WINDOW_TWOPHASE=1``.
+
 On a CUDA tensor B3 launches the attention core of ``csrc/window_attn.cu``
-(B1's own core) and B8 launches ``csrc/window_attn_bwd.cu``; on a CPU
-tensor each runs its plain version here. There is no fallback from a
-kernel to its plain version. ``window_attention`` is the differentiable
-entry: a ``torch.autograd.Function`` whose forward is B3 and whose
+(B1's own core), B15 ``csrc/window_attn_twophase.cu`` and B8
+``csrc/window_attn_bwd.cu``; on a CPU tensor each runs its plain version
+here. B3 and B15 take head dims 64 and 80, B8 64. There is no fallback
+from a kernel to its plain version. ``window_attention`` is the
+differentiable entry: a ``torch.autograd.Function`` whose forward is B3
+(B15 under ``ULLSAM_WINDOW_TWOPHASE=1``, read at each call) and whose
 backward is B8 on both devices.
 """
 
@@ -36,12 +43,13 @@ from typing import Tuple
 
 import torch
 
-from ullsam_tpu_torch.ops.kernels import build
+from ullsam_tpu_torch.ops.kernels import build, flags
 
 Tensor = torch.Tensor
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIM = 64
+_FWD_HEAD_DIMS = (64, 80)  # B3, B15: SAM ViT-B / L and ViT-H
+_BWD_HEAD_DIMS = (64,)     # B8
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
 
 
@@ -63,12 +71,16 @@ def _rel_terms(q: Tensor, Rh: Tensor, Rw: Tensor, kh: int, kw: int):
     return rel_h, rel_w
 
 
-def _softmax_p(q, k, Rh, Rw, kh, kw):
+def _window_logits(q, k, Rh, Rw, kh, kw):
+    """f32 logits q k^T * hd^-1/2 + bias of every head: [Bw, nh, n, n]."""
     hd = q.shape[-1]
     rel_h, rel_w = _rel_terms(q, Rh, Rw, kh, kw)
     bias = (rel_h[..., :, None] + rel_w[..., None, :]).flatten(-2)
-    logits = torch.matmul(q, k.transpose(-1, -2)) * (hd ** -0.5) + bias
-    return torch.softmax(logits, dim=-1)
+    return torch.matmul(q, k.transpose(-1, -2)) * (hd ** -0.5) + bias
+
+
+def _softmax_p(q, k, Rh, Rw, kh, kw):
+    return torch.softmax(_window_logits(q, k, Rh, Rw, kh, kw), dim=-1)
 
 
 def window_attn_core_plain(qkv: Tensor, rh: Tensor, rw: Tensor) -> Tensor:
@@ -81,6 +93,21 @@ def window_attn_core_plain(qkv: Tensor, rh: Tensor, rw: Tensor) -> Tensor:
     q, k, v = _split_heads(qkv, n, hd)
     p = _softmax_p(q, k, rh.to(dt).float(), rw.to(dt).float(), kh, kw)
     o = torch.matmul(p.to(dt).float(), v)               # [Bw, nh, n, hd]
+    return o.permute(0, 2, 1, 3).reshape(qkv.shape[0], -1).to(dt)
+
+
+def window_attn_core_twophase_plain(qkv: Tensor, rh: Tensor,
+                                   rw: Tensor) -> Tensor:
+    """B15 in plain PyTorch, in its two phases: every head's f32 logits
+    (scaled q.k plus the rel-pos bias) first, then softmax with p rounded
+    to qkv.dtype before p.v and o rounded to qkv.dtype. B3's rounding
+    points, so the same function as ``window_attn_core_plain``."""
+    dt = qkv.dtype
+    kh, kw, hd = rh.shape[0], rw.shape[0], rh.shape[-1]
+    q, k, v = _split_heads(qkv, kh * kw, hd)
+    s = _window_logits(q, k, rh.to(dt).float(), rw.to(dt).float(), kh, kw)
+    p = torch.softmax(s, dim=-1).to(dt).float()
+    o = torch.matmul(p, v)                              # [Bw, nh, n, hd]
     return o.permute(0, 2, 1, 3).reshape(qkv.shape[0], -1).to(dt)
 
 
@@ -126,12 +153,13 @@ def window_attn_core_bwd_plain(qkv: Tensor, rh: Tensor, rw: Tensor,
     return dqkv.to(dt), drh.to(rh.dtype), drw.to(rw.dtype)
 
 
-def _geometry(qkv: Tensor, rh: Tensor, rw: Tensor, name: str):
+def _geometry(qkv: Tensor, rh: Tensor, rw: Tensor, name: str,
+              head_dims=_FWD_HEAD_DIMS):
     kh, kw, hd = rh.shape[0], rw.shape[0], rh.shape[-1]
     n = kh * kw
     M, C3 = qkv.shape
     C = C3 // 3
-    if (C3 % 3 or hd != _HEAD_DIM or C % hd or M % n or n > 256
+    if (C3 % 3 or hd not in head_dims or C % hd or M % n or n > 256
             or kh + kw > 64 or C % 32 or tuple(rh.shape) != (kh, kh, hd)
             or tuple(rw.shape) != (kw, kw, hd)):
         raise ValueError(f"{name}: unsupported geometry qkv {tuple(qkv.shape)}"
@@ -171,8 +199,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def window_attn_core(qkv: Tensor, rh: Tensor, rw: Tensor) -> Tensor:
-    """B3: qkv [Bw*n, 3C], rh [kh, kh, 64], rw [kw, kw, 64] (one dtype,
-    float32 or bfloat16) -> o [Bw*n, C]. CPU tensors run
+    """B3: qkv [Bw*n, 3C], rh [kh, kh, hd], rw [kw, kw, hd] with hd 64 or 80
+    (one dtype, float32 or bfloat16) -> o [Bw*n, C]. CPU tensors run
     ``window_attn_core_plain``; CUDA tensors launch the kernel or raise."""
     if qkv.device.type == "cpu":
         return window_attn_core_plain(qkv, rh, rw)
@@ -197,6 +225,38 @@ def window_attn_core(qkv: Tensor, rh: Tensor, rw: Tensor) -> Tensor:
 window_attn_core.launches = 0
 
 
+def window_attn_core_twophase(qkv: Tensor, rh: Tensor, rw: Tensor) -> Tensor:
+    """B15: B3's arguments and result (hd 64 or 80). CPU tensors run
+    ``window_attn_core_twophase_plain``; CUDA tensors launch the kernel's
+    two phases, with the logits in a scratch [Bw, nh, nk, nk] f32 (nk = n
+    rounded up to 16) allocated here, or raise."""
+    if qkv.device.type == "cpu":
+        return window_attn_core_twophase_plain(qkv, rh, rw)
+    name = "window_attn_core_twophase"
+    _cuda_only(qkv, name)
+    Bw, n, C, nh, hd, kh, kw = _geometry(qkv, rh, rw, name)
+    _check(((qkv, "qkv"), (rh, "rh"), (rw, "rw")), qkv, name)
+    nk = -(-n // 16) * 16
+    scratch = torch.empty((Bw, nh, nk, nk), device=qkv.device,
+                          dtype=torch.float32)
+    out = torch.empty((qkv.shape[0], C), device=qkv.device, dtype=qkv.dtype)
+    fn = build.function("window_attn_twophase",
+                        "window_attn_twophase_forward",
+                        [_I] + [_P] * 5 + [_I] * 7 + [_P])
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = fn(_DTYPE_CODE[qkv.dtype], qkv.data_ptr(), rh.data_ptr(),
+                 rw.data_ptr(), scratch.data_ptr(), out.data_ptr(), Bw, n, C,
+                 nh, hd, kh, kw, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    window_attn_core_twophase.launches += 1
+    return out
+
+
+window_attn_core_twophase.launches = 0
+
+
 def window_attn_core_bwd(qkv: Tensor, rh: Tensor, rw: Tensor,
                          do: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     """B8: the gradient of B3 for the output gradient do [Bw*n, C]:
@@ -207,7 +267,7 @@ def window_attn_core_bwd(qkv: Tensor, rh: Tensor, rw: Tensor,
         return window_attn_core_bwd_plain(qkv, rh, rw, do)
     name = "window_attn_core_bwd"
     _cuda_only(qkv, name)
-    Bw, n, C, nh, hd, kh, kw = _geometry(qkv, rh, rw, name)
+    Bw, n, C, nh, hd, kh, kw = _geometry(qkv, rh, rw, name, _BWD_HEAD_DIMS)
     if tuple(do.shape) != (qkv.shape[0], C):
         raise ValueError(f"{name}: do has shape {tuple(do.shape)}")
     if bwd_smem_bytes(qkv.dtype, n, kh, kw) > _SMEM_LIMIT:
@@ -242,12 +302,15 @@ window_attn_core_bwd.launches = 0
 
 
 class WindowAttnCore(torch.autograd.Function):
-    """B3 forward, B8 backward; saves only the inputs."""
+    """B3 forward (B15 under ``ULLSAM_WINDOW_TWOPHASE=1``), B8 backward;
+    saves only the inputs."""
 
     @staticmethod
     def forward(ctx, qkv, rh, rw):
         ctx.save_for_backward(qkv, rh, rw)
-        return window_attn_core(qkv, rh, rw)
+        core = (window_attn_core_twophase if flags.window_twophase()
+                else window_attn_core)
+        return core(qkv, rh, rw)
 
     @staticmethod
     def backward(ctx, do):
@@ -256,5 +319,6 @@ class WindowAttnCore(torch.autograd.Function):
 
 
 def window_attention(qkv: Tensor, rh: Tensor, rw: Tensor) -> Tensor:
-    """Differentiable ``window_attn_core`` (its gradient is B8)."""
+    """Differentiable ``window_attn_core`` (or B15 by the switch; the
+    gradient is B8)."""
     return WindowAttnCore.apply(qkv, rh, rw)

@@ -107,9 +107,9 @@ def linear_int8(x: Tensor, qweight: Tensor, qscale: Tensor,
     qweight [out, in] summed in f32, times the per-output-channel f32
     qscale, plus the bias in f32, cast to x.dtype. Kernel B12 on a CUDA
     tensor (it fuses the scale, bias and cast), its plain version on a CPU
-    tensor (``ops/kernels/int8_matmul.py``). The weights must have passed
-    ``check_weights`` (``QuantLinear`` checks its buffers when it is made);
-    x is checked on each call."""
+    tensor (``ops/kernels/int8_matmul.py``). CUDA weights must have passed
+    ``check_weights`` (``QuantLinear`` checks its CUDA buffers once); x is
+    checked on each call."""
     x2 = build.aligned(x.reshape(-1, x.shape[-1]))
     y = w8a16_matmul_checked(x2, qweight, qscale,
                              None if bias is None else bias.float(),
@@ -156,20 +156,34 @@ class QuantLinear(nn.Module):
     """Weight-only int8 linear (W8A16): int8 ``qweight`` [out, in], f32
     ``qscale`` [out] and the optional ``bias`` (kept in f32, exact), all
     buffers: a quantized module is inference-only and has no parameters to
-    train. Made by ``models/internlm2/quant.py`` ``quantize_linear``; the
-    buffers are checked against what B12 takes here, once, and not again on
-    each call."""
+    train. Made by ``models/internlm2/quant.py`` ``quantize_linear``. Types
+    and shapes are checked when it is made; what B12 alone needs (K a
+    multiple of 16, aligned buffers) only for buffers on a CUDA device: when
+    it is made there, or on its first CUDA call after a ``.to()``, and not
+    again on each call. On the CPU any width runs (the plain version)."""
 
     def __init__(self, qweight: Tensor, qscale: Tensor,
                  bias: Optional[Tensor] = None):
         super().__init__()
         bias = None if bias is None else bias.float().contiguous()
-        check_weights(qweight, qscale, bias)
+        on_card = qweight.device.type == "cuda"
+        check_weights(qweight, qscale, bias, kernel=on_card)
         self.register_buffer("qweight", qweight)
         self.register_buffer("qscale", qscale)
         self.register_buffer("bias", bias)
+        self._kernel_checked = on_card
+
+    def _apply(self, fn, *args, **kwargs):
+        # .to() / .cuda() may move or replace the buffers: check them again
+        # on the next CUDA call
+        out = super()._apply(fn, *args, **kwargs)
+        self._kernel_checked = False
+        return out
 
     def forward(self, x: Tensor) -> Tensor:
+        if not self._kernel_checked and self.qweight.device.type == "cuda":
+            check_weights(self.qweight, self.qscale, self.bias)
+            self._kernel_checked = True
         return linear_int8(x, self.qweight, self.qscale, self.bias)
 
 

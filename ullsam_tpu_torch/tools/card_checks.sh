@@ -1,8 +1,9 @@
 #!/usr/bin/env bash
 # The port's checks on the card in one command: the gpu-marked tests,
-# chip_smoke.py, and the caption regions of tools/profile_kernels.py (the
-# int8 and bf16 decode steps and the host time of one decode linear). Run
-# from the root of a checkout on a machine with one H100:
+# chip_smoke.py, and the ViT-H regions of tools/profile_kernels.py (one warm
+# ViT-H AMG image and its encode under each route setting: device-busy
+# share and top device operations). Run from the root of a checkout on a
+# machine with one H100:
 #
 #     bash ullsam_tpu_torch/tools/card_checks.sh LOG_DIR [TAG]
 #
@@ -33,11 +34,12 @@ tail -1 "$out/gpu_tests_${tag}.log"
 
 step smoke timeout 1200 python3 chip_smoke.py
 rc=$?
-grep -E 'FAIL|\[caption\]|w8a16_matmul .*M=(1|9216) N=92553' \
+grep -E 'FAIL|\[vit_h\]|\[build\] (ln_mlp|window_attn|vit_flash_attn)|hd-80' \
     "$out/smoke_${tag}.log" | cut -c1-700
 tail -2 "$out/smoke_${tag}.log" | cut -c1-300
 [ $rc -eq 0 ] || exit $rc
 
 step profile timeout 600 python -m ullsam_tpu_torch.tools.profile_kernels \
-    --only caption || { tail -40 "$out/profile_${tag}.log"; exit 1; }
+    --only vit_h || { tail -40 "$out/profile_${tag}.log"; exit 1; }
+grep -E -A12 '^== vit_h_amg' "$out/profile_${tag}.log"
 grep -E '^== ' "$out/profile_${tag}.log"

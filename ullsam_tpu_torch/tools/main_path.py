@@ -10,10 +10,17 @@ once, each output written once).
 The packed LLM fine-tuning path (``--mode sft --pack``) has its own batch,
 ``packed_train_batch``, and kernel cases, ``llm_flash_case`` (B10, B11);
 caption generation its request, ``caption_inputs``, and the B12 cases,
-``w8a16_case`` at ``w8a16_cases()``.
+``w8a16_case`` at ``w8a16_cases()``. SAM ViT-H's automatic mask generation
+(``VIT_H``) runs B1 and B2 at head dim 80 and, behind the JAX package's
+switches, B3, B13, B14 and B15: ``window_attn_case``, ``vit_flash_case``
+and ``window_core_case`` take its widths, ``ln_mlp_case`` and
+``vit_flash_packed_case`` are the opt-in kernels' own.
 """
 
 from __future__ import annotations
+
+import contextlib
+import os
 
 import numpy as np
 import torch
@@ -24,9 +31,63 @@ from ullsam_tpu_torch.core.config import FusionConfig
 WINDOW_GEOMETRY = dict(nwx=5, nwy=5, Hv=64, Wv=64, masked=True)
 
 
-def window_attn_case(dtype: torch.dtype, gen: torch.Generator):
-    """B1 at the ViT-B main-path shape: x [25, 196, 768], 12 heads of 64."""
-    Bw, n, C, nh, ws = 25, 196, 768, 12, 14
+# SAM ViT-H: C = 1280 in 16 heads of 80, MLP 5120; the 64x64 grid in the
+# same 25 padded 14x14 windows (T = 4900 rows) and N = 4096 global tokens;
+# 28 windowed and 4 global blocks an image
+VIT_H = dict(C=1280, nh=16, F=5120)
+VIT_B = dict(C=768, nh=12, F=3072)
+
+# the JAX package's encoder switches (``ops/kernels/flags.py``) and the five
+# route settings the ViT-H path is driven and timed under
+SWITCHES = ("ULLSAM_FUSED_VIT_ATTN", "ULLSAM_FUSED_VIT_MLP",
+            "ULLSAM_PACKED_GLOBAL", "ULLSAM_WINDOW_TWOPHASE")
+VIT_H_ROUTES = {
+    "default": {},
+    "fused_mlp": {"ULLSAM_FUSED_VIT_MLP": "1"},
+    "packed_global": {"ULLSAM_PACKED_GLOBAL": "1"},
+    "unfused_window": {"ULLSAM_FUSED_VIT_ATTN": "0"},
+    "unfused_twophase": {"ULLSAM_FUSED_VIT_ATTN": "0",
+                         "ULLSAM_WINDOW_TWOPHASE": "1"},
+}
+
+
+@contextlib.contextmanager
+def switches(env: dict):
+    """The switches set to ``env`` (every other one unset) inside the
+    block, restored after it."""
+    saved = {k: os.environ.pop(k, None) for k in SWITCHES}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def route_launches(env: dict, windowed: int, global_: int) -> dict:
+    """The kernel launches (wrapper name -> count) of one encode with
+    ``windowed`` and ``global_`` blocks under the switches ``env``."""
+    if env.get("ULLSAM_FUSED_VIT_ATTN", "1") != "0":
+        w = "window_attn"
+    elif env.get("ULLSAM_WINDOW_TWOPHASE") == "1":
+        w = "window_attn_core_twophase"
+    else:
+        w = "window_attn_core"
+    g = ("vit_flash_attn_packed" if env.get("ULLSAM_PACKED_GLOBAL") == "1"
+         else "vit_flash_attn")
+    want = {w: windowed, g: global_}
+    if env.get("ULLSAM_FUSED_VIT_MLP", "0") != "0":
+        want["ln_mlp"] = windowed + global_
+    return want
+
+
+def window_attn_case(dtype: torch.dtype, gen: torch.Generator,
+                     C: int = 768, nh: int = 12, **_):
+    """B1 at the main-path shape: x [25, 196, C], nh heads (ViT-B: 768, 12
+    of 64; ViT-H: 1280, 16 of 80)."""
+    Bw, n, ws = 25, 196, 14
     hd = C // nh
 
     def r(*shape, s=1.0):
@@ -45,10 +106,12 @@ def window_attn_case(dtype: torch.dtype, gen: torch.Generator):
     return args, kw, flops, nbytes
 
 
-def vit_flash_case(dtype: torch.dtype, gen: torch.Generator):
-    """B2 at the ViT-B global blocks: q, k, v [12, 4096, 64], rel_h and
-    rel_w [12, 4096, 64]."""
-    BH, N, D, K = 12, 4096, 64, 64
+def vit_flash_case(dtype: torch.dtype, gen: torch.Generator,
+                   C: int = 768, nh: int = 12, **_):
+    """B2 at the global blocks of one image: q, k, v [nh, 4096, C / nh],
+    rel_h and rel_w [nh, 4096, 64] (ViT-B: 12 heads of 64; ViT-H: 16 of
+    80)."""
+    BH, N, D, K = nh, 4096, C // nh, 64
 
     def r(*shape, s=1.0):
         return (torch.randn(*shape, generator=gen, device=gen.device)
@@ -93,11 +156,11 @@ def flash_bwd_flops(BH: int, N: int, D: int = 64) -> int:
 
 
 def window_core_case(dtype: torch.dtype, gen: torch.Generator, Bw: int = 25,
-                     ws: int = 14, nh: int = 12):
-    """B3 and B8 inputs: qkv [Bw*n, 3C], rh, rw [ws, ws, 64], do
-    [Bw*n, C]; returns (args_fwd, args_bwd, flops, bytes) with flops and
-    bytes dicts keyed "fwd" / "bwd"."""
-    n, C, hd = ws * ws, nh * 64, 64
+                     ws: int = 14, nh: int = 12, hd: int = 64):
+    """B3 (and B15) and B8 inputs: qkv [Bw*n, 3C], rh, rw [ws, ws, hd], do
+    [Bw*n, C] with C = nh * hd; returns (args_fwd, args_bwd, flops, bytes)
+    with flops and bytes dicts keyed "fwd" / "bwd"."""
+    n, C = ws * ws, nh * hd
 
     def r(*shape, s=1.0):
         return (torch.randn(*shape, generator=gen, device=gen.device)
@@ -170,6 +233,44 @@ def request_inputs(cfg: FusionConfig, rng: np.random.Generator,
     labels = np.ones((1, n_clicks), np.int64)
     labels[0, 1:] = rng.integers(0, 2, n_clicks - 1)
     return pixels, ids, coords, labels
+
+
+def ln_mlp_case(dtype: torch.dtype, gen: torch.Generator, T: int = 4900,
+                C: int = 1280, F: int = 5120, **_):
+    """B13 inputs: x [T, C], LN2 [C], fc1 [F, C] + [F], fc2 [C, F] + [C]
+    (T = 4900: a windowed block's 25 windows of 196; 4096: a global
+    block); returns (args, kwargs, flops, bytes). Operations: the two
+    products, 4 T C F; bytes: x, the weights and the output (the hidden
+    activations h [T, F] are the kernel's own)."""
+    def r(*shape, s=1.0):
+        return (torch.randn(*shape, generator=gen, device=gen.device)
+                * s).to(dtype)
+
+    args = (r(T, C), 1 + r(C, s=0.1), r(C, s=0.1), r(F, C, s=C ** -0.5),
+            r(F, s=0.1), r(C, F, s=F ** -0.5), r(C, s=0.1))
+    flops = 4 * T * C * F
+    nbytes = sum(a.numel() * a.element_size() for a in args) \
+        + T * C * args[0].element_size()
+    return args, {"eps": 1e-6}, flops, nbytes
+
+
+def vit_flash_packed_case(dtype: torch.dtype, gen: torch.Generator,
+                          C: int = 1280, nh: int = 16, B: int = 1, **_):
+    """B14 inputs at the global blocks of B images: qkv [B, 4096, 3C] (the
+    projection's natural layout), rel_h, rel_w [B*nh, 4096, 64]; returns
+    (args, kwargs, flops, bytes), B2's operations."""
+    N, K = 4096, 64
+    D = C // nh
+
+    def r(*shape, s=1.0):
+        return (torch.randn(*shape, generator=gen, device=gen.device)
+                * s).to(dtype)
+
+    args = (r(B, N, 3 * C), r(B * nh, N, K, s=0.5), r(B * nh, N, K, s=0.5))
+    flops = 4 * B * nh * N * N * D
+    nbytes = sum(a.numel() * a.element_size() for a in args) \
+        + B * N * C * args[0].element_size() + B * nh * N * 4
+    return args, {"nh": nh}, flops, nbytes
 
 
 # ---------------------------------------------------------------------------

@@ -2,12 +2,14 @@
 at the main path's shapes, over one full segmentation request, one
 automatic-mask-generation image, one flagship train step, one packed sft
 step and steady caption decode steps in bf16 and with the int8 LLM (inputs
-from ``tools/main_path.py``, as ``chip_smoke.py`` checks and times them).
+from ``tools/main_path.py``, as ``chip_smoke.py`` checks and times them),
+and over one warm SAM ViT-H AMG image and its encode under each route
+setting of the JAX package's switches (regions ``vit_h_*``).
 
     python -m ullsam_tpu_torch.tools.profile_kernels [--out DIR] [--only P]
 
 ``--only P`` profiles just the regions whose names start with P (their
-set-up still runs).
+set-up still runs; ``--only vit_h`` sets up only the ViT-H model).
 
 Prints, per profiled region, the CUDA kernels by total device time (the
 hand-written kernels' sub-kernels appear by name), the device-busy total
@@ -33,6 +35,8 @@ from ullsam_tpu_torch.core.config import (FusionConfig, internlm2_1_8b,
 from ullsam_tpu_torch.inference.amg import AutomaticMaskGenerator
 from ullsam_tpu_torch.models.internlm2 import model as LLM
 from ullsam_tpu_torch.models.internlm2.quant import quantize_llm_int8
+from ullsam_tpu_torch.models.sam import sam as SM
+from ullsam_tpu_torch.models.sam.registry import build_sam
 from ullsam_tpu_torch.models.sam.sam import Sam
 from ullsam_tpu_torch.models.ullsam import chat
 from ullsam_tpu_torch.models.ullsam import fusion as F
@@ -44,12 +48,13 @@ from ullsam_tpu_torch.ops.kernels import vit_block as VB
 from ullsam_tpu_torch.ops.kernels import window_attention as WA
 from ullsam_tpu_torch.tools.main_path import (AMG_CHUNK, FLASH_BWD,
                                               LLM_FLASH, SFT_TRAIN,
-                                              WINDOW_CORE,
+                                              VIT_H_ROUTES, WINDOW_CORE,
                                               amg_inputs, caption_inputs,
                                               decoder_cases,
                                               llm_flash_case,
                                               packed_train_batch,
-                                              request_inputs, train_batch,
+                                              request_inputs, switches,
+                                              train_batch,
                                               vit_flash_bwd_case,
                                               vit_flash_case,
                                               window_attn_case,
@@ -103,6 +108,31 @@ def _host_us(fn, n: int = 200) -> float:
     return us
 
 
+def _vit_h(args) -> None:
+    """SAM ViT-H in bf16 (random weights, seed 0): one warm AMG image
+    (32x32 points in chunks of 256, thresholds and NMS off, 256 masks) on
+    the default route, and the encode of that image under each route."""
+    cfg, sam = build_sam("vit_h", seed=0, device="cuda",
+                         dtype=torch.bfloat16)
+    amg = AutomaticMaskGenerator(
+        cfg, sam, points_per_side=32, points_per_batch=256,
+        pred_iou_thresh=0.0, stability_score_thresh=0.0, box_nms_thresh=1.0,
+        max_masks=256)
+    image = amg_inputs(np.random.default_rng(0), 1)[0]
+    with switches({}):
+        _region("vit_h_amg_image_bfloat16",
+                lambda: amg.generate_dense(image), args, iters=2, top=25)
+    x = SM.preprocess(torch.from_numpy(image).cuda().float()[None],
+                      cfg).to(torch.bfloat16)
+    for route, env in VIT_H_ROUTES.items():
+        with switches(env), torch.no_grad():
+            _region(f"vit_h_encode_bfloat16_{route}",
+                    lambda: SM.encode_image(sam.image_encoder, x), args,
+                    iters=3, top=15)
+    del sam, amg
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="chrome trace directory")
@@ -114,6 +144,9 @@ def main() -> None:
         os.makedirs(args.out, exist_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    _vit_h(args)
+    if args.only.startswith("vit_h"):
+        return
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     for dtype in (torch.bfloat16, torch.float32):
