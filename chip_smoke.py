@@ -56,11 +56,12 @@ sm_90a) and the CUDA toolkit. Phases, each printing what it found:
     ``quantize_llm_int8``, 1 warm + 3 timed and a batch of 8, each with
     prefill and per-step decode times, tokens/s, peak memory and exact
     launches (int8: B12 121 a decode step and in the prefill; bf16: none).
-10. SAM ViT-H automatic mask generation: B1, B2 and B3 at head dim 80 and
-    the opt-in kernels B13 (fused LN + MLP), B14 (global attention read
-    from the qkv projection) and B15 (two-phase window attention) against
-    their plain versions at ViT-H's shapes (B13-B15 at ViT-B's too), bf16
-    and f32 (phase 3's checks); a small encoder with head dim 80 on the CPU
+10. SAM ViT-H automatic mask generation: B1, B2, B3 and (bf16) B8 at head
+    dim 80 and the opt-in kernels B13 (fused LN + MLP), B14 (global
+    attention read from the qkv projection) and B15 (two-phase window
+    attention) against their plain versions at ViT-H's shapes (B13-B15 at
+    ViT-B's too), bf16 and f32 (phase 3's checks; B3 and B15 share one SDPA
+    reading a shape); a small encoder with head dim 80 on the CPU
     (plain versions) and on the card (kernels) under each route setting of
     the JAX package's switches (default, ULLSAM_FUSED_VIT_MLP=1,
     ULLSAM_PACKED_GLOBAL=1, ULLSAM_FUSED_VIT_ATTN=0, and that with
@@ -334,9 +335,9 @@ TRAIN_KERNELS = (
 
 def _sdpa_ms(q, k, v, bias, backward: bool, **kw) -> float:
     """The library yardstick: scaled_dot_product_attention with the bias
-    (or boolean mask) materialized; with ``backward`` the time of forward +
-    backward (every float input, a float bias included, requiring grad)
-    less the forward's. ``kw`` goes to the call (``enable_gqa``)."""
+    (or boolean mask) materialized; with ``backward`` the time of its
+    backward alone, on one retained graph (every float input, a float bias
+    included, requiring grad). ``kw`` goes to the call (``enable_gqa``)."""
     import torch
     import torch.nn.functional as F
     ins = [t.detach().requires_grad_(backward and t.is_floating_point())
@@ -345,14 +346,17 @@ def _sdpa_ms(q, k, v, bias, backward: bool, **kw) -> float:
     def fwd():
         return F.scaled_dot_product_attention(ins[0], ins[1], ins[2],
                                               attn_mask=ins[3], **kw)
-    t_fwd = cuda_time_ms(fwd, iters=5, warmup=1)
+    # 20 timed calls after 3 warm-ups: two readings of one function agree
+    # within a few percent (5 after 1 differed by 46% between two rows)
     if not backward:
-        return t_fwd
-    g = torch.randn_like(q)
-
-    def fwd_bwd():
-        torch.autograd.grad(fwd(), [t for t in ins if t.requires_grad], g)
-    return cuda_time_ms(fwd_bwd, iters=5, warmup=1) - t_fwd
+        return cuda_time_ms(fwd, iters=20, warmup=3)
+    out, g = fwd(), torch.randn_like(q)
+    req = [t for t in ins if t.requires_grad]
+    # timed directly: (forward + backward) less forward moved 20-28%
+    # between calls
+    return cuda_time_ms(lambda: torch.autograd.grad(out, req, g,
+                                                    retain_graph=True),
+                        iters=20, warmup=3)
 
 
 def check_train_kernels(card: str) -> dict:
@@ -1619,7 +1623,8 @@ def _errs(name: str, dname: str, got, ref, tol: float) -> float:
 
 def check_vit_h_kernels(card: str, rows: dict) -> dict:
     """Phase 10 (a): B1, B2, B3 at head dim 80 (entries ``vit_h`` and
-    ``vit_h_float32`` of their rows) and B13, B14, B15 (their own rows at
+    ``vit_h_float32`` of their rows), B8 at head dim 80 in bf16 (entry
+    ``vit_h``: ViT-H training's shape) and B13, B14, B15 (their own rows at
     ViT-H, entries ``vit_b`` / ``vit_b_float32`` at ViT-B) against their
     plain versions at the path's shapes, bf16 and f32, each timed with its
     plain version, the library yardstick and the bound."""
@@ -1642,14 +1647,24 @@ def check_vit_h_kernels(card: str, rows: dict) -> dict:
         rows[name] = {"name": name, "route": "cuda", "source": source,
                       "replaces": replaces}
 
-    def window_lib(qkv, rh, rw, nh):
-        """SDPA with the window bias materialized (B3's yardstick)."""
+    def window_lib(qkv, rh, rw, backward=False):
+        """SDPA with the window bias materialized: B3's and B15's yardstick,
+        and with ``backward`` B8's (its backward alone)."""
         ws, hd = rh.shape[0], rh.shape[-1]
         q, k, v = (t.to(qkv.dtype) for t in _split_heads(qkv, ws * ws, hd))
         rel_h, rel_w = _rel_terms(q.float(), rh.float(), rw.float(), ws, ws)
         bias = (rel_h[..., :, None] + rel_w[..., None, :]).flatten(-2).to(
             qkv.dtype)
-        return _sdpa_ms(q, k, v, bias, False)
+        return _sdpa_ms(q, k, v, bias, backward)
+
+    # B3 and B15 compute one function: at one shape they share one reading
+    # (ViT-B's is B3's row from phase 3's train kernels)
+    shared_lib = {}
+
+    def window_fwd_lib(tag, args):
+        if tag not in shared_lib:
+            shared_lib[tag] = window_lib(*args)
+        return shared_lib[tag]
 
     def flash_lib(args):
         q, k, v, rh, rw = args
@@ -1677,7 +1692,11 @@ def check_vit_h_kernels(card: str, rows: dict) -> dict:
 
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).replace("torch.", "")
-        fwd, _, cflops, cbytes = window_core_case(dtype, gen, nh=16, hd=80)
+        fwd, bwd, cflops, cbytes = window_core_case(dtype, gen, nh=16, hd=80)
+        b3 = rows["window_attn_core"]
+        shared_lib.clear()
+        shared_lib["vit_b"] = (b3 if dtype == torch.bfloat16
+                               else b3["float32"])["library_ms"]
         cases = []
         for tag, width in (("vit_h", VIT_H), ("vit_b", VIT_B)):
             if tag == "vit_h":
@@ -1691,7 +1710,13 @@ def check_vit_h_kernels(card: str, rows: dict) -> dict:
                 cases.append(("window_attn_core", tag, WA.window_attn_core,
                               WA.window_attn_core_plain, fwd, {},
                               cflops["fwd"], cbytes["fwd"],
-                              lambda: window_lib(*fwd, 16)))
+                              lambda: window_fwd_lib("vit_h", fwd)))
+                if dtype == torch.bfloat16:  # B8 takes hd 80 in bf16 only
+                    cases.append(("window_attn_core_bwd", tag,
+                                  WA.window_attn_core_bwd,
+                                  WA.window_attn_core_bwd_plain, bwd, {},
+                                  cflops["bwd"], cbytes["bwd"],
+                                  lambda: window_lib(*fwd, backward=True)))
                 twophase = fwd
                 tflops, tbytes = cflops["fwd"], cbytes["fwd"]
             else:
@@ -1712,8 +1737,8 @@ def check_vit_h_kernels(card: str, rows: dict) -> dict:
                           WA.window_attn_core_twophase,
                           WA.window_attn_core_twophase_plain, twophase, {},
                           tflops, tbytes,
-                          lambda t=twophase, nh=width["nh"]:
-                          window_lib(*t, nh)))
+                          lambda tag=tag, t=twophase:
+                          window_fwd_lib(tag, t)))
         for name, tag, kernel, plain, args, kw, flops, nbytes, lib in cases:
             got, ref = kernel(*args, **kw), plain(*args, **kw)
             torch.cuda.synchronize()
@@ -1744,7 +1769,7 @@ def check_vit_h_kernels(card: str, rows: dict) -> dict:
             else:
                 rows[name][tag if dtype == torch.bfloat16
                           else f"{tag}_float32"] = entry
-        del cases, fwd, twophase
+        del cases, fwd, bwd, twophase
         torch.cuda.empty_cache()
     return rows
 

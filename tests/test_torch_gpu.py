@@ -201,22 +201,24 @@ def test_per_image_batch_runs_upscale_kernels(cuda, dt):
     assert torch.equal(stab, want[0]) and torch.equal(boxes, want[1])
 
 
-def _window_core_inputs(gen, dtype, Bw, ws, nh):
+def _window_core_inputs(gen, dtype, Bw, ws, nh, hd=64):
     def r(*shape, s=1.0):
         return (torch.randn(*shape, generator=gen, device="cuda") * s).to(dtype)
-    n, C = ws * ws, nh * 64
-    return (r(Bw * n, 3 * C, s=0.5), r(ws, ws, 64, s=0.2),
-            r(ws, ws, 64, s=0.2), r(Bw * n, C, s=0.5))
+    n, C = ws * ws, nh * hd
+    return (r(Bw * n, 3 * C, s=0.5), r(ws, ws, hd, s=0.2),
+            r(ws, ws, hd, s=0.2), r(Bw * n, C, s=0.5))
 
 
-@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-@pytest.mark.parametrize("Bw,ws,nh", [(25, 14, 12),   # ViT-B main path
-                                      (4, 8, 2), (3, 5, 1)])
-def test_window_core_kernels_match_plain(cuda, dt, Bw, ws, nh):
+@pytest.mark.parametrize("dt,Bw,ws,nh,hd", [
+    (dt, *shape) for shape in [(25, 14, 12, 64),   # ViT-B main path
+                               (4, 8, 2, 64), (3, 5, 1, 64)]
+    for dt in ("float32", "bfloat16")] + [
+    ("bfloat16", 25, 14, 16, 80)])                  # ViT-H (B8: bf16 only)
+def test_window_core_kernels_match_plain(cuda, dt, Bw, ws, nh, hd):
     """B3 and B8 against their plain versions (every output)."""
     from ullsam_tpu_torch.ops.kernels import window_attention as WA
     qkv, rh, rw, do = _window_core_inputs(cuda, getattr(torch, dt), Bw, ws,
-                                          nh)
+                                          nh, hd)
     before = (WA.window_attn_core.launches, WA.window_attn_core_bwd.launches)
     o = WA.window_attn_core(qkv, rh, rw)
     grads = WA.window_attn_core_bwd(qkv, rh, rw, do)
@@ -228,6 +230,21 @@ def test_window_core_kernels_match_plain(cuda, dt, Bw, ws, nh):
     for a, b in zip(grads, WA.window_attn_core_bwd_plain(qkv, rh, rw, do)):
         assert a.dtype == b.dtype and bool(torch.isfinite(a).all())
         assert _rel_err(a, b) <= TOL[dt]
+
+
+@pytest.mark.parametrize("dt,nh,hd", [("bfloat16", 12, 64),
+                                      ("bfloat16", 16, 80),
+                                      ("float32", 12, 64)])
+def test_window_core_bwd_is_deterministic(cuda, dt, nh, hd):
+    """B8 sums in a fixed order with no atomics: two calls on the same
+    inputs give bitwise-equal dqkv, drh and drw (25 windows of 14x14)."""
+    from ullsam_tpu_torch.ops.kernels import window_attention as WA
+    args = _window_core_inputs(cuda, getattr(torch, dt), 25, 14, nh, hd)
+    first = WA.window_attn_core_bwd(*args)
+    second = WA.window_attn_core_bwd(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
@@ -590,8 +607,9 @@ def test_vit_h_kernels_match_plain(cuda, dt, name, width):
 
 def test_vit_h_wrappers_refuse_unsupported(cuda):
     """On the card the wrappers raise for what their kernels do not take,
-    with no fallback: head dim 96 in B1, B2, B3, B14 and B15; C % 32 in
-    B13; head dim 80 in B8 and B9 (not instantiated yet); and a
+    with no fallback: head dim 96 in B1, B2, B3, B14, B15 and B8; C % 32
+    in B13; head dim 80 in float32 B8 and in B9 (not instantiated); windows
+    wider than 16 in bfloat16 B8; and a
     ``QuantLinear`` made on the CPU at a width B12 does not take (K = 72)
     raises on its first call after ``.to("cuda")``."""
     from ullsam_tpu_torch.ops import layers as L
@@ -617,9 +635,16 @@ def test_vit_h_wrappers_refuse_unsupported(cuda):
     with pytest.raises(ValueError):
         VB.ln_mlp(z(256, 40), z(40), z(40), z(160, 40), z(160), z(40, 160),
                   z(40), eps=1e-6)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError):       # float32 B8 at head dim 80
         WA.window_attn_core_bwd(z(128, 480), z(ws, ws, 80), z(ws, ws, 80),
                                 z(128, 160))
+    b = lambda *s: z(*s).to(torch.bfloat16)  # noqa: E731
+    with pytest.raises(ValueError):       # bfloat16 B8 at head dim 96
+        WA.window_attn_core_bwd(b(128, 3 * C), b(ws, ws, 96), b(ws, ws, 96),
+                                b(128, C))
+    with pytest.raises(ValueError):       # bfloat16 B8, 4x32 windows
+        WA.window_attn_core_bwd(b(128, 3 * C), b(4, 4, 64), b(32, 32, 64),
+                                b(128, C))
     q = z(2, 1024, 80)
     with pytest.raises(ValueError):
         FA.vit_flash_attn_bwd(q, q, q, z(2, 1024, 32), z(2, 1024, 32), q,

@@ -279,3 +279,15 @@ def test_twophase_plain_computes_b3(dt):
     assert got.dtype == dt
     assert _rel(got, want) <= (1e-6 if dt == torch.float32
                                else 2 * _bf16_step(want))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 80])
+def test_twophase_smem_fits_a_block(dt, hd):
+    """B15's shared-memory mirror (``twophase_smem_bytes``, the kernel's
+    ``TwoPhaseMma`` / ``twophase_f32_smem``) fits one H100 block at SAM's
+    14x14 windows and at the largest window the wrapper takes (16x16), in
+    both dtypes and both head dims; B15 takes head dims 64 and 80."""
+    assert hd in TWA._FWD_HEAD_DIMS
+    for ws in (14, 16):
+        assert TWA.twophase_smem_bytes(dt, ws * ws, ws, ws, hd) <= 232448

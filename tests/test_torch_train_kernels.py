@@ -103,11 +103,13 @@ def test_window_core_plain_matches_tpu_kernel_and_xla():
     assert _rel(got, _unpack(ref_x, 1, nh, hd)) < 2e-5
 
 
+@pytest.mark.parametrize("hd", [64, 80])
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-def test_window_core_bwd_plain_matches_tpu_kernel_and_vjp(dt):
+def test_window_core_bwd_plain_matches_tpu_kernel_and_vjp(dt, hd):
     """B8 plain vs ``_vit_window_packed_bwd_impl`` in interpret mode and vs
-    ``jax.vjp(_window_packed_xla)`` on dqkv, drh and drw."""
-    qkv, rh, rw, do, (nh, hd, ws, B) = _window_core_case(1)
+    ``jax.vjp(_window_packed_xla)`` on dqkv, drh and drw, at SAM ViT-B's
+    head dim (64) and ViT-H's (80)."""
+    qkv, rh, rw, do, (nh, hd, ws, B) = _window_core_case(1, hd=hd)
     jdt = jnp.float32 if dt == "float32" else jnp.bfloat16
     tdt = getattr(torch, dt)
     args = (jnp.asarray(_pack_qkv(qkv, nh, hd, B)).astype(jdt),
@@ -127,6 +129,22 @@ def test_window_core_bwd_plain_matches_tpu_kernel_and_vjp(dt):
         assert _rel(got[0], _unpack(ref[0], 3, nh, hd)) < tol
         assert _rel(got[1], _unpack_table(ref[1], ws, hd)) < tol
         assert _rel(got[2], _unpack_table(ref[2], ws, hd)) < tol
+
+
+@pytest.mark.parametrize("dt,hd", [(torch.bfloat16, 64),
+                                   (torch.bfloat16, 80),
+                                   (torch.float32, 64)])
+def test_window_core_bwd_smem_fits_a_block(dt, hd):
+    """B8's shared-memory mirror (``bwd_smem_bytes``, the kernel's
+    ``BwdMma`` / ``f32_smem_bytes``) fits one H100 block at SAM's 14x14
+    windows for every head dim the wrapper takes, and the wrapper's head-dim
+    sets are bf16 {64, 80} and f32 {64}: at f32 head dim 80 the CUDA-core
+    kernel would need more than a block has."""
+    assert TWA._BWD_HEAD_DIMS == {torch.bfloat16: (64, 80),
+                                  torch.float32: (64,)}
+    assert hd in TWA._BWD_HEAD_DIMS[dt]
+    assert TWA.bwd_smem_bytes(dt, 196, 14, 14, hd) <= TWA._SMEM_LIMIT == 232448
+    assert TWA.bwd_smem_bytes(torch.float32, 196, 14, 14, 80) > 232448
 
 
 def test_window_core_function_gradients_are_b8():

@@ -100,6 +100,95 @@ __device__ __forceinline__ int div_small(int a, float inv) {
   return __float2int_rz((static_cast<float>(a) + 0.5f) * inv);
 }
 
+// Rel-pos terms RB[r][i] = q_r . Rh[qr, i] (i < kh), q_r . Rw[qc, i - kh]
+// for the rows [0, rows) of a row-major q tile (row stride ldq) whose first
+// row is query r0 (rows past n use the last row's tables; their q is zero):
+// a warp takes a row and four table entries per step, eight lanes to an
+// entry, three shuffles to sum. Blocks of 8 warps (B15, B8; B1's core in
+// window_attn.cu computes them the same way).
+template <int HD, typename T>
+__device__ __forceinline__ void window_rel_terms(const T* qs, int ldq,
+                                                 int rows, int r0, const T* rh,
+                                                 const T* rw, int n, int kh,
+                                                 int kw, float* RB, int ldrb,
+                                                 int warp, int lane) {
+  const int rl = kh + kw, sub = lane & 7, part = lane >> 3;
+  for (int r = warp; r < rows; r += 8) {
+    const int qrow = min(r0 + r, n - 1), y = qrow / kw, x = qrow - y * kw;
+    const T* qr = qs + r * ldq;
+    for (int i0 = 0; i0 < rl; i0 += 4) {
+      const int i = min(i0 + part, rl - 1);
+      const T* tab = i < kh ? rh + ((size_t)y * kh + i) * HD
+                            : rw + ((size_t)x * kw + i - kh) * HD;
+      float a = 0.f;
+#pragma unroll
+      for (int k = 0; k < HD / 16; ++k) {
+        const int d = 16 * k + 2 * sub;
+        a = fmaf(to_f(qr[d]), to_f(tab[d]),
+                 fmaf(to_f(qr[d + 1]), to_f(tab[d + 1]), a));
+      }
+      a += __shfl_xor_sync(0xffffffffu, a, 4);
+      a += __shfl_xor_sync(0xffffffffu, a, 2);
+      a += __shfl_xor_sync(0xffffffffu, a, 1);
+      if (sub == 0 && i0 + part < rl) RB[r * ldrb + i0 + part] = a;
+    }
+  }
+}
+
+// The same rel-pos terms in bf16 on the tensor cores: the rows of window row
+// y (y*kw .. y*kw + kw - 1) all use Rh[y], the rows of window column x (x,
+// x + kw, ...) all use Rw[x], so each group is a product [16 rows x HD] .
+// [HD x 8] per 8 table entries (mma.sync m16n8k16: A rows by ldmatrix from
+// the q tile, B straight from the table in device memory). Rows of the q
+// tile qs (row stride ldq) are queries [q0, q1); RB's rows likewise, and
+// its rows past n are set to 0. Exact products, f32 sums. Every warp of
+// the block (nwarps of them) must call it; the caller synchronises after.
+template <int HD>
+__device__ __forceinline__ void window_rel_terms_mma(
+    const __nv_bfloat16* qs, int ldq, int q0, int q1,
+    const __nv_bfloat16* rh, const __nv_bfloat16* rw, int n, int kh, int kw,
+    float* RB, int ldrb, int warp, int nwarps, int lane) {
+  const int g = lane >> 2, t = lane & 3, rl = kh + kw;
+  for (int e = warp * 32 + lane; e < (q1 - max(q0, n)) * rl;
+       e += nwarps * 32)
+    RB[(max(q0, n) - q0 + e / rl) * ldrb + e % rl] = 0.f;
+  const int hg = (kw + 15) / 16, wg = (kh + 15) / 16;  // 16-row chunks
+  const int items = kh * hg + kw * wg;
+  for (int it = warp; it < items; it += nwarps) {
+    const bool isw = it >= kh * hg;
+    const int k = isw ? it - kh * hg : it;
+    const int grp = isw ? k / wg : k / hg;          // y or x
+    const int j0 = 16 * (isw ? k % wg : k % hg);
+    const int len = isw ? kh : kw, ncol = isw ? kw : kh;
+    const int step = isw ? kw : 1, first = isw ? grp : grp * kw;
+    // this lane's A row (ldmatrix), clamped into the tile when unused
+    const int ja = j0 + (lane & 15), ra = first + ja * step;
+    const int la = (ja < len && ra >= q0 && ra < q1) ? ra - q0 : 0;
+    const __nv_bfloat16* tab = isw ? rw + (size_t)grp * kw * HD
+                                   : rh + (size_t)grp * kh * HD;
+    for (int cb = 0; cb * 8 < ncol; ++cb) {
+      const __nv_bfloat16* trow =
+          tab + (size_t)min(cb * 8 + g, ncol - 1) * HD + 2 * t;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kd = 0; kd < HD / 16; ++kd) {
+        uint32_t a[4], b[2];
+        ldmatrix_x4(a, smem_u32(qs + la * ldq + kd * 16 + (lane >> 4) * 8));
+        b[0] = *reinterpret_cast<const uint32_t*>(trow + kd * 16);
+        b[1] = *reinterpret_cast<const uint32_t*>(trow + kd * 16 + 8);
+        mma_bf16_16816(acc, a, b);
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int j = j0 + g + 8 * (c >> 1), col = cb * 8 + 2 * t + (c & 1);
+        const int row = first + j * step;
+        if (j < len && col < ncol && row >= q0 && row < q1)
+          RB[(row - q0) * ldrb + (isw ? kh : 0) + col] = acc[c];
+      }
+    }
+  }
+}
+
 // dtype codes shared with the Python wrappers
 enum DType : int { kF32 = 0, kBF16 = 1 };
 

@@ -21,19 +21,22 @@ matmuls; here there are no pad lanes and no selection matmuls: the bias
 gradient is two small sums of ds per query row (``drel_h[i, r] = sum_c
 ds[i, r*kw + c]``, ``drel_w[i, c] = sum_r ds[i, r*kw + c]``).
 
-B15, ``window_attn_core_twophase``, computes B3's function in two phases
-(every head's logits of a window first, then softmax and p.v); it
-replaces ``_vit_window_kernel_twophase``, which the JAX package runs in
-B3's place under ``ULLSAM_WINDOW_TWOPHASE=1``.
+B15, ``window_attn_core_twophase``, computes B3's function in the TPU
+kernel's two phases (a row's whole f32 logits first, then its exact max
+and sum, p normalized and rounded, then p.v); it replaces
+``_vit_window_kernel_twophase``, which the JAX package runs in B3's place
+under ``ULLSAM_WINDOW_TWOPHASE=1``. On the card the logits never leave the
+chip: one launch, no scratch.
 
 On a CUDA tensor B3 launches the attention core of ``csrc/window_attn.cu``
 (B1's own core), B15 ``csrc/window_attn_twophase.cu`` and B8
 ``csrc/window_attn_bwd.cu``; on a CPU tensor each runs its plain version
-here. B3 and B15 take head dims 64 and 80, B8 64. There is no fallback
-from a kernel to its plain version. ``window_attention`` is the
-differentiable entry: a ``torch.autograd.Function`` whose forward is B3
-(B15 under ``ULLSAM_WINDOW_TWOPHASE=1``, read at each call) and whose
-backward is B8 on both devices.
+here. B3 and B15 take head dims 64 and 80; B8 64 and 80 in bfloat16 (on
+the tensor cores) and 64 in float32. There is no fallback from a kernel to
+its plain version. ``window_attention`` is the differentiable entry: a
+``torch.autograd.Function`` whose forward is B3 (B15 under
+``ULLSAM_WINDOW_TWOPHASE=1``, read at each call) and whose backward is B8
+on both devices.
 """
 
 from __future__ import annotations
@@ -49,7 +52,9 @@ Tensor = torch.Tensor
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FWD_HEAD_DIMS = (64, 80)  # B3, B15: SAM ViT-B / L and ViT-H
-_BWD_HEAD_DIMS = (64,)     # B8
+# B8: float32 keeps its CUDA-core kernel, whose d-major f32 tiles of k, v,
+# dk and dv alone take 252 KB at head dim 80 (a block has 227 KB)
+_BWD_HEAD_DIMS = {torch.bfloat16: (64, 80), torch.float32: (64,)}
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
 
 
@@ -184,15 +189,41 @@ def _cuda_only(x: Tensor, name: str) -> None:
         raise ValueError(f"{name}: unsupported dtype {x.dtype}")
 
 
-def bwd_smem_bytes(dtype: torch.dtype, n: int, kh: int, kw: int) -> int:
-    """Shared memory of B8's main kernel (``window_attn_bwd.cu``
-    ``bwd_smem_bytes``): K, V at the input dtype and dK, dV in f32, each
-    [64][n | 1]; 16-row q, do and ds tiles; the rows' rel-pos terms."""
+def _nk(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def bwd_smem_bytes(dtype: torch.dtype, n: int, kh: int, kw: int,
+                   hd: int = 64) -> int:
+    """Shared memory of B8's main kernel (``window_attn_bwd.cu`` ``BwdMma``
+    and ``f32_smem_bytes``). bfloat16: q, k, v and do [nk][hd + 8], the
+    rows' rel-pos terms and statistics in f32. float32 (hd 64): k, v, dk
+    and dv d-major [64][n | 1] in f32, 16-row q, do and ds tiles, the rows'
+    rel-pos terms."""
+    rl = kh + kw
+    if dtype == torch.bfloat16:
+        nk = _nk(n)
+        return 2 * 4 * nk * (hd + 8) + 4 * (nk * rl + 3 * nk)
     ld = n | 1
-    eb = 4 if dtype == torch.float32 else 2
-    return (2 * 64 * ld * eb + 2 * 64 * ld * 4 + 2 * 16 * 64 * 4
-            + 16 * ld * 4 + 2 * 16 * (kh + kw) * 4 + 3 * 16 * 4
-            + 8 * 16 * 4)
+    return (4 * hd * ld * 4 + 2 * 16 * hd * 4 + 16 * ld * 4 + 2 * 16 * rl * 4
+            + 3 * 16 * 4 + 8 * 16 * 4)
+
+
+def twophase_smem_bytes(dtype: torch.dtype, n: int, kh: int, kw: int,
+                        hd: int) -> int:
+    """Shared memory of B15's kernel (``window_attn_twophase.cu``
+    ``TwoPhaseMma`` and ``twophase_f32_smem``). bfloat16: k and v [nk][hd +
+    8] and the block's half of the q rows, with their rel-pos terms in f32.
+    float32: 64 q rows d-major, one region for q row-major, then each
+    64-key tile of k (d-major) and of v, the rows' rel-pos terms and their
+    logits [64][nk + 4]. Within a block's limit for every geometry the
+    wrapper takes (n <= 256), so the wrapper does not check it."""
+    nk, rl = _nk(n), kh + kw
+    if dtype == torch.bfloat16:
+        half = (nk // 16 + 1) // 2
+        return 2 * (2 * nk + half * 16) * (hd + 8) + 4 * half * 16 * rl
+    return 4 * (hd * 68 + max(hd * 68, 64 * (hd + 4)) + 64 * rl
+                + 64 * (nk + 4))
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -227,27 +258,24 @@ window_attn_core.launches = 0
 
 def window_attn_core_twophase(qkv: Tensor, rh: Tensor, rw: Tensor) -> Tensor:
     """B15: B3's arguments and result (hd 64 or 80). CPU tensors run
-    ``window_attn_core_twophase_plain``; CUDA tensors launch the kernel's
-    two phases, with the logits in a scratch [Bw, nh, nk, nk] f32 (nk = n
-    rounded up to 16) allocated here, or raise."""
+    ``window_attn_core_twophase_plain``; CUDA tensors launch the kernel
+    (one launch, the logits kept on chip; only ``out`` is allocated) or
+    raise."""
     if qkv.device.type == "cpu":
         return window_attn_core_twophase_plain(qkv, rh, rw)
     name = "window_attn_core_twophase"
     _cuda_only(qkv, name)
     Bw, n, C, nh, hd, kh, kw = _geometry(qkv, rh, rw, name)
     _check(((qkv, "qkv"), (rh, "rh"), (rw, "rw")), qkv, name)
-    nk = -(-n // 16) * 16
-    scratch = torch.empty((Bw, nh, nk, nk), device=qkv.device,
-                          dtype=torch.float32)
     out = torch.empty((qkv.shape[0], C), device=qkv.device, dtype=qkv.dtype)
     fn = build.function("window_attn_twophase",
                         "window_attn_twophase_forward",
-                        [_I] + [_P] * 5 + [_I] * 7 + [_P])
+                        [_I] + [_P] * 4 + [_I] * 7 + [_P])
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = fn(_DTYPE_CODE[qkv.dtype], qkv.data_ptr(), rh.data_ptr(),
-                 rw.data_ptr(), scratch.data_ptr(), out.data_ptr(), Bw, n, C,
-                 nh, hd, kh, kw, stream)
+                 rw.data_ptr(), out.data_ptr(), Bw, n, C, nh, hd, kh, kw,
+                 stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     window_attn_core_twophase.launches += 1
@@ -261,16 +289,27 @@ def window_attn_core_bwd(qkv: Tensor, rh: Tensor, rw: Tensor,
                          do: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     """B8: the gradient of B3 for the output gradient do [Bw*n, C]:
     (dqkv [Bw*n, 3C], drh, drw). CPU tensors run
-    ``window_attn_core_bwd_plain``; CUDA tensors launch the kernel or
-    raise."""
+    ``window_attn_core_bwd_plain``; CUDA tensors launch the kernel (head
+    dims ``_BWD_HEAD_DIMS[dtype]``; bitwise the same result on every call)
+    or raise."""
     if qkv.device.type == "cpu":
         return window_attn_core_bwd_plain(qkv, rh, rw, do)
     name = "window_attn_core_bwd"
     _cuda_only(qkv, name)
-    Bw, n, C, nh, hd, kh, kw = _geometry(qkv, rh, rw, name, _BWD_HEAD_DIMS)
+    if (qkv.dtype == torch.float32
+            and rh.shape[-1] not in _BWD_HEAD_DIMS[torch.float32]):
+        raise ValueError(f"{name}: float32 takes head dim 64 only (the f32 "
+                         f"kernel's d-major k, v, dk and dv tiles alone take "
+                         f"252 KB at head dim 80); got {rh.shape[-1]}")
+    Bw, n, C, nh, hd, kh, kw = _geometry(qkv, rh, rw, name,
+                                         _BWD_HEAD_DIMS[qkv.dtype])
     if tuple(do.shape) != (qkv.shape[0], C):
         raise ValueError(f"{name}: do has shape {tuple(do.shape)}")
-    if bwd_smem_bytes(qkv.dtype, n, kh, kw) > _SMEM_LIMIT:
+    if qkv.dtype == torch.bfloat16 and max(kh, kw) > 16:
+        raise ValueError(f"{name}: bfloat16 takes windows of at most 16x16 "
+                         f"(its drel sums are one 32-column selection "
+                         f"product); got {kh}x{kw}")
+    if bwd_smem_bytes(qkv.dtype, n, kh, kw, hd) > _SMEM_LIMIT:
         raise ValueError(f"{name}: n={n} needs more shared memory than a "
                          f"block has at {qkv.dtype}")
     _check(((qkv, "qkv"), (rh, "rh"), (rw, "rw"), (do, "do")), qkv, name)
@@ -281,17 +320,25 @@ def window_attn_core_bwd(qkv: Tensor, rh: Tensor, rw: Tensor,
     # per-row partials that the table reduction sums in a fixed order
     drel = torch.empty((Bw, nh, n, kh + kw), device=qkv.device,
                        dtype=torch.float32)
-    # and each window's share of the table gradients, summed in order after
-    part = torch.empty((Bw, (kh * kh + kw * kw) * hd), device=qkv.device,
-                       dtype=torch.float32)
+    # and the table gradients' shares, summed in a fixed order after: one
+    # per (window, head) in bf16 (the kernel's third pass), one per window
+    # in f32
+    bf16 = qkv.dtype == torch.bfloat16
+    part = torch.empty((Bw * nh if bf16 else Bw, (kh * kh + kw * kw) * hd),
+                       device=qkv.device, dtype=torch.float32)
+    # bf16: ds k * scale in f32, kept from the kernel's first pass to its
+    # last, where dq's rel-pos part is added and dq rounded once
+    dqf = (torch.empty((qkv.shape[0], C), device=qkv.device,
+                       dtype=torch.float32) if bf16 else None)
     fn = build.function("window_attn_bwd", "window_attn_bwd",
-                        [_I] + [_P] * 9 + [_I] * 7 + [_P])
+                        [_I] + [_P] * 10 + [_I] * 7 + [_P])
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = fn(_DTYPE_CODE[qkv.dtype], qkv.data_ptr(), rh.data_ptr(),
                  rw.data_ptr(), do.data_ptr(), dqkv.data_ptr(),
                  drh.data_ptr(), drw.data_ptr(), drel.data_ptr(),
-                 part.data_ptr(), Bw, n, C, nh, hd, kh, kw, stream)
+                 part.data_ptr(), None if dqf is None else dqf.data_ptr(), Bw,
+                 n, C, nh, hd, kh, kw, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     window_attn_core_bwd.launches += 1

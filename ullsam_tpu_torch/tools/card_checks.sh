@@ -1,9 +1,10 @@
 #!/usr/bin/env bash
 # The port's checks on the card in one command: the gpu-marked tests,
-# chip_smoke.py, and the ViT-H regions of tools/profile_kernels.py (one warm
-# ViT-H AMG image and its encode under each route setting: device-busy
-# share and top device operations). Run from the root of a checkout on a
-# machine with one H100:
+# chip_smoke.py, the ViT-H regions of tools/profile_kernels.py (one warm
+# ViT-H AMG image and its encode under each route setting) and its
+# segmentation train step region: device-busy share, peak memory and top
+# device operations. Run from the root of a checkout on a machine with one
+# H100:
 #
 #     bash ullsam_tpu_torch/tools/card_checks.sh LOG_DIR [TAG]
 #
@@ -43,3 +44,7 @@ step profile timeout 600 python -m ullsam_tpu_torch.tools.profile_kernels \
     --only vit_h || { tail -40 "$out/profile_${tag}.log"; exit 1; }
 grep -E -A12 '^== vit_h_amg' "$out/profile_${tag}.log"
 grep -E '^== ' "$out/profile_${tag}.log"
+
+step profile_train timeout 600 python -m ullsam_tpu_torch.tools.profile_kernels \
+    --only train_step || { tail -40 "$out/profile_train_${tag}.log"; exit 1; }
+grep -E -A20 '^== train_step' "$out/profile_train_${tag}.log"

@@ -12,8 +12,9 @@ setting of the JAX package's switches (regions ``vit_h_*``).
 set-up still runs; ``--only vit_h`` sets up only the ViT-H model).
 
 Prints, per profiled region, the CUDA kernels by total device time (the
-hand-written kernels' sub-kernels appear by name), the device-busy total
-and the region's wall time, so the idle share is wall - busy; for caption
+hand-written kernels' sub-kernels appear by name), the device-busy total,
+the region's wall time, so the idle share is wall - busy, and its peak
+device memory above what was allocated before it; for caption
 decode also the host time of one call of a decode-size linear, bf16
 ``Linear`` against the int8 ``QuantLinear`` (B12). Writes a
 chrome trace per region under DIR when given. Needs a CUDA card; TF32 is
@@ -69,6 +70,8 @@ def _region(name: str, fn, args, iters: int = 3, top: int = 12) -> None:
         return
     fn()  # warm up: builds, cuBLAS handles, caches
     torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -88,7 +91,9 @@ def _region(name: str, fn, args, iters: int = 3, top: int = 12) -> None:
     print(f"== {name}: wall {wall:.3f} ms/iter, device busy {busy:.3f} "
           f"ms/iter ({100 * busy / wall:.1f}%), idle "
           f"{max(wall - busy, 0):.3f} ms, {sum(r[1] for r in rows)} device "
-          f"kernels and copies/iter")
+          f"kernels and copies/iter, peak "
+          f"{(torch.cuda.max_memory_allocated() - held) / 2**20:.1f} MiB "
+          f"above the {held / 2**20:.1f} MiB held before it")
     for ms, count, key in rows[:top]:
         print(f"   {ms:9.4f} ms  x{count:<4d} {key[:90]}")
     if args.out:
