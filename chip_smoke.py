@@ -61,7 +61,11 @@ sm_90a) and the CUDA toolkit. Phases, each printing what it found:
     attention read from the qkv projection) and B15 (two-phase window
     attention) against their plain versions at ViT-H's shapes (B13-B15 at
     ViT-B's too), bf16 and f32 (phase 3's checks; B3 and B15 share one SDPA
-    reading a shape); a small encoder with head dim 80 on the CPU
+    reading a shape; in bf16 they and B1 run one window core); the wgmma
+    GEMM that carries B1's and B13's bf16 products at each product's shape
+    (M = 4900; B13's also 4096) against its f32 plain product, one launch
+    each by its own count, timed beside F.linear; a small encoder with
+    head dim 80 on the CPU
     (plain versions) and on the card (kernels) under each route setting of
     the JAX package's switches (default, ULLSAM_FUSED_VIT_MLP=1,
     ULLSAM_PACKED_GLOBAL=1, ULLSAM_FUSED_VIT_ATTN=0, and that with
@@ -71,10 +75,14 @@ sm_90a) and the CUDA toolkit. Phases, each printing what it found:
     timed images with exact launches (B1 28, B2 4, B4-B7 4 an image), one
     f32 image; the encode alone under each route setting (1 warm + 5 timed,
     exact launches, each bf16 embedding against the default route's), and
-    one bf16 image with all four switches on (B13 32, B14 4, B15 28).
+    one bf16 image with all four switches on (B13 32, B14 4, B15 28). In
+    every bf16 request, image and encode the wgmma GEMM launches exactly
+    twice per B1 or B13 launch (its qkv / proj, fc1 / fc2), and none in
+    f32.
 Each path (5-10) runs with every launch counter set to 0 just before it and
-read just after. Then the kernels JSON line (``launches``: the sum
-over the paths; ``launches_by_path``: each path's own count), the
+read just after. Then the kernels JSON line (every kernel and the wgmma
+GEMM; ``launches``: the sum over the paths; ``launches_by_path``: each
+path's own count), the
 nvidia-smi line, and the final status line.
 Any failure exits non-zero before the final line. No jax, no ullsam_tpu.
 """
@@ -170,6 +178,13 @@ def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+# B1's and B3's plain versions round where the JAX kernels do (the whole
+# row's f32 logits, p normalized and then rounded), as the one bf16 window
+# core does
+ROUNDING = {n: "; plain at the JAX rounding points"
+            for n in ("window_attn", "window_attn_core",
+                      "window_attn_core_twophase")}
+
 
 def check_kernels(card: str) -> dict:
     import torch
@@ -213,7 +228,8 @@ def check_kernels(card: str) -> dict:
             ok = finite and rel <= tol[dtype]
             say(f"[kernels] {name} {dname}: max_abs_err={err:.3e} "
                 f"max_rel_err={rel:.3e} (per output, relative to max|plain|;"
-                f" tol {tol[dtype]:.0e}) {'ok' if ok else 'FAIL'}")
+                f" tol {tol[dtype]:.0e}{ROUNDING.get(name, '')}) "
+                f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 fail(f"{name} {dname} disagrees with its plain version")
             ms = cuda_time_ms(lambda: kernel(*args, **kw), iters=20)
@@ -406,8 +422,8 @@ def check_train_kernels(card: str) -> dict:
                   and all(bool(torch.isfinite(a).all()) for a in outs))
             say(f"[kernels] {name} {dname}: max_abs_err={max(errs):.3e} "
                 f"max_rel_err={rel:.3e} over {len(outs)} output(s) "
-                f"(relative to max|plain|; tol {tol[dtype]:.0e}) "
-                f"{'ok' if ok else 'FAIL'}")
+                f"(relative to max|plain|; tol {tol[dtype]:.0e}"
+                f"{ROUNDING.get(name, '')}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 fail(f"{name} {dname} disagrees with its plain version")
             del got, ref, outs, refs
@@ -665,16 +681,28 @@ def main_path() -> None:
         lat, per_req, first = [], [], None
         for i, inp in enumerate(inputs):
             b1, b2 = VB.window_attn.launches, FA.vit_flash_attn.launches
+            g0 = gemm_counts()
             ms, dense, feats, mask, probs, iou = run_request(model, cfg, inp)
             d1 = VB.window_attn.launches - b1
             d2 = FA.vit_flash_attn.launches - b2
+            dg = {k: v - g0[k] for k, v in gemm_counts().items()}
+            # in bf16 each B1 launch runs its two products on the wgmma
+            # GEMM; in f32 on gemm.cuh's FMA kernel (neither bf16 GEMM)
+            want_g = ({"gemm_sm90": 2 * d1, "gemm_mma": 0}
+                      if next(model.parameters()).dtype == torch.bfloat16
+                      else
+                      {"gemm_sm90": 0, "gemm_mma": 0})
+            if dg != want_g:
+                fail(f"{name} request {i}: GEMM launches {dg}, expected "
+                     f"{want_g}")
             per_req.append((d1, d2))
             lat.append(ms)
             if i == 0:
                 first = (dense.float(), feats.float(), probs)
             say(f"[main] {name} request {i}: {inp[2].shape[1]} click(s), "
                 f"latency {ms:.1f} ms (host clock, ends in synchronize), "
-                f"launches window_attn +{d1} vit_flash_attn +{d2}, "
+                f"launches window_attn +{d1} vit_flash_attn +{d2} "
+                f"gemm_sm90 +{dg['gemm_sm90']}, "
                 f"mask area {int(mask.sum())} px, iou {float(iou):.4f}")
         peak = torch.cuda.max_memory_allocated()
         say(f"[main] {name}: weights {weights / 2**30:.3f} GiB resident, "
@@ -732,8 +760,18 @@ def launch_counts() -> dict:
     return {name: k.launches for name, k in kernel_wrappers().items()}
 
 
+def gemm_counts() -> dict:
+    """Launches of the two bf16 GEMM kernels (counted in C where each
+    launches): the wgmma one, which carries B1's and B13's products, and
+    gemm.cuh's mma.sync one (B4-B7, B12 and any other shape)."""
+    from ullsam_tpu_torch.ops.kernels import gemm as G
+    return {"gemm_sm90": G.gemm_sm90.launches,
+            "gemm_mma": G.gemm_mma.launches}
+
+
 def reset_counts() -> None:
-    for k in kernel_wrappers().values():
+    from ullsam_tpu_torch.ops.kernels import gemm as G
+    for k in (*kernel_wrappers().values(), G.gemm_sm90, G.gemm_mma):
         k.launches = 0
 
 
@@ -1774,6 +1812,93 @@ def check_vit_h_kernels(card: str, rows: dict) -> dict:
     return rows
 
 
+# (tag, N, K, act, residual) of each bf16 product of B1 and B13 (qkv, proj;
+# fc1 with the GELU, fc2 with the residual) at SAM ViT-B and ViT-H
+GEMM_PRODUCTS = (
+    ("vit_h_qkv", 3840, 1280, "none", False),
+    ("vit_h_proj", 1280, 1280, "none", True),
+    ("vit_h_fc1", 5120, 1280, "gelu_tanh", False),
+    ("vit_h_fc2", 1280, 5120, "none", True),
+    ("vit_b_qkv", 2304, 768, "none", False),
+    ("vit_b_proj", 768, 768, "none", True))
+
+
+def check_gemm_kernel(card: str) -> dict:
+    """Phase 10 (a'): the wgmma + TMA GEMM (``csrc/gemm_sm90.cuh``) that
+    carries B1's and B13's bf16 products, at each product's shape with M =
+    4900 (a windowed block; B13's also at 4096, a global block) against
+    its f32 plain product (tolerance 2e-2 of max|plain|, as every bf16
+    kernel), one launch of the kernel each by its own count, timed beside
+    ``F.linear`` on the same operands (bias included) and the bound. The
+    row's own numbers are ViT-H's qkv, the product the default route runs
+    28 times an image."""
+    import torch
+    import torch.nn.functional as F
+    from ullsam_tpu_torch.ops.kernels import gemm as G
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    row = {"name": "gemm_sm90", "route": "cuda",
+           "source": "ullsam_tpu_torch/csrc/gemm_sm90.cuh",
+           "replaces": "ullsam_tpu/ops/pallas/vit_block.py:60",
+           "carries": "the bf16 products of B1 (vit_block.py:203) and B13"}
+
+    def r(*shape, s=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * s).to(torch.bfloat16)
+
+    cases = [(tag, 4900, *rest) for tag, *rest in GEMM_PRODUCTS]
+    cases += [(tag, 4096, *rest) for tag, *rest in GEMM_PRODUCTS
+              if tag in ("vit_h_fc1", "vit_h_fc2")]
+    for tag, M, N, K, act, with_res in cases:
+        a, w, b = r(M, K), r(N, K, s=K ** -0.5), r(N, s=0.1)
+        res = r(M, N) if with_res else None
+        if G.gemm_kernel(M, N, K) != "gemm_sm90":
+            fail(f"gemm {tag}: M={M} N={N} K={K} is not the wgmma kernel's")
+        before = (G.gemm_sm90.launches, G.gemm_mma.launches)
+        got = G.gemm_bf16(a, w, b, res, act)
+        torch.cuda.synchronize()
+        counts = (G.gemm_sm90.launches - before[0],
+                  G.gemm_mma.launches - before[1])
+        ref = G.gemm_bf16_plain(a, w, b, res, act)
+        err = float((got.float() - ref.float()).abs().max())
+        rel = err / float(ref.float().abs().max())
+        ok = (rel <= 2e-2 and bool(torch.isfinite(got).all())
+              and counts == (1, 0))
+        say(f"[gemm] {tag} M={M} N={N} K={K} {act}"
+            f"{' +residual' if with_res else ''}: max_abs_err={err:.3e} "
+            f"max_rel_err={rel:.3e} (relative to max|plain|, f32 product; "
+            f"tol 2e-02), launches wgmma +{counts[0]} mma.sync +{counts[1]}"
+            f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"gemm {tag} disagrees with its plain version or did not "
+                 f"take the wgmma kernel")
+        del got, ref
+        ms = cuda_time_ms(lambda: G.gemm_bf16(a, w, b, res, act), iters=20,
+                          warmup=3)
+        plain_ms = cuda_time_ms(lambda: G.gemm_bf16_plain(a, w, b, res, act),
+                                iters=2, warmup=1)
+        lib_ms = cuda_time_ms(lambda: F.linear(a, w, b), iters=20, warmup=3)
+        flops = 2 * M * N * K
+        nbytes = 2 * (M * K + N * K + N + M * N * (2 if with_res else 1))
+        b_ms, b_by = bound_ms(flops, nbytes, torch.bfloat16)
+        say(f"[gemm] {tag} M={M}: kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+            f"library F.linear {lib_ms:.4f} ms ({flops / lib_ms / 1e9:.1f} "
+            f"TFLOP/s), bound {b_ms:.4f} ms ({b_by}: {flops / 1e9:.2f} "
+            f"GFLOP, {nbytes / 1e6:.1f} MB; data-sheet peaks at 700 W, "
+            f"card: {card})")
+        entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+        if tag == "vit_h_qkv" and M == 4900:
+            row.update(entry)
+        else:
+            row[f"{tag}_M{M}"] = entry
+        del a, w, b, res
+        torch.cuda.empty_cache()
+    return {"gemm_sm90": row}
+
+
 def vit_h_small_config():
     """An encoder that every ViT-H route's gate takes: 8 heads of 80 (C =
     640, C % 128 == 0), a 32x32 grid (N = 1024) in 14x14 windows (padded
@@ -1851,8 +1976,21 @@ def vit_h_main_path() -> None:
     decoder = {"decode_masks": 4, "two_way_transformer": 4,
                "upscale_hypernet_stats": 4, "upscale_hypernet": 4}
 
+    def gemm_check(tag, d, g0, bf16, decoder_too):
+        """Every bf16 product of B1 and B13 took the wgmma GEMM: two a
+        launch of either; f32 takes neither bf16 GEMM. The decoder's
+        products (B4-B7) run gemm.cuh's mma.sync kernel."""
+        dg = {k: v - g0[k] for k, v in gemm_counts().items()}
+        sm90 = 2 * (d.get("window_attn", 0) + d.get("ln_mlp", 0))
+        if dg["gemm_sm90"] != (sm90 if bf16 else 0) or (
+                not decoder_too and dg["gemm_mma"] != 0):
+            fail(f"ViT-H {tag}: GEMM launches {dg}, expected gemm_sm90 "
+                 f"{sm90 if bf16 else 0}")
+        return dg
+
     def run(generator, image, tag, want):
         before = launch_counts()
+        g0 = gemm_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         masks, data = generator.generate_dense(image)
@@ -1860,13 +1998,14 @@ def vit_h_main_path() -> None:
         ms = (time.perf_counter() - t0) * 1e3
         d = {k: v - before[k] for k, v in launch_counts().items()
              if v != before[k]}
+        dg = gemm_check(tag, d, g0, "f32" not in tag, True)
         n = len(data["iou_preds"])
         if (masks.dtype != torch.bool or tuple(masks.shape) != (n, 1024, 1024)
                 or n != 256 or not np.isfinite(data["iou_preds"]).all()
                 or not np.isfinite(data["stability"]).all()):
             fail(f"ViT-H AMG {tag}: masks {tuple(masks.shape)} {masks.dtype}")
         say(f"[vit_h] {tag}: {n} masks, latency {ms:.1f} ms (host clock, "
-            f"ends in synchronize), launches {d}")
+            f"ends in synchronize), launches {d}, GEMMs {dg}")
         if d != want:
             fail(f"ViT-H AMG {tag}: launches {d}, expected {want}")
         return ms, masks, data
@@ -1899,6 +2038,7 @@ def vit_h_main_path() -> None:
             lat = []
             for _ in range(5):
                 before = launch_counts()
+                g0 = gemm_counts()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 emb = S.encode_image(model16.image_encoder, x)
@@ -1906,6 +2046,7 @@ def vit_h_main_path() -> None:
                 lat.append((time.perf_counter() - t0) * 1e3)
                 d = {k: v - before[k] for k, v in launch_counts().items()
                      if v != before[k]}
+                dg = gemm_check(f"encode, route {route}", d, g0, True, False)
                 if d != want:
                     fail(f"ViT-H encode, route {route}: launches {d}, "
                          f"expected {want}")
@@ -1915,7 +2056,8 @@ def vit_h_main_path() -> None:
         embs[route] = emb.float()
         say(f"[vit_h] bf16 encode, route {route}: "
             f"{', '.join(f'{t:.2f}' for t in lat)} ms (host clock, ends in "
-            f"synchronize; median {sorted(lat)[2]:.2f}), launches {d}")
+            f"synchronize; median {sorted(lat)[2]:.2f}), launches {d}, "
+            f"GEMMs {dg}")
 
     every = dict(VIT_H_ROUTES["unfused_twophase"], ULLSAM_FUSED_VIT_MLP="1",
                  ULLSAM_PACKED_GLOBAL="1")
@@ -2005,13 +2147,14 @@ def main() -> None:
     rows.update(check_llm_kernels(smi))
     rows.update(check_w8a16_kernel(smi))
     rows = check_vit_h_kernels(smi, rows)
+    rows.update(check_gemm_kernel(smi))
     small_reference_check()
     amg_small_reference_check()
     train_small_reference_check()
     packed_small_reference_check()
     caption_small_reference_check()
     vit_h_small_reference_check()
-    by_path = {}
+    by_path, gemm_by_path = {}, {}
     for path, drive in (("interactive", main_path), ("amg", amg_main_path),
                         ("train", train_main_path),
                         ("packed", packed_main_path),
@@ -2020,7 +2163,10 @@ def main() -> None:
         reset_counts()
         drive()
         by_path[path] = launch_counts()
-        say(f"[main] launches on the {path} path: {by_path[path]}")
+        gemm_by_path[path] = gemm_counts()
+        by_path[path]["gemm_sm90"] = gemm_by_path[path]["gemm_sm90"]
+        say(f"[main] launches on the {path} path: {by_path[path]}; bf16 "
+            f"GEMMs {gemm_by_path[path]}")
     launches = {name: sum(c[name] for c in by_path.values()) for name in rows}
     if not all(launches.values()):
         fail(f"a kernel of the main path never launched: {launches}")

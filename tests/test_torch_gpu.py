@@ -609,7 +609,7 @@ def test_vit_h_wrappers_refuse_unsupported(cuda):
     """On the card the wrappers raise for what their kernels do not take,
     with no fallback: head dim 96 in B1, B2, B3, B14, B15 and B8; C % 32
     in B13; head dim 80 in float32 B8 and in B9 (not instantiated); windows
-    wider than 16 in bfloat16 B8; and a
+    wider than 16 in bfloat16 B8, B3 and B15 (the one bf16 core); and a
     ``QuantLinear`` made on the CPU at a width B12 does not take (K = 72)
     raises on its first call after ``.to("cuda")``."""
     from ullsam_tpu_torch.ops import layers as L
@@ -645,6 +645,9 @@ def test_vit_h_wrappers_refuse_unsupported(cuda):
     with pytest.raises(ValueError):       # bfloat16 B8, 4x32 windows
         WA.window_attn_core_bwd(b(128, 3 * C), b(4, 4, 64), b(32, 32, 64),
                                 b(128, C))
+    for core in (WA.window_attn_core, WA.window_attn_core_twophase):
+        with pytest.raises(ValueError):   # the bf16 core, 4x32 windows
+            core(b(128, 3 * C), b(4, 4, 64), b(32, 32, 64))
     q = z(2, 1024, 80)
     with pytest.raises(ValueError):
         FA.vit_flash_attn_bwd(q, q, q, z(2, 1024, 32), z(2, 1024, 32), q,
@@ -727,3 +730,92 @@ def test_packed_global_gradients_on_card_match_cpu(cuda, monkeypatch):
     for (name, a), b in zip(cpu.attn.named_parameters(),
                             gpu.attn.parameters()):
         assert _rel_err(b.grad.cpu(), a.grad) <= 1e-4, name
+
+
+# ---------------------------------------------------------------------------
+# the wgmma + TMA GEMM of B1's and B13's products, and the one bf16 window
+# core that B1, B3 and B15 share
+# ---------------------------------------------------------------------------
+
+# (N, K) of each bf16 product: B1's qkv and proj and B13's fc1 and fc2 at
+# SAM ViT-H (C 1280, F 5120), B1's qkv and proj at ViT-B (C 768)
+_PRODUCTS = [(3840, 1280), (1280, 1280), (5120, 1280), (1280, 5120),
+             (2304, 768), (768, 768)]
+
+
+@pytest.mark.parametrize("M", [4900, 4096, 257])
+@pytest.mark.parametrize("N,K", _PRODUCTS)
+def test_gemm_sm90_matches_plain(cuda, M, N, K):
+    """The wgmma GEMM against its f32 plain product at every bf16 product
+    shape of B1 and B13, M a windowed block's 4900 rows, a global block's
+    4096 and a ragged 257, with each epilogue (bias; bias + tanh-GELU;
+    bias + residual); every call launches the wgmma kernel once."""
+    from ullsam_tpu_torch.ops.kernels import gemm as G
+
+    def r(*shape, s=1.0):
+        return (torch.randn(*shape, generator=cuda, device="cuda")
+                * s).to(torch.bfloat16)
+
+    a, w, b, res = r(M, K), r(N, K, s=K ** -0.5), r(N, s=0.1), r(M, N)
+    assert G.gemm_kernel(M, N, K) == "gemm_sm90"
+    for bias, rr, act in ((b, None, "none"), (b, None, "gelu_tanh"),
+                          (b, res, "none")):
+        before = (G.gemm_sm90.launches, G.gemm_mma.launches)
+        got = G.gemm_bf16(a, w, bias, rr, act)
+        torch.cuda.synchronize()
+        assert (G.gemm_sm90.launches, G.gemm_mma.launches) == (
+            before[0] + 1, before[1])
+        ref = G.gemm_bf16_plain(a, w, bias, rr, act)
+        assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+        assert _rel_err(got, ref) <= TOL["bfloat16"]
+
+
+def test_gemm_dispatch_takes_mma_off_the_sm90_shapes(cuda):
+    """Shapes the wgmma kernel does not take (N % 128, K % 64) run the
+    mma.sync kernel, by its own count, and agree with the plain product."""
+    from ullsam_tpu_torch.ops.kernels import gemm as G
+    for M, N, K in ((300, 200, 96), (64, 136, 64)):
+        a = torch.randn(M, K, generator=cuda, device="cuda").bfloat16()
+        w = torch.randn(N, K, generator=cuda, device="cuda").bfloat16()
+        assert G.gemm_kernel(M, N, K) == "gemm_mma"
+        before = (G.gemm_sm90.launches, G.gemm_mma.launches)
+        got = G.gemm_bf16(a, w)
+        torch.cuda.synchronize()
+        assert (G.gemm_sm90.launches, G.gemm_mma.launches) == (
+            before[0], before[1] + 1)
+        assert _rel_err(got, G.gemm_bf16_plain(a, w)) <= TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("name,width", [("window_attn", "vit_b"),
+                                        ("window_attn", "vit_h"),
+                                        ("ln_mlp", "vit_h")])
+def test_b1_b13_products_take_the_sm90_gemm(cuda, name, width):
+    """In bf16 each of B1's two products (qkv, proj) and B13's two (fc1,
+    fc2) launches the wgmma kernel, none the mma.sync one."""
+    from ullsam_tpu_torch.ops.kernels import gemm as G
+    kernel, plain = _vit_h_kernels()[name]
+    args, kw = _vit_h_case(name, width, torch.bfloat16, cuda)
+    before = (G.gemm_sm90.launches, G.gemm_mma.launches)
+    got = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert (G.gemm_sm90.launches, G.gemm_mma.launches) == (before[0] + 2,
+                                                           before[1])
+    assert _rel_err(got, plain(*args, **kw)) <= TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("Bw,ws,nh,hd", [(25, 14, 12, 64), (25, 14, 16, 80),
+                                         (4, 8, 2, 64), (3, 5, 2, 80),
+                                         (2, 16, 2, 80)])
+def test_b3_and_b15_bf16_are_one_core(cuda, Bw, ws, nh, hd):
+    """B3 and B15 launch the one bf16 window core: bitwise-equal outputs,
+    both within the bf16 tolerance of the plain version (the JAX
+    kernels' rounding points)."""
+    from ullsam_tpu_torch.ops.kernels import window_attention as WA
+    qkv, rh, rw, _ = _window_core_inputs(cuda, torch.bfloat16, Bw, ws, nh,
+                                         hd)
+    b3 = WA.window_attn_core(qkv, rh, rw)
+    b15 = WA.window_attn_core_twophase(qkv, rh, rw)
+    torch.cuda.synchronize()
+    assert torch.equal(b3, b15)
+    assert _rel_err(b3, WA.window_attn_core_plain(qkv, rh, rw)) <= TOL[
+        "bfloat16"]

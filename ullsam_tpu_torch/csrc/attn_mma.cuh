@@ -1,5 +1,5 @@
 // Warp-level attention on the tensor cores (bf16 in, f32 accumulate), shared
-// by the bf16 paths of B1 (window attention core) and B2 (global flash).
+// by the bf16 paths of B2 / B14 (global flash) and B10 (LLM flash).
 //
 // A warp owns 16 query rows: their q as mma A fragments in registers, the
 // running max m, partial row sums l and the output accumulator acc in

@@ -104,8 +104,8 @@ __device__ __forceinline__ int div_small(int a, float inv) {
 // for the rows [0, rows) of a row-major q tile (row stride ldq) whose first
 // row is query r0 (rows past n use the last row's tables; their q is zero):
 // a warp takes a row and four table entries per step, eight lanes to an
-// entry, three shuffles to sum. Blocks of 8 warps (B15, B8; B1's core in
-// window_attn.cu computes them the same way).
+// entry, three shuffles to sum. Blocks of 8 warps (the f32 kernels of B15
+// and B8).
 template <int HD, typename T>
 __device__ __forceinline__ void window_rel_terms(const T* qs, int ldq,
                                                  int rows, int r0, const T* rh,
@@ -135,58 +135,96 @@ __device__ __forceinline__ void window_rel_terms(const T* qs, int ldq,
   }
 }
 
-// The same rel-pos terms in bf16 on the tensor cores: the rows of window row
-// y (y*kw .. y*kw + kw - 1) all use Rh[y], the rows of window column x (x,
-// x + kw, ...) all use Rw[x], so each group is a product [16 rows x HD] .
-// [HD x 8] per 8 table entries (mma.sync m16n8k16: A rows by ldmatrix from
-// the q tile, B straight from the table in device memory). Rows of the q
-// tile qs (row stride ldq) are queries [q0, q1); RB's rows likewise, and
-// its rows past n are set to 0. Exact products, f32 sums. Every warp of
-// the block (nwarps of them) must call it; the caller synchronises after.
-template <int HD>
+// The same rel-pos terms in bf16 on the tensor cores, for windows of at
+// most 16 x 16: the rows of window row y (y*kw .. y*kw + kw - 1) all use
+// Rh[y], the rows of window column x (x, x + kw, ...) all use Rw[x], so
+// each group is one product [16 rows x HD] . [HD x 16] (mma.sync m16n8k16:
+// A rows by ldmatrix from the q tile, B straight from the table in device
+// memory). The q tile qs holds queries [q0, q1), row r - q0 of 16-byte
+// chunk ch at element off(r - q0, ch); RB's rows likewise (row stride
+// ldrb), its rows past n set to 0. Groups with no row in [q0, q1) are
+// skipped. A warp takes groups it, it + nwarps, ... kBatch at a time,
+// their table fragments loaded from L2 together before any product. Exact
+// products, f32 sums. Every warp of the block (nwarps of them) must call
+// it; the caller synchronises after.
+template <int HD, int kBatch, class Off>
 __device__ __forceinline__ void window_rel_terms_mma(
-    const __nv_bfloat16* qs, int ldq, int q0, int q1,
+    const __nv_bfloat16* qs, Off off, int q0, int q1,
     const __nv_bfloat16* rh, const __nv_bfloat16* rw, int n, int kh, int kw,
     float* RB, int ldrb, int warp, int nwarps, int lane) {
   const int g = lane >> 2, t = lane & 3, rl = kh + kw;
   for (int e = warp * 32 + lane; e < (q1 - max(q0, n)) * rl;
        e += nwarps * 32)
     RB[(max(q0, n) - q0 + e / rl) * ldrb + e % rl] = 0.f;
-  const int hg = (kw + 15) / 16, wg = (kh + 15) / 16;  // 16-row chunks
-  const int items = kh * hg + kw * wg;
-  for (int it = warp; it < items; it += nwarps) {
-    const bool isw = it >= kh * hg;
-    const int k = isw ? it - kh * hg : it;
-    const int grp = isw ? k / wg : k / hg;          // y or x
-    const int j0 = 16 * (isw ? k % wg : k % hg);
-    const int len = isw ? kh : kw, ncol = isw ? kw : kh;
-    const int step = isw ? kw : 1, first = isw ? grp : grp * kw;
-    // this lane's A row (ldmatrix), clamped into the tile when unused
-    const int ja = j0 + (lane & 15), ra = first + ja * step;
-    const int la = (ja < len && ra >= q0 && ra < q1) ? ra - q0 : 0;
-    const __nv_bfloat16* tab = isw ? rw + (size_t)grp * kw * HD
-                                   : rh + (size_t)grp * kh * HD;
-    for (int cb = 0; cb * 8 < ncol; ++cb) {
-      const __nv_bfloat16* trow =
-          tab + (size_t)min(cb * 8 + g, ncol - 1) * HD + 2 * t;
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  const int items = kh + kw;  // Rh[y] for y < kh, then Rw[x] for x < kw
+  for (int it0 = warp; it0 < items; it0 += nwarps * kBatch) {
+    uint32_t b[kBatch][2][HD / 16][2];
+    bool use[kBatch];
 #pragma unroll
-      for (int kd = 0; kd < HD / 16; ++kd) {
-        uint32_t a[4], b[2];
-        ldmatrix_x4(a, smem_u32(qs + la * ldq + kd * 16 + (lane >> 4) * 8));
-        b[0] = *reinterpret_cast<const uint32_t*>(trow + kd * 16);
-        b[1] = *reinterpret_cast<const uint32_t*>(trow + kd * 16 + 8);
-        mma_bf16_16816(acc, a, b);
+    for (int q = 0; q < kBatch; ++q) {
+      const int it = it0 + nwarps * q;
+      const bool isw = it >= kh;
+      const int grp = isw ? it - kh : it;  // y or x
+      use[q] = it < items &&
+               (isw || (grp * kw < q1 && grp * kw + kw > q0));
+      if (!use[q]) continue;
+      const int ncol = isw ? kw : kh;
+      const __nv_bfloat16* tab = isw ? rw + (size_t)grp * kw * HD
+                                     : rh + (size_t)grp * kh * HD;
+#pragma unroll
+      for (int c2 = 0; c2 < 2; ++c2) {
+        const __nv_bfloat16* trow =
+            tab + (size_t)min(c2 * 8 + g, ncol - 1) * HD + 2 * t;
+#pragma unroll
+        for (int kd = 0; kd < HD / 16; ++kd) {
+          b[q][c2][kd][0] = *reinterpret_cast<const uint32_t*>(trow + kd * 16);
+          b[q][c2][kd][1] =
+              *reinterpret_cast<const uint32_t*>(trow + kd * 16 + 8);
+        }
       }
+    }
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = j0 + g + 8 * (c >> 1), col = cb * 8 + 2 * t + (c & 1);
-        const int row = first + j * step;
-        if (j < len && col < ncol && row >= q0 && row < q1)
-          RB[(row - q0) * ldrb + (isw ? kh : 0) + col] = acc[c];
+    for (int q = 0; q < kBatch; ++q) {
+      if (!use[q]) continue;
+      const int it = it0 + nwarps * q;
+      const bool isw = it >= kh;
+      const int grp = isw ? it - kh : it;
+      const int len = isw ? kh : kw, ncol = isw ? kw : kh;
+      const int step = isw ? kw : 1, first = isw ? grp : grp * kw;
+      // this lane's A row (ldmatrix), clamped into the tile when unused
+      const int ja = lane & 15, ra = first + ja * step;
+      const int la = (ja < len && ra >= q0 && ra < q1) ? ra - q0 : 0;
+      uint32_t a[HD / 16][4];
+#pragma unroll
+      for (int kd = 0; kd < HD / 16; ++kd)
+        ldmatrix_x4(a[kd], smem_u32(qs + off(la, 2 * kd + (lane >> 4))));
+#pragma unroll
+      for (int c2 = 0; c2 < 2; ++c2) {
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kd = 0; kd < HD / 16; ++kd)
+          mma_bf16_16816(acc, a[kd], b[q][c2][kd]);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int jr = g + 8 * (c >> 1), col = c2 * 8 + 2 * t + (c & 1);
+          const int row = first + jr * step;
+          if (jr < len && col < ncol && row >= q0 && row < q1)
+            RB[(row - q0) * ldrb + (isw ? kh : 0) + col] = acc[c];
+        }
       }
     }
   }
+}
+
+// the card's SM count (persistent grids), read once
+inline int sm_count() {
+  static const int count = [] {
+    int dev = 0, v = 132;
+    if (cudaGetDevice(&dev) == cudaSuccess)
+      cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v;
+  }();
+  return count;
 }
 
 // dtype codes shared with the Python wrappers

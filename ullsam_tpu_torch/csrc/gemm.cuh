@@ -1,5 +1,6 @@
-// Hand-written GEMMs shared by the port's kernels (B1's qkv / proj, and every
-// product of the decoder kernels B4-B7):
+// Hand-written GEMMs shared by the port's kernels (every product of the
+// decoder kernels B4-B7, B1's and B13's f32 products, and their bf16 ones
+// at shapes gemm_sm90.cuh's kernel does not take):
 //
 //     out[m, n] = act(A[m, :] . W[n, :] + bias[n] + res[m % res_rows, n])
 //
@@ -21,6 +22,11 @@ namespace ullsam {
 namespace {
 
 constexpr int kGemmBM = 128, kGemmBN = 128, kGemmBK = 8;
+
+// launches of each bf16 GEMM kernel made through this library (each .so has
+// its own; gemm_launch_count below reads them for the Python wrappers)
+enum GemmKernel : int { kGemmMma = 0, kGemmSm90 = 1 };
+long long gemm_launch_counts[2] = {0, 0};
 
 // the epilogue's activation (the C entry points pass these as ints)
 enum GemmAct : int { kActNone = 0, kActRelu = 1, kActGeluTanh = 2 };
@@ -256,21 +262,16 @@ int gemm_nt(const __nv_bfloat16* A, const __nv_bfloat16* B,
   dim3 grid((N + kMmaBN - 1) / kMmaBN, (M + kMmaBM - 1) / kMmaBM);
   gemm_nt_bf16_mma<OutT><<<grid, 256, 0, st>>>(A, B, bias, res, res_rows, out,
                                                M, N, K, act);
-  return (int)cudaGetLastError();
-}
-
-// the plain residual (res_rows == M), no activation: B1's qkv and proj
-inline int gemm_nt(const float* A, const float* B, const float* bias,
-                   const float* res, float* out, int M, int N, int K,
-                   cudaStream_t st) {
-  return gemm_nt(A, B, bias, res, M, out, M, N, K, 0, st);
-}
-
-inline int gemm_nt(const __nv_bfloat16* A, const __nv_bfloat16* B,
-                   const __nv_bfloat16* bias, const __nv_bfloat16* res,
-                   __nv_bfloat16* out, int M, int N, int K, cudaStream_t st) {
-  return gemm_nt<__nv_bfloat16>(A, B, bias, res, M, out, M, N, K, 0, st);
+  const int err = (int)cudaGetLastError();
+  if (!err) ++gemm_launch_counts[kGemmMma];
+  return err;
 }
 
 }  // namespace
 }  // namespace ullsam
+
+// launches of GEMM kernel `kernel` (0: the mma.sync kernel, 1: the wgmma +
+// TMA kernel of gemm_sm90.cuh) made by this library so far
+extern "C" long long gemm_launch_count(int kernel) {
+  return kernel == 0 || kernel == 1 ? ullsam::gemm_launch_counts[kernel] : -1;
+}

@@ -13,18 +13,22 @@
 // 5120) one windowed block's half is T = 4900 rows: 4 T C F = 128 GFLOP
 // against about 50 MB of operands and result, far above the H100's
 // ops:byte ridge. So the products run on the tensor cores in bf16
-// (mma.sync, f32 accumulate); float32 stays true f32 FMA (no TF32).
+// (gemm_sm90.cuh: wgmma fed by TMA, f32 accumulate); float32 stays true
+// f32 FMA (no TF32).
 //
 // Design: the TPU kernel keeps both weight matrices and a row chunk's
 // hidden activations in VMEM (tens of MB). A Hopper SM has 227 KB of shared
 // memory, so the chain goes through device memory, as B1 and B4 do:
 //   1. ln_rows (ln_rows.cuh): one warp per row, y [T, C] at x's type;
-//   2. gemm_nt (gemm.cuh) y . W1^T + b1 with the tanh-GELU epilogue (the
-//      sum rounded to the type before the GELU) -> h [T, F];
-//   3. gemm_nt h . W2^T + b2 with x as the f32 residual operand -> out.
+//   2. gemm_linear y . W1^T + b1 with the tanh-GELU epilogue (the sum
+//      rounded to the type before the GELU) -> h [T, F];
+//   3. gemm_linear h . W2^T + b2 with x as the f32 residual operand -> out.
+// In bf16 both products take gemm_sm90.cuh's wgmma + TMA kernel where C and
+// F are multiples of 128 and 64 (every SAM width), gemm.cuh's mma.sync
+// kernel otherwise (gemm_bf16); in f32 gemm.cuh's FMA kernel.
 // h is 50 MB in bf16 at T = 4900: written once and read once, 30 us of the
 // card's memory rate against the products' ~130 us at the bf16 peak.
-#include "gemm.cuh"
+#include "gemm_sm90.cuh"
 #include "ln_rows.cuh"
 
 namespace ullsam {
@@ -41,12 +45,12 @@ int forward(const void* x_, const void* lnw, const void* lnb, const void* w1,
   int err = ln_rows(x, static_cast<const T*>(lnw), static_cast<const T*>(lnb),
                     y, rows, C, eps, st);
   if (err) return err;
-  err = gemm_nt(y, static_cast<const T*>(w1), static_cast<const T*>(b1),
-                static_cast<const T*>(nullptr), rows, h, rows, F, C,
-                kActGeluTanh, st);
+  err = gemm_linear(y, static_cast<const T*>(w1), static_cast<const T*>(b1),
+                    static_cast<const T*>(nullptr), h, rows, F, C,
+                    kActGeluTanh, st);
   if (err) return err;
-  return gemm_nt(h, static_cast<const T*>(w2), static_cast<const T*>(b2), x,
-                 rows, static_cast<T*>(out), rows, C, F, kActNone, st);
+  return gemm_linear(h, static_cast<const T*>(w2), static_cast<const T*>(b2),
+                     x, static_cast<T*>(out), rows, C, F, kActNone, st);
 }
 
 }  // namespace
@@ -73,4 +77,22 @@ extern "C" int ln_mlp_forward(int dtype, const void* x, const void* lnw,
     return forward<__nv_bfloat16>(x, lnw, lnb, w1, b1, w2, b2, ybuf, hbuf,
                                   out, rows, C, F, eps, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// One bf16 product of B1 or B13 on its own: out [M, N] = act(a [M, K] .
+// w [N, K]^T + bias [N] + res [M, N]) (bias, res may be null; act 0 none,
+// 2 tanh-GELU), through gemm_bf16's choice of kernel. Requires K % 32 == 0
+// and N % 8 == 0 (the mma.sync kernel's). Returns 0 or a cudaError_t.
+extern "C" int gemm_bf16_forward(const void* a, const void* w,
+                                 const void* bias, const void* res, void* out,
+                                 int M, int N, int K, int act, void* stream) {
+  using namespace ullsam;
+  using bf16 = __nv_bfloat16;
+  if (M <= 0 || K % kMmaBK != 0 || N % 8 != 0 ||
+      (act != kActNone && act != kActGeluTanh))
+    return (int)cudaErrorInvalidValue;
+  return gemm_bf16(static_cast<const bf16*>(a), static_cast<const bf16*>(w),
+                   static_cast<const bf16*>(bias), static_cast<const bf16*>(res),
+                   static_cast<bf16*>(out), M, N, K, act,
+                   static_cast<cudaStream_t>(stream));
 }

@@ -10,8 +10,9 @@
 // (Bw = 25 windows of n = 196, C = 768, 12 heads of 64) one call is ~26
 // GFLOP (qkv 17.3 + proj 5.8 + attention 2.9) against ~20-40 MB of bytes,
 // far above the H100's ops:byte ridge. So the products run on the tensor
-// cores in bf16 (mma.sync, f32 accumulate); float32 stays true f32 FMA on
-// the CUDA cores (no TF32), whose 67 TFLOP/s is then the ceiling.
+// cores in bf16 (wgmma for qkv and proj, mma.sync in the attention core;
+// f32 accumulate); float32 stays true f32 FMA on the CUDA cores (no TF32),
+// whose 67 TFLOP/s is then the ceiling.
 //
 // At SAM ViT-H (Bw = 25, n = 196, C = 1280, 16 heads of 80) a call is ~70
 // GFLOP; head dims 64 and 80 have their own instances of the attention core.
@@ -22,23 +23,24 @@
 //      activations, with the window geometry (nwx, nwy, Hv, Wv) rebuilt
 //      from the row index. Pad keys stay in the softmax: they carry k = qkv
 //      bias, as in the reference's pad-after-norm.
-//   2. GEMM (gemm.cuh) against the natural [out, in] weight with a bias
-//      epilogue, for qkv and, with the f32 residual epilogue, for proj:
-//      gemm_nt_bf16_mma
-//      (128x128x32 tiles, cp.async double buffer, ldmatrix + mma.sync) or,
-//      in f32, gemm_nt_f32 (128x128x8 tiles of 8x8 FMA per thread, the next
-//      k-tile fetched into registers while the current one is multiplied).
-//   3. the attention core, one (head, window) per block: in bf16
-//      window_attn_core_mma (k, v, q in shared memory, rel-pos terms by FMA,
-//      16-row query tiles per warp through attn_mma.cuh); in f32
-//      window_attn_core_f32 (64-query blocks against 64-key tiles through
-//      attn_fma.cuh).
+//   2. GEMM against the natural [out, in] weight with a bias epilogue, for
+//      qkv and, with the f32 residual epilogue, for proj: in bf16 gemm_bf16
+//      (gemm_sm90.cuh: the wgmma + TMA kernel at N % 128 == 0 and K % 64
+//      == 0, which every SAM width meets; gemm.cuh's mma.sync kernel
+//      otherwise); in f32 gemm_nt_f32 (128x128x8 tiles of 8x8 FMA per
+//      thread, the next k-tile fetched into registers while the current
+//      one is multiplied).
+//   3. the attention core: in bf16 the port's one bf16 window core
+//      (window_core.cuh, shared with B3 and B15: persistent blocks, each
+//      row's whole logits in registers, the JAX kernels' rounding of p); in
+//      f32 window_attn_core_f32, one (head, window) a block (64-query
+//      blocks against 64-key tiles through attn_fma.cuh).
 // The TPU kernel's Mosaic workarounds are gone: no 128-lane head padding,
 // no one-hot selection matmuls, no [P*n, P*n] block-masked logits.
 //
 // bf16 rounding points match vit_block.py:231-290: LN output cast before
-// qkv, qkv cast after its bias, p cast before p.v, o_h cast before proj;
-// the residual sum is f32.
+// qkv, qkv cast after its bias, the normalized p cast before p.v, o_h cast
+// before proj; the residual sum is f32.
 //
 // B3, the attention core alone (window_attn_core_forward below), replaces
 // ullsam_tpu/ops/pallas/flash_attention.py `_vit_window_kernel`: the
@@ -46,9 +48,9 @@
 // qkv [Bw*n, 3C] (natural layout: no 128-lane head slots, no selection
 // matmuls). Its gradient, B8, is window_attn_bwd.cu.
 #include "attn_fma.cuh"
-#include "attn_mma.cuh"
-#include "gemm.cuh"
+#include "gemm_sm90.cuh"
 #include "ln_rows.cuh"
+#include "window_core.cuh"
 
 namespace ullsam {
 namespace {
@@ -157,129 +159,7 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// ---- bf16 attention core on the tensor cores ------------------------------
-// grid (nh, Bw, 2): the two z-blocks of a (head, window) split its query
-// rows; each stages the window's k and v (zero rows up to a multiple of 16)
-// and its own q rows in shared memory by cp.async, computes the rel-pos
-// terms q.Rh / q.Rw of its rows with FMA into shared memory, then each warp
-// runs 16-row query tiles through AttnWarp (logits scaled in f32, as the
-// reference scales q.k, not q).
-template <int HD>
-struct WinMmaLayout {
-  static constexpr int kLd = AttnWarp<HD>::kLd;
-  int nk16, nkv, nq16, half, rl;
-  __host__ __device__ WinMmaLayout(int n, int kh, int kw)
-      : nk16((n + 15) / 16), nkv(nk16 * 16), nq16(nk16),
-        half((nk16 + 1) / 2), rl(kh + kw) {}
-  __host__ __device__ size_t bytes() const {
-    return sizeof(__nv_bfloat16) * (size_t)(2 * nkv + half * 16) * kLd +
-           sizeof(float) * (size_t)half * 16 * rl;
-  }
-};
-
-template <int HD>
-__global__ void __launch_bounds__(256)
-    window_attn_core_mma(const __nv_bfloat16* __restrict__ qkv,
-                         const __nv_bfloat16* __restrict__ rh,
-                         const __nv_bfloat16* __restrict__ rw,
-                         __nv_bfloat16* __restrict__ out, int n, int C, int kh,
-                         int kw, float scale) {
-  using bf16 = __nv_bfloat16;
-  constexpr int kLd = AttnWarp<HD>::kLd;
-  constexpr int kChunks = HD / 8;  // 16-byte chunks per row
-  const WinMmaLayout<HD> L(n, kh, kw);
-  extern __shared__ __align__(16) unsigned char smraw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smraw);
-  bf16* Vs = Ks + L.nkv * kLd;
-  bf16* Qs = Vs + L.nkv * kLd;                                 // L.half*16 rows
-  float* RB = reinterpret_cast<float*>(Qs + L.half * 16 * kLd);  // [rows][rl]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int h = blockIdx.x, win = blockIdx.y;
-  const int qt0 = blockIdx.z * L.half;
-  const int qt1 = min(L.nq16, qt0 + L.half);
-  const int r0 = qt0 * 16;  // first query row of this block
-  const size_t C3 = 3 * (size_t)C;
-  const bf16* base = qkv + (size_t)win * n * C3 + h * HD;
-
-  for (int c = tid; c < L.nkv * kChunks; c += 256) {
-    const int row = c / kChunks, ch = (c % kChunks) * 8;
-    const bool ok = row < n;
-    const bf16* src = base + (size_t)(ok ? row : 0) * C3 + ch;
-    cp_async16(smem_u32(Ks + row * kLd + ch), src + C, ok);
-    cp_async16(smem_u32(Vs + row * kLd + ch), src + 2 * C, ok);
-  }
-  for (int c = tid; c < L.half * 16 * kChunks; c += 256) {
-    const int row = c / kChunks, ch = (c % kChunks) * 8;
-    const bool ok = r0 + row < n;
-    cp_async16(smem_u32(Qs + row * kLd + ch),
-               base + (size_t)(ok ? r0 + row : 0) * C3 + ch, ok);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // rel-pos terms RB[r][i] = q_r . Rh[qr, i] (i < kh), q_r . Rw[qc, i - kh]:
-  // a warp takes a row and four table entries per step, eight lanes to an
-  // entry (coalesced bf16x2 loads of the table row, three shuffles to sum)
-  const int sub = lane & 7, part = lane >> 3;
-  for (int r = warp; r < L.half * 16; r += 8) {
-    const int qrow = min(r0 + r, n - 1), y = qrow / kw, x = qrow - y * kw;
-    const bf16* qr = Qs + r * kLd;
-    for (int i0 = 0; i0 < L.rl; i0 += 4) {
-      const int i = min(i0 + part, L.rl - 1);
-      const bf16* tab = i < kh ? rh + ((size_t)y * kh + i) * HD
-                               : rw + ((size_t)x * kw + i - kh) * HD;
-      float a = 0.f;
-#pragma unroll
-      for (int k = 0; k < HD / 16; ++k) {
-        const int d = 16 * k + 2 * sub;
-        const float2 tv = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(tab + d));
-        const float2 qd = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(qr + d));
-        a = fmaf(qd.x, tv.x, fmaf(qd.y, tv.y, a));
-      }
-      a += __shfl_xor_sync(0xffffffffu, a, 4);
-      a += __shfl_xor_sync(0xffffffffu, a, 2);
-      a += __shfl_xor_sync(0xffffffffu, a, 1);
-      if (sub == 0 && i0 + part < L.rl) RB[r * L.rl + i0 + part] = a;
-    }
-  }
-  __syncthreads();
-
-  for (int qt = qt0 + warp; qt < qt1; qt += 8) {
-    const int lr = (qt - qt0) * 16;  // local row of this tile
-    AttnWarp<HD> aw;
-    aw.begin(Qs, lr, lane);
-    const float* rb0 = RB + (lr + g) * L.rl;
-    const float inv_kw = 1.f / kw;
-    const auto bias = [&](int hf, int key) {
-      const float* rb = rb0 + hf * 8 * L.rl;
-      const int kr = div_small(key, inv_kw);
-      return rb[kr] + rb[kh + key - kr * kw];
-    };
-    for (int k0 = 0; k0 < L.nkv; k0 += 64)
-      aw.chunk(Ks + k0 * kLd, Vs + k0 * kLd, min(4, (L.nkv - k0) / 16), k0,
-               n, scale, bias, lane);
-    float inv[2];
-    aw.finish(inv);
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int row = qt * 16 + g + hf * 8;
-      if (row >= n) continue;
-      bf16* orow = out + ((size_t)win * n + row) * C + h * HD;
-#pragma unroll
-      for (int j = 0; j < HD / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + 2 * t) =
-            __floats2bfloat162_rn(aw.acc[j][2 * hf] * inv[hf],
-                                  aw.acc[j][2 * hf + 1] * inv[hf]);
-    }
-  }
-}
-
-// f32: the CUDA-core core (true f32); bf16: the tensor-core core
+// f32: the CUDA-core core (true f32)
 template <int HD>
 int attn_core(const float* qkv, const float* rh, const float* rw, float* out,
               int Bw, int n, int C, int nh, int kh, int kw, float scale,
@@ -294,28 +174,21 @@ int attn_core(const float* qkv, const float* rh, const float* rw, float* out,
   return (int)cudaGetLastError();
 }
 
-template <int HD>
-int attn_core(const __nv_bfloat16* qkv, const __nv_bfloat16* rh,
-              const __nv_bfloat16* rw, __nv_bfloat16* out, int Bw, int n,
-              int C, int nh, int kh, int kw, float scale, cudaStream_t st) {
-  const size_t smem = WinMmaLayout<HD>(n, kh, kw).bytes();
-  cudaError_t err = cudaFuncSetAttribute(
-      window_attn_core_mma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  window_attn_core_mma<HD><<<dim3(nh, Bw, 2), 256, smem, st>>>(
-      qkv, rh, rw, out, n, C, kh, kw, scale);
-  return (int)cudaGetLastError();
-}
-
 // the core at a runtime head dim (head_dim_ok checked by the caller)
-template <typename T>
-int attn_core_hd(int hd, const T* qkv, const T* rh, const T* rw, T* out,
-                 int Bw, int n, int C, int nh, int kh, int kw, float scale,
-                 cudaStream_t st) {
+inline int attn_core_hd(int hd, const float* qkv, const float* rh,
+                        const float* rw, float* out, int Bw, int n, int C,
+                        int nh, int kh, int kw, cudaStream_t st) {
+  const float scale = 1.0f / sqrtf((float)hd);
   if (hd == 80)
     return attn_core<80>(qkv, rh, rw, out, Bw, n, C, nh, kh, kw, scale, st);
   return attn_core<64>(qkv, rh, rw, out, Bw, n, C, nh, kh, kw, scale, st);
+}
+
+inline int attn_core_hd(int hd, const __nv_bfloat16* qkv,
+                        const __nv_bfloat16* rh, const __nv_bfloat16* rw,
+                        __nv_bfloat16* out, int Bw, int n, int C, int nh,
+                        int kh, int kw, cudaStream_t st) {
+  return window_core(hd, qkv, rh, rw, out, Bw, n, C, nh, kh, kw, st);
 }
 
 template <typename T>
@@ -335,17 +208,16 @@ int forward(const void* x_, const void* lnw, const void* lnb,
       n, kh, kw, nwx, nwy, Hv, Wv, masked);
   int err = (int)cudaGetLastError();
   if (err) return err;
-  err = gemm_nt(y, static_cast<const T*>(qkvw),
-                   static_cast<const T*>(qkvb), nullptr, qkv, M, 3 * C, C, st);
+  err = gemm_linear(y, static_cast<const T*>(qkvw),
+                    static_cast<const T*>(qkvb), nullptr, qkv, M, 3 * C, C,
+                    kActNone, st);
   if (err) return err;
-  const float scale = 1.0f / sqrtf((float)hd);
-  const T* rht = static_cast<const T*>(rh);
-  const T* rwt = static_cast<const T*>(rw);
-  err = attn_core_hd(hd, qkv, rht, rwt, o, Bw, n, C, nh, kh, kw, scale, st);
+  err = attn_core_hd(hd, qkv, static_cast<const T*>(rh),
+                     static_cast<const T*>(rw), o, Bw, n, C, nh, kh, kw, st);
   if (err) return err;
-  return gemm_nt(o, static_cast<const T*>(projw),
-                    static_cast<const T*>(projb), x, static_cast<T*>(out), M,
-                    C, C, st);
+  return gemm_linear(o, static_cast<const T*>(projw),
+                     static_cast<const T*>(projb), x, static_cast<T*>(out), M,
+                     C, C, kActNone, st);
 }
 
 }  // namespace
@@ -391,17 +263,16 @@ extern "C" int window_attn_core_forward(int dtype, const void* qkv,
       !head_dim_ok(hd) || nh * hd != C)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float scale = 1.0f / sqrtf((float)hd);
   if (dtype == kF32)
     return attn_core_hd(hd, static_cast<const float*>(qkv),
                         static_cast<const float*>(rh),
                         static_cast<const float*>(rw), static_cast<float*>(out),
-                        Bw, n, C, nh, kh, kw, scale, st);
+                        Bw, n, C, nh, kh, kw, st);
   if (dtype == kBF16)
     return attn_core_hd(hd, static_cast<const __nv_bfloat16*>(qkv),
                         static_cast<const __nv_bfloat16*>(rh),
                         static_cast<const __nv_bfloat16*>(rw),
                         static_cast<__nv_bfloat16*>(out), Bw, n, C, nh, kh, kw,
-                        scale, st);
+                        st);
   return (int)cudaErrorInvalidValue;
 }

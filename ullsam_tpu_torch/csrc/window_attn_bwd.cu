@@ -211,8 +211,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();
-  window_rel_terms_mma<HD>(Qs, kLd, 0, nk, rh, rw, n, kh, kw, RB, rl, warp,
-                           kWarps, lane);
+  window_rel_terms_mma<HD, 1>(
+      Qs, [](int r, int ch) { return r * kLd + 8 * ch; }, 0, nk, rh, rw, n,
+      kh, kw, RB, rl, warp, kWarps, lane);
   cp_async_wait<0>();
   __syncthreads();
 

@@ -11,24 +11,15 @@
 // kernel's two phases (flash_attention.py:1064-1103): first a row's whole
 // f32 logits (scaled q.k plus the rel-pos bias), then its exact max and sum,
 // p normalized and rounded to the input type, and p.v accumulated in f32
-// with o rounded once. Not B3's online softmax, which rescales an
-// unnormalized p.
+// with o rounded once.
 //
 // Where the logits live: the TPU kernel keeps a window's 16 heads of logits
 // in VMEM at once (2.46 MB at ViT-H). The function is per head and per row,
 // and one head's row of n <= 256 logits fits on chip, so here they never
 // leave it: one launch, no scratch in device memory.
-//   * bf16: one block per (head, window, query half), 256 threads, grid
-//     (nh, Bw, 2) as B3's. k, v and the block's q rows sit in shared memory
-//     ([rows][HD + 8], ldmatrix conflict-free), with the rows' rel-pos terms
-//     in f32, computed on the tensor cores (common.cuh
-//     window_rel_terms_mma; by FMA they took most of the time). A
-//     warp owns 16 query rows and holds their whole row of nk = 16 NT
-//     logits in mma.sync m16n8k16 accumulators (NT, the window's 16-key
-//     tiles, is a template argument so the row stays in registers: 104 f32
-//     a thread at n = 196; one block an SM, 254 registers, no spills). The
-//     row max and sum come from quad shuffles; p is normalized and rounded
-//     into bf16 A fragments, then p.v on the tensor cores.
+//   * bf16: B3's function at B3's rounding points, so the entry launches the
+//     port's one bf16 window core (window_core.cuh), as B3 and B1 do: each
+//     warp holds its 16 rows' whole row of logits in mma.sync registers.
 //   * float32: true f32 FMA (no TF32), grid (nh, Bw, ceil(n / 64)): a block
 //     writes its 64 query rows' logits into shared memory tile by tile of 64
 //     keys, turns each row into p there (a warp a row), then sums p.v over
@@ -40,205 +31,15 @@
 // at the memory rate). The earlier design (two launches through a
 // 69 MB f32 scratch, each row read twice in phase 2) took 0.2958 ms in bf16
 // and 1.0639 ms in f32 at ViT-H (H100 80GB HBM3, 700 W).
-#include "common.cuh"
+#include "window_core.cuh"
 
 namespace ullsam {
 namespace {
 
 constexpr int kMaxKeys = 256;  // n <= 256 tokens per window
 constexpr int kMaxRel = 64;    // kh + kw <= 64
-constexpr float kLog2e = 1.4426950408889634f;
 
 __host__ __device__ inline int pad16(int n) { return (n + 15) / 16 * 16; }
-
-// ---- bf16, tensor cores ----------------------------------------------------
-// must match ops/kernels/window_attention.py twophase_smem_bytes
-template <int HD>
-struct TwoPhaseMma {
-  static constexpr int kLd = HD + 8;  // bf16 rows, ldmatrix conflict-free
-  int nk, half, rl;
-  __host__ __device__ TwoPhaseMma(int n, int kh, int kw)
-      : nk(pad16(n)), half((nk / 16 + 1) / 2), rl(kh + kw) {}
-  // K, V [nk][kLd], the block's q rows [half*16][kLd], their rel terms f32
-  __host__ __device__ size_t bytes() const {
-    return sizeof(__nv_bfloat16) * (size_t)(2 * nk + half * 16) * kLd +
-           sizeof(float) * (size_t)half * 16 * rl;
-  }
-};
-
-// grid (nh, Bw, 2), 256 threads; NT = nk / 16. The two z-blocks of a (head,
-// window) split its 16-row query tiles; each warp takes every 8th tile.
-template <int HD, int NT>
-__global__ void __launch_bounds__(256, 1)
-    twophase_mma(const __nv_bfloat16* __restrict__ qkv,
-                 const __nv_bfloat16* __restrict__ rh,
-                 const __nv_bfloat16* __restrict__ rw,
-                 __nv_bfloat16* __restrict__ out, int n, int C, int kh,
-                 int kw, float scale) {
-  using bf16 = __nv_bfloat16;
-  constexpr int kLd = TwoPhaseMma<HD>::kLd, kChunks = HD / 8;
-  constexpr int nk = NT * 16;
-  const TwoPhaseMma<HD> L(n, kh, kw);
-  extern __shared__ __align__(16) unsigned char smraw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smraw);
-  bf16* Vs = Ks + nk * kLd;
-  bf16* Qs = Vs + nk * kLd;
-  float* RB = reinterpret_cast<float*>(Qs + L.half * 16 * kLd);
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int h = blockIdx.x, win = blockIdx.y;
-  const int qt0 = blockIdx.z * L.half, qt1 = min(NT, qt0 + L.half);
-  const int r0 = qt0 * 16;
-  const size_t C3 = 3 * (size_t)C;
-  const bf16* base = qkv + (size_t)win * n * C3 + h * HD;
-
-  // q first, in its own group: its rel-pos terms overlap k and v's loads
-  for (int c = tid; c < L.half * 16 * kChunks; c += 256) {
-    const int row = c / kChunks, ch = (c % kChunks) * 8;
-    const bool ok = r0 + row < n;
-    cp_async16(smem_u32(Qs + row * kLd + ch),
-               base + (size_t)(ok ? r0 + row : 0) * C3 + ch, ok);
-  }
-  cp_async_commit();
-  for (int c = tid; c < nk * kChunks; c += 256) {
-    const int row = c / kChunks, ch = (c % kChunks) * 8;
-    const bool ok = row < n;
-    const bf16* src = base + (size_t)(ok ? row : 0) * C3 + ch;
-    cp_async16(smem_u32(Ks + row * kLd + ch), src + C, ok);
-    cp_async16(smem_u32(Vs + row * kLd + ch), src + 2 * C, ok);
-  }
-  cp_async_commit();
-  cp_async_wait<1>();
-  __syncthreads();
-  window_rel_terms_mma<HD>(Qs, kLd, r0, r0 + L.half * 16, rh, rw, n, kh, kw,
-                           RB, L.rl, warp, 8, lane);
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const float inv_kw = 1.f / kw;
-  for (int qt = qt0 + warp; qt < qt1; qt += 8) {
-    const int lr = (qt - qt0) * 16;
-    // phase 1: the 16 rows' logits against every key, in registers
-    float s[2 * NT][4];
-#pragma unroll
-    for (int j = 0; j < 2 * NT; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
-#pragma unroll
-    for (int kd = 0; kd < HD / 16; ++kd) {
-      uint32_t qf[4];
-      ldmatrix_x4(qf, smem_u32(Qs + (lr + (lane & 15)) * kLd + kd * 16 +
-                               (lane >> 4) * 8));
-#pragma unroll
-      for (int nj = 0; nj < NT; ++nj) {
-        uint32_t b[4];
-        ldmatrix_x4(b, smem_u32(Ks +
-                                (nj * 16 + (lane & 7) + ((lane >> 4) << 3)) *
-                                    kLd +
-                                kd * 16 + ((lane >> 3) & 1) * 8));
-        mma_bf16_16816(s[2 * nj], qf, b);
-        mma_bf16_16816(s[2 * nj + 1], qf, b + 2);
-      }
-    }
-    // scale, bias and mask (in base 2), then the exact row max
-    const float* rb0 = RB + (lr + g) * L.rl;
-    float m[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < 2 * NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = j * 8 + 2 * t + e;
-        const int kr = div_small(key, inv_kw), kc = key - kr * kw;
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const float* rb = rb0 + hf * 8 * L.rl;
-          float& x = s[j][2 * hf + e];
-          x = key < n ? (x * scale + rb[kr] + rb[kh + kc]) * kLog2e
-                      : -INFINITY;
-          m[hf] = fmaxf(m[hf], x);
-        }
-      }
-    float l[2] = {0.f, 0.f};
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      m[hf] = fmaxf(m[hf], __shfl_xor_sync(0xffffffffu, m[hf], 1));
-      m[hf] = fmaxf(m[hf], __shfl_xor_sync(0xffffffffu, m[hf], 2));
-    }
-    // phase 2: the exact row sum, then p = exp(s - m) / l rounded to bf16
-#pragma unroll
-    for (int j = 0; j < 2 * NT; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[j][c] = exp2f(s[j][c] - m[c >> 1]);
-        l[c >> 1] += s[j][c];
-      }
-    float inv[2];
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 1);
-      l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 2);
-      inv[hf] = 1.f / l[hf];
-    }
-    uint32_t pa[NT][4];
-#pragma unroll
-    for (int kk = 0; kk < NT; ++kk) {
-      pa[kk][0] = pack_bf16(s[2 * kk][0] * inv[0], s[2 * kk][1] * inv[0]);
-      pa[kk][1] = pack_bf16(s[2 * kk][2] * inv[1], s[2 * kk][3] * inv[1]);
-      pa[kk][2] =
-          pack_bf16(s[2 * kk + 1][0] * inv[0], s[2 * kk + 1][1] * inv[0]);
-      pa[kk][3] =
-          pack_bf16(s[2 * kk + 1][2] * inv[1], s[2 * kk + 1][3] * inv[1]);
-    }
-    float acc[HD / 8][4];
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < NT; ++kk)
-#pragma unroll
-      for (int dj = 0; dj < HD / 16; ++dj) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(
-            b, smem_u32(Vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                 kLd +
-                        dj * 16 + (lane >> 4) * 8));
-        mma_bf16_16816(acc[2 * dj], pa[kk], b);
-        mma_bf16_16816(acc[2 * dj + 1], pa[kk], b + 2);
-      }
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int row = qt * 16 + g + hf * 8;
-      if (row >= n) continue;
-      bf16* orow = out + ((size_t)win * n + row) * C + h * HD;
-#pragma unroll
-      for (int j = 0; j < HD / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + 2 * t) =
-            __floats2bfloat162_rn(acc[j][2 * hf], acc[j][2 * hf + 1]);
-    }
-  }
-}
-
-// the instance whose NT is nt (1 <= nt <= 16)
-template <int HD, int NT = 1>
-int launch_mma(int nt, const __nv_bfloat16* qkv, const __nv_bfloat16* rh,
-               const __nv_bfloat16* rw, __nv_bfloat16* out, int Bw, int n,
-               int C, int nh, int kh, int kw, float scale, cudaStream_t st) {
-  if constexpr (NT < kMaxKeys / 16) {
-    if (nt != NT)
-      return launch_mma<HD, NT + 1>(nt, qkv, rh, rw, out, Bw, n, C, nh, kh,
-                                    kw, scale, st);
-  }
-  const size_t smem = TwoPhaseMma<HD>(n, kh, kw).bytes();
-  cudaError_t err = cudaFuncSetAttribute(
-      twophase_mma<HD, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  twophase_mma<HD, NT><<<dim3(nh, Bw, 2), 256, smem, st>>>(
-      qkv, rh, rw, out, n, C, kh, kw, scale);
-  return (int)cudaGetLastError();
-}
 
 // ---- float32, CUDA cores ---------------------------------------------------
 // grid (nh, Bw, ceil(n / 64)), 256 threads; thread (ty, tx) = (tid / 16,
@@ -400,22 +201,14 @@ int launch(const float* qkv, const float* rh, const float* rw, float* out,
   return (int)cudaGetLastError();
 }
 
-template <int HD>
-int launch(const __nv_bfloat16* qkv, const __nv_bfloat16* rh,
-           const __nv_bfloat16* rw, __nv_bfloat16* out, int Bw, int n, int C,
-           int nh, int kh, int kw, float scale, cudaStream_t st) {
-  return launch_mma<HD>(pad16(n) / 16, qkv, rh, rw, out, Bw, n, C, nh, kh, kw,
-                        scale, st);
-}
-
-template <typename T>
-int launch_hd(int hd, const void* qkv, const void* rh, const void* rw,
-              void* out, int Bw, int n, int C, int nh, int kh, int kw,
-              float scale, cudaStream_t st) {
-  const T* q = static_cast<const T*>(qkv);
-  const T* a = static_cast<const T*>(rh);
-  const T* b = static_cast<const T*>(rw);
-  T* o = static_cast<T*>(out);
+inline int launch_hd(int hd, const void* qkv, const void* rh, const void* rw,
+                     void* out, int Bw, int n, int C, int nh, int kh, int kw,
+                     cudaStream_t st) {
+  const float* q = static_cast<const float*>(qkv);
+  const float* a = static_cast<const float*>(rh);
+  const float* b = static_cast<const float*>(rw);
+  float* o = static_cast<float*>(out);
+  const float scale = 1.0f / sqrtf((float)hd);
   if (hd == 80) return launch<80>(q, a, b, o, Bw, n, C, nh, kh, kw, scale, st);
   return launch<64>(q, a, b, o, Bw, n, C, nh, kh, kw, scale, st);
 }
@@ -437,12 +230,13 @@ extern "C" int window_attn_twophase_forward(int dtype, const void* qkv,
       (hd != 64 && hd != 80) || nh * hd != C)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float scale = 1.0f / sqrtf((float)hd);
   if (dtype == kF32)
-    return launch_hd<float>(hd, qkv, rh, rw, out, Bw, n, C, nh, kh, kw,
-                            scale, st);
-  if (dtype == kBF16)
-    return launch_hd<__nv_bfloat16>(hd, qkv, rh, rw, out, Bw, n, C, nh, kh,
-                                    kw, scale, st);
+    return launch_hd(hd, qkv, rh, rw, out, Bw, n, C, nh, kh, kw, st);
+  if (dtype == kBF16)  // the port's one bf16 window core, B3's too
+    return window_core(hd, static_cast<const __nv_bfloat16*>(qkv),
+                       static_cast<const __nv_bfloat16*>(rh),
+                       static_cast<const __nv_bfloat16*>(rw),
+                       static_cast<__nv_bfloat16*>(out), Bw, n, C, nh, kh, kw,
+                       st);
   return (int)cudaErrorInvalidValue;
 }

@@ -111,6 +111,11 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def loaded(name: str) -> bool:
+    """Whether library ``name`` has been loaded in this process."""
+    return name in _libs
+
+
 def function(lib: str, name: str, argtypes, restype=ctypes.c_int):
     """The C entry point ``name`` of library ``lib`` with its argument and
     result types declared (pointers and the stream as c_void_p, so ctypes

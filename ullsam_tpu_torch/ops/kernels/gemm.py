@@ -1,0 +1,152 @@
+"""The bf16 products of B1 (qkv, proj) and B13 (fc1, fc2) on the card.
+
+``gemm_bf16(a, w, bias, res, act)`` computes
+
+    out = act(a @ w.T + bias + res)
+
+for a [M, K], w [N, K] (the natural [out, in] weight), bias [N] and res
+[M, N] (either may be None), with the sums in f32 and out rounded to
+bfloat16 once; ``act`` is "none" or "gelu_tanh" (the tanh GELU in f32 of
+the sum first rounded to bfloat16, B13's fc1). B1 and B13 launch these
+products inside their own C entry points; this wrapper runs one alone, at
+the same choice of kernel, for the tests and the chip checks.
+
+Two hand-written kernels compute it (``csrc/gemm_sm90.cuh`` ``gemm_bf16``
+chooses by shape, mirrored by ``gemm_kernel`` here):
+
+* ``gemm_sm90``: wgmma fed by TMA, for N % 128 == 0 and K % 64 == 0 (any
+  M) with 16-byte aligned operands and output: every product of SAM
+  ViT-B, L and H;
+* ``gemm_mma``: ``csrc/gemm.cuh``'s mma.sync kernel, for the other shapes
+  (K % 32 == 0, N % 8 == 0), and for B4-B7's and B12's products.
+
+Each kernel's launches are counted in C where it launches (one count per
+loaded library, read through ``gemm_launch_count``); ``gemm_sm90.launches``
+and ``gemm_mma.launches`` sum them over the loaded libraries and can be set
+to 0 like a wrapper's count. On a CPU tensor ``gemm_bf16`` runs
+``gemm_bf16_plain``; on a CUDA tensor it launches a kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ullsam_tpu_torch.ops.kernels import build
+
+Tensor = torch.Tensor
+
+SM90_BM, SM90_BN, SM90_BK, SM90_STAGES = 128, 128, 64, 5
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
+_ACTS = {"none": 0, "gelu_tanh": 2}
+# the libraries whose sources include csrc/gemm.cuh (and so count launches)
+GEMM_LIBS = ("window_attn", "ln_mlp", "decoder_twt", "w8a16_matmul")
+
+
+def sm90_takes(M: int, N: int, K: int) -> bool:
+    """``gemm_sm90.cuh`` ``sm90_takes``: the shapes of the wgmma kernel."""
+    return (M >= 1 and N >= SM90_BN and N % SM90_BN == 0 and K >= SM90_BK
+            and K % SM90_BK == 0)
+
+
+def gemm_kernel(M: int, N: int, K: int) -> str:
+    """Which kernel ``gemm_bf16`` launches for 16-byte aligned operands."""
+    return "gemm_sm90" if sm90_takes(M, N, K) else "gemm_mma"
+
+
+def sm90_smem_bytes() -> int:
+    """``kSm90SmemBytes``: the stages (A and W tiles of 128 x 64 bf16), 1024
+    bytes to align them, the 8 consumer warps' epilogue staging (8 rows of
+    128 + 8 floats each), a full and an empty mbarrier a stage and the two
+    consumer warpgroups' turn mbarriers."""
+    return (1024 + SM90_STAGES * (SM90_BM + SM90_BN) * SM90_BK * 2
+            + 8 * 8 * (SM90_BN + 8) * 4 + (2 * SM90_STAGES + 2) * 8)
+
+
+class GemmLaunches:
+    """The launch count of one GEMM kernel, kept in C by every loaded
+    library that launches it; reading it builds nothing."""
+
+    def __init__(self, kernel: int):
+        self._kernel = kernel
+        self._base = 0
+
+    def _total(self) -> int:
+        return sum(build.function(lib, "gemm_launch_count", [ctypes.c_int],
+                                  ctypes.c_longlong)(self._kernel)
+                   for lib in GEMM_LIBS if build.loaded(lib))
+
+    @property
+    def launches(self) -> int:
+        return self._total() - self._base
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        self._base = self._total() - value
+
+
+gemm_mma = GemmLaunches(0)
+gemm_sm90 = GemmLaunches(1)
+
+
+def gemm_bf16_plain(a: Tensor, w: Tensor, bias: Optional[Tensor] = None,
+                    res: Optional[Tensor] = None, act: str = "none"
+                    ) -> Tensor:
+    """The kernels' function in plain PyTorch: f32 products and sums,
+    bias and res added in f32, the GELU of the sum rounded to a.dtype,
+    out rounded to a.dtype once."""
+    dt = a.dtype
+    out = torch.matmul(a.float(), w.float().T)
+    if bias is not None:
+        out = out + bias.float()
+    if res is not None:
+        out = out + res.float()
+    if act == "gelu_tanh":
+        f = out.to(dt).float()
+        inner = 0.7978845608028654 * (f + 0.044715 * (f * f * f))
+        out = 0.5 * f * (1.0 + torch.tanh(inner))
+    return out.to(dt)
+
+
+def gemm_bf16(a: Tensor, w: Tensor, bias: Optional[Tensor] = None,
+              res: Optional[Tensor] = None, act: str = "none") -> Tensor:
+    """a [M, K], w [N, K], bias [N], res [M, N], all bfloat16 -> [M, N].
+    CPU tensors run ``gemm_bf16_plain``; CUDA tensors launch the kernel
+    ``gemm_kernel`` names (K % 32 == 0 and N % 8 == 0) or raise."""
+    if act not in _ACTS:
+        raise ValueError(f"gemm_bf16: unsupported act {act!r}")
+    if a.device.type == "cpu":
+        return gemm_bf16_plain(a, w, bias, res, act)
+    M, K = a.shape
+    N = w.shape[0]
+    if a.device.type != "cuda" or a.dtype != torch.bfloat16:
+        raise ValueError(f"gemm_bf16: unsupported {a.dtype} on {a.device}")
+    if K % 32 or N % 8 or M == 0:
+        raise ValueError(f"gemm_bf16: unsupported shape M={M} N={N} K={K}")
+    for t, what, shape in ((a, "a", (M, K)), (w, "w", (N, K)),
+                           (bias, "bias", (N,)), (res, "res", (M, N))):
+        if t is None:
+            continue
+        if t.device != a.device or t.dtype != a.dtype:
+            raise ValueError(f"gemm_bf16: {what} is {t.dtype} on {t.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"gemm_bf16: {what} has shape {tuple(t.shape)},"
+                             f" expected {shape}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"gemm_bf16: {what} is not contiguous and "
+                             f"16-byte aligned")
+    out = torch.empty((M, N), device=a.device, dtype=a.dtype)
+    p = ctypes.c_void_p
+    fn = build.function("ln_mlp", "gemm_bf16_forward",
+                        [p] * 5 + [ctypes.c_int] * 4 + [p])
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = fn(a.data_ptr(), w.data_ptr(),
+                 None if bias is None else bias.data_ptr(),
+                 None if res is None else res.data_ptr(), out.data_ptr(),
+                 M, N, K, _ACTS[act], stream)
+    if err != 0:
+        raise RuntimeError(f"gemm_bf16 kernel launch failed: cudaError {err}")
+    return out

@@ -10,9 +10,10 @@ normed activations of pad tokens zeroed (edge windows of a padded grid).
 It replaces the TPU kernel ``ullsam_tpu/ops/pallas/vit_block.py``
 ``_window_attn_kernel`` (entry ``fused_window_attn``). On a CUDA tensor it
 launches the hand-written Hopper kernel ``csrc/window_attn.cu`` (see the
-note there: operation-bound; bf16 on the tensor cores, float32 by FMA);
-on a CPU tensor it runs ``window_attn_plain``, the same function in plain
-PyTorch. There is no fallback from the kernel to the plain version.
+note there: operation-bound; bf16 on the tensor cores, its qkv and proj
+products on the wgmma GEMM of ``gemm.py``, its core B3's; float32 by
+FMA); on a CPU tensor it runs ``window_attn_plain``, the same function in
+plain PyTorch. There is no fallback from the kernel to the plain version.
 
 ``window_attn_block`` is the differentiable entry: a
 ``torch.autograd.Function`` (``WindowAttn``) whose forward is B1 and whose
@@ -26,7 +27,8 @@ B13, ``ln_mlp``, is the other half of every ViT block:
 
 It replaces ``_ln_mlp_kernel`` (entry ``fused_ln_mlp``), which the JAX
 package runs under ``ULLSAM_FUSED_VIT_MLP=1`` (``ln_mlp_supported``); on a
-CUDA tensor it launches ``csrc/ln_mlp.cu``, on a CPU tensor
+CUDA tensor it launches ``csrc/ln_mlp.cu`` (in bf16 both products on the
+wgmma GEMM of ``gemm.py`` at every SAM width), on a CPU tensor
 ``ln_mlp_plain``. ``fused_ln_mlp`` is its differentiable entry
 (``LnMlp``): the backward is the gradient of the plain chain, recomputed
 under autograd, as ``_ln_mlp_bwd`` takes the vjp of ``_ln_mlp_xla``.
@@ -162,6 +164,7 @@ def window_attn(x: Tensor, norm_w: Tensor, norm_b: Tensor, qkv_w: Tensor,
             or n > 256 or kh + kw > 64 or C % 32:
         raise ValueError(f"window_attn: unsupported geometry C={C} "
                          f"heads={num_heads} n={n} kh={kh} kw={kw}")
+    WA.check_core_window(x.dtype, kh, kw, "window_attn")
     for t, name, shape in ((x, "x", (Bw, n, C)), (norm_w, "norm_w", (C,)),
                            (norm_b, "norm_b", (C,)),
                            (qkv_w, "qkv_w", (3 * C, C)),

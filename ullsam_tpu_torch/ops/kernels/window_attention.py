@@ -28,11 +28,16 @@ and sum, p normalized and rounded, then p.v); it replaces
 under ``ULLSAM_WINDOW_TWOPHASE=1``. On the card the logits never leave the
 chip: one launch, no scratch.
 
-On a CUDA tensor B3 launches the attention core of ``csrc/window_attn.cu``
-(B1's own core), B15 ``csrc/window_attn_twophase.cu`` and B8
-``csrc/window_attn_bwd.cu``; on a CPU tensor each runs its plain version
-here. B3 and B15 take head dims 64 and 80; B8 64 and 80 in bfloat16 (on
-the tensor cores) and 64 in float32. There is no fallback from a kernel to
+The three compute one function at the JAX kernels' rounding points (f32
+logits, the exact row max and sum, the normalized p rounded before p.v),
+so in bfloat16 B3 (``csrc/window_attn.cu``), B15
+(``csrc/window_attn_twophase.cu``) and B1's core all launch the port's one
+bf16 window core, ``csrc/window_core.cuh``, and give bitwise-equal
+outputs; in float32 B3 and B15 keep their own CUDA-core kernels. B8 is
+``csrc/window_attn_bwd.cu``. On a CPU tensor each runs its plain version
+here. B3 and B15 take head dims 64 and 80 (in bfloat16 windows of at most
+16x16, as B8); B8 64 and 80 in bfloat16 (on the tensor cores) and 64 in
+float32. There is no fallback from a kernel to
 its plain version. ``window_attention`` is the differentiable entry: a
 ``torch.autograd.Function`` whose forward is B3 (B15 under
 ``ULLSAM_WINDOW_TWOPHASE=1``, read at each call) and whose backward is B8
@@ -209,21 +214,39 @@ def bwd_smem_bytes(dtype: torch.dtype, n: int, kh: int, kw: int,
             + 3 * 16 * 4 + 8 * 16 * 4)
 
 
+def core_smem_bytes(n: int, kh: int, kw: int, hd: int) -> int:
+    """Shared memory of the bf16 window core (``window_core.cuh``
+    ``WinCoreLayout``), which B1, B3 and B15 launch: two slots of k and v
+    [16 kh key slots][ld] and two of a query half's rows [half * 16][ld]
+    in bf16 (ld = 72 at head dim 64, 80 at 80), the half's rel-pos terms
+    in f32."""
+    nk, rl = 16 * kh, kh + kw
+    half = (_nk(n) // 16 + 1) // 2
+    ld = 80 if hd == 80 else hd + 8
+    return 2 * 2 * (2 * nk + half * 16) * ld + 4 * half * 16 * rl
+
+
 def twophase_smem_bytes(dtype: torch.dtype, n: int, kh: int, kw: int,
                         hd: int) -> int:
-    """Shared memory of B15's kernel (``window_attn_twophase.cu``
-    ``TwoPhaseMma`` and ``twophase_f32_smem``). bfloat16: k and v [nk][hd +
-    8] and the block's half of the q rows, with their rel-pos terms in f32.
-    float32: 64 q rows d-major, one region for q row-major, then each
-    64-key tile of k (d-major) and of v, the rows' rel-pos terms and their
-    logits [64][nk + 4]. Within a block's limit for every geometry the
-    wrapper takes (n <= 256), so the wrapper does not check it."""
-    nk, rl = _nk(n), kh + kw
+    """Shared memory of B15's kernel. bfloat16: the shared window core's
+    (``core_smem_bytes``). float32 (``window_attn_twophase.cu``
+    ``twophase_f32_smem``): 64 q rows d-major, one region for q row-major,
+    then each 64-key tile of k (d-major) and of v, the rows' rel-pos terms
+    and their logits [64][nk + 4]."""
     if dtype == torch.bfloat16:
-        half = (nk // 16 + 1) // 2
-        return 2 * (2 * nk + half * 16) * (hd + 8) + 4 * half * 16 * rl
+        return core_smem_bytes(n, kh, kw, hd)
+    nk, rl = _nk(n), kh + kw
     return 4 * (hd * 68 + max(hd * 68, 64 * (hd + 4)) + 64 * rl
                 + 64 * (nk + 4))
+
+
+def check_core_window(dtype: torch.dtype, kh: int, kw: int,
+                      name: str) -> None:
+    """The bf16 core takes windows of at most 16 x 16 (a window row's keys
+    fill one 16-key slot; SAM's windows are 14 x 14); raises otherwise."""
+    if dtype == torch.bfloat16 and max(kh, kw) > 16:
+        raise ValueError(f"{name}: bfloat16 takes windows of at most 16x16 "
+                         f"(one 16-key slot a window row); got {kh}x{kw}")
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -238,6 +261,7 @@ def window_attn_core(qkv: Tensor, rh: Tensor, rw: Tensor) -> Tensor:
     name = "window_attn_core"
     _cuda_only(qkv, name)
     Bw, n, C, nh, hd, kh, kw = _geometry(qkv, rh, rw, name)
+    check_core_window(qkv.dtype, kh, kw, name)
     _check(((qkv, "qkv"), (rh, "rh"), (rw, "rw")), qkv, name)
     out = torch.empty((qkv.shape[0], C), device=qkv.device, dtype=qkv.dtype)
     fn = build.function("window_attn", "window_attn_core_forward",
@@ -259,13 +283,14 @@ window_attn_core.launches = 0
 def window_attn_core_twophase(qkv: Tensor, rh: Tensor, rw: Tensor) -> Tensor:
     """B15: B3's arguments and result (hd 64 or 80). CPU tensors run
     ``window_attn_core_twophase_plain``; CUDA tensors launch the kernel
-    (one launch, the logits kept on chip; only ``out`` is allocated) or
-    raise."""
+    (one launch, the logits kept on chip; only ``out`` is allocated; in
+    bfloat16 B3's own core) or raise."""
     if qkv.device.type == "cpu":
         return window_attn_core_twophase_plain(qkv, rh, rw)
     name = "window_attn_core_twophase"
     _cuda_only(qkv, name)
     Bw, n, C, nh, hd, kh, kw = _geometry(qkv, rh, rw, name)
+    check_core_window(qkv.dtype, kh, kw, name)
     _check(((qkv, "qkv"), (rh, "rh"), (rw, "rw")), qkv, name)
     out = torch.empty((qkv.shape[0], C), device=qkv.device, dtype=qkv.dtype)
     fn = build.function("window_attn_twophase",

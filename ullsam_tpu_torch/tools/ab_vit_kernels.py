@@ -1,0 +1,227 @@
+"""A/B timing of the ViT kernels B1, B3, B15 and B13 built from several
+source trees, in one process on one card, so that versions compare within
+one call (two calls may land on two cards).
+
+    python -m ullsam_tpu_torch.tools.ab_vit_kernels NAME=CSRC_DIR [...]
+
+Each CSRC_DIR holds ``window_attn.cu``, ``window_attn_twophase.cu``,
+``ln_mlp.cu`` and the headers they include: a checkout's
+``ullsam_tpu_torch/csrc``, or another commit's unpacked by ``git archive``
+into a directory that git ignores. Each version is built with
+``build.NVCC_FLAGS`` under ``csrc/_build/ab/`` (its ptxas registers and
+spills printed), checked in bf16 against the plain versions at the main
+path's shapes (``tools/main_path.py``: B1 and B3 / B15 at ViT-B and ViT-H,
+B13 at ViT-H with T = 4900), then timed by CUDA events (20 launches after
+3) in the order given and again in reverse (a, b, ..., b, a), beside the
+library yardsticks: SDPA with the bias materialized for B3 / B15, the
+chain of four library calls for B13, and, where the version has the entry
+``gemm_bf16_forward``, each bf16 product of B1 and B13 (proj and fc2 with
+their residual) beside ``F.linear`` (without it).
+Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import re
+import subprocess
+import sys
+
+import torch
+import torch.nn.functional as F
+
+from ullsam_tpu_torch.ops.kernels import build
+from ullsam_tpu_torch.ops.kernels import gemm as G
+from ullsam_tpu_torch.ops.kernels import vit_block as VB
+from ullsam_tpu_torch.ops.kernels import window_attention as WA
+from ullsam_tpu_torch.tools import main_path as MP
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_F = ctypes.c_float
+_SOURCES = ("window_attn", "window_attn_twophase", "ln_mlp")
+_ENTRIES = {
+    "b3": ("window_attn", "window_attn_core_forward",
+           [_I] + [_P] * 4 + [_I] * 7 + [_P]),
+    "b15": ("window_attn_twophase", "window_attn_twophase_forward",
+            [_I] + [_P] * 4 + [_I] * 7 + [_P]),
+    "b1": ("window_attn", "window_attn_forward",
+           [_I] + [_P] * 13 + [_I] * 7 + [_F] + [_I] * 5 + [_P]),
+    "b13": ("ln_mlp", "ln_mlp_forward", [_I] + [_P] * 10 + [_I] * 3
+            + [_F, _P]),
+    "gemm": ("ln_mlp", "gemm_bf16_forward", [_P] * 5 + [_I] * 4 + [_P]),
+}
+
+
+def build_version(name: str, csrc: str) -> dict:
+    """{entry: the bound C function} of the sources in ``csrc``, built in
+    parallel into csrc/_build/ab/<name>/; entries a version lacks are left
+    out."""
+    out = os.path.join(build.BUILD_DIR, "ab", name)
+    os.makedirs(out, exist_ok=True)
+    procs = {src: subprocess.Popen(
+        [build.nvcc_path(), *build.NVCC_FLAGS, "-I", csrc, "-o",
+         os.path.join(out, src + ".so"), os.path.join(csrc, src + ".cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src in _SOURCES}
+    libs = {}
+    for src, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"{name}: nvcc failed on {src}\n{log}")
+        regs = re.findall(r"Used (\d+) registers", log)
+        spills = re.findall(r"(\d+) bytes spill stores", log)
+        print(f"[build] {name} {src}: registers {sorted(set(regs))}, spill "
+              f"stores {sorted(set(spills))}")
+        libs[src] = ctypes.CDLL(os.path.join(out, src + ".so"))
+    fns = {}
+    for key, (src, fn_name, argtypes) in _ENTRIES.items():
+        fn = getattr(libs[src], fn_name, None)
+        if fn is not None:
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            fns[key] = fn
+    return fns
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+def cases(gen):
+    """(label, entry, the C call, its output, the plain result, flops,
+    library call or None) at the main path's bf16 shapes."""
+    out = []
+    stream = torch.cuda.current_stream().cuda_stream
+    for tag, w in (("vit_b", MP.VIT_B), ("vit_h", MP.VIT_H)):
+        nh, hd = w["nh"], w["C"] // w["nh"]
+        (qkv, rh, rw), _, fl, _ = MP.window_core_case(torch.bfloat16, gen,
+                                                      nh=nh, hd=hd)
+        M, C = qkv.shape[0], qkv.shape[1] // 3
+        o = torch.empty((M, C), device="cuda", dtype=torch.bfloat16)
+        q, k, v = (t.bfloat16() for t in WA._split_heads(qkv, 196, hd))
+        rel_h, rel_w = WA._rel_terms(q.float(), rh.float(), rw.float(), 14,
+                                     14)
+        bias = (rel_h[..., :, None] + rel_w[..., None, :]).flatten(-2).to(
+            torch.bfloat16)
+        ref = WA.window_attn_core_plain(qkv, rh, rw)
+        for key in ("b3", "b15"):
+            out.append((f"{key.upper()} {tag}", key,
+                        lambda f, qkv=qkv, rh=rh, rw=rw, o=o, M=M, C=C,
+                        nh=nh, hd=hd: f(1, qkv.data_ptr(), rh.data_ptr(),
+                                        rw.data_ptr(), o.data_ptr(), M // 196,
+                                        196, C, nh, hd, 14, 14, stream),
+                        o, ref, fl["fwd"],
+                        lambda q=q, k=k, v=v, b=bias:
+                        F.scaled_dot_product_attention(q, k, v,
+                                                       attn_mask=b)))
+        args, kw, fl1, _ = MP.window_attn_case(torch.bfloat16, gen, **w)
+        x = args[0]
+        Bw, n, C = x.shape
+        bufs = [torch.empty((Bw * n, c), device="cuda", dtype=x.dtype)
+                for c in (C, 3 * C, C)]
+        o1 = torch.empty_like(x)
+        out.append((f"B1 {tag}", "b1",
+                    lambda f, a=args, kw=kw, bufs=bufs, o1=o1, C=C, nh=nh,
+                    hd=hd, Bw=Bw, n=n: f(
+                        1, *(t.data_ptr() for t in a),
+                        *(t.data_ptr() for t in bufs), o1.data_ptr(), Bw, n,
+                        C, nh, hd, 14, 14, kw["eps"], kw["nwx"], kw["nwy"],
+                        kw["Hv"], kw["Wv"], int(kw["masked"]), stream),
+                    o1, VB.window_attn_plain(*args, **kw), fl1, None))
+        for N, K, res in ((3 * C, C, None), (C, C, x.reshape(-1, C))):
+            a = torch.randn(4900, K, generator=gen, device="cuda").bfloat16()
+            wt = (torch.randn(N, K, generator=gen, device="cuda")
+                  * K ** -0.5).bfloat16()
+            b = torch.randn(N, generator=gen, device="cuda").bfloat16()
+            go = torch.empty((4900, N), device="cuda", dtype=torch.bfloat16)
+            out.append((f"GEMM {tag} M4900 N{N} K{K}"
+                        f"{'' if res is None else ' +residual'}", "gemm",
+                        lambda f, a=a, wt=wt, b=b, go=go, N=N, K=K, res=res:
+                        f(a.data_ptr(), wt.data_ptr(), b.data_ptr(),
+                          None if res is None else res.data_ptr(),
+                          go.data_ptr(), 4900, N, K, 0, stream),
+                        go, G.gemm_bf16_plain(a, wt, b, res),
+                        2 * 4900 * N * K,
+                        lambda a=a, wt=wt, b=b: F.linear(a, wt, b)))
+    args, kw, fl, _ = MP.ln_mlp_case(torch.bfloat16, gen, T=4900, **MP.VIT_H)
+    x, lw, lb, w1, b1, w2, b2 = args
+    T, C = x.shape
+    Fd = w1.shape[0]
+    y = torch.empty_like(x)
+    h = torch.empty((T, Fd), device="cuda", dtype=x.dtype)
+    o13 = torch.empty_like(x)
+    out.append(("B13 vit_h T4900", "b13",
+                lambda f: f(1, *(t.data_ptr() for t in args), y.data_ptr(),
+                            h.data_ptr(), o13.data_ptr(), T, C, Fd,
+                            kw["eps"], stream),
+                o13, VB.ln_mlp_plain(*args, **kw), fl,
+                lambda: x + F.linear(F.gelu(F.linear(F.layer_norm(
+                    x, (C,), lw, lb, kw["eps"]), w1, b1),
+                    approximate="tanh"), w2, b2)))
+    for N, K, act, res in ((Fd, C, 2, None), (C, Fd, 0, x)):
+        a = torch.randn(T, K, generator=gen, device="cuda").bfloat16()
+        wt = (torch.randn(N, K, generator=gen, device="cuda")
+              * K ** -0.5).bfloat16()
+        b = torch.randn(N, generator=gen, device="cuda").bfloat16()
+        go = torch.empty((T, N), device="cuda", dtype=torch.bfloat16)
+        out.append((f"GEMM vit_h M{T} N{N} K{K}", "gemm",
+                    lambda f, a=a, wt=wt, b=b, go=go, N=N, K=K, act=act,
+                    res=res: f(a.data_ptr(), wt.data_ptr(), b.data_ptr(),
+                               None if res is None else res.data_ptr(),
+                               go.data_ptr(), T, N, K, act, stream),
+                    go, G.gemm_bf16_plain(
+                        a, wt, b, res, "gelu_tanh" if act else "none"),
+                    2 * T * N * K, lambda a=a, wt=wt, b=b: F.linear(a, wt, b)))
+    return out
+
+
+def main() -> None:
+    args = sys.argv[1:]
+    if not args or any("=" not in a for a in args):
+        raise SystemExit(__doc__)
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    versions = [a.split("=", 1) for a in args]
+    fns = {name: build_version(name, os.path.abspath(d))
+           for name, d in versions}
+    order = [n for n, _ in versions]
+    order += order[::-1]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    for label, key, call, out, ref, flops, lib in cases(gen):
+        have = [n for n in fns if key in fns[n]]
+        for name in have:
+            if call(fns[name][key]):
+                raise SystemExit(f"{name} {label}: launch failed")
+            torch.cuda.synchronize()
+            print(f"[check] {name} {label}: max|err| / max|plain| "
+                  f"{_rel(out, ref):.3e}")
+        times = {}
+        for name in [n for n in order if n in have]:
+            times.setdefault(name, []).append(
+                cuda_ms(lambda f=fns[name][key]: call(f)))
+        lib_ms = None if lib is None else cuda_ms(lib)
+        print(f"[time] {label}: " + "; ".join(
+            f"{n} {', '.join(f'{t:.4f}' for t in ts)} ms "
+            f"({flops / min(ts) / 1e9:.1f} TFLOP/s)"
+            for n, ts in times.items())
+            + ("" if lib_ms is None else
+               f"; library {lib_ms:.4f} ms ({flops / lib_ms / 1e9:.1f} "
+               f"TFLOP/s)"))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,8 @@
 #!/usr/bin/env bash
 # The port's checks on the card in one command: the gpu-marked tests,
-# chip_smoke.py, the ViT-H regions of tools/profile_kernels.py (one warm
+# chip_smoke.py (with the ptxas report of the bf16 window core and the
+# wgmma GEMM, and the GEMM's HGMMA / UTMALDG count from cuobjdump), the
+# ViT-H regions of tools/profile_kernels.py (one warm
 # ViT-H AMG image and its encode under each route setting) and its
 # segmentation train step region: device-busy share, peak memory and top
 # device operations. Run from the root of a checkout on a machine with one
@@ -35,10 +37,25 @@ tail -1 "$out/gpu_tests_${tag}.log"
 
 step smoke timeout 1200 python3 chip_smoke.py
 rc=$?
-grep -E 'FAIL|\[vit_h\]|\[build\] (ln_mlp|window_attn|vit_flash_attn)|hd-80' \
-    "$out/smoke_${tag}.log" | cut -c1-700
+grep -E 'FAIL|\[vit_h\]|\[gemm\]|hd-80' "$out/smoke_${tag}.log" | cut -c1-700
+# ptxas (-Xptxas -v) of the one bf16 window core at SAM's 14x14 windows
+# (NT = 14) and of the wgmma GEMM, from the build's own report
+grep -E '\[build\] .*(window_core_bf16<(64|80), 1[46]>|gemm_nt_sm90)' \
+    "$out/smoke_${tag}.log"
 tail -2 "$out/smoke_${tag}.log" | cut -c1-300
 [ $rc -eq 0 ] || exit $rc
+
+# the wgmma GEMM's SASS: its warpgroup products (HGMMA) and TMA loads
+# (UTMALDG), in the one library whose only such kernel it is
+objdump=$(command -v cuobjdump || echo "${CUDA_HOME:-/usr/local/cuda}/bin/cuobjdump")
+lib=$(python -c 'from ullsam_tpu_torch.ops.kernels import build; print(build.lib_path("ln_mlp"))')
+if [ -x "$objdump" ] && [ -f "$lib" ]; then
+    "$objdump" -sass "$lib" > "$out/sass_ln_mlp_${tag}.txt" 2>&1
+    echo "ln_mlp SASS: HGMMA $(grep -c HGMMA "$out/sass_ln_mlp_${tag}.txt")" \
+        "UTMALDG $(grep -c UTMALDG "$out/sass_ln_mlp_${tag}.txt")"
+else
+    echo "cuobjdump or $lib not found: no SASS counts"
+fi
 
 step profile timeout 600 python -m ullsam_tpu_torch.tools.profile_kernels \
     --only vit_h || { tail -40 "$out/profile_${tag}.log"; exit 1; }
