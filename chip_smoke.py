@@ -47,7 +47,10 @@ sm_90a) and the CUDA toolkit. Phases, each printing what it found:
     version at every shape of InternLM2-1.8B's linears on the caption path:
     decode at batch 1 and 8, prefill of the 1152-token prompt at batch 1
     and 8 (M = 1152, 9216), bf16 and f32 (phase 3's checks; decode with the
-    weight cold in L2); a small uLLSAM with its LLM quantized, 16 greedy
+    weight cold in L2; each case launches exactly the B12 kernel that
+    ``int8_matmul.w8a16_kernel`` names, by its own count: the GEMV at
+    decode, the wgmma GEMM with an int8 operand at the bf16 prefill of the
+    layer linears); a small uLLSAM with its LLM quantized, 16 greedy
     tokens of ``caption_ids`` with an image on the CPU (plain versions) and
     on the card (kernels), tokens identical and each step's logits within
     1e-4 of their max; then the flagship at full width in bfloat16
@@ -55,7 +58,8 @@ sm_90a) and the CUDA toolkit. Phases, each printing what it found:
     1152): 1 warm + 1 timed request and a left-padded batch of 8, then with
     ``quantize_llm_int8``, 1 warm + 3 timed and a batch of 8, each with
     prefill and per-step decode times, tokens/s, peak memory and exact
-    launches (int8: B12 121 a decode step and in the prefill; bf16: none).
+    launches (int8: B12 121 a decode step and in the prefill; bf16: none),
+    and the int8 prefill against bf16's at batch 1 and 8.
 10. SAM ViT-H automatic mask generation: B1, B2, B3 and (bf16) B8 at head
     dim 80 and the opt-in kernels B13 (fused LN + MLP), B14 (global
     attention read from the qkv projection) and B15 (two-phase window
@@ -184,6 +188,8 @@ def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
 ROUNDING = {n: "; plain at the JAX rounding points"
             for n in ("window_attn", "window_attn_core",
                       "window_attn_core_twophase")}
+# B2's and B14's lse (B9's input) against plain, relative to max|lse|
+LSE_TOL = 1e-5
 
 
 def check_kernels(card: str) -> dict:
@@ -226,9 +232,14 @@ def check_kernels(card: str) -> dict:
             finite = all(bool(torch.isfinite(a).all()) for a in outs)
             dname = str(dtype).replace("torch.", "")
             ok = finite and rel <= tol[dtype]
+            lse_note = ""
+            if name == "vit_flash_attn":  # B9 reads lse: held to 1e-5
+                lse_rel = errs[1] / scales[1]
+                ok = ok and lse_rel <= LSE_TOL
+                lse_note = f", lse {lse_rel:.3e} (tol {LSE_TOL:.0e})"
             say(f"[kernels] {name} {dname}: max_abs_err={err:.3e} "
                 f"max_rel_err={rel:.3e} (per output, relative to max|plain|;"
-                f" tol {tol[dtype]:.0e}{ROUNDING.get(name, '')}) "
+                f" tol {tol[dtype]:.0e}{ROUNDING.get(name, '')}){lse_note} "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 fail(f"{name} {dname} disagrees with its plain version")
@@ -767,6 +778,12 @@ def gemm_counts() -> dict:
     from ullsam_tpu_torch.ops.kernels import gemm as G
     return {"gemm_sm90": G.gemm_sm90.launches,
             "gemm_mma": G.gemm_mma.launches}
+
+
+def b12_counts() -> dict:
+    """Launches of each of B12's kernels (``int8_matmul.KERNELS``)."""
+    from ullsam_tpu_torch.ops.kernels import int8_matmul as Q
+    return {k: c.launches for k, c in Q.kernel_launches.items()}
 
 
 def reset_counts() -> None:
@@ -1389,9 +1406,13 @@ def check_w8a16_kernel(card: str) -> dict:
     to x's type (the main path's variant) within one step of that type at
     max|plain| (bf16: 2^(e - 8) for max|plain| in [2^(e-1), 2^e), up to 2^-7
     of it: two f32 sums that differ in their last bits can round to
-    neighbouring values; f32: 1e-5 of max|plain|). Decode kernel and library times are device times (``_graph_ms``) with a
-    cold L2 (the weight cycles through copies); a prefill launch runs for
-    milliseconds, so CUDA events around 3 calls time it. The library
+    neighbouring values; f32: 1e-5 of max|plain|). Kernel and library
+    times are device times (``_graph_ms``): at decode with a cold L2 (the
+    weight cycles through copies), at the layer linears' bf16 prefill (tens
+    of microseconds a launch, less than the host takes to issue one) on one
+    weight; the vocab head's prefill and f32 x run for milliseconds, so
+    CUDA events around 3 calls time them. Each case launches the kernel
+    ``int8_matmul.w8a16_kernel`` names, twice. The library
     yardstick is F.linear on the dequantized weight in x's type (2 bytes a
     weight in bf16): no PyTorch call computes W8A16 with f32 scales, and
     the port never calls it."""
@@ -1413,10 +1434,18 @@ def check_w8a16_kernel(card: str) -> dict:
         for M, N, K in w8a16_cases():
             (x, q, s), _, flops, nbytes = w8a16_case(dtype, gen, M, N, K)
             bias = torch.randn(N, generator=gen, device="cuda")
+            before = {k: c.launches for k, c in Q.kernel_launches.items()}
             got, ref = Q.w8a16_matmul(x, q, s), Q.w8a16_matmul_plain(x, q, s)
             got_c = Q.w8a16_matmul(x, q, s, bias, out_dtype=dtype)
             ref_c = Q.w8a16_matmul_plain(x, q, s, bias, dtype)
             torch.cuda.synchronize()
+            ran = [k for k, c in Q.kernel_launches.items()
+                   if c.launches != before[k]]
+            kname = Q.w8a16_kernel(M, N, K, dtype)
+            if ran != [kname] or (Q.kernel_launches[kname].launches
+                                  - before[kname]) != 2:
+                fail(f"{name} {dname} M={M} N={N} K={K}: launched {ran}, "
+                     f"expected {kname} twice")
             err = float((got - ref).abs().max())
             rel = err / float(ref.abs().max())
             top = float(ref_c.float().abs().max())
@@ -1425,7 +1454,8 @@ def check_w8a16_kernel(card: str) -> dict:
                     if dtype == torch.bfloat16 else 1e-5)
             ok = (bool(torch.isfinite(got).all()) and rel <= 1e-5
                   and rel_c <= step)
-            say(f"[kernels] {name} {dname} M={M} N={N} K={K}: max_abs_err="
+            say(f"[kernels] {name} {dname} M={M} N={N} K={K} ({kname}): "
+                f"max_abs_err="
                 f"{err:.3e} max_rel_err={rel:.3e} (f32 output, relative to "
                 f"max|plain|; tol 1e-05), with bias and cast to {dname} "
                 f"{rel_c:.3e} (tol {step:.3e}) {'ok' if ok else 'FAIL'}")
@@ -1437,7 +1467,10 @@ def check_w8a16_kernel(card: str) -> dict:
             if M in W8A16_DECODE_M:
                 ms = _graph_ms(lambda w: Q.w8a16_matmul(x, w, s), _copies(q))
                 lib_ms = _graph_ms(lambda w: F.linear(x, w), _copies(w_lib))
-            else:
+            elif kname == "w8a16_sm90":  # tens of microseconds a launch
+                ms = _graph_ms(lambda w: Q.w8a16_matmul(x, w, s), [q])
+                lib_ms = _graph_ms(lambda w: F.linear(x, w), [w_lib])
+            else:  # the head, or f32 x: milliseconds a launch
                 ms = cuda_time_ms(lambda: Q.w8a16_matmul(x, q, s), iters=3,
                                   warmup=1)
                 lib_ms = cuda_time_ms(lambda: F.linear(x, w_lib), iters=3,
@@ -1447,7 +1480,8 @@ def check_w8a16_kernel(card: str) -> dict:
             del w_lib
             torch.cuda.empty_cache()
             b_ms, b_by = bound_ms(flops, nbytes, dtype)
-            say(f"[kernels] {name} {dname} M={M} N={N} K={K}: kernel "
+            say(f"[kernels] {name} {dname} M={M} N={N} K={K} ({kname}): "
+                f"kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (F.linear "
                 f"on the dequantized {dname} weight) {lib_ms:.4f} ms, bound "
                 f"{b_ms:.4f} ms ({b_by}: {flops / 1e9:.3f} GFLOP, "
@@ -1457,13 +1491,16 @@ def check_w8a16_kernel(card: str) -> dict:
             entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
             row["cases"].append({"dtype": dname, "M": M, "N": N, "K": K,
-                                 **entry})
-            # the row's own numbers: w1, a layer's largest linear, at batch 1
+                                 "kernel": kname, **entry})
+            # the row's own numbers: w1, a layer's largest linear, at batch 1;
+            # its prefill entry w1 at the batch-1 prompt (the wgmma GEMM)
             if (M, N, K) == (1, 8192, 2048):
                 if dtype == torch.bfloat16:
                     row.update(entry)
                 else:
                     row["float32"] = entry
+            if (M, N, K) == (1152, 8192, 2048) and dtype == torch.bfloat16:
+                row["prefill"] = {"kernel": kname, **entry}
             del x, q, s, bias
         torch.cuda.empty_cache()
     return {name: row}
@@ -1563,6 +1600,7 @@ def caption_main_path() -> None:
         the prefill and of every decode step, held to the exact counts."""
         marks = []
         before = launch_counts()
+        b12_before = b12_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
@@ -1570,12 +1608,25 @@ def caption_main_path() -> None:
         toks, lens = chat.caption_ids(
             model, cfg, *inputs, gen=gen,
             step_hook=lambda i, lg: marks.append((time.perf_counter(),
-                                                  launch_counts())))
+                                                  launch_counts(),
+                                                  b12_counts())))
         end = time.perf_counter()
         peak = torch.cuda.max_memory_allocated() - base
-        counts = [before] + [c for _, c in marks]
+        counts = [before] + [c for _, c, _ in marks]
         diffs = [{k: b[k] - a[k] for k in b if b[k] != a[k]}
                  for a, b in zip(counts, counts[1:])]
+        # which B12 kernel each launch took: in the prefill the layer
+        # linears the wgmma GEMM (M = B x 1152), the ragged head the
+        # mma.sync GEMM; at every decode step (M = B) the GEMV
+        k12 = [b12_before] + [c for _, _, c in marks]
+        d12 = [{k: b[k] - a[k] for k in b if b[k] != a[k]}
+               for a, b in zip(k12, k12[1:])]
+        want12 = ({"w8a16_sm90": B12_PER_PASS - 1, "w8a16_mma": 1}, {
+            "w8a16_gemv": B12_PER_PASS}) if b12 else ({}, {})
+        if d12[0] != want12[0] or any(d != want12[1] for d in d12[1:]):
+            fail(f"caption {tag}: B12 kernels prefill {d12[0]} (expected "
+                 f"{want12[0]}), decode steps {d12[1:3]} (expected "
+                 f"{want12[1]})")
         want_pre = dict(encode, **({"w8a16_matmul": B12_PER_PASS} if b12
                                    else {}))
         want_dec = {"w8a16_matmul": B12_PER_PASS} if b12 else {}
@@ -1595,7 +1646,9 @@ def caption_main_path() -> None:
             f"first EOS), {n_tok / total:.1f} tok/s over the request "
             f"({total * 1e3:.1f} ms; {B * 1e3 / dec_ms:.1f} tok/s in decode),"
             f" peak {peak / 2**30:.3f} GiB above the weights; launches "
-            f"prefill {diffs[0]}, decode step {diffs[1] if steps else {}}")
+            f"prefill {diffs[0]}, decode step {diffs[1] if steps else {}}; "
+            f"B12 kernels prefill {d12[0]}, decode step "
+            f"{d12[1] if steps else {}}")
         if diffs[0] != want_pre or bad:
             fail(f"caption {tag}: launches prefill {diffs[0]} (expected "
                  f"{want_pre}), decode steps off {want_dec}: {bad[:2]}")
@@ -1603,8 +1656,8 @@ def caption_main_path() -> None:
 
     w16 = torch.cuda.memory_allocated()
     run("bf16 warm request", one, False)
-    t16, _, _, _ = run("bf16 request", one, False)
-    run("bf16 batch-8 request", eight, False)
+    t16, _, pre16, _ = run("bf16 request", one, False)
+    pre16_8 = run("bf16 batch-8 request", eight, False)[2]
     lm = model.fusion.language_model
     torch.cuda.synchronize()
     quantize_llm_int8(lm)
@@ -1614,8 +1667,13 @@ def caption_main_path() -> None:
         f"GiB with the LLM's linears int8 (memory_allocated)")
     run("int8 warm request", one, True)
     timed = [run(f"int8 request {i}", one, True) for i in (1, 2, 3)]
-    run("int8 batch-8 request", eight, True)
+    pre8_8 = run("int8 batch-8 request", eight, True)[2]
     t8 = timed[0][0]
+    pre8 = min(r[2] for r in timed)
+    say(f"[caption] prefill (image encode + LLM prefill + first token), "
+        f"int8 against bf16: batch 1 {pre8:.1f} against {pre16:.1f} ms "
+        f"({pre8 / pre16:.3f}x; int8 the least of 3), batch 8 "
+        f"{pre8_8:.1f} against {pre16_8:.1f} ms ({pre8_8 / pre16_8:.3f}x)")
     agree = int((t8 == t16).sum())
     say(f"[caption] int8 vs bf16, batch 1: {agree} of 256 greedy tokens "
         f"agree position by position (printed only)")
@@ -1781,6 +1839,14 @@ def check_vit_h_kernels(card: str, rows: dict) -> dict:
             got, ref = kernel(*args, **kw), plain(*args, **kw)
             torch.cuda.synchronize()
             err = _errs(f"{name} ({tag})", dname, got, ref, tol[dtype])
+            if name in ("vit_flash_attn", "vit_flash_attn_packed"):
+                lse_rel = float((got[1] - ref[1]).abs().max()
+                                / ref[1].abs().max())
+                say(f"[vit_h] {name} ({tag}) {dname}: lse max_rel_err="
+                    f"{lse_rel:.3e} (tol {LSE_TOL:.0e}) "
+                    f"{'ok' if lse_rel <= LSE_TOL else 'FAIL'}")
+                if lse_rel > LSE_TOL:
+                    fail(f"{name} ({tag}) {dname}: lse disagrees with plain")
             del got, ref
             ms = cuda_time_ms(lambda: kernel(*args, **kw), iters=10)
             plain_ms = cuda_time_ms(lambda: plain(*args, **kw), iters=2,

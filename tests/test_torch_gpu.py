@@ -11,6 +11,8 @@ max|plain|: f32 1e-4 (summation order; no TF32 anywhere), bf16 2e-2 (a few
 bf16 steps where a different sum rounds a value the other way).
 """
 
+import math
+
 import pytest
 import torch
 
@@ -66,12 +68,23 @@ def test_window_attn_kernel_matches_plain(cuda, dt, grid, ws, hd, masked):
     assert _rel_err(got, VB.window_attn_plain(*args, **kw)) <= TOL[dt]
 
 
+# (BH, KH, KW) of B2's cases: the 64x64 grid of SAM at 1024 (a 64-key tile
+# is one key row), KW 16 and 32 (four and two rows a tile), KW 8 at N = 64
+# (one block of 64 queries) and KW 48, which divides no tile (the per-logit
+# bias; N = 192, a last block of 64 queries)
+_FLASH_GRIDS = [(12, 64, 64), (3, 16, 16), (2, 8, 32), (2, 8, 8), (2, 4, 48)]
+
+
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-@pytest.mark.parametrize("BH,KH,KW", [(12, 64, 64), (3, 16, 16), (2, 8, 32)])
-def test_vit_flash_attn_kernel_matches_plain(cuda, dt, BH, KH, KW):
+@pytest.mark.parametrize("D", [64, 80])
+@pytest.mark.parametrize("BH,KH,KW", _FLASH_GRIDS)
+def test_vit_flash_attn_kernel_matches_plain(cuda, dt, D, BH, KH, KW):
+    """B2 against its plain version at head dims 64 and 80 and at key grids
+    on both bias paths (``key_rows_per_tile``): o within TOL, lse within
+    1e-5 of max|lse|, one launch."""
     from ullsam_tpu_torch.ops.kernels import flash_attention as FA
     dtype = getattr(torch, dt)
-    N, D = KH * KW, 64
+    N = KH * KW
     q, k, v = (torch.randn(BH, N, D, generator=cuda, device="cuda")
                .to(dtype) for _ in range(3))
     rh, rw = ((torch.randn(BH, N, K, generator=cuda, device="cuda") * 0.5)
@@ -81,6 +94,31 @@ def test_vit_flash_attn_kernel_matches_plain(cuda, dt, BH, KH, KW):
     torch.cuda.synchronize()
     assert FA.vit_flash_attn.launches == before + 1
     ro, rlse = FA.vit_flash_attn_plain(q, k, v, rh, rw)
+    assert bool(torch.isfinite(o).all())
+    assert _rel_err(o, ro) <= TOL[dt]
+    assert _rel_err(lse, rlse) <= 1e-5
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [64, 80])
+@pytest.mark.parametrize("B,nh,KH,KW", [(1, 12, 64, 64), (2, 3, 16, 16),
+                                        (1, 2, 8, 32), (2, 2, 4, 48)])
+def test_vit_flash_packed_kernel_matches_plain(cuda, dt, D, B, nh, KH, KW):
+    """B14 (B2's body reading q, k, v from [B, N, 3C] and writing o into
+    [B, N, C]) against its plain version on both bias paths and head dims:
+    o within TOL, lse within 1e-5 of max|lse|, one launch."""
+    from ullsam_tpu_torch.ops.kernels import flash_attention as FA
+    dtype = getattr(torch, dt)
+    N, C = KH * KW, nh * D
+    qkv = torch.randn(B, N, 3 * C, generator=cuda, device="cuda").to(dtype)
+    rh, rw = ((torch.randn(B * nh, N, K, generator=cuda, device="cuda")
+               * 0.5).to(dtype) for K in (KH, KW))
+    before = FA.vit_flash_attn_packed.launches
+    o, lse = FA.vit_flash_attn_packed(qkv, rh, rw, nh)
+    torch.cuda.synchronize()
+    assert FA.vit_flash_attn_packed.launches == before + 1
+    ro, rlse = FA.vit_flash_attn_packed_plain(qkv, rh, rw, nh)
+    assert o.shape == (B, N, C) and bool(torch.isfinite(o).all())
     assert _rel_err(o, ro) <= TOL[dt]
     assert _rel_err(lse, rlse) <= 1e-5
 
@@ -413,32 +451,62 @@ def test_packed_llm_gradients_on_card_match_cpu(cuda, monkeypatch):
         assert _rel_err(b.grad.cpu(), a.grad) <= 1e-4, name
 
 
+# B12's prefill shapes: M from just above the GEMV's 16 to the batch-8
+# caption prompt, N and K of InternLM2-1.8B's layer linears (wqkv 4096 x
+# 2048, wo 2048 x 2048, w1 / w3 8192 x 2048, w2 2048 x 8192) and beyond
+_W8_PREFILL = [(M, N, K) for M in (17, 129, 1152, 9216)
+               for N in (2048, 4096, 8192) for K in (2048, 8192)]
+
+
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("M,N,K", [
     (1, 8192, 2048),    # decode, w1 at batch 1
     (8, 2053, 8192),    # decode, batch 8, ragged N, K tiled in shared memory
     (3, 200, 48),       # K not a multiple of 32, N not of 8
     (1152, 4100, 2048),  # prefill (tensor cores in bf16), ragged N
-    (40, 300, 80)])     # prefill, K % 32 == 16
+    (40, 300, 80)] + _W8_PREFILL)  # prefill, K % 32 == 16; the layer shapes
 def test_w8a16_kernel_matches_plain(cuda, dt, M, N, K):
     """B12 against its plain version: the f32 output within 1e-5 of
-    max|plain| (exact products, only the summation order differs); with a
-    bias and the cast to x's dtype, within one step of that dtype."""
+    max|plain| (exact products, only the summation order differs), with
+    and without a bias; cast to x's dtype, with and without a bias, within
+    one step of that dtype. Each call launches the kernel that
+    ``w8a16_kernel`` names, by its own count: in bf16 at M > 16 with N %
+    128 == 0 and K % 64 == 0 the wgmma GEMM (split-K where
+    ``sm90_splits`` says)."""
     from ullsam_tpu_torch.ops.kernels import int8_matmul as Q
     from ullsam_tpu_torch.tools.main_path import w8a16_case
     dtype = getattr(torch, dt)
     (x, q, s), _, _, _ = w8a16_case(dtype, cuda, M, N, K)
     bias = torch.randn(N, generator=cuda, device="cuda")
+    name = Q.w8a16_kernel(M, N, K, dtype)
+    if dt == "bfloat16" and M > 16 and N % 128 == 0:
+        assert name == "w8a16_sm90"
     before = Q.w8a16_matmul.launches
+    counts = {k: c.launches for k, c in Q.kernel_launches.items()}
     got = Q.w8a16_matmul(x, q, s)
+    got_b = Q.w8a16_matmul(x, q, s, bias)
     got_cast = Q.w8a16_matmul(x, q, s, bias, out_dtype=dtype)
+    got_cast0 = Q.w8a16_matmul(x, q, s, out_dtype=dtype)
     torch.cuda.synchronize()
-    assert Q.w8a16_matmul.launches == before + 2
+    assert Q.w8a16_matmul.launches == before + 4
+    assert {k: c.launches - counts[k] for k, c in Q.kernel_launches.items()
+            } == {k: 4 if k == name else 0 for k in Q.KERNELS}
     assert got.dtype == torch.float32 and got_cast.dtype == dtype
     assert _rel_err(got, Q.w8a16_matmul_plain(x, q, s)) <= 1e-5
-    step = 2.0 ** -8 if dtype == torch.bfloat16 else 1e-5
-    assert _rel_err(got_cast, Q.w8a16_matmul_plain(x, q, s, bias,
-                                                   dtype)) <= step
+    assert _rel_err(got_b, Q.w8a16_matmul_plain(x, q, s, bias)) <= 1e-5
+    # the cast is the kernel's own f32 result rounded once
+    assert torch.equal(got_cast, got_b.to(dtype))
+    assert torch.equal(got_cast0, got.to(dtype))
+    for out, bb in ((got_cast, bias), (got_cast0, None)):
+        ref = Q.w8a16_matmul_plain(x, q, s, bb, dtype)
+        # one step of bf16 at max|plain| for the prefill shapes (two f32
+        # sums that differ in their last bits may round to neighbouring
+        # values), 2^-8 of it for the others as before
+        top = float(ref.float().abs().max())
+        step = (1e-5 * top if dtype == torch.float32
+                else 2.0 ** (math.frexp(top)[1] - 8)
+                if (M, N, K) in _W8_PREFILL else 2.0 ** -8 * top)
+        assert float((out.float() - ref.float()).abs().max()) <= step
 
 
 def test_w8a16_wrapper_refusals(cuda):

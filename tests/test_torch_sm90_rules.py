@@ -1,0 +1,145 @@
+"""Host-side rules of the Hopper kernels behind B12's prefill (the wgmma +
+TMA GEMM with an int8 W operand) and B2 / B14's bf16 global flash body, on
+the CPU: each Python mirror against the constants of its CUDA source and
+against the 232,448 bytes of shared memory an H100 block may use.
+
+* ``int8_matmul.w8a16_kernel``: which of B12's kernels a call launches
+  (the decode GEMV at M <= 16, the wgmma GEMM at bf16 prefill where
+  ``gemm_sm90.cuh`` ``sm90_takes`` holds, the mma.sync GEMM for the ragged
+  vocab head, the FMA GEMM for f32 x), at every InternLM2-1.8B linear and
+  the caption path's M; ``int8_matmul.sm90_smem_bytes`` (``Sm90Layout<
+  true>``); the per-kernel launch counts with no card.
+* ``flash_attention.sm90_smem_bytes`` (``FlashSm90Layout<D>``) at head
+  dims 64 and 80, and ``key_rows_per_tile``: when a 64-key tile covers
+  whole key-grid rows, so that the bias comes from registers.
+
+The plain B12 and B2 stay held to the JAX package by
+``tests/test_torch_quant.py`` and ``tests/test_torch_kernels.py``.
+"""
+
+import os
+import re
+
+import pytest
+import torch
+
+from ullsam_tpu_torch.ops.kernels import build
+from ullsam_tpu_torch.ops.kernels import flash_attention as FA
+from ullsam_tpu_torch.ops.kernels import gemm as G
+from ullsam_tpu_torch.ops.kernels import int8_matmul as Q
+from ullsam_tpu_torch.tools.main_path import (W8A16_DECODE_M, W8A16_LINEARS,
+                                              W8A16_PREFILL_M)
+
+
+def _const(source: str, pattern: str) -> int:
+    with open(os.path.join(build.CSRC, source)) as f:
+        m = re.search(pattern, f.read())
+    assert m, f"{pattern!r} not found in {source}"
+    return int(m.group(1))
+
+
+def test_w8a16_sm90_mirror_matches_the_source():
+    """The tile, stage and staging constants that ``int8_matmul`` and
+    ``gemm`` mirror are those of ``gemm_sm90.cuh``."""
+    src = "gemm_sm90.cuh"
+    assert (_const(src, r"kSm90BM = (\d+)"), _const(src, r"kSm90BN = (\d+)"),
+            _const(src, r"kSm90BK = (\d+)")) == (G.SM90_BM, G.SM90_BN,
+                                                   G.SM90_BK)
+    assert _const(src, r"kBM = kInt8W \? (\d+)") == Q.W8_BM
+    assert _const(src, r"kStages = kInt8W \? (\d+)") == Q.W8_STAGES
+    assert _const(src, r"kStgLd = kInt8W \? (\d+)") == Q.W8_STG_LD
+
+
+def test_w8a16_sm90_smem_fits_a_block():
+    """The int8 kernel's shared memory (6 stages of x's 144-row bf16 and
+    W's 128-row int8 tiles, the transposed epilogue staging, the
+    mbarriers) fits one block, as the bf16 GEMM's does; its 144-row tiles
+    cut the caption prompt (M = 1152) and its batch of 8 into whole
+    tiles."""
+    assert Q.sm90_smem_bytes() == 216176
+    assert 1152 % Q.W8_BM == 0 and 9216 % Q.W8_BM == 0
+    assert Q.sm90_smem_bytes() <= G.SMEM_LIMIT == 232448
+    assert G.sm90_smem_bytes() <= G.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("M", W8A16_DECODE_M + W8A16_PREFILL_M)
+def test_w8a16_kernel_of_each_internlm2_linear(M):
+    """At decode (M = 1, 8) every linear runs the GEMV; at the caption
+    prompt's prefill (M = 1152, 9216) in bf16 wqkv, wo, w1 / w3 and w2 run
+    the wgmma GEMM and the 92,553-column head the mma.sync GEMM; f32 x
+    runs the FMA GEMM at prefill."""
+    for N, K in W8A16_LINEARS:
+        if M <= 16:
+            want = "w8a16_gemv"
+        elif N % 128:
+            want = "w8a16_mma"
+        else:
+            want = "w8a16_sm90"
+        assert Q.w8a16_kernel(M, N, K) == want, (M, N, K)
+        assert Q.w8a16_kernel(M, N, K, torch.float32) == (
+            "w8a16_gemv" if M <= 16 else "w8a16_f32")
+    assert [Q.w8a16_kernel(M, N, K) for N, K in W8A16_LINEARS].count(
+        "w8a16_sm90") == (0 if M <= 16 else 4)
+
+
+def test_w8a16_shape_rule():
+    """The wgmma GEMM takes bf16 x at M > 16 with N % 128 == 0 and K % 64
+    == 0 (``sm90_takes``); other widths keep the mma.sync GEMM."""
+    assert Q.w8a16_kernel(16, 128, 64) == "w8a16_gemv"
+    assert Q.w8a16_kernel(17, 128, 64) == "w8a16_sm90"
+    for M, N, K in ((17, 200, 64), (129, 4096, 48), (1152, 4100, 2048),
+                    (40, 300, 80), (1152, 92553, 2048)):
+        assert Q.w8a16_kernel(M, N, K) == "w8a16_mma", (M, N, K)
+        assert not G.sm90_takes(M, N, K)
+
+
+def test_w8a16_kernel_counts_need_no_card():
+    """Each B12 kernel's launch count reads 0 with no library loaded, can
+    be set to 0, and a CPU call launches nothing."""
+    assert set(Q.kernel_launches) == set(Q.KERNELS)
+    for c in Q.kernel_launches.values():
+        c.launches = 0
+        assert c.launches == 0
+    x = torch.randn(20, 64)
+    q = torch.randint(-127, 128, (128, 64), dtype=torch.int8)
+    Q.w8a16_matmul(x.bfloat16(), q, torch.rand(128))
+    assert all(c.launches == 0 for c in Q.kernel_launches.values())
+
+
+def test_flash_sm90_mirror_matches_the_source():
+    """The block, stage and rel-row constants that ``flash_attention``
+    mirrors are those of ``vit_flash_attn.cu``."""
+    src = "vit_flash_attn.cu"
+    assert _const(src, r"kFlashRows = (\d+)") == FA.FLASH_ROWS
+    assert _const(src, r"kFlashStages = (\d+)") == FA.FLASH_STAGES
+    assert _const(src, r"kBQ = 64, kBK = (\d+)") == FA.FLASH_KEYS
+    assert (_const(src, r"kMaxRel = (\d+)")
+            + _const(src, r"kRelLd = kMaxRel \+ (\d+)")) == FA.FLASH_REL_LD
+
+
+@pytest.mark.parametrize("D,want", [(64, 119888), (80, 140368)])
+def test_flash_sm90_smem_fits_a_block(D, want):
+    """The bf16 body's shared memory (q's 128 rows, 4 stages of k and v,
+    both rel tables' rows, the mbarriers) fits one block at SAM's head
+    dims: 64 (ViT-B, L) and 80 (ViT-H, a 32-byte-swizzled tail a row)."""
+    assert FA.sm90_smem_bytes(D) == want <= FA.SMEM_LIMIT == 232448
+
+
+def test_key_rows_per_tile_rule():
+    """A 64-key tile covers whole key-grid rows, and each 8-key block of
+    the accumulator layout lies in one of them, exactly when KW divides 64
+    and is at least 8: then rel_w is one fragment for every tile and rel_h
+    one value a row a tile. Every other KW the wrappers take keeps the
+    per-logit bias. SAM's 1024-pixel grids (KW = 64) take one row a tile."""
+    for KW in range(1, 65):
+        rows = FA.key_rows_per_tile(KW)
+        whole = all(len({k // KW for k in range(t, t + 64)}) * KW == 64
+                    for t in range(0, 64 * KW, 64))
+        blocks = all(len({k // KW for k in range(b, b + 8)}) == 1
+                     for b in range(0, 64 * KW, 8))
+        assert bool(rows) == (whole and blocks), KW
+        if rows:
+            assert rows * KW == 64
+    assert FA.key_rows_per_tile(64) == 1
+    assert [FA.key_rows_per_tile(k) for k in (32, 16, 8, 48, 4)] == [
+        2, 4, 8, 0, 0]

@@ -25,23 +25,45 @@
 //     subtraction (no conversion instruction); the scale is applied to the
 //     warp-reduced sum.
 //   * Prefill (M > 16): operation-bound at the path's shapes (M = 1152: 38.7
-//     GFLOP for w1 against 16.8 MB). bf16 x runs w8a16_gemm_mma, the
-//     tensor-core GEMM of gemm.cuh (128 x 128 tiles, k-tile 32, mma.sync
-//     m16n8k16, f32 accumulation) whose int8 tile is staged by cp.async and
-//     converted to bf16 in shared memory before ldmatrix; f32 x runs
-//     w8a16_gemm_f32, gemm.cuh's CUDA-core FMA GEMM with the int8 tile
-//     converted as it is stashed.
-//   * N is ragged (the 92,553-column head runs here too), masked by bounds
-//     checks; K must be a multiple of 16 (one 16-byte int8 vector), which the
-//     C entry and the wrapper check.
-// Later work: wgmma with TMA for prefill, split-K for the short-N decode
-// shapes, a fused gate/up pair.
+//     GFLOP for w1 against 16.8 MB). bf16 x at N % 128 == 0 and K % 64 ==
+//     0 (every layer linear of InternLM2-1.8B: wqkv 4096 x 2048, wo 2048 x
+//     2048, w1 / w3 8192 x 2048, w2 2048 x 8192) runs gemm_sm90.cuh's
+//     wgmma + TMA GEMM with an int8 W operand (see the note there): W's
+//     stage lands by TMA as int8 (half of bf16's bytes) and the product is
+//     swapped (out^T = W . x^T) so that W is wgmma's register A operand,
+//     converted exactly from int8 pairs, with x's 144-row tile the
+//     shared-memory B operand; the two consumer warpgroups share a tile so
+//     that one's conversion overlaps the other's products, and the
+//     epilogue transposes back through its staging, applying the scale and
+//     the bias to the f32 sum and rounding once (ragged M masked). qweight
+//     keeps its natural [N, K] layout, which the decode GEMV and the plain
+//     version read too. 144-row tiles make 128 tiles of wo and w2 at M =
+//     1152 (a wave of 132 SMs; 128-row tiles made 144, a second wave 9%
+//     full); split-K into 2 or 4 with 128-row tiles (f32 partials in a
+//     workspace, the last unit of a tile adding them) measured 7-40%
+//     slower for wqkv, wo and w1 and 5% faster for w2. The ragged
+//     92,553-column head, other widths and f32 x keep the earlier kernels:
+//     bf16 x runs w8a16_gemm_mma (128 x 128 tiles, k-tile 32, mma.sync
+//     m16n8k16, the int8 tile staged by cp.async and converted to bf16 in
+//     shared memory before ldmatrix; it beats F.linear on the head); f32 x
+//     runs w8a16_gemm_f32, gemm.cuh's CUDA-core FMA GEMM with the int8
+//     tile converted as it is stashed.
+//   * N is ragged (the head), masked by bounds checks; K must be a multiple
+//     of 16 (one 16-byte int8 vector), which the C entry and the wrapper
+//     check.
+// Which kernel a call launches is mirrored by ops/kernels/int8_matmul.py
+// w8a16_kernel, and each launch is counted (w8a16_launch_count).
+// Later work: split-K for the short-N decode shapes, a fused gate/up pair.
 #include <algorithm>
 
-#include "gemm.cuh"
+#include "gemm_sm90.cuh"
 
 namespace ullsam {
 namespace {
+
+// launches of each B12 kernel made through this library
+enum W8Kernel : int { kW8Gemv = 0, kW8Sm90 = 1, kW8Mma = 2, kW8F32 = 3 };
+long long w8_launch_counts[4] = {0, 0, 0, 0};
 
 // int8 x4 (one word) -> 4 exact floats: b ^ 0x80 = b + 128 in [1, 255]
 // placed in the mantissa of 2^23, minus 2^23 + 128
@@ -316,6 +338,40 @@ __global__ void __launch_bounds__(256)
       }
 }
 
+// ---- prefill, bf16 on the wgmma GEMM: B12's epilogue -------------------
+// v = columns n .. n + 7 of row m of the f32 sum: times scale[n], plus
+// bias[n] (two f32 roundings, as the plain version), rounded once to OutT
+template <typename OutT>
+struct W8Epilogue {
+  const float* scale;
+  const float* bias;
+  OutT* out;
+  int N;
+  __device__ __forceinline__ void operator()(int m, int n, float* v) const {
+    const float4 s0 = *reinterpret_cast<const float4*>(scale + n);
+    const float4 s1 = *reinterpret_cast<const float4*>(scale + n + 4);
+    const float sc[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = __fmul_rn(v[e], sc[e]);
+    if (bias) {
+      const float4 b0 = *reinterpret_cast<const float4*>(bias + n);
+      const float4 b1 = *reinterpret_cast<const float4*>(bias + n + 4);
+      const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = __fadd_rn(v[e], bb[e]);
+    }
+    OutT* o = out + (size_t)m * N + n;
+    if constexpr (sizeof(OutT) == 4) {
+      reinterpret_cast<float4*>(o)[0] = make_float4(v[0], v[1], v[2], v[3]);
+      reinterpret_cast<float4*>(o)[1] = make_float4(v[4], v[5], v[6], v[7]);
+    } else {
+      *reinterpret_cast<uint4*>(o) =
+          make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                     pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+    }
+  }
+};
+
 // ---- prefill, f32: CUDA-core FMA GEMM (true f32) with int8 B ------------
 // gemm.cuh's gemm_nt_f32; each thread fetches 4 int8 of B per k-tile
 // (K % 8 == 0) and stashes them as floats.
@@ -505,24 +561,56 @@ extern "C" int w8a16_matmul(int dtype, const void* x, const void* q,
   const int8_t* qw = static_cast<const int8_t*>(q);
   const float* s = static_cast<const float*>(scale);
   const float* b = static_cast<const float*>(bias);
+  int kernel, err;
   if (dtype == kF32) {
     const float* xf = static_cast<const float*>(x);
-    if (M <= 16) return gemv<float>(xf, qw, s, b, out, 1, M, N, K, st);
-    dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM);
-    w8a16_gemm_f32<<<grid, 256, 0, st>>>(xf, qw, s, b,
-                                         static_cast<float*>(out), M, N, K);
-    return (int)cudaGetLastError();
+    if (M <= 16) {
+      kernel = kW8Gemv;
+      err = gemv<float>(xf, qw, s, b, out, 1, M, N, K, st);
+    } else {
+      kernel = kW8F32;
+      dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM);
+      w8a16_gemm_f32<<<grid, 256, 0, st>>>(
+          xf, qw, s, b, static_cast<float*>(out), M, N, K);
+      err = (int)cudaGetLastError();
+    }
+  } else if (dtype == kBF16) {
+    const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+    if (M <= 16) {
+      kernel = kW8Gemv;
+      err = gemv<__nv_bfloat16>(xb, qw, s, b, out, out_f32, M, N, K, st);
+    } else if (sm90_takes(M, N, K)) {
+      kernel = kW8Sm90;
+      err = out_f32
+                ? gemm_sm90_run<true>(
+                      xb, qw, W8Epilogue<float>{s, b, static_cast<float*>(out),
+                                                N},
+                      M, N, K, st)
+                : gemm_sm90_run<true>(
+                      xb, qw,
+                      W8Epilogue<__nv_bfloat16>{
+                          s, b, static_cast<__nv_bfloat16*>(out), N},
+                      M, N, K, st);
+    } else {
+      kernel = kW8Mma;
+      dim3 grid((N + kMmaBN - 1) / kMmaBN, (M + kMmaBM - 1) / kMmaBM);
+      if (out_f32)
+        w8a16_gemm_mma<float><<<grid, 256, 0, st>>>(
+            xb, qw, s, b, static_cast<float*>(out), M, N, K);
+      else
+        w8a16_gemm_mma<__nv_bfloat16><<<grid, 256, 0, st>>>(
+            xb, qw, s, b, static_cast<__nv_bfloat16*>(out), M, N, K);
+      err = (int)cudaGetLastError();
+    }
+  } else {
+    return (int)cudaErrorInvalidValue;
   }
-  if (dtype != kBF16) return (int)cudaErrorInvalidValue;
-  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-  if (M <= 16) return gemv<__nv_bfloat16>(xb, qw, s, b, out, out_f32, M, N, K,
-                                          st);
-  dim3 grid((N + kMmaBN - 1) / kMmaBN, (M + kMmaBM - 1) / kMmaBM);
-  if (out_f32)
-    w8a16_gemm_mma<float><<<grid, 256, 0, st>>>(
-        xb, qw, s, b, static_cast<float*>(out), M, N, K);
-  else
-    w8a16_gemm_mma<__nv_bfloat16><<<grid, 256, 0, st>>>(
-        xb, qw, s, b, static_cast<__nv_bfloat16*>(out), M, N, K);
-  return (int)cudaGetLastError();
+  if (!err) ++w8_launch_counts[kernel];
+  return err;
+}
+
+// launches of B12 kernel `kernel` made by this library so far: 0 the
+// decode GEMV, 1 the wgmma GEMM, 2 the mma.sync GEMM, 3 the f32 GEMM
+extern "C" long long w8a16_launch_count(int kernel) {
+  return kernel >= 0 && kernel < 4 ? w8_launch_counts[kernel] : -1;
 }

@@ -10,9 +10,11 @@ with bias[i, key] = rel_h[i, key // KW] + rel_w[i, key % KW], KH*KW = N.
 It replaces the TPU kernel ``ullsam_tpu/ops/pallas/flash_attention.py``
 ``_vit_kernel`` (entry ``vit_flash_attention``). On a CUDA tensor it launches
 the hand-written Hopper kernel ``csrc/vit_flash_attn.cu`` (see the note
-there: operation-bound; bf16 on the tensor cores, float32 by FMA); on a
+there: operation-bound; bf16 on wgmma fed by TMA, float32 by FMA); on a
 CPU tensor it runs ``vit_flash_attn_plain``. There is no fallback from the
-kernel.
+kernel. The bf16 body adds the bias from registers when a 64-key tile
+covers whole key-grid rows (``key_rows_per_tile``), and per logit from
+shared memory otherwise; ``sm90_smem_bytes`` mirrors its shared memory.
 
 B14, ``vit_flash_attn_packed(qkv, rel_h, rel_w, nh)``, is B2's function
 read straight from the qkv projection [B, N, 3C] (head h of q, k, v at
@@ -44,6 +46,32 @@ Tensor = torch.Tensor
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 80)  # B2, B14: SAM ViT-B / L and ViT-H
+# the bf16 body (csrc/vit_flash_attn.cu vit_flash_sm90): 128 queries a block
+# (two warpgroups of 64), 64-key tiles in a ring of 4 stages, rel rows of
+# 64 + 8 bf16
+FLASH_ROWS, FLASH_KEYS, FLASH_STAGES, FLASH_REL_LD = 128, 64, 4, 72
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
+
+
+def key_rows_per_tile(KW: int) -> int:
+    """``vit_flash_attn.cu`` ``key_rows_per_tile``: how many whole key-grid
+    rows a 64-key tile covers when KW divides 64 and is at least 8 (then
+    rel_w is one fragment for every tile and rel_h a value a row a tile,
+    the bias from registers); 0 for any other KW (the bias per logit)."""
+    return FLASH_KEYS // KW if KW >= 8 and FLASH_KEYS % KW == 0 else 0
+
+
+def sm90_smem_bytes(D: int) -> int:
+    """``FlashSm90Layout<D>::kSmemBytes``: 1024 bytes to align the tiles;
+    q's 128 rows (128 swizzled bytes a row, and at D = 80 32 more); the
+    stages, each k and v of 64 keys likewise; rel_h and rel_w rows [128][72]
+    bf16; a full and an empty mbarrier a stage and one for each
+    warpgroup's q."""
+    tail = D - 64
+    q = FLASH_ROWS * 128 + FLASH_ROWS * tail * 2
+    stage = 2 * (FLASH_KEYS * 128 + FLASH_KEYS * tail * 2)
+    return (1024 + q + FLASH_STAGES * stage + 2 * FLASH_ROWS * FLASH_REL_LD * 2
+            + (2 * FLASH_STAGES + 2) * 8)
 
 
 def vit_flash_attn_plain(q: Tensor, k: Tensor, v: Tensor, rel_h: Tensor,

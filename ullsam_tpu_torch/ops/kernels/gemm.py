@@ -66,17 +66,21 @@ def sm90_smem_bytes() -> int:
 
 
 class GemmLaunches:
-    """The launch count of one GEMM kernel, kept in C by every loaded
-    library that launches it; reading it builds nothing."""
+    """The launch count of one GEMM kernel, kept in C (read by the entry
+    point ``fn``) by every loaded library of ``libs`` that launches it;
+    reading it builds nothing."""
 
-    def __init__(self, kernel: int):
+    def __init__(self, kernel: int, libs=GEMM_LIBS,
+                 fn: str = "gemm_launch_count"):
         self._kernel = kernel
+        self._libs = libs
+        self._fn = fn
         self._base = 0
 
     def _total(self) -> int:
-        return sum(build.function(lib, "gemm_launch_count", [ctypes.c_int],
+        return sum(build.function(lib, self._fn, [ctypes.c_int],
                                   ctypes.c_longlong)(self._kernel)
-                   for lib in GEMM_LIBS if build.loaded(lib))
+                   for lib in self._libs if build.loaded(lib))
 
     @property
     def launches(self) -> int:

@@ -16,6 +16,12 @@ On a CUDA tensor it launches ``csrc/w8a16_matmul.cu`` (see the note there:
 decode memory-bound, prefill operation-bound; N ragged, K a multiple of 16)
 or raises; on a CPU tensor it runs ``w8a16_matmul_plain``. There is no
 fallback from the kernel: the card never dequantizes into a float matmul.
+Which of its four kernels a call launches is ``w8a16_kernel``: the decode
+GEMV at M <= 16; at prefill in bf16 the wgmma + TMA GEMM of
+``csrc/gemm_sm90.cuh`` with an int8 W operand where N % 128 == 0 and K % 64
+== 0 (every layer linear of InternLM2-1.8B), else the mma.sync GEMM (the
+ragged vocab head); f32 x at prefill the FMA GEMM. Each counts its launches
+in C (``kernel_launches``).
 ``check_weights`` holds the weight operands to what the kernel takes; the
 decode path's ``QuantLinear`` runs it once on its CUDA buffers and then
 calls ``w8a16_matmul_checked``, which checks only x on each call.
@@ -30,10 +36,17 @@ from typing import Optional
 import torch
 
 from ullsam_tpu_torch.ops.kernels import build
+from ullsam_tpu_torch.ops.kernels.gemm import (SM90_BK, SM90_BN,
+                                               GemmLaunches, sm90_takes)
 
 Tensor = torch.Tensor
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the B12 kernels in csrc/w8a16_matmul.cu's order (W8Kernel)
+KERNELS = ("w8a16_gemv", "w8a16_sm90", "w8a16_mma", "w8a16_f32")
+kernel_launches = {name: GemmLaunches(i, ("w8a16_matmul",),
+                                      "w8a16_launch_count")
+                   for i, name in enumerate(KERNELS)}
 
 
 def w8a16_matmul_plain(x: Tensor, qweight: Tensor, qscale: Tensor,
@@ -46,6 +59,32 @@ def w8a16_matmul_plain(x: Tensor, qweight: Tensor, qscale: Tensor,
     if bias is not None:
         y = y + bias.float()
     return y.to(out_dtype)
+
+
+def w8a16_kernel(M: int, N: int, K: int,
+                 dtype: torch.dtype = torch.bfloat16) -> str:
+    """Which kernel ``csrc/w8a16_matmul.cu`` launches for x [M, K] of
+    ``dtype`` and qweight [N, K] (operands 16-byte aligned)."""
+    if M <= 16:
+        return "w8a16_gemv"
+    if dtype == torch.float32:
+        return "w8a16_f32"
+    return "w8a16_sm90" if sm90_takes(M, N, K) else "w8a16_mma"
+
+
+# the int8 kernel (gemm_sm90.cuh Sm90Layout<true>): x rows a tile, stages,
+# floats a staging row
+W8_BM, W8_STAGES, W8_STG_LD = 144, 6, 12
+
+
+def sm90_smem_bytes() -> int:
+    """``Sm90Layout<true>::kSmemBytes``: 1024 bytes to align the stages;
+    6 stages of x's 144 x 64 bf16 tile and W's 128 x 64 int8 one; the 8
+    consumer warps' epilogue staging (144 rows of 8 + 4 floats each, the
+    swapped product's accumulators transposed); a full and an empty
+    mbarrier a stage and the two consumer warpgroups' turn mbarriers."""
+    return (1024 + W8_STAGES * (W8_BM * SM90_BK * 2 + SM90_BN * SM90_BK)
+            + 8 * W8_BM * W8_STG_LD * 4 + (2 * W8_STAGES + 2) * 8)
 
 
 def check_weights(qweight: Tensor, qscale: Tensor,
@@ -126,12 +165,11 @@ def w8a16_matmul_checked(x: Tensor, qweight: Tensor, qscale: Tensor,
         raise ValueError(f"w8a16_matmul: x {tuple(x.shape)} must be a "
                          f"contiguous, 16-byte aligned [M, "
                          f"{qweight.shape[1]}]")
-    M, N = x.shape[0], qweight.shape[0]
+    M, N, K = x.shape[0], qweight.shape[0], x.shape[1]
     out = torch.empty((M, N), device=x.device, dtype=out_dtype)
     args = (_DTYPE_CODE[x.dtype], x.data_ptr(), qweight.data_ptr(),
             qscale.data_ptr(), 0 if bias is None else bias.data_ptr(),
-            out.data_ptr(), int(out_dtype == torch.float32), M, N,
-            x.shape[1])
+            out.data_ptr(), int(out_dtype == torch.float32), M, N, K)
     if x.device.index == torch.cuda.current_device():
         err = _kernel()(*args, torch.cuda.current_stream().cuda_stream)
     else:

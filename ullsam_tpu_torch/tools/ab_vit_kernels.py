@@ -1,23 +1,29 @@
-"""A/B timing of the ViT kernels B1, B3, B15 and B13 built from several
-source trees, in one process on one card, so that versions compare within
-one call (two calls may land on two cards).
+"""A/B timing of the ViT kernels B1, B2, B3, B13, B14, B15 and of B12 (the
+int8 LLM linears) built from several source trees, in one process on one
+card, so that versions compare within one call (two calls may land on two
+cards).
 
-    python -m ullsam_tpu_torch.tools.ab_vit_kernels NAME=CSRC_DIR [...]
+    python -m ullsam_tpu_torch.tools.ab_vit_kernels [--only=B2,B12,...] \
+        NAME=CSRC_DIR [...]
 
 Each CSRC_DIR holds ``window_attn.cu``, ``window_attn_twophase.cu``,
-``ln_mlp.cu`` and the headers they include: a checkout's
-``ullsam_tpu_torch/csrc``, or another commit's unpacked by ``git archive``
-into a directory that git ignores. Each version is built with
-``build.NVCC_FLAGS`` under ``csrc/_build/ab/`` (its ptxas registers and
-spills printed), checked in bf16 against the plain versions at the main
-path's shapes (``tools/main_path.py``: B1 and B3 / B15 at ViT-B and ViT-H,
-B13 at ViT-H with T = 4900), then timed by CUDA events (20 launches after
-3) in the order given and again in reverse (a, b, ..., b, a), beside the
-library yardsticks: SDPA with the bias materialized for B3 / B15, the
-chain of four library calls for B13, and, where the version has the entry
+``ln_mlp.cu``, ``vit_flash_attn.cu``, ``w8a16_matmul.cu`` and the headers
+they include: a checkout's ``ullsam_tpu_torch/csrc``, or another commit's
+unpacked by ``git archive`` into a directory that git ignores. Each version
+is built with ``build.NVCC_FLAGS`` under ``csrc/_build/ab/`` (its ptxas
+registers and spills printed), checked in bf16 against the plain versions
+at the main path's shapes (``tools/main_path.py``: B1 and B3 / B15 at ViT-B
+and ViT-H, B13 at ViT-H with T = 4900, B2 and B14 at both widths' global
+blocks, B12 at each layer linear of InternLM2-1.8B at M = 1152 and 9216,
+bf16 out as the caption's prefill calls it), then timed by CUDA events (20
+launches after 3) in the order given and again in reverse (a, b, ..., b,
+a), beside the library yardsticks: SDPA with the bias materialized for B2,
+B3, B14, B15, the chain of four library calls for B13, F.linear on the
+dequantized weight for B12, and, where the version has the entry
 ``gemm_bf16_forward``, each bf16 product of B1 and B13 (proj and fc2 with
 their residual) beside ``F.linear`` (without it).
-Needs a CUDA card.
+``--only`` keeps the cases whose label starts with one of the given
+prefixes (B1, B2, B3, B12, B13, B14, B15, GEMM). Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -32,15 +38,24 @@ import torch
 import torch.nn.functional as F
 
 from ullsam_tpu_torch.ops.kernels import build
+from ullsam_tpu_torch.ops.kernels import flash_attention as FA
 from ullsam_tpu_torch.ops.kernels import gemm as G
+from ullsam_tpu_torch.ops.kernels import int8_matmul as Q
 from ullsam_tpu_torch.ops.kernels import vit_block as VB
 from ullsam_tpu_torch.ops.kernels import window_attention as WA
 from ullsam_tpu_torch.tools import main_path as MP
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _F = ctypes.c_float
-_SOURCES = ("window_attn", "window_attn_twophase", "ln_mlp")
+_SOURCES = ("window_attn", "window_attn_twophase", "ln_mlp",
+            "vit_flash_attn", "w8a16_matmul")
 _ENTRIES = {
+    "b2": ("vit_flash_attn", "vit_flash_attn_forward",
+           [_I] + [_P] * 7 + [_I] * 5 + [_F, _P]),
+    "b14": ("vit_flash_attn", "vit_flash_attn_packed_forward",
+            [_I] + [_P] * 5 + [_I] * 6 + [_F, _P]),
+    "b12": ("w8a16_matmul", "w8a16_matmul", [_I] + [_P] * 5 + [_I] * 4
+            + [_P]),
     "b3": ("window_attn", "window_attn_core_forward",
            [_I] + [_P] * 4 + [_I] * 7 + [_P]),
     "b15": ("window_attn_twophase", "window_attn_twophase_forward",
@@ -156,6 +171,62 @@ def cases(gen):
                         go, G.gemm_bf16_plain(a, wt, b, res),
                         2 * 4900 * N * K,
                         lambda a=a, wt=wt, b=b: F.linear(a, wt, b)))
+    for tag, w in (("vit_b", MP.VIT_B), ("vit_h", MP.VIT_H)):
+        (q, k, v, rh, rw), _, fl, _ = MP.vit_flash_case(torch.bfloat16, gen,
+                                                        **w)
+        BH, N, D = q.shape
+        o = torch.empty_like(q)
+        lse = torch.empty((BH, N), device="cuda", dtype=torch.float32)
+        bias = (rh[..., :, None] + rw[..., None, :]).reshape(BH, N, N)
+        out.append((f"B2 {tag}", "b2",
+                    lambda f, q=q, k=k, v=v, rh=rh, rw=rw, o=o, lse=lse: f(
+                        1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        rh.data_ptr(), rw.data_ptr(), o.data_ptr(),
+                        lse.data_ptr(), q.shape[0], q.shape[1], q.shape[2],
+                        64, 64, q.shape[2] ** -0.5, stream),
+                    o, FA.vit_flash_attn_plain(q, k, v, rh, rw)[0], fl,
+                    lambda q=q, k=k, v=v, b=bias:
+                    F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                                   attn_mask=b[None])))
+        (qkv, rh2, rw2), kw2, fl2, _ = MP.vit_flash_packed_case(
+            torch.bfloat16, gen, **w)
+        nh = kw2["nh"]
+        C = qkv.shape[-1] // 3
+        o2 = torch.empty((1, N, C), device="cuda", dtype=torch.bfloat16)
+        lse2 = torch.empty((nh, N), device="cuda", dtype=torch.float32)
+        out.append((f"B14 {tag}", "b14",
+                    lambda f, qkv=qkv, rh=rh2, rw=rw2, o=o2, lse=lse2, nh=nh,
+                    N=N, D=C // nh: f(1, qkv.data_ptr(), rh.data_ptr(),
+                                 rw.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                                 1, nh, N, D, 64, 64, D ** -0.5, stream),
+                    o2, FA.vit_flash_attn_packed_plain(qkv, rh2, rw2, nh)[0],
+                    fl2, lambda q=q, k=k, v=v, b=bias:
+                    F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                                   attn_mask=b[None])))
+        del bias
+    for M in MP.W8A16_PREFILL_M:
+        for N, K in MP.W8A16_LINEARS[:4]:
+            (x, q8, sc), _, fl, _ = MP.w8a16_case(torch.bfloat16, gen, M, N,
+                                                 K)
+            y = torch.empty((M, N), device="cuda", dtype=torch.bfloat16)
+            w_lib = (q8.to(torch.bfloat16) * sc[:, None]).to(torch.bfloat16)
+
+            def call(f, x=x, q8=q8, sc=sc, y=y, M=M, N=N, K=K):
+                return f(1, x.data_ptr(), q8.data_ptr(), sc.data_ptr(), None,
+                         y.data_ptr(), 0, M, N, K, stream)
+            out.append((f"B12 M{M} N{N} K{K}", "b12", call, y,
+                        Q.w8a16_matmul_plain(x, q8, sc, None, torch.bfloat16),
+                        2 * M * N * K,
+                        lambda x=x, w=w_lib: F.linear(x, w)))
+            # the bf16 wgmma GEMM of B1 / B13 on the dequantized weight:
+            # B12's kernel without the int8 operand
+            go = torch.empty((M, N), device="cuda", dtype=torch.bfloat16)
+            out.append((f"GEMM llm M{M} N{N} K{K}", "gemm",
+                        lambda f, x=x, w=w_lib, go=go, M=M, N=N, K=K:
+                        f(x.data_ptr(), w.data_ptr(), None, None,
+                          go.data_ptr(), M, N, K, 0, stream),
+                        go, G.gemm_bf16_plain(x, w_lib), 2 * M * N * K,
+                        lambda x=x, w=w_lib: F.linear(x, w)))
     args, kw, fl, _ = MP.ln_mlp_case(torch.bfloat16, gen, T=4900, **MP.VIT_H)
     x, lw, lb, w1, b1, w2, b2 = args
     T, C = x.shape
@@ -190,6 +261,9 @@ def cases(gen):
 
 def main() -> None:
     args = sys.argv[1:]
+    only = None
+    if args and args[0].startswith("--only="):
+        only = tuple(args.pop(0)[len("--only="):].split(","))
     if not args or any("=" not in a for a in args):
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
@@ -202,10 +276,14 @@ def main() -> None:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     for label, key, call, out, ref, flops, lib in cases(gen):
+        if only and not label.startswith(only):
+            continue
         have = [n for n in fns if key in fns[n]]
         for name in have:
-            if call(fns[name][key]):
-                raise SystemExit(f"{name} {label}: launch failed")
+            err = call(fns[name][key])
+            if err:
+                raise SystemExit(f"{name} {label}: launch failed, cudaError "
+                                 f"{err}")
             torch.cuda.synchronize()
             print(f"[check] {name} {label}: max|err| / max|plain| "
                   f"{_rel(out, ref):.3e}")

@@ -4,12 +4,14 @@ automatic-mask-generation image, one flagship train step, one packed sft
 step and steady caption decode steps in bf16 and with the int8 LLM (inputs
 from ``tools/main_path.py``, as ``chip_smoke.py`` checks and times them),
 and over one warm SAM ViT-H AMG image and its encode under each route
-setting of the JAX package's switches (regions ``vit_h_*``).
+setting of the JAX package's switches (regions ``vit_h_*``) and a SAM
+ViT-B encode (``vit_b_encode_bfloat16``, the interactive request's).
 
     python -m ullsam_tpu_torch.tools.profile_kernels [--out DIR] [--only P]
 
 ``--only P`` profiles just the regions whose names start with P (their
-set-up still runs; ``--only vit_h`` sets up only the ViT-H model).
+set-up still runs; ``--only vit_`` sets up only the ViT-H and ViT-B
+models).
 
 Prints, per profiled region, the CUDA kernels by total device time (the
 hand-written kernels' sub-kernels appear by name), the device-busy total,
@@ -138,6 +140,22 @@ def _vit_h(args) -> None:
     torch.cuda.empty_cache()
 
 
+def _vit_b_encode(args) -> None:
+    """SAM ViT-B in bf16 (random weights, seed 0): the encode of one
+    1024x1024 image, the interactive request's first stage (B1 8, B2 4)."""
+    cfg, sam = build_sam("vit_b", seed=0, device="cuda",
+                         dtype=torch.bfloat16)
+    image = amg_inputs(np.random.default_rng(0), 1)[0]
+    x = SM.preprocess(torch.from_numpy(image).cuda().float()[None],
+                      cfg).to(torch.bfloat16)
+    with switches({}), torch.no_grad():
+        _region("vit_b_encode_bfloat16",
+                lambda: SM.encode_image(sam.image_encoder, x), args,
+                iters=3, top=15)
+    del sam
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="chrome trace directory")
@@ -150,7 +168,8 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _vit_h(args)
-    if args.only.startswith("vit_h"):
+    _vit_b_encode(args)
+    if args.only.startswith("vit_"):
         return
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
