@@ -11,7 +11,10 @@ sm_90a) and the CUDA toolkit. Phases, each printing what it found:
  3. kernels: each kernel against its plain PyTorch version on the card at
     the main path's exact shapes, in float32 and bfloat16, with the stated
     tolerance; kernel, plain and (where one exists) library-call times with
-    CUDA events; the least time the card could take (bound).
+    CUDA events; the least time the card could take (bound). B4-B7's fused
+    bf16 kernels (B5's two image stages and their token -> image
+    attention, the upscale with and without statistics) also alone: time,
+    bound and achieved bandwidth.
  4. small-input reference: a small uLLSAM on the CPU (plain versions) and
     on the card (kernels) from the same weights must agree.
  5. main path at full width: SAM ViT-B + InternLM2-1.8B (random weights
@@ -23,7 +26,9 @@ sm_90a) and the CUDA toolkit. Phases, each printing what it found:
     full width on 1024x1024 images (a 32x32 point grid, 256 prompts a
     chunk): the deterministic sweep (thresholds and NMS off) in bfloat16,
     1 warm and 3 timed images, one float32 image, and one bfloat16 image
-    with the upstream thresholds (0.88 / 0.95 / NMS 0.7).
+    with the upstream thresholds (0.88 / 0.95 / NMS 0.7); every bfloat16
+    chunk launches each fused decoder kernel its count a chunk, float32
+    none; the sweep's peak memory and its parts.
  7. the segmentation train step: a small uLLSAM trained one f32 step on the
     CPU (plain versions) and on the card (kernels) from the same weights
     and batch, loss and every gradient compared; then the flagship (SAM
@@ -76,9 +81,10 @@ sm_90a) and the CUDA toolkit. Phases, each printing what it found:
     ULLSAM_WINDOW_TWOPHASE=1), f32 within 1e-4 of max|out|, exact launches;
     then ``build_sam("vit_h")`` at full width (random weights from the
     seed) on 1024x1024 images, the deterministic sweep: bf16 1 warm + 3
-    timed images with exact launches (B1 28, B2 4, B4-B7 4 an image), one
-    f32 image; the encode alone under each route setting (1 warm + 5 timed,
-    exact launches, each bf16 embedding against the default route's), and
+    timed images with exact launches (B1 28, B2 4, B4-B7 4 an image, the
+    fused decoder kernels their count a chunk), one f32 image; the encode
+    alone under each route setting (1 warm + 5 timed, exact launches, each
+    bf16 embedding against the default route's), and
     one bf16 image with all four switches on (B13 32, B14 4, B15 28). In
     every bf16 request, image and encode the wgmma GEMM launches exactly
     twice per B1 or B13 launch (its qkv / proj, fc1 / fc2), and none in
@@ -348,7 +354,32 @@ def check_decoder_kernels(card: str) -> dict:
                 rows[name]["float32"] = entry
         del cases, args
         torch.cuda.empty_cache()
+    rows["decode_masks"]["fused"] = check_fused_decoder_kernels(card)
     return rows
+
+
+def check_fused_decoder_kernels(card: str) -> dict:
+    """The fused bf16 kernels inside B4-B7 alone at the AMG chunk (their
+    agreement with the plain chain is B4-B7's, above): each one's time,
+    bound and achieved bandwidth."""
+    import torch
+    from ullsam_tpu_torch.tools.main_path import (AMG_CHUNK,
+                                                  fused_decoder_cases)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    out = {}
+    for name, (call, flops, nbytes) in fused_decoder_cases(
+            gen, **AMG_CHUNK).items():
+        ms = cuda_time_ms(call, iters=10, warmup=2)
+        b_ms, b_by = bound_ms(flops, nbytes, torch.bfloat16)
+        say(f"[kernels] fused {name} bfloat16: {ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}: {flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB), {nbytes / ms / 1e6:.1f} GB/s, "
+            f"{flops / ms / 1e9:.1f} TFLOP/s (card: {card})")
+        out[name] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "gb_per_s": nbytes / ms / 1e6}
+    torch.cuda.empty_cache()
+    return out
 
 
 TRAIN_KERNELS = (
@@ -780,6 +811,29 @@ def gemm_counts() -> dict:
             "gemm_mma": G.gemm_mma.launches}
 
 
+def fused_counts() -> dict:
+    """Launches of each fused bf16 kernel of B4-B7
+    (``decoder.FUSED_KERNELS``)."""
+    from ullsam_tpu_torch.ops.kernels import decoder as D
+    return {k: c.launches for k, c in D.FUSED_KERNELS.items()}
+
+
+# the fused bf16 kernels a bf16 AMG chunk launches (one B4 call)
+FUSED_PER_CHUNK = {"image_stage1": 1, "image_stage2": 1, "t2i_part": 2,
+                   "upscale_unit_stats": 1}
+
+
+def check_fused(tag: str, f0: dict, chunks: int, bf16: bool) -> dict:
+    """The fused kernels launched since f0: FUSED_PER_CHUNK a chunk on the
+    bf16 route, none on the f32 one."""
+    d = {k: v - f0[k] for k, v in fused_counts().items() if v != f0[k]}
+    want = {k: v * chunks for k, v in FUSED_PER_CHUNK.items()} if bf16 \
+        else {}
+    if d != want:
+        fail(f"{tag}: fused decoder kernels {d}, expected {want}")
+    return d
+
+
 def b12_counts() -> dict:
     """Launches of each of B12's kernels (``int8_matmul.KERNELS``)."""
     from ullsam_tpu_torch.ops.kernels import int8_matmul as Q
@@ -787,8 +841,10 @@ def b12_counts() -> dict:
 
 
 def reset_counts() -> None:
+    from ullsam_tpu_torch.ops.kernels import decoder as D
     from ullsam_tpu_torch.ops.kernels import gemm as G
-    for k in (*kernel_wrappers().values(), G.gemm_sm90, G.gemm_mma):
+    for k in (*kernel_wrappers().values(), G.gemm_sm90, G.gemm_mma,
+              *D.FUSED_KERNELS.values()):
         k.launches = 0
 
 
@@ -850,6 +906,51 @@ def amg_small_reference_check() -> None:
         fail("small AMG: GPU kernels disagree with the CPU plain versions")
 
 
+def sweep_peak_parts(model, cfg, image) -> str:
+    """The parts of the AMG sweep's peak device memory (bf16): each step's
+    peak above what was held when it started, for the encode, one chunk's
+    B4 call (256 prompts) and the post-process of the 256 kept masks
+    (``amg._upscale_threshold`` to 1024 x 1024), and the size of the
+    candidates' low-res logits the sweep keeps between its chunks."""
+    import torch
+    from ullsam_tpu_torch.inference import amg as A
+    from ullsam_tpu_torch.models.sam import sam as S
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated() - held) / 2**30
+
+    dtype = next(model.parameters()).dtype
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    with torch.no_grad():
+        x = A.bilinear_resize_nhwc(torch.from_numpy(image)[None].cuda(),
+                                   1024, 1024)
+        emb, p_enc = peak(lambda: S.encode_image(
+            model.image_encoder, S.preprocess(x, cfg).to(dtype)))
+        shared = S.shared_image(model.prompt_encoder, model.mask_decoder,
+                                emb)
+        pts = torch.rand(256, 1, 2, generator=gen, device="cuda") * 1024
+        labels = torch.ones((256, 1), dtype=torch.int64, device="cuda")
+        out, p_dec = peak(lambda: S.decode_masks_stats(
+            model.prompt_encoder, model.mask_decoder, emb,
+            points=(pts, labels), multimask_output=True,
+            stability_offset=1.0, mask_threshold=cfg.mask_threshold,
+            shared=shared))
+        low = out[0]
+        sel = low.reshape(-1, *low.shape[-2:])[:256]
+        _, p_up = peak(lambda: A._upscale_threshold(cfg, sel, (1024, 1024),
+                                                    (1024, 1024)))
+    cand = 4 * low.numel() * low.element_size() / 2**30
+    return (f"encode {p_enc:.3f} GiB, one B4 chunk {p_dec:.3f} GiB, the "
+            f"256 kept masks' post-process {p_up:.3f} GiB, candidates "
+            f"kept between chunks {cand:.3f} GiB")
+
+
 def amg_main_path() -> None:
     """SAM ViT-B at full width (random weights from the seed), 1024x1024
     uint8 images, a 32x32 point grid in chunks of 256 prompts, at most 256
@@ -878,6 +979,7 @@ def amg_main_path() -> None:
 
     def run(generator, image, tag):
         before = launch_counts()
+        f0 = fused_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         masks, data = generator.generate_dense(image)
@@ -885,13 +987,15 @@ def amg_main_path() -> None:
         ms = (time.perf_counter() - t0) * 1e3
         d = {k: v - before[k] for k, v in launch_counts().items()
              if v != before[k]}
+        df = check_fused(f"AMG {tag}", f0, d.get("decode_masks", 0),
+                         "f32" not in tag)
         n = len(data["iou_preds"])
         if (masks.dtype != torch.bool or tuple(masks.shape) != (n, 1024, 1024)
                 or not np.isfinite(data["iou_preds"]).all()
                 or not np.isfinite(data["stability"]).all()):
             fail(f"AMG {tag}: masks {tuple(masks.shape)} {masks.dtype}")
         say(f"[amg] {tag}: {n} masks, latency {ms:.1f} ms (host clock, ends "
-            f"in synchronize), launches {d}")
+            f"in synchronize), launches {d}, fused decoder kernels {df}")
         return ms, d, masks, data
 
     g16 = AutomaticMaskGenerator(cfg, model16, **sweep, **off)
@@ -918,7 +1022,8 @@ def amg_main_path() -> None:
         f"images/s, latency {', '.join(f'{t[0]:.1f}' for t in timed)} ms")
     say(f"[amg] bf16: weights {weights / 2**30:.3f} GiB resident, peak "
         f"{peak / 2**30:.3f} GiB (max_memory_allocated), so "
-        f"{(peak - weights) / 2**30:.3f} GiB for the sweep")
+        f"{(peak - weights) / 2**30:.3f} GiB for the sweep; its parts: "
+        f"{sweep_peak_parts(model16, cfg, images[1])}")
 
     _, _, m16, d16 = timed[0]
     model16.to("cpu")
@@ -2057,6 +2162,7 @@ def vit_h_main_path() -> None:
     def run(generator, image, tag, want):
         before = launch_counts()
         g0 = gemm_counts()
+        f0 = fused_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         masks, data = generator.generate_dense(image)
@@ -2065,6 +2171,8 @@ def vit_h_main_path() -> None:
         d = {k: v - before[k] for k, v in launch_counts().items()
              if v != before[k]}
         dg = gemm_check(tag, d, g0, "f32" not in tag, True)
+        check_fused(f"ViT-H AMG {tag}", f0, d.get("decode_masks", 0),
+                    "f32" not in tag)
         n = len(data["iou_preds"])
         if (masks.dtype != torch.bool or tuple(masks.shape) != (n, 1024, 1024)
                 or n != 256 or not np.isfinite(data["iou_preds"]).all()
@@ -2091,7 +2199,8 @@ def vit_h_main_path() -> None:
         f"images/s, latency {', '.join(f'{t[0]:.1f}' for t in timed)} ms")
     say(f"[vit_h] bf16: weights {weights / 2**30:.3f} GiB resident, peak "
         f"{peak / 2**30:.3f} GiB (max_memory_allocated), so "
-        f"{(peak - weights) / 2**30:.3f} GiB for the sweep")
+        f"{(peak - weights) / 2**30:.3f} GiB for the sweep; its parts: "
+        f"{sweep_peak_parts(model16, cfg, images[1])}")
 
     # the encode alone under each route setting, on image 1
     x = S.preprocess(torch.from_numpy(images[1]).cuda().float()[None],

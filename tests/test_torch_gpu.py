@@ -125,6 +125,7 @@ def test_vit_flash_packed_kernel_matches_plain(cuda, dt, D, B, nh, KH, KW):
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,HW,M,T", [
+    (3, 8, 3, 7),       # 64 image rows: fewer than a work unit's 128
     (3, 32, 3, 7),      # the JAX package's kernel test shape
     (1, 64, 1, 4),      # one prompt, single mask, the 64x64 grid
     (3, 32, 4, 16),     # every mask token, 16 tokens
@@ -153,6 +154,79 @@ def test_decoder_kernels_match_plain(cuda, dt, B, HW, M, T):
             for a, b in zip(g_i, D.upscale_stats_plain(logits, kw["thr"],
                                                        kw["off"])):
                 assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("B,HW,T", [(3, 8, 7), (3, 32, 7), (2, 32, 16),
+                                    (256, 64, 7)])
+def test_decoder_fused_kernels_match_plain(cuda, B, HW, T):
+    """The fused bf16 kernels (B5's two image stages and the token ->
+    image attention from their partials, B6 / B7's upscale) against the
+    plain chain, at a grid smaller than a work unit, 32x32 (7 and 16
+    tokens) and the AMG chunk: each launched as often as a call needs, the
+    statistics exactly the plain statistics of the kernel's own logits,
+    and two runs bitwise equal."""
+    from ullsam_tpu_torch.ops.kernels import decoder as D
+    from ullsam_tpu_torch.tools.main_path import decoder_cases
+    cases = decoder_cases(torch.bfloat16, cuda, B=B, H=HW, W=HW, T=T, M=3)
+    want = {"decode_masks": {"image_stage1": 1, "image_stage2": 1,
+                             "t2i_part": 2, "upscale_unit_stats": 1},
+            "two_way_transformer": {"image_stage1": 1, "image_stage2": 1,
+                                    "t2i_part": 2},
+            "upscale_hypernet_stats": {"upscale_unit_stats": 1},
+            "upscale_hypernet": {"upscale_unit": 1}}
+    for name, (args, kw, _, _) in cases.items():
+        kernel, plain = getattr(D, name), getattr(D, name + "_plain")
+        before = {k: c.launches for k, c in D.FUSED_KERNELS.items()}
+        got = kernel(*args, **kw)
+        torch.cuda.synchronize()
+        ran = {k: c.launches - before[k] for k, c in D.FUSED_KERNELS.items()
+               if c.launches != before[k]}
+        assert ran == want[name], name
+        again = kernel(*args, **kw)
+        ref = plain(*args, **kw)
+        outs = got if isinstance(got, tuple) else (got,)
+        for a, b in zip(outs, again if isinstance(again, tuple) else
+                        (again,)):
+            assert torch.equal(a, b), name
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        for a, b in zip(outs, refs):
+            if a.dtype == torch.int32:
+                continue
+            assert a.shape == b.shape and bool(torch.isfinite(a).all())
+            assert _rel_err(a, b) <= TOL["bfloat16"], name
+        if name in ("decode_masks", "upscale_hypernet_stats"):
+            logits, st = outs[-4], outs[-3:]
+            for a, b in zip(st, D.upscale_stats_plain(logits, kw["thr"],
+                                                      kw["off"])):
+                assert torch.equal(a, b), name
+
+
+def test_decoder_other_widths_run_the_chain(cuda):
+    """bf16 at widths other than SAM's decoder (C = 128, 4 heads) takes the
+    chain of primitive kernels, held to the plain version; no fused kernel
+    launches."""
+    from ullsam_tpu_torch.core.config import MaskDecoderConfig
+    from ullsam_tpu_torch.ops.kernels import decoder as D
+    from ullsam_tpu_torch.tools.main_path import (decoder_cases,
+                                                  decoder_outputs)
+    cfg = MaskDecoderConfig(transformer_dim=128, transformer_num_heads=4,
+                            transformer_mlp_dim=256)
+    cases = decoder_cases(torch.bfloat16, cuda, B=2, H=16, W=16, T=7, M=3,
+                          cfg=cfg)
+    before = {k: c.launches for k, c in D.FUSED_KERNELS.items()}
+    for name, (args, kw, _, _) in cases.items():
+        got = getattr(D, name)(*args, **kw)
+        ref = getattr(D, name + "_plain")(*args, **kw)
+        torch.cuda.synchronize()
+        g_f, g_i, logits = decoder_outputs(name, got)
+        for a, b in zip(g_f, decoder_outputs(name, ref)[0]):
+            assert a.shape == b.shape and bool(torch.isfinite(a).all())
+            assert _rel_err(a, b) <= TOL["bfloat16"], name
+        if g_i is not None:
+            for a, b in zip(g_i, D.upscale_stats_plain(logits, kw["thr"],
+                                                       kw["off"])):
+                assert torch.equal(a, b), name
+    assert {k: c.launches for k, c in D.FUSED_KERNELS.items()} == before
 
 
 def test_wrappers_raise_on_unsupported_cuda_shapes(cuda):

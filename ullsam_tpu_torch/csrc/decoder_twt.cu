@@ -1,17 +1,17 @@
-// B5: the SAM TwoWayTransformer for many prompts against one shared image
-// embedding, as a chain of kernels for Hopper (sm_90a); also the GEMM that
-// every product of B4-B7 runs on.
+// B5's token side, and the whole of B4-B7's chain outside bf16 at SAM's
+// widths, as kernels for Hopper (sm_90a); also the GEMM that every product
+// of that chain runs on.
 //
-// Replaces the TPU kernel ullsam_tpu/ops/pallas/decoder.py `_twt_kernel`
-// (`_twt_compute`, entry `fused_two_way_transformer`) and the transformer
-// half of `_decode_kernel` (B4). The chain itself is driven from
-// ullsam_tpu_torch/ops/kernels/decoder.py; this file holds its kernels:
+// Replaces, with decoder_image.cu and decoder_upscale.cu, the TPU kernels
+// ullsam_tpu/ops/pallas/decoder.py `_twt_kernel` (:637, B5) and
+// `_decode_kernel` (:835, B4). The chain is driven from
+// ullsam_tpu_torch/ops/kernels/decoder.py (`_twt` over an ops object); this
+// file holds its primitive kernels:
 //   * decoder_gemm: gemm.cuh (bf16 mma.sync / f32 FMA) with bias, a residual
-//     shared across row blocks, ReLU, bf16 or f32 output. Every product of
-//     the TPU body runs here: the token projections and MLP for all prompts
-//     at once ([B*T, C] rows), the per-prompt image-side projections and
-//     out-projections ([B*N, C] rows), the hypernet MLPs and both upscale
-//     products (decoder_upscale.cu's stages).
+//     shared across row blocks, ReLU, bf16 or f32 output: the token
+//     projections and MLP for all prompts at once ([B*T, C] rows) and the
+//     hypernet MLPs; in f32 (and bf16 at other widths) also the per-prompt
+//     image-side products ([B*N, C] rows) and both upscale products.
 //   * decoder_ln: row LayerNorm, one-pass f32 statistics.
 //   * decoder_self_attn: token self-attention, one block per (prompt, head).
 //   * decoder_t2i: token -> image attention over all N image rows, split
@@ -19,16 +19,24 @@
 //     writes each tile's partial (max, sum) per (token, head); a second
 //     normalises each probability with the whole row's max and sum, rounds
 //     it and accumulates p.v per tile; a third sums the tiles. Keys and
-//     values are shared (batch stride 0) or per prompt.
+//     values are shared (batch stride 0: block 1, against the image's k1 /
+//     v1, on every route) or per prompt (the f32 chain).
 //   * decoder_i2t: image -> token attention, one thread per (image row,
-//     head) over the <= 16 tokens, which sit in shared memory.
+//     head) over the <= 16 tokens, which sit in shared memory (f32 chain).
+// In bf16 at SAM's widths (C = 256, Cd = 128, 8 heads) the per-prompt image
+// side runs decoder_image.cu's two stages and token -> image attention
+// instead, and the upscale decoder_upscale.cu's fused kernel.
 //
-// What bounds it on this card: operations. At the AMG chunk shape (256
-// prompts, N = 4096 image rows, C = 256, Cd = 128) the per-prompt image-side
-// products are about 1.9 GFLOP a prompt; in bf16 they run on the tensor
-// cores. Unlike the TPU kernel, the refined per-prompt keys (4096 x 256 a
-// prompt) cannot stay on chip (227 KB of shared memory a block), so they
-// and the stage outputs pass through device memory between kernels.
+// What bounds it on this card. The token side at the AMG chunk (256
+// prompts, T = 7, B*T = 1792 rows): launches and latency; its products are
+// 1792-row GEMMs of 0.9-7 GFLOP, and block 1's t2i does 3.8 GFLOP on the
+// CUDA cores against the shared k1 / v1 (2 MB, from L2). The chain in f32:
+// operations; its products run on the CUDA cores (67 TFLOP/s, 20 flop a
+// byte meet 3.35 TB/s) and the per-prompt ones do 21-77 flop a byte (K <=
+// 256). The chain in bf16: bytes; the same products do 43-154 flop a byte
+// against the 295 the tensor cores need, and each [B*N, .] intermediate
+// passes through device memory between kernels (about 14.5 GB a chunk at
+// SAM's widths, which is why bf16 there takes the fused kernels).
 //
 // The TPU layout tricks are gone: tokens are not padded to 16 (the T real
 // tokens are all there is), heads are indexed directly (16 wide in the

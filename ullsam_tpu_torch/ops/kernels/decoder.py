@@ -16,28 +16,42 @@ embedding (the automatic-mask-generation sweep).
   selected mask tokens (contiguous from ``m_lo``), then B6. Replaces
   ``_decode_kernel`` (``fused_decode_masks``).
 
-Each is a chain of hand-written CUDA kernels (``csrc/decoder_twt.cu``,
-``csrc/decoder_upscale.cu``; their notes say what bounds them): every
-product runs in ``decoder_gemm``; attention, LayerNorm, GELU, the hypernet
-dot and the statistics in kernels of their own. The chain is written once
-(``_twt``, ``_upscale``, ``_decode``) over a set of primitive operations:
-``_CUDA`` launches the kernels, ``_PLAIN`` is the same operation in plain
-PyTorch with the same rounding points, so each wrapper's plain version
-(``*_plain``) is the chain on ``_PLAIN``. A wrapper given CPU tensors runs
-the plain version; given CUDA tensors it launches the kernels or raises.
-The shared image-side projections (the JAX package's ``_twt_prologue``) are
-plain matmuls, ``image_side``: a caller that decodes many chunks of prompts
-against one image (the sweep) computes them once and passes them to every
-chunk's ``two_way_transformer`` / ``decode_masks`` as ``image``; without it
-each call computes them itself.
+The decode is written once (``_twt``, ``ops.upscale``, ``_decode``) over an
+ops object. Its token side ([B*T, .] rows) runs primitive operations (a
+GEMM, LayerNorm, the attentions), its per-prompt image side ([B*N, .] rows)
+two image stages, each followed by the token -> image attention against
+what it wrote, and the upscale one operation (``_Stages`` composes the
+stages from the primitives). Three ops objects:
+
+* ``_PLAIN``: plain PyTorch with the same rounding points, so each
+  wrapper's plain version (``*_plain``) is the chain on ``_PLAIN``;
+* ``_CUDA``: the primitives as hand-written kernels (``csrc/decoder_twt.cu``,
+  ``csrc/decoder_upscale.cu``), the stages composed from them, every
+  intermediate through device memory: float32, and bf16 at widths other
+  than SAM's decoder;
+* ``_CUDA_FUSED`` (bf16 at SAM's widths, ``fused_twt`` / ``fused_upscale``):
+  the token side as ``_CUDA``; the image stages, their token -> image
+  attention and the upscale on the wgmma + TMA kernels of
+  ``csrc/decoder_image.cu`` and ``csrc/decoder_upscale.cu``, which keep
+  each unit of (prompt, 128 image rows)'s intermediates on chip
+  (``csrc/decoder_sm90.cuh``; their notes say what bounds them).
+
+A wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches the kernels or raises. The shared image-side projections (the JAX
+package's ``_twt_prologue``) are plain matmuls, ``image_side``: a caller
+that decodes many chunks of prompts against one image (the sweep) computes
+them once and passes them to every chunk's ``two_way_transformer`` /
+``decode_masks`` as ``image``; without it each call computes them itself.
 
 Rounding points (the working dtype is that of ``src``): every GEMM output
 once from f32 with its bias and residual added in f32; LayerNorm outputs;
 attention probabilities and outputs; the upscale's first product stays f32
 through its grouped LayerNorm and exact GELU, the second is rounded, its
 GELU (tanh in bf16, erf in f32, as ``layers.gelu``) rounded again before the
-hypernet dot. Counters: B4, B5, B6 and B7 each count their CUDA launches;
-B4 runs B5 and B6, and B6 runs B7, so each stage counts too.
+hypernet dot (the fused bf16 upscale takes erf and tanh by approximations
+far under the bf16 rounding that follows them). Counters: B4, B5, B6 and B7 each count their CUDA launches;
+B4 runs B5 and B6, and B6 runs B7, so each stage counts too;
+``FUSED_KERNELS`` counts each fused kernel's launches.
 """
 
 from __future__ import annotations
@@ -56,6 +70,57 @@ Weights = Dict[str, Tensor]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 UPSCALE_LN_EPS = 1e-6
+
+# The fused bf16 kernels' shape rules and layout (csrc/decoder_sm90.cuh,
+# csrc/decoder_image.cu; the tests hold these mirrors to the sources)
+UNIT_ROWS = 128          # kUnitRows: image rows (pixels) of a work unit
+UNIT_STAGES = 3          # kUnitStages: weight ring slots
+UNIT_C, UNIT_CD, UNIT_HEADS = 256, 128, 8  # the widths they take
+UNIT_MAX_TOK = 16        # kUnitMaxTok: tokens a prompt
+T2I_ROWS = 512           # kT2iRows: image rows of a decoder_t2i_part block
+SMEM_LIMIT = 232448      # bytes of shared memory one block may use (H100)
+
+
+def sm90_smem_bytes() -> int:
+    """``kUnitSmemBytes``: 1024 bytes to align, the X tile [128][256] and
+    the Q tile [128][128] bf16, the weight ring of [256][64] bf16 slots,
+    each warpgroup's three [16][136] bf16 prompt rows (padded from 128), a
+    full and an empty mbarrier a slot and the two warpgroups' xfull /
+    xempty."""
+    return (1024 + UNIT_ROWS * UNIT_C * 2 + UNIT_ROWS * UNIT_CD * 2
+            + UNIT_STAGES * UNIT_C * 64 * 2
+            + 2 * 3 * UNIT_MAX_TOK * (UNIT_CD + 8) * 2
+            + (2 * UNIT_STAGES + 4) * 8)
+
+
+def units(N: int) -> int:
+    """Work units a prompt of N image rows (``decoder_image_units``)."""
+    return -(-N // UNIT_ROWS)
+
+
+def partial_slots(N: int) -> int:
+    """Token -> image logit partials a (prompt, token, head): one for each
+    warpgroup's 64 rows of a unit."""
+    return 2 * units(N)
+
+
+def t2i_part_scratch(B: int, N: int, T: int, heads: int = UNIT_HEADS) -> int:
+    """f32 scratch of ``decoder_t2i_part``: a 16-wide sum per (prompt,
+    512-row tile, token, head)."""
+    return B * -(-N // T2I_ROWS) * T * heads * 16
+
+
+def fused_twt(dtype: torch.dtype, C: int, Cd: int, heads: int) -> bool:
+    """Whether B5 runs the fused bf16 image stages: bf16 at SAM's decoder
+    widths. Every other dtype and width runs the chain of primitive
+    kernels."""
+    return dtype == torch.bfloat16 and (C, Cd, heads) == (
+        UNIT_C, UNIT_CD, UNIT_HEADS)
+
+
+def fused_upscale(dtype: torch.dtype, C: int) -> bool:
+    """Whether B6 / B7 run the fused bf16 upscale (C = 256)."""
+    return dtype == torch.bfloat16 and C == UNIT_C
 
 
 # ---------------------------------------------------------------------------
@@ -157,7 +222,63 @@ def _attend(q: Tensor, k: Tensor, v: Tensor, qb: int, kb: int,
     return _heads_merge(p @ vh, q.dtype)
 
 
-class _PlainOps:
+class _Stages:
+    """B5's per-prompt image side and the upscale as the stages the fused
+    bf16 kernels run (``_CudaFusedOps``), composed here from the primitive
+    operations: the plain versions, and the CUDA chain of every other dtype
+    and width. A stage's ``part`` (the fused kernels' token -> image logit
+    partials) is None here. Stage 1's ``carry`` is a list of what stage 2
+    reads; stage 2 empties it, so that each tensor is freed once read."""
+
+    def image_stage1(self, w, img, kt1, vt1, q2, B, heads, eps):
+        """Block 1's image side against the prompts' tokens kt1, vt1
+        [B*T, Cd], and block 2's per-prompt keys and values: (kv [B*N, 2Cd]
+        (k | v), part, carry). q2 [B*T, Cd] are the queries kv is attended
+        by (block 2's token -> image attention)."""
+        Cd = kt1.shape[1]
+        o = self.i2t(img["qi1"], kt1, vt1, B, heads, True)
+        keys = self.ln(self.gemm(o, w["l0.i2t_out_w"], w["l0.i2t_out_b"],
+                                 res=img["src"]),
+                       w["l0.norm4_w"], w["l0.norm4_b"], eps)
+        prj = self.gemm(keys, w["img2_w"], res=img["res2"])  # k | v | q_img
+        return prj[:, :2 * Cd], None, [keys, prj[:, 2 * Cd:]]
+
+    def image_stage2(self, w, img, carry, kt2, vt2, qf, B, heads, eps):
+        """Block 2's image side against kt2, vt2 and the final attention's
+        keys and values: (keys [B*N, C], kv [B*N, 2Cd], part); qf the final
+        attention's queries."""
+        keys, q_img = carry
+        carry.clear()
+        o = self.i2t(q_img, kt2, vt2, B, heads, False)
+        del q_img
+        keys = self.ln(self.gemm(o, w["l1.i2t_out_w"], w["l1.i2t_out_b"],
+                                 res=keys),
+                       w["l1.norm4_w"], w["l1.norm4_b"], eps)
+        return keys, self.gemm(keys, w["imgf_w"], res=img["resf"]), None
+
+    def t2i_part(self, q, kv, part, B, heads):
+        """Token -> image attention of q [B*T, Cd] against a stage's
+        per-prompt kv [B*N, 2Cd]."""
+        Cd = q.shape[1]
+        return self.t2i(q, kv[:, :Cd], kv[:, Cd:], B, heads, False)
+
+    def upscale(self, w, keys, hyper, H, W, stats):
+        """keys [B*H*W, C], hyper [B, M, C/8] -> logits [B, M, 4H, 4W], and
+        with stats = (thr, off) B6's statistics of them."""
+        R = keys.shape[0]
+        u1 = self.gemm(keys, w["up1_w"], w["up1_b"], out_f32=True)  # [R, C]
+        u1 = self.ln_gelu(u1, w["up_ln_w"], w["up_ln_b"], UPSCALE_LN_EPS,
+                          keys.dtype)
+        # one row per (pixel, sub-pixel group (di, dj)): [4R, C/4] -> [4R,
+        # 4 C8]
+        u2 = self.gemm(u1.view(4 * R, -1), w["up2_w"], w["up2_b"])
+        logits = self.upscale_out(u2.view(R, -1), hyper, H, W)
+        if stats is None:
+            return logits
+        return (logits, *self.stats(logits, *stats))
+
+
+class _PlainOps(_Stages):
     """The primitive operations in plain PyTorch."""
 
     @staticmethod
@@ -243,6 +364,11 @@ _SIGNATURES = {
                                                 _I, _I, _I, _P]),
     "decoder_mask_stats": ("decoder_upscale", [_I, _P, _LL, _I, _I, _F, _F,
                                                _F, _P, _P, _P, _P]),
+    "decoder_image_stage": ("decoder_image", [_I] + [_P] * 16
+                            + [_I, _I, _I, _F, _F, _P]),
+    "decoder_t2i_part": ("decoder_image", [_P] * 5 + [_I, _I, _I, _F, _P]),
+    "decoder_upscale_fused": ("decoder_upscale", [_I] + [_P] * 12
+                              + [_I] * 4 + [_F] * 4 + [_P]),
 }
 
 
@@ -275,7 +401,7 @@ def _launch(name: str, ref: Tensor, *args) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
-class _CudaOps:
+class _CudaOps(_Stages):
     """The same operations as ``_PlainOps`` on the hand-written kernels."""
 
     @staticmethod
@@ -365,7 +491,99 @@ class _CudaOps:
         return counts, rowany, colany
 
 
-_PLAIN, _CUDA = _PlainOps(), _CudaOps()
+class _CudaFusedOps(_CudaOps):
+    """bf16 at SAM's decoder widths (``fused_twt`` / ``fused_upscale``): B5's
+    image side on ``csrc/decoder_image.cu``'s two stages and its token ->
+    image attention from their partials, the upscale on
+    ``csrc/decoder_upscale.cu``'s fused kernel; every other operation as
+    ``_CudaOps``. The stages' ``carry`` is [keys1 [B*N, C]]."""
+
+    @staticmethod
+    def _stage(stage, w, img, rows, kt, vt, qt, B, heads, eps):
+        """One launch of image stage ``stage`` (block ``stage - 1``'s image
+        side) on ``rows`` (qi1 or keys1): (its keys [B*N, C], k | v
+        [B*N, 2Cd], logit partials)."""
+        src = img["src"]
+        N, C = src.shape
+        T, Cd = kt.shape[0] // B, kt.shape[1]
+        keys, kv = (torch.empty(B * N, C, device=src.device, dtype=src.dtype)
+                    for _ in range(2))
+        part = torch.empty((B, partial_slots(N), T * heads, 2),
+                           device=src.device, dtype=torch.float32)
+        blk = f"l{stage - 1}."
+        _launch("decoder_image_stage", src, stage, _ptr(rows), _ptr(src),
+                _ptr(img["res2"]), _ptr(img["resf"]),
+                *(_ptr(w[blk + k]) for k in ("i2t_out_w", "i2t_out_b",
+                                             "norm4_w", "norm4_b")),
+                _ptr(w["img2_w" if stage == 1 else "imgf_w"]),
+                _ptr(w["img2_w"]), _ptr(kt), _ptr(vt), _ptr(qt), _ptr(keys),
+                _ptr(kv), _ptr(part), B, N, T, (Cd // heads) ** -0.5, eps)
+        FUSED_KERNELS[f"image_stage{stage}"].launches += 1
+        return keys, kv, part
+
+    @staticmethod
+    def image_stage1(w, img, kt1, vt1, q2, B, heads, eps):
+        keys1, kv, part = _CudaFusedOps._stage(1, w, img, img["qi1"], kt1,
+                                               vt1, q2, B, heads, eps)
+        return kv, part, [keys1]
+
+    @staticmethod
+    def image_stage2(w, img, carry, kt2, vt2, qf, B, heads, eps):
+        return _CudaFusedOps._stage(2, w, img, carry.pop(), kt2, vt2, qf, B,
+                                    heads, eps)
+
+    @staticmethod
+    def t2i_part(q, kv, part, B, heads):
+        BT, Cd = q.shape
+        T, N = BT // B, kv.shape[0] // B
+        scratch = torch.empty(t2i_part_scratch(B, N, T, heads),
+                              device=q.device, dtype=torch.float32)
+        o = torch.empty((BT, Cd), device=q.device, dtype=q.dtype)
+        _launch("decoder_t2i_part", q, _ptr(q), _ptr(kv), _ptr(part),
+                _ptr(scratch), _ptr(o), B, N, T, (Cd // heads) ** -0.5)
+        FUSED_KERNELS["t2i_part"].launches += 1
+        return o
+
+    @staticmethod
+    def upscale(w, keys, hyper, H, W, stats):
+        B, M, _ = hyper.shape
+        dev = keys.device
+        out = torch.empty((B, M, 4 * H, 4 * W), device=dev, dtype=keys.dtype)
+        st = None
+        thr, off = stats if stats is not None else (0.0, 0.0)
+        if stats is not None:
+            st = tuple(torch.zeros(shape, device=dev, dtype=torch.int32)
+                       for shape in ((B, M, 2), (B, M, 4 * H), (B, M, 4 * W)))
+        _launch("decoder_upscale_fused", keys, int(st is not None),
+                _ptr(keys), *(_ptr(w[k]) for k in (
+                    "up1_w", "up1_b", "up_ln_w", "up_ln_b", "up2_w",
+                    "up2_b")),
+                _ptr(hyper), _ptr(out), *((None,) * 3 if st is None else
+                                          (_ptr(t) for t in st)),
+                B, H, W, M, thr + off, thr - off, thr, UPSCALE_LN_EPS)
+        name = "upscale_unit" if st is None else "upscale_unit_stats"
+        FUSED_KERNELS[name].launches += 1
+        return out if st is None else (out, *st)
+
+
+_PLAIN, _CUDA, _CUDA_FUSED = _PlainOps(), _CudaOps(), _CudaFusedOps()
+
+
+class KernelCount:
+    """The launches of one of the fused bf16 kernels, added to where the
+    kernel launches."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
+
+
+# the fused bf16 kernels: decoder_image.cu's stages (one launch each a B5
+# call) and token -> image attention (two a B5 call), decoder_upscale.cu's
+# upscale without (B7) and with (B6) statistics
+FUSED_KERNELS = {n: KernelCount(n) for n in (
+    "image_stage1", "image_stage2", "t2i_part", "upscale_unit",
+    "upscale_unit_stats")}
 
 
 # ---------------------------------------------------------------------------
@@ -407,9 +625,13 @@ def image_side(w: Weights, src: Tensor, pe: Tensor) -> Weights:
 def _twt(ops, w: Weights, img: Weights, tokens: Tensor, heads: int,
          eps: float) -> Tuple[Tensor, Tensor]:
     """Depth-2 TwoWayTransformer of tokens [B, T, C] against the shared
-    image ``img`` (``image_side``) -> (q [B, T, C], keys [B*N, C])."""
+    image ``img`` (``image_side``) -> (q [B, T, C], keys [B*N, C]). The
+    token side ([B*T, .] rows) runs on the primitive operations; the
+    per-prompt image side ([B*N, .] rows) in ops' two image stages, each
+    followed by the token -> image attention against what it wrote. Block
+    2's self-attention reads only block 1's token side, so it runs before
+    stage 1."""
     B, T, C = tokens.shape
-    Cd = w["l0.t2i_q_w"].shape[0]
     tok = tokens.reshape(B * T, C)
 
     def nrm(x, name):
@@ -418,7 +640,8 @@ def _twt(ops, w: Weights, img: Weights, tokens: Tensor, heads: int,
     def lin(x, name, **kw):
         return ops.gemm(x, w[name + "_w"], w[name + "_b"], **kw)
 
-    # block 1: self-attention without positional encoding or residual
+    # block 1's token side: self-attention without positional encoding or
+    # residual, t2i against the shared k1 / v1, MLP
     qkv = ops.gemm(tok, w["l0.sa_w"], w["l0.sa_b"])
     o = ops.self_attn(qkv[:, :C], qkv[:, C:2 * C], qkv[:, 2 * C:], B, heads)
     q = nrm(lin(o, "l0.sa_out"), "l0.norm1")
@@ -426,44 +649,34 @@ def _twt(ops, w: Weights, img: Weights, tokens: Tensor, heads: int,
                 heads, True)
     q = nrm(lin(o, "l0.t2i_out", res=q), "l0.norm2")
     q = nrm(lin(lin(q, "l0.mlp1", relu=True), "l0.mlp2", res=q), "l0.norm3")
-    o = ops.i2t(img["qi1"], lin(_add(q, tok), "l0.i2t_k"),
-                lin(q, "l0.i2t_v"), B, heads, True)
-    keys = nrm(lin(o, "l0.i2t_out", res=img["src"]), "l0.norm4")  # [B*N, C]
-    prj = ops.gemm(keys, w["img2_w"], res=img["res2"])  # k | v | q_img
+    kt1, vt1 = lin(_add(q, tok), "l0.i2t_k"), lin(q, "l0.i2t_v")
 
-    # block 2
+    # block 2's self-attention
     qpe = _add(q, tok)
     qk = ops.gemm(qpe, w["l1.sa_w"][:2 * C], w["l1.sa_b"][:2 * C])
     v = ops.gemm(q, w["l1.sa_w"][2 * C:], w["l1.sa_b"][2 * C:])
     o = ops.self_attn(qk[:, :C], qk[:, C:], v, B, heads)
     q = nrm(lin(o, "l1.sa_out", res=q), "l1.norm1")
-    o = ops.t2i(lin(_add(q, tok), "l1.t2i_q"), prj[:, :Cd], prj[:, Cd:2 * Cd],
-                B, heads, False)
+    q2 = lin(_add(q, tok), "l1.t2i_q")
+
+    # image stage 1 (block 1's image side, block 2's keys and values), then
+    # the rest of block 2's token side
+    kv, part, carry = ops.image_stage1(w, img, kt1, vt1, q2, B, heads, eps)
+    o = ops.t2i_part(q2, kv, part, B, heads)
+    del kv, part
     q = nrm(lin(o, "l1.t2i_out", res=q), "l1.norm2")
     q = nrm(lin(lin(q, "l1.mlp1", relu=True), "l1.mlp2", res=q), "l1.norm3")
-    o = ops.i2t(prj[:, 2 * Cd:], lin(_add(q, tok), "l1.i2t_k"),
-                lin(q, "l1.i2t_v"), B, heads, False)
-    del prj
-    keys = nrm(lin(o, "l1.i2t_out", res=keys), "l1.norm4")
 
-    # final token -> image attention
-    prj = ops.gemm(keys, w["imgf_w"], res=img["resf"])  # [B*N, 2 Cd]: k | v
-    o = ops.t2i(lin(_add(q, tok), "fin_q"), prj[:, :Cd], prj[:, Cd:], B,
-                heads, False)
+    # image stage 2 (block 2's image side, the final attention's keys and
+    # values), then the final token -> image attention
+    qf = lin(_add(q, tok), "fin_q")
+    keys, kv, part = ops.image_stage2(
+        w, img, carry, lin(_add(q, tok), "l1.i2t_k"), lin(q, "l1.i2t_v"), qf,
+        B, heads, eps)
+    o = ops.t2i_part(qf, kv, part, B, heads)
+    del kv, part
     q = nrm(lin(o, "fin_out", res=q), "fin_norm")
     return q.view(B, T, C), keys
-
-
-def _upscale(ops, w: Weights, keys: Tensor, hyper: Tensor, H: int,
-             W: int) -> Tensor:
-    """keys [B*H*W, C], hyper [B, M, C/8] -> logits [B, M, 4H, 4W]."""
-    R = keys.shape[0]
-    u1 = ops.gemm(keys, w["up1_w"], w["up1_b"], out_f32=True)    # [R, C]
-    u1 = ops.ln_gelu(u1, w["up_ln_w"], w["up_ln_b"], UPSCALE_LN_EPS,
-                     keys.dtype)
-    # one row per (pixel, sub-pixel group (di, dj)): [4R, C/4] -> [4R, 4 C8]
-    u2 = ops.gemm(u1.view(4 * R, -1), w["up2_w"], w["up2_b"])
-    return ops.upscale_out(u2.view(R, -1), hyper, H, W)
 
 
 def _hyper(ops, w: Weights, q: Tensor, m_lo: int, M: int) -> Tensor:
@@ -520,12 +733,13 @@ def _check_dtypes(*ts: Tensor) -> None:
                          + ", ".join(f"{t.dtype} on {t.device}" for t in ts))
 
 
-def _cuda_ops(name: str, ref: Tensor):
-    """_CUDA for a CUDA tensor (the CPU's plain path is taken before);
+def _cuda_ops(name: str, ref: Tensor, fused: bool = False):
+    """_CUDA_FUSED (``fused``: the shapes the fused bf16 kernels take) or
+    _CUDA for a CUDA tensor (the CPU's plain path is taken before);
     anything else raises."""
     if ref.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {ref.device}")
-    return _CUDA
+    return _CUDA_FUSED if fused else _CUDA
 
 
 def two_way_transformer_plain(w: Weights, src: Tensor, pe: Tensor,
@@ -547,7 +761,9 @@ def two_way_transformer(w: Weights, src: Tensor, pe: Tensor, tokens: Tensor,
         return two_way_transformer_plain(w, src, pe, tokens, heads=heads,
                                          eps=eps, image=image)
     _check_twt(w, src, pe, tokens, heads)
-    ops = _cuda_ops("two_way_transformer", src)
+    C, Cd = src.shape[1], w["l0.t2i_q_w"].shape[0]
+    ops = _cuda_ops("two_way_transformer", src,
+                    fused_twt(src.dtype, C, Cd, heads))
     img = image_side(w, src, pe) if image is None else image
     out = _twt(ops, w, img, tokens.contiguous(), heads, eps)
     two_way_transformer.launches += 1
@@ -556,7 +772,7 @@ def two_way_transformer(w: Weights, src: Tensor, pe: Tensor, tokens: Tensor,
 
 def upscale_hypernet_plain(w: Weights, keys: Tensor, hyper: Tensor, *,
                            H: int, W: int) -> Tensor:
-    return _upscale(_PLAIN, w, keys, hyper, H, W)
+    return _PLAIN.upscale(w, keys, hyper, H, W, None)
 
 
 def upscale_hypernet(w: Weights, keys: Tensor, hyper: Tensor, *, H: int,
@@ -565,8 +781,9 @@ def upscale_hypernet(w: Weights, keys: Tensor, hyper: Tensor, *, H: int,
     if keys.device.type == "cpu":
         return upscale_hypernet_plain(w, keys, hyper, H=H, W=W)
     _check_up(w, keys, hyper, H, W)
-    out = _upscale(_cuda_ops("upscale_hypernet", keys), w, keys.contiguous(),
-                   hyper.contiguous(), H, W)
+    ops = _cuda_ops("upscale_hypernet", keys,
+                    fused_upscale(keys.dtype, keys.shape[1]))
+    out = ops.upscale(w, keys.contiguous(), hyper.contiguous(), H, W, None)
     upscale_hypernet.launches += 1
     return out
 
@@ -579,8 +796,7 @@ def upscale_stats_plain(logits: Tensor, thr: float, off: float):
 
 def upscale_hypernet_stats_plain(w: Weights, keys: Tensor, hyper: Tensor, *,
                                  H: int, W: int, thr: float, off: float):
-    logits = upscale_hypernet_plain(w, keys, hyper, H=H, W=W)
-    return (logits, *_PLAIN.stats(logits, thr, off))
+    return _PLAIN.upscale(w, keys, hyper, H, W, (thr, off))
 
 
 def upscale_hypernet_stats(w: Weights, keys: Tensor, hyper: Tensor, *,
@@ -592,9 +808,11 @@ def upscale_hypernet_stats(w: Weights, keys: Tensor, hyper: Tensor, *,
         return upscale_hypernet_stats_plain(w, keys, hyper, H=H, W=W,
                                             thr=thr, off=off)
     _check_up(w, keys, hyper, H, W)
-    ops = _cuda_ops("upscale_hypernet_stats", keys)
-    logits = upscale_hypernet(w, keys, hyper, H=H, W=W)
-    out = (logits, *ops.stats(logits, float(thr), float(off)))
+    ops = _cuda_ops("upscale_hypernet_stats", keys,
+                    fused_upscale(keys.dtype, keys.shape[1]))
+    out = ops.upscale(w, keys.contiguous(), hyper.contiguous(), H, W,
+                      (float(thr), float(off)))
+    upscale_hypernet.launches += 1  # B6 is B7 plus the statistics
     upscale_hypernet_stats.launches += 1
     return out
 

@@ -301,16 +301,18 @@ def decoder_flops(B: int, N: int, T: int, M: int, C: int = 256,
 
 
 def decoder_cases(dtype: torch.dtype, gen: torch.Generator, B: int = 256,
-                  H: int = 64, W: int = 64, T: int = 7, M: int = 3):
+                  H: int = 64, W: int = 64, T: int = 7, M: int = 3,
+                  cfg=None):
     """B4, B5, B6 and B7 at one decoder shape (default: the AMG chunk of
-    SAM ViT-B's full-width decoder, weights drawn from ``gen``): a dict
-    name -> (args, kwargs, flops, bytes)."""
+    SAM ViT-B's full-width decoder, weights drawn from ``gen``; ``cfg`` a
+    ``MaskDecoderConfig`` of other widths): a dict name -> (args, kwargs,
+    flops, bytes)."""
     from ullsam_tpu_torch.core.config import MaskDecoderConfig
     from ullsam_tpu_torch.models.sam.mask_decoder import MaskDecoder
     from ullsam_tpu_torch.ops import layers as L
     from ullsam_tpu_torch.ops.kernels import decoder as D
 
-    cfg = MaskDecoderConfig()
+    cfg = cfg or MaskDecoderConfig()
     md = MaskDecoder(cfg, device=gen.device)
     L.init_module_(md, gen)
     w = D.pack_weights(md, dtype)
@@ -352,6 +354,77 @@ def decoder_cases(dtype: torch.dtype, gen: torch.Generator, B: int = 256,
         "upscale_hypernet": (
             (w, keys, hyper), up_kw, fl["upscale"],
             nbytes(keys, hyper, *w_up) + logits * eb),
+    }
+
+
+def fused_decoder_cases(gen: torch.Generator, B: int = 256, H: int = 64,
+                        W: int = 64, T: int = 7, M: int = 3) -> dict:
+    """The fused bf16 kernels of B4-B7 alone (``decoder._CudaFusedOps``) at
+    one decoder shape (default: the AMG chunk) on inputs drawn from ``gen``:
+    a dict name -> (call, flops, bytes), ``call()`` one launch. B5's two
+    image stages, the token -> image attention from stage 1's partials, the
+    upscale with and without statistics. Bytes count each input read once
+    and each output written once (weights included); flops the products
+    and the attention's."""
+    from ullsam_tpu_torch.core.config import MaskDecoderConfig
+    from ullsam_tpu_torch.models.sam.mask_decoder import MaskDecoder
+    from ullsam_tpu_torch.ops import layers as L
+    from ullsam_tpu_torch.ops.kernels import decoder as D
+
+    cfg = MaskDecoderConfig()
+    md = MaskDecoder(cfg, device=gen.device)
+    L.init_module_(md, gen)
+    dt = torch.bfloat16
+    w = D.pack_weights(md, dt)
+    C, Cd, heads, eps = 256, 128, cfg.transformer_num_heads, cfg.ln_eps
+    N, rows, eb = H * W, B * H * W, 2
+
+    def r(*shape, s=0.5):
+        return (torch.randn(*shape, generator=gen, device=gen.device)
+                * s).to(dt)
+
+    def nbytes(*names):
+        return sum(w[k].numel() for k in names) * eb
+
+    img = D.image_side(w, r(N, C), r(N, C))
+    kt1, vt1, kt2, vt2, q2, qf = (r(B * T, Cd) for _ in range(6))
+    keys, hyper = r(rows, C, s=1.0), r(B, M, C // 8)
+    F = D._CUDA_FUSED
+    keys1, kv, part = F._stage(1, w, img, img["qi1"], kt1, vt1, q2, B, heads,
+                               eps)
+    tok = 3 * B * T * Cd * eb
+    parts = B * D.partial_slots(N) * T * heads * 8
+    out_prj = 2 * rows * Cd * C       # an i2t out-projection, K = Cd
+    attn = 4 * rows * Cd * T          # an i2t: logits and p.v
+    logits = 2 * rows * Cd * T        # a stage's logit partials
+    s1_in = (N * (Cd + C + 2 * Cd) * eb + tok + nbytes(
+        "l0.i2t_out_w", "l0.i2t_out_b", "l0.norm4_w", "l0.norm4_b")
+        + 2 * Cd * C * eb)
+    s2_in = (rows * C * eb + N * (Cd + 2 * Cd) * eb + tok + nbytes(
+        "l1.i2t_out_w", "l1.i2t_out_b", "l1.norm4_w", "l1.norm4_b",
+        "imgf_w") + Cd * C * eb)
+    up_fl = 2 * rows * (C * C + C * C // 2 + 16 * (C // 8) * M)
+    up_b = (rows * C * eb + nbytes("up1_w", "up1_b", "up_ln_w", "up_ln_b",
+                                   "up2_w", "up2_b")
+            + hyper.numel() * eb + B * M * 16 * N * eb)
+    st_b = B * M * (2 + 4 * H + 4 * W) * 4
+    return {
+        "image_stage1": (
+            lambda: F._stage(1, w, img, img["qi1"], kt1, vt1, q2, B, heads,
+                             eps),
+            attn + out_prj + 2 * rows * C * 2 * Cd + logits,
+            s1_in + 2 * rows * C * eb + parts),
+        "image_stage2": (
+            lambda: F._stage(2, w, img, keys1, kt2, vt2, qf, B, heads, eps),
+            2 * rows * C * Cd + attn + out_prj + 2 * rows * C * 2 * Cd
+            + logits, s2_in + 2 * rows * C * eb + parts),
+        "t2i_part": (lambda: F.t2i_part(q2, kv, part, B, heads), 2 * logits,
+                     rows * 2 * Cd * eb + parts + 2 * B * T * Cd * eb),
+        "upscale_unit_stats": (
+            lambda: F.upscale(w, keys, hyper, H, W, (0.0, 1.0)), up_fl,
+            up_b + st_b),
+        "upscale_unit": (lambda: F.upscale(w, keys, hyper, H, W, None),
+                         up_fl, up_b),
     }
 
 

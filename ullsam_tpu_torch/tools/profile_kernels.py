@@ -9,9 +9,8 @@ ViT-B encode (``vit_b_encode_bfloat16``, the interactive request's).
 
     python -m ullsam_tpu_torch.tools.profile_kernels [--out DIR] [--only P]
 
-``--only P`` profiles just the regions whose names start with P (their
-set-up still runs; ``--only vit_`` sets up only the ViT-H and ViT-B
-models).
+``--only P[,P2...]`` profiles just the regions whose names start with one
+of the prefixes, and sets up only what they need.
 
 Prints, per profiled region, the CUDA kernels by total device time (the
 hand-written kernels' sub-kernels appear by name), the device-busy total,
@@ -65,10 +64,16 @@ from ullsam_tpu_torch.tools.main_path import (AMG_CHUNK, FLASH_BWD,
 from ullsam_tpu_torch.train import step as S
 
 
+def _wants(args, *names: str) -> bool:
+    """Whether ``--only`` selects a region of one of these names."""
+    return any(n.startswith(p) for n in names
+               for p in args.only.split(","))
+
+
 def _region(name: str, fn, args, iters: int = 3, top: int = 12) -> None:
     """Profile ``fn`` as region ``name`` unless ``args.only`` excludes it;
     a chrome trace goes to ``args.out`` when given."""
-    if not name.startswith(args.only):
+    if not _wants(args, name):
         return
     fn()  # warm up: builds, cuBLAS handles, caches
     torch.cuda.synchronize()
@@ -167,14 +172,18 @@ def main() -> None:
         os.makedirs(args.out, exist_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    _vit_h(args)
-    _vit_b_encode(args)
-    if args.only.startswith("vit_"):
-        return
+    if _wants(args, "vit_h_"):
+        _vit_h(args)
+    if _wants(args, "vit_b_encode_"):
+        _vit_b_encode(args)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    kernel_regions = ("window_attn_", "vit_flash_attn_", "llm_flash_attn_",
+                      "decode_masks_")
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).replace("torch.", "")
+        if not _wants(args, *kernel_regions):
+            break
         b1, kw, _, _ = window_attn_case(dtype, gen)
         _region(f"window_attn_{dn}", lambda: VB.window_attn(*b1, **kw),
                 args)
@@ -200,17 +209,21 @@ def main() -> None:
         _region(f"decode_masks_{dn}", lambda: D.decode_masks(*b4, **kw),
                 args, top=20)
 
-    sam = Sam(sam_vit_b(), device="cuda")
-    L.init_module_(sam, gen)
-    amg = AutomaticMaskGenerator(
-        sam_vit_b(), sam.to(torch.bfloat16), points_per_side=32,
-        points_per_batch=256, pred_iou_thresh=0.0, stability_score_thresh=0.0,
-        box_nms_thresh=1.0, max_masks=256)
-    image = amg_inputs(np.random.default_rng(0), 1)[0]
-    _region("amg_image_bfloat16", lambda: amg.generate_dense(image),
-            args, iters=2, top=25)
-    del sam, amg
-    torch.cuda.empty_cache()
+    if _wants(args, "amg_image_"):
+        sam = Sam(sam_vit_b(), device="cuda")
+        L.init_module_(sam, gen)
+        amg = AutomaticMaskGenerator(
+            sam_vit_b(), sam.to(torch.bfloat16), points_per_side=32,
+            points_per_batch=256, pred_iou_thresh=0.0,
+            stability_score_thresh=0.0, box_nms_thresh=1.0, max_masks=256)
+        image = amg_inputs(np.random.default_rng(0), 1)[0]
+        _region("amg_image_bfloat16", lambda: amg.generate_dense(image),
+                args, iters=2, top=25)
+        del sam, amg
+        torch.cuda.empty_cache()
+    if not _wants(args, "request_", "train_step_", "packed_sft_step_",
+                  "caption_"):
+        return
 
     cfg = FusionConfig(sam=sam_vit_b(), llm=internlm2_1_8b())
     model = F.build_ullsam(cfg, dtype=torch.bfloat16, seed=0)
@@ -271,7 +284,7 @@ def main() -> None:
 
         _region(f"caption_decode_{tag}", decode_step, args, iters=8,
                 top=25)
-        if "caption_host".startswith(args.only):
+        if _wants(args, "caption_host_"):
             w1 = lm.model.layers[0].feed_forward.w1
             x = torch.randn(1, 1, cfg.llm.hidden_size, device="cuda",
                             dtype=embeds.dtype)
