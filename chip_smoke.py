@@ -88,8 +88,25 @@ sm_90a) and the CUDA toolkit. Phases, each printing what it found:
     one bf16 image with all four switches on (B13 32, B14 4, B15 28). In
     every bf16 request, image and encode the wgmma GEMM launches exactly
     twice per B1 or B13 launch (its qkv / proj, fc1 / fc2), and none in
-    f32.
-Each path (5-10) runs with every launch counter set to 0 just before it and
+    f32. Phase 3's checks at head dim 80 also hold B8 and B9 in both
+    dtypes at ViT-H training's shapes (25 windows x 16 heads of 80; 16
+    heads over 4096 tokens) and B14's backward (its heads through B9).
+11. the segmentation train step at SAM ViT-H (``--mode segment
+    --sam_variant vit_h``): the small uLLSAM of phase 7 with 2 heads of 80,
+    one f32 step CPU (plain) vs card (B1, B3, B8, B2, B9 at head dim 80,
+    f32 B8 and B9 included), loss within rtol 1e-4 and every gradient
+    within 1e-3 (``grad_gap``); then SAM ViT-H + frozen InternLM2-1.8B at
+    full width (random weights from the seed) on phase 7's batch: (a) bf16
+    without remat, 1 warm and 3 timed steps with exact launches (B1, B3, B8
+    28, B2, B9 4), the trainable tensors moving, the frozen LLM
+    bit-identical, the peak above weights and moments; (d) one bf16 step
+    under every switch (B15 and B8 28, B13 32, B14 and B9 4); (b) one f32
+    step with remat, the JAX CLI's defaults (B2 8, B9 4, the windows plain);
+    (c) one f32 step without remat (f32 B8 at head dim 80 in 28 blocks),
+    held to (b) in loss and grad norm (rtol 1e-4) and every gradient; (d)
+    held to (a)'s step 1 at 3x (a)'s distance from (c), and no less than
+    phase 7's bf16 limits (1e-4, 1e-2).
+Each path (5-11) runs with every launch counter set to 0 just before it and
 read just after. Then the kernels JSON line (every kernel and the wgmma
 GEMM; ``launches``: the sum over the paths; ``launches_by_path``: each
 path's own count), the
@@ -623,16 +640,17 @@ def run_request(model, cfg, inputs):
     return ms, dense, feats, mask, probs, iou
 
 
-def small_config():
-    """A small uLLSAM that every ViT kernel takes: hd = 64, a padded 16x16
-    grid in 14x14 windows, one global block; a 2-layer LLM."""
+def small_config(hd: int = 64):
+    """A small uLLSAM that every ViT kernel takes: 2 heads of ``hd`` (64, or
+    ViT-H's 80), a padded 16x16 grid in 14x14 windows, one global block; a
+    2-layer LLM."""
     from ullsam_tpu_torch.core.config import (FusionConfig, InternLM2Config,
                                               MaskDecoderConfig,
                                               PromptEncoderConfig, SamConfig,
                                               ViTConfig)
     return FusionConfig(
         sam=SamConfig(
-            vit=ViTConfig(img_size=256, patch_size=16, embed_dim=128,
+            vit=ViTConfig(img_size=256, patch_size=16, embed_dim=2 * hd,
                           depth=3, num_heads=2, out_chans=64, window_size=14,
                           global_attn_indexes=(1,)),
             prompt_encoder=PromptEncoderConfig(
@@ -1079,9 +1097,11 @@ def grad_gap(ref: dict, got: dict):
     return worst, worst_name
 
 
-def train_small_reference_check() -> None:
-    """One f32 train step of the small uLLSAM on the CPU (plain versions)
-    and on the card (B1, B3, B8, B2, B9) from the same weights and batch:
+def train_small_reference_check(hd: int = 64) -> None:
+    """One f32 train step of the small uLLSAM (2 heads of ``hd``: 64, or
+    ViT-H's 80) on the CPU (plain versions) and on the card (B1, B3, B8,
+    B2, B9, float32 B8 and B9 at that head dim) from the same weights and
+    batch:
     the loss within rtol 1e-4 and each trainable parameter's gradient
     within 1e-3 of the largest |gradient| of that tensor (f32 with TF32
     off: summation order only), except that tensors whose gradient is
@@ -1094,7 +1114,7 @@ def train_small_reference_check() -> None:
     from ullsam_tpu_torch.tools.main_path import train_batch
     from ullsam_tpu_torch.train import step as S
 
-    cfg = small_config()
+    cfg = small_config(hd)
     tcfg = S.TrainConfig(total_steps=100, remat=False)
     cpu = F.build_ullsam(cfg, device="cpu", seed=SEED)
     gpu = F.ULLSAM(cfg, device="cuda")
@@ -1119,30 +1139,48 @@ def train_small_reference_check() -> None:
     rel_loss = abs(float(m_g["loss"]) - float(m_c["loss"])) / abs(
         float(m_c["loss"]))
     worst, worst_name = grad_gap(g_c, g_g)
-    say(f"[train] small uLLSAM, one f32 step, CPU plain vs card kernels: "
+    say(f"[train] small uLLSAM (2 heads of {hd}), one f32 step, CPU plain "
+        f"vs card kernels: "
         f"loss {float(m_c['loss']):.6f} vs {float(m_g['loss']):.6f} (rel "
         f"{rel_loss:.2e}), grad_norm {float(m_c['grad_norm']):.6f} vs "
         f"{float(m_g['grad_norm']):.6f}; {len(g_c)} gradient tensors, worst "
         f"{worst:.2e} of max|grad| ({worst_name}); card launches {d_g}")
     if rel_loss > 1e-4 or worst > 1e-3 or set(g_c) != set(g_g):
-        fail("small train step: the card and the CPU disagree")
+        fail(f"small train step (hd {hd}): the card and the CPU disagree")
 
 
-def train_main_path() -> None:
-    """SAM ViT-B + InternLM2-1.8B at full width (random weights from the
-    seed), bfloat16 parameters and moments, remat off: 1 warm and 3 timed
-    steps on the flagship batch; then, from the same starting weights, a
-    float32 step with remat, two float32 steps and two bfloat16 steps with
-    remat, step 1 with remat held to step 1 without it (``hold``)."""
+def _step_launches(step, batch):
+    """(metrics as floats, host-clock ms ending in synchronize, launches)
+    of one train step; fails on a non-finite metric."""
     import numpy as np
     import torch
-    from ullsam_tpu_torch.core.config import (FusionConfig, internlm2_1_8b,
-                                              sam_vit_b)
+    before = launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    m = {k: float(v) for k, v in step(batch).items()}
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    d = {k: v - before[k] for k, v in launch_counts().items()
+         if v - before[k]}
+    if not all(np.isfinite(list(m.values()))):
+        fail(f"train step: non-finite metrics {m}")
+    return m, ms, d
+
+
+def train_bf16_steps(cfg, what: str, per_step: dict, pre: str):
+    """The flagship at ``cfg`` built from the seed (an f32 model, kept on
+    the host after), then in bfloat16 parameters and moments without remat:
+    1 warm and 3 timed steps on the flagship batch, each timed one with
+    exactly ``per_step`` launches; the trainable tensors move and the
+    frozen LLM stays bit-identical; the peak above weights and moments.
+    Returns (the f32 model, the device-resident batch, the metrics of steps
+    1 and 2). ``pre`` prefixes every line."""
+    import numpy as np
+    import torch
     from ullsam_tpu_torch.models.ullsam import fusion as F
     from ullsam_tpu_torch.tools.main_path import train_batch
     from ullsam_tpu_torch.train import step as S
 
-    cfg = FusionConfig(sam=sam_vit_b(), llm=internlm2_1_8b())
     t0 = time.perf_counter()
     model32 = F.build_ullsam(cfg, device="cuda", seed=SEED)
     model16 = F.ULLSAM(cfg, device="cuda", dtype=torch.bfloat16)
@@ -1159,7 +1197,7 @@ def train_main_path() -> None:
     moments = torch.cuda.memory_allocated() - weights
     n_train = sum(p.numel() for p in opt.params)
     n_all = sum(p.numel() for p in model16.parameters())
-    say(f"[train] flagship bf16: {n_all / 1e9:.3f} B params, "
+    say(f"[{pre}] flagship bf16: {n_all / 1e9:.3f} B params, "
         f"{n_train / 1e6:.1f} M trainable, weights {weights / 2**30:.3f} "
         f"GiB, moments {moments / 2**30:.3f} GiB, built in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1167,21 +1205,11 @@ def train_main_path() -> None:
     batch = S.batch_on(model16, batch)  # device-resident, as a loader's
 
     def run(tag):
-        before = launch_counts()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        m = step(batch)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t) * 1e3
-        d = {k: v - before[k] for k, v in launch_counts().items()
-             if v - before[k]}
-        vals = {k: float(v) for k, v in m.items()}
-        if not all(np.isfinite(list(vals.values()))):
-            fail(f"train {tag}: non-finite metrics {vals}")
-        say(f"[train] bf16 {tag}: {ms:.1f} ms (host clock, ends in "
-            f"synchronize), loss {vals['loss']:.6f}, grad_norm "
-            f"{vals['grad_norm']:.6f}, iou {vals['iou']:.4f}, launches {d}")
-        return ms, vals, d
+        m, ms, d = _step_launches(step, batch)
+        say(f"[{pre}] bf16 {tag}: {ms:.1f} ms (host clock, ends in "
+            f"synchronize), loss {m['loss']:.6f}, grad_norm "
+            f"{m['grad_norm']:.6f}, iou {m['iou']:.4f}, launches {d}")
+        return ms, m, d
 
     torch.cuda.reset_peak_memory_stats()
     _, first, _ = run("step 1 (warm, lr 0)")
@@ -1189,96 +1217,116 @@ def train_main_path() -> None:
     timed = [run(f"step {i}") for i in (2, 3, 4)]
     peak = torch.cuda.max_memory_allocated()
     for _, _, d in timed:
-        if d != TRAIN_PER_STEP:
-            fail(f"train launches per step {d}, expected {TRAIN_PER_STEP}")
+        if d != per_step:
+            fail(f"{pre} launches per step {d}, expected {per_step}")
     moved = sum(not torch.equal(a, p) for a, p in zip(snap, opt.params))
     same = all(torch.equal(a, p.detach().cpu())
                for a, p in zip(frozen, llm.parameters()))
-    say(f"[train] bf16: {moved} of {len(snap)} trainable tensors moved "
+    say(f"[{pre}] bf16: {moved} of {len(snap)} trainable tensors moved "
         f"over steps 2-4; frozen LLM weights bit-identical: {same}")
     if not moved or not same:
-        fail("train: trainable weights did not move or frozen ones did")
+        fail(f"{pre}: trainable weights did not move or frozen ones did")
     lat = [t[0] for t in timed]
-    say(f"[train] bf16 flagship step (SAM ViT-B + InternLM2-1.8B, b=1, "
-        f"1088 tokens, 4 instances x 2 points, 1024x1024 masks, remat off):"
-        f" {', '.join(f'{x:.1f}' for x in lat)} ms, mean "
-        f"{sum(lat) / 3:.1f} ms; peak {peak / 2**30:.3f} GiB, so "
+    say(f"[{pre}] bf16 flagship step ({what}, b=1, 1088 tokens, 4 "
+        f"instances x 2 points, 1024x1024 masks, remat off): "
+        f"{', '.join(f'{x:.1f}' for x in lat)} ms, mean {sum(lat) / 3:.1f} "
+        f"ms; peak {peak / 2**30:.3f} GiB, so "
         f"{(peak - weights - moments) / 2**30:.3f} GiB above weights and "
         f"moments")
-    del model16, opt, step, snap, frozen, llm
-    torch.cuda.empty_cache()
+    return model32, batch, first, timed[0][1]
 
-    def steps(model, tc, tag, n):
-        """Steps 1 (lr 0, so the weights stay as they were) to ``n`` of a
-        fresh optimizer, each printed beside the bf16 step of its number;
-        returns the metrics and the gradients of step 1."""
-        opt = S.make_trainable_optimizer(model, tc)
-        st = S.make_train_step(cfg, tc, model, opt)
-        out = None
-        for i in range(1, n + 1):
-            before = launch_counts()
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            m = {k: float(v) for k, v in st(batch).items()}
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t) * 1e3
-            d = {k: v - before[k] for k, v in launch_counts().items()
-                 if v - before[k]}
-            if not all(np.isfinite(list(m.values()))):
-                fail(f"train {tag}: non-finite metrics")
-            ref = first if i == 1 else second
-            say(f"[train] {tag} step {i}: {ms:.1f} ms, loss {m['loss']:.6f}"
-                f" ({m['loss'] - ref['loss']:+.2e} vs bf16 step {i}), "
-                f"grad_norm {m['grad_norm']:.6f} "
-                f"({m['grad_norm'] - ref['grad_norm']:+.2e}), peak "
-                f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} "
-                f"GiB above the step's start, launches {d}")
-            out = out or (m, {name: p.grad.detach().clone()
-                              for name, p in zip(opt.names, opt.params)
-                              if p.grad is not None})
-        return out
 
-    def hold(got, ref, rtols, what, grads=False):
-        """Fail unless ``got``'s loss and grad norm are within ``rtols``
-        (loss, grad norm) of ``ref``'s, relative, and, with ``grads``, each
-        gradient tensor within 1e-3 as in ``grad_gap``."""
-        errs = [abs(got[0][k] - ref[0][k]) / abs(ref[0][k])
-                for k in ("loss", "grad_norm")]
-        msg = (f"[train] {what}, step 1: loss rel {errs[0]:.2e} (rtol "
-               f"{rtols[0]:g}), grad_norm rel {errs[1]:.2e} (rtol "
-               f"{rtols[1]:g})")
-        bad = any(e > t for e, t in zip(errs, rtols))
-        if grads:
-            worst, name = grad_gap(ref[1], got[1])
-            msg += (f"; {len(ref[1])} gradient tensors, worst {worst:.2e} "
-                    f"of max|grad| ({name}; tol 1e-3)")
-            bad = bad or worst > 1e-3 or set(got[1]) != set(ref[1])
-        say(msg)
-        if bad:
-            fail(f"train: {what} disagree at step 1")
+def train_steps(cfg, batch, model, tc, tag: str, n: int, refs, pre: str,
+                want=None):
+    """Steps 1 (lr 0, so the weights stay as they were) to ``n`` of a fresh
+    optimizer on ``model``, each printed beside refs[i - 1] (the metrics of
+    the bf16 step of its number) with its peak above the step's start; with
+    ``want``, each step launches exactly that. Returns (the metrics of step
+    1, its gradients)."""
+    import torch
+    from ullsam_tpu_torch.train import step as S
+    opt = S.make_trainable_optimizer(model, tc)
+    st = S.make_train_step(cfg, tc, model, opt)
+    out = None
+    for i in range(1, n + 1):
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        m, ms, d = _step_launches(st, batch)
+        ref = refs[i - 1]
+        say(f"[{pre}] {tag} step {i}: {ms:.1f} ms, loss {m['loss']:.6f}"
+            f" ({m['loss'] - ref['loss']:+.2e} vs bf16 step {i}), "
+            f"grad_norm {m['grad_norm']:.6f} "
+            f"({m['grad_norm'] - ref['grad_norm']:+.2e}), peak "
+            f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} "
+            f"GiB above the step's start, launches {d}")
+        if want is not None and d != want:
+            fail(f"{pre} {tag} step {i}: launches {d}, expected {want}")
+        out = out or (m, {name: p.grad.detach().clone()
+                          for name, p in zip(opt.names, opt.params)
+                          if p.grad is not None})
+    return out
 
-    second = timed[0][1]
+
+def hold(got, ref, rtols, what: str, pre: str, grads: bool = False) -> None:
+    """Fail unless ``got``'s loss and grad norm are within ``rtols`` (loss,
+    grad norm) of ``ref``'s, relative, and, with ``grads``, each gradient
+    tensor within 1e-3 as in ``grad_gap``."""
+    errs = [abs(got[0][k] - ref[0][k]) / abs(ref[0][k])
+            for k in ("loss", "grad_norm")]
+    msg = (f"[{pre}] {what}, step 1: loss rel {errs[0]:.2e} (rtol "
+           f"{rtols[0]:.3g}), grad_norm rel {errs[1]:.2e} (rtol "
+           f"{rtols[1]:.3g})")
+    bad = any(e > t for e, t in zip(errs, rtols))
+    if grads:
+        worst, name = grad_gap(ref[1], got[1])
+        msg += (f"; {len(ref[1])} gradient tensors, worst {worst:.2e} "
+                f"of max|grad| ({name}; tol 1e-3)")
+        bad = bad or worst > 1e-3 or set(got[1]) != set(ref[1])
+    say(msg)
+    if bad:
+        fail(f"{pre}: {what} disagree at step 1")
+
+
+def train_main_path() -> None:
+    """SAM ViT-B + InternLM2-1.8B at full width (random weights from the
+    seed), bfloat16 parameters and moments, remat off: 1 warm and 3 timed
+    steps on the flagship batch; then, from the same starting weights, a
+    float32 step with remat, two float32 steps and two bfloat16 steps with
+    remat, step 1 with remat held to step 1 without it (``hold``)."""
+    import torch
+    from ullsam_tpu_torch.core.config import (FusionConfig, internlm2_1_8b,
+                                              sam_vit_b)
+    from ullsam_tpu_torch.models.ullsam import fusion as F
+    from ullsam_tpu_torch.train import step as S
+
+    cfg = FusionConfig(sam=sam_vit_b(), llm=internlm2_1_8b())
+    model32, batch, first, second = train_bf16_steps(
+        cfg, "SAM ViT-B + InternLM2-1.8B", TRAIN_PER_STEP, "train")
+    tcfg = S.TrainConfig(total_steps=100, remat=False)
     remat = S.TrainConfig(total_steps=100, remat=True)
+    refs = [first, second]
     # all from the starting weights (the f32 model's remat step has lr 0;
     # its step 2 without remat moves its own weights, last)
     model16 = F.ULLSAM(cfg, device="cuda", dtype=torch.bfloat16)
     model16.load_state_dict(model32.state_dict())
     model32.to("cuda")
-    f32_remat = steps(model32, remat, "f32 (TF32 off) with remat", 1)
-    f32 = steps(model32, tcfg, "f32 (TF32 off)", 2)
+    f32_remat = train_steps(cfg, batch, model32, remat,
+                            "f32 (TF32 off) with remat", 1, refs, "train")
+    f32 = train_steps(cfg, batch, model32, tcfg, "f32 (TF32 off)", 2, refs,
+                      "train")
     # remat runs the windowed blocks through B1's plain version and the
     # global blocks' B2 twice: in f32 only the summation order differs
-    hold(f32_remat, f32, (1e-4, 1e-4), "f32 remat vs no remat", grads=True)
+    hold(f32_remat, f32, (1e-4, 1e-4), "f32 remat vs no remat", "train",
+         grads=True)
     del model32, f32_remat, f32
     torch.cuda.empty_cache()
     # in bf16 the plain version rounds as B1 does but flips roundings where
     # the two sum in another order; the bf16 step's own distance from the
     # f32 step (printed above: about 3e-6 in loss, 4e-3 in grad norm) is
     # the scale of that noise
-    hold(steps(model16, remat, "bf16 with remat", 2), (first, None),
-         (1e-4, 1e-2), "bf16 remat vs no remat")
+    hold(train_steps(cfg, batch, model16, remat, "bf16 with remat", 2, refs,
+                     "train"), (first, None), (1e-4, 1e-2),
+         "bf16 remat vs no remat", "train")
 
 
 # ---------------------------------------------------------------------------
@@ -1823,12 +1871,15 @@ def _errs(name: str, dname: str, got, ref, tol: float) -> float:
 
 
 def check_vit_h_kernels(card: str, rows: dict) -> dict:
-    """Phase 10 (a): B1, B2, B3 at head dim 80 (entries ``vit_h`` and
-    ``vit_h_float32`` of their rows), B8 at head dim 80 in bf16 (entry
-    ``vit_h``: ViT-H training's shape) and B13, B14, B15 (their own rows at
-    ViT-H, entries ``vit_b`` / ``vit_b_float32`` at ViT-B) against their
-    plain versions at the path's shapes, bf16 and f32, each timed with its
-    plain version, the library yardstick and the bound."""
+    """Phase 10 (a): B1, B2, B3, B8 and B9 at head dim 80 (entries ``vit_h``
+    and ``vit_h_float32`` of their rows; B8 and B9 at ViT-H training's
+    shapes), B13, B14, B15 (their own rows at ViT-H, entries ``vit_b`` /
+    ``vit_b_float32`` at ViT-B) and B14's backward at head dim 80 (entries
+    ``vit_h_backward`` of its row: the heads split, B9, dqkv packed) against
+    their plain versions at the path's shapes, bf16 and f32, each timed with
+    its plain version, the library yardstick and the bound."""
+    import functools
+
     import torch
     import torch.nn.functional as F
     from ullsam_tpu_torch.ops.kernels import flash_attention as FA
@@ -1837,8 +1888,9 @@ def check_vit_h_kernels(card: str, rows: dict) -> dict:
     from ullsam_tpu_torch.ops.kernels.window_attention import (_rel_terms,
                                                                _split_heads)
     from ullsam_tpu_torch.tools.main_path import (
-        VIT_B, VIT_H, ln_mlp_case, vit_flash_case, vit_flash_packed_case,
-        window_attn_case, window_core_case)
+        FLASH_BWD_VIT_H, VIT_B, VIT_H, ln_mlp_case, vit_flash_bwd_case,
+        vit_flash_case, vit_flash_packed_case, window_attn_case,
+        window_core_case)
 
     tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     gen = torch.Generator(device="cuda")
@@ -1882,6 +1934,19 @@ def check_vit_h_kernels(card: str, rows: dict) -> dict:
         bias = (rh[..., :, None] + rw[..., None, :]).reshape(B, nh, N, N)
         return _sdpa_ms(q, k, v, bias, False)
 
+    # B9 and B14's backward compute one function: one SDPA backward reading
+    # a dtype
+    bwd_lib = {}
+
+    def flash_bwd_lib(args):
+        if "ms" not in bwd_lib:
+            q, k, v, rh, rw = args[:5]
+            BH, N, _ = q.shape
+            bias = (rh.float()[..., :, None] + rw.float()[..., None, :]
+                    ).reshape(1, BH, N, N).to(q.dtype)
+            bwd_lib["ms"] = _sdpa_ms(q[None], k[None], v[None], bias, True)
+        return bwd_lib["ms"]
+
     def ln_mlp_lib(args, kw):
         """The default route's chain of library calls (no single call
         computes B13): layer_norm, linear, tanh-GELU, linear, residual."""
@@ -1912,12 +1977,35 @@ def check_vit_h_kernels(card: str, rows: dict) -> dict:
                               WA.window_attn_core_plain, fwd, {},
                               cflops["fwd"], cbytes["fwd"],
                               lambda: window_fwd_lib("vit_h", fwd)))
-                if dtype == torch.bfloat16:  # B8 takes hd 80 in bf16 only
-                    cases.append(("window_attn_core_bwd", tag,
-                                  WA.window_attn_core_bwd,
-                                  WA.window_attn_core_bwd_plain, bwd, {},
-                                  cflops["bwd"], cbytes["bwd"],
-                                  lambda: window_lib(*fwd, backward=True)))
+                cases.append(("window_attn_core_bwd", tag,
+                              WA.window_attn_core_bwd,
+                              WA.window_attn_core_bwd_plain, bwd, {},
+                              cflops["bwd"], cbytes["bwd"],
+                              lambda: window_lib(*fwd, backward=True)))
+                b9, fl, nb = vit_flash_bwd_case(dtype, gen,
+                                                **FLASH_BWD_VIT_H)
+                bwd_lib.clear()
+                cases.append(("vit_flash_attn_bwd", tag, FA.vit_flash_attn_bwd,
+                              FA.vit_flash_attn_bwd_plain, b9, {}, fl, nb,
+                              lambda a=b9: flash_bwd_lib(a)))
+                # B14's backward on B14's own forward: the same B9 call
+                # between a head split and a repack
+                qkv, prh, prw = vit_flash_packed_case(dtype, gen,
+                                                      **width)[0]
+                o, lse = FA.vit_flash_attn_packed(qkv, prh, prw, width["nh"])
+                g = torch.randn(o.shape, generator=gen,
+                                device="cuda").to(dtype)
+                eb = qkv.element_size()
+                pb = ((2 * qkv.numel() + 2 * o.numel() + prh.numel()
+                       + prw.numel()) * eb + lse.numel() * 4
+                      + (prh.numel() + prw.numel()) * 4)
+                cases.append(("vit_flash_attn_packed", "vit_h_backward",
+                              FA.vit_flash_packed_bwd,
+                              functools.partial(
+                                  FA.vit_flash_packed_bwd,
+                                  bwd=FA.vit_flash_attn_bwd_plain),
+                              (qkv, prh, prw, o, lse, g), {"nh": width["nh"]},
+                              fl, pb, lambda a=b9: flash_bwd_lib(a)))
                 twophase = fwd
                 tflops, tbytes = cflops["fwd"], cbytes["fwd"]
             else:
@@ -1944,7 +2032,8 @@ def check_vit_h_kernels(card: str, rows: dict) -> dict:
             got, ref = kernel(*args, **kw), plain(*args, **kw)
             torch.cuda.synchronize()
             err = _errs(f"{name} ({tag})", dname, got, ref, tol[dtype])
-            if name in ("vit_flash_attn", "vit_flash_attn_packed"):
+            if (name in ("vit_flash_attn", "vit_flash_attn_packed")
+                    and tag != "vit_h_backward"):
                 lse_rel = float((got[1] - ref[1]).abs().max()
                                 / ref[1].abs().max())
                 say(f"[vit_h] {name} ({tag}) {dname}: lse max_rel_err="
@@ -1978,7 +2067,7 @@ def check_vit_h_kernels(card: str, rows: dict) -> dict:
             else:
                 rows[name][tag if dtype == torch.bfloat16
                           else f"{tag}_float32"] = entry
-        del cases, fwd, bwd, twophase
+        del cases, fwd, bwd, twophase, b9, qkv, prh, prw, o, lse, g
         torch.cuda.empty_cache()
     return rows
 
@@ -2281,6 +2370,85 @@ def vit_h_main_path() -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the segmentation train step at SAM ViT-H
+# ---------------------------------------------------------------------------
+
+# a step of (a) bf16 and (c) f32 without remat: B1 in the 28 windowed
+# blocks (B3 + B8 in their backward), B2 and B9 in the 4 global ones
+TRAIN_VIT_H_PER_STEP = {"window_attn": 28, "window_attn_core": 28,
+                        "window_attn_core_bwd": 28, "vit_flash_attn": 4,
+                        "vit_flash_attn_bwd": 4}
+# (b) f32 with remat: the windows plain, as the JAX package runs them in XLA
+# under remat (image_encoder.py:376-403); B2 forward and recompute
+TRAIN_VIT_H_REMAT = {"vit_flash_attn": 8, "vit_flash_attn_bwd": 4}
+# (d) every switch on: LN1 + qkv + B15 + proj in the windows (B8 in their
+# backward), B13 in every MLP half (its backward plain), B14 in the global
+# blocks (B9 in its backward)
+TRAIN_VIT_H_EVERY = {"window_attn_core_twophase": 28,
+                     "window_attn_core_bwd": 28, "ln_mlp": 32,
+                     "vit_flash_attn_packed": 4, "vit_flash_attn_bwd": 4}
+
+
+def train_vit_h_main_path() -> None:
+    """The JAX CLI's ``--mode segment --sam_variant vit_h`` at full width:
+    SAM ViT-H (16 heads of 80) + InternLM2-1.8B frozen, random weights from
+    the seed, the flagship batch. (a) bf16 without remat, 1 warm and 3
+    timed steps; then from the same starting weights (b) an f32 step with
+    remat (the JAX CLI's defaults), (c) an f32 step without remat (f32 B8
+    at head dim 80 in 28 blocks), held to (b) in loss, grad norm and every
+    gradient; (d) one bf16 step under every switch (B13, B14 with its
+    backward through B9, B15 + B8), held to (a)'s step 1."""
+    import torch
+    from ullsam_tpu_torch.core.config import (FusionConfig, internlm2_1_8b,
+                                              sam_vit_h)
+    from ullsam_tpu_torch.models.ullsam import fusion as F
+    from ullsam_tpu_torch.tools.main_path import VIT_H_ROUTES, switches
+    from ullsam_tpu_torch.train import step as S
+
+    pre = "train_vit_h"
+    cfg = FusionConfig(sam=sam_vit_h(), llm=internlm2_1_8b())
+    model32, batch, first, second = train_bf16_steps(
+        cfg, "SAM ViT-H + InternLM2-1.8B", TRAIN_VIT_H_PER_STEP, pre)
+    torch.cuda.empty_cache()
+    refs = [first, second]
+    every = dict(VIT_H_ROUTES["unfused_twophase"], ULLSAM_FUSED_VIT_MLP="1",
+                 ULLSAM_PACKED_GLOBAL="1")
+    model16 = F.ULLSAM(cfg, device="cuda", dtype=torch.bfloat16)
+    model16.load_state_dict(model32.state_dict())
+    with switches(every):
+        all_on = train_steps(cfg, batch, model16,
+                             S.TrainConfig(total_steps=100, remat=False),
+                             "bf16, every switch on", 1, refs, pre,
+                             want=TRAIN_VIT_H_EVERY)
+    del model16
+    torch.cuda.empty_cache()
+    model32.to("cuda")
+    f32_remat = train_steps(cfg, batch, model32,
+                            S.TrainConfig(total_steps=100, remat=True),
+                            "f32 (TF32 off) with remat", 1, refs, pre,
+                            want=TRAIN_VIT_H_REMAT)
+    f32 = train_steps(cfg, batch, model32,
+                      S.TrainConfig(total_steps=100, remat=False),
+                      "f32 (TF32 off)", 1, refs, pre,
+                      want=TRAIN_VIT_H_PER_STEP)
+    # remat runs the windows through B1's plain version and B2 twice: in
+    # f32 only the summation order differs
+    hold(f32, f32_remat, (1e-4, 1e-4), "f32 without remat vs with remat",
+         pre, grads=True)
+    # every switch rounds bf16 values at other points than the default
+    # route (qkv and proj after their bias, B13's MLP): bf16 noise, held to
+    # 3x the default route's own distance from f32, and to no less than
+    # phase 7's bf16 remat limits
+    dist = [abs(first[k] - f32[0][k]) / abs(f32[0][k])
+            for k in ("loss", "grad_norm")]
+    hold(all_on, (first, None), (max(3 * dist[0], 1e-4),
+                                 max(3 * dist[1], 1e-2)),
+         "bf16 every switch vs default route", pre)
+    del model32, f32_remat, f32, batch
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     try:
         import torch
@@ -2326,6 +2494,7 @@ def main() -> None:
     small_reference_check()
     amg_small_reference_check()
     train_small_reference_check()
+    train_small_reference_check(hd=80)
     packed_small_reference_check()
     caption_small_reference_check()
     vit_h_small_reference_check()
@@ -2334,7 +2503,8 @@ def main() -> None:
                         ("train", train_main_path),
                         ("packed", packed_main_path),
                         ("caption", caption_main_path),
-                        ("vit_h", vit_h_main_path)):
+                        ("vit_h", vit_h_main_path),
+                        ("train_vit_h", train_vit_h_main_path)):
         reset_counts()
         drive()
         by_path[path] = launch_counts()

@@ -325,7 +325,7 @@ def _window_core_inputs(gen, dtype, Bw, ws, nh, hd=64):
     (dt, *shape) for shape in [(25, 14, 12, 64),   # ViT-B main path
                                (4, 8, 2, 64), (3, 5, 1, 64)]
     for dt in ("float32", "bfloat16")] + [
-    ("bfloat16", 25, 14, 16, 80)])                  # ViT-H (B8: bf16 only)
+    ("bfloat16", 25, 14, 16, 80), ("float32", 25, 14, 16, 80)])   # ViT-H
 def test_window_core_kernels_match_plain(cuda, dt, Bw, ws, nh, hd):
     """B3 and B8 against their plain versions (every output)."""
     from ullsam_tpu_torch.ops.kernels import window_attention as WA
@@ -346,7 +346,8 @@ def test_window_core_kernels_match_plain(cuda, dt, Bw, ws, nh, hd):
 
 @pytest.mark.parametrize("dt,nh,hd", [("bfloat16", 12, 64),
                                       ("bfloat16", 16, 80),
-                                      ("float32", 12, 64)])
+                                      ("float32", 12, 64),
+                                      ("float32", 16, 80)])
 def test_window_core_bwd_is_deterministic(cuda, dt, nh, hd):
     """B8 sums in a fixed order with no atomics: two calls on the same
     inputs give bitwise-equal dqkv, drh and drw (25 windows of 14x14)."""
@@ -359,45 +360,73 @@ def test_window_core_bwd_is_deterministic(cuda, dt, nh, hd):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-@pytest.mark.parametrize("BH,KH", [(12, 64), (2, 16)])
-def test_vit_flash_bwd_kernel_matches_plain(cuda, dt, BH, KH):
-    """B9 against its plain version on dq, dk, dv, drel_h and drel_w, with
-    lse from B2 and dd = sum(do * o)."""
+def _vit_flash_bwd_inputs(gen, dtype, BH, KH, KW, D):
+    """B9's inputs: q, k, v, do [BH, N, D], rel_h, rel_w, lse from B2 and
+    dd = sum(do * o)."""
     from ullsam_tpu_torch.ops.kernels import flash_attention as FA
-    dtype = getattr(torch, dt)
-    N, D = KH * 64, 64
-    q, k, v, do = (torch.randn(BH, N, D, generator=cuda, device="cuda")
+    N = KH * KW
+    q, k, v, do = (torch.randn(BH, N, D, generator=gen, device="cuda")
                    .to(dtype) for _ in range(4))
-    rh, rw = ((torch.randn(BH, N, K, generator=cuda, device="cuda") * 0.5)
-              .to(dtype) for K in (KH, 64))
+    rh, rw = ((torch.randn(BH, N, K, generator=gen, device="cuda") * 0.5)
+              .to(dtype) for K in (KH, KW))
     o, lse = FA.vit_flash_attn(q, k, v, rh, rw)
     dd = (do.float() * o.float()).sum(-1)
+    return q, k, v, rh, rw, do, lse, dd
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("BH,KH,KW,D", [
+    (12, 64, 64, 64),    # the ViT-B global blocks
+    (16, 64, 64, 80),    # ViT-H's
+    (2, 16, 64, 64), (2, 32, 32, 80), (3, 8, 16, 64),
+    (2, 8, 8, 80)])      # N = 64: one warpgroup of a bf16 block
+def test_vit_flash_bwd_kernel_matches_plain(cuda, dt, BH, KH, KW, D):
+    """B9 against its plain version on dq, dk, dv, drel_h and drel_w, with
+    lse from B2 and dd = sum(do * o), at head dims 64 and 80 and every
+    key-grid width whose whole rows a 64-key tile covers."""
+    from ullsam_tpu_torch.ops.kernels import flash_attention as FA
+    args = _vit_flash_bwd_inputs(cuda, getattr(torch, dt), BH, KH, KW, D)
     before = FA.vit_flash_attn_bwd.launches
-    got = FA.vit_flash_attn_bwd(q, k, v, rh, rw, do, lse, dd)
+    got = FA.vit_flash_attn_bwd(*args)
     torch.cuda.synchronize()
     assert FA.vit_flash_attn_bwd.launches == before + 1
-    ref = FA.vit_flash_attn_bwd_plain(q, k, v, rh, rw, do, lse, dd)
+    ref = FA.vit_flash_attn_bwd_plain(*args)
     for name, a, b in zip(("dq", "dk", "dv", "drel_h", "drel_w"), got, ref):
         assert a.dtype == b.dtype and bool(torch.isfinite(a).all()), name
         assert _rel_err(a, b) <= TOL[dt], (name, _rel_err(a, b))
 
 
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("BH,D", [(12, 64), (16, 80)])
+def test_vit_flash_bwd_is_deterministic(cuda, dt, BH, D):
+    """B9's two kernels sum in a fixed order with no atomics: two calls on
+    the same inputs give bitwise-equal gradients (the global blocks' N =
+    4096)."""
+    from ullsam_tpu_torch.ops.kernels import flash_attention as FA
+    args = _vit_flash_bwd_inputs(cuda, getattr(torch, dt), BH, 64, 64, D)
+    first = FA.vit_flash_attn_bwd(*args)
+    second = FA.vit_flash_attn_bwd(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("hd", [64, 80])
 @pytest.mark.parametrize("remat,want", [
     (False, [2, 2, 2, 1, 1]),   # B1, B3, B8, B2, B9
     (True, [0, 0, 0, 2, 1])])   # windows plain; B2 forward + recompute
-def test_image_encoder_gradients_on_card_match_cpu(cuda, remat, want):
-    """A backward through a small ImageEncoder (hd = 64, padded windows, a
-    global block) gives the same gradients on the card (kernels) as on the
-    CPU (plain versions), f32, for every parameter and the input, with and
-    without remat."""
+def test_image_encoder_gradients_on_card_match_cpu(cuda, remat, want, hd):
+    """A backward through a small ImageEncoder (2 heads of 64, or of 80 as
+    ViT-H's; padded windows, a global block) gives the same gradients on
+    the card (kernels) as on the CPU (plain versions), f32, for every
+    parameter and the input, with and without remat."""
     from ullsam_tpu_torch.core.config import ViTConfig
     from ullsam_tpu_torch.models.sam.image_encoder import ImageEncoder
     from ullsam_tpu_torch.ops.kernels import flash_attention as FA
     from ullsam_tpu_torch.ops.kernels import vit_block as VB
     from ullsam_tpu_torch.ops.kernels import window_attention as WA
     from ullsam_tpu_torch.ops.layers import init_module_
-    cfg = ViTConfig(img_size=256, patch_size=16, embed_dim=128, depth=3,
+    cfg = ViTConfig(img_size=256, patch_size=16, embed_dim=2 * hd, depth=3,
                     num_heads=2, out_chans=32, window_size=14,
                     global_attn_indexes=(1,))
     cpu = ImageEncoder(cfg, device="cpu")
@@ -750,7 +779,8 @@ def test_vit_h_kernels_match_plain(cuda, dt, name, width):
 def test_vit_h_wrappers_refuse_unsupported(cuda):
     """On the card the wrappers raise for what their kernels do not take,
     with no fallback: head dim 96 in B1, B2, B3, B14, B15 and B8; C % 32
-    in B13; head dim 80 in float32 B8 and in B9 (not instantiated); windows
+    in B13; float32 B8 at head dim 80 on 16x16 windows (its k, v and dv
+    need more shared memory than a block has) and B9 at head dim 96; windows
     wider than 16 in bfloat16 B8, B3 and B15 (the one bf16 core); and a
     ``QuantLinear`` made on the CPU at a width B12 does not take (K = 72)
     raises on its first call after ``.to("cuda")``."""
@@ -777,9 +807,9 @@ def test_vit_h_wrappers_refuse_unsupported(cuda):
     with pytest.raises(ValueError):
         VB.ln_mlp(z(256, 40), z(40), z(40), z(160, 40), z(160), z(40, 160),
                   z(40), eps=1e-6)
-    with pytest.raises(ValueError):       # float32 B8 at head dim 80
-        WA.window_attn_core_bwd(z(128, 480), z(ws, ws, 80), z(ws, ws, 80),
-                                z(128, 160))
+    with pytest.raises(ValueError):       # float32 B8, hd 80, 16x16
+        WA.window_attn_core_bwd(z(256, 480), z(16, 16, 80), z(16, 16, 80),
+                                z(256, 160))
     b = lambda *s: z(*s).to(torch.bfloat16)  # noqa: E731
     with pytest.raises(ValueError):       # bfloat16 B8 at head dim 96
         WA.window_attn_core_bwd(b(128, 3 * C), b(ws, ws, 96), b(ws, ws, 96),
@@ -790,7 +820,7 @@ def test_vit_h_wrappers_refuse_unsupported(cuda):
     for core in (WA.window_attn_core, WA.window_attn_core_twophase):
         with pytest.raises(ValueError):   # the bf16 core, 4x32 windows
             core(b(128, 3 * C), b(4, 4, 64), b(32, 32, 64))
-    q = z(2, 1024, 80)
+    q = z(2, 1024, 96)
     with pytest.raises(ValueError):
         FA.vit_flash_attn_bwd(q, q, q, z(2, 1024, 32), z(2, 1024, 32), q,
                               z(2, 1024), z(2, 1024))
@@ -842,16 +872,18 @@ def test_hd80_encoder_on_card_matches_cpu(cuda, monkeypatch, route):
     assert _rel_err(got.cpu(), ref) <= 1e-4
 
 
-def test_packed_global_gradients_on_card_match_cpu(cuda, monkeypatch):
+@pytest.mark.parametrize("hd", [64, 80])
+def test_packed_global_gradients_on_card_match_cpu(cuda, monkeypatch, hd):
     """B14's backward (split into heads, B9, repack) on the card against the
-    CPU's plain versions: a global block's attention at head dim 64 over a
-    32x32 grid, f32, x's and every parameter's gradient."""
+    CPU's plain versions: a global block's attention at head dims 64 and 80
+    (ViT-H's) over a 32x32 grid, f32, x's and every parameter's
+    gradient."""
     from ullsam_tpu_torch.core.config import ViTConfig
     from ullsam_tpu_torch.models.sam.image_encoder import Block
     from ullsam_tpu_torch.ops.kernels import flash_attention as FA
     from ullsam_tpu_torch.ops.layers import init_module_
     monkeypatch.setenv("ULLSAM_PACKED_GLOBAL", "1")
-    cfg = ViTConfig(img_size=512, patch_size=16, embed_dim=128, depth=1,
+    cfg = ViTConfig(img_size=512, patch_size=16, embed_dim=2 * hd, depth=1,
                     num_heads=2, window_size=0, global_attn_indexes=(0,))
     cpu = Block(cfg, 0, device="cpu")
     gen = torch.Generator()
@@ -859,7 +891,7 @@ def test_packed_global_gradients_on_card_match_cpu(cuda, monkeypatch):
     init_module_(cpu, gen)
     gpu = Block(cfg, 0, device="cuda")
     gpu.load_state_dict(cpu.state_dict())
-    x = torch.randn(1, 32, 32, 128, generator=gen)
+    x = torch.randn(1, 32, 32, 2 * hd, generator=gen)
     xs = [x.clone().requires_grad_(), x.cuda().requires_grad_()]
     before = (FA.vit_flash_attn_packed.launches,
               FA.vit_flash_attn_bwd.launches)

@@ -9,7 +9,9 @@ the XLA formulations kept beside them.
 * B14 (``flash_attention.vit_flash_attention_packed`` through a global
   block's ``global_attention`` under ``ULLSAM_PACKED_GLOBAL=1``) against
   ``_vit_attention_global_packed`` (``tests/test_kernels.py:653``) at head
-  dims 64 and 80; forward and every gradient.
+  dims 64 and 80; forward and every gradient. And the Function itself (its
+  backward: the heads split, B9, dqkv packed) against ``jax.grad`` of
+  ``vit_flash_attention_packed`` at head dims 64 and 80.
 * B15 (``window_attention.window_attn_core_twophase_plain``) against
   ``vit_window_attention_packed`` under ``ULLSAM_WINDOW_TWOPHASE=1``
   (``tests/test_kernels.py:240``: 4 heads of 80, 6x6 windows), the
@@ -36,6 +38,7 @@ from ullsam_tpu.ops.pallas import flash_attention as JFA
 from ullsam_tpu.ops.pallas import vit_block as JVB
 from ullsam_tpu_torch.core import config as TC
 from ullsam_tpu_torch.models.sam import image_encoder as TIE
+from ullsam_tpu_torch.ops.kernels import flash_attention as TFA
 from ullsam_tpu_torch.ops.kernels import vit_block as TVB
 from ullsam_tpu_torch.ops.kernels import window_attention as TWA
 
@@ -216,6 +219,51 @@ def test_packed_global_attention_matches_interpret_kernel(monkeypatch, hd):
             ("rel_pos_h", a.rel_pos_h.grad, jgp["rel_pos_h"]),
             ("rel_pos_w", a.rel_pos_w.grad, jgp["rel_pos_w"])):
         assert _rel(got, want) <= 1e-5, name
+
+
+@pytest.mark.parametrize("hd", [64, 80])
+def test_packed_flash_gradients_match_jax_grad(hd):
+    """``vit_flash_attention_packed`` (B14 forward; backward: the heads of
+    qkv, o and the output gradient split, B9, dq, dk, dv packed into dqkv)
+    against ``jax.grad`` of the JAX package's ``vit_flash_attention_packed``
+    in interpret mode (its custom vjp: the flash backward kernels), 2 heads
+    over a 16x16 key grid (N = 256, blocks of 128), float32: the output and
+    the gradients of qkv, rel_h and rel_w each within 1e-5 of its max. The
+    JAX side takes each head's hd channels left-aligned in a 128-lane slot;
+    its pad lanes are sliced off."""
+    B, nh, KH, KW = 1, 2, 16, 16
+    N, C = KH * KW, nh * hd
+    rng = np.random.default_rng(11)
+    qkv = (rng.standard_normal((B, N, 3 * C)) * 0.5).astype(np.float32)
+    rel_h = (rng.standard_normal((B * nh, N, KH)) * 0.3).astype(np.float32)
+    rel_w = (rng.standard_normal((B * nh, N, KW)) * 0.3).astype(np.float32)
+    w = rng.standard_normal((B, N, C)).astype(np.float32)
+    qkvp = np.pad(qkv.reshape(B, N, 3, nh, hd),
+                  ((0, 0),) * 4 + ((0, 128 - hd),)).reshape(B, N, -1)
+    wp = np.pad(w.reshape(B, N, nh, hd),
+                ((0, 0),) * 3 + ((0, 128 - hd),)).reshape(B, N, -1)
+
+    ins = [T(a.copy()).requires_grad_() for a in (qkv, rel_h, rel_w)]
+    out = TFA.vit_flash_attention_packed(*ins, nh)
+    got = torch.autograd.grad((out * T(w)).sum(), ins)
+
+    def jloss(a, b, c):
+        out = JFA.vit_flash_attention_packed(a, b, c, nh, hd, 128, 128)
+        return jnp.sum(out * jnp.asarray(wp)), out
+
+    with pltpu.force_tpu_interpret_mode():
+        (_, jout), jg = jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                           has_aux=True)(
+            jnp.asarray(qkvp), jnp.asarray(rel_h), jnp.asarray(rel_w))
+
+    def unpad(a, parts):
+        return np.asarray(a, np.float32).reshape(B, N, parts, nh, 128)[
+            ..., :hd].reshape(B, N, parts * C)
+
+    assert _rel(out, unpad(jout, 1)) <= 1e-5
+    assert _rel(got[0], unpad(jg[0], 3)) <= 1e-5, "qkv"
+    assert _rel(got[1], jg[1]) <= 1e-5, "rel_h"
+    assert _rel(got[2], jg[2]) <= 1e-5, "rel_w"
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,10 @@ against the 232,448 bytes of shared memory an H100 block may use.
 * ``flash_attention.sm90_smem_bytes`` (``FlashSm90Layout<D>``) at head
   dims 64 and 80, and ``key_rows_per_tile``: when a 64-key tile covers
   whole key-grid rows, so that the bias comes from registers.
+* B9's two bf16 bodies (``vit_flash_bwd.cu`` ``BwdSm90Layout<D>``: dq and
+  drel query-major, dk and dv key-major) and its two float32 ones
+  (``BwdF32<D>``) at head dims 64 and 80: ``bwd_sm90_smem_bytes`` and
+  ``bwd_f32_smem_bytes`` against the source's constants and the block.
 
 The plain B12 and B2 stay held to the JAX package by
 ``tests/test_torch_quant.py`` and ``tests/test_torch_kernels.py``.
@@ -115,6 +119,41 @@ def test_flash_sm90_mirror_matches_the_source():
     assert _const(src, r"kBQ = 64, kBK = (\d+)") == FA.FLASH_KEYS
     assert (_const(src, r"kMaxRel = (\d+)")
             + _const(src, r"kRelLd = kMaxRel \+ (\d+)")) == FA.FLASH_REL_LD
+
+
+def test_flash_bwd_sm90_mirror_matches_the_source():
+    """The block, stage and rel-row constants that ``flash_attention``
+    mirrors for B9 are those of ``vit_flash_bwd.cu``, and its tiles are
+    ``flash_sm90.cuh``'s 64-row tiles (B2's)."""
+    src = "vit_flash_bwd.cu"
+    assert _const(src, r"kBwdRows = (\d+)") == FA.BWD_ROWS
+    assert _const(src, r"kBwdStages = (\d+)") == FA.BWD_STAGES
+    assert _const(src, r"kBwdRelLd = (\d+)") == FA.BWD_REL_LD
+    assert _const(src, r"kBwdMaxRows = (\d+)") == FA.BWD_MAX_ROWS
+    assert _const(src, r"kBwdThreads = (\d+)") == 3 * 128
+    assert _const("flash_sm90.cuh", r"kFlashBox = (\d+)") == FA.FLASH_KEYS
+    # at most 16 key-grid rows in a block of 128 keys: KW >= 8
+    assert FA.BWD_ROWS // min(FA._BWD_KW) == FA.BWD_MAX_ROWS
+
+
+@pytest.mark.parametrize("D,want", [(64, (136272, 156752)),
+                                    (80, (160848, 181328))])
+def test_flash_bwd_sm90_smem_fits_a_block(D, want):
+    """B9's bf16 bodies fit one block at SAM's head dims: dq + drel (q and
+    do of 128 queries, 4 stages of k and v, both rel tables' rows) and dk +
+    dv (k and v of 128 keys, 4 stages of q, do and the tile's rel rows,
+    lse and dd); at 80 every tile has its 32-byte-swizzled tail."""
+    assert FA.bwd_sm90_smem_bytes(D) == want
+    assert max(want) <= FA.SMEM_LIMIT == 232448
+
+
+@pytest.mark.parametrize("D,want", [(64, (138240, 158464)),
+                                    (80, (159744, 184064))])
+def test_flash_bwd_f32_smem_fits_a_block(D, want):
+    """B9's float32 kernels (true f32 FMA) fit one block at head dims 64 and
+    80: d-major tiles [D][68], row-major ones [64][D + 4]."""
+    assert FA.bwd_f32_smem_bytes(D) == want
+    assert max(want) <= FA.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("D,want", [(64, 119888), (80, 140368)])

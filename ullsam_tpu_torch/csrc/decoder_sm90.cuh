@@ -171,16 +171,6 @@ template <int NI>
 __device__ __forceinline__ void acc_init_tile(float* v, const bf16* tile,
                                               int row0, int row1, int tq);
 
-// Registers a thread, moved from the producer warpgroup (which needs few)
-// to the two consumer warpgroups (accumulators and their epilogues):
-// 40 + 2 x 232 of 512 a block of three warpgroups
-__device__ __forceinline__ void producer_registers() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-}
-__device__ __forceinline__ void consumer_registers() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-}
-
 // A consumer warpgroup's side
 struct UnitConsumer {
   const UnitSmem& sm;

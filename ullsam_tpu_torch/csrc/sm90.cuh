@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma + TMA kernels
-// (gemm_sm90.cuh's GEMM, vit_flash_attn.cu's global flash attention):
-// mbarriers, 2-D TMA loads, wgmma fences and shared-memory descriptors,
-// named barriers, and cuTensorMapEncodeTiled fetched through the runtime.
+// (gemm_sm90.cuh's GEMM, flash_sm90.cuh's global flash attention, the
+// decoder's units): mbarriers, 2-D TMA loads, wgmma fences and
+// shared-memory descriptors, named barriers, setmaxnreg, and
+// cuTensorMapEncodeTiled fetched through the runtime.
 #pragma once
 
 #include <cuda.h>
@@ -93,6 +94,16 @@ __device__ __forceinline__ void named_bar_sync(int id, int count) {
 // generic-proxy writes to shared memory made visible to wgmma / TMA
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Registers a thread, moved from a producer warpgroup (which needs few) to
+// two consumer warpgroups (accumulators and their epilogues): 40 + 2 x 232
+// of 512 a block of three warpgroups (ptxas caps a 384-thread block at 168)
+__device__ __forceinline__ void producer_registers() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+}
+__device__ __forceinline__ void consumer_registers() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
 }
 
 // cuTensorMapEncodeTiled, a driver-API function, fetched once through the

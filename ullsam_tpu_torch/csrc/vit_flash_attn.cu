@@ -68,7 +68,7 @@
 //     kernel pads every head to 128 lanes for that; here the natural layout
 //     needs no pad. Same function and rounding points as B2.
 #include "attn_fma.cuh"
-#include "sm90.cuh"
+#include "flash_sm90.cuh"
 
 namespace ullsam {
 namespace {
@@ -171,62 +171,6 @@ __global__ void __launch_bounds__(256)
 
 // ---- bf16: wgmma + TMA (see the note at the top) -------------------------
 
-// d[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T, both K-major from shared memory
-__device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t da,
-                                                   uint64_t db,
-                                                   int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d[64 x 64] += A[64 x 16] . B[16 x 64]: A from registers (an m64nXk16
-// accumulator layout rounded to bf16 pairs), B from shared memory MN-major
-// (N contiguous, read with trans-b)
-__device__ __forceinline__ void wgmma_m64n64k16_rs_t(float* d,
-                                                     const uint32_t* a,
-                                                     uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d[64 x 16] += A[64 x 16] . B[16 x 16], as wgmma_m64n64k16_rs_t
-__device__ __forceinline__ void wgmma_m64n16k16_rs_t(float* d,
-                                                     const uint32_t* a,
-                                                     uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
-      "1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 constexpr int kFlashRows = 128;  // queries a block: two warpgroups of 64
 constexpr int kFlashStages = 4;
 constexpr int kFlashThreads = 288;   // two consumer warpgroups + one warp
@@ -241,9 +185,9 @@ constexpr float kFlashLog2e = 1.4426950408889634f;
 // (full and empty a stage, one for each warpgroup's q).
 template <int D>
 struct FlashSm90Layout {
-  static_assert(D == 64 || D == 80, "head dims 64 and 80");
-  static constexpr int kTail = D - 64;
-  static constexpr int kTileA = kBK * 128, kTileB = kBK * kTail * 2;
+  static constexpr int kTail = FlashTiles<D>::kTail;
+  static constexpr int kTileA = FlashTiles<D>::kTileA;
+  static constexpr int kTileB = FlashTiles<D>::kTileB;
   static constexpr int kQBytes = kFlashRows * 128 + kFlashRows * kTail * 2;
   static constexpr int kStageBytes = 2 * (kTileA + kTileB);
   static constexpr int kRelBytes = kFlashRows * kRelLd * 2;
@@ -542,23 +486,6 @@ int launch_f32(const void* q, const void* k, const void* v, const void* rel_h,
       static_cast<const float*>(rel_w), static_cast<float*>(o), lse, N, KH,
       KW, scale, hs);
   return (int)cudaGetLastError();
-}
-
-// the map of bf16 [rows, cols] (row stride ld elements) in boxes of 64 rows
-// by box_cols, with the swizzle the wgmma descriptors expect
-inline bool make_flash_map(CUtensorMap* map, const void* p, long long rows,
-                           long long cols, long long ld, int box_cols,
-                           CUtensorMapSwizzle swizzle) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (!fn) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)kBK};
-  const cuuint32_t estr[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p),
-            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // The bias path for KW: 64 / KW key rows a 64-key tile when KW divides 64

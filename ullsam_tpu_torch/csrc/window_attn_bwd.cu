@@ -56,12 +56,22 @@
 // work (terms, drel sums, dq's share) took most of the first version's
 // time.
 //
-// float32 (head dim 64; at 80 its d-major f32 tiles alone take 252 KB, over
-// the 227 KB a block has): true f32 FMA on the CUDA cores, one block per
-// (head, window), 256 threads: k and v d-major in shared memory ([64][n | 1],
-// odd stride), dk and dv accumulated there in f32 over 16-row query tiles;
-// thread j owns key j (its column of 16 logits, p, dp and ds in registers),
-// row statistics pass through shared memory.
+// float32 (head dims 64 and 80): true f32 FMA on the CUDA cores, one block
+// per (head, window), 256 threads; thread j owns key j (its column of 16
+// logits, p, dp and ds in registers), row statistics pass through shared
+// memory. k and v sit d-major in shared memory ([HD][n | 1], odd stride) and
+// dv is accumulated there in f32 over 16-row query tiles. At head dim 64 dk
+// is too (176,384 bytes at 14x14 windows). At ViT-H's 80 the four d-major
+// tiles would take 4 x 80 x 197 x 4 = 252,160 bytes, over the 232,448 a
+// block has, so dk is accumulated in thread j's registers (80 of them,
+// key j's row of dk being its alone) and the block needs 216,256. Two
+// blocks per (window, head), each owning half of dk's and dv's columns,
+// would fit as well but recompute s, dp and the softmax in both; holding dv
+// in registers too would take 2 x 80 accumulators beside the 48 of a
+// tile's column and spill. (dk in registers at 64 as well ran 10% slower
+// than in shared memory: the loop over d, unrolled 80 or 64 times, costs
+// more than the shared-memory adds it saves.) Each sum keeps its order, so
+// the result is bitwise the same in either layout and on every call.
 //
 // Table gradients, deterministic in both types: bf16 forms each (window,
 // head)'s share in a third pass of its block on the tensor cores (drel^T q
@@ -591,15 +601,18 @@ int launch_mma(int nt, const __nv_bfloat16* qkv, const __nv_bfloat16* rh,
   return (int)cudaGetLastError();
 }
 
-// ---- float32, CUDA cores (head dim 64) -------------------------------------
-constexpr int kHD32 = 64;
+// ---- float32, CUDA cores (head dims 64 and 80) ----------------------------
 
 __host__ __device__ inline int f32_ld(int n) { return n | 1; }
 
-// must match ops/kernels/window_attention.py bwd_smem_bytes
-size_t f32_smem_bytes(int n, int rl) {
+// must match ops/kernels/window_attention.py bwd_smem_bytes: k, v, dv and,
+// at head dim 64, dk d-major [hd][n | 1]; q and do tiles [16][hd]; ds
+// [16][n | 1]; the rows' rel-pos terms and their drel [16][kh + kw]; max,
+// sum, dd; the reduction
+size_t f32_smem_bytes(int n, int rl, int hd) {
   const size_t ld = f32_ld(n);
-  return 4 * kHD32 * ld * sizeof(float) + 2 * kTQ * kHD32 * sizeof(float) +
+  return (hd > 64 ? 3 : 4) * hd * ld * sizeof(float) +
+         2 * kTQ * hd * sizeof(float) +
          kTQ * ld * sizeof(float) + 2 * kTQ * rl * sizeof(float) +
          3 * kTQ * sizeof(float) + kWarps * kTQ * sizeof(float);
 }
@@ -633,20 +646,22 @@ __device__ __forceinline__ void block_rows(const float (&v)[kTQ], float* red,
 }
 
 // grid (nh, Bw), 256 threads; the layout of the bf16 kernel's arguments
+template <int kHD>
 __global__ void __launch_bounds__(kThreads, 1)
     bwd_f32(const float* __restrict__ qkv, const float* __restrict__ rh,
             const float* __restrict__ rw, const float* __restrict__ dout,
             float* __restrict__ dqkv, float* __restrict__ drel, int n, int C,
             int nh, int kh, int kw, float scale) {
-  constexpr int kHD = kHD32;
+  constexpr int kCols = kHD / 16;  // dq channels a thread
+  constexpr bool kDkRegs = kHD > 64;  // dk in registers, else d-major smem
   const int ld = f32_ld(n), rl = kh + kw;
   extern __shared__ __align__(16) float sm[];
-  float* Kt = sm;                   // [64][ld]
-  float* Vt = Kt + kHD * ld;        // [64][ld]
-  float* dKt = Vt + kHD * ld;       // [64][ld]
-  float* dVt = dKt + kHD * ld;      // [64][ld]
-  float* Qs = dVt + kHD * ld;       // [16][64]
-  float* Gs = Qs + kTQ * kHD;       // [16][64]
+  float* Kt = sm;                   // [HD][ld]
+  float* Vt = Kt + kHD * ld;        // [HD][ld]
+  float* dVt = Vt + kHD * ld;       // [HD][ld]
+  float* dKt = dVt + kHD * ld;      // [HD][ld] at head dim 64
+  float* Qs = dKt + (kDkRegs ? 0 : kHD * ld);  // [16][HD]
+  float* Gs = Qs + kTQ * kHD;       // [16][HD]
   float* DS = Gs + kTQ * kHD;       // [16][ld]
   float* RB = DS + kTQ * ld;        // [16][rl]
   float* DR = RB + kTQ * rl;        // [16][rl]
@@ -666,13 +681,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int j = e / kHD, d = e % kHD;
     Kt[d * ld + j] = base[(size_t)j * C3 + C + d];
     Vt[d * ld + j] = base[(size_t)j * C3 + 2 * C + d];
-    dKt[d * ld + j] = 0.f;
     dVt[d * ld + j] = 0.f;
+    if constexpr (!kDkRegs) dKt[d * ld + j] = 0.f;
   }
 
   const int j = tid;             // this thread's key column
   const bool col = j < n;
   const int kr = col ? j / kw : 0, kc = col ? j - (j / kw) * kw : 0;
+  float adk[kDkRegs ? kHD : 1];  // key j's row of dk
+#pragma unroll
+  for (int d = 0; d < (kDkRegs ? kHD : 1); ++d) adk[d] = 0.f;
 
   for (int i0 = 0; i0 < n; i0 += kTQ) {
     const int rows = min(kTQ, n - i0);
@@ -739,7 +757,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         ds[r] = s[r] * (dp[r] - Dd[r]);
         DS[r * ld + j] = ds[r];
       }
-      for (int d = 0; d < kHD; ++d) {
+      // channel d of key j: the tile's share of dv added, of dk returned
+      const auto dkv = [&](int d) {
         float av = 0.f, ak = 0.f;
 #pragma unroll
         for (int r = 0; r < kTQ; ++r) {
@@ -747,7 +766,13 @@ __global__ void __launch_bounds__(kThreads, 1)
           ak = fmaf(ds[r], Qs[r * kHD + d], ak);
         }
         dVt[d * ld + j] += av;
-        dKt[d * ld + j] += ak;
+        return ak;
+      };
+      if constexpr (kDkRegs) {
+#pragma unroll
+        for (int d = 0; d < kHD; ++d) adk[d] += dkv(d);
+      } else {
+        for (int d = 0; d < kHD; ++d) dKt[d * ld + j] += dkv(d);
       }
     }
     __syncthreads();  // DS complete
@@ -768,51 +793,64 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     __syncthreads();
 
-    // dq of the tile: thread (row r, 4 channels from d0)
+    // dq of the tile: thread (row r, kCols channels from d0)
     {
-      const int r = tid >> 4, d0 = (tid & 15) * 4;
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      const int r = tid >> 4, d0 = (tid & 15) * kCols;
+      float acc[kCols];
+#pragma unroll
+      for (int u = 0; u < kCols; ++u) acc[u] = 0.f;
       const float* dsr = DS + r * ld;
       for (int m = 0; m < n; ++m) {
         const float w = dsr[m];
 #pragma unroll
-        for (int u = 0; u < 4; ++u)
+        for (int u = 0; u < kCols; ++u)
           acc[u] = fmaf(w, Kt[(d0 + u) * ld + m], acc[u]);
       }
       if (r < rows) {
         const int i = i0 + r, y = i / kw, x = i - y * kw;
-        float rel[4] = {0.f, 0.f, 0.f, 0.f};
+        float rel[kCols];
+#pragma unroll
+        for (int u = 0; u < kCols; ++u) rel[u] = 0.f;
         for (int idx = 0; idx < rl; ++idx) {
           const float w = DR[r * rl + idx];
           const float* tab = idx < kh ? rh + ((size_t)y * kh + idx) * kHD
                                       : rw + ((size_t)x * kw + idx - kh) * kHD;
 #pragma unroll
-          for (int u = 0; u < 4; ++u) rel[u] = fmaf(w, tab[d0 + u], rel[u]);
+          for (int u = 0; u < kCols; ++u)
+            rel[u] = fmaf(w, tab[d0 + u], rel[u]);
         }
         float* dq = dbase + (size_t)i * C3 + d0;
 #pragma unroll
-        for (int u = 0; u < 4; ++u) dq[u] = acc[u] * scale + rel[u];
+        for (int u = 0; u < kCols; ++u) dq[u] = acc[u] * scale + rel[u];
       }
+    }
+  }
+  if constexpr (kDkRegs) {
+    if (col) {
+      float* dk = dbase + (size_t)j * C3 + C;
+#pragma unroll
+      for (int d = 0; d < kHD; ++d) dk[d] = adk[d] * scale;
     }
   }
   __syncthreads();
   for (int e = tid; e < n * kHD; e += kThreads) {
     const int jj = e / kHD, d = e % kHD;
-    dbase[(size_t)jj * C3 + C + d] = dKt[d * ld + jj] * scale;
+    if constexpr (!kDkRegs)
+      dbase[(size_t)jj * C3 + C + d] = dKt[d * ld + jj] * scale;
     dbase[(size_t)jj * C3 + 2 * C + d] = dVt[d * ld + jj];
   }
 }
 
 // ---- table gradients -------------------------------------------------------
 // float32, after bwd_f32: grid (ceil(E / 256), Bw) with E = (kh*kh + kw*kw)
-// * 64 entries. Entry e < kh*kh*64 is dRh[y, r, d] (e = (y*kh + r)*64 + d),
+// * hd entries. Entry e < kh*kh*hd is dRh[y, r, d] (e = (y*kh + r)*hd + d),
 // the rest dRw[x, c, d]; each thread sums its entry over one window's heads
 // and rows (columns) into part[win, e].
+template <int hd>
 __global__ void __launch_bounds__(256)
     tables_part_f32(const float* __restrict__ qkv,
                     const float* __restrict__ drel, float* __restrict__ part,
                     int n, int C, int nh, int kh, int kw) {
-  constexpr int hd = kHD32;
   const int e = blockIdx.x * 256 + threadIdx.x;
   const int eh = kh * kh * hd, E = eh + kw * kw * hd;
   if (e >= E) return;
@@ -862,23 +900,37 @@ __global__ void __launch_bounds__(256)
     drw[e - eh] = acc;
 }
 
+template <int HD>
+int launch_f32(const float* qkv, const float* rh, const float* rw,
+               const float* dout, float* dqkv, float* drel, float* part,
+               int Bw, int n, int C, int nh, int kh, int kw, float scale,
+               cudaStream_t st) {
+  const size_t smem = f32_smem_bytes(n, kh + kw, HD);
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  bwd_f32<HD><<<dim3(nh, Bw), kThreads, smem, st>>>(
+      qkv, rh, rw, dout, dqkv, drel, n, C, nh, kh, kw, scale);
+  const int e = (int)cudaGetLastError();
+  if (e) return e;
+  const int E = (kh * kh + kw * kw) * HD;
+  tables_part_f32<HD><<<dim3((E + 255) / 256, Bw), 256, 0, st>>>(
+      qkv, drel, part, n, C, nh, kh, kw);
+  return (int)cudaGetLastError();
+}
+
 // bwd_f32, then the per-window table partials; P = Bw of them
 int core(const float* qkv, const float* rh, const float* rw, const float* dout,
          float* dqkv, float* drel, float* part, float*, int Bw, int n, int C,
          int nh, int hd, int kh, int kw, float scale, cudaStream_t st) {
-  const size_t smem = f32_smem_bytes(n, kh + kw);
-  if (hd != kHD32 || smem > kSmemLimit) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  bwd_f32<<<dim3(nh, Bw), kThreads, smem, st>>>(qkv, rh, rw, dout, dqkv, drel,
-                                                n, C, nh, kh, kw, scale);
-  const int e = (int)cudaGetLastError();
-  if (e) return e;
-  const int E = (kh * kh + kw * kw) * kHD32;
-  tables_part_f32<<<dim3((E + 255) / 256, Bw), 256, 0, st>>>(
-      qkv, drel, part, n, C, nh, kh, kw);
-  return (int)cudaGetLastError();
+  if (hd == 64)
+    return launch_f32<64>(qkv, rh, rw, dout, dqkv, drel, part, Bw, n, C, nh,
+                          kh, kw, scale, st);
+  if (hd == 80)
+    return launch_f32<80>(qkv, rh, rw, dout, dqkv, drel, part, Bw, n, C, nh,
+                          kh, kw, scale, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // bwd_mma with its table partials; P = Bw * nh of them
@@ -918,7 +970,7 @@ int backward(const void* qkv, const void* rh, const void* rw, const void* dout,
 }  // namespace ullsam
 
 // Plain C entry point (loaded with ctypes). Returns 0 or a cudaError_t.
-// dtype: 0 = float32 (hd 64), 1 = bfloat16 (hd 64 or 80) for qkv [Bw*n, 3C],
+// dtype: 0 = float32, 1 = bfloat16 (hd 64 or 80) for qkv [Bw*n, 3C],
 // rh [kh, kh, hd], rw [kw, kw, hd], dout [Bw*n, C] and dqkv [Bw*n, 3C];
 // drh, drw, and the scratch drel [Bw, nh, n, kh + kw] and part [P, (kh*kh +
 // kw*kw) * hd] (P = Bw * nh for bfloat16, Bw for float32) are float32, as is

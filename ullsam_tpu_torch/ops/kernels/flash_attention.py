@@ -24,11 +24,15 @@ replaces ``_vit_kernel_packed`` (entry ``vit_flash_attention_packed``),
 which the JAX package runs under ``ULLSAM_PACKED_GLOBAL=1``; its kernel is
 B2's body with other strides (``csrc/vit_flash_attn.cu``). Its gradient
 (``VitFlashPacked``) splits into heads and runs B9, as
-``_vit_flash_packed_bwd`` does. B2 and B14 take head dims 64 and 80, B9 64.
+``_vit_flash_packed_bwd`` does. B2, B14 and B9 take head dims 64 and 80.
 
 B9, ``vit_flash_attn_bwd``, is its gradient (``_vit_bwd_dq_kernel`` and
 ``_vit_bwd_dkv_kernel``, through ``_vit_flash_bwd_impl``), launched from
-``csrc/vit_flash_bwd.cu`` on a CUDA tensor. ``vit_flash_attention`` is the
+``csrc/vit_flash_bwd.cu`` on a CUDA tensor: in bf16 two wgmma + TMA
+kernels on B2's tiles (a block of 128 queries for dq and drel, of 128
+keys for dk and dv; ``bwd_sm90_smem_bytes`` mirrors their shared memory),
+in float32 two CUDA-core kernels (``bwd_f32_smem_bytes``). It scores as
+the TPU kernels do, from unscaled q. ``vit_flash_attention`` is the
 differentiable entry: a ``torch.autograd.Function`` whose forward is B2 and
 whose backward is B9 on both devices.
 """
@@ -45,12 +49,23 @@ from ullsam_tpu_torch.ops.kernels import build
 Tensor = torch.Tensor
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 80)  # B2, B14: SAM ViT-B / L and ViT-H
+_HEAD_DIMS = (64, 80)  # B2, B14, B9: SAM ViT-B / L and ViT-H
 # the bf16 body (csrc/vit_flash_attn.cu vit_flash_sm90): 128 queries a block
 # (two warpgroups of 64), 64-key tiles in a ring of 4 stages, rel rows of
 # 64 + 8 bf16
 FLASH_ROWS, FLASH_KEYS, FLASH_STAGES, FLASH_REL_LD = 128, 64, 4, 72
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
+# B9's bf16 bodies (csrc/vit_flash_bwd.cu): 128 queries or keys a block, a
+# ring of 4 stages, rel rows of 64 + 8 bf16, at most 16 key-grid rows a
+# dk / dv block (KW >= 8)
+BWD_ROWS, BWD_STAGES, BWD_REL_LD, BWD_MAX_ROWS = 128, 4, 72, 16
+_BWD_KW = (8, 16, 32, 64)  # B9: KW divides a 64-key tile
+
+
+def _tiles(D: int) -> int:
+    """Bytes of two 64-row tiles (``flash_sm90.cuh`` ``FlashTiles<D>``):
+    128 swizzled bytes a row, at D = 80 32 more."""
+    return 2 * (FLASH_KEYS * 128 + FLASH_KEYS * (D - 64) * 2)
 
 
 def key_rows_per_tile(KW: int) -> int:
@@ -67,11 +82,41 @@ def sm90_smem_bytes(D: int) -> int:
     stages, each k and v of 64 keys likewise; rel_h and rel_w rows [128][72]
     bf16; a full and an empty mbarrier a stage and one for each
     warpgroup's q."""
-    tail = D - 64
-    q = FLASH_ROWS * 128 + FLASH_ROWS * tail * 2
-    stage = 2 * (FLASH_KEYS * 128 + FLASH_KEYS * tail * 2)
-    return (1024 + q + FLASH_STAGES * stage + 2 * FLASH_ROWS * FLASH_REL_LD * 2
-            + (2 * FLASH_STAGES + 2) * 8)
+    return (1024 + (1 + FLASH_STAGES) * _tiles(D)
+            + 2 * FLASH_ROWS * FLASH_REL_LD * 2 + (2 * FLASH_STAGES + 2) * 8)
+
+
+def bwd_sm90_smem_bytes(D: int) -> Tuple[int, int]:
+    """``BwdSm90Layout<D>``: (dq's, dk / dv's) shared memory. dq: 1024
+    bytes to align the tiles; q's and do's 128 rows; the stages, each k and
+    v of 64 keys; rel_h and rel_w rows [128][72] bf16; a full and an empty
+    mbarrier a stage and one for each warpgroup's q and do. dk / dv: k's
+    and v's 128 rows; the stages, each q and do of 64 queries, the tile's
+    rel_w transposed [KW <= 64][72] bf16, the block's rel_h columns
+    [16][64] f32, lse and dd [64] f32, padded to 1024 bytes; the
+    mbarriers."""
+    two = _tiles(D)
+    rel = FLASH_KEYS * BWD_REL_LD * 2 + BWD_MAX_ROWS * FLASH_KEYS * 4 \
+        + 2 * FLASH_KEYS * 4
+    stage = -(-(two + rel) // 1024) * 1024
+    bars = (2 * BWD_STAGES + 2) * 8
+    dq = (1024 + 2 * two + BWD_STAGES * two + 2 * BWD_ROWS * BWD_REL_LD * 2
+          + bars)
+    return dq, 1024 + 2 * two + BWD_STAGES * stage + bars
+
+
+def bwd_f32_smem_bytes(D: int) -> Tuple[int, int]:
+    """``BwdF32<D>``: (dq's, dk / dv's) shared memory of B9's float32
+    kernels. Tiles of 64 rows; d-major operands [D][68], row-major ones
+    [64][D + 4], score tiles [64][68], rel rows [64][65]. dq: q, do, k, v
+    d-major, k row-major, ds, rel_h and rel_w rows, lse and dd. dk / dv: k,
+    v, q, do d-major, q and do row-major, p and ds, rel_w rows, the block's
+    rel_h columns [64][8], lse and dd."""
+    B, ldf, ldr = 64, 68, D + 4
+    dq = 4 * D * ldf + B * ldr + B * ldf + 2 * B * 65 + 2 * B
+    dkv = 4 * D * ldf + 2 * B * ldr + 2 * B * ldf + B * 65 + B * B // 8 \
+        + 2 * B
+    return 4 * dq, 4 * dkv
 
 
 def vit_flash_attn_plain(q: Tensor, k: Tensor, v: Tensor, rel_h: Tensor,
@@ -237,29 +282,27 @@ def vit_flash_attn_bwd_plain(q: Tensor, k: Tensor, v: Tensor, rel_h: Tensor,
                              dd: Tensor) -> Tuple[Tensor, ...]:
     """B9 in plain PyTorch: (dq, dk, dv at q.dtype; drel_h, drel_w f32).
 
-    The logits are B2's: s = cast(q * D^-1/2) k^T + bias, with the rel
-    factors taken at q.dtype, so p = exp(s - lse) is the forward's
-    probability. (The TPU backward scores q k^T * D^-1/2 from unscaled q,
-    flash_attention.py:824-827; this port scores as its own forward does.)
-    Then, with ds = p (do v^T - dd): dq = ds k * D^-1/2, dk = ds^T cast(q *
-    D^-1/2), dv = p^T do. p and ds are rounded to q.dtype before their
-    products (flash_attention.py:840-851); drel_h[i, r] = sum_c ds[i, r*KW
-    + c] and drel_w[i, c] = sum_r ds[i, r*KW + c] sum the rounded ds in
-    f32."""
+    Scored as the TPU kernels score (flash_attention.py:824-827): s = f32(q
+    k^T) * D^-1/2 + bias from unscaled q, with the rel factors taken at
+    q.dtype, and p = exp(s - lse). Then, with ds = p (do v^T - dd): dq =
+    (ds k) * D^-1/2, dk = (ds^T q) * D^-1/2, dv = p^T do. p and ds are
+    rounded to q.dtype before their products (:840-851, :898-900);
+    drel_h[i, r] = sum_c ds[i, r*KW + c] and drel_w[i, c] = sum_r ds[i, r*KW
+    + c] sum the rounded ds in f32."""
     dt = q.dtype
     BH, N, D = q.shape
     KH, KW = rel_h.shape[-1], rel_w.shape[-1]
     scale = D ** -0.5
-    qs = (q.float() * scale).to(dt).float()
+    qf, kf = q.float(), k.float()
     bias = (rel_h.to(dt).float()[..., :, None]
             + rel_w.to(dt).float()[..., None, :]).reshape(BH, N, N)
-    p = torch.exp(torch.matmul(qs, k.float().transpose(-1, -2)) + bias
+    p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale + bias
                   - lse[..., None])
     g = do.to(dt).float()
     dp = torch.matmul(g, v.float().transpose(-1, -2))
     ds = (p * (dp - dd[..., None])).to(dt).float()
-    dq = torch.matmul(ds, k.float()) * scale
-    dk = torch.matmul(ds.transpose(-1, -2), qs)
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
     dv = torch.matmul(p.to(dt).float().transpose(-1, -2), g)
     drel_h, drel_w = _drel(ds, KH, KW)
     return dq.to(dt), dk.to(dt), dv.to(dt), drel_h, drel_w
@@ -279,8 +322,9 @@ def vit_flash_attn_bwd(q: Tensor, k: Tensor, v: Tensor, rel_h: Tensor,
     drel_h [BH, N, KH] f32, drel_w [BH, N, KW] f32).
 
     CPU tensors run ``vit_flash_attn_bwd_plain``; CUDA tensors launch the
-    kernel (D = 64, KW dividing 64 and at least 8, KH <= 64) or raise: head
-    dim 80 (ViT-H) is not instantiated yet."""
+    kernels (D = 64 or 80, KW dividing 64 and at least 8, KH <= 64, N =
+    KH * KW a multiple of 64; bitwise the same result on every call) or
+    raise."""
     if q.device.type == "cpu":
         return vit_flash_attn_bwd_plain(q, k, v, rel_h, rel_w, do, lse, dd)
     if q.device.type != "cuda":
@@ -289,7 +333,8 @@ def vit_flash_attn_bwd(q: Tensor, k: Tensor, v: Tensor, rel_h: Tensor,
         raise ValueError(f"vit_flash_attn_bwd: unsupported dtype {q.dtype}")
     BH, N, D = q.shape
     KH, KW = rel_h.shape[-1], rel_w.shape[-1]
-    if D != 64 or KW < 8 or 64 % KW or KH > 64 or KH * KW != N:
+    if (D not in _HEAD_DIMS or KW not in _BWD_KW or KH > 64 or KH * KW != N
+            or N % 64):
         raise ValueError(f"vit_flash_attn_bwd: unsupported shape N={N} D={D}"
                          f" KH={KH} KW={KW}")
     for t, name, shape, dtype in (
@@ -361,11 +406,26 @@ def vit_flash_attention(q: Tensor, k: Tensor, v: Tensor, rel_h: Tensor,
     return VitFlashAttention.apply(q, k, v, rel_h, rel_w)
 
 
+def vit_flash_packed_bwd(qkv: Tensor, rel_h: Tensor, rel_w: Tensor,
+                         o: Tensor, lse: Tensor, g: Tensor, nh: int,
+                         bwd=None) -> Tuple[Tensor, Tensor, Tensor]:
+    """B14's gradient (``_vit_flash_packed_bwd``): qkv, o and the output
+    gradient g [B, N, C] split into heads, B9 (``bwd``, by default
+    ``vit_flash_attn_bwd``), dq, dk, dv packed back into dqkv [B, N, 3C].
+    Returns (dqkv, drel_h, drel_w f32)."""
+    bwd = bwd or vit_flash_attn_bwd
+    B = qkv.shape[0]
+    q, k, v = (_heads(t, nh) for t in qkv.chunk(3, dim=-1))
+    g, o = _heads(g, nh), _heads(o, nh)
+    dd = (g.float() * o.float()).sum(-1)
+    dq, dk, dv, drh, drw = bwd(q, k, v, rel_h, rel_w, g, lse, dd)
+    return torch.cat([_merge(t, B) for t in (dq, dk, dv)], dim=-1), drh, drw
+
+
 class VitFlashPacked(torch.autograd.Function):
-    """B14 forward; the backward splits qkv, o and the output gradient into
-    heads and runs B9, then packs dq, dk, dv back into dqkv [B, N, 3C]
-    (``_vit_flash_packed_bwd``). rel_h / rel_w arrive at any float dtype and
-    are cast to qkv.dtype inside, so their gradients keep their dtype."""
+    """B14 forward; the backward is ``vit_flash_packed_bwd`` (B9 on the
+    heads). rel_h / rel_w arrive at any float dtype and are cast to
+    qkv.dtype inside, so their gradients keep their dtype."""
 
     @staticmethod
     def forward(ctx, qkv, rel_h, rel_w, nh):
@@ -379,12 +439,7 @@ class VitFlashPacked(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         qkv, rh, rw, o, lse = ctx.saved_tensors
-        nh, B = ctx.nh, qkv.shape[0]
-        q, k, v = (_heads(t, nh) for t in qkv.chunk(3, dim=-1))
-        g, o = _heads(g, nh), _heads(o, nh)
-        dd = (g.float() * o.float()).sum(-1)
-        dq, dk, dv, drh, drw = vit_flash_attn_bwd(q, k, v, rh, rw, g, lse, dd)
-        dqkv = torch.cat([_merge(t, B) for t in (dq, dk, dv)], dim=-1)
+        dqkv, drh, drw = vit_flash_packed_bwd(qkv, rh, rw, o, lse, g, ctx.nh)
         return (dqkv, drh.to(ctx.rel_dtypes[0]), drw.to(ctx.rel_dtypes[1]),
                 None)
 

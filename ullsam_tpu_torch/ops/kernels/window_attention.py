@@ -36,8 +36,8 @@ bf16 window core, ``csrc/window_core.cuh``, and give bitwise-equal
 outputs; in float32 B3 and B15 keep their own CUDA-core kernels. B8 is
 ``csrc/window_attn_bwd.cu``. On a CPU tensor each runs its plain version
 here. B3 and B15 take head dims 64 and 80 (in bfloat16 windows of at most
-16x16, as B8); B8 64 and 80 in bfloat16 (on the tensor cores) and 64 in
-float32. There is no fallback from a kernel to
+16x16, as B8); B8 64 and 80 in both dtypes (bfloat16 on the tensor cores,
+float32 by FMA with dk in registers). There is no fallback from a kernel to
 its plain version. ``window_attention`` is the differentiable entry: a
 ``torch.autograd.Function`` whose forward is B3 (B15 under
 ``ULLSAM_WINDOW_TWOPHASE=1``, read at each call) and whose backward is B8
@@ -57,9 +57,9 @@ Tensor = torch.Tensor
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FWD_HEAD_DIMS = (64, 80)  # B3, B15: SAM ViT-B / L and ViT-H
-# B8: float32 keeps its CUDA-core kernel, whose d-major f32 tiles of k, v,
-# dk and dv alone take 252 KB at head dim 80 (a block has 227 KB)
-_BWD_HEAD_DIMS = {torch.bfloat16: (64, 80), torch.float32: (64,)}
+# B8: bfloat16 on the tensor cores; float32 keeps its CUDA-core kernel,
+# which at head dim 80 holds dk in registers so that k, v and dv fit a block
+_BWD_HEAD_DIMS = {torch.bfloat16: (64, 80), torch.float32: (64, 80)}
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
 
 
@@ -202,16 +202,17 @@ def bwd_smem_bytes(dtype: torch.dtype, n: int, kh: int, kw: int,
                    hd: int = 64) -> int:
     """Shared memory of B8's main kernel (``window_attn_bwd.cu`` ``BwdMma``
     and ``f32_smem_bytes``). bfloat16: q, k, v and do [nk][hd + 8], the
-    rows' rel-pos terms and statistics in f32. float32 (hd 64): k, v, dk
-    and dv d-major [64][n | 1] in f32, 16-row q, do and ds tiles, the rows'
-    rel-pos terms."""
+    rows' rel-pos terms and statistics in f32. float32: k, v, dv and (at
+    head dim 64; at 80 it stays in registers) dk d-major [hd][n | 1] in
+    f32, 16-row q, do and ds tiles, the rows' rel-pos terms and drel, their
+    statistics."""
     rl = kh + kw
     if dtype == torch.bfloat16:
         nk = _nk(n)
         return 2 * 4 * nk * (hd + 8) + 4 * (nk * rl + 3 * nk)
     ld = n | 1
-    return (4 * hd * ld * 4 + 2 * 16 * hd * 4 + 16 * ld * 4 + 2 * 16 * rl * 4
-            + 3 * 16 * 4 + 8 * 16 * 4)
+    return ((3 if hd > 64 else 4) * hd * ld * 4 + 2 * 16 * hd * 4
+            + 16 * ld * 4 + 2 * 16 * rl * 4 + 3 * 16 * 4 + 8 * 16 * 4)
 
 
 def core_smem_bytes(n: int, kh: int, kw: int, hd: int) -> int:
@@ -321,11 +322,6 @@ def window_attn_core_bwd(qkv: Tensor, rh: Tensor, rw: Tensor,
         return window_attn_core_bwd_plain(qkv, rh, rw, do)
     name = "window_attn_core_bwd"
     _cuda_only(qkv, name)
-    if (qkv.dtype == torch.float32
-            and rh.shape[-1] not in _BWD_HEAD_DIMS[torch.float32]):
-        raise ValueError(f"{name}: float32 takes head dim 64 only (the f32 "
-                         f"kernel's d-major k, v, dk and dv tiles alone take "
-                         f"252 KB at head dim 80); got {rh.shape[-1]}")
     Bw, n, C, nh, hd, kh, kw = _geometry(qkv, rh, rw, name,
                                          _BWD_HEAD_DIMS[qkv.dtype])
     if tuple(do.shape) != (qkv.shape[0], C):

@@ -1,29 +1,31 @@
-"""A/B timing of the ViT kernels B1, B2, B3, B13, B14, B15 and of B12 (the
-int8 LLM linears) built from several source trees, in one process on one
-card, so that versions compare within one call (two calls may land on two
-cards).
+"""A/B timing of the ViT kernels B1, B2, B3, B8 (float32), B9, B13, B14,
+B15 and of B12 (the int8 LLM linears) built from several source trees, in one process on
+one card, so that versions compare within one call (two calls may land on
+two cards).
 
     python -m ullsam_tpu_torch.tools.ab_vit_kernels [--only=B2,B12,...] \
         NAME=CSRC_DIR [...]
 
 Each CSRC_DIR holds ``window_attn.cu``, ``window_attn_twophase.cu``,
-``ln_mlp.cu``, ``vit_flash_attn.cu``, ``w8a16_matmul.cu`` and the headers
-they include: a checkout's ``ullsam_tpu_torch/csrc``, or another commit's
+``window_attn_bwd.cu``, ``ln_mlp.cu``, ``vit_flash_attn.cu``,
+``vit_flash_bwd.cu``, ``w8a16_matmul.cu`` and the headers they include: a checkout's ``ullsam_tpu_torch/csrc``, or another commit's
 unpacked by ``git archive`` into a directory that git ignores. Each version
 is built with ``build.NVCC_FLAGS`` under ``csrc/_build/ab/`` (its ptxas
-registers and spills printed), checked in bf16 against the plain versions
+registers, spills and C7515 advisories printed), checked in bf16 against the plain versions
 at the main path's shapes (``tools/main_path.py``: B1 and B3 / B15 at ViT-B
-and ViT-H, B13 at ViT-H with T = 4900, B2 and B14 at both widths' global
-blocks, B12 at each layer linear of InternLM2-1.8B at M = 1152 and 9216,
+and ViT-H, B13 at ViT-H with T = 4900, B2, B14 and B9 at both widths'
+global blocks (a version that refuses a case, as B9 before head dim 80,
+is left out of it), B8 in float32 at both widths' windows, B12 at each layer linear of InternLM2-1.8B at M = 1152 and 9216,
 bf16 out as the caption's prefill calls it), then timed by CUDA events (20
 launches after 3) in the order given and again in reverse (a, b, ..., b,
 a), beside the library yardsticks: SDPA with the bias materialized for B2,
-B3, B14, B15, the chain of four library calls for B13, F.linear on the
+B3, B14, B15 (for B9 its backward alone on a retained graph), the chain of four library calls for B13, F.linear on the
 dequantized weight for B12, and, where the version has the entry
 ``gemm_bf16_forward``, each bf16 product of B1 and B13 (proj and fc2 with
 their residual) beside ``F.linear`` (without it).
 ``--only`` keeps the cases whose label starts with one of the given
-prefixes (B1, B2, B3, B12, B13, B14, B15, GEMM). Needs a CUDA card.
+prefixes (B1, B2, B3, B8, B9, B12, B13, B14, B15, GEMM). Needs a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -47,8 +49,8 @@ from ullsam_tpu_torch.tools import main_path as MP
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _F = ctypes.c_float
-_SOURCES = ("window_attn", "window_attn_twophase", "ln_mlp",
-            "vit_flash_attn", "w8a16_matmul")
+_SOURCES = ("window_attn", "window_attn_twophase", "window_attn_bwd",
+            "ln_mlp", "vit_flash_attn", "vit_flash_bwd", "w8a16_matmul")
 _ENTRIES = {
     "b2": ("vit_flash_attn", "vit_flash_attn_forward",
            [_I] + [_P] * 7 + [_I] * 5 + [_F, _P]),
@@ -65,6 +67,10 @@ _ENTRIES = {
     "b13": ("ln_mlp", "ln_mlp_forward", [_I] + [_P] * 10 + [_I] * 3
             + [_F, _P]),
     "gemm": ("ln_mlp", "gemm_bf16_forward", [_P] * 5 + [_I] * 4 + [_P]),
+    "b9": ("vit_flash_bwd", "vit_flash_attn_backward",
+           [_I] + [_P] * 13 + [_I] * 5 + [_F, _P]),
+    "b8": ("window_attn_bwd", "window_attn_bwd",
+           [_I] + [_P] * 10 + [_I] * 7 + [_P]),
 }
 
 
@@ -87,7 +93,8 @@ def build_version(name: str, csrc: str) -> dict:
         regs = re.findall(r"Used (\d+) registers", log)
         spills = re.findall(r"(\d+) bytes spill stores", log)
         print(f"[build] {name} {src}: registers {sorted(set(regs))}, spill "
-              f"stores {sorted(set(spills))}")
+              f"stores {sorted(set(spills))}, {log.count('C7515')} C7515 "
+              f"advisories (wgmma serialized)")
         libs[src] = ctypes.CDLL(os.path.join(out, src + ".so"))
     fns = {}
     for key, (src, fn_name, argtypes) in _ENTRIES.items():
@@ -112,6 +119,9 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def _rel(a, b) -> float:
+    """max|a - b| / max|b|, the worst over the outputs of a tuple."""
+    if isinstance(a, tuple):
+        return max(_rel(x, y) for x, y in zip(a, b))
     return float((a.float() - b.float()).abs().max() / b.float().abs().max())
 
 
@@ -204,6 +214,45 @@ def cases(gen):
                     F.scaled_dot_product_attention(q[None], k[None], v[None],
                                                    attn_mask=b[None])))
         del bias
+    for tag, w in (("vit_b", MP.FLASH_BWD), ("vit_h", MP.FLASH_BWD_VIT_H)):
+        args, fl, _ = MP.vit_flash_bwd_case(torch.bfloat16, gen, **w)
+        q, k, v, rh, rw = args[:5]
+        BH, N, D = q.shape
+        outs = tuple(torch.empty_like(q) for _ in range(3)) + tuple(
+            torch.empty((BH, N, r.shape[-1]), device="cuda",
+                        dtype=torch.float32) for r in (rh, rw))
+        bias = (rh.float()[..., :, None] + rw.float()[..., None, :]
+                ).reshape(1, BH, N, N).to(torch.bfloat16).requires_grad_()
+        ins = [t[None].detach().requires_grad_() for t in (q, k, v)]
+        o_lib = F.scaled_dot_product_attention(*ins, attn_mask=bias)
+        g_lib = torch.randn_like(o_lib)
+        out.append((f"B9 {tag}", "b9",
+                    lambda f, a=args, o=outs, BH=BH, N=N, D=D: f(
+                        1, *(t.data_ptr() for t in a),
+                        *(t.data_ptr() for t in o), BH, N, D, 64, 64,
+                        D ** -0.5, stream),
+                    outs, FA.vit_flash_attn_bwd_plain(*args), fl,
+                    lambda o=o_lib, g=g_lib, i=ins + [bias]:
+                    torch.autograd.grad(o, i, g, retain_graph=True)))
+    for tag, w in (("vit_b", MP.WINDOW_CORE), ("vit_h", MP.WINDOW_CORE_VIT_H)):
+        _, (qkv, rh, rw, do), fl, _ = MP.window_core_case(torch.float32, gen,
+                                                          **w)
+        ws, hd = rh.shape[0], rh.shape[-1]
+        Bw, n, C = qkv.shape[0] // (ws * ws), ws * ws, do.shape[1]
+        nh = C // hd
+        outs = (torch.empty_like(qkv), torch.empty_like(rh),
+                torch.empty_like(rw))
+        drel = torch.empty((Bw, nh, n, 2 * ws), device="cuda")
+        part = torch.empty((Bw, 2 * ws * ws * hd), device="cuda")
+        out.append((f"B8 f32 {tag}", "b8",
+                    lambda f, a=(qkv, rh, rw, do), o=outs, drel=drel,
+                    part=part, Bw=Bw, n=n, C=C, nh=nh, hd=hd, ws=ws: f(
+                        0, *(t.data_ptr() for t in a),
+                        *(t.data_ptr() for t in o), drel.data_ptr(),
+                        part.data_ptr(), None, Bw, n, C, nh, hd, ws, ws,
+                        stream),
+                    outs, WA.window_attn_core_bwd_plain(qkv, rh, rw, do),
+                    fl["bwd"], None))
     for M in MP.W8A16_PREFILL_M:
         for N, K in MP.W8A16_LINEARS[:4]:
             (x, q8, sc), _, fl, _ = MP.w8a16_case(torch.bfloat16, gen, M, N,
@@ -279,11 +328,12 @@ def main() -> None:
         if only and not label.startswith(only):
             continue
         have = [n for n in fns if key in fns[n]]
-        for name in have:
+        for name in list(have):
             err = call(fns[name][key])
             if err:
-                raise SystemExit(f"{name} {label}: launch failed, cudaError "
-                                 f"{err}")
+                print(f"[skip] {name} {label}: refused, cudaError {err}")
+                have.remove(name)
+                continue
             torch.cuda.synchronize()
             print(f"[check] {name} {label}: max|err| / max|plain| "
                   f"{_rel(out, ref):.3e}")

@@ -132,8 +132,12 @@ def vit_flash_case(dtype: torch.dtype, gen: torch.Generator,
 # B3 / B8: the ViT-B windows of one 1024x1024 image: 25 windows of 14x14,
 # 12 heads of 64
 WINDOW_CORE = dict(Bw=25, ws=14, nh=12)
-# B9: the ViT-B global blocks: 12 heads over the 64x64 grid
-FLASH_BWD = dict(BH=12, KH=64, KW=64)
+# B9: the ViT-B global blocks: 12 heads of 64 over the 64x64 grid; ViT-H's:
+# 16 heads of 80
+FLASH_BWD = dict(BH=12, KH=64, KW=64, D=64)
+FLASH_BWD_VIT_H = dict(BH=16, KH=64, KW=64, D=80)
+# B3 / B8 at ViT-H's windows: 25 of 14x14, 16 heads of 80
+WINDOW_CORE_VIT_H = dict(Bw=25, ws=14, nh=16, hd=80)
 
 
 def window_core_flops(Bw: int, ws: int, nh: int, hd: int = 64) -> dict:
@@ -178,13 +182,15 @@ def window_core_case(dtype: torch.dtype, gen: torch.Generator, Bw: int = 25,
 
 
 def vit_flash_bwd_case(dtype: torch.dtype, gen: torch.Generator,
-                       BH: int = 12, KH: int = 64, KW: int = 64):
-    """B9 inputs at the ViT-B global blocks: q, k, v, do [12, 4096, 64],
-    rel_h, rel_w [12, 4096, 64], and the forward's lse and dd = sum(do * o)
-    (made by B2, or by its plain version on the CPU); returns (args, flops,
-    bytes)."""
+                       BH: int = 12, KH: int = 64, KW: int = 64,
+                       D: int = 64):
+    """B9 inputs at the global blocks (default ViT-B's; ``FLASH_BWD_VIT_H``
+    ViT-H's): q, k, v, do [BH, 4096, D], rel_h, rel_w [BH, 4096, 64], and
+    the forward's lse and dd = sum(do * o) (made by B2, or by its plain
+    version on the CPU); returns (args, flops, bytes). At ViT-H (16 heads
+    of 80) the five products are 214.7 GFLOP."""
     from ullsam_tpu_torch.ops.kernels import flash_attention as FA
-    N, D = KH * KW, 64
+    N = KH * KW
 
     def r(*shape, s=1.0):
         return (torch.randn(*shape, generator=gen, device=gen.device)

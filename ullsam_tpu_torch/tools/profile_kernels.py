@@ -4,7 +4,9 @@ automatic-mask-generation image, one flagship train step, one packed sft
 step and steady caption decode steps in bf16 and with the int8 LLM (inputs
 from ``tools/main_path.py``, as ``chip_smoke.py`` checks and times them),
 and over one warm SAM ViT-H AMG image and its encode under each route
-setting of the JAX package's switches (regions ``vit_h_*``) and a SAM
+setting of the JAX package's switches (regions ``vit_h_*``), one ViT-H
+segmentation train step (``vit_h_train_step_bfloat16``: SAM ViT-H +
+frozen InternLM2-1.8B, bf16 parameters and moments, remat off) and a SAM
 ViT-B encode (``vit_b_encode_bfloat16``, the interactive request's).
 
     python -m ullsam_tpu_torch.tools.profile_kernels [--out DIR] [--only P]
@@ -33,7 +35,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from ullsam_tpu_torch.core.config import (FusionConfig, internlm2_1_8b,
-                                          sam_vit_b)
+                                          sam_vit_b, sam_vit_h)
 from ullsam_tpu_torch.inference.amg import AutomaticMaskGenerator
 from ullsam_tpu_torch.models.internlm2 import model as LLM
 from ullsam_tpu_torch.models.internlm2.quant import quantize_llm_int8
@@ -145,6 +147,23 @@ def _vit_h(args) -> None:
     torch.cuda.empty_cache()
 
 
+def _vit_h_train(args) -> None:
+    """The segmentation train step at SAM ViT-H + frozen InternLM2-1.8B
+    (``chip_smoke.py`` phase 11 (a)): bf16 parameters and moments, remat
+    off, random weights (seed 0), the flagship batch; the default route."""
+    cfg = FusionConfig(sam=sam_vit_h(), llm=internlm2_1_8b())
+    model = F.build_ullsam(cfg, dtype=torch.bfloat16, seed=0)
+    tcfg = S.TrainConfig(total_steps=100, remat=False)
+    step = S.make_train_step(cfg, tcfg, model,
+                             S.make_trainable_optimizer(model, tcfg))
+    batch = S.batch_on(model, train_batch(cfg, np.random.default_rng(0)))
+    with switches({}):
+        _region("vit_h_train_step_bfloat16", lambda: step(batch), args,
+                iters=2, top=30)
+    del model, step, batch
+    torch.cuda.empty_cache()
+
+
 def _vit_b_encode(args) -> None:
     """SAM ViT-B in bf16 (random weights, seed 0): the encode of one
     1024x1024 image, the interactive request's first stage (B1 8, B2 4)."""
@@ -174,6 +193,8 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     if _wants(args, "vit_h_"):
         _vit_h(args)
+    if _wants(args, "vit_h_train_step_"):
+        _vit_h_train(args)
     if _wants(args, "vit_b_encode_"):
         _vit_b_encode(args)
     gen = torch.Generator(device="cuda")
