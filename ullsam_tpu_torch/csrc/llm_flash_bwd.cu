@@ -3,43 +3,67 @@
 //
 // Replaces the TPU kernels ullsam_tpu/ops/pallas/flash_attention.py
 // `_llm_bwd_dq_kernel` and `_llm_bwd_dkv_kernel` (via `_llm_flash_bwd_impl`).
-// With B10's logits s = qs k^T, qs = cast(q * D^-1/2), the validity
-// predicate (q_seg[i] == kv_seg[j], and j <= i when causal), the forward's
-// row logsumexp lse and dd = rowsum(do * o) (computed by the caller):
-//     p = exp(s - lse) at valid keys, 0 elsewhere;  ds = p (do v^T - dd)
-//     dq = ds k * D^-1/2,  dk = sum over the group's heads of ds^T qs,
-//     dv = sum over the group's heads of p^T do
+// With the validity predicate (q_seg[i] == kv_seg[j], and j <= i when
+// causal), the forward's row logsumexp lse and dd = rowsum(do * o)
+// (computed by the caller), it scores as the TPU kernels do, from unscaled
+// q (flash_attention.py:604-612):
+//     s = f32(q k^T) * D^-1/2,  p = exp(s - lse) at valid keys, 0 elsewhere
+//     ds = p (do v^T - dd)
+//     dq = (ds k) * D^-1/2,  dk = sum over the group's heads of (ds^T q)
+//     * D^-1/2,  dv = sum over the group's heads of p^T do
 // p and ds are rounded to the input dtype before their products; every sum
-// is f32. (This port scores with B10's cast(q * D^-1/2), so p is exactly
-// the forward's probability; the TPU kernel scores q k^T * D^-1/2.)
-// Layouts as B10: q, do, dq [B, S, nh, D]; k, v, dk, dv [B, S, nkv, D];
-// segment ids [B, S] int32; lse, dd [B, nh, S]; rows and keys past S are
-// zero-filled on load and masked by bounds checks.
+// is f32. Layouts as B10: q, do, dq [B, S, nh, D]; k, v, dk, dv [B, S, nkv,
+// D]; segment ids [B, S] int32; lse, dd [B, nh, S]; rows and keys past S
+// are zero-filled on load and masked by bounds checks.
 //
 // What bounds it on this card: operations. The gradient needs 5 products of
-// 2 D per valid (query, key) pair and head (s, dp, dv, dq, dk): at the
-// packed-training shape (S = 2560, nh = 16, nkv = 8, D = 128) 67.1 GFLOP
-// over the causal half against ~52 MB. The pair does 7 (3 in dq: s, dp,
-// ds.k; 4 in dkv: s, dp, p.do, ds.q), as the price of two kernels, as on the
-// TPU, so that neither needs float atomics:
-//   * dq, q-tile major: a block owns 64 query rows of one head and walks the
-//     key tiles up to the diagonal.
-//   * dk + dv, k-tile major: a block owns 64 keys of one kv head and walks,
-//     for each of the group's query heads, the query tiles from the
-//     diagonal on; it sums the group in its registers (the TPU's
-//     `group * nq` inner grid axis).
-// Both walk only the tiles that hold one of their own tile's segment ids
-// (seg_tiles.cuh: on a packed row, the tiles near the block-diagonal).
-// bf16 runs every product on the tensor cores (mma.sync m16n8k16, f32
-// accumulate; 4 warps of 16 rows; the next tile fetched by cp.async while
-// the current one is multiplied). At D = 128 a warp's accumulators are 64
-// (dq) or 128 (dk + dv) f32 registers, so operands stay in shared memory and
-// are reloaded with ldmatrix per use, and the score tile is taken 32 columns
-// at a time (16 in dk + dv at D = 128, which spilled at 32) to keep the
-// registers for s and dp few. float32 stays true f32 FMA on the CUDA cores
-// (256 threads, 4 x 4 scores and 4 x D/16 outputs each), bounded by the 67
-// TFLOP/s f32 rate.
-#include "common.cuh"
+// 2 D per valid (query, key) pair and head (s, dp, dv, dk, dq): at the
+// packed-training shape (S = 2560, nh = 16, nkv = 8, D = 128, segments of
+// 1124 and 1224 tokens) 28.8 GFLOP against ~52 MB.
+//
+// bf16 (llm_bwd_sm90, llm_sm90.cuh's tiles): one key-major kernel that runs
+// the 5 products, and a small one that converts dq's f32 sum.
+//   * A block owns 64 keys of one kv head and walks, for each of the
+//     group's query heads in turn, the query tiles from the diagonal on
+//     (all when not causal) that hold one of its keys' segment ids
+//     (seg_tiles.cuh). dK and dV sum the group in registers and are
+//     written once, in bf16. Blocks run key tile by key tile, the kv heads
+//     of one tile neighbours: on a causal packed row each segment's
+//     longest walks start first.
+//   * Two consumer warpgroups and a producer warpgroup that gives its
+//     registers to them (setmaxnreg 40 / 232). Thread 0 loads the block's
+//     k and v by TMA before the segment scan; the producer's first thread
+//     then loads q and do of each query tile into a ring of kBwdStages
+//     stages (full / empty mbarriers), its first 64 threads copying the
+//     tile's lse (times log2 e), dd and segment ids beside them.
+//   * Per query tile, warpgroup w takes queries 32 w .. 32 w + 31: S^T = k
+//     q^T and dP^T = v do^T on wgmma m64n32k16 (all operands K-major from
+//     shared memory), p^T and ds^T in f32 registers, rounded to bf16 into
+//     two shared [64 keys][64 queries] tiles in the 128-byte swizzle
+//     (double-buffered; one named barrier a tile joins the warpgroups).
+//     Then warpgroup w takes columns w D/2 .. of every output: dV += P^T do
+//     and dK += dS^T q (m64n(D/2)k16, q and do read MN-major), and dQ =
+//     dS k (dS^T read MN-major as A).
+//   * dQ: each warpgroup stages its 64 x D/2 partial in shared memory and
+//     one thread adds it to the tile's chunk of an f32 scratch with one TMA
+//     bulk reduction (cp.reduce.async.bulk .add.f32, 16 KB at D = 128);
+//     llm_bwd_convert scales the sums by D^-1/2 and rounds them to bf16.
+//     The reductions land in an order that changes from run to run, and so
+//     do dq's last bits; dk and dv are the same every run.
+// On an H100 (PERF.md section 6): float-pair red.global.add of dQ from
+// registers held the kernel near the L2's atomic rate; the bulk
+// reductions ran 1.25x. Walking the group's heads in turn ran 1.1x
+// spreading them over blocks with dk / dv atomics (half the blocks, half
+// the scratch). Loading k / v before the scan and the scan's loads four at
+// a time, 1.06x. Issuing the next tile's S^T / dP^T before this tile's
+// softmax (two buffers), with or without the softmax under the previous
+// tile's products, and a mask-free path for tile pairs of one segment ran
+// slower.
+// float32 stays true f32 FMA on the CUDA cores, two kernels and no atomics
+// (256 threads, 4 x 4 scores and 4 x D/16 outputs each): dq q-tile major,
+// dk + dv k-tile major walking the group's heads in turn, bounded by the
+// 67 TFLOP/s f32 rate.
+#include "llm_sm90.cuh"
 #include "seg_tiles.cuh"
 
 namespace ullsam {
@@ -48,399 +72,6 @@ namespace {
 using bf16 = __nv_bfloat16;
 constexpr int kB = 64;         // query / key tile
 constexpr int kLdF = kB + 4;   // f32 d-major / score row stride
-
-// ---- tensor-core fragments (m16n8k16 layouts, see attn_mma.cuh) ----------
-
-// A fragment: rows [row0, row0 + 16) x cols [col0, col0 + 16) of a [rows][ld]
-// tile
-__device__ __forceinline__ void load_a16(uint32_t (&a)[4], const bf16* t,
-                                         int ld, int row0, int col0,
-                                         int lane) {
-  ldmatrix_x4(a, smem_u32(t + (row0 + (lane & 15)) * ld + col0 +
-                          (lane >> 4) * 8));
-}
-
-// B fragments of two n8 tiles from a [n][ld] tile (row = n, col = k): n in
-// [n0, n0 + 16), k in [col0, col0 + 16)
-__device__ __forceinline__ void load_b16(uint32_t (&b)[4], const bf16* t,
-                                         int ld, int n0, int col0,
-                                         int lane) {
-  ldmatrix_x4(b, smem_u32(t + (n0 + (lane & 7) + ((lane >> 4) << 3)) * ld +
-                          col0 + ((lane >> 3) & 1) * 8));
-}
-
-// B fragments of two n8 tiles from a [k][ld] tile (row = the contracted k):
-// k in [k0, k0 + 16), n in [n0, n0 + 16)
-__device__ __forceinline__ void load_bt16(uint32_t (&b)[4], const bf16* t,
-                                          int ld, int k0, int n0, int lane) {
-  ldmatrix_x4_trans(b, smem_u32(t + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8)
-                                        * ld + n0 + (lane >> 4) * 8));
-}
-
-// columns [16 kk, 16 kk + 16) of a C-fragment tile as an A fragment, rounded
-// to bf16
-template <int N>
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c)[N][4],
-                                       int kk) {
-  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-}
-
-// 64 rows x HD bf16 from global rows [row0, row0 + 64) of stride ld_g into
-// [64][HD + 8] smem by cp.async, rows past S zero-filled
-template <int HD>
-__device__ __forceinline__ void cp_rows(bf16* dst, const bf16* base,
-                                        size_t ld_g, int row0, int S,
-                                        int tid) {
-  constexpr int kChunks = HD / 8, kLd = HD + 8;
-  for (int c = tid; c < kB * kChunks; c += 128) {
-    const int row = c / kChunks, ch = (c % kChunks) * 8;
-    const bool in = row0 + row < S;
-    cp_async16(smem_u32(dst + row * kLd + ch),
-               base + (size_t)(in ? row0 + row : 0) * ld_g + ch, in);
-  }
-}
-
-// ---- bf16: dq, q-tile major -----------------------------------------------
-// grid (ceil(S / 64), nh, B), 128 threads: warp w owns query rows
-// q0 + 16 w .. + 15; the tiles with the most keys first.
-template <int HD>
-constexpr size_t dq_mma_smem() {
-  return sizeof(bf16) * (size_t)(6 * kB * (HD + 8)) + sizeof(int) * 2 * kB;
-}
-
-template <int HD>
-__global__ void __launch_bounds__(128, 2)
-    llm_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const int* __restrict__ qseg,
-                    const int* __restrict__ kseg,
-                    const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ dd, bf16* __restrict__ dq,
-                    int S, int nh, int nkv, int causal, float scale) {
-  constexpr int kLd = HD + 8;
-  extern __shared__ __align__(16) unsigned char smraw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smraw);  // [2][64][kLd]
-  bf16* Vs = Ks + 2 * kB * kLd;               // [2][64][kLd]
-  bf16* Qs = Vs + 2 * kB * kLd;               // [64][kLd] qs
-  bf16* Gs = Qs + kB * kLd;                   // [64][kLd] do
-  int* KSeg = reinterpret_cast<int*>(Gs + kB * kLd);  // [2][64]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int NT = (S + kB - 1) / kB;
-  const int qt = NT - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z, q0 = qt * kB;
-  const size_t ldq = (size_t)nh * HD, ldk = (size_t)nkv * HD;
-  const bf16* qb = q + (size_t)b * S * ldq + (size_t)h * HD;
-  const bf16* gb = dout + (size_t)b * S * ldq + (size_t)h * HD;
-  const size_t kvoff = (size_t)b * S * ldk + (size_t)(h / (nh / nkv)) * HD;
-  const int* ksb = kseg + (size_t)b * S;
-
-  auto load_kv = [&](int stage, int k0) {
-    cp_rows<HD>(Ks + stage * kB * kLd, k + kvoff, ldk, k0, S, tid);
-    cp_rows<HD>(Vs + stage * kB * kLd, v + kvoff, ldk, k0, S, tid);
-    if (tid < kB) KSeg[stage * kB + tid] = k0 + tid < S ? ksb[k0 + tid] : 0;
-  };
-  const int nkt = causal ? qt + 1 : NT;
-  __shared__ SegTiles tiles;
-  seg_own_ids(tiles, qseg + (size_t)b * S, q0, S, tid);
-  seg_mark_live(tiles, ksb, 0, nkt, S, tid, 128);
-  int kt = seg_next_live(tiles, 0, nkt);
-  if (kt < nkt) load_kv(0, kt * kB);
-  cp_rows<HD>(Gs, gb, ldq, q0, S, tid);
-  cp_async_commit();
-  for (int e = tid; e < kB * HD / 2; e += 128) {  // B10's qs
-    const int r = e / (HD / 2), d = (e % (HD / 2)) * 2;
-    float2 f = make_float2(0.f, 0.f);
-    if (q0 + r < S)
-      f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-          qb + (size_t)(q0 + r) * ldq + d));
-    *reinterpret_cast<__nv_bfloat162*>(Qs + r * kLd + d) =
-        __floats2bfloat162_rn(f.x * scale, f.y * scale);
-  }
-
-  int row[2], seg[2];
-  float l2[2], d2[2];
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    row[hf] = q0 + warp * 16 + g + 8 * hf;
-    const bool in = row[hf] < S;
-    const size_t ri = ((size_t)b * nh + h) * S + row[hf];
-    seg[hf] = in ? qseg[(size_t)b * S + row[hf]] : 0;
-    l2[hf] = in ? lse[ri] : 0.f;
-    d2[hf] = in ? dd[ri] : 0.f;
-  }
-  float acc[HD / 8][4];
-#pragma unroll
-  for (int j = 0; j < HD / 8; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
-
-  for (int i = 0; kt < nkt; ++i) {
-    const int next = seg_next_live(tiles, kt + 1, nkt);
-    if (next < nkt) {
-      load_kv((i + 1) & 1, next * kB);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int k0 = kt * kB;
-    const bf16* kt_s = Ks + (i & 1) * kB * kLd;
-    const bf16* vt_s = Vs + (i & 1) * kB * kLd;
-    const int* ks = KSeg + (i & 1) * kB;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {  // keys 32 half .. + 31
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[j][c] = dp[j][c] = 0.f;
-#pragma unroll
-      for (int kd = 0; kd < HD / 16; ++kd) {
-        uint32_t aq[4], ag[4];
-        load_a16(aq, Qs, kLd, warp * 16, kd * 16, lane);
-        load_a16(ag, Gs, kLd, warp * 16, kd * 16, lane);
-#pragma unroll
-        for (int nj = 0; nj < 2; ++nj) {
-          uint32_t bk[4], bv[4];
-          load_b16(bk, kt_s, kLd, half * 32 + nj * 16, kd * 16, lane);
-          mma_bf16_16816(s[2 * nj], aq, bk);
-          mma_bf16_16816(s[2 * nj + 1], aq, bk + 2);
-          load_b16(bv, vt_s, kLd, half * 32 + nj * 16, kd * 16, lane);
-          mma_bf16_16816(dp[2 * nj], ag, bv);
-          mma_bf16_16816(dp[2 * nj + 1], ag, bv + 2);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int hf = c >> 1, kl = half * 32 + j * 8 + 2 * t + (c & 1);
-          const int key = k0 + kl;
-          const bool ok = row[hf] < S && key < S && ks[kl] == seg[hf] &&
-                          (!causal || key <= row[hf]);
-          const float p = ok ? expf(s[j][c] - l2[hf]) : 0.f;
-          s[j][c] = round_to<bf16>(p * (dp[j][c] - d2[hf]));
-        }
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        uint32_t da[4];
-        pack_a(da, s, kk);
-#pragma unroll
-        for (int dj = 0; dj < HD / 16; ++dj) {
-          uint32_t bk[4];
-          load_bt16(bk, kt_s, kLd, half * 32 + kk * 16, dj * 16, lane);
-          mma_bf16_16816(acc[2 * dj], da, bk);
-          mma_bf16_16816(acc[2 * dj + 1], da, bk + 2);
-        }
-      }
-    }
-    __syncthreads();  // this stage is refilled two tiles later
-    kt = next;
-  }
-  cp_async_wait<0>();  // with no live tile, Gs's group is still in flight
-
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    if (row[hf] >= S) continue;
-    bf16* out = dq + (size_t)b * S * ldq + (size_t)row[hf] * ldq +
-                (size_t)h * HD;
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(out + j * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[j][2 * hf] * scale,
-                                acc[j][2 * hf + 1] * scale);
-  }
-}
-
-// ---- bf16: dk + dv, k-tile major ------------------------------------------
-// grid (ceil(S / 64), nkv, B), 128 threads: warp w owns keys k0 + 16 w ..
-// + 15; the block walks (head of the group, query tile) pairs with the next
-// pair's q, do, lse, dd and segment ids fetched while the current one is
-// multiplied.
-template <int HD>
-constexpr size_t dkv_mma_smem() {
-  return sizeof(bf16) * (size_t)(6 * kB * (HD + 8)) +
-         sizeof(float) * 2 * 3 * kB;
-}
-
-template <int HD>
-__global__ void __launch_bounds__(128, 2)
-    llm_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v,
-                     const int* __restrict__ qseg,
-                     const int* __restrict__ kseg,
-                     const bf16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ dd, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int S, int nh, int nkv,
-                     int causal, float scale) {
-  constexpr int kLd = HD + 8, kChunks = HD / 8;
-  extern __shared__ __align__(16) unsigned char smraw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smraw);  // [64][kLd]
-  bf16* Vs = Ks + kB * kLd;                   // [64][kLd]
-  bf16* Qs = Vs + kB * kLd;                   // [2][64][kLd] qs
-  bf16* Gs = Qs + 2 * kB * kLd;               // [2][64][kLd] do
-  float* LSE = reinterpret_cast<float*>(Gs + 2 * kB * kLd);  // [2][64]
-  float* DD = LSE + 2 * kB;                                  // [2][64]
-  int* QSeg = reinterpret_cast<int*>(DD + 2 * kB);           // [2][64]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int NT = (S + kB - 1) / kB;
-  const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z, k0 = kt * kB;
-  const int group = nh / nkv;
-  const size_t ldq = (size_t)nh * HD, ldk = (size_t)nkv * HD;
-  const size_t kvoff = (size_t)b * S * ldk + (size_t)hk * HD;
-  const int qt0 = causal ? kt : 0;
-  // queries per score slab: 16 at D = 128 (32 left dk + dv at 255
-  // registers with spills), 32 at D = 64
-  constexpr int kQW = HD == 128 ? 16 : 32, kNJ = kQW / 16;
-
-  __shared__ SegTiles tiles;
-  seg_own_ids(tiles, kseg + (size_t)b * S, k0, S, tid);
-  seg_mark_live(tiles, qseg + (size_t)b * S, qt0, NT, S, tid, 128);
-  cp_rows<HD>(Ks, k + kvoff, ldk, k0, S, tid);
-  cp_rows<HD>(Vs, v + kvoff, ldk, k0, S, tid);
-  auto load_q = [&](int st, int jh, int qt) {
-    const int h = hk * group + jh, r0 = qt * kB;
-    const size_t off = (size_t)b * S * ldq + (size_t)h * HD;
-    cp_rows<HD>(Qs + st * kB * kLd, q + off, ldq, r0, S, tid);
-    cp_rows<HD>(Gs + st * kB * kLd, dout + off, ldq, r0, S, tid);
-    if (tid < kB) {
-      const bool in = r0 + tid < S;
-      const size_t ri = ((size_t)b * nh + h) * S + r0 + tid;
-      LSE[st * kB + tid] = in ? lse[ri] : 0.f;
-      DD[st * kB + tid] = in ? dd[ri] : 0.f;
-      QSeg[st * kB + tid] = in ? qseg[(size_t)b * S + r0 + tid] : 0;
-    }
-  };
-  // the (head of the group, live query tile) pairs, in order
-  int jh = 0, qt = seg_next_live(tiles, qt0, NT);
-  const bool any = qt < NT;
-  if (any) load_q(0, jh, qt);
-  cp_async_commit();
-
-  int key[2], seg[2];
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    key[hf] = k0 + warp * 16 + g + 8 * hf;
-    seg[hf] = key[hf] < S ? kseg[(size_t)b * S + key[hf]] : 0;
-  }
-  float adk[HD / 8][4], adv[HD / 8][4];
-#pragma unroll
-  for (int j = 0; j < HD / 8; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) adk[j][c] = adv[j][c] = 0.f;
-
-  for (int it = 0; any && jh < group; ++it) {
-    const int st = it & 1;
-    int njh = jh, nqt = seg_next_live(tiles, qt + 1, NT);
-    if (nqt >= NT) {
-      ++njh;
-      nqt = seg_next_live(tiles, qt0, NT);
-    }
-    if (njh < group) {
-      load_q((it + 1) & 1, njh, nqt);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    // B10's qs: scale and round the q rows this thread copied, in place
-    bf16* qs = Qs + st * kB * kLd;
-    for (int c = tid; c < kB * kChunks; c += 128) {
-      __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(
-          qs + (c / kChunks) * kLd + (c % kChunks) * 8);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float2 f = __bfloat1622float2(p2[u]);
-        p2[u] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
-      }
-    }
-    __syncthreads();
-    const int q0 = qt * kB;
-    const bf16* gs = Gs + st * kB * kLd;
-    const float* ls = LSE + st * kB;
-    const float* ds_ = DD + st * kB;
-    const int* qsg = QSeg + st * kB;
-#pragma unroll
-    for (int w0 = 0; w0 < kB; w0 += kQW) {  // queries w0 .. w0 + kQW - 1
-      float s[2 * kNJ][4], dp[2 * kNJ][4];  // rows = keys, cols = queries
-#pragma unroll
-      for (int j = 0; j < 2 * kNJ; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[j][c] = dp[j][c] = 0.f;
-#pragma unroll
-      for (int kd = 0; kd < HD / 16; ++kd) {
-        uint32_t ak[4], av[4];
-        load_a16(ak, Ks, kLd, warp * 16, kd * 16, lane);
-        load_a16(av, Vs, kLd, warp * 16, kd * 16, lane);
-#pragma unroll
-        for (int n = 0; n < kNJ; ++n) {
-          uint32_t bq[4], bg[4];
-          load_b16(bq, qs, kLd, w0 + n * 16, kd * 16, lane);
-          mma_bf16_16816(s[2 * n], ak, bq);
-          mma_bf16_16816(s[2 * n + 1], ak, bq + 2);
-          load_b16(bg, gs, kLd, w0 + n * 16, kd * 16, lane);
-          mma_bf16_16816(dp[2 * n], av, bg);
-          mma_bf16_16816(dp[2 * n + 1], av, bg + 2);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 2 * kNJ; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int hf = c >> 1, qi = w0 + j * 8 + 2 * t + (c & 1);
-          const int qrow = q0 + qi;
-          const bool ok = key[hf] < S && qrow < S && qsg[qi] == seg[hf] &&
-                          (!causal || qrow >= key[hf]);
-          const float p = ok ? expf(s[j][c] - ls[qi]) : 0.f;
-          s[j][c] = p;
-          dp[j][c] = round_to<bf16>(p * (dp[j][c] - ds_[qi]));
-        }
-#pragma unroll
-      for (int kk = 0; kk < kNJ; ++kk) {
-        uint32_t pa[4], da[4];
-        pack_a(pa, s, kk);   // p rounded to bf16 here
-        pack_a(da, dp, kk);
-#pragma unroll
-        for (int dj = 0; dj < HD / 16; ++dj) {
-          uint32_t bb[4];
-          load_bt16(bb, gs, kLd, w0 + kk * 16, dj * 16, lane);
-          mma_bf16_16816(adv[2 * dj], pa, bb);
-          mma_bf16_16816(adv[2 * dj + 1], pa, bb + 2);
-          load_bt16(bb, qs, kLd, w0 + kk * 16, dj * 16, lane);
-          mma_bf16_16816(adk[2 * dj], da, bb);
-          mma_bf16_16816(adk[2 * dj + 1], da, bb + 2);
-        }
-      }
-    }
-    __syncthreads();  // this stage is refilled two pairs later
-    jh = njh;
-    qt = nqt;
-  }
-  cp_async_wait<0>();  // with no live pair, K / V's group is still in flight
-
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    if (key[hf] >= S) continue;
-    const size_t r = kvoff + (size_t)key[hf] * ldk;
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
-      const int c = j * 8 + 2 * t;
-      *reinterpret_cast<__nv_bfloat162*>(dk + r + c) =
-          __floats2bfloat162_rn(adk[j][2 * hf], adk[j][2 * hf + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + r + c) =
-          __floats2bfloat162_rn(adv[j][2 * hf], adv[j][2 * hf + 1]);
-    }
-  }
-}
 
 // ---- float32: FMA on the CUDA cores ---------------------------------------
 // 256 threads; thread (ty, tx) = (tid / 16, tid % 16) holds a 4 x 4 block of
@@ -493,17 +124,15 @@ __device__ __forceinline__ void fma_out(float (&acc)[4][HD / 16],
 }
 
 // 64 rows [row0, row0 + 64) of a global array with row stride ld_g (HD
-// floats used) into smem, d-major and/or row-major (either may be null),
-// times mul; rows past S are zero
+// floats used) into smem, d-major and/or row-major (either may be null);
+// rows past S are zero
 template <int HD>
 __device__ __forceinline__ void load_f32(float* dmaj, float* rmaj,
                                          const float* base, size_t ld_g,
-                                         int row0, int S, float mul,
-                                         int tid) {
+                                         int row0, int S, int tid) {
   for (int e = tid; e < kB * HD; e += 256) {
     const int r = e / HD, d = e % HD;
-    const float x =
-        row0 + r < S ? base[(size_t)(row0 + r) * ld_g + d] * mul : 0.f;
+    const float x = row0 + r < S ? base[(size_t)(row0 + r) * ld_g + d] : 0.f;
     if (dmaj) dmaj[d * kLdF + r] = x;
     if (rmaj) rmaj[r * (HD + 4) + d] = x;
   }
@@ -517,7 +146,7 @@ constexpr size_t dq_f32_smem() {
 
 // grid (ceil(S / 64), nh, B): dq of 64 query rows, the longest first
 template <int HD>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(256, 1)
     llm_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const int* __restrict__ qseg,
                    const int* __restrict__ kseg,
@@ -527,7 +156,7 @@ __global__ void __launch_bounds__(256)
                    int S, int nh, int nkv, int causal, float scale) {
   constexpr int kC = HD / 16;
   extern __shared__ __align__(16) float sm[];
-  float* Qt = sm;                  // [HD][kLdF] qs
+  float* Qt = sm;                  // [HD][kLdF] q
   float* Gt = Qt + HD * kLdF;      // [HD][kLdF] do
   float* Kt = Gt + HD * kLdF;      // [HD][kLdF]
   float* Vt = Kt + HD * kLdF;      // [HD][kLdF]
@@ -546,8 +175,8 @@ __global__ void __launch_bounds__(256)
   const size_t qoff = (size_t)b * S * ldq + (size_t)h * HD;
   const size_t kvoff = (size_t)b * S * ldk + (size_t)(h / (nh / nkv)) * HD;
   const size_t rb = ((size_t)b * nh + h) * S;
-  load_f32<HD>(Qt, nullptr, q + qoff, ldq, q0, S, scale, tid);
-  load_f32<HD>(Gt, nullptr, dout + qoff, ldq, q0, S, 1.f, tid);
+  load_f32<HD>(Qt, nullptr, q + qoff, ldq, q0, S, tid);
+  load_f32<HD>(Gt, nullptr, dout + qoff, ldq, q0, S, tid);
   if (tid < kB) {
     const bool in = q0 + tid < S;
     LSE[tid] = in ? lse[rb + q0 + tid] : 0.f;
@@ -568,8 +197,8 @@ __global__ void __launch_bounds__(256)
        kt = seg_next_live(tiles, kt + 1, nkt)) {
     const int k0 = kt * kB;
     __syncthreads();  // previous tile's Kt / Vt / Kr / DS / KSeg are free
-    load_f32<HD>(Kt, Kr, k + kvoff, ldk, k0, S, 1.f, tid);
-    load_f32<HD>(Vt, nullptr, v + kvoff, ldk, k0, S, 1.f, tid);
+    load_f32<HD>(Kt, Kr, k + kvoff, ldk, k0, S, tid);
+    load_f32<HD>(Vt, nullptr, v + kvoff, ldk, k0, S, tid);
     if (tid < kB) KSeg[tid] = k0 + tid < S ? kseg[(size_t)b * S + k0 + tid]
                                            : 0;
     __syncthreads();
@@ -584,7 +213,7 @@ __global__ void __launch_bounds__(256)
         const int c = tx * 4 + j, row = q0 + r, key = k0 + c;
         const bool ok = row < S && key < S && KSeg[c] == QSeg[r] &&
                         (!causal || key <= row);
-        const float p = ok ? expf(s[i][j] - LSE[r]) : 0.f;
+        const float p = ok ? expf(s[i][j] * scale - LSE[r]) : 0.f;
         DS[r * kLdF + c] = p * (dp[i][j] - DD[r]);
       }
     }
@@ -609,7 +238,7 @@ constexpr size_t dkv_f32_smem() {
 
 // grid (ceil(S / 64), nkv, B): dk and dv of 64 keys of one kv head
 template <int HD>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(256, 1)
     llm_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
                     const int* __restrict__ qseg,
@@ -623,7 +252,7 @@ __global__ void __launch_bounds__(256)
   extern __shared__ __align__(16) float sm[];
   float* Kt = sm;                  // [HD][kLdF] keys
   float* Vt = Kt + HD * kLdF;      // [HD][kLdF]
-  float* Qt = Vt + HD * kLdF;      // [HD][kLdF] qs of the query tile
+  float* Qt = Vt + HD * kLdF;      // [HD][kLdF] q of the query tile
   float* Gt = Qt + HD * kLdF;      // [HD][kLdF] do
   float* Qr = Gt + HD * kLdF;      // [64 q][HD + 4]
   float* Gr = Qr + kB * (HD + 4);  // [64 q][HD + 4]
@@ -643,8 +272,8 @@ __global__ void __launch_bounds__(256)
   __shared__ SegTiles tiles;
   seg_own_ids(tiles, kseg + (size_t)b * S, k0, S, tid);
   seg_mark_live(tiles, qseg + (size_t)b * S, qt0, NT, S, tid, 256);
-  load_f32<HD>(Kt, nullptr, k + kvoff, ldk, k0, S, 1.f, tid);
-  load_f32<HD>(Vt, nullptr, v + kvoff, ldk, k0, S, 1.f, tid);
+  load_f32<HD>(Kt, nullptr, k + kvoff, ldk, k0, S, tid);
+  load_f32<HD>(Vt, nullptr, v + kvoff, ldk, k0, S, tid);
   if (tid < kB) KSeg[tid] = k0 + tid < S ? kseg[(size_t)b * S + k0 + tid] : 0;
   float adk[4][kC], adv[4][kC];
 #pragma unroll
@@ -660,8 +289,8 @@ __global__ void __launch_bounds__(256)
       const size_t qoff = (size_t)b * S * ldq + (size_t)h * HD;
       const size_t rb = ((size_t)b * nh + h) * S;
       __syncthreads();  // previous pair's operands are free
-      load_f32<HD>(Qt, Qr, q + qoff, ldq, q0, S, scale, tid);
-      load_f32<HD>(Gt, Gr, dout + qoff, ldq, q0, S, 1.f, tid);
+      load_f32<HD>(Qt, Qr, q + qoff, ldq, q0, S, tid);
+      load_f32<HD>(Gt, Gr, dout + qoff, ldq, q0, S, tid);
       if (tid < kB) {
         const bool in = q0 + tid < S;
         LSE[tid] = in ? lse[rb + q0 + tid] : 0.f;
@@ -680,7 +309,7 @@ __global__ void __launch_bounds__(256)
           const int qi = tx * 4 + j, key = k0 + kc, row = q0 + qi;
           const bool ok = key < S && row < S && QSeg[qi] == KSeg[kc] &&
                           (!causal || row >= key);
-          const float p = ok ? expf(s[i][j] - LSE[qi]) : 0.f;
+          const float p = ok ? expf(s[i][j] * scale - LSE[qi]) : 0.f;
           PT[kc * kLdF + qi] = p;
           dp[i][j] = p * (dp[i][j] - DD[qi]);
         }
@@ -703,9 +332,311 @@ __global__ void __launch_bounds__(256)
     const size_t r = kvoff + (size_t)key * ldk + tx * kC;
 #pragma unroll
     for (int j = 0; j < kC; ++j) {
-      dk[r + j] = adk[i][j];
+      dk[r + j] = adk[i][j] * scale;
       dv[r + j] = adv[i][j];
     }
+  }
+}
+
+// ---- bf16: wgmma + TMA (see the note at the top) -------------------------
+
+constexpr int kBwdStages = 3;
+constexpr int kBwdThreads = 384;  // two consumer warpgroups + a producer
+
+// The block's shared memory: 1024 bytes to align the tiles; k then v of the
+// block's 64 keys (two halves each); the stages, each q then do of 64
+// queries; p^T twice then ds^T twice, [64 keys][64 queries] bf16 in the
+// 128-byte swizzle; each warpgroup's dq partial [64 x D/2] f32 (in the
+// scratch's fragment order); the stages' lse (times log2 e), dd and query segment
+// ids [kBwdStages][64] each; the mbarriers (full and empty a stage, one for
+// k and v).
+template <int D>
+struct BwdLayout {
+  using T = LlmTiles<D>;
+  static constexpr int kKV = 2 * T::kTile;
+  static constexpr int kStage = 2 * T::kTile;
+  static constexpr int kPD = kLlmTile * 128;
+  static constexpr int kDq = kLlmTile * T::kHalf * 4;  // a dq partial
+  static constexpr int kMeta = 3 * kBwdStages * kLlmTile * 4;
+  static constexpr int kSmem = 1024 + kKV + kBwdStages * kStage + 4 * kPD +
+                               2 * kDq + kMeta + (2 * kBwdStages + 1) * 8;
+  static_assert(kSmem <= 232448, "one block");
+};
+
+struct LlmBwdMaps {
+  CUtensorMap q, k, v, g;
+};
+
+// grid (nkv * ceil(S / 64), B), kBwdThreads threads; q, k, v, do through
+// maps (3-D: columns, S, B); lse, dd [B, nh, S]; dq_acc f32, zeroed, in
+// chunks [B][nh][ceil(S / 64)][2 halves of D][64 x D/2] in fragment order
+// (llm_bwd_convert); dk, dv [B, S, nkv, D]
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    llm_bwd_sm90(const __grid_constant__ LlmBwdMaps maps,
+                 const int* __restrict__ qseg, const int* __restrict__ kseg,
+                 const float* __restrict__ lse, const float* __restrict__ dd,
+                 float* __restrict__ dq_acc, bf16* __restrict__ dk,
+                 bf16* __restrict__ dv, int S, int nh, int nkv, int causal,
+                 float scale) {
+  using T = LlmTiles<D>;
+  using L = BwdLayout<D>;
+  constexpr int kH = T::kHalf, kW = T::kRowBytes, kHB = T::kHalfBytes;
+  constexpr int kAcc = kH / 2;  // accumulator registers of a half's product
+  extern __shared__ unsigned char smraw[];
+  unsigned char* base = align1024(smraw);
+  unsigned char* ktile = base;                         // halves 0, 1
+  unsigned char* vtile = base + T::kTile;
+  unsigned char* stages = base + L::kKV;               // [s]: q, do
+  unsigned char* pds = stages + kBwdStages * L::kStage;  // p^T x2, ds^T x2
+  float* dqs = reinterpret_cast<float*>(pds + 4 * L::kPD);  // [wg][64 D/2]
+  float* lse2s = dqs + 2 * kLlmTile * kH;                    // [s][64]
+  float* dds = lse2s + kBwdStages * kLlmTile;
+  int* qsegs = reinterpret_cast<int*>(dds + kBwdStages * kLlmTile);
+  uint64_t* full = reinterpret_cast<uint64_t*>(qsegs + kBwdStages * kLlmTile);
+  uint64_t* empty = full + kBwdStages;
+  uint64_t* kvbar = empty + kBwdStages;
+  const auto q_half = [&](int s, int hf) {
+    return stages + s * L::kStage + hf * kHB;
+  };
+  const auto g_half = [&](int s, int hf) {
+    return stages + s * L::kStage + T::kTile + hf * kHB;
+  };
+  __shared__ SegTiles tiles;
+
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int hk = blockIdx.x % nkv, b = blockIdx.y;
+  const int k0 = blockIdx.x / nkv * kB;
+  const int NT = (S + kB - 1) / kB;
+  const int group = nh / nkv;
+  const int* qsb = qseg + (size_t)b * S;
+  const int* ksb = kseg + (size_t)b * S;
+  const int qt0 = causal ? k0 / kB : 0;
+  if (tid == 0) {  // k and v load while the block finds its query tiles
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(&full[s], 1 + kB);  // the TMA's expect_tx + 64 copiers
+      mbar_init(&empty[s], 2);      // released by both warpgroups
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(kvbar, 2 * T::kTile);
+    for (int hf = 0; hf < 2; ++hf) {
+      tma_load_3d(ktile + hf * kHB, &maps.k, kvbar, hk * D + hf * kH, k0, b);
+      tma_load_3d(vtile + hf * kHB, &maps.v, kvbar, hk * D + hf * kH, k0, b);
+    }
+  }
+  seg_own_ids(tiles, ksb, k0, S, tid);  // synchronises: the barriers exist
+  seg_mark_live<4>(tiles, qsb, qt0, NT, S, tid, kBwdThreads);
+
+  if (wg == 2) {  // the producer warpgroup: its first 64 threads work
+    producer_registers();
+    const int p = tid - 256;
+    if (p >= kB) return;
+    int i = 0;
+    for (int h = hk * group; h < (hk + 1) * group; ++h)
+    for (int qt = seg_next_live(tiles, qt0, NT); qt < NT;
+         qt = seg_next_live(tiles, qt + 1, NT), ++i) {
+      const float* lse_h = lse + ((size_t)b * nh + h) * S;
+      const float* dd_h = dd + ((size_t)b * nh + h) * S;
+      const int s = i % kBwdStages, ph = (i / kBwdStages) & 1;
+      mbar_wait(&empty[s], ph ^ 1);
+      const int q0 = qt * kB;
+      if (p == 0) {
+        mbar_expect_tx(&full[s], 2 * T::kTile);
+        for (int hf = 0; hf < 2; ++hf) {
+          tma_load_3d(q_half(s, hf), &maps.q, &full[s], h * D + hf * kH, q0,
+                      b);
+          tma_load_3d(g_half(s, hf), &maps.g, &full[s], h * D + hf * kH, q0,
+                      b);
+        }
+      }
+      const int r = q0 + p;
+      const bool in = r < S;
+      lse2s[s * kB + p] = in ? lse_h[r] * kLlmLog2e : 0.f;
+      dds[s * kB + p] = in ? dd_h[r] : 0.f;
+      qsegs[s * kB + p] = in ? qsb[r] : 0;
+      mbar_arrive(&full[s]);
+    }
+    return;
+  }
+  consumer_registers();
+
+  // consumer warpgroup wg: a thread holds keys (rows) g and g + 8 of its
+  // warp's 16; of a query tile, queries 32 wg + 8 j + 2 t, + 1 (j < 4) in
+  // S^T and dP^T; of the outputs, columns wg D/2 + 8 j + 2 t, + 1
+  const int t128 = tid & 127, lane = tid & 31, wr = t128 >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  int kl[2], key[2], kid[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    kl[hf] = wr * 16 + g + 8 * hf;
+    key[hf] = k0 + kl[hf];
+    kid[hf] = key[hf] < S ? ksb[key[hf]] : 0;
+  }
+  const float sl = scale * kLlmLog2e;
+  float sacc[16], dpacc[16], dvacc[kAcc], dkacc[kAcc], dqacc[kAcc];
+#pragma unroll
+  for (int c = 0; c < 16; ++c) sacc[c] = dpacc[c] = 0.f;
+#pragma unroll
+  for (int c = 0; c < kAcc; ++c) dvacc[c] = dkacc[c] = dqacc[c] = 0.f;
+  // the accumulators are only ever defined by the products from here on
+  const auto fence_acc = [&] {
+    reg_fence(sacc);
+    reg_fence(dpacc);
+    reg_fence(dvacc);
+    reg_fence(dkacc);
+    reg_fence(dqacc);
+  };
+  mbar_wait(kvbar, 0);
+
+  int i = 0;
+  for (int h = hk * group; h < (hk + 1) * group; ++h)
+  for (int qt = seg_next_live(tiles, qt0, NT); qt < NT;
+       qt = seg_next_live(tiles, qt + 1, NT), ++i) {
+    const int s = i % kBwdStages, ph = (i / kBwdStages) & 1, buf = i & 1;
+    const int q0 = qt * kB;
+    mbar_wait(&full[s], ph);
+    // S^T = k q^T and dP^T = v do^T against this warpgroup's 32 queries
+    fence_acc();
+    wgmma_fence();
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int ks = 0; ks < kH / 16; ++ks) {
+        wgmma_n32_ss<0, 0>(sacc, swz_desc<kW>(ktile + hf * kHB + 32 * ks),
+                           swz_desc<kW>(q_half(s, hf) + wg * 32 * kW + 32 * ks),
+                           hf + ks > 0);
+        wgmma_n32_ss<0, 0>(dpacc, swz_desc<kW>(vtile + hf * kHB + 32 * ks),
+                           swz_desc<kW>(g_half(s, hf) + wg * 32 * kW + 32 * ks),
+                           hf + ks > 0);
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc();
+
+    // p^T and ds^T, a pair of queries at a time, rounded once into the
+    // shared tiles (row kl, 16-byte chunk q / 8 swizzled by kl & 7)
+    const float* ls = lse2s + s * kB;
+    const float* dl = dds + s * kB;
+    const int* qs = qsegs + s * kB;
+    unsigned char* pt = pds + buf * L::kPD;
+    unsigned char* dt = pds + (2 + buf) * L::kPD;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int ql = wg * 32 + 8 * j + 2 * t;
+      const float2 lv = *reinterpret_cast<const float2*>(ls + ql);
+      const float2 dv = *reinterpret_cast<const float2*>(dl + ql);
+      const int2 sg = *reinterpret_cast<const int2*>(qs + ql);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float p[2], ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qrow = q0 + ql + e, c = 4 * j + 2 * hf + e;
+          const bool ok = key[hf] < S && qrow < S &&
+                          (e ? sg.y : sg.x) == kid[hf] &&
+                          (!causal || key[hf] <= qrow);
+          p[e] = ok ? ex2_ftz(fmaf(sacc[c], sl, -(e ? lv.y : lv.x))) : 0.f;
+          ds[e] = p[e] * (dpacc[c] - (e ? dv.y : dv.x));
+        }
+        const int off =
+            kl[hf] * 128 + (((ql >> 3) ^ (kl[hf] & 7)) << 4) + 4 * t;
+        *reinterpret_cast<uint32_t*>(pt + off) = pack_bf16(p[0], p[1]);
+        *reinterpret_cast<uint32_t*>(dt + off) = pack_bf16(ds[0], ds[1]);
+      }
+    }
+    fence_proxy_async();
+    named_bar_sync(1, 256);  // both warpgroups' queries written
+
+    // dV += P^T do, dK += dS^T q on columns wg D/2 ..; dQ = dS k likewise
+    fence_acc();
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      wgmma_ss<kH, 0, 1>(dvacc, swz_desc<128>(pt + 32 * ks),
+                         swz_desc<kW>(g_half(s, wg) + ks * 16 * kW), 1);
+      wgmma_ss<kH, 0, 1>(dkacc, swz_desc<128>(dt + 32 * ks),
+                         swz_desc<kW>(q_half(s, wg) + ks * 16 * kW), 1);
+    }
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_ss<kH, 1, 1>(dqacc, swz_desc<128>(dt + ks * 16 * 128),
+                         swz_desc<kW>(ktile + wg * kHB + ks * 16 * kW),
+                         ks > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc();
+    if (t128 == 0) mbar_arrive(&empty[s]);
+    // this warpgroup's dq partial, staged in shared memory in fragment
+    // order, added to its scratch chunk by one bulk reduction
+    float* stage_dq = dqs + wg * kLlmTile * kH;
+    if (t128 == 0) bulk_wait_read<0>();  // the last reduction has read it
+    named_bar_sync(2 + wg, 128);
+#pragma unroll
+    for (int j = 0; j < kH / 8; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        *reinterpret_cast<float2*>(stage_dq +
+                                   ((j * 2 + hf) * 128 + t128) * 2) =
+            make_float2(dqacc[4 * j + 2 * hf], dqacc[4 * j + 2 * hf + 1]);
+    fence_proxy_async();
+    named_bar_sync(2 + wg, 128);
+    if (t128 == 0) {
+      const size_t chunk = (((size_t)b * nh + h) * NT + qt) * 2 + wg;
+      bulk_reduce_add_f32(dq_acc + chunk * kLlmTile * kH, stage_dq,
+                          kLlmTile * kH * 4);
+      bulk_commit();
+    }
+  }
+  if (t128 == 0) bulk_wait<0>();
+  // dk (times D^-1/2) and dv of the block's keys, summed over the group
+  const size_t ldk = (size_t)nkv * D;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    if (key[hf] >= S) continue;
+    const size_t off = ((size_t)b * S + key[hf]) * ldk + (size_t)hk * D +
+                       wg * kH + 2 * t;
+#pragma unroll
+    for (int j = 0; j < kH / 8; ++j) {
+      const int c = 4 * j + 2 * hf;
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j) =
+          __floats2bfloat162_rn(dkacc[c] * scale, dkacc[c + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j) =
+          __floats2bfloat162_rn(dvacc[c], dvacc[c + 1]);
+    }
+  }
+}
+
+// dq [B, S, nh, D] = bf16(acc * scale) from the scratch's chunks, eight
+// values (16 bytes of a row) a thread a step. Pair u of chunk c (b, h,
+// query tile, half w) is thread t128 = u % 128's columns 8 j + 2 t, + 1 of
+// row g + 8 hf of its warp's 16, (j, hf) = (u / 256, u / 128 % 2): pairs
+// 4 n .. 4 n + 3 are columns 8 j .. 8 j + 7 of one row. Neighbouring
+// threads take neighbouring j, so a row's half is written whole.
+__global__ void __launch_bounds__(256)
+    llm_bwd_convert(const float4* __restrict__ acc, bf16* __restrict__ dq,
+                    int B, int S, int nh, int D, float scale) {
+  const int half = D / 2, nj = half / 8, octs = 8 * half;  // runs a chunk
+  const int NT = (S + 63) / 64;
+  const long long n = (long long)B * nh * NT * 2 * octs;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long c = i / octs;
+    const int o = (int)(i - c * octs);
+    const int j = o % nj, r = o / nj;  // r = hf * 32 + t128 / 4
+    const int hf = r >> 5, t128 = (r & 31) * 4;
+    const int w = (int)(c & 1), qt = (int)((c >> 1) % NT);
+    const long long bh = (c >> 1) / NT;
+    const int row = qt * 64 + (t128 >> 5) * 16 + ((t128 & 31) >> 2) + 8 * hf;
+    if (row >= S) continue;
+    const long long at = 2 * (c * octs + ((j * 2 + hf) * 128 + t128) / 4);
+    const float4 a = acc[at], e = acc[at + 1];
+    *reinterpret_cast<uint4*>(
+        dq + (((bh / nh) * S + row) * nh + bh % nh) * D + w * half + 8 * j) =
+        make_uint4(pack_bf16(a.x * scale, a.y * scale),
+                   pack_bf16(a.z * scale, a.w * scale),
+                   pack_bf16(e.x * scale, e.y * scale),
+                   pack_bf16(e.z * scale, e.w * scale));
   }
 }
 
@@ -716,16 +647,45 @@ int set_smem(K kernel, size_t bytes) {
 }
 
 template <int HD>
+int launch_sm90(const bf16* q, const bf16* k, const bf16* v, const int* qseg,
+                const int* kseg, const bf16* dout, const float* lse,
+                const float* dd, bf16* dq, bf16* dk, bf16* dv, float* scratch,
+                int B, int S, int nh, int nkv, int causal, float scale,
+                cudaStream_t st) {
+  if (!scratch) return (int)cudaErrorInvalidValue;
+  LlmBwdMaps maps;
+  const long long cq = (long long)nh * HD, ck = (long long)nkv * HD;
+  if (!make_llm_map(&maps.q, q, B, S, cq, HD / 2) ||
+      !make_llm_map(&maps.k, k, B, S, ck, HD / 2) ||
+      !make_llm_map(&maps.v, v, B, S, ck, HD / 2) ||
+      !make_llm_map(&maps.g, dout, B, S, cq, HD / 2))
+    return (int)cudaErrorInvalidValue;
+  const long long nq = (long long)B * nh * ((S + kB - 1) / kB) * kB * HD;
+  cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(float) * nq, st);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int smem = BwdLayout<HD>::kSmem;
+  static const int attr = set_smem(llm_bwd_sm90<HD>, smem);
+  if (attr) return attr;
+  const dim3 grid(nkv * ((S + kB - 1) / kB), B);
+  llm_bwd_sm90<HD><<<grid, kBwdThreads, smem, st>>>(
+      maps, qseg, kseg, lse, dd, scratch, dk, dv, S, nh, nkv, causal, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  llm_bwd_convert<<<132 * 8, 256, 0, st>>>(
+      reinterpret_cast<const float4*>(scratch), dq, B, S, nh, HD, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
 int launch(int dtype, const void* q, const void* k, const void* v,
            const int* qseg, const int* kseg, const void* dout,
            const float* lse, const float* dd, void* dq, void* dk, void* dv,
-           int B, int S, int nh, int nkv, int causal, float scale,
-           cudaStream_t st) {
-  const int NT = (S + kB - 1) / kB;
-  const dim3 gq(NT, nh, B), gkv(NT, nkv, B);
-  int e;
+           float* scratch, int B, int S, int nh, int nkv, int causal,
+           float scale, cudaStream_t st) {
   if (dtype == kF32) {
     using F = const float*;
+    const int NT = (S + kB - 1) / kB;
+    const dim3 gq(NT, nh, B), gkv(NT, nkv, B);
+    int e;
     if ((e = set_smem(llm_bwd_dq_f32<HD>, dq_f32_smem<HD>()))) return e;
     llm_bwd_dq_f32<HD><<<gq, 256, dq_f32_smem<HD>(), st>>>(
         F(q), F(k), F(v), qseg, kseg, F(dout), lse, dd,
@@ -740,17 +700,10 @@ int launch(int dtype, const void* q, const void* k, const void* v,
   }
   if (dtype == kBF16) {
     using H = const bf16*;
-    if ((e = set_smem(llm_bwd_dq_bf16<HD>, dq_mma_smem<HD>()))) return e;
-    llm_bwd_dq_bf16<HD><<<gq, 128, dq_mma_smem<HD>(), st>>>(
-        H(q), H(k), H(v), qseg, kseg, H(dout), lse, dd, static_cast<bf16*>(dq),
-        S, nh, nkv, causal, scale);
-    if ((e = (int)cudaGetLastError())) return e;
-    if ((e = set_smem(llm_bwd_dkv_bf16<HD>, dkv_mma_smem<HD>()))) return e;
-    llm_bwd_dkv_bf16<HD><<<gkv, 128, dkv_mma_smem<HD>(), st>>>(
-        H(q), H(k), H(v), qseg, kseg, H(dout), lse, dd,
-        static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, nh, nkv, causal,
-        scale);
-    return (int)cudaGetLastError();
+    return launch_sm90<HD>(H(q), H(k), H(v), qseg, kseg, H(dout), lse, dd,
+                           static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+                           static_cast<bf16*>(dv), scratch, B, S, nh, nkv,
+                           causal, scale, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -760,13 +713,15 @@ int launch(int dtype, const void* q, const void* k, const void* v,
 
 // Plain C entry point (loaded with ctypes). Returns 0 or a cudaError_t.
 // dtype: 0 = float32, 1 = bfloat16 for q, k, v, do, dq, dk, dv; q_seg,
-// kv_seg int32 [B, S]; lse, dd float32 [B, nh, S]. Requires D in {64, 128}
-// and nh % nkv == 0, S <= 64 * kMaxSegTiles.
+// kv_seg int32 [B, S]; lse, dd float32 [B, nh, S]; scale D^-1/2 (f32). In
+// bf16, scratch is B S nh D floats (zeroed here, then dq's f32 sum);
+// float32 takes none. Requires D in {64, 128},
+// nh % nkv == 0, S <= 64 * kMaxSegTiles and 16-byte aligned tensors.
 extern "C" int llm_flash_attn_backward(
     int dtype, const void* q, const void* k, const void* v,
     const void* q_seg, const void* kv_seg, const void* dout, const void* lse,
-    const void* dd, void* dq, void* dk, void* dv, int B, int S, int nh,
-    int nkv, int D, int causal, float scale, void* stream) {
+    const void* dd, void* dq, void* dk, void* dv, void* scratch, int B, int S,
+    int nh, int nkv, int D, int causal, float scale, void* stream) {
   using namespace ullsam;
   if (B < 1 || S < 1 || S > kSegTile * kMaxSegTiles || nkv < 1 ||
       nh % nkv != 0 || B > 65535 || nh > 65535)
@@ -776,11 +731,12 @@ extern "C" int llm_flash_attn_backward(
   const int* ks = static_cast<const int*>(kv_seg);
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(dd);
+  float* acc = static_cast<float*>(scratch);
   if (D == 64)
-    return launch<64>(dtype, q, k, v, qs, ks, dout, l, d, dq, dk, dv, B, S,
-                      nh, nkv, causal, scale, st);
+    return launch<64>(dtype, q, k, v, qs, ks, dout, l, d, dq, dk, dv, acc, B,
+                      S, nh, nkv, causal, scale, st);
   if (D == 128)
-    return launch<128>(dtype, q, k, v, qs, ks, dout, l, d, dq, dk, dv, B, S,
-                       nh, nkv, causal, scale, st);
+    return launch<128>(dtype, q, k, v, qs, ks, dout, l, d, dq, dk, dv, acc,
+                       B, S, nh, nkv, causal, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -91,6 +91,11 @@ __device__ __forceinline__ void named_bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// p rounded up to 1024 bytes (the 128-byte swizzle's atom)
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
 // generic-proxy writes to shared memory made visible to wgmma / TMA
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");

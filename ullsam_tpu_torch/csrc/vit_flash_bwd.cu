@@ -343,10 +343,6 @@ constexpr int kBwdThreads = 384;  // two consumer warpgroups + a producer
 constexpr int kBwdRelLd = 72;     // bf16 rel rows in shared memory (64 + 8)
 constexpr int kBwdMaxRows = 16;   // key-grid rows of a dkv block (KW >= 8)
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
-}
-
 // The blocks' shared memory; must match ops/kernels/flash_attention.py
 // bwd_sm90_smem_bytes. Every tile is a 64-row tile of flash_sm90.cuh, 1024-
 // byte aligned.

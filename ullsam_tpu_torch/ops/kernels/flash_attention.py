@@ -2,7 +2,7 @@
 
 ``vit_flash_attn(q, k, v, rel_h, rel_w) -> (o, lse)`` computes
 
-    o   = softmax(cast(q * D^-1/2) k^T + bias) v
+    o   = softmax(prescale_q(q) k^T + bias) v
     lse = row logsumexp (f32)
 
 with bias[i, key] = rel_h[i, key // KW] + rel_w[i, key % KW], KH*KW = N.
@@ -60,6 +60,24 @@ SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
 # dk / dv block (KW >= 8)
 BWD_ROWS, BWD_STAGES, BWD_REL_LD, BWD_MAX_ROWS = 128, 4, 72, 16
 _BWD_KW = (8, 16, 32, 64)  # B9: KW divides a 64-key tile
+
+
+def q_scale(D: int, dtype: torch.dtype) -> float:
+    """D^-1/2 rounded to ``dtype``: the constant by which the JAX package's
+    ``(q * D ** -0.5).astype(q.dtype)`` multiplies a q of that dtype (a
+    weakly typed Python float takes q's dtype, so in bf16 the product is a
+    bf16 op by bf16(D^-1/2): 0.08837890625 at D = 128, 0.11181640625 at
+    D = 80). Each forward wrapper (B2, B14, B10) passes it to its kernel,
+    which multiplies in f32 and rounds once to q's dtype."""
+    return torch.tensor(D ** -0.5, dtype=dtype).item()
+
+
+def prescale_q(q: Tensor) -> Tensor:
+    """q * D^-1/2 as the JAX package's forward kernels take it: the product
+    by ``q_scale`` in f32 (exact for bf16 operands), rounded once to
+    q.dtype. Bitwise equal to ``(q * D ** -0.5).astype(q.dtype)`` in bf16
+    and f32."""
+    return (q.float() * q_scale(q.shape[-1], q.dtype)).to(q.dtype)
 
 
 def _tiles(D: int) -> int:
@@ -123,12 +141,12 @@ def vit_flash_attn_plain(q: Tensor, k: Tensor, v: Tensor, rel_h: Tensor,
                          rel_w: Tensor) -> Tuple[Tensor, Tensor]:
     """The kernel's function in plain PyTorch (bias materialized).
 
-    Same rounding points as the kernel: q pre-scaled and cast to q.dtype,
-    rel factors taken at q.dtype, unnormalized p cast to v.dtype before
-    p.v, output acc / l cast to q.dtype."""
+    Same rounding points as the kernel: q pre-scaled (``prescale_q``), rel
+    factors taken at q.dtype, unnormalized p cast to v.dtype before p.v,
+    output acc / l cast to q.dtype."""
     dt = q.dtype
     BH, N, D = q.shape
-    qs = (q.float() * D ** -0.5).to(dt).float()
+    qs = prescale_q(q).float()
     bias = (rel_h.to(dt).float()[..., :, None]
             + rel_w.to(dt).float()[..., None, :]).reshape(BH, N, N)
     logits = torch.matmul(qs, k.float().transpose(-1, -2)) + bias
@@ -185,7 +203,7 @@ def vit_flash_attn(q: Tensor, k: Tensor, v: Tensor, rel_h: Tensor,
         err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
                  o.data_ptr(), lse.data_ptr(), BH, N, D, KH, KW,
-                 float(D ** -0.5), stream)
+                 q_scale(D, q.dtype), stream)
     if err != 0:
         raise RuntimeError(f"vit_flash_attn kernel launch failed: "
                            f"cudaError {err}")
@@ -261,7 +279,7 @@ def vit_flash_attn_packed(qkv: Tensor, rel_h: Tensor, rel_w: Tensor,
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = fn(_DTYPE_CODE[qkv.dtype], qkv.data_ptr(), rel_h.data_ptr(),
                  rel_w.data_ptr(), o.data_ptr(), lse.data_ptr(), B, nh, N, D,
-                 KH, KW, float(D ** -0.5), stream)
+                 KH, KW, q_scale(D, qkv.dtype), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     vit_flash_attn_packed.launches += 1

@@ -4,7 +4,7 @@ gradient.
 ``llm_flash_attn(q, k, v, q_seg, kv_seg, num_kv_heads, causal) -> (o, lse)``
 computes, for query row i of head h and key j of kv head h // group,
 
-    o   = softmax(cast(q * D^-1/2) k^T, over the valid keys) v
+    o   = softmax(prescale_q(q) k^T, over the valid keys) v
     lse = row logsumexp (f32)
 
 where a key is valid iff q_seg[i] == kv_seg[j] (and j <= i when causal). A
@@ -14,13 +14,19 @@ kernel ``ullsam_tpu/ops/pallas/flash_attention.py`` ``_llm_kernel`` (through
 CUDA tensor it launches ``csrc/llm_flash_attn.cu`` (see the note there:
 operation-bound; bf16 on the tensor cores, float32 by FMA); on a CPU tensor
 it runs ``llm_flash_attn_plain``. There is no fallback from the kernel.
+``prescale_q`` (``flash_attention.py``) rounds q * D^-1/2 as the JAX
+package does: the product by D^-1/2 rounded to q's dtype.
 
 B11, ``llm_flash_attn_bwd``, is its gradient (``_llm_bwd_dq_kernel`` and
 ``_llm_bwd_dkv_kernel``, through ``_llm_flash_bwd_impl``), launched from
-``csrc/llm_flash_bwd.cu`` on a CUDA tensor. ``llm_flash_attention`` is the
-differentiable entry with the JAX entry's signature: a
-``torch.autograd.Function`` whose forward is B10 and whose backward is B11
-on both devices.
+``csrc/llm_flash_bwd.cu`` on a CUDA tensor. It scores as those TPU kernels
+do, f32(q k^T) * D^-1/2 from unscaled q. In bf16 its kernel sums dq in
+f32 by reductions into a scratch the wrapper allocates
+(``bwd_scratch_floats``), in an order that varies from run to run, and so
+do dq's last bits; float32 runs two kernels with no such sum.
+``llm_flash_attention`` is the differentiable entry with the JAX entry's
+signature: a ``torch.autograd.Function`` whose forward is B10 and whose
+backward is B11 on both devices.
 
 Layouts are the natural ones: q, o [B, S, nh, D]; k, v [B, S, n_kv, D];
 segment ids [B, S] int32; lse and dd [B, nh, S] f32. The ragged tail
@@ -36,6 +42,7 @@ from typing import Tuple
 import torch
 
 from ullsam_tpu_torch.ops.kernels import build
+from ullsam_tpu_torch.ops.kernels.flash_attention import prescale_q, q_scale
 
 Tensor = torch.Tensor
 
@@ -70,12 +77,10 @@ def llm_flash_attn_plain(q: Tensor, k: Tensor, v: Tensor, q_seg: Tensor,
                          causal: bool = True) -> Tuple[Tensor, Tensor]:
     """The kernel's function in plain PyTorch (mask and logits
     materialized). Same rounding points as the kernel and
-    ``_llm_flash_impl``: q pre-scaled and cast to q.dtype, unnormalized p
-    cast to v.dtype before p.v, the output acc / l cast to q.dtype."""
+    ``_llm_flash_impl``: q pre-scaled (``prescale_q``), unnormalized p cast
+    to v.dtype before p.v, the output acc / l cast to q.dtype."""
     dt = q.dtype
-    D = q.shape[-1]
-    qh, kh, vh = _heads(q, k, v, num_kv_heads)
-    qs = (qh * D ** -0.5).to(dt).float()
+    qs, kh, vh = _heads(prescale_q(q), k, v, num_kv_heads)
     valid = _valid(q_seg, kv_seg, causal)
     logits = torch.matmul(qs, kh.transpose(-1, -2)).masked_fill(
         ~valid, float("-inf"))
@@ -147,7 +152,7 @@ def llm_flash_attn(q: Tensor, k: Tensor, v: Tensor, q_seg: Tensor,
         err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), q_seg.data_ptr(), kv_seg.data_ptr(),
                  o.data_ptr(), lse.data_ptr(), B, S, nh, num_kv_heads, D,
-                 int(causal), float(D ** -0.5), stream)
+                 int(causal), q_scale(D, q.dtype), stream)
     if err != 0:
         raise RuntimeError(f"llm_flash_attn kernel launch failed: "
                            f"cudaError {err}")
@@ -164,28 +169,25 @@ def llm_flash_attn_bwd_plain(q: Tensor, k: Tensor, v: Tensor, q_seg: Tensor,
                              causal: bool = True) -> Tuple[Tensor, ...]:
     """B11 in plain PyTorch: (dq, dk, dv) at q.dtype.
 
-    The logits are B10's: s = cast(q * D^-1/2) k^T, so p = exp(s - lse) at
-    the valid keys (0 elsewhere) is the forward's probability. (The TPU
-    backward scores q k^T * D^-1/2 from unscaled q, flash_attention.py:
-    607-608, and so rounds q differently from its own forward in bf16; this
-    port scores as its forward does, as B9 does for B2.) With ds = p (do v^T
-    - dd): dq = ds k * D^-1/2, dk = ds^T cast(q * D^-1/2), dv = p^T do, dk
-    and dv summed in f32 over the group's query heads. p and ds are rounded
-    to q.dtype before their products (flash_attention.py:641-651)."""
+    Scored as the TPU kernels score (flash_attention.py:604-612): s = f32(q
+    k^T) * D^-1/2 from unscaled q, p = exp(s - lse) at the valid keys (0
+    elsewhere). With ds = p (do v^T - dd): dq = (ds k) * D^-1/2, dk = (ds^T
+    q) * D^-1/2, dv = p^T do, dk and dv summed in f32 over the group's query
+    heads. p and ds are rounded to q.dtype before their products
+    (flash_attention.py:641-651)."""
     dt = q.dtype
     B, S, nh, D = q.shape
     group = nh // num_kv_heads
     scale = D ** -0.5
     qh, kh, vh = _heads(q, k, v, num_kv_heads)
-    qs = (qh * scale).to(dt).float()
     valid = _valid(q_seg, kv_seg, causal)
-    s = torch.matmul(qs, kh.transpose(-1, -2))
+    s = torch.matmul(qh, kh.transpose(-1, -2)) * scale
     p = torch.where(valid, torch.exp(s - lse[..., None]), 0.0)
     g = do.to(dt).float().transpose(1, 2)             # [B, nh, S, D]
     dp = torch.matmul(g, vh.transpose(-1, -2))
     ds = (p * (dp - dd[..., None])).to(dt).float()
     dq = torch.matmul(ds, kh) * scale
-    dk = torch.matmul(ds.transpose(-1, -2), qs)        # [B, nh, T, D]
+    dk = torch.matmul(ds.transpose(-1, -2), qh) * scale  # [B, nh, T, D]
     dv = torch.matmul(p.to(dt).float().transpose(-1, -2), g)
     T = k.shape[1]
 
@@ -199,7 +201,18 @@ def llm_flash_attn_bwd_plain(q: Tensor, k: Tensor, v: Tensor, q_seg: Tensor,
 def _bwd_kernel():
     p, i = ctypes.c_void_p, ctypes.c_int
     return build.function("llm_flash_bwd", "llm_flash_attn_backward",
-                          [i] + [p] * 11 + [i] * 6 + [ctypes.c_float, p])
+                          [i] + [p] * 12 + [i] * 6 + [ctypes.c_float, p])
+
+
+def bwd_scratch_floats(B: int, S: int, nh: int, D: int,
+                       dtype: torch.dtype) -> int:
+    """f32 elements of B11's scratch: in bf16 the sum of dq, a chunk of
+    64 x D for each (b, head, 64-row query tile) (``csrc/llm_flash_bwd.cu``
+    zeroes it, adds each key block's partial into it by a bulk reduction
+    and converts it); float32 needs none."""
+    if dtype != torch.bfloat16:
+        return 0
+    return B * nh * -(-S // 64) * 64 * D
 
 
 def llm_flash_attn_bwd(q: Tensor, k: Tensor, v: Tensor, q_seg: Tensor,
@@ -211,7 +224,7 @@ def llm_flash_attn_bwd(q: Tensor, k: Tensor, v: Tensor, q_seg: Tensor,
     [B, nh, S] f32. Returns (dq, dk, dv) at q.dtype.
 
     CPU tensors run ``llm_flash_attn_bwd_plain``; CUDA tensors launch the
-    kernel pair (D in 64, 128) or raise."""
+    kernels (D in 64, 128) or raise."""
     if q.device.type == "cpu":
         return llm_flash_attn_bwd_plain(q, k, v, q_seg, kv_seg, do, lse, dd,
                                         num_kv_heads, causal)
@@ -228,14 +241,16 @@ def llm_flash_attn_bwd(q: Tensor, k: Tensor, v: Tensor, q_seg: Tensor,
         raise ValueError(f"llm_flash_attn_bwd: unsupported device "
                          f"{q.device}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    scratch = torch.empty(bwd_scratch_floats(B, S, nh, D, q.dtype),
+                          device=q.device, dtype=torch.float32)
     fn = _bwd_kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), q_seg.data_ptr(), kv_seg.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), dd.data_ptr(), dq.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), B, S, nh, num_kv_heads, D,
-                 int(causal), float(D ** -0.5), stream)
+                 dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), B, S, nh,
+                 num_kv_heads, D, int(causal), float(D ** -0.5), stream)
     if err != 0:
         raise RuntimeError(f"llm_flash_attn_bwd kernel launch failed: "
                            f"cudaError {err}")

@@ -7,8 +7,8 @@
 # regions of tools/profile_kernels.py (one warm ViT-H AMG image and its
 # encode under each route setting, the ViT-H segmentation train step, a
 # ViT-B encode), its ViT-B AMG image and B4 regions, and its segmentation
-# train step region: device-busy share, peak memory and top device
-# operations. Run from the root of a checkout on
+# train step region and the packed sft step region: device-busy share,
+# peak memory and top device operations. Run from the root of a checkout on
 # a machine with one H100:
 #
 #     bash ullsam_tpu_torch/tools/card_checks.sh LOG_DIR [TAG]
@@ -41,13 +41,14 @@ tail -1 "$out/gpu_tests_${tag}.log"
 step smoke timeout 1200 python3 chip_smoke.py
 rc=$?
 grep -E 'FAIL|\[vit_h\]|\[gemm\]|hd-80|\[amg\]|\[train_vit_h\]|heads of 80' "$out/smoke_${tag}.log" | cut -c1-700
+grep -E '\[kernels\] llm_flash|\[packed\]' "$out/smoke_${tag}.log" | cut -c1-500
 grep -E '\[kernels\] (decode_masks|two_way_transformer|upscale_hypernet|fused)' \
     "$out/smoke_${tag}.log" | cut -c1-400
 grep -E '\[kernels\] (vit_flash_attn|window_attn_core_bwd|w8a16_matmul bfloat16 M=(1152|9216))|\[caption\] (prefill|int8 batch 1|bf16 request|int8 request 1)' \
     "$out/smoke_${tag}.log" | cut -c1-400
 # ptxas (-Xptxas -v) of the one bf16 window core at SAM's 14x14 windows
 # (NT = 14) and of the wgmma GEMM, from the build's own report
-grep -E '\[build\] .*(window_core_bf16<(64|80), 1[46]>|gemm_nt_sm90|vit_flash_sm90|vit_bwd_|bwd_f32|image_stage|upscale_unit|t2i_part)' \
+grep -E '\[build\] .*(window_core_bf16<(64|80), 1[46]>|gemm_nt_sm90|vit_flash_sm90|vit_bwd_|bwd_f32|image_stage|upscale_unit|t2i_part|llm_flash_sm90|llm_bwd_sm90)' \
     "$out/smoke_${tag}.log"
 tail -2 "$out/smoke_${tag}.log" | cut -c1-300
 [ $rc -eq 0 ] || exit $rc
@@ -78,3 +79,7 @@ grep -E -A14 '^== (amg_image|decode_masks)' "$out/profile_amg_${tag}.log"
 step profile_train timeout 600 python -m ullsam_tpu_torch.tools.profile_kernels \
     --only train_step || { tail -40 "$out/profile_train_${tag}.log"; exit 1; }
 grep -E -A20 '^== train_step' "$out/profile_train_${tag}.log"
+
+step profile_sft timeout 600 python -m ullsam_tpu_torch.tools.profile_kernels \
+    --only packed_sft_step || { tail -40 "$out/profile_sft_${tag}.log"; exit 1; }
+grep -E -A20 '^== packed_sft_step' "$out/profile_sft_${tag}.log"
