@@ -11,7 +11,11 @@ sm_90a) and the CUDA toolkit. Phases, each printing what it found:
  3. kernels: each kernel against its plain PyTorch version on the card at
     the main path's exact shapes, in float32 and bfloat16, with the stated
     tolerance; kernel, plain and (where one exists) library-call times with
-    CUDA events; the least time the card could take (bound). B4-B7's fused
+    CUDA events; the least time the card could take (bound; in float32
+    f32-accurate products at their fastest, split TF32 at 495 / 3 TFLOP/s).
+    The float32 bodies of B8 and B9 (split TF32) also against a float64
+    evaluation of their plain version: on every output within 4x the plain
+    float32 version's own error. B4-B7's fused
     bf16 kernels (B5's two image stages and their token -> image
     attention, the upscale with and without statistics) also alone: time,
     bound and achieved bandwidth.
@@ -35,9 +39,10 @@ sm_90a) and the CUDA toolkit. Phases, each printing what it found:
     ViT-B + frozen InternLM2-1.8B) at full width in bfloat16 without remat,
     1 warm and 3 timed steps on the batch of
     benchmarks/bench_train_step.py, then from the same starting weights a
-    float32 step with remat, two float32 steps and two bfloat16 steps with
-    remat; step 1 with remat is held to step 1 without it in loss and grad
-    norm (float32: rtol 1e-4 each; bfloat16: 1e-4 and 1e-2).
+    float32 step with remat (B2 8, B9 4), two float32 steps (B1, B3, B8 8,
+    B2, B9 4) and two bfloat16 steps with remat, each float32 step timed
+    with exact launches; step 1 with remat is held to step 1 without it in
+    loss and grad norm (float32: rtol 1e-4 each; bfloat16: 1e-4 and 1e-2).
  8. packed LLM fine-tuning (``--mode sft --pack --max_length 2560``): B10
     and B11 against their plain versions at the path's shapes (phase 3's
     checks); a small uLLSAM whose LLM has head dim 128, one f32 sft step on
@@ -124,6 +129,7 @@ import time
 
 H100_BF16_FLOPS = 989e12   # dense tensor-core bf16 (SXM data sheet)
 H100_F32_FLOPS = 67e12     # f32 on the CUDA cores (SXM data sheet)
+H100_TF32_FLOPS = 495e12   # dense tensor-core TF32 (SXM data sheet)
 H100_BYTES_PER_S = 3.35e12
 SEED = 0
 
@@ -193,8 +199,13 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
+    """(the least time the card can take, what bounds it). In f32 the
+    operations are f32-accurate products at their fastest: split TF32, three
+    TF32 products for each, 495 / 3 TFLOP/s, above the 67 of the CUDA
+    cores."""
     import torch
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    peak = (H100_BF16_FLOPS if dtype == torch.bfloat16 else
+            max(H100_F32_FLOPS, H100_TF32_FLOPS / 3))
     t_ops = flops / peak * 1e3
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else
@@ -434,6 +445,42 @@ def _sdpa_ms(q, k, v, bias, backward: bool, **kw) -> float:
                         iters=20, warmup=3)
 
 
+# the float32 bodies that take their products in split TF32 (B8, B9):
+# each output's error against a float64 evaluation of the plain version is
+# held to F64_RATIO x the plain float32 version's own
+SPLIT_TF32 = ("window_attn_core_bwd", "vit_flash_attn_bwd")
+F64_RATIO = 4.0
+
+
+def f64_hold(name: str, plain, args, got, ref, pre: str) -> dict:
+    """Kernel ``got`` and plain float32 ``ref`` (tuples of outputs) against
+    ``plain`` on ``args`` in float64: max|x - ref64| / max|ref64| of each
+    output; fails where the kernel's exceeds F64_RATIO x plain's. Returns
+    the worst of each, for the kernels line."""
+    import torch
+    ref64 = plain(*(t.double() if t.is_floating_point() else t
+                    for t in args))
+    worst = [0.0, 0.0]
+    bad = []
+    for i, (a, b, r) in enumerate(zip(got, ref, ref64)):
+        scale = float(r.abs().max())
+        ek = float((a.double() - r).abs().max()) / scale
+        ep = float((b.double() - r).abs().max()) / scale
+        worst = [max(worst[0], ek), max(worst[1], ep)]
+        if ek > F64_RATIO * ep:
+            bad.append((i, ek, ep))
+    del ref64
+    torch.cuda.empty_cache()
+    say(f"[{pre}] {name} float32 against float64: kernel max_rel_err="
+        f"{worst[0]:.3e}, plain f32 {worst[1]:.3e} (worst output; each "
+        f"output held to {F64_RATIO:g}x plain's) "
+        f"{'FAIL ' + str(bad) if bad else 'ok'}")
+    if bad:
+        fail(f"{name} float32 is less accurate than {F64_RATIO:g}x its plain "
+             f"version against float64: {bad}")
+    return {"err_vs_f64": worst[0], "plain_err_vs_f64": worst[1]}
+
+
 def check_train_kernels(card: str) -> dict:
     """B3, B8 and B9 against their plain versions at the train step's
     shapes (ViT-B's 25 windows x 12 heads of 14x14 tokens; its global
@@ -485,6 +532,8 @@ def check_train_kernels(card: str) -> dict:
                 f"{ROUNDING.get(name, '')}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 fail(f"{name} {dname} disagrees with its plain version")
+            f64 = (f64_hold(name, plain, args, outs, refs, "kernels")
+                   if dtype == torch.float32 and name in SPLIT_TF32 else {})
             del got, ref, outs, refs
             big = name == "vit_flash_attn_bwd"
             ms = cuda_time_ms(lambda: kernel(*args), iters=5 if big else 20)
@@ -515,7 +564,8 @@ def check_train_kernels(card: str) -> dict:
                 f"{nbytes / 1e6:.1f} MB; data-sheet peaks at 700 W, card: "
                 f"{card}), {flops / ms / 1e9:.1f} TFLOP/s")
             entry = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                     **f64}
             if dtype == torch.bfloat16:
                 rows[name].update(entry)
             else:
@@ -1080,6 +1130,10 @@ def amg_main_path() -> None:
 TRAIN_PER_STEP = {"window_attn": 8, "window_attn_core": 8,
                   "window_attn_core_bwd": 8, "vit_flash_attn": 4,
                   "vit_flash_attn_bwd": 4}
+# a step with remat at ViT-B or ViT-H: the windows plain, as the JAX package
+# runs them in XLA under remat (image_encoder.py:376-403); B2 forward and
+# recompute, B9 once in each of the 4 global blocks
+TRAIN_REMAT = {"vit_flash_attn": 8, "vit_flash_attn_bwd": 4}
 
 
 def grad_gap(ref: dict, got: dict):
@@ -1311,9 +1365,10 @@ def train_main_path() -> None:
     model16.load_state_dict(model32.state_dict())
     model32.to("cuda")
     f32_remat = train_steps(cfg, batch, model32, remat,
-                            "f32 (TF32 off) with remat", 1, refs, "train")
+                            "f32 (TF32 off) with remat", 1, refs, "train",
+                            want=TRAIN_REMAT)
     f32 = train_steps(cfg, batch, model32, tcfg, "f32 (TF32 off)", 2, refs,
-                      "train")
+                      "train", want=TRAIN_PER_STEP)
     # remat runs the windowed blocks through B1's plain version and the
     # global blocks' B2 twice: in f32 only the summation order differs
     hold(f32_remat, f32, (1e-4, 1e-4), "f32 remat vs no remat", "train",
@@ -2032,6 +2087,10 @@ def check_vit_h_kernels(card: str, rows: dict) -> dict:
             got, ref = kernel(*args, **kw), plain(*args, **kw)
             torch.cuda.synchronize()
             err = _errs(f"{name} ({tag})", dname, got, ref, tol[dtype])
+            f64 = (f64_hold(f"{name} ({tag})", plain, args, got, ref,
+                            "vit_h")
+                   if dtype == torch.float32 and name in SPLIT_TF32
+                   and tag == "vit_h" else {})
             if (name in ("vit_flash_attn", "vit_flash_attn_packed")
                     and tag != "vit_h_backward"):
                 lse_rel = float((got[1] - ref[1]).abs().max()
@@ -2055,7 +2114,8 @@ def check_vit_h_kernels(card: str, rows: dict) -> dict:
                 f"{nbytes / 1e6:.1f} MB; data-sheet peaks at 700 W, card: "
                 f"{card}), {flops / ms / 1e9:.1f} TFLOP/s")
             entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                     **f64}
             # an opt-in kernel's own numbers are ViT-H's (B13's: a windowed
             # block's); every other case is an entry of its row
             main = (name in opt_in and tag == ("vit_h_T4900" if name ==
@@ -2379,9 +2439,6 @@ def vit_h_main_path() -> None:
 TRAIN_VIT_H_PER_STEP = {"window_attn": 28, "window_attn_core": 28,
                         "window_attn_core_bwd": 28, "vit_flash_attn": 4,
                         "vit_flash_attn_bwd": 4}
-# (b) f32 with remat: the windows plain, as the JAX package runs them in XLA
-# under remat (image_encoder.py:376-403); B2 forward and recompute
-TRAIN_VIT_H_REMAT = {"vit_flash_attn": 8, "vit_flash_attn_bwd": 4}
 # (d) every switch on: LN1 + qkv + B15 + proj in the windows (B8 in their
 # backward), B13 in every MLP half (its backward plain), B14 in the global
 # blocks (B9 in its backward)
@@ -2427,7 +2484,7 @@ def train_vit_h_main_path() -> None:
     f32_remat = train_steps(cfg, batch, model32,
                             S.TrainConfig(total_steps=100, remat=True),
                             "f32 (TF32 off) with remat", 1, refs, pre,
-                            want=TRAIN_VIT_H_REMAT)
+                            want=TRAIN_REMAT)
     f32 = train_steps(cfg, batch, model32,
                       S.TrainConfig(total_steps=100, remat=False),
                       "f32 (TF32 off)", 1, refs, pre,

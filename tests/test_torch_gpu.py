@@ -360,6 +360,29 @@ def test_window_core_bwd_is_deterministic(cuda, dt, nh, hd):
         assert torch.equal(a, b)
 
 
+def _rel_err64(got, ref):
+    """max|got - ref| / max|ref| in float64."""
+    return float((got.double() - ref.double()).abs().max()
+                 / ref.double().abs().max())
+
+
+@pytest.mark.parametrize("nh,hd", [(12, 64), (16, 80)])   # ViT-B, ViT-H
+def test_window_core_bwd_f32_error_vs_float64(cuda, nh, hd):
+    """B8's float32 kernel (split TF32 on the tensor cores) against a
+    float64 evaluation of its plain version at the main path's shapes (25
+    windows of 14x14): on every output its max-relative error is at most
+    4x the plain float32 version's own (cuBLAS, TF32 off)."""
+    from ullsam_tpu_torch.ops.kernels import window_attention as WA
+    args = _window_core_inputs(cuda, torch.float32, 25, 14, nh, hd)
+    got = WA.window_attn_core_bwd(*args)
+    plain = WA.window_attn_core_bwd_plain(*args)
+    ref = WA.window_attn_core_bwd_plain(*(t.double() for t in args))
+    torch.cuda.synchronize()
+    for name, a, b, r in zip(("dqkv", "drh", "drw"), got, plain, ref):
+        err, err_plain = _rel_err64(a, r), _rel_err64(b, r)
+        assert err <= 4 * err_plain, (name, err, err_plain)
+
+
 def _vit_flash_bwd_inputs(gen, dtype, BH, KH, KW, D):
     """B9's inputs: q, k, v, do [BH, N, D], rel_h, rel_w, lse from B2 and
     dd = sum(do * o)."""
@@ -409,6 +432,24 @@ def test_vit_flash_bwd_is_deterministic(cuda, dt, BH, D):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("BH,D", [(12, 64), (16, 80)])   # ViT-B, ViT-H
+def test_vit_flash_bwd_f32_error_vs_float64(cuda, BH, D):
+    """B9's float32 kernels (split TF32 on wgmma) against a float64
+    evaluation of their plain version at the global blocks' shapes (N =
+    4096, lse from B2): on every output the max-relative error is at most
+    4x the plain float32 version's own (cuBLAS, TF32 off)."""
+    from ullsam_tpu_torch.ops.kernels import flash_attention as FA
+    args = _vit_flash_bwd_inputs(cuda, torch.float32, BH, 64, 64, D)
+    got = FA.vit_flash_attn_bwd(*args)
+    plain = FA.vit_flash_attn_bwd_plain(*args)
+    ref = FA.vit_flash_attn_bwd_plain(*(t.double() for t in args))
+    torch.cuda.synchronize()
+    names = ("dq", "dk", "dv", "drel_h", "drel_w")
+    for name, a, b, r in zip(names, got, plain, ref):
+        err, err_plain = _rel_err64(a, r), _rel_err64(b, r)
+        assert err <= 4 * err_plain, (name, err, err_plain)
 
 
 @pytest.mark.parametrize("hd", [64, 80])

@@ -14,8 +14,9 @@ against the 232,448 bytes of shared memory an H100 block may use.
   whole key-grid rows, so that the bias comes from registers.
 * B9's two bf16 bodies (``vit_flash_bwd.cu`` ``BwdSm90Layout<D>``: dq and
   drel query-major, dk and dv key-major) and its two float32 ones
-  (``BwdF32<D>``) at head dims 64 and 80: ``bwd_sm90_smem_bytes`` and
-  ``bwd_f32_smem_bytes`` against the source's constants and the block.
+  (``F32Layout<D>``, split TF32) at head dims 64 and 80:
+  ``bwd_sm90_smem_bytes`` and ``bwd_f32_smem_bytes`` against the source's
+  constants and the block.
 
 The plain B12 and B2 stay held to the JAX package by
 ``tests/test_torch_quant.py`` and ``tests/test_torch_kernels.py``.
@@ -147,13 +148,30 @@ def test_flash_bwd_sm90_smem_fits_a_block(D, want):
     assert max(want) <= FA.SMEM_LIMIT == 232448
 
 
-@pytest.mark.parametrize("D,want", [(64, (138240, 158464)),
-                                    (80, (159744, 184064))])
+@pytest.mark.parametrize("D,want", [(64, (230504, 220744)),
+                                    (80, (222280, 228920))])
 def test_flash_bwd_f32_smem_fits_a_block(D, want):
-    """B9's float32 kernels (true f32 FMA) fit one block at head dims 64 and
-    80: d-major tiles [D][68], row-major ones [64][D + 4]."""
+    """B9's float32 kernels (split TF32 on wgmma) fit one block at head dims
+    64 and 80: the 64 fixed rows' hi and lo planes; dq's two rings of 3 / 2
+    slots (k and v, k^T) and dk / dv's ring of 4 / 3 slots of 32-row
+    planes, with its rel buffers."""
     assert FA.bwd_f32_smem_bytes(D) == want
     assert max(want) <= FA.SMEM_LIMIT
+
+
+def test_flash_bwd_f32_mirror_matches_the_source():
+    """The block, tile and rel-row constants that ``flash_attention``
+    mirrors for B9's float32 kernels are those of ``vit_flash_bwd.cu``, and
+    its scratch holds the 14 hi / lo planes of the split pre-pass."""
+    src = "vit_flash_bwd.cu"
+    assert _const(src, r"kF32Rows = (\d+)") == FA.F32_ROWS
+    assert _const(src, r"kF32Tile = (\d+)") == FA.F32_TILE
+    assert _const(src, r"kF32RwLd = (\d+)") == FA.F32_RW_LD
+    assert _const(src, r"kF32MaxRows = (\d+)") == FA.F32_ROWS // min(
+        FA._BWD_KW)
+    assert _const(src, r"kF32Threads = (\d+)") == 2 * 128
+    assert _const(src, r"return dtype == ullsam::kF32 \? (\d+)LL") == 14
+    assert FA.bwd_f32_scratch_floats(16, 4096, 80) == 14 * 16 * 4096 * 80
 
 
 @pytest.mark.parametrize("D,want", [(64, 119888), (80, 140368)])

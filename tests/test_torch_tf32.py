@@ -1,0 +1,112 @@
+"""The split-TF32 ("3xTF32") arithmetic of the float32 bodies of B8 and B9
+on the CPU (``ullsam_tpu_torch/ops/kernels/tf32.py``, the plain-torch
+emulation of ``csrc/tf32.cuh``).
+
+The kernels take each f32 product as a_hi b_hi + a_hi b_lo + a_lo b_hi on
+TF32 values (hi = tf32(x), lo = tf32(x - hi), rounding to nearest with
+ties away). Here the plain B8 and B9 dataflows run every product the
+kernels put on the tensor cores through that emulation (``mm=``) and are
+held to the JAX package's float32 kernels in interpret mode at 1e-5 of
+max|ref| on every output, the parity that the JAX f32 path keeps
+(flash_attention.py:837-839), at head dims 64 and 80; the same dataflow
+with one TF32 pass misses that bar, so the test tells the two apart. The
+card tests (``tests/test_torch_gpu.py``) hold the kernels themselves.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from test_torch_train_kernels import (_b9_inputs, _flash_case, _pack_out,
+                                      _pack_qkv, _pack_table, _rel, _unpack,
+                                      _unpack_table, _window_core_case)
+
+from ullsam_tpu.ops.pallas import flash_attention as JFA
+from ullsam_tpu_torch.ops.kernels import flash_attention as TFA
+from ullsam_tpu_torch.ops.kernels import tf32 as T
+from ullsam_tpu_torch.ops.kernels import window_attention as TWA
+
+TOL = 1e-5
+
+
+def _mm_1xtf32(a, b):
+    """One TF32 pass: what the tensor cores give without the split."""
+    return torch.matmul(T.round_tf32(a), T.round_tf32(b))
+
+
+def test_round_tf32_rounds_to_nearest_ties_away():
+    """``round_tf32`` keeps 10 mantissa bits, to nearest with ties away from
+    zero in both signs (``cvt.rna``), and hi + lo carries x to 2^-21."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1 + ulp / 2, 1 + 1.5 * ulp, 1 + ulp / 2 - 2 ** -20,
+                      -(1 + ulp / 2), 3.0, float("inf")])
+    want = [1 + ulp, 1 + 2 * ulp, 1.0, -(1 + ulp), 3.0, float("inf")]
+    assert T.round_tf32(x).tolist() == want
+    v = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        10_000).astype(np.float32))
+    hi, lo = T.split_tf32(v)
+    bits = torch.cat([hi, lo]).view(torch.int32)
+    assert bool(((bits & 0x1FFF) == 0).all())
+    assert float(((hi.double() + lo.double() - v.double()).abs()
+                  / v.double().abs()).max()) <= 2.0 ** -21
+
+
+def test_mm_3xtf32_is_f32_accurate():
+    """Against float64, three TF32 passes err within 2x of an f32 matmul
+    over a 4096-long sum; one pass errs over 100x more."""
+    rng = np.random.default_rng(1)
+    a = torch.from_numpy(rng.standard_normal((64, 4096)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((4096, 80)).astype(np.float32))
+    ref = a.double() @ b.double()
+
+    def err(c):
+        return float((c.double() - ref).abs().max() / ref.abs().max())
+
+    e32, e3 = err(a @ b), err(T.mm_3xtf32(a, b))
+    assert e3 <= 2 * e32
+    assert err(_mm_1xtf32(a, b)) > 100 * e32
+
+
+@pytest.mark.parametrize("hd", [64, 80])
+def test_b8_split_tf32_matches_tpu_kernel(hd):
+    """Plain B8 with every tensor-core product in split TF32 against
+    ``_vit_window_packed_bwd_impl`` (f32, interpret mode) on dqkv, drh and
+    drw at SAM ViT-B's head dim (64) and ViT-H's (80): within 1e-5; one
+    TF32 pass is not."""
+    qkv, rh, rw, do, (nh, hd, ws, B) = _window_core_case(1, hd=hd)
+    args = (jnp.asarray(_pack_qkv(qkv, nh, hd, B)),
+            jnp.asarray(_pack_table(rh)), jnp.asarray(_pack_table(rw)))
+    g = jnp.asarray(_pack_out(do, nh, hd, B))
+    with pltpu.force_tpu_interpret_mode():
+        ref = JFA._vit_window_packed_bwd_impl(*args, g, nh, hd, ws, ws)
+    want = (_unpack(ref[0], 3, nh, hd), _unpack_table(ref[1], ws, hd),
+            _unpack_table(ref[2], ws, hd))
+    ins = [torch.from_numpy(a) for a in (qkv, rh, rw, do)]
+    got = TWA.window_attn_core_bwd_plain(*ins, mm=T.mm_3xtf32)
+    for name, a, b in zip(("dqkv", "drh", "drw"), got, want):
+        assert _rel(a, b) < TOL, (name, _rel(a, b))
+    one = TWA.window_attn_core_bwd_plain(*ins, mm=_mm_1xtf32)
+    assert max(_rel(a, b) for a, b in zip(one, want)) > 10 * TOL
+
+
+@pytest.mark.parametrize("D", [64, 80])
+def test_b9_split_tf32_matches_tpu_kernel(D):
+    """Plain B9 with its five products in split TF32 against
+    ``_vit_flash_bwd_impl`` (f32, interpret mode, N = 256, blocks of 128) on
+    dq, dk, dv, drel_h and drel_w at head dims 64 and 80: within 1e-5; one
+    TF32 pass is not."""
+    args, do = _flash_case(3, D=D)
+    jargs = [jnp.asarray(a) for a in args]
+    with pltpu.force_tpu_interpret_mode():
+        o, lse = JFA._vit_flash_impl(*jargs, 128, 128)
+        ref = JFA._vit_flash_bwd_impl(*jargs, o, lse, jnp.asarray(do),
+                                      128, 128)
+    t, g, lse_t, dd = _b9_inputs(args, do)
+    got = TFA.vit_flash_attn_bwd_plain(*t, g, lse_t, dd, mm=T.mm_3xtf32)
+    names = ("dq", "dk", "dv", "drel_h", "drel_w")
+    for name, a, b in zip(names, got, ref):
+        assert _rel(a, b) < TOL, (name, _rel(a, b))
+    one = TFA.vit_flash_attn_bwd_plain(*t, g, lse_t, dd, mm=_mm_1xtf32)
+    assert max(_rel(a, b) for a, b in zip(one, ref)) > 10 * TOL

@@ -137,19 +137,38 @@ def test_window_core_bwd_plain_matches_tpu_kernel_and_vjp(dt, hd):
                                    (torch.float32, 80)])
 def test_window_core_bwd_smem_fits_a_block(dt, hd):
     """B8's shared-memory mirror (``bwd_smem_bytes``, the kernel's
-    ``BwdMma`` / ``f32_smem_bytes``) fits one H100 block at SAM's 14x14
-    windows for every head dim the wrapper takes: bf16 and f32 {64, 80}.
-    At ViT-H's head dim 80 the f32 kernel keeps dk in registers, so k, v
-    and dv d-major take 216,256 bytes (with dk beside them, 252,160 for
-    those four alone; at 64 all four, 226,816); 16x16 windows at 80 stay
+    ``BwdMma`` / ``BwdTf32``) fits one H100 block at SAM's 14x14 windows
+    for every head dim the wrapper takes: bf16 and f32 {64, 80}. Four f32
+    window tiles [208][84] would take 279,552 bytes at ViT-H's head dim 80,
+    so the f32 kernel holds two and restages them, beside a [16][hd + 4]
+    tile a warp: 208,576 bytes (173,760 at 64); 16x16 windows at 80 stay
     over the block."""
     assert TWA._BWD_HEAD_DIMS == {torch.bfloat16: (64, 80),
                                   torch.float32: (64, 80)}
     assert hd in TWA._BWD_HEAD_DIMS[dt]
     assert TWA.bwd_smem_bytes(dt, 196, 14, 14, hd) <= TWA._SMEM_LIMIT == 232448
-    assert TWA.bwd_smem_bytes(torch.float32, 196, 14, 14, 80) == 216256
-    assert TWA.bwd_smem_bytes(torch.float32, 196, 14, 14, 64) == 226816
+    assert TWA.bwd_smem_bytes(torch.float32, 196, 14, 14, 80) == 208576
+    assert TWA.bwd_smem_bytes(torch.float32, 196, 14, 14, 64) == 173760
     assert TWA.bwd_smem_bytes(torch.float32, 256, 16, 16, 80) > 232448
+
+
+def test_window_core_bwd_f32_instances_match_the_source():
+    """B8's float32 kernel is compiled for the key-tile counts of
+    ``csrc/window_attn_bwd.cu`` ``kTf32Nts``, which the mirror
+    ``tf32_key_tiles`` names: every window up to 16x16 runs the smallest
+    instance that holds its keys (SAM's 14x14 exactly 13 tiles)."""
+    import os
+    import re
+    from ullsam_tpu_torch.ops.kernels import build
+    with open(os.path.join(build.CSRC, "window_attn_bwd.cu")) as f:
+        m = re.search(r"kTf32Nts\[\] = \{([\d, ]+)\}", f.read())
+    assert tuple(int(x) for x in m.group(1).split(",")) == \
+        TWA.TF32_KEY_TILES
+    for n in range(1, 257):
+        t = TWA.tf32_key_tiles(n)
+        assert 16 * t >= n
+        assert all(16 * s < n for s in TWA.TF32_KEY_TILES if s < t)
+    assert TWA.tf32_key_tiles(196) == 13
 
 
 def test_window_core_function_gradients_are_b8():

@@ -56,36 +56,47 @@
 // work (terms, drel sums, dq's share) took most of the first version's
 // time.
 //
-// float32 (head dims 64 and 80): true f32 FMA on the CUDA cores, one block
-// per (head, window), 256 threads; thread j owns key j (its column of 16
-// logits, p, dp and ds in registers), row statistics pass through shared
-// memory. k and v sit d-major in shared memory ([HD][n | 1], odd stride) and
-// dv is accumulated there in f32 over 16-row query tiles. At head dim 64 dk
-// is too (176,384 bytes at 14x14 windows). At ViT-H's 80 the four d-major
-// tiles would take 4 x 80 x 197 x 4 = 252,160 bytes, over the 232,448 a
-// block has, so dk is accumulated in thread j's registers (80 of them,
-// key j's row of dk being its alone) and the block needs 216,256. Two
-// blocks per (window, head), each owning half of dk's and dv's columns,
-// would fit as well but recompute s, dp and the softmax in both; holding dv
-// in registers too would take 2 x 80 accumulators beside the 48 of a
-// tile's column and spill. (dk in registers at 64 as well ran 10% slower
-// than in shared memory: the loop over d, unrolled 80 or 64 times, costs
-// more than the shared-memory adds it saves.) Each sum keeps its order, so
-// the result is bitwise the same in either layout and on every call.
+// float32 (head dims 64 and 80, bwd_tf32): bf16's plan on the tensor cores
+// in split TF32 (tf32.cuh): every product, the rel-pos terms, the drel sums
+// and dq's rel part included, is mma.sync m16n8k8 on TF32 values, three
+// passes (a_hi b_hi + a_hi b_lo + a_lo b_hi) into one f32 accumulator, or
+// two against the exact 0 / 1 selection of the drel sums; the hi / lo split
+// (cvt.rna) is done in registers as each fragment is read. The tensor
+// cores' accumulation is not IEEE's (each step can lose about half an ulp
+// of the running sum, one way), so each k-step's passes go into a partial
+// from zero that the CUDA cores add (tf32.cuh mma_3xtf32): every output then
+// errs against a float64 evaluation no more than the plain f32 version
+// does. mma.sync was chosen for the latency-bound n = 196 over wgmma; it
+// issues 6 instructions a 16-deep step where bf16 issues one, and the f32
+// body runs at about 5x bf16's time (PERF.md section 6).
+// Fragments are read from f32 tiles [rows][HD + 4] with scalar loads, free
+// of bank conflicts for both row-major and tf32_pi-ordered reads; an A
+// operand taken from an accumulator holds its keys in tf32_pi order (keys
+// 2 t, 2 t + 1 at k t, t + 4), so the B rows of ds k, p^T do and ds^T q are
+// read in that order. Four f32 window tiles at HD = 80 would take 4 x 208 x
+// 84 x 4 = 279,552 bytes, over the 232,448 a block has, so the block holds
+// two and restages them: q for the rel-pos terms; k and v for pass 1, whose
+// warps read their q rows' A fragments from device memory and stage their
+// do rows in a tile of their own; q and do for pass 2, whose warps stage
+// their k rows and keep their v rows' A fragments in registers (208,576
+// bytes at 14 x 14, HD = 80). Pass 1 writes ds k * scale straight into dq
+// (f32) and pass 4 adds drel_h Rh, then drel_w Rw, window rows before
+// window columns, in the plain version's order. Windows of at most 16 x 16
+// (the drel sums' selection), as bf16; 16 x 16 at HD = 80 does not fit. The
+// row of logits is a template-sized register array (NT key tiles), compiled
+// for the NT of kTf32Nts only.
 //
-// Table gradients, deterministic in both types: bf16 forms each (window,
-// head)'s share in a third pass of its block on the tensor cores (drel^T q
-// per window row and column); f32 sums each window's share from the `drel`
-// scratch in a second kernel. A last kernel adds the shares in a fixed
-// order. (A first version's per-window sum kernel, latency-bound, cost
-// about a third of the call.)
-#include "common.cuh"
+// Table gradients, deterministic in both types: each (window, head)'s share
+// in a third pass of its block on the tensor cores (drel^T q per window row
+// and column; f32 in split TF32, in place of a CUDA-core kernel that took
+// 0.23 ms a ViT-H call), then a last kernel adds the shares in a fixed
+// order.
+#include "tf32.cuh"
 
 namespace ullsam {
 namespace {
 
 constexpr int kMaxKeys = 256;
-constexpr int kTQ = 16;      // query rows per tile
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -601,284 +612,655 @@ int launch_mma(int nt, const __nv_bfloat16* qkv, const __nv_bfloat16* rh,
   return (int)cudaGetLastError();
 }
 
-// ---- float32, CUDA cores (head dims 64 and 80) ----------------------------
+// ---- float32, split TF32 on the tensor cores (head dims 64 and 80) ------
 
-__host__ __device__ inline int f32_ld(int n) { return n | 1; }
+// The f32 kernel's instances by key tiles NT: a window of nt tiles runs the
+// first NT >= nt (the extra tiles are padding, masked as any key or query
+// past n), so that 10 instances, not 32, are compiled
+constexpr int kTf32Nts[] = {2, 4, 8, 13, 16};
+constexpr int kTf32NtCount = sizeof(kTf32Nts) / sizeof(int);
 
-// must match ops/kernels/window_attention.py bwd_smem_bytes: k, v, dv and,
-// at head dim 64, dk d-major [hd][n | 1]; q and do tiles [16][hd]; ds
-// [16][n | 1]; the rows' rel-pos terms and their drel [16][kh + kw]; max,
-// sum, dd; the reduction
-size_t f32_smem_bytes(int n, int rl, int hd) {
-  const size_t ld = f32_ld(n);
-  return (hd > 64 ? 3 : 4) * hd * ld * sizeof(float) +
-         2 * kTQ * hd * sizeof(float) +
-         kTQ * ld * sizeof(float) + 2 * kTQ * rl * sizeof(float) +
-         3 * kTQ * sizeof(float) + kWarps * kTQ * sizeof(float);
+inline int tf32_nt(int n) {
+  const int nt = pad16(n) / 16;
+  for (int i = 0; i < kTf32NtCount; ++i)
+    if (kTf32Nts[i] >= nt) return kTf32Nts[i];
+  return kMaxKeys / 16;
 }
 
-// per-row reduction of v[16] over the block's threads (max or sum);
-// out[16] in shared memory; every thread must call it
-template <bool kMax>
-__device__ __forceinline__ void block_rows(const float (&v)[kTQ], float* red,
-                                           float* out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int r = 0; r < kTQ; ++r) {
-    float x = v[r];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const float y = __shfl_xor_sync(0xffffffffu, x, o);
-      x = kMax ? fmaxf(x, y) : x + y;
-    }
-    if (lane == 0) red[warp * kTQ + r] = x;
+// must match ops/kernels/window_attention.py bwd_smem_bytes
+template <int HD>
+struct BwdTf32 {
+  // f32 row stride: a multiple of 4 floats (16-byte rows for cp.async) that
+  // is 4 mod 8, so that every fragment read below is free of bank conflicts
+  static constexpr int kLd = HD + 4;
+  int nk, rl;
+  BwdTf32(int n, int kh, int kw) : nk(16 * tf32_nt(n)), rl(kh + kw) {}
+  // two tiles [nk][kLd] (q; then k and v; then q and do), a [16][kLd] tile
+  // for each warp (its do rows in pass 1, its k rows in pass 2), the rel
+  // terms [nk][rl] and each row's max, 1 / sum and dd, all f32
+  size_t bytes() const {
+    return sizeof(float) * (2 * (size_t)nk * kLd + kWarps * 16 * kLd +
+                            (size_t)nk * rl + 3 * (size_t)nk);
   }
-  __syncthreads();
-  if (threadIdx.x < kTQ) {
-    float x = red[threadIdx.x];
-    for (int w = 1; w < kWarps; ++w) {
-      const float y = red[w * kTQ + threadIdx.x];
-      x = kMax ? fmaxf(x, y) : x + y;
-    }
-    out[threadIdx.x] = x;
+};
+
+// rows [0, rows) of an f32 [rows][HD] block at src (row stride `stride`
+// floats) into dst [.][HD + 4] by cp.async, rows from nvalid on zero-filled
+template <int HD>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           size_t stride, int rows,
+                                           int nvalid, int tid, int nthr) {
+  constexpr int kCh = HD / 4, kLd = HD + 4;
+  for (int c = tid; c < rows * kCh; c += nthr) {
+    const int r = c / kCh, ch = (c - r * kCh) * 4;
+    const bool ok = r < nvalid;
+    cp_async16(smem_u32(dst + r * kLd + ch),
+               src + (size_t)(ok ? r : 0) * stride + ch, ok);
   }
-  __syncthreads();
 }
 
-// grid (nh, Bw), 256 threads; the layout of the bf16 kernel's arguments
-template <int kHD>
+template <int N>
+__device__ __forceinline__ void split_n(const float (&x)[N],
+                                        uint32_t (&hi)[N],
+                                        uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) tf32_split(x[i], hi[i], lo[i]);
+}
+
+// the m16n8k8 A fragment of rows r and r8 (the thread's g and g + 8) and
+// columns k0 + t, + 4 of a row-major f32 tile with row stride ld
+__device__ __forceinline__ void frag_a(const float* X, int ld, int r, int r8,
+                                       int k0, int t, float (&a)[4]) {
+  a[0] = X[r * ld + k0 + t];
+  a[1] = X[r8 * ld + k0 + t];
+  a[2] = X[r * ld + k0 + t + 4];
+  a[3] = X[r8 * ld + k0 + t + 4];
+}
+
+// the B fragment whose n index is row n0 + g of a row-major tile and whose
+// k index its columns k0 + t, + 4 (X^T as B)
+__device__ __forceinline__ void frag_b_rows(const float* X, int ld, int n0,
+                                            int k0, int g, int t,
+                                            uint32_t (&bh)[2],
+                                            uint32_t (&bl)[2]) {
+  const float* x = X + (n0 + g) * ld + k0 + t;
+  tf32_split(x[0], bh[0], bl[0]);
+  tf32_split(x[4], bh[1], bl[1]);
+}
+
+// the B fragment whose k index runs over rows k0 .. k0 + 7 of a row-major
+// tile in tf32_pi order (rows k0 + 2 t, + 1: the k order of an A operand
+// taken from an m16n8 accumulator) and whose n index is column n0 + g
+__device__ __forceinline__ void frag_b_pi(const float* X, int ld, int k0,
+                                          int n0, int g, int t,
+                                          uint32_t (&bh)[2],
+                                          uint32_t (&bl)[2]) {
+  const float* x = X + (k0 + 2 * t) * ld + n0 + g;
+  tf32_split(x[0], bh[0], bl[0]);
+  tf32_split(x[ld], bh[1], bl[1]);
+}
+
+// the accumulator c [16 x 8] (c0, c1 row g, c2, c3 row g + 8) as the A
+// fragment of a k-step over its 8 columns, in tf32_pi order, split
+__device__ __forceinline__ void acc_to_a(const float (&c)[4],
+                                         uint32_t (&ah)[4],
+                                         uint32_t (&al)[4]) {
+  const float a[4] = {c[0], c[2], c[1], c[3]};
+  split_n(a, ah, al);
+}
+
+// Per window row y (column x), the group's rows i (y kw + x over x, or
+// over y) against one table: out[i][col] = sum_d A[i][d] T[col][d] (the
+// rel-pos terms: A = q, T = Rh[y] or Rw[x]) in split TF32; a warp a group
+template <int HD>
+__device__ void rel_terms_tf32(const float* Qs, const float* rh,
+                               const float* rw, int n, int nk, int kh,
+                               int kw, float* RB, int rl, int warp,
+                               int lane) {
+  constexpr int kLd = BwdTf32<HD>::kLd;
+  const int g = lane >> 2, t = lane & 3;
+  for (int e = warp * 32 + lane; e < (nk - n) * rl; e += kThreads)
+    RB[n * rl + e] = 0.f;
+  for (int it = warp; it < kh + kw; it += kWarps) {
+    const bool isw = it >= kh;
+    const int grp = isw ? it - kh : it;  // y or x
+    const int len = isw ? kh : kw, ncol = isw ? kw : kh;
+    const int step = isw ? kw : 1, first = isw ? grp : grp * kw;
+    const float* tab = isw ? rw + (size_t)grp * kw * HD
+                           : rh + (size_t)grp * kh * HD;
+    const int ra = g < len ? first + g * step : first;
+    const int ra8 = g + 8 < len ? first + (g + 8) * step : first;
+    float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll 2
+    for (int kd = 0; kd < HD / 8; ++kd) {
+      float a[4];
+      frag_a(Qs, kLd, ra, ra8, 8 * kd, t, a);
+      uint32_t ah[4], al[4];
+      split_n(a, ah, al);
+#pragma unroll
+      for (int c2 = 0; c2 < 2; ++c2) {
+        const float* trow =
+            tab + (size_t)min(c2 * 8 + g, ncol - 1) * HD + 8 * kd + t;
+        uint32_t bh[2], bl[2];
+        tf32_split(trow[0], bh[0], bl[0]);
+        tf32_split(trow[4], bh[1], bl[1]);
+        mma_3xtf32(acc[c2], ah, al, bh, bl);
+      }
+    }
+#pragma unroll
+    for (int c2 = 0; c2 < 2; ++c2)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int jr = g + 8 * (c >> 1), col = c2 * 8 + 2 * t + (c & 1);
+        if (jr < len && col < ncol)
+          RB[(first + jr * step) * rl + (isw ? kh : 0) + col] = acc[c2][c];
+      }
+  }
+}
+
+// dq[i] += sum_c drel[i][off + c] T[c] for the rows i of window row y (or
+// column x) against its table (Rh[y] or Rw[x]) in split TF32: one group a
+// warp, the groups of one kind (rows if !isw, columns if isw)
+template <int HD>
+__device__ void dq_rel_tf32(bool isw, const float* drel, const float* rh,
+                            const float* rw, float* dq, size_t ldq, int kh,
+                            int kw, int rl, int warp, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  for (int grp = warp; grp < (isw ? kw : kh); grp += kWarps) {
+    const int len = isw ? kh : kw, ncol = isw ? kw : kh;
+    const int step = isw ? kw : 1, first = isw ? grp : grp * kw;
+    const int off = isw ? kh : 0;
+    const float* tab = isw ? rw + (size_t)grp * kw * HD
+                           : rh + (size_t)grp * kh * HD;
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      float a[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int j = g + 8 * (u & 1), c = 8 * ks + t + 4 * (u >> 1);
+        a[u] = j < len && c < ncol
+                   ? drel[(size_t)(first + j * step) * rl + off + c]
+                   : 0.f;
+      }
+      split_n(a, ah[ks], al[ks]);
+    }
+#pragma unroll 2
+    for (int nb = 0; nb < HD / 8; ++nb) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        uint32_t bh[2], bl[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int c = 8 * ks + t + 4 * u;
+          tf32_split(c < ncol ? tab[(size_t)c * HD + 8 * nb + g] : 0.f,
+                     bh[u], bl[u]);
+        }
+        mma_3xtf32(acc, ah[ks], al[ks], bh, bl);
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int j = g + 8 * hf;
+        if (j >= len) continue;
+        float2* o = reinterpret_cast<float2*>(
+            dq + (size_t)(first + j * step) * ldq + 8 * nb + 2 * t);
+        const float2 v = *o;
+        *o = make_float2(v.x + acc[2 * hf], v.y + acc[2 * hf + 1]);
+      }
+    }
+  }
+}
+
+// This (window, head)'s share of the table gradients in split TF32, one
+// group a warp: dRh[y][r] = sum_x drel_h[y kw + x][r] q[y kw + x] (members
+// x of window row y, entries r), dRw[x][c] likewise over the members y of
+// window column x; pw [kh kh + kw kw][HD] in bf16's `part` layout, q the
+// tile Qs [nk][HD + 4]
+template <int HD>
+__device__ void tables_tf32(const float* drel, const float* Qs, float* pw,
+                            int kh, int kw, int rl, int warp, int lane) {
+  constexpr int kLd = BwdTf32<HD>::kLd;
+  const int g = lane >> 2, t = lane & 3;
+  for (int it = warp; it < kh + kw; it += kWarps) {
+    const bool isw = it >= kh;
+    const int grp = isw ? it - kh : it;  // y or x
+    const int len = isw ? kh : kw, ncol = isw ? kw : kh;  // members, entries
+    const int step = isw ? kw : 1, first = isw ? grp : grp * kw;
+    const int off = isw ? kh : 0;
+    float* dst = pw + (isw ? kh * kh * HD + (size_t)grp * kw * HD
+                           : (size_t)grp * kh * HD);
+    // A [entries][members] = drel^T: register u of k-step ks holds entry
+    // g + 8 (u & 1), member 8 ks + t + 4 (u >> 1)
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      float a[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int j = g + 8 * (u & 1), m = 8 * ks + t + 4 * (u >> 1);
+        a[u] = j < ncol && m < len
+                   ? drel[(size_t)(first + m * step) * rl + off + j]
+                   : 0.f;
+      }
+      split_n(a, ah[ks], al[ks]);
+    }
+#pragma unroll 2
+    for (int nb = 0; nb < HD / 8; ++nb) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        uint32_t bh[2], bl[2];  // B [members][channels]: q rows
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int m = 8 * ks + t + 4 * u;
+          tf32_split(m < len ? Qs[(first + m * step) * kLd + 8 * nb + g]
+                             : 0.f,
+                     bh[u], bl[u]);
+        }
+        mma_3xtf32(acc, ah[ks], al[ks], bh, bl);
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int j = g + 8 * hf;
+        if (j < ncol)
+          *reinterpret_cast<float2*>(dst + (size_t)j * HD + 8 * nb + 2 * t) =
+              make_float2(acc[2 * hf], acc[2 * hf + 1]);
+      }
+    }
+  }
+}
+
+// grid (nh, Bw), 256 threads; the layout of the bf16 kernel's arguments in
+// f32 (dqf unused: dq accumulates in dqkv itself)
+template <int HD, int NT>
 __global__ void __launch_bounds__(kThreads, 1)
-    bwd_f32(const float* __restrict__ qkv, const float* __restrict__ rh,
-            const float* __restrict__ rw, const float* __restrict__ dout,
-            float* __restrict__ dqkv, float* __restrict__ drel, int n, int C,
-            int nh, int kh, int kw, float scale) {
-  constexpr int kCols = kHD / 16;  // dq channels a thread
-  constexpr bool kDkRegs = kHD > 64;  // dk in registers, else d-major smem
-  const int ld = f32_ld(n), rl = kh + kw;
-  extern __shared__ __align__(16) float sm[];
-  float* Kt = sm;                   // [HD][ld]
-  float* Vt = Kt + kHD * ld;        // [HD][ld]
-  float* dVt = Vt + kHD * ld;       // [HD][ld]
-  float* dKt = dVt + kHD * ld;      // [HD][ld] at head dim 64
-  float* Qs = dKt + (kDkRegs ? 0 : kHD * ld);  // [16][HD]
-  float* Gs = Qs + kTQ * kHD;       // [16][HD]
-  float* DS = Gs + kTQ * kHD;       // [16][ld]
-  float* RB = DS + kTQ * ld;        // [16][rl]
-  float* DR = RB + kTQ * rl;        // [16][rl]
-  float* Mx = DR + kTQ * rl;        // [16]
-  float* Sm = Mx + kTQ;             // [16]
-  float* Dd = Sm + kTQ;             // [16]
-  float* red = Dd + kTQ;            // [8][16]
+    bwd_tf32(const float* __restrict__ qkv, const float* __restrict__ rh,
+             const float* __restrict__ rw, const float* __restrict__ dout,
+             float* __restrict__ dqkv, float* __restrict__ drel,
+             float* __restrict__ part, int n, int C, int nh, int kh, int kw,
+             float scale) {
+  constexpr int kLd = BwdTf32<HD>::kLd, nk = NT * 16;
+  const int rl = kh + kw;
+  extern __shared__ __align__(16) float smf[];
+  float* T0 = smf;                  // q, then k, then q   [nk][kLd]
+  float* T1 = T0 + nk * kLd;        // v, then do          [nk][kLd]
+  float* Wt = T1 + nk * kLd;        // [kWarps][16][kLd]
+  float* RB = Wt + kWarps * 16 * kLd;  // [nk][rl]
+  float* Ms = RB + nk * rl;         // max
+  float* Li = Ms + nk;              // 1 / sum
+  float* Dd = Li + nk;              // dd
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const int h = blockIdx.x, win = blockIdx.y;
   const size_t C3 = 3 * (size_t)C;
-  const float* base = qkv + (size_t)win * n * C3 + h * kHD;
-  const float* gbase = dout + (size_t)win * n * C + h * kHD;
-  float* dbase = dqkv + (size_t)win * n * C3 + h * kHD;
+  const float* base = qkv + (size_t)win * n * C3 + h * HD;
+  const float* gbase = dout + (size_t)win * n * C + h * HD;
+  float* dbase = dqkv + (size_t)win * n * C3 + h * HD;
+  float* drel_b = drel + ((size_t)win * nh + h) * n * rl;
+  float* Ww = Wt + warp * 16 * kLd;  // this warp's tile
+  const float inv_kw = 1.f / kw;
 
-  for (int e = tid; e < n * kHD; e += kThreads) {
-    const int j = e / kHD, d = e % kHD;
-    Kt[d * ld + j] = base[(size_t)j * C3 + C + d];
-    Vt[d * ld + j] = base[(size_t)j * C3 + 2 * C + d];
-    dVt[d * ld + j] = 0.f;
-    if constexpr (!kDkRegs) dKt[d * ld + j] = 0.f;
-  }
-
-  const int j = tid;             // this thread's key column
-  const bool col = j < n;
-  const int kr = col ? j / kw : 0, kc = col ? j - (j / kw) * kw : 0;
-  float adk[kDkRegs ? kHD : 1];  // key j's row of dk
-#pragma unroll
-  for (int d = 0; d < (kDkRegs ? kHD : 1); ++d) adk[d] = 0.f;
-
-  for (int i0 = 0; i0 < n; i0 += kTQ) {
-    const int rows = min(kTQ, n - i0);
-    __syncthreads();  // previous tile's Qs / Gs / DS / RB / DR are free
-    for (int e = tid; e < kTQ * kHD; e += kThreads) {
-      const int r = e / kHD, d = e % kHD;
-      const bool ok = r < rows;
-      Qs[e] = ok ? base[(size_t)(i0 + r) * C3 + d] : 0.f;
-      Gs[e] = ok ? gbase[(size_t)(i0 + r) * C + d] : 0.f;
-    }
-    __syncthreads();
-    // rel-pos terms of the tile's rows: one 64-long dot per (row, entry)
-    for (int e = tid; e < kTQ * rl; e += kThreads) {
-      const int r = e / rl, idx = e % rl;
-      float a = 0.f;
-      if (r < rows) {
-        const int i = i0 + r, y = i / kw, x = i - y * kw;
-        const float* tab = idx < kh ? rh + ((size_t)y * kh + idx) * kHD
-                                    : rw + ((size_t)x * kw + idx - kh) * kHD;
-        const float* q = Qs + r * kHD;
-#pragma unroll 8
-        for (int d = 0; d < kHD; ++d) a = fmaf(q[d], tab[d], a);
-      }
-      RB[e] = a;
-    }
-    __syncthreads();
-
-    // column j: logits, softmax, dp, ds (registers)
-    float s[kTQ], dp[kTQ];
-#pragma unroll
-    for (int r = 0; r < kTQ; ++r) s[r] = dp[r] = 0.f;
-    if (col) {
-#pragma unroll 4
-      for (int d = 0; d < kHD; ++d) {
-        const float kv = Kt[d * ld + j], vv = Vt[d * ld + j];
-#pragma unroll
-        for (int r = 0; r < kTQ; ++r) {
-          s[r] = fmaf(Qs[r * kHD + d], kv, s[r]);
-          dp[r] = fmaf(Gs[r * kHD + d], vv, dp[r]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kTQ; ++r)
-        s[r] = s[r] * scale + RB[r * rl + kr] + RB[r * rl + kh + kc];
-    } else {
-#pragma unroll
-      for (int r = 0; r < kTQ; ++r) s[r] = -INFINITY;
-    }
-    block_rows<true>(s, red, Mx);
-#pragma unroll
-    for (int r = 0; r < kTQ; ++r) s[r] = col ? expf(s[r] - Mx[r]) : 0.f;
-    block_rows<false>(s, red, Sm);
-    float pdp[kTQ];
-#pragma unroll
-    for (int r = 0; r < kTQ; ++r) {
-      s[r] /= Sm[r];  // p, f32
-      pdp[r] = s[r] * dp[r];
-    }
-    block_rows<false>(pdp, red, Dd);
-    if (col) {
-      float ds[kTQ];
-#pragma unroll
-      for (int r = 0; r < kTQ; ++r) {
-        ds[r] = s[r] * (dp[r] - Dd[r]);
-        DS[r * ld + j] = ds[r];
-      }
-      // channel d of key j: the tile's share of dv added, of dk returned
-      const auto dkv = [&](int d) {
-        float av = 0.f, ak = 0.f;
-#pragma unroll
-        for (int r = 0; r < kTQ; ++r) {
-          av = fmaf(s[r], Gs[r * kHD + d], av);
-          ak = fmaf(ds[r], Qs[r * kHD + d], ak);
-        }
-        dVt[d * ld + j] += av;
-        return ak;
-      };
-      if constexpr (kDkRegs) {
-#pragma unroll
-        for (int d = 0; d < kHD; ++d) adk[d] += dkv(d);
-      } else {
-        for (int d = 0; d < kHD; ++d) dKt[d * ld + j] += dkv(d);
-      }
-    }
-    __syncthreads();  // DS complete
-
-    // the two bias sums of each row's ds
-    for (int e = tid; e < kTQ * rl; e += kThreads) {
-      const int r = e / rl, idx = e % rl;
-      const float* dsr = DS + r * ld;
-      float a = 0.f;
-      if (idx < kh) {
-        for (int c = 0; c < kw; ++c) a += dsr[idx * kw + c];
-      } else {
-        for (int y = 0; y < kh; ++y) a += dsr[y * kw + idx - kh];
-      }
-      DR[e] = a;
-      if (r < rows)
-        drel[(((size_t)win * nh + h) * n + i0 + r) * rl + idx] = a;
-    }
-    __syncthreads();
-
-    // dq of the tile: thread (row r, kCols channels from d0)
-    {
-      const int r = tid >> 4, d0 = (tid & 15) * kCols;
-      float acc[kCols];
-#pragma unroll
-      for (int u = 0; u < kCols; ++u) acc[u] = 0.f;
-      const float* dsr = DS + r * ld;
-      for (int m = 0; m < n; ++m) {
-        const float w = dsr[m];
-#pragma unroll
-        for (int u = 0; u < kCols; ++u)
-          acc[u] = fmaf(w, Kt[(d0 + u) * ld + m], acc[u]);
-      }
-      if (r < rows) {
-        const int i = i0 + r, y = i / kw, x = i - y * kw;
-        float rel[kCols];
-#pragma unroll
-        for (int u = 0; u < kCols; ++u) rel[u] = 0.f;
-        for (int idx = 0; idx < rl; ++idx) {
-          const float w = DR[r * rl + idx];
-          const float* tab = idx < kh ? rh + ((size_t)y * kh + idx) * kHD
-                                      : rw + ((size_t)x * kw + idx - kh) * kHD;
-#pragma unroll
-          for (int u = 0; u < kCols; ++u)
-            rel[u] = fmaf(w, tab[d0 + u], rel[u]);
-        }
-        float* dq = dbase + (size_t)i * C3 + d0;
-#pragma unroll
-        for (int u = 0; u < kCols; ++u) dq[u] = acc[u] * scale + rel[u];
-      }
-    }
-  }
-  if constexpr (kDkRegs) {
-    if (col) {
-      float* dk = dbase + (size_t)j * C3 + C;
-#pragma unroll
-      for (int d = 0; d < kHD; ++d) dk[d] = adk[d] * scale;
-    }
-  }
+  // q, its rel-pos terms; then k and v in its place
+  stage_rows<HD>(T0, base, C3, nk, n, tid, kThreads);
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
-  for (int e = tid; e < n * kHD; e += kThreads) {
-    const int jj = e / kHD, d = e % kHD;
-    if constexpr (!kDkRegs)
-      dbase[(size_t)jj * C3 + C + d] = dKt[d * ld + jj] * scale;
-    dbase[(size_t)jj * C3 + 2 * C + d] = dVt[d * ld + jj];
+  rel_terms_tf32<HD>(T0, rh, rw, n, nk, kh, kw, RB, rl, warp, lane);
+  __syncthreads();
+  stage_rows<HD>(T0, base + C, C3, nk, n, tid, kThreads);
+  stage_rows<HD>(T1, base + 2 * C, C3, nk, n, tid, kThreads);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // ---- pass 1: a warp's 16 query rows --------------------------------------
+  for (int qt = warp; qt < NT; qt += kWarps) {
+    const int r0 = qt * 16, ra = r0 + g, ra8 = ra + 8;
+    __syncwarp();
+    stage_rows<HD>(Ww, gbase + (size_t)r0 * C, C, 16, n - r0, lane, 32);
+    cp_async_commit();
+    // s = q k^T: q's A fragments from device memory, k's B from T0
+    float s[2 * NT][4];
+#pragma unroll
+    for (int j = 0; j < 2 * NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
+#pragma unroll 1
+    for (int kd = 0; kd < HD / 8; ++kd) {
+      float a[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int row = (u & 1) ? ra8 : ra;
+        a[u] = row < n ? base[(size_t)row * C3 + 8 * kd + t + 4 * (u >> 1)]
+                       : 0.f;
+      }
+      uint32_t ah[4], al[4];
+      split_n(a, ah, al);
+#pragma unroll
+      for (int nj = 0; nj < 2 * NT; ++nj) {
+        uint32_t bh[2], bl[2];
+        frag_b_rows(T0, kLd, 8 * nj, 8 * kd, g, t, bh, bl);
+        mma_3xtf32(s[nj], ah, al, bh, bl);
+      }
+    }
+    // the exact softmax of the rows in f32
+    const float* rb0 = RB + ra * rl;
+    float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 2 * NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = j * 8 + 2 * t + e;
+        const int kr = div_small(key, inv_kw), kc = key - kr * kw;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const float* rb = rb0 + hf * 8 * rl;
+          float& x = s[j][2 * hf + e];
+          x = key < n ? x * scale + (rb[kr] + rb[kh + kc]) : -INFINITY;
+          m[hf] = fmaxf(m[hf], x);
+        }
+      }
+    float l[2] = {0.f, 0.f}, li[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      m[hf] = fmaxf(m[hf], __shfl_xor_sync(0xffffffffu, m[hf], 1));
+      m[hf] = fmaxf(m[hf], __shfl_xor_sync(0xffffffffu, m[hf], 2));
+    }
+#pragma unroll
+    for (int j = 0; j < 2 * NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[j][c] = expf(s[j][c] - m[c >> 1]);
+        l[c >> 1] += s[j][c];
+      }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 1);
+      l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 2);
+      li[hf] = 1.f / l[hf];
+    }
+#pragma unroll
+    for (int j = 0; j < 2 * NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[j][c] *= li[c >> 1];
+    cp_async_wait<0>();
+    __syncwarp();  // the warp's do rows in Ww
+
+    // dp = do v^T of the rows against the 16 keys of tile kt
+    const auto dp_tile = [&](int kt, float (&dp)[2][4]) {
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) dp[jj][c] = 0.f;
+#pragma unroll 2
+      for (int kd = 0; kd < HD / 8; ++kd) {
+        float a[4];
+        frag_a(Ww, kLd, g, g + 8, 8 * kd, t, a);
+        uint32_t ah[4], al[4];
+        split_n(a, ah, al);
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          uint32_t bh[2], bl[2];
+          frag_b_rows(T1, kLd, kt * 16 + 8 * jj, 8 * kd, g, t, bh, bl);
+          mma_3xtf32(dp[jj], ah, al, bh, bl);
+        }
+      }
+    };
+    // dd = rowsum(dp * p)
+    float dd[2] = {0.f, 0.f};
+#pragma unroll
+    for (int kt = 0; kt < NT; ++kt) {
+      float dp[2][4];
+      dp_tile(kt, dp);
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          dd[c >> 1] = fmaf(s[2 * kt + jj][c], dp[jj][c], dd[c >> 1]);
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      dd[hf] += __shfl_xor_sync(0xffffffffu, dd[hf], 1);
+      dd[hf] += __shfl_xor_sync(0xffffffffu, dd[hf], 2);
+    }
+    if (t == 0) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        Ms[ra + 8 * hf] = m[hf];
+        Li[ra + 8 * hf] = li[hf];
+        Dd[ra + 8 * hf] = dd[hf];
+      }
+    }
+
+    // ds = p (dp - dd) as the A operand of dq += ds k and of drel = ds .
+    // sel (drel_h in columns 0-15, drel_w in 16-31: 0 / 1, exact in TF32,
+    // so two passes)
+    float acc[HD / 8][4], dr[4][4];
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
+#pragma unroll
+    for (int cb = 0; cb < 4; ++cb)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) dr[cb][c] = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < NT; ++kt) {
+      float dp[2][4];
+      dp_tile(kt, dp);
+      // the keys of this lane's B rows, 16 kt + 8 jj + 2 t + e
+      int kr[2][2], kc[2][2];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = kt * 16 + 8 * jj + 2 * t + e;
+          kr[jj][e] = key < n ? div_small(key, inv_kw) : -1;
+          kc[jj][e] = key < n ? key - kr[jj][e] * kw : -1;
+        }
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        float d4[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          d4[c] = s[2 * kt + jj][c] * (dp[jj][c] - dd[c >> 1]);
+        uint32_t ah[4], al[4];
+        acc_to_a(d4, ah, al);
+#pragma unroll
+        for (int nb = 0; nb < HD / 8; ++nb) {
+          uint32_t bh[2], bl[2];
+          frag_b_pi(T0, kLd, kt * 16 + 8 * jj, 8 * nb, g, t, bh, bl);
+          mma_3xtf32(acc[nb], ah, al, bh, bl);
+        }
+#pragma unroll
+        for (int cb = 0; cb < 4; ++cb) {
+          const int c = (cb & 1) * 8 + g;
+          const bool isw = cb >= 2, ok = c < (isw ? kw : kh);
+          uint32_t b[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            b[e] = ok && (isw ? kc[jj][e] : kr[jj][e]) == c ? 0x3f800000u
+                                                             : 0u;
+          mma_2xtf32(dr[cb], ah, al, b);
+        }
+      }
+    }
+    // drel into the scratch (dq's rel part, the tables); ds k * scale
+    // into dq's columns, its rel part added in pass 4
+#pragma unroll
+    for (int cb = 0; cb < 4; ++cb)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = ra + 8 * (c >> 1), col = cb * 8 + 2 * t + (c & 1);
+        const int cc = col & 15;
+        if (i < n && cc < (col >= 16 ? kw : kh))
+          drel_b[(size_t)i * rl + (col >= 16 ? kh : 0) + cc] = dr[cb][c];
+      }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int i = ra + 8 * hf;
+      if (i >= n) continue;
+      float* row = dbase + (size_t)i * C3 + 2 * t;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<float2*>(row + j * 8) =
+            make_float2(acc[j][2 * hf] * scale, acc[j][2 * hf + 1] * scale);
+    }
   }
+  __syncthreads();  // every row's statistics; k and v are done
+
+  // ---- pass 2: a warp's 16 keys --------------------------------------------
+  stage_rows<HD>(T0, base, C3, nk, n, tid, kThreads);
+  stage_rows<HD>(T1, gbase, C, nk, n, tid, kThreads);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int kt = warp; kt < NT; kt += kWarps) {
+    const int m0 = kt * 16;
+    __syncwarp();
+    stage_rows<HD>(Ww, base + (size_t)m0 * C3 + C, C3, 16, n - m0, lane, 32);
+    cp_async_commit();
+    // v of the warp's keys as A fragments, from device memory
+    float va[HD / 8][4];
+#pragma unroll
+    for (int kd = 0; kd < HD / 8; ++kd)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int row = m0 + g + 8 * (u & 1);
+        va[kd][u] = row < n ? base[(size_t)row * C3 + 2 * C + 8 * kd + t +
+                                   4 * (u >> 1)]
+                            : 0.f;
+      }
+    float dv[HD / 8][4], dk[HD / 8][4];
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) dv[j][c] = dk[j][c] = 0.f;
+    int kr[2], kc[2];
+    bool kok[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int key = m0 + g + 8 * hf;
+      kok[hf] = key < n;
+      kr[hf] = div_small(key, inv_kw);
+      kc[hf] = kh + key - kr[hf] * kw;
+    }
+    cp_async_wait<0>();
+    __syncwarp();  // the warp's k rows in Ww
+#pragma unroll 1
+    for (int qt = 0; qt < NT; ++qt) {
+      const int i0 = qt * 16;
+      float sT[2][4], dpT[2][4];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) sT[jj][c] = dpT[jj][c] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < HD / 8; ++kd) {
+        float a[4];
+        frag_a(Ww, kLd, g, g + 8, 8 * kd, t, a);
+        uint32_t kh_[4], kl_[4], vh[4], vl[4];
+        split_n(a, kh_, kl_);
+        split_n(va[kd], vh, vl);
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          uint32_t bh[2], bl[2];
+          frag_b_rows(T0, kLd, i0 + 8 * jj, 8 * kd, g, t, bh, bl);
+          mma_3xtf32(sT[jj], kh_, kl_, bh, bl);
+          frag_b_rows(T1, kLd, i0 + 8 * jj, 8 * kd, g, t, bh, bl);
+          mma_3xtf32(dpT[jj], vh, vl, bh, bl);
+        }
+      }
+      // element (key m0 + g + 8 hf, query i0 + 8 jj + 2 t + e)
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        float p4[4], d4[4];
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = i0 + 8 * jj + 2 * t + e, c = 2 * hf + e;
+            float p = 0.f, ds = 0.f;
+            if (kok[hf] && i < n) {
+              const float* rb = RB + i * rl;
+              const float x = sT[jj][c] * scale + (rb[kr[hf]] + rb[kc[hf]]);
+              p = expf(x - Ms[i]) * Li[i];
+              ds = p * (dpT[jj][c] - Dd[i]);
+            }
+            p4[c] = p;
+            d4[c] = ds;
+          }
+        uint32_t ph[4], pl[4], dh[4], dl[4];
+        acc_to_a(p4, ph, pl);
+        acc_to_a(d4, dh, dl);
+#pragma unroll
+        for (int nb = 0; nb < HD / 8; ++nb) {
+          uint32_t bh[2], bl[2];
+          frag_b_pi(T1, kLd, i0 + 8 * jj, 8 * nb, g, t, bh, bl);
+          mma_3xtf32(dv[nb], ph, pl, bh, bl);
+          frag_b_pi(T0, kLd, i0 + 8 * jj, 8 * nb, g, t, bh, bl);
+          mma_3xtf32(dk[nb], dh, dl, bh, bl);
+        }
+      }
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      if (!kok[hf]) continue;
+      float* row = dbase + (size_t)(m0 + g + 8 * hf) * C3 + 2 * t;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        *reinterpret_cast<float2*>(row + C + 8 * j) =
+            make_float2(dk[j][2 * hf] * scale, dk[j][2 * hf + 1] * scale);
+        *reinterpret_cast<float2*>(row + 2 * C + 8 * j) =
+            make_float2(dv[j][2 * hf], dv[j][2 * hf + 1]);
+      }
+    }
+  }
+
+  // ---- pass 3: this (window, head)'s share of the table gradients --------
+  // (q is still in T0), summed over every share in a fixed order after
+  __syncthreads();  // every row's drel
+  tables_tf32<HD>(drel_b, T0,
+                  part + ((size_t)win * nh + h) * (kh * kh + kw * kw) * HD,
+                  kh, kw, rl, warp, lane);
+
+  // ---- pass 4: dq += drel_h Rh[row(i)], then + drel_w Rw[col(i)] ----------
+  // window rows first, then window columns, so that each dq sums in the
+  // plain version's order
+  dq_rel_tf32<HD>(false, drel_b, rh, rw, dbase, C3, kh, kw, rl, warp, lane);
+  __syncthreads();
+  dq_rel_tf32<HD>(true, drel_b, rh, rw, dbase, C3, kh, kw, rl, warp, lane);
+}
+
+// the instance whose NT is tf32_nt(n)
+template <int HD, int I = 0>
+int launch_tf32(const float* qkv, const float* rh, const float* rw,
+                const float* dout, float* dqkv, float* drel, float* part,
+                int Bw, int n, int C, int nh, int kh, int kw, float scale,
+                cudaStream_t st) {
+  constexpr int NT = kTf32Nts[I];
+  if constexpr (I + 1 < kTf32NtCount) {
+    if (tf32_nt(n) != NT)
+      return launch_tf32<HD, I + 1>(qkv, rh, rw, dout, dqkv, drel, part, Bw,
+                                    n, C, nh, kh, kw, scale, st);
+  }
+  const size_t smem = BwdTf32<HD>(n, kh, kw).bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_tf32<HD, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  bwd_tf32<HD, NT><<<dim3(nh, Bw), kThreads, smem, st>>>(
+      qkv, rh, rw, dout, dqkv, drel, part, n, C, nh, kh, kw, scale);
+  return (int)cudaGetLastError();
 }
 
 // ---- table gradients -------------------------------------------------------
-// float32, after bwd_f32: grid (ceil(E / 256), Bw) with E = (kh*kh + kw*kw)
-// * hd entries. Entry e < kh*kh*hd is dRh[y, r, d] (e = (y*kh + r)*hd + d),
-// the rest dRw[x, c, d]; each thread sums its entry over one window's heads
-// and rows (columns) into part[win, e].
-template <int hd>
-__global__ void __launch_bounds__(256)
-    tables_part_f32(const float* __restrict__ qkv,
-                    const float* __restrict__ drel, float* __restrict__ part,
-                    int n, int C, int nh, int kh, int kw) {
-  const int e = blockIdx.x * 256 + threadIdx.x;
-  const int eh = kh * kh * hd, E = eh + kw * kw * hd;
-  if (e >= E) return;
-  const int win = blockIdx.y, rl = kh + kw;
-  const size_t C3 = 3 * (size_t)C;
-  const int d = e % hd;
-  const bool is_h = e < eh;
-  const int t = (is_h ? e : e - eh) / hd;
-  const int k = is_h ? kh : kw;
-  const int a = t / k, b = t % k;  // (y, r) or (x, c)
-  float acc = 0.f;
-  for (int h = 0; h < nh; ++h) {
-    const float* dr = drel + ((size_t)win * nh + h) * n * rl;
-    const float* q = qkv + (size_t)win * n * C3 + h * hd + d;
-    const int cnt = is_h ? kw : kh;
-    for (int o = 0; o < cnt; ++o) {
-      const int i = is_h ? a * kw + o : o * kw + a;
-      acc = fmaf(dr[(size_t)i * rl + (is_h ? b : kh + b)], q[(size_t)i * C3],
-                 acc);
-    }
-  }
-  part[(size_t)win * E + e] = acc;
-}
-
-// Both types: out[e] = the sum of the P partials part[p, e] (bf16: one per
-// (window, head); f32: one per window) in a fixed order: 8 threads an entry
-// each sum a strided eighth (p = ty, ty + 8, ...), then the eight sums are
-// added in order. drh and drw are the two halves of out.
+// Both types: out[e] = the sum of the P partials part[p, e] (one per
+// (window, head)) in a fixed order: 8 threads an entry each sum a strided
+// eighth (p = ty, ty + 8, ...), then the eight sums are added in order. drh
+// and drw are the two halves of out.
 __global__ void __launch_bounds__(256)
     tables_sum(const float* __restrict__ part, float* __restrict__ drh,
                float* __restrict__ drw, int P, int eh, int E) {
@@ -905,25 +1287,17 @@ int launch_f32(const float* qkv, const float* rh, const float* rw,
                const float* dout, float* dqkv, float* drel, float* part,
                int Bw, int n, int C, int nh, int kh, int kw, float scale,
                cudaStream_t st) {
-  const size_t smem = f32_smem_bytes(n, kh + kw, HD);
-  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  bwd_f32<HD><<<dim3(nh, Bw), kThreads, smem, st>>>(
-      qkv, rh, rw, dout, dqkv, drel, n, C, nh, kh, kw, scale);
-  const int e = (int)cudaGetLastError();
-  if (e) return e;
-  const int E = (kh * kh + kw * kw) * HD;
-  tables_part_f32<HD><<<dim3((E + 255) / 256, Bw), 256, 0, st>>>(
-      qkv, drel, part, n, C, nh, kh, kw);
-  return (int)cudaGetLastError();
+  if (BwdTf32<HD>(n, kh, kw).bytes() > kSmemLimit)
+    return (int)cudaErrorInvalidValue;
+  return launch_tf32<HD>(qkv, rh, rw, dout, dqkv, drel, part, Bw, n, C, nh,
+                         kh, kw, scale, st);
 }
 
-// bwd_f32, then the per-window table partials; P = Bw of them
+// bwd_tf32 with its table partials; P = Bw * nh of them
 int core(const float* qkv, const float* rh, const float* rw, const float* dout,
          float* dqkv, float* drel, float* part, float*, int Bw, int n, int C,
          int nh, int hd, int kh, int kw, float scale, cudaStream_t st) {
+  if (kh > 16 || kw > 16) return (int)cudaErrorInvalidValue;
   if (hd == 64)
     return launch_f32<64>(qkv, rh, rw, dout, dqkv, drel, part, Bw, n, C, nh,
                           kh, kw, scale, st);
@@ -961,8 +1335,7 @@ int backward(const void* qkv, const void* rh, const void* rw, const void* dout,
                kw, 1.0f / sqrtf((float)hd), st);
   if (e) return e;
   const int eh = kh * kh * hd, E = eh + kw * kw * hd;
-  const int P = sizeof(T) == 4 ? Bw : Bw * nh;
-  tables_sum<<<(E + 31) / 32, 256, 0, st>>>(part, drh, drw, P, eh, E);
+  tables_sum<<<(E + 31) / 32, 256, 0, st>>>(part, drh, drw, Bw * nh, eh, E);
   return (int)cudaGetLastError();
 }
 
@@ -972,8 +1345,8 @@ int backward(const void* qkv, const void* rh, const void* rw, const void* dout,
 // Plain C entry point (loaded with ctypes). Returns 0 or a cudaError_t.
 // dtype: 0 = float32, 1 = bfloat16 (hd 64 or 80) for qkv [Bw*n, 3C],
 // rh [kh, kh, hd], rw [kw, kw, hd], dout [Bw*n, C] and dqkv [Bw*n, 3C];
-// drh, drw, and the scratch drel [Bw, nh, n, kh + kw] and part [P, (kh*kh +
-// kw*kw) * hd] (P = Bw * nh for bfloat16, Bw for float32) are float32, as is
+// drh, drw, and the scratch drel [Bw, nh, n, kh + kw] and part [Bw * nh,
+// (kh*kh + kw*kw) * hd] are float32, as is
 // the scratch dqf [Bw*n, C] that bfloat16 needs (float32: null). Shared
 // memory as bwd_smem_bytes.
 extern "C" int window_attn_bwd(int dtype, const void* qkv, const void* rh,

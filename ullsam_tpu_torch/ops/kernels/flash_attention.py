@@ -31,8 +31,10 @@ B9, ``vit_flash_attn_bwd``, is its gradient (``_vit_bwd_dq_kernel`` and
 ``csrc/vit_flash_bwd.cu`` on a CUDA tensor: in bf16 two wgmma + TMA
 kernels on B2's tiles (a block of 128 queries for dq and drel, of 128
 keys for dk and dv; ``bwd_sm90_smem_bytes`` mirrors their shared memory),
-in float32 two CUDA-core kernels (``bwd_f32_smem_bytes``). It scores as
-the TPU kernels do, from unscaled q. ``vit_flash_attention`` is the
+in float32 the same pair on wgmma in split TF32 (three TF32 products a
+product, f32-accurate; ``bwd_f32_smem_bytes``) after a pre-pass that
+writes the operands' hi and lo planes, some transposed, into scratch. It
+scores as the TPU kernels do, from unscaled q. ``vit_flash_attention`` is the
 differentiable entry: a ``torch.autograd.Function`` whose forward is B2 and
 whose backward is B9 on both devices.
 """
@@ -59,6 +61,9 @@ SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
 # ring of 4 stages, rel rows of 64 + 8 bf16, at most 16 key-grid rows a
 # dk / dv block (KW >= 8)
 BWD_ROWS, BWD_STAGES, BWD_REL_LD, BWD_MAX_ROWS = 128, 4, 72, 16
+# B9's float32 bodies: 64 queries or keys a block, streamed tiles of 32
+# rows, dk / dv's rel_w rows of 32 + 8 floats
+F32_ROWS, F32_TILE, F32_RW_LD = 64, 32, 40
 _BWD_KW = (8, 16, 32, 64)  # B9: KW divides a 64-key tile
 
 
@@ -124,17 +129,31 @@ def bwd_sm90_smem_bytes(D: int) -> Tuple[int, int]:
 
 
 def bwd_f32_smem_bytes(D: int) -> Tuple[int, int]:
-    """``BwdF32<D>``: (dq's, dk / dv's) shared memory of B9's float32
-    kernels. Tiles of 64 rows; d-major operands [D][68], row-major ones
-    [64][D + 4], score tiles [64][68], rel rows [64][65]. dq: q, do, k, v
-    d-major, k row-major, ds, rel_h and rel_w rows, lse and dd. dk / dv: k,
-    v, q, do d-major, q and do row-major, p and ds, rel_w rows, the block's
-    rel_h columns [64][8], lse and dd."""
-    B, ldf, ldr = 64, 68, D + 4
-    dq = 4 * D * ldf + B * ldr + B * ldf + 2 * B * 65 + 2 * B
-    dkv = 4 * D * ldf + 2 * B * ldr + 2 * B * ldf + B * 65 + B * B // 8 \
-        + 2 * B
-    return 4 * dq, 4 * dkv
+    """``F32Layout<D>``: (dq's, dk / dv's) shared memory of B9's float32
+    kernels (split TF32 on wgmma). An f32 plane of R rows takes 4 R D bytes
+    (two 128-byte-swizzled boxes of 32 columns, at D = 80 a 64-byte-swizzled
+    one of 16), a transposed plane [D][32] 128 D. dq: 1024 bytes to align;
+    q and do of 64 queries, hi and lo; two rings of 3 slots (2 at D = 80),
+    one of k and v of 32 keys, hi and lo, one of k^T hi and lo; 32 drel_w
+    sums of each of the 128 consumer threads; a full and an empty mbarrier
+    a slot and one for q and do. dk / dv: k and v of 64 keys, hi and lo; a
+    ring of 4 slots (3 at D = 80), each four planes of 32 rows; two rel
+    buffers, each rel_w [64][40], rel_h [8][32], lse and dd [32] f32; the
+    mbarriers."""
+    plane32, fixed = 4 * F32_TILE * D, 4 * 4 * 64 * D
+    stages, slots = (2, 3) if D > 64 else (3, 4)
+    rel = 4 * (64 * F32_RW_LD + 8 * F32_TILE + 2 * F32_TILE)
+    dq = 1024 + fixed + stages * (4 * plane32 + 2 * 128 * D) \
+        + 4 * 32 * 128 + (4 * stages + 1) * 8
+    dkv = 1024 + fixed + slots * 4 * plane32 + 2 * rel + (2 * slots + 1) * 8
+    return dq, dkv
+
+
+def bwd_f32_scratch_floats(BH: int, N: int, D: int) -> int:
+    """Floats of B9's float32 scratch (``vit_flash_bwd_scratch_bytes``):
+    the hi and lo planes of q, k, v and do, and of q, k and do transposed,
+    that its split pre-pass writes for the kernels' TMA loads."""
+    return 14 * BH * N * D
 
 
 def vit_flash_attn_plain(q: Tensor, k: Tensor, v: Tensor, rel_h: Tensor,
@@ -295,9 +314,15 @@ def _drel(ds: Tensor, KH: int, KW: int) -> Tuple[Tensor, Tensor]:
     return ds4.sum(-1), ds4.sum(-2)
 
 
+def _work(t: Tensor) -> Tensor:
+    """t in the plain versions' working type: float64 stays float64 (an
+    exact reference), every other dtype computes in float32."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def vit_flash_attn_bwd_plain(q: Tensor, k: Tensor, v: Tensor, rel_h: Tensor,
                              rel_w: Tensor, do: Tensor, lse: Tensor,
-                             dd: Tensor) -> Tuple[Tensor, ...]:
+                             dd: Tensor, mm=torch.matmul) -> Tuple[Tensor, ...]:
     """B9 in plain PyTorch: (dq, dk, dv at q.dtype; drel_h, drel_w f32).
 
     Scored as the TPU kernels score (flash_attention.py:824-827): s = f32(q
@@ -306,22 +331,24 @@ def vit_flash_attn_bwd_plain(q: Tensor, k: Tensor, v: Tensor, rel_h: Tensor,
     (ds k) * D^-1/2, dk = (ds^T q) * D^-1/2, dv = p^T do. p and ds are
     rounded to q.dtype before their products (:840-851, :898-900);
     drel_h[i, r] = sum_c ds[i, r*KW + c] and drel_w[i, c] = sum_r ds[i, r*KW
-    + c] sum the rounded ds in f32."""
+    + c] sum the rounded ds in f32. ``mm`` takes the five products
+    (``tf32.mm_3xtf32``: the float32 kernels' split TF32); float64 inputs
+    compute in float64 throughout, drel included."""
     dt = q.dtype
     BH, N, D = q.shape
     KH, KW = rel_h.shape[-1], rel_w.shape[-1]
     scale = D ** -0.5
-    qf, kf = q.float(), k.float()
-    bias = (rel_h.to(dt).float()[..., :, None]
-            + rel_w.to(dt).float()[..., None, :]).reshape(BH, N, N)
-    p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale + bias
-                  - lse[..., None])
-    g = do.to(dt).float()
-    dp = torch.matmul(g, v.float().transpose(-1, -2))
-    ds = (p * (dp - dd[..., None])).to(dt).float()
-    dq = torch.matmul(ds, kf) * scale
-    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
-    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), g)
+    qf, kf = _work(q), _work(k)
+    bias = (_work(rel_h.to(dt))[..., :, None]
+            + _work(rel_w.to(dt))[..., None, :]).reshape(BH, N, N)
+    p = torch.exp(mm(qf, kf.transpose(-1, -2)) * scale + bias
+                  - lse.to(qf.dtype)[..., None])
+    g = _work(do.to(dt))
+    dp = mm(g, _work(v).transpose(-1, -2))
+    ds = _work((p * (dp - dd.to(qf.dtype)[..., None])).to(dt))
+    dq = mm(ds, kf) * scale
+    dk = mm(ds.transpose(-1, -2), qf) * scale
+    dv = mm(_work(p.to(dt)).transpose(-1, -2), g)
     drel_h, drel_w = _drel(ds, KH, KW)
     return dq.to(dt), dk.to(dt), dv.to(dt), drel_h, drel_w
 
@@ -329,7 +356,7 @@ def vit_flash_attn_bwd_plain(q: Tensor, k: Tensor, v: Tensor, rel_h: Tensor,
 def _bwd_kernel():
     p, i = ctypes.c_void_p, ctypes.c_int
     return build.function("vit_flash_bwd", "vit_flash_attn_backward",
-                          [i] + [p] * 13 + [i] * 5 + [ctypes.c_float, p])
+                          [i] + [p] * 14 + [i] * 5 + [ctypes.c_float, p])
 
 
 def vit_flash_attn_bwd(q: Tensor, k: Tensor, v: Tensor, rel_h: Tensor,
@@ -374,6 +401,10 @@ def vit_flash_attn_bwd(q: Tensor, k: Tensor, v: Tensor, rel_h: Tensor,
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     drel_h = torch.empty((BH, N, KH), device=q.device, dtype=torch.float32)
     drel_w = torch.empty((BH, N, KW), device=q.device, dtype=torch.float32)
+    # float32: the hi / lo planes of the split pre-pass, read by TMA
+    scratch = (torch.empty(bwd_f32_scratch_floats(BH, N, D), device=q.device,
+                           dtype=torch.float32)
+               if q.dtype == torch.float32 else None)
     fn = _bwd_kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -381,8 +412,9 @@ def vit_flash_attn_bwd(q: Tensor, k: Tensor, v: Tensor, rel_h: Tensor,
                  v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), dd.data_ptr(), dq.data_ptr(),
                  dk.data_ptr(), dv.data_ptr(), drel_h.data_ptr(),
-                 drel_w.data_ptr(), BH, N, D, KH, KW, float(D ** -0.5),
-                 stream)
+                 drel_w.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), BH, N, D,
+                 KH, KW, float(D ** -0.5), stream)
     if err != 0:
         raise RuntimeError(f"vit_flash_attn_bwd kernel launch failed: "
                            f"cudaError {err}")

@@ -36,10 +36,11 @@ bf16 window core, ``csrc/window_core.cuh``, and give bitwise-equal
 outputs; in float32 B3 and B15 keep their own CUDA-core kernels. B8 is
 ``csrc/window_attn_bwd.cu``. On a CPU tensor each runs its plain version
 here. B3 and B15 take head dims 64 and 80 (in bfloat16 windows of at most
-16x16, as B8); B8 64 and 80 in both dtypes (bfloat16 on the tensor cores,
-float32 by FMA with dk in registers). There is no fallback from a kernel to
-its plain version. ``window_attention`` is the differentiable entry: a
-``torch.autograd.Function`` whose forward is B3 (B15 under
+16x16, as B8); B8 64 and 80 in both dtypes, windows of at most 16x16
+(bfloat16 on the tensor cores; float32 on them too, in split TF32: three
+TF32 products for each product, f32-accurate). There is no fallback from
+a kernel to its plain version. ``window_attention`` is the differentiable
+entry: a ``torch.autograd.Function`` whose forward is B3 (B15 under
 ``ULLSAM_WINDOW_TWOPHASE=1``, read at each call) and whose backward is B8
 on both devices.
 """
@@ -57,40 +58,47 @@ Tensor = torch.Tensor
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FWD_HEAD_DIMS = (64, 80)  # B3, B15: SAM ViT-B / L and ViT-H
-# B8: bfloat16 on the tensor cores; float32 keeps its CUDA-core kernel,
-# which at head dim 80 holds dk in registers so that k, v and dv fit a block
+# B8: bfloat16 on the tensor cores, float32 on them in split TF32
 _BWD_HEAD_DIMS = {torch.bfloat16: (64, 80), torch.float32: (64, 80)}
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
 
 
+def _work(t: Tensor) -> Tensor:
+    """t in the plain versions' working type: float64 stays float64 (an
+    exact reference), every other dtype computes in float32."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def _split_heads(qkv: Tensor, n: int, hd: int):
-    """qkv [Bw*n, 3C] -> f32 q, k, v [Bw, nh, n, hd]."""
+    """qkv [Bw*n, 3C] -> q, k, v [Bw, nh, n, hd] in the working type."""
     M, C3 = qkv.shape
     nh = C3 // 3 // hd
-    t = qkv.float().reshape(M // n, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
+    t = _work(qkv).reshape(M // n, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
     return t[0], t[1], t[2]
 
 
-def _rel_terms(q: Tensor, Rh: Tensor, Rw: Tensor, kh: int, kw: int):
-    """Per-row rel-pos terms (f32) of q [Bw, nh, n, hd]: rel_h [.., n, kh],
-    rel_w [.., n, kw] with rel_h[i, r] = q_i . Rh[row(i), r]."""
+def _rel_terms(q: Tensor, Rh: Tensor, Rw: Tensor, kh: int, kw: int,
+               mm=torch.matmul):
+    """Per-row rel-pos terms of q [Bw, nh, n, hd]: rel_h [.., n, kh],
+    rel_w [.., n, kw] with rel_h[i, r] = q_i . Rh[row(i), r] (the rows of
+    window row y against Rh[y], of window column x against Rw[x])."""
     Bw, nh, n, hd = q.shape
     r_q = q.reshape(Bw, nh, kh, kw, hd)
-    rel_h = torch.einsum("bnyxd,ykd->bnyxk", r_q, Rh).reshape(Bw, nh, n, kh)
-    rel_w = torch.einsum("bnyxd,xkd->bnyxk", r_q, Rw).reshape(Bw, nh, n, kw)
-    return rel_h, rel_w
+    rel_h = mm(r_q, Rh.transpose(-1, -2)).reshape(Bw, nh, n, kh)
+    rel_w = mm(r_q.transpose(2, 3), Rw.transpose(-1, -2)).transpose(2, 3)
+    return rel_h, rel_w.reshape(Bw, nh, n, kw)
 
 
-def _window_logits(q, k, Rh, Rw, kh, kw):
-    """f32 logits q k^T * hd^-1/2 + bias of every head: [Bw, nh, n, n]."""
+def _window_logits(q, k, Rh, Rw, kh, kw, mm=torch.matmul):
+    """Logits q k^T * hd^-1/2 + bias of every head: [Bw, nh, n, n]."""
     hd = q.shape[-1]
-    rel_h, rel_w = _rel_terms(q, Rh, Rw, kh, kw)
+    rel_h, rel_w = _rel_terms(q, Rh, Rw, kh, kw, mm)
     bias = (rel_h[..., :, None] + rel_w[..., None, :]).flatten(-2)
-    return torch.matmul(q, k.transpose(-1, -2)) * (hd ** -0.5) + bias
+    return mm(q, k.transpose(-1, -2)) * (hd ** -0.5) + bias
 
 
-def _softmax_p(q, k, Rh, Rw, kh, kw):
-    return torch.softmax(_window_logits(q, k, Rh, Rw, kh, kw), dim=-1)
+def _softmax_p(q, k, Rh, Rw, kh, kw, mm=torch.matmul):
+    return torch.softmax(_window_logits(q, k, Rh, Rw, kh, kw, mm), dim=-1)
 
 
 def window_attn_core_plain(qkv: Tensor, rh: Tensor, rw: Tensor) -> Tensor:
@@ -122,12 +130,18 @@ def window_attn_core_twophase_plain(qkv: Tensor, rh: Tensor,
 
 
 def window_attn_core_bwd_plain(qkv: Tensor, rh: Tensor, rw: Tensor,
-                               do: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+                               do: Tensor, mm=torch.matmul
+                               ) -> Tuple[Tensor, Tensor, Tensor]:
     """B8 in plain PyTorch: (dqkv [Bw*n, 3C] at qkv.dtype, drh, drw at the
     tables' dtypes). Rounding points of ``_vit_window_bwd_kernel``
     (flash_attention.py:1228-1263): p, ds and drel are rounded to
     qkv.dtype before their products; the softmax, dd = sum(dp * p) and
-    every sum are f32."""
+    every sum are f32. ``mm`` takes the products that the kernel runs on
+    the tensor cores: the rel-pos terms, s, dp, dv, dq and dk, dq's rel
+    part, and the drel sums as ds . sel (sel the 0 / 1 selection of each
+    key's window row or column); ``tf32.mm_3xtf32`` gives the float32
+    kernel's split TF32. The table gradients stay sums. Float64 inputs
+    compute in float64 throughout."""
     dt = qkv.dtype
     kh, kw, hd = rh.shape[0], rw.shape[0], rh.shape[-1]
     n = kh * kw
@@ -135,27 +149,31 @@ def window_attn_core_bwd_plain(qkv: Tensor, rh: Tensor, rw: Tensor,
     Bw = M // n
 
     def r(t):
-        return t.to(dt).float()
+        return _work(t.to(dt))
 
     q, k, v = _split_heads(qkv, n, hd)
     Rh, Rw = r(rh), r(rw)
     nh = q.shape[1]
-    p = _softmax_p(q, k, Rh, Rw, kh, kw)                 # f32
-    g = do.float().reshape(Bw, n, nh, hd).permute(0, 2, 1, 3)
-    dv = torch.matmul(r(p).transpose(-1, -2), g)
-    dp = torch.matmul(g, v.transpose(-1, -2))
+    p = _softmax_p(q, k, Rh, Rw, kh, kw, mm)             # f32
+    g = _work(do).reshape(Bw, n, nh, hd).permute(0, 2, 1, 3)
+    dv = mm(r(p).transpose(-1, -2), g)
+    dp = mm(g, v.transpose(-1, -2))
     dd = (dp * p).sum(-1, keepdim=True)
     ds = r(p * (dp - dd))                                 # [Bw, nh, n, n]
-    ds5 = ds.reshape(Bw, nh, n, kh, kw)
-    drel_h = r(ds5.sum(-1))                              # [Bw, nh, n, kh]
-    drel_w = r(ds5.sum(-2))                              # [Bw, nh, n, kw]
+    key = torch.arange(n, device=qkv.device)
+    sel_h = (key[:, None] // kw == torch.arange(kh, device=qkv.device)
+             ).to(ds.dtype)                              # [n, kh]
+    sel_w = (key[:, None] % kw == torch.arange(kw, device=qkv.device)
+             ).to(ds.dtype)                              # [n, kw]
+    drel_h = r(mm(ds, sel_h))                            # [Bw, nh, n, kh]
+    drel_w = r(mm(ds, sel_w))                            # [Bw, nh, n, kw]
     scale = hd ** -0.5
     dh = drel_h.reshape(Bw, nh, kh, kw, kh)
     dw = drel_w.reshape(Bw, nh, kh, kw, kw)
-    dq = (torch.matmul(ds, k) * scale
-          + torch.einsum("bnyxr,yrd->bnyxd", dh, Rh).reshape(q.shape)
-          + torch.einsum("bnyxc,xcd->bnyxd", dw, Rw).reshape(q.shape))
-    dk = torch.matmul(ds.transpose(-1, -2), q) * scale
+    # window row y's rows against Rh[y], window column x's against Rw[x]
+    dq = (mm(ds, k) * scale + mm(dh, Rh).reshape(q.shape)
+          + mm(dw.transpose(2, 3), Rw).transpose(2, 3).reshape(q.shape))
+    dk = mm(ds.transpose(-1, -2), q) * scale
     q5 = q.reshape(Bw, nh, kh, kw, hd)
     drh = torch.einsum("bnyxr,bnyxd->yrd", dh, q5)
     drw = torch.einsum("bnyxc,bnyxd->xcd", dw, q5)
@@ -201,18 +219,28 @@ def _nk(n: int) -> int:
 def bwd_smem_bytes(dtype: torch.dtype, n: int, kh: int, kw: int,
                    hd: int = 64) -> int:
     """Shared memory of B8's main kernel (``window_attn_bwd.cu`` ``BwdMma``
-    and ``f32_smem_bytes``). bfloat16: q, k, v and do [nk][hd + 8], the
-    rows' rel-pos terms and statistics in f32. float32: k, v, dv and (at
-    head dim 64; at 80 it stays in registers) dk d-major [hd][n | 1] in
-    f32, 16-row q, do and ds tiles, the rows' rel-pos terms and drel, their
-    statistics."""
-    rl = kh + kw
+    and ``BwdTf32``). bfloat16: q, k, v and do [nk][hd + 8], the rows'
+    rel-pos terms and statistics in f32. float32 (split TF32): two f32
+    tiles [nk][hd + 4] (q; then k and v; then q and do), a [16][hd + 4]
+    tile for each of the 8 warps (its do rows in pass 1, its k rows in
+    pass 2), the rows' rel-pos terms and statistics, with nk the 16-key
+    tiles of the instance that runs the window (``tf32_key_tiles``)."""
+    rl, nk = kh + kw, _nk(n)
     if dtype == torch.bfloat16:
-        nk = _nk(n)
         return 2 * 4 * nk * (hd + 8) + 4 * (nk * rl + 3 * nk)
-    ld = n | 1
-    return ((3 if hd > 64 else 4) * hd * ld * 4 + 2 * 16 * hd * 4
-            + 16 * ld * 4 + 2 * 16 * rl * 4 + 3 * 16 * 4 + 8 * 16 * 4)
+    nk = 16 * tf32_key_tiles(n)
+    return 4 * (2 * nk * (hd + 4) + 8 * 16 * (hd + 4) + nk * rl + 3 * nk)
+
+
+# the key-tile counts of B8's float32 instances (``window_attn_bwd.cu``
+# ``kTf32Nts``): a window runs the first that holds its keys
+TF32_KEY_TILES = (2, 4, 8, 13, 16)
+
+
+def tf32_key_tiles(n: int) -> int:
+    """``tf32_nt``: the key tiles of 16 that B8's float32 instance for a
+    window of n tokens spans."""
+    return next(t for t in TF32_KEY_TILES if 16 * t >= n)
 
 
 def core_smem_bytes(n: int, kh: int, kw: int, hd: int) -> int:
@@ -326,10 +354,10 @@ def window_attn_core_bwd(qkv: Tensor, rh: Tensor, rw: Tensor,
                                          _BWD_HEAD_DIMS[qkv.dtype])
     if tuple(do.shape) != (qkv.shape[0], C):
         raise ValueError(f"{name}: do has shape {tuple(do.shape)}")
-    if qkv.dtype == torch.bfloat16 and max(kh, kw) > 16:
-        raise ValueError(f"{name}: bfloat16 takes windows of at most 16x16 "
-                         f"(its drel sums are one 32-column selection "
-                         f"product); got {kh}x{kw}")
+    if max(kh, kw) > 16:
+        raise ValueError(f"{name}: takes windows of at most 16x16 (its drel "
+                         f"sums are one 32-column selection product); got "
+                         f"{kh}x{kw}")
     if bwd_smem_bytes(qkv.dtype, n, kh, kw, hd) > _SMEM_LIMIT:
         raise ValueError(f"{name}: n={n} needs more shared memory than a "
                          f"block has at {qkv.dtype}")
@@ -341,11 +369,10 @@ def window_attn_core_bwd(qkv: Tensor, rh: Tensor, rw: Tensor,
     # per-row partials that the table reduction sums in a fixed order
     drel = torch.empty((Bw, nh, n, kh + kw), device=qkv.device,
                        dtype=torch.float32)
-    # and the table gradients' shares, summed in a fixed order after: one
-    # per (window, head) in bf16 (the kernel's third pass), one per window
-    # in f32
+    # and the table gradients' shares, one per (window, head) (the kernel's
+    # third pass), summed in a fixed order after
     bf16 = qkv.dtype == torch.bfloat16
-    part = torch.empty((Bw * nh if bf16 else Bw, (kh * kh + kw * kw) * hd),
+    part = torch.empty((Bw * nh, (kh * kh + kw * kw) * hd),
                        device=qkv.device, dtype=torch.float32)
     # bf16: ds k * scale in f32, kept from the kernel's first pass to its
     # last, where dq's rel-pos part is added and dq rounded once

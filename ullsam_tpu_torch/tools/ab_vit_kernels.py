@@ -1,36 +1,41 @@
-"""A/B timing of the ViT kernels B1, B2, B3, B8 (float32), B9, B13, B14,
-B15 and of B12 (the int8 LLM linears) built from several source trees, in one process on
-one card, so that versions compare within one call (two calls may land on
-two cards).
+"""A/B timing of the ViT kernels B1, B2, B3, B8 (float32), B9 (both
+dtypes), B13, B14, B15 and of B12 (the int8 LLM linears) built from
+several source trees, in one process on one card, so that versions
+compare within one call (two calls may land on two cards).
 
     python -m ullsam_tpu_torch.tools.ab_vit_kernels [--only=B2,B12,...] \
         NAME=CSRC_DIR [...]
 
 Each CSRC_DIR holds ``window_attn.cu``, ``window_attn_twophase.cu``,
 ``window_attn_bwd.cu``, ``ln_mlp.cu``, ``vit_flash_attn.cu``,
-``vit_flash_bwd.cu``, ``w8a16_matmul.cu`` and the headers they include: a checkout's ``ullsam_tpu_torch/csrc``, or another commit's
-unpacked by ``git archive`` into a directory that git ignores. Each version
-is built with ``build.NVCC_FLAGS`` under ``csrc/_build/ab/`` (its ptxas
-registers, spills and C7515 advisories printed), checked in bf16 against the plain versions
-at the main path's shapes (``tools/main_path.py``: B1 and B3 / B15 at ViT-B
-and ViT-H, B13 at ViT-H with T = 4900, B2, B14 and B9 at both widths'
-global blocks (a version that refuses a case, as B9 before head dim 80,
-is left out of it), B8 in float32 at both widths' windows, B12 at each layer linear of InternLM2-1.8B at M = 1152 and 9216,
-bf16 out as the caption's prefill calls it), then timed by CUDA events (20
-launches after 3) in the order given and again in reverse (a, b, ..., b,
-a), beside the library yardsticks: SDPA with the bias materialized for B2,
-B3, B14, B15 (for B9 its backward alone on a retained graph), the chain of four library calls for B13, F.linear on the
+``vit_flash_bwd.cu``, ``w8a16_matmul.cu`` and the headers they include: a
+checkout's ``ullsam_tpu_torch/csrc``, or another commit's unpacked by
+``git archive`` into a directory that git ignores. Each version is built
+with ``build.NVCC_FLAGS`` under ``csrc/_build/ab/`` (its ptxas registers,
+spills and C7515 advisories printed; with ``--only``, just the sources
+those cases need), checked against the plain versions
+at the main path's shapes (``tools/main_path.py``; bf16 unless stated: B1
+and B3 / B15 at ViT-B and ViT-H, B13 at ViT-H with T = 4900, B2, B14 and
+B9 at both widths' global blocks, B9 in float32 too (a version that
+refuses a case, as B9 before head dim 80, is left out of it; one without
+the float32 scratch argument is called without it), B8 in float32 at both
+widths' windows, B12 at each layer linear of InternLM2-1.8B at M = 1152
+and 9216, bf16 out as the caption's prefill calls it), then timed by CUDA
+events (20 launches after 3) in the order given and again in reverse (a,
+b, ..., b, a), beside the library yardsticks (TF32 off): SDPA with the
+bias materialized for B2, B3, B14, B15 (for B9 its backward alone on a
+retained graph), the chain of four library calls for B13, F.linear on the
 dequantized weight for B12, and, where the version has the entry
 ``gemm_bf16_forward``, each bf16 product of B1 and B13 (proj and fc2 with
-their residual) beside ``F.linear`` (without it).
-``--only`` keeps the cases whose label starts with one of the given
-prefixes (B1, B2, B3, B8, B9, B12, B13, B14, B15, GEMM). Needs a CUDA
-card.
+their residual) beside ``F.linear`` (without it). ``--only`` keeps the
+cases whose label starts with one of the given prefixes (B1, B2, B3, B8,
+B9, B12, B13, B14, B15, GEMM). Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import itertools
 import os
 import re
 import subprocess
@@ -68,14 +73,22 @@ _ENTRIES = {
             + [_F, _P]),
     "gemm": ("ln_mlp", "gemm_bf16_forward", [_P] * 5 + [_I] * 4 + [_P]),
     "b9": ("vit_flash_bwd", "vit_flash_attn_backward",
-           [_I] + [_P] * 13 + [_I] * 5 + [_F, _P]),
+           [_I] + [_P] * 14 + [_I] * 5 + [_F, _P]),
     "b8": ("window_attn_bwd", "window_attn_bwd",
            [_I] + [_P] * 10 + [_I] * 7 + [_P]),
 }
 
 
-def build_version(name: str, csrc: str) -> dict:
-    """{entry: the bound C function} of the sources in ``csrc``, built in
+# the sources each case label's kernel needs
+_LABEL_SOURCES = {"B1": ("window_attn",), "B2": ("vit_flash_attn",),
+                  "B3": ("window_attn",), "B8": ("window_attn_bwd",),
+                  "B9": ("vit_flash_bwd",), "B12": ("w8a16_matmul",),
+                  "B13": ("ln_mlp",), "B14": ("vit_flash_attn",),
+                  "B15": ("window_attn_twophase",), "GEMM": ("ln_mlp",)}
+
+
+def build_version(name: str, csrc: str, sources=_SOURCES) -> dict:
+    """{entry: the bound C function} of ``sources`` in ``csrc``, built in
     parallel into csrc/_build/ab/<name>/; entries a version lacks are left
     out."""
     out = os.path.join(build.BUILD_DIR, "ab", name)
@@ -84,7 +97,7 @@ def build_version(name: str, csrc: str) -> dict:
         [build.nvcc_path(), *build.NVCC_FLAGS, "-I", csrc, "-o",
          os.path.join(out, src + ".so"), os.path.join(csrc, src + ".cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for src in _SOURCES}
+        for src in sources}
     libs = {}
     for src, proc in procs.items():
         log, _ = proc.communicate()
@@ -98,10 +111,16 @@ def build_version(name: str, csrc: str) -> dict:
         libs[src] = ctypes.CDLL(os.path.join(out, src + ".so"))
     fns = {}
     for key, (src, fn_name, argtypes) in _ENTRIES.items():
-        fn = getattr(libs[src], fn_name, None)
-        if fn is not None:
-            fn.argtypes, fn.restype = argtypes, ctypes.c_int
-            fns[key] = fn
+        fn = getattr(libs[src], fn_name, None) if src in libs else None
+        if fn is None:
+            continue
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fns[key] = fn
+        if key == "b9" and not hasattr(libs[src],
+                                       "vit_flash_bwd_scratch_bytes"):
+            # before the float32 split pre-pass: no scratch argument
+            fn.argtypes = argtypes[:14] + argtypes[15:]
+            fns[key] = lambda *a, f=fn: f(*a[:14], *a[15:])
     return fns
 
 
@@ -214,23 +233,30 @@ def cases(gen):
                     F.scaled_dot_product_attention(q[None], k[None], v[None],
                                                    attn_mask=b[None])))
         del bias
-    for tag, w in (("vit_b", MP.FLASH_BWD), ("vit_h", MP.FLASH_BWD_VIT_H)):
-        args, fl, _ = MP.vit_flash_bwd_case(torch.bfloat16, gen, **w)
+    for (tag, w), dt in itertools.product(
+            (("vit_b", MP.FLASH_BWD), ("vit_h", MP.FLASH_BWD_VIT_H)),
+            (torch.bfloat16, torch.float32)):
+        args, fl, _ = MP.vit_flash_bwd_case(dt, gen, **w)
         q, k, v, rh, rw = args[:5]
         BH, N, D = q.shape
         outs = tuple(torch.empty_like(q) for _ in range(3)) + tuple(
             torch.empty((BH, N, r.shape[-1]), device="cuda",
                         dtype=torch.float32) for r in (rh, rw))
+        f32 = dt == torch.float32
+        scratch = (torch.empty(FA.bwd_f32_scratch_floats(BH, N, D),
+                               device="cuda") if f32 else None)
         bias = (rh.float()[..., :, None] + rw.float()[..., None, :]
-                ).reshape(1, BH, N, N).to(torch.bfloat16).requires_grad_()
+                ).reshape(1, BH, N, N).to(dt).requires_grad_()
         ins = [t[None].detach().requires_grad_() for t in (q, k, v)]
         o_lib = F.scaled_dot_product_attention(*ins, attn_mask=bias)
         g_lib = torch.randn_like(o_lib)
-        out.append((f"B9 {tag}", "b9",
-                    lambda f, a=args, o=outs, BH=BH, N=N, D=D: f(
-                        1, *(t.data_ptr() for t in a),
-                        *(t.data_ptr() for t in o), BH, N, D, 64, 64,
-                        D ** -0.5, stream),
+        out.append((f"B9 {'f32 ' if f32 else ''}{tag}", "b9",
+                    lambda f, a=args, o=outs, BH=BH, N=N, D=D, f32=f32,
+                    s=scratch: f(
+                        0 if f32 else 1, *(t.data_ptr() for t in a),
+                        *(t.data_ptr() for t in o),
+                        None if s is None else s.data_ptr(), BH, N, D, 64,
+                        64, D ** -0.5, stream),
                     outs, FA.vit_flash_attn_bwd_plain(*args), fl,
                     lambda o=o_lib, g=g_lib, i=ins + [bias]:
                     torch.autograd.grad(o, i, g, retain_graph=True)))
@@ -243,7 +269,7 @@ def cases(gen):
         outs = (torch.empty_like(qkv), torch.empty_like(rh),
                 torch.empty_like(rw))
         drel = torch.empty((Bw, nh, n, 2 * ws), device="cuda")
-        part = torch.empty((Bw, 2 * ws * ws * hd), device="cuda")
+        part = torch.empty((Bw * nh, 2 * ws * ws * hd), device="cuda")
         out.append((f"B8 f32 {tag}", "b8",
                     lambda f, a=(qkv, rh, rw, do), o=outs, drel=drel,
                     part=part, Bw=Bw, n=n, C=C, nh=nh, hd=hd, ws=ws: f(
@@ -317,8 +343,13 @@ def main() -> None:
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
+    # float32 means float32 in the plain versions and library calls
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     versions = [a.split("=", 1) for a in args]
-    fns = {name: build_version(name, os.path.abspath(d))
+    sources = _SOURCES if only is None else tuple(sorted({
+        s for label in only for s in _LABEL_SOURCES[label]}))
+    fns = {name: build_version(name, os.path.abspath(d), sources)
            for name, d in versions}
     order = [n for n, _ in versions]
     order += order[::-1]

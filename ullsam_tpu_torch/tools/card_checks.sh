@@ -5,7 +5,8 @@
 # count from cuobjdump; the B2 / B12 kernel lines, the caption's int8 /
 # bf16 prefill, B4-B7 and their fused kernels, the AMG sweeps), the ViT
 # regions of tools/profile_kernels.py (one warm ViT-H AMG image and its
-# encode under each route setting, the ViT-H segmentation train step, a
+# encode under each route setting, the ViT-H segmentation train step in
+# bf16 and in f32 with and without remat, the ViT-B f32 step with remat, a
 # ViT-B encode), its ViT-B AMG image and B4 regions, and its segmentation
 # train step region and the packed sft step region: device-busy share,
 # peak memory and top device operations. Run from the root of a checkout on
@@ -34,7 +35,7 @@ step() {
     return $rc
 }
 
-step gpu_tests timeout 600 python -m pytest --noconftest -p no:cacheprovider \
+step gpu_tests timeout 900 python -m pytest --noconftest -p no:cacheprovider \
     -q tests/test_torch_gpu.py || { tail -40 "$out/gpu_tests_${tag}.log"; exit 1; }
 tail -1 "$out/gpu_tests_${tag}.log"
 
@@ -46,9 +47,10 @@ grep -E '\[kernels\] (decode_masks|two_way_transformer|upscale_hypernet|fused)' 
     "$out/smoke_${tag}.log" | cut -c1-400
 grep -E '\[kernels\] (vit_flash_attn|window_attn_core_bwd|w8a16_matmul bfloat16 M=(1152|9216))|\[caption\] (prefill|int8 batch 1|bf16 request|int8 request 1)' \
     "$out/smoke_${tag}.log" | cut -c1-400
+grep -E '\[train\] (f32|bf16 flagship)' "$out/smoke_${tag}.log" | cut -c1-400
 # ptxas (-Xptxas -v) of the one bf16 window core at SAM's 14x14 windows
 # (NT = 14) and of the wgmma GEMM, from the build's own report
-grep -E '\[build\] .*(window_core_bf16<(64|80), 1[46]>|gemm_nt_sm90|vit_flash_sm90|vit_bwd_|bwd_f32|image_stage|upscale_unit|t2i_part|llm_flash_sm90|llm_bwd_sm90)' \
+grep -E '\[build\] .*(window_core_bf16<(64|80), 1[46]>|gemm_nt_sm90|vit_flash_sm90|vit_bwd_|bwd_tf32|image_stage|upscale_unit|t2i_part|llm_flash_sm90|llm_bwd_sm90)' \
     "$out/smoke_${tag}.log"
 tail -2 "$out/smoke_${tag}.log" | cut -c1-300
 [ $rc -eq 0 ] || exit $rc
@@ -69,7 +71,7 @@ step profile timeout 600 python -m ullsam_tpu_torch.tools.profile_kernels \
     --only vit_ || { tail -40 "$out/profile_${tag}.log"; exit 1; }
 grep -E -A26 '^== vit_h_amg' "$out/profile_${tag}.log"
 grep -E -A8 '^== vit_b_encode' "$out/profile_${tag}.log"
-grep -E -A31 '^== vit_h_train_step' "$out/profile_${tag}.log"
+grep -E -A31 '^== vit_._train_step' "$out/profile_${tag}.log"
 grep -E '^== ' "$out/profile_${tag}.log"
 
 step profile_amg timeout 600 python -m ullsam_tpu_torch.tools.profile_kernels \

@@ -6,7 +6,9 @@ from ``tools/main_path.py``, as ``chip_smoke.py`` checks and times them),
 and over one warm SAM ViT-H AMG image and its encode under each route
 setting of the JAX package's switches (regions ``vit_h_*``), one ViT-H
 segmentation train step (``vit_h_train_step_bfloat16``: SAM ViT-H +
-frozen InternLM2-1.8B, bf16 parameters and moments, remat off) and a SAM
+frozen InternLM2-1.8B, bf16 parameters and moments, remat off), the
+float32 steps (``vit_h_train_step_float32`` with and without ``_remat``,
+``vit_b_train_step_float32_remat``: the JAX CLI's defaults) and a SAM
 ViT-B encode (``vit_b_encode_bfloat16``, the interactive request's).
 
     python -m ullsam_tpu_torch.tools.profile_kernels [--out DIR] [--only P]
@@ -164,6 +166,38 @@ def _vit_h_train(args) -> None:
     torch.cuda.empty_cache()
 
 
+# the float32 segmentation train steps profiled: (variant, remat); with
+# remat the JAX CLI's defaults (--param_dtype float32, remat on)
+F32_STEPS = (("vit_h", True), ("vit_h", False), ("vit_b", True))
+
+
+def _f32_step_name(variant: str, remat: bool) -> str:
+    return f"{variant}_train_step_float32{'_remat' if remat else ''}"
+
+
+def _train_f32(args, variant: str, remat: bool) -> None:
+    """One float32 segmentation train step (parameters and moments f32,
+    TF32 off in PyTorch; B8 and B9 in split TF32) at SAM ``variant`` +
+    frozen InternLM2-1.8B, random weights (seed 0), the flagship batch.
+    With remat the windows run plain and the global blocks B2 8, B9 4 a
+    step; without it B1, B3 and B8 in the windowed blocks too
+    (``chip_smoke.py`` phases 7 and 11 (b), (c))."""
+    name = _f32_step_name(variant, remat)
+    if not _wants(args, name):
+        return
+    sam = sam_vit_h() if variant == "vit_h" else sam_vit_b()
+    cfg = FusionConfig(sam=sam, llm=internlm2_1_8b())
+    model = F.build_ullsam(cfg, dtype=torch.float32, seed=0)
+    tcfg = S.TrainConfig(total_steps=100, remat=remat)
+    step = S.make_train_step(cfg, tcfg, model,
+                             S.make_trainable_optimizer(model, tcfg))
+    batch = S.batch_on(model, train_batch(cfg, np.random.default_rng(0)))
+    with switches({}):
+        _region(name, lambda: step(batch), args, iters=2, top=30)
+    del model, step, batch
+    torch.cuda.empty_cache()
+
+
 def _vit_b_encode(args) -> None:
     """SAM ViT-B in bf16 (random weights, seed 0): the encode of one
     1024x1024 image, the interactive request's first stage (B1 8, B2 4)."""
@@ -193,8 +227,10 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     if _wants(args, "vit_h_"):
         _vit_h(args)
-    if _wants(args, "vit_h_train_step_"):
+    if _wants(args, "vit_h_train_step_bfloat16"):
         _vit_h_train(args)
+    for variant, remat in F32_STEPS:
+        _train_f32(args, variant, remat)
     if _wants(args, "vit_b_encode_"):
         _vit_b_encode(args)
     gen = torch.Generator(device="cuda")
