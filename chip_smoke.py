@@ -13,9 +13,10 @@ sm_90a) and the CUDA toolkit. Phases, each printing what it found:
     tolerance; kernel, plain and (where one exists) library-call times with
     CUDA events; the least time the card could take (bound; in float32
     f32-accurate products at their fastest, split TF32 at 495 / 3 TFLOP/s).
-    The float32 bodies of B8 and B9 (split TF32) also against a float64
-    evaluation of their plain version: on every output within 4x the plain
-    float32 version's own error. B4-B7's fused
+    The float32 bodies on the tensor cores in split TF32 (B1, B3, B8, B9,
+    B13, B15, the wgmma GEMM's f32 kind) also against a float64 evaluation
+    of their plain version: on every output within 4x the plain float32
+    version's own error. B4-B7's fused
     bf16 kernels (B5's two image stages and their token -> image
     attention, the upscale with and without statistics) also alone: time,
     bound and achieved bandwidth.
@@ -78,7 +79,9 @@ sm_90a) and the CUDA toolkit. Phases, each printing what it found:
     reading a shape; in bf16 they and B1 run one window core); the wgmma
     GEMM that carries B1's and B13's bf16 products at each product's shape
     (M = 4900; B13's also 4096) against its f32 plain product, one launch
-    each by its own count, timed beside F.linear; a small encoder with
+    each by its own count, timed beside F.linear; the same products in
+    float32 on its f32 kind (split TF32) against float64, beside F.linear in
+    float32 (TF32 off); a small encoder with
     head dim 80 on the CPU
     (plain versions) and on the card (kernels) under each route setting of
     the JAX package's switches (default, ULLSAM_FUSED_VIT_MLP=1,
@@ -93,7 +96,7 @@ sm_90a) and the CUDA toolkit. Phases, each printing what it found:
     one bf16 image with all four switches on (B13 32, B14 4, B15 28). In
     every bf16 request, image and encode the wgmma GEMM launches exactly
     twice per B1 or B13 launch (its qkv / proj, fc1 / fc2), and none in
-    f32. Phase 3's checks at head dim 80 also hold B8 and B9 in both
+    f32 (there its f32 kind, as every path checks). Phase 3's checks at head dim 80 also hold B8 and B9 in both
     dtypes at ViT-H training's shapes (25 windows x 16 heads of 80; 16
     heads over 4096 tokens) and B14's backward (its heads through B9).
 11. the segmentation train step at SAM ViT-H (``--mode segment
@@ -112,9 +115,13 @@ sm_90a) and the CUDA toolkit. Phases, each printing what it found:
     held to (a)'s step 1 at 3x (a)'s distance from (c), and no less than
     phase 7's bf16 limits (1e-4, 1e-2).
 Each path (5-11) runs with every launch counter set to 0 just before it and
-read just after. Then the kernels JSON line (every kernel and the wgmma
-GEMM; ``launches``: the sum over the paths; ``launches_by_path``: each
-path's own count), the
+read just after; in every request, image and step of paths 5-11 the float32
+kinds launch exactly as B1, B3, B13 and B15 ask (float32: two launches of
+the GEMM's f32 kind per B1 or B13, one of the f32 window core per B1, B3
+or B15, none of gemm.cuh's FMA GEMM from B1 or B13; bfloat16: none of
+them). Then the kernels JSON line (every kernel, the wgmma GEMM, its f32
+kind and the f32 window core; ``launches``: the sum over the paths;
+``launches_by_path``: each path's own count), the
 nvidia-smi line, and the final status line.
 Any failure exits non-zero before the final line. No jax, no ullsam_tpu.
 """
@@ -277,6 +284,8 @@ def check_kernels(card: str) -> dict:
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 fail(f"{name} {dname} disagrees with its plain version")
+            f64 = (f64_hold(name, plain, args, outs, refs, "kernels", kw)
+                   if dtype == torch.float32 and name in SPLIT_TF32 else {})
             ms = cuda_time_ms(lambda: kernel(*args, **kw), iters=20)
             plain_ms = cuda_time_ms(lambda: plain(*args, **kw), iters=5,
                                     warmup=1)
@@ -298,7 +307,8 @@ def check_kernels(card: str) -> dict:
                 f"{nbytes / 1e6:.1f} MB; data-sheet peaks at 700 W, card: "
                 f"{card}), {flops / ms / 1e9:.1f} TFLOP/s")
             entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                     **f64}
             if dtype == torch.bfloat16:
                 row.update(entry)
             else:
@@ -445,21 +455,29 @@ def _sdpa_ms(q, k, v, bias, backward: bool, **kw) -> float:
                         iters=20, warmup=3)
 
 
-# the float32 bodies that take their products in split TF32 (B8, B9):
-# each output's error against a float64 evaluation of the plain version is
-# held to F64_RATIO x the plain float32 version's own
-SPLIT_TF32 = ("window_attn_core_bwd", "vit_flash_attn_bwd")
+# the float32 bodies that take their products in split TF32: each output's
+# error against a float64 evaluation of the plain version is held to
+# F64_RATIO x the plain float32 version's own (the forward kernels at every
+# shape a phase runs them)
+FWD_TF32 = ("window_attn", "window_attn_core", "window_attn_core_twophase",
+            "ln_mlp")
+SPLIT_TF32 = ("window_attn_core_bwd", "vit_flash_attn_bwd") + FWD_TF32
 F64_RATIO = 4.0
 
 
-def f64_hold(name: str, plain, args, got, ref, pre: str) -> dict:
-    """Kernel ``got`` and plain float32 ``ref`` (tuples of outputs) against
-    ``plain`` on ``args`` in float64: max|x - ref64| / max|ref64| of each
-    output; fails where the kernel's exceeds F64_RATIO x plain's. Returns
-    the worst of each, for the kernels line."""
+def f64_hold(name: str, plain, args, got, ref, pre: str, kw=None) -> dict:
+    """Kernel ``got`` and plain float32 ``ref`` (outputs, or tuples of
+    them) against ``plain`` on ``args`` (and ``kw``) in float64: max|x -
+    ref64| / max|ref64| of each output; fails where the kernel's exceeds
+    F64_RATIO x plain's. Returns the worst of each, for the kernels line."""
     import torch
-    ref64 = plain(*(t.double() if t.is_floating_point() else t
-                    for t in args))
+
+    def tup(x):
+        return x if isinstance(x, tuple) else (x,)
+    got, ref = tup(got), tup(ref)
+    ref64 = tup(plain(*(t.double() if isinstance(t, torch.Tensor)
+                        and t.is_floating_point() else t for t in args),
+                      **(kw or {})))
     worst = [0.0, 0.0]
     bad = []
     for i, (a, b, r) in enumerate(zip(got, ref, ref64)):
@@ -791,18 +809,18 @@ def main_path() -> None:
         lat, per_req, first = [], [], None
         for i, inp in enumerate(inputs):
             b1, b2 = VB.window_attn.launches, FA.vit_flash_attn.launches
-            g0 = gemm_counts()
+            g0 = c_counts()
             ms, dense, feats, mask, probs, iou = run_request(model, cfg, inp)
             d1 = VB.window_attn.launches - b1
             d2 = FA.vit_flash_attn.launches - b2
-            dg = {k: v - g0[k] for k, v in gemm_counts().items()}
             # in bf16 each B1 launch runs its two products on the wgmma
-            # GEMM; in f32 on gemm.cuh's FMA kernel (neither bf16 GEMM)
-            want_g = ({"gemm_sm90": 2 * d1, "gemm_mma": 0}
-                      if next(model.parameters()).dtype == torch.bfloat16
-                      else
-                      {"gemm_sm90": 0, "gemm_mma": 0})
-            if dg != want_g:
+            # GEMM; in f32 on its f32 kind (neither bf16 GEMM), and B1's
+            # core on the f32 window core
+            f32 = next(model.parameters()).dtype == torch.float32
+            dg = check_f32_kinds(f"{name} request {i}",
+                                 {"window_attn": d1}, g0, f32)
+            want_g = {"gemm_sm90": 0 if f32 else 2 * d1, "gemm_mma": 0}
+            if {k: dg[k] for k in want_g} != want_g:
                 fail(f"{name} request {i}: GEMM launches {dg}, expected "
                      f"{want_g}")
             per_req.append((d1, d2))
@@ -812,7 +830,9 @@ def main_path() -> None:
             say(f"[main] {name} request {i}: {inp[2].shape[1]} click(s), "
                 f"latency {ms:.1f} ms (host clock, ends in synchronize), "
                 f"launches window_attn +{d1} vit_flash_attn +{d2} "
-                f"gemm_sm90 +{dg['gemm_sm90']}, "
+                f"gemm_sm90 +{dg['gemm_sm90']}, gemm_sm90_f32 "
+                f"+{dg['gemm_sm90_f32']}, window_core_f32 "
+                f"+{dg['window_core_f32']}, "
                 f"mask area {int(mask.sum())} px, iou {float(iou):.4f}")
         peak = torch.cuda.max_memory_allocated()
         say(f"[main] {name}: weights {weights / 2**30:.3f} GiB resident, "
@@ -870,13 +890,41 @@ def launch_counts() -> dict:
     return {name: k.launches for name, k in kernel_wrappers().items()}
 
 
-def gemm_counts() -> dict:
-    """Launches of the two bf16 GEMM kernels (counted in C where each
-    launches): the wgmma one, which carries B1's and B13's products, and
-    gemm.cuh's mma.sync one (B4-B7, B12 and any other shape)."""
+def c_counts() -> dict:
+    """Launches of the kernels counted in C where each launches: the two
+    bf16 GEMM kernels (the wgmma one, which carries B1's and B13's bf16
+    products, and gemm.cuh's mma.sync one: B4-B7, B12 and any other
+    shape), the wgmma GEMM's f32 kind (B1's and B13's f32 products, split
+    TF32), gemm.cuh's FMA GEMM launched by B1 or B13 (other f32 shapes) and
+    the f32 window core (B1's, B3's and B15's in f32)."""
     from ullsam_tpu_torch.ops.kernels import gemm as G
+    from ullsam_tpu_torch.ops.kernels import window_attention as WA
     return {"gemm_sm90": G.gemm_sm90.launches,
-            "gemm_mma": G.gemm_mma.launches}
+            "gemm_mma": G.gemm_mma.launches,
+            "gemm_sm90_f32": G.gemm_sm90_f32.launches,
+            "gemm_fma": G.gemm_fma.launches,
+            "window_core_f32": WA.window_core_f32.launches}
+
+
+def check_f32_kinds(tag: str, d: dict, c0: dict, f32: bool) -> dict:
+    """The C-counted kernels launched since ``c0`` (``c_counts``), held to
+    the wrapper launches ``d`` of the same span: in float32 two launches
+    of the GEMM's f32 kind per B1 or B13 launch and one of the f32 window
+    core per B1, B3 or B15 launch, none of the FMA GEMM from B1 or B13 (at
+    SAM's widths every f32 product takes the f32 kind: the old CUDA-core
+    paths cannot run unseen); in bfloat16 none of the three. Returns the
+    difference."""
+    dc = {k: v - c0[k] for k, v in c_counts().items()}
+    gemms = d.get("window_attn", 0) + d.get("ln_mlp", 0)
+    cores = (d.get("window_attn", 0) + d.get("window_attn_core", 0)
+             + d.get("window_attn_core_twophase", 0))
+    want = {"gemm_sm90_f32": 2 * gemms if f32 else 0,
+            "window_core_f32": cores if f32 else 0, "gemm_fma": 0}
+    got = {k: dc[k] for k in want}
+    if got != want:
+        fail(f"{tag}: f32 kernel launches {got}, expected {want} for "
+             f"wrapper launches {d}")
+    return dc
 
 
 def fused_counts() -> dict:
@@ -911,7 +959,9 @@ def b12_counts() -> dict:
 def reset_counts() -> None:
     from ullsam_tpu_torch.ops.kernels import decoder as D
     from ullsam_tpu_torch.ops.kernels import gemm as G
+    from ullsam_tpu_torch.ops.kernels import window_attention as WA
     for k in (*kernel_wrappers().values(), G.gemm_sm90, G.gemm_mma,
+              G.gemm_sm90_f32, G.gemm_fma, WA.window_core_f32,
               *D.FUSED_KERNELS.values()):
         k.launches = 0
 
@@ -1048,6 +1098,7 @@ def amg_main_path() -> None:
     def run(generator, image, tag):
         before = launch_counts()
         f0 = fused_counts()
+        c0 = c_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         masks, data = generator.generate_dense(image)
@@ -1057,6 +1108,7 @@ def amg_main_path() -> None:
              if v != before[k]}
         df = check_fused(f"AMG {tag}", f0, d.get("decode_masks", 0),
                          "f32" not in tag)
+        check_f32_kinds(f"AMG {tag}", d, c0, "f32" in tag)
         n = len(data["iou_preds"])
         if (masks.dtype != torch.bool or tuple(masks.shape) != (n, 1024, 1024)
                 or not np.isfinite(data["iou_preds"]).all()
@@ -1203,12 +1255,15 @@ def train_small_reference_check(hd: int = 64) -> None:
         fail(f"small train step (hd {hd}): the card and the CPU disagree")
 
 
-def _step_launches(step, batch):
+def _step_launches(step, batch, f32: bool, tag: str):
     """(metrics as floats, host-clock ms ending in synchronize, launches)
-    of one train step; fails on a non-finite metric."""
+    of one train step; fails on a non-finite metric or where the f32 kinds
+    launch otherwise than its B1 / B3 / B13 / B15 launches ask
+    (``check_f32_kinds``; ``f32``: the step's dtype)."""
     import numpy as np
     import torch
     before = launch_counts()
+    c0 = c_counts()
     torch.cuda.synchronize()
     t = time.perf_counter()
     m = {k: float(v) for k, v in step(batch).items()}
@@ -1218,6 +1273,7 @@ def _step_launches(step, batch):
          if v - before[k]}
     if not all(np.isfinite(list(m.values()))):
         fail(f"train step: non-finite metrics {m}")
+    check_f32_kinds(f"train step, {tag}", d, c0, f32)
     return m, ms, d
 
 
@@ -1259,7 +1315,7 @@ def train_bf16_steps(cfg, what: str, per_step: dict, pre: str):
     batch = S.batch_on(model16, batch)  # device-resident, as a loader's
 
     def run(tag):
-        m, ms, d = _step_launches(step, batch)
+        m, ms, d = _step_launches(step, batch, False, f"{pre} bf16 {tag}")
         say(f"[{pre}] bf16 {tag}: {ms:.1f} ms (host clock, ends in "
             f"synchronize), loss {m['loss']:.6f}, grad_norm "
             f"{m['grad_norm']:.6f}, iou {m['iou']:.4f}, launches {d}")
@@ -1305,7 +1361,9 @@ def train_steps(cfg, batch, model, tc, tag: str, n: int, refs, pre: str,
     for i in range(1, n + 1):
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        m, ms, d = _step_launches(st, batch)
+        m, ms, d = _step_launches(
+            st, batch, next(model.parameters()).dtype == torch.float32,
+            f"{pre} {tag} step {i}")
         ref = refs[i - 1]
         say(f"[{pre}] {tag} step {i}: {ms:.1f} ms, loss {m['loss']:.6f}"
             f" ({m['loss'] - ref['loss']:+.2e} vs bf16 step {i}), "
@@ -2088,9 +2146,9 @@ def check_vit_h_kernels(card: str, rows: dict) -> dict:
             torch.cuda.synchronize()
             err = _errs(f"{name} ({tag})", dname, got, ref, tol[dtype])
             f64 = (f64_hold(f"{name} ({tag})", plain, args, got, ref,
-                            "vit_h")
+                            "vit_h", kw)
                    if dtype == torch.float32 and name in SPLIT_TF32
-                   and tag == "vit_h" else {})
+                   and (tag == "vit_h" or name in FWD_TF32) else {})
             if (name in ("vit_flash_attn", "vit_flash_attn_packed")
                     and tag != "vit_h_backward"):
                 lse_rel = float((got[1] - ref[1]).abs().max()
@@ -2180,7 +2238,7 @@ def check_gemm_kernel(card: str) -> dict:
         torch.cuda.synchronize()
         counts = (G.gemm_sm90.launches - before[0],
                   G.gemm_mma.launches - before[1])
-        ref = G.gemm_bf16_plain(a, w, b, res, act)
+        ref = G.gemm_plain(a, w, b, res, act)
         err = float((got.float() - ref.float()).abs().max())
         rel = err / float(ref.float().abs().max())
         ok = (rel <= 2e-2 and bool(torch.isfinite(got).all())
@@ -2196,7 +2254,7 @@ def check_gemm_kernel(card: str) -> dict:
         del got, ref
         ms = cuda_time_ms(lambda: G.gemm_bf16(a, w, b, res, act), iters=20,
                           warmup=3)
-        plain_ms = cuda_time_ms(lambda: G.gemm_bf16_plain(a, w, b, res, act),
+        plain_ms = cuda_time_ms(lambda: G.gemm_plain(a, w, b, res, act),
                                 iters=2, warmup=1)
         lib_ms = cuda_time_ms(lambda: F.linear(a, w, b), iters=20, warmup=3)
         flops = 2 * M * N * K
@@ -2216,7 +2274,81 @@ def check_gemm_kernel(card: str) -> dict:
             row[f"{tag}_M{M}"] = entry
         del a, w, b, res
         torch.cuda.empty_cache()
-    return {"gemm_sm90": row}
+    return {"gemm_sm90": row, "gemm_sm90_f32": check_gemm_f32(card, cases)}
+
+
+def check_gemm_f32(card: str, cases) -> dict:
+    """Phase 10 (a''): the wgmma GEMM's f32 kind (split TF32), which
+    carries B1's and B13's f32 products, at ``check_gemm_kernel``'s cases
+    in float32: against the f32 plain product (tolerance 1e-4 of
+    max|plain|) and a float64 evaluation of it (within F64_RATIO x the
+    plain f32 version's own error), one launch of the kind and none of the
+    FMA GEMM each, timed beside ``F.linear`` in float32 (TF32 off) and the
+    bound. The row's own numbers are ViT-H's qkv."""
+    import torch
+    import torch.nn.functional as F
+    from ullsam_tpu_torch.ops.kernels import gemm as G
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1)
+    row = {"name": "gemm_sm90_f32", "route": "cuda",
+           "source": "ullsam_tpu_torch/csrc/gemm_sm90.cuh",
+           "replaces": "ullsam_tpu/ops/pallas/vit_block.py:60",
+           "carries": "the f32 products of B1 (vit_block.py:203) and B13, "
+                      "split TF32"}
+
+    def r(*shape, s=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * s
+
+    for tag, M, N, K, act, with_res in cases:
+        a, w, b = r(M, K), r(N, K, s=K ** -0.5), r(N, s=0.1)
+        res = r(M, N) if with_res else None
+        if G.gemm_kernel(M, N, K, torch.float32) != "gemm_sm90_f32":
+            fail(f"gemm f32 {tag}: M={M} N={N} K={K} is not the f32 kind's")
+        c0 = c_counts()
+        got = G.gemm_f32(a, w, b, res, act)
+        torch.cuda.synchronize()
+        dc = {k: v - c0[k] for k, v in c_counts().items()}
+        ref = G.gemm_plain(a, w, b, res, act)
+        err = float((got - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        ok = (rel <= 1e-4 and bool(torch.isfinite(got).all())
+              and (dc["gemm_sm90_f32"], dc["gemm_fma"]) == (1, 0))
+        say(f"[gemm] f32 {tag} M={M} N={N} K={K} {act}"
+            f"{' +residual' if with_res else ''}: max_abs_err={err:.3e} "
+            f"max_rel_err={rel:.3e} (relative to max|plain|; tol 1e-04), "
+            f"launches f32 kind +{dc['gemm_sm90_f32']} FMA "
+            f"+{dc['gemm_fma']} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"gemm f32 {tag} disagrees with its plain version or did "
+                 f"not take the f32 kind")
+        f64 = f64_hold(f"gemm f32 {tag} M={M}", G.gemm_plain,
+                       (a, w, b, res, act), got, ref, "gemm")
+        del got, ref
+        ms = cuda_time_ms(lambda: G.gemm_f32(a, w, b, res, act), iters=10,
+                          warmup=2)
+        plain_ms = cuda_time_ms(lambda: G.gemm_plain(a, w, b, res, act),
+                                iters=2, warmup=1)
+        lib_ms = cuda_time_ms(lambda: F.linear(a, w, b), iters=10, warmup=2)
+        flops = 2 * M * N * K
+        nbytes = 4 * (M * K + N * K + N + M * N * (2 if with_res else 1))
+        b_ms, b_by = bound_ms(flops, nbytes, torch.float32)
+        say(f"[gemm] f32 {tag} M={M}: kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+            f"library F.linear {lib_ms:.4f} ms ({flops / lib_ms / 1e9:.1f} "
+            f"TFLOP/s), bound {b_ms:.4f} ms ({b_by}: {flops / 1e9:.2f} "
+            f"GFLOP, {nbytes / 1e6:.1f} MB; split TF32 at 495 / 3 TFLOP/s, "
+            f"700 W; card: {card})")
+        entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                 **f64}
+        if tag == "vit_h_qkv" and M == 4900:
+            row.update(entry)
+        else:
+            row[f"{tag}_M{M}"] = entry
+        del a, w, b, res
+        torch.cuda.empty_cache()
+    return row
 
 
 def vit_h_small_config():
@@ -2298,9 +2430,10 @@ def vit_h_main_path() -> None:
 
     def gemm_check(tag, d, g0, bf16, decoder_too):
         """Every bf16 product of B1 and B13 took the wgmma GEMM: two a
-        launch of either; f32 takes neither bf16 GEMM. The decoder's
+        launch of either; f32 takes neither bf16 GEMM but its f32 kind,
+        and the f32 window core (``check_f32_kinds``). The decoder's
         products (B4-B7) run gemm.cuh's mma.sync kernel."""
-        dg = {k: v - g0[k] for k, v in gemm_counts().items()}
+        dg = check_f32_kinds(f"ViT-H {tag}", d, g0, not bf16)
         sm90 = 2 * (d.get("window_attn", 0) + d.get("ln_mlp", 0))
         if dg["gemm_sm90"] != (sm90 if bf16 else 0) or (
                 not decoder_too and dg["gemm_mma"] != 0):
@@ -2310,7 +2443,7 @@ def vit_h_main_path() -> None:
 
     def run(generator, image, tag, want):
         before = launch_counts()
-        g0 = gemm_counts()
+        g0 = c_counts()
         f0 = fused_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2362,7 +2495,7 @@ def vit_h_main_path() -> None:
             lat = []
             for _ in range(5):
                 before = launch_counts()
-                g0 = gemm_counts()
+                g0 = c_counts()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 emb = S.encode_image(model16.image_encoder, x)
@@ -2548,6 +2681,14 @@ def main() -> None:
     rows.update(check_w8a16_kernel(smi))
     rows = check_vit_h_kernels(smi, rows)
     rows.update(check_gemm_kernel(smi))
+    # the f32 window core's own row: its B3 reading at ViT-H (hd 80)
+    core = rows["window_attn_core"]["vit_h_float32"]
+    rows["window_core_f32"] = {
+        "name": "window_core_f32", "route": "cuda",
+        "source": "ullsam_tpu_torch/csrc/window_core_f32.cuh",
+        "replaces": "ullsam_tpu/ops/pallas/flash_attention.py:1033",
+        "carries": "the f32 core of B1 (vit_block.py:203), B3 and B15 "
+                   "(flash_attention.py:1064), split TF32", **core}
     small_reference_check()
     amg_small_reference_check()
     train_small_reference_check()
@@ -2565,10 +2706,11 @@ def main() -> None:
         reset_counts()
         drive()
         by_path[path] = launch_counts()
-        gemm_by_path[path] = gemm_counts()
-        by_path[path]["gemm_sm90"] = gemm_by_path[path]["gemm_sm90"]
-        say(f"[main] launches on the {path} path: {by_path[path]}; bf16 "
-            f"GEMMs {gemm_by_path[path]}")
+        gemm_by_path[path] = c_counts()
+        for k in ("gemm_sm90", "gemm_sm90_f32", "window_core_f32"):
+            by_path[path][k] = gemm_by_path[path][k]
+        say(f"[main] launches on the {path} path: {by_path[path]}; "
+            f"C-counted kernels {gemm_by_path[path]}")
     launches = {name: sum(c[name] for c in by_path.values()) for name in rows}
     if not all(launches.values()):
         fail(f"a kernel of the main path never launched: {launches}")

@@ -1,7 +1,7 @@
 """The bf16 GEMM of B1's and B13's products (``ops/kernels/gemm.py``) and
 the shared bf16 window core's host-side rules, on the CPU.
 
-* ``gemm_bf16_plain`` (the GEMM kernels' plain version) against the JAX
+* ``gemm_plain`` (the GEMM kernels' plain version) against the JAX
   package's products as B13's TPU kernel forms them (``vit_block.py``
   ``_ln_mlp_kernel``: an f32 ``dot_general`` plus the bias, the sum rounded
   to bf16 and then ``_gelu_tanh``; the residual added in f32), with each
@@ -63,7 +63,7 @@ def test_sm90_shape_rule():
 @pytest.mark.parametrize("M,N,K", [(37, 128, 64), (5, 256, 128)])
 @pytest.mark.parametrize("epilogue", ["bias", "gelu", "residual"])
 def test_gemm_plain_matches_jax(M, N, K, epilogue):
-    """``gemm_bf16_plain`` against B13's TPU-kernel arithmetic in JAX on
+    """``gemm_plain`` against B13's TPU-kernel arithmetic in JAX on
     the same bf16 inputs: fc1's bias + GELU, fc2's bias + residual."""
     rng = np.random.default_rng(7)
     a = (rng.standard_normal((M, K))).astype(np.float32)
@@ -102,8 +102,8 @@ def test_gemm_plain_is_b13s_products():
         for s in ((C,), (C,), (F,), (C,)))
     from ullsam_tpu_torch.ops import layers as L
     y = L.layer_norm(x, lw + 1, lb, eps=1e-6)
-    h = G.gemm_bf16_plain(y, w1, b1, None, "gelu_tanh")
-    got = G.gemm_bf16_plain(h, w2, b2, x)
+    h = G.gemm_plain(y, w1, b1, None, "gelu_tanh")
+    got = G.gemm_plain(h, w2, b2, x)
     want = TVB.ln_mlp_plain(x, lw + 1, lb, w1, b1, w2, b2, eps=1e-6)
     assert torch.equal(got, want)
 
@@ -119,30 +119,67 @@ def test_gemm_counts_need_no_card():
     assert (G.gemm_sm90.launches, G.gemm_mma.launches) == (0, 0)
 
 
+def test_f32_kernel_counts_need_no_card():
+    """The f32 GEMMs' and the f32 window core's launch counts read 0 with
+    no library loaded, can be set to 0, and CPU calls launch nothing."""
+    counts = (G.gemm_sm90_f32, G.gemm_fma, TWA.window_core_f32)
+    for c in counts:
+        c.launches = 0
+        assert c.launches == 0
+    G.gemm_f32(torch.randn(4, 64), torch.randn(128, 64))
+    TWA.window_attn_core(torch.randn(32, 3 * 128), torch.randn(4, 4, 64),
+                         torch.randn(4, 4, 64))
+    assert [c.launches for c in counts] == [0, 0, 0]
+
+
+@pytest.mark.parametrize("M,N,K", [(37, 128, 64), (300, 256, 128)])
+@pytest.mark.parametrize("act", ["none", "gelu_tanh"])
+def test_gemm_f32_plain_is_the_fma_kernels_function(M, N, K, act):
+    """``gemm_f32`` on the CPU is ``gemm_plain`` in float32: the f32 sum,
+    bias and residual added in f32, the tanh-GELU of the unrounded sum;
+    with ``mm=tf32.mm_3xtf32`` (the wgmma kernel's split TF32) within 1e-6
+    of it."""
+    from ullsam_tpu_torch.ops.kernels import tf32 as T
+    rng = np.random.default_rng(M + K)
+    a, w, b, r = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                  for s in ((M, K), (N, K), (N,), (M, N)))
+    got = G.gemm_f32(a, w, b, r, act)
+    want = a @ w.T + b + r
+    if act == "gelu_tanh":
+        want = TVB.gelu_tanh(want)
+    assert got.dtype == torch.float32
+    assert _rel(got, want) <= 1e-6
+    split = G.gemm_plain(a, w, b, r, act, mm=T.mm_3xtf32)
+    assert _rel(split, got) <= 1e-6
+
+
 @pytest.mark.parametrize("hd", [64, 80])
 def test_window_core_smem_fits_a_block(hd):
-    """The bf16 window core's shared memory (two k|v and two q slots, the
-    unit's rel terms) fits one H100 block at every window it takes, up to
-    16x16, and is B15's bf16 figure (B15 runs the same core)."""
+    """The window cores' shared memory fits one H100 block at every window
+    they take, up to 16x16: the bf16 core's (two k|v and two q slots, the
+    unit's rel terms) and the f32 core's (k's, then v's, hi and lo planes
+    in the slot rows of its instance, a query half's rows and rel terms).
+    B1, B3 and B15 run these two cores."""
     for kh in range(1, 17):
         for kw in range(1, 17):
             n = kh * kw
             got = TWA.core_smem_bytes(n, kh, kw, hd)
             assert got <= TWA._SMEM_LIMIT == 232448
-            assert got == TWA.twophase_smem_bytes(torch.bfloat16, n, kh, kw,
-                                                  hd)
+            assert TWA.core_f32_smem_bytes(n, kh, kw, hd) <= TWA._SMEM_LIMIT
     assert TWA.core_smem_bytes(196, 14, 14, 80) == 191744
     assert TWA.core_smem_bytes(256, 16, 16, 80) == 221184
+    assert TWA.core_f32_smem_bytes(196, 14, 14, 80) == 200704
+    assert TWA.core_f32_smem_bytes(256, 16, 16, 80) == 231424
 
 
 def test_window_core_window_limit():
-    """On the card the bf16 core takes windows up to 16x16 (one 16-key slot
-    a window row); float32 keeps its own kernels and any window; the CPU
-    runs the plain version at any window."""
-    TWA.check_core_window(torch.bfloat16, 16, 16, "t")
-    TWA.check_core_window(torch.float32, 4, 32, "t")
-    with pytest.raises(ValueError):
-        TWA.check_core_window(torch.bfloat16, 4, 32, "t")
+    """On the card the window cores of both dtypes take windows up to
+    16x16 (one 16-key slot a window row); the CPU runs the plain version at
+    any window."""
+    for dt in (torch.bfloat16, torch.float32):
+        TWA.check_core_window(dt, 16, 16, "t")
+        with pytest.raises(ValueError):
+            TWA.check_core_window(dt, 4, 32, "t")
     qkv = torch.randn(2 * 4 * 17, 3 * 64).bfloat16()
     rh, rw = torch.randn(4, 4, 64).bfloat16(), torch.randn(17, 17, 64).bfloat16()
     assert TWA.window_attn_core(qkv, rh, rw).shape == (2 * 4 * 17, 64)

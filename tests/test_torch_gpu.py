@@ -7,8 +7,11 @@ same tests). On a machine with a card and no jax, run from the repo root:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 
 This file imports neither jax nor ullsam_tpu. Tolerances are relative to
-max|plain|: f32 1e-4 (summation order; no TF32 anywhere), bf16 2e-2 (a few
-bf16 steps where a different sum rounds a value the other way).
+max|plain|: f32 1e-4 (summation order; the plain versions take no TF32,
+the kernels' split TF32 is f32-accurate), bf16 2e-2 (a few bf16 steps
+where a different sum rounds a value the other way). The f32 kernels on
+the tensor cores (split TF32) are also held against a float64 evaluation
+of their plain version: at most 4x the plain f32 version's own error.
 """
 
 import math
@@ -826,7 +829,8 @@ def test_vit_h_wrappers_refuse_unsupported(cuda):
     with no fallback: head dim 96 in B1, B2, B3, B14, B15 and B8; C % 32
     in B13; float32 B8 at head dim 80 on 16x16 windows (its k, v and dv
     need more shared memory than a block has) and B9 at head dim 96; windows
-    wider than 16 in bfloat16 B8, B3 and B15 (the one bf16 core); and a
+    wider than 16 in bfloat16 B8, and in B3 and B15 in both dtypes (the one
+    window core of each dtype); and a
     ``QuantLinear`` made on the CPU at a width B12 does not take (K = 72)
     raises on its first call after ``.to("cuda")``."""
     from ullsam_tpu_torch.ops import layers as L
@@ -865,6 +869,8 @@ def test_vit_h_wrappers_refuse_unsupported(cuda):
     for core in (WA.window_attn_core, WA.window_attn_core_twophase):
         with pytest.raises(ValueError):   # the bf16 core, 4x32 windows
             core(b(128, 3 * C), b(4, 4, 64), b(32, 32, 64))
+        with pytest.raises(ValueError):   # the f32 core, 4x32 windows
+            core(z(128, 3 * C), z(4, 4, 64), z(32, 32, 64))
     q = z(2, 1024, 96)
     with pytest.raises(ValueError):
         FA.vit_flash_attn_bwd(q, q, q, z(2, 1024, 32), z(2, 1024, 32), q,
@@ -984,7 +990,7 @@ def test_gemm_sm90_matches_plain(cuda, M, N, K):
         torch.cuda.synchronize()
         assert (G.gemm_sm90.launches, G.gemm_mma.launches) == (
             before[0] + 1, before[1])
-        ref = G.gemm_bf16_plain(a, w, bias, rr, act)
+        ref = G.gemm_plain(a, w, bias, rr, act)
         assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
         assert _rel_err(got, ref) <= TOL["bfloat16"]
 
@@ -1002,7 +1008,7 @@ def test_gemm_dispatch_takes_mma_off_the_sm90_shapes(cuda):
         torch.cuda.synchronize()
         assert (G.gemm_sm90.launches, G.gemm_mma.launches) == (
             before[0], before[1] + 1)
-        assert _rel_err(got, G.gemm_bf16_plain(a, w)) <= TOL["bfloat16"]
+        assert _rel_err(got, G.gemm_plain(a, w)) <= TOL["bfloat16"]
 
 
 @pytest.mark.parametrize("name,width", [("window_attn", "vit_b"),
@@ -1038,3 +1044,139 @@ def test_b3_and_b15_bf16_are_one_core(cuda, Bw, ws, nh, hd):
     assert torch.equal(b3, b15)
     assert _rel_err(b3, WA.window_attn_core_plain(qkv, rh, rw)) <= TOL[
         "bfloat16"]
+
+
+# ---------------------------------------------------------------------------
+# float32 B1, B3, B13 and B15 on the tensor cores in split TF32: the wgmma
+# GEMM's f32 kind and the one f32 window core
+# ---------------------------------------------------------------------------
+
+# each f32 output against a float64 evaluation of its plain version: at
+# most F64_RATIO x the plain f32 version's own error (cuBLAS, TF32 off)
+F64_RATIO = 4.0
+
+
+def _f32_counts():
+    from ullsam_tpu_torch.ops.kernels import gemm as G
+    from ullsam_tpu_torch.ops.kernels import window_attention as WA
+    return (G.gemm_sm90_f32.launches, G.gemm_fma.launches,
+            WA.window_core_f32.launches, G.gemm_sm90.launches)
+
+
+@pytest.mark.parametrize("M", [4900, 257])
+@pytest.mark.parametrize("N,K", _PRODUCTS)
+def test_gemm_f32_error_vs_float64(cuda, M, N, K):
+    """The f32 kind of the wgmma GEMM (split TF32) at every product shape
+    of B1 and B13 at ViT-B and ViT-H (fc2: K = 5120, 640 steps of 8), M a
+    windowed block's 4900 rows and a ragged 257, with each epilogue:
+    against float64 within 4x the plain f32 version's error, one launch of
+    the kernel (none of the FMA kernel), two calls bitwise equal."""
+    from ullsam_tpu_torch.ops.kernels import gemm as G
+
+    def r(*shape, s=1.0):
+        return torch.randn(*shape, generator=cuda, device="cuda") * s
+
+    a, w, b, res = r(M, K), r(N, K, s=K ** -0.5), r(N, s=0.1), r(M, N)
+    assert G.gemm_kernel(M, N, K, torch.float32) == "gemm_sm90_f32"
+    for bias, rr, act in ((b, None, "none"), (b, None, "gelu_tanh"),
+                          (b, res, "none")):
+        before = _f32_counts()
+        got = G.gemm_f32(a, w, bias, rr, act)
+        again = G.gemm_f32(a, w, bias, rr, act)
+        torch.cuda.synchronize()
+        d = [x - y for x, y in zip(_f32_counts(), before)]
+        assert d == [2, 0, 0, 0]
+        assert torch.equal(got, again)
+        plain = G.gemm_plain(a, w, bias, rr, act)
+        ref = G.gemm_plain(*(None if t is None else t.double()
+                             for t in (a, w, bias, rr)), act)
+        err, err_plain = _rel_err64(got, ref), _rel_err64(plain, ref)
+        assert err <= F64_RATIO * err_plain, (act, err, err_plain)
+
+
+def test_gemm_f32_dispatch_takes_fma_off_the_sm90_shapes(cuda):
+    """Float32 shapes the wgmma kernel does not take (N % 128, K % 64) run
+    gemm.cuh's FMA kernel, by its own count, and agree with plain."""
+    from ullsam_tpu_torch.ops.kernels import gemm as G
+    for M, N, K in ((300, 200, 96), (64, 136, 64), (40, 128, 32)):
+        a = torch.randn(M, K, generator=cuda, device="cuda")
+        w = torch.randn(N, K, generator=cuda, device="cuda")
+        assert G.gemm_kernel(M, N, K, torch.float32) == "gemm_fma"
+        before = _f32_counts()
+        got = G.gemm_f32(a, w)
+        torch.cuda.synchronize()
+        assert [x - y for x, y in zip(_f32_counts(), before)] == [0, 1, 0, 0]
+        assert _rel_err(got, G.gemm_plain(a, w)) <= TOL["float32"]
+
+
+# the launches of one f32 call of each kernel at SAM widths: (gemm_sm90_f32,
+# gemm_fma, window_core_f32, gemm_sm90)
+_F32_LAUNCHES = {"window_attn": [2, 0, 1, 0], "window_attn_core": [0, 0, 1, 0],
+                 "window_attn_core_twophase": [0, 0, 1, 0],
+                 "ln_mlp": [2, 0, 0, 0]}
+
+
+@pytest.mark.parametrize("width", ["vit_b", "vit_h"])
+@pytest.mark.parametrize("name", ["window_attn", "window_attn_core",
+                                  "window_attn_core_twophase", "ln_mlp"])
+def test_f32_vit_kernels_error_vs_float64(cuda, name, width):
+    """Float32 B1, B3, B15 and B13 at the main path's shapes of ViT-B and
+    ViT-H (B13 at a windowed block's 4900 rows): every product on the new
+    split-TF32 kernels (the wgmma GEMM's f32 kind, the one f32 window core;
+    no FMA GEMM), the output within 4x the plain f32 version's error
+    against a float64 evaluation of the plain version, two calls bitwise
+    equal."""
+    kernel, plain = _vit_h_kernels()[name]
+    args, kw = _vit_h_case(name, width, torch.float32, cuda)
+    before = _f32_counts()
+    got = kernel(*args, **kw)
+    again = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    d = [x - y for x, y in zip(_f32_counts(), before)]
+    assert d == [2 * c for c in _F32_LAUNCHES[name]], d
+    assert torch.equal(got, again)
+    ref = plain(*(t.double() if isinstance(t, torch.Tensor) else t
+                  for t in args), **kw)
+    err = _rel_err64(got, ref)
+    err_plain = _rel_err64(plain(*args, **kw), ref)
+    assert err <= F64_RATIO * err_plain, (err, err_plain)
+
+
+@pytest.mark.parametrize("Bw,ws,nh,hd", [(4, 8, 2, 64), (3, 5, 2, 80),
+                                         (2, 16, 2, 80), (3, 4, 2, 64),
+                                         (2, 2, 2, 64), (2, 12, 2, 80)])
+def test_b3_and_b15_f32_are_one_core(cuda, Bw, ws, nh, hd):
+    """In float32 B3 and B15 launch the one f32 window core, at every
+    instance's slot rows (2, 4, 8, 16, and windows of 5 and 12 rows in the
+    8- and 14-row instances): bitwise-equal outputs within 1e-4 of the
+    plain version."""
+    from ullsam_tpu_torch.ops.kernels import window_attention as WA
+    qkv, rh, rw, _ = _window_core_inputs(cuda, torch.float32, Bw, ws, nh, hd)
+    before = WA.window_core_f32.launches
+    b3 = WA.window_attn_core(qkv, rh, rw)
+    b15 = WA.window_attn_core_twophase(qkv, rh, rw)
+    torch.cuda.synchronize()
+    assert WA.window_core_f32.launches == before + 2
+    assert torch.equal(b3, b15)
+    assert _rel_err(b3, WA.window_attn_core_plain(qkv, rh, rw)) <= TOL[
+        "float32"]
+
+
+@pytest.mark.parametrize("name,width", [("window_attn", "vit_b"),
+                                        ("window_attn", "vit_h"),
+                                        ("window_attn_core", "vit_h"),
+                                        ("ln_mlp", "vit_h")])
+def test_bf16_vit_kernels_take_no_f32_kernel(cuda, name, width):
+    """Bfloat16 B1, B3 and B13 launch only their bf16 kernels (B1 and B13
+    two wgmma GEMMs; none of the f32 kinds or the f32 core) and two calls
+    are bitwise equal."""
+    kernel, plain = _vit_h_kernels()[name]
+    args, kw = _vit_h_case(name, width, torch.bfloat16, cuda)
+    before = _f32_counts()
+    got = kernel(*args, **kw)
+    again = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    d = [x - y for x, y in zip(_f32_counts(), before)]
+    assert d == [0, 0, 0, 0 if name == "window_attn_core" else 4]
+    assert torch.equal(got, again)
+    assert _rel_err(got, plain(*args, **kw)) <= TOL["bfloat16"]

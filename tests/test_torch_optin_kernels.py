@@ -332,10 +332,13 @@ def test_twophase_plain_computes_b3(dt):
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", [64, 80])
 def test_twophase_smem_fits_a_block(dt, hd):
-    """B15's shared-memory mirror (``twophase_smem_bytes``, the kernel's
-    ``TwoPhaseMma`` / ``twophase_f32_smem``) fits one H100 block at SAM's
-    14x14 windows and at the largest window the wrapper takes (16x16), in
-    both dtypes and both head dims; B15 takes head dims 64 and 80."""
+    """B15 launches B3's window core of its dtype (``window_core.cuh``,
+    ``window_core_f32.cuh``), whose shared memory (``core_smem_bytes``,
+    ``core_f32_smem_bytes``) fits one H100 block at SAM's 14x14 windows and
+    at the largest window the wrapper takes (16x16), in both head dims; B15
+    takes head dims 64 and 80."""
     assert hd in TWA._FWD_HEAD_DIMS
+    smem = (TWA.core_smem_bytes if dt == torch.bfloat16
+            else TWA.core_f32_smem_bytes)
     for ws in (14, 16):
-        assert TWA.twophase_smem_bytes(dt, ws * ws, ws, ws, hd) <= 232448
+        assert smem(ws * ws, ws, ws, hd) <= 232448

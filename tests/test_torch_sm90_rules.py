@@ -12,6 +12,10 @@ against the 232,448 bytes of shared memory an H100 block may use.
 * ``flash_attention.sm90_smem_bytes`` (``FlashSm90Layout<D>``) at head
   dims 64 and 80, and ``key_rows_per_tile``: when a 64-key tile covers
   whole key-grid rows, so that the bias comes from registers.
+* The f32 kind of the wgmma GEMM (``Sm90Layout<kSm90F32>``, split TF32:
+  B1's and B13's f32 products) and the f32 window core
+  (``window_core_f32.cuh``, B1's, B3's and B15's f32 core): their shape
+  rules, instances and shared memory.
 * B9's two bf16 bodies (``vit_flash_bwd.cu`` ``BwdSm90Layout<D>``: dq and
   drel query-major, dk and dv key-major) and its two float32 ones
   (``F32Layout<D>``, split TF32) at head dims 64 and 80:
@@ -32,6 +36,7 @@ from ullsam_tpu_torch.ops.kernels import build
 from ullsam_tpu_torch.ops.kernels import flash_attention as FA
 from ullsam_tpu_torch.ops.kernels import gemm as G
 from ullsam_tpu_torch.ops.kernels import int8_matmul as Q
+from ullsam_tpu_torch.ops.kernels import window_attention as WA
 from ullsam_tpu_torch.tools.main_path import (W8A16_DECODE_M, W8A16_LINEARS,
                                               W8A16_PREFILL_M)
 
@@ -53,6 +58,42 @@ def test_w8a16_sm90_mirror_matches_the_source():
     assert _const(src, r"kBM = kInt8W \? (\d+)") == Q.W8_BM
     assert _const(src, r"kStages = kInt8W \? (\d+)") == Q.W8_STAGES
     assert _const(src, r"kStgLd = kInt8W \? (\d+)") == Q.W8_STG_LD
+
+
+def test_gemm_f32_mirror_matches_the_source():
+    """The f32 kind of the wgmma GEMM (split TF32): its k-block, stages and
+    producer warpgroup in ``gemm_sm90.cuh`` are those ``gemm`` mirrors; its
+    shared memory (three stages of A's and W's 128 x 32 f32 tiles and W's
+    lo plane, the bf16 kind's staging and mbarriers) fits one block; every
+    f32 product of B1 and B13 at SAM's widths takes it, other widths the
+    FMA kernel."""
+    src = "gemm_sm90.cuh"
+    assert (_const(src, r"kSm90F32BK = (\d+)"),
+            _const(src, r"kSm90F32Stages = (\d+)")) == (G.SM90_F32_BK,
+                                                        G.SM90_F32_STAGES)
+    assert _const(src, r"kThreads = kF32 \? (\d+)") == 3 * 128
+    assert G.sm90_f32_smem_bytes() == 183360 <= G.SMEM_LIMIT
+    for C in (768, 1024, 1280):
+        for N, K in ((3 * C, C), (C, C), (4 * C, C), (C, 4 * C)):
+            for M in (4900, 4096, 257):
+                assert G.gemm_kernel(M, N, K, torch.float32) == "gemm_sm90_f32"
+    for M, N, K in ((300, 200, 96), (64, 136, 64), (4900, 1280, 32)):
+        assert G.gemm_kernel(M, N, K, torch.float32) == "gemm_fma"
+
+
+def test_window_core_f32_mirror_matches_the_source():
+    """The f32 window core's instances (slot rows 2, 4, 8, 14, 16 in
+    ``window_core_f32.cuh``) are those ``window_attention`` mirrors, and
+    its shared memory at SAM's 14x14 windows is k's hi and lo planes of 224
+    slots, 7 query tiles and their rel-pos terms."""
+    with open(os.path.join(build.CSRC, "window_core_f32.cuh")) as f:
+        m = re.search(r"kCoreF32Nts\[\] = \{([\d, ]+)\}", f.read())
+    assert tuple(int(v) for v in m.group(1).split(",")) == \
+        WA.CORE_F32_SLOT_ROWS
+    for hd in (64, 80):
+        ld = hd + 4
+        assert WA.core_f32_smem_bytes(196, 14, 14, hd) == 4 * (
+            2 * 224 * ld + 112 * ld + 112 * 28)
 
 
 def test_w8a16_sm90_smem_fits_a_block():

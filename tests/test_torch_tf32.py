@@ -1,6 +1,7 @@
-"""The split-TF32 ("3xTF32") arithmetic of the float32 bodies of B8 and B9
-on the CPU (``ullsam_tpu_torch/ops/kernels/tf32.py``, the plain-torch
-emulation of ``csrc/tf32.cuh``).
+"""The split-TF32 ("3xTF32") arithmetic of the float32 bodies of B8, B9,
+B13, B3 and B1 (and of B15, which runs B3's core) on the CPU
+(``ullsam_tpu_torch/ops/kernels/tf32.py``, the plain-torch emulation of
+``csrc/tf32.cuh``).
 
 The kernels take each f32 product as a_hi b_hi + a_hi b_lo + a_lo b_hi on
 TF32 values (hi = tf32(x), lo = tf32(x - hi), rounding to nearest with
@@ -9,8 +10,12 @@ kernels put on the tensor cores through that emulation (``mm=``) and are
 held to the JAX package's float32 kernels in interpret mode at 1e-5 of
 max|ref| on every output, the parity that the JAX f32 path keeps
 (flash_attention.py:837-839), at head dims 64 and 80; the same dataflow
-with one TF32 pass misses that bar, so the test tells the two apart. The
-card tests (``tests/test_torch_gpu.py``) hold the kernels themselves.
+with one TF32 pass misses that bar, so the test tells the two apart. So
+are the forward kernels' plain versions: B13 (``ln_mlp_plain``, both
+products on the GEMM's f32 kind), B3 (``window_attn_core_plain``: the
+rel-pos terms, q k^T and p v on the f32 window core) and B1
+(``window_attn_plain``: qkv, proj and B3's products). The card tests
+(``tests/test_torch_gpu.py``) hold the kernels themselves.
 """
 
 import jax.numpy as jnp
@@ -23,9 +28,13 @@ from test_torch_train_kernels import (_b9_inputs, _flash_case, _pack_out,
                                       _pack_qkv, _pack_table, _rel, _unpack,
                                       _unpack_table, _window_core_case)
 
+from ullsam_tpu.models.sam import image_encoder as JIE
 from ullsam_tpu.ops.pallas import flash_attention as JFA
+from ullsam_tpu.ops.pallas import vit_block as JVB
+from ullsam_tpu_torch.ops import attention as TA
 from ullsam_tpu_torch.ops.kernels import flash_attention as TFA
 from ullsam_tpu_torch.ops.kernels import tf32 as T
+from ullsam_tpu_torch.ops.kernels import vit_block as TVB
 from ullsam_tpu_torch.ops.kernels import window_attention as TWA
 
 TOL = 1e-5
@@ -110,3 +119,133 @@ def test_b9_split_tf32_matches_tpu_kernel(D):
         assert _rel(a, b) < TOL, (name, _rel(a, b))
     one = TFA.vit_flash_attn_bwd_plain(*t, g, lse_t, dd, mm=_mm_1xtf32)
     assert max(_rel(a, b) for a, b in zip(one, ref)) > 10 * TOL
+
+
+@pytest.mark.parametrize("K", [1280, 5120])
+def test_mm_3xtf32_at_the_gemm_depths(K):
+    """Against float64, three TF32 passes err within 2x of an f32 matmul
+    over the f32 GEMM's sums at ViT-H (K = 1280: qkv, proj, fc1; K =
+    5120: fc2); one pass errs over 100x more."""
+    rng = np.random.default_rng(K)
+    a = torch.from_numpy(rng.standard_normal((64, K)).astype(np.float32))
+    b = torch.from_numpy((rng.standard_normal((K, 128)) * K ** -0.5)
+                         .astype(np.float32))
+    ref = a.double() @ b.double()
+
+    def err(c):
+        return float((c.double() - ref).abs().max() / ref.abs().max())
+
+    e32, e3 = err(a @ b), err(T.mm_3xtf32(a, b))
+    assert e3 <= 2 * e32
+    assert err(_mm_1xtf32(a, b)) > 100 * e32
+
+
+# (nh, hd) of the forward tests: head dims 64 (SAM ViT-B / L) and 80
+# (ViT-H), at widths whose C is a multiple of 128 (the JAX kernels' gate)
+_WIDTHS = {64: (2, 64), 80: (8, 80)}
+
+
+def _ln_mlp_case(C, seed=0, T_=300):
+    rng = np.random.default_rng(seed)
+    F = 4 * C
+
+    def r(*shape, s=1.0):
+        return (rng.standard_normal(shape) * s).astype(np.float32)
+
+    return (r(T_, C, s=0.5), 1 + r(C, s=0.1), r(C, s=0.1),
+            r(C, F, s=C ** -0.5), r(F, s=0.1), r(F, C, s=F ** -0.5),
+            r(C, s=0.1))
+
+
+@pytest.mark.parametrize("hd", [64, 80])
+def test_b13_split_tf32_matches_tpu_kernel(monkeypatch, hd):
+    """Plain B13 with both products in split TF32 against ``fused_ln_mlp``
+    (f32, interpret mode, ``ULLSAM_FUSED_VIT_MLP=1``; 300 rows, C = nh *
+    hd, F = 4C) within 1e-5 of max|out|; one TF32 pass is not."""
+    nh, hd = _WIDTHS[hd]
+    C = nh * hd
+    x, lns, lnb, w1, b1, w2, b2 = _ln_mlp_case(C)
+    monkeypatch.setattr("ullsam_tpu.ops.pallas.backend_ok", lambda: True)
+    monkeypatch.setenv("ULLSAM_FUSED_VIT_MLP", "1")
+    assert JVB.ln_mlp_supported(x.shape[0], C, 4 * C)
+    ln = {"scale": jnp.asarray(lns), "bias": jnp.asarray(lnb)}
+    mlp = {"fc1": {"kernel": jnp.asarray(w1), "bias": jnp.asarray(b1)},
+           "fc2": {"kernel": jnp.asarray(w2), "bias": jnp.asarray(b2)}}
+    with pltpu.force_tpu_interpret_mode():
+        ref = JVB.fused_ln_mlp(jnp.asarray(x), ln, mlp, eps=1e-6)
+    args = [torch.from_numpy(np.ascontiguousarray(a))
+            for a in (x, lns, lnb, w1.T, b1, w2.T, b2)]
+    got = TVB.ln_mlp_plain(*args, eps=1e-6, mm=T.mm_3xtf32)
+    assert got.shape == (x.shape[0], C)
+    assert _rel(got, ref) < TOL, _rel(got, ref)
+    one = TVB.ln_mlp_plain(*args, eps=1e-6, mm=_mm_1xtf32)
+    assert _rel(one, ref) > 10 * TOL
+
+
+@pytest.mark.parametrize("hd", [64, 80])
+def test_b3_split_tf32_matches_tpu_kernel(hd):
+    """Plain B3 with the rel-pos terms, q k^T and p v in split TF32 against
+    ``vit_window_attention_packed`` (f32, interpret mode, the packed layout
+    converted) within 1e-5 of max|o|; one TF32 pass is not."""
+    qkv, rh, rw, _, (nh, hd, ws, B) = _window_core_case(2, hd=hd)
+    args = (jnp.asarray(_pack_qkv(qkv, nh, hd, B)),
+            jnp.asarray(_pack_table(rh)), jnp.asarray(_pack_table(rw)))
+    with pltpu.force_tpu_interpret_mode():
+        ref = JFA.vit_window_attention_packed(*args, nh, hd, ws, ws)
+    want = _unpack(ref, 1, nh, hd)
+    ins = [torch.from_numpy(a) for a in (qkv, rh, rw)]
+    got = TWA.window_attn_core_plain(*ins, mm=T.mm_3xtf32)
+    assert _rel(got, want) < TOL, _rel(got, want)
+    one = TWA.window_attn_core_plain(*ins, mm=_mm_1xtf32)
+    assert _rel(one, want) > 10 * TOL
+
+
+def _window_block_case(nh, hd, seed=0):
+    """A padded 10x10 grid (batch 2) in 4x4 windows: 18 windows, the pad
+    tokens masked; C = nh * hd."""
+    rng = np.random.default_rng(seed)
+    C, ws, Bn, H, W = nh * hd, 4, 2, 10, 10
+
+    def r(*shape, s=1.0):
+        return (rng.standard_normal(shape) * s).astype(np.float32)
+
+    blk = {"norm1": {"scale": 1 + r(C, s=0.1), "bias": r(C, s=0.1)},
+           "attn": {"qkv": {"kernel": r(C, 3 * C, s=C ** -0.5),
+                            "bias": r(3 * C, s=0.1)},
+                    "proj": {"kernel": r(C, C, s=C ** -0.5),
+                             "bias": r(C, s=0.1)},
+                    "rel_pos_h": r(2 * ws - 1, hd, s=0.3),
+                    "rel_pos_w": r(2 * ws - 1, hd, s=0.3)}}
+    xw, pad_hw = JIE.window_partition(jnp.asarray(r(Bn, H, W, C)), ws)
+    xw = np.asarray(xw).reshape(-1, ws * ws, C)
+    geom = dict(nwx=pad_hw[1] // ws, nwy=pad_hw[0] // ws, Hv=H, Wv=W,
+                masked=True)
+    return blk, xw, geom, ws
+
+
+@pytest.mark.parametrize("hd", [64, 80])
+def test_b1_split_tf32_matches_tpu_kernel(hd):
+    """Plain B1 with qkv, proj and B3's products in split TF32 against
+    ``fused_window_attn`` (f32, interpret mode) on a padded grid with
+    masked pad tokens, within 1e-5 of max|out|; one TF32 pass is not."""
+    nh, hd = _WIDTHS[hd]
+    blk, xw, geom, ws = _window_block_case(nh, hd)
+    jblk = {k: {kk: (jnp.asarray(vv) if not isinstance(vv, dict) else
+                     {a: jnp.asarray(b) for a, b in vv.items()})
+                for kk, vv in v.items()} for k, v in blk.items()}
+    rhf, rwf = JIE._rel_tables_packed(jblk["attn"], ws, ws, hd, jnp.float32)
+    with pltpu.force_tpu_interpret_mode():
+        ref = JVB.fused_window_attn(jnp.asarray(xw), jblk, rhf, rwf, nh=nh,
+                                    hd=hd, kh=ws, kw=ws, eps=1e-6, **geom)
+    a = blk["attn"]
+    args = [torch.from_numpy(np.array(t)) for t in (
+        xw, blk["norm1"]["scale"], blk["norm1"]["bias"], a["qkv"]["kernel"].T,
+        a["qkv"]["bias"], a["proj"]["kernel"].T, a["proj"]["bias"])]
+    args += [TA.get_rel_pos(ws, ws, torch.from_numpy(a[k])).contiguous()
+             for k in ("rel_pos_h", "rel_pos_w")]
+    kw = dict(num_heads=nh, eps=1e-6, **geom)
+    got = TVB.window_attn_plain(*args, **kw, mm=T.mm_3xtf32)
+    assert got.shape == xw.shape
+    assert _rel(got, ref) < TOL, _rel(got, ref)
+    one = TVB.window_attn_plain(*args, **kw, mm=_mm_1xtf32)
+    assert _rel(one, ref) > 10 * TOL

@@ -1,5 +1,5 @@
 // Block-level attention on the CUDA cores in true f32 (FMA, no TF32), shared
-// by the float32 paths of B1 (window attention core) and B2 (global flash).
+// by the float32 paths of B2 (global flash) and B10 (the LLM's flash).
 //
 // 256 threads work on 64 query rows against a 64-key tile: thread (ty, tx) =
 // (tid / 16, tid % 16) holds the logits of rows 4 ty .. 4 ty + 3 and keys

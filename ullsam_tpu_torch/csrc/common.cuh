@@ -100,43 +100,9 @@ __device__ __forceinline__ int div_small(int a, float inv) {
   return __float2int_rz((static_cast<float>(a) + 0.5f) * inv);
 }
 
-// Rel-pos terms RB[r][i] = q_r . Rh[qr, i] (i < kh), q_r . Rw[qc, i - kh]
-// for the rows [0, rows) of a row-major q tile (row stride ldq) whose first
-// row is query r0 (rows past n use the last row's tables; their q is zero):
-// a warp takes a row and four table entries per step, eight lanes to an
-// entry, three shuffles to sum. Blocks of 8 warps (the f32 kernels of B15
-// and B8).
-template <int HD, typename T>
-__device__ __forceinline__ void window_rel_terms(const T* qs, int ldq,
-                                                 int rows, int r0, const T* rh,
-                                                 const T* rw, int n, int kh,
-                                                 int kw, float* RB, int ldrb,
-                                                 int warp, int lane) {
-  const int rl = kh + kw, sub = lane & 7, part = lane >> 3;
-  for (int r = warp; r < rows; r += 8) {
-    const int qrow = min(r0 + r, n - 1), y = qrow / kw, x = qrow - y * kw;
-    const T* qr = qs + r * ldq;
-    for (int i0 = 0; i0 < rl; i0 += 4) {
-      const int i = min(i0 + part, rl - 1);
-      const T* tab = i < kh ? rh + ((size_t)y * kh + i) * HD
-                            : rw + ((size_t)x * kw + i - kh) * HD;
-      float a = 0.f;
-#pragma unroll
-      for (int k = 0; k < HD / 16; ++k) {
-        const int d = 16 * k + 2 * sub;
-        a = fmaf(to_f(qr[d]), to_f(tab[d]),
-                 fmaf(to_f(qr[d + 1]), to_f(tab[d + 1]), a));
-      }
-      a += __shfl_xor_sync(0xffffffffu, a, 4);
-      a += __shfl_xor_sync(0xffffffffu, a, 2);
-      a += __shfl_xor_sync(0xffffffffu, a, 1);
-      if (sub == 0 && i0 + part < rl) RB[r * ldrb + i0 + part] = a;
-    }
-  }
-}
-
-// The same rel-pos terms in bf16 on the tensor cores, for windows of at
-// most 16 x 16: the rows of window row y (y*kw .. y*kw + kw - 1) all use
+// The rel-pos terms RB[r][i] = q_r . Rh[row(r), i] (i < kh), q_r .
+// Rw[col(r), i - kh] of a window's query rows, in bf16 on the tensor cores,
+// for windows of at most 16 x 16: the rows of window row y (y*kw .. y*kw + kw - 1) all use
 // Rh[y], the rows of window column x (x, x + kw, ...) all use Rw[x], so
 // each group is one product [16 rows x HD] . [HD x 16] (mma.sync m16n8k16:
 // A rows by ldmatrix from the q tile, B straight from the table in device

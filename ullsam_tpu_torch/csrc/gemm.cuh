@@ -1,6 +1,6 @@
 // Hand-written GEMMs shared by the port's kernels (every product of the
-// decoder kernels B4-B7, B1's and B13's f32 products, and their bf16 ones
-// at shapes gemm_sm90.cuh's kernel does not take):
+// decoder kernels B4-B7, and B1's and B13's products at shapes
+// gemm_sm90.cuh's kernel does not take):
 //
 //     out[m, n] = act(A[m, :] . W[n, :] + bias[n] + res[m % res_rows, n])
 //
@@ -11,7 +11,7 @@
 // again, as vit_block.py:60-70 does). `res_rows` lets one [res_rows, N] residual serve every
 // block of res_rows output rows (a per-image term shared by all prompts);
 // res_rows == M is the plain residual.
-//   * float32: gemm_nt_f32, true f32 on the CUDA cores (no TF32).
+//   * float32: gemm_nt_f32, true f32 on the CUDA cores (FMA).
 //   * bfloat16: gemm_nt_bf16_mma on the tensor cores (mma.sync m16n8k16,
 //     f32 accumulation), output bf16 or f32.
 #pragma once
@@ -23,10 +23,14 @@ namespace {
 
 constexpr int kGemmBM = 128, kGemmBN = 128, kGemmBK = 8;
 
-// launches of each bf16 GEMM kernel made through this library (each .so has
-// its own; gemm_launch_count below reads them for the Python wrappers)
-enum GemmKernel : int { kGemmMma = 0, kGemmSm90 = 1 };
-long long gemm_launch_counts[2] = {0, 0};
+// launches of each GEMM kernel made through this library (each .so has its
+// own; gemm_launch_count below reads them for the Python wrappers): the
+// bf16 mma.sync and wgmma kernels, gemm_sm90.cuh's f32 (split TF32) one and
+// the f32 FMA kernel below
+enum GemmKernel : int {
+  kGemmMma = 0, kGemmSm90 = 1, kGemmF32Sm90 = 2, kGemmF32Fma = 3
+};
+long long gemm_launch_counts[4] = {0, 0, 0, 0};
 
 // the epilogue's activation (the C entry points pass these as ints)
 enum GemmAct : int { kActNone = 0, kActRelu = 1, kActGeluTanh = 2 };
@@ -52,7 +56,7 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a,
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// ---- f32 GEMM on the CUDA cores (true f32, no TF32) ----------------------
+// ---- f32 GEMM on the CUDA cores (FMA) -------------------------------------
 // Block 128x128, k-tile 8, 256 threads each owning an 8x8 register tile
 // (rows 4 ty.. and 64 + 4 ty.., columns 4 tx.. and 64 + 4 tx..). Each thread
 // fetches one float4 of A and of W per k-tile into registers while the
@@ -245,14 +249,16 @@ __global__ void __launch_bounds__(256)
       }
 }
 
-// f32: CUDA-core FMA GEMM (true f32); bf16: the tensor-core GEMM
+// f32: CUDA-core FMA GEMM; bf16: the tensor-core GEMM
 inline int gemm_nt(const float* A, const float* B, const float* bias,
                    const float* res, int res_rows, float* out, int M, int N,
                    int K, int act, cudaStream_t st) {
   dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM);
   gemm_nt_f32<<<grid, 256, 0, st>>>(A, B, bias, res, res_rows, out, M, N, K,
                                     act);
-  return (int)cudaGetLastError();
+  const int err = (int)cudaGetLastError();
+  if (!err) ++gemm_launch_counts[kGemmF32Fma];
+  return err;
 }
 
 template <typename OutT>
@@ -270,8 +276,9 @@ int gemm_nt(const __nv_bfloat16* A, const __nv_bfloat16* B,
 }  // namespace
 }  // namespace ullsam
 
-// launches of GEMM kernel `kernel` (0: the mma.sync kernel, 1: the wgmma +
-// TMA kernel of gemm_sm90.cuh) made by this library so far
+// launches of GEMM kernel `kernel` (0: the bf16 mma.sync kernel, 1: the
+// bf16 wgmma + TMA kernel of gemm_sm90.cuh, 2: its f32 split-TF32 kind, 3:
+// the f32 FMA kernel) made by this library so far
 extern "C" long long gemm_launch_count(int kernel) {
-  return kernel == 0 || kernel == 1 ? ullsam::gemm_launch_counts[kernel] : -1;
+  return kernel >= 0 && kernel < 4 ? ullsam::gemm_launch_counts[kernel] : -1;
 }

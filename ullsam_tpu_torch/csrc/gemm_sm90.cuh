@@ -1,10 +1,11 @@
-// A Hopper GEMM for the bf16 products of B1 (qkv, proj) and B13 (fc1, fc2),
-// and (with an int8 W) for B12's prefill:
+// A Hopper GEMM for the products of B1 (qkv, proj) and B13 (fc1, fc2) in
+// bf16 and in float32, and (with an int8 W) for B12's prefill:
 //
 //     out[m, n] = epilogue(A[m, :] . W[n, :])
 //
-// A [M, K] bf16 and W [N, K] row-major (both K-major: wgmma's native NT
-// case, no transpose), the sums in f32, out rounded once. The epilogue is
+// A [M, K] and W [N, K] row-major (both K-major: wgmma's native NT case, no
+// transpose), bf16 (W int8 for B12) or float32, the sums in f32, out
+// rounded once. The epilogue is
 // a functor applied to 8 columns of a row at a time: B1 / B13's
 // (Sm90Bf16Epilogue: gemm.cuh's apply_act, bias, the tanh-GELU of the sum
 // first rounded to bf16, the residual added in f32) or B12's
@@ -14,7 +15,9 @@
 // F = 5120) are 64 GFLOP each against 26-63 MB; gemm.cuh's mma.sync kernel
 // reached 198-217 TFLOP/s on them, cuBLAS 519-522 (H100 80GB HBM3, 700 W).
 // B12's prefill linears (M = 1152: 9.7-38.7 GFLOP against 4-17 MB of int8
-// weights) likewise.
+// weights) likewise. In float32 the same products are f32-accurate at 495 /
+// 3 TFLOP/s in split TF32 (tf32.cuh), where gemm.cuh's FMA kernel is held
+// to the CUDA cores' 67.
 //
 // Design (the usual Hopper shape):
 //   * 128 x 128 output tiles, k-blocks of 64 (128 bytes of bf16: one row of
@@ -56,13 +59,37 @@
 //     360-385 TFLOP/s where the bf16 GEMM ran 640-670; register-A operands
 //     with the warpgroups taking turns, 288-335; sharing a tile, 458-549;
 //     with 144-row tiles, 485-566.
+//   * float32 (Sm90Layout<kSm90F32>, split TF32): a k-block is 32 floats
+//     (128 bytes, one row of the swizzle); each stage holds A's tile and W's
+//     as TMA lands them (three stages), and W's lo plane. The producer is a
+//     warpgroup that gives its registers to the consumers (setmaxnreg 40 /
+//     232: at 168, ptxas's cap for the block, the consumers spilled). TF32 wgmma reads
+//     shared memory K-major only, as both operands are here. The two
+//     consumer warpgroups take each tile together (64 rows each, as int8
+//     does). Each k-block all 256 consumer threads split the next stage's
+//     W tile in place, hi = tf32(x) and lo = tf32(x - hi) beside it, while
+//     the current stage's products run (no scratch, no pre-pass); A is
+//     split in registers as a warp reads its rows (wgmma's register A
+//     operand, m64n128k8), the next k-block's while this one's products
+//     run. Each 8-deep step is three products, A_hi W_lo and A_lo W_hi
+//     first, then A_hi W_hi, into a partial sum from zero that holds one
+//     k-block (12 products); the CUDA cores add it to the f32 sum (round
+//     to nearest). The tensor cores' own accumulation can lose about half
+//     an ulp a product, one way: over fc2's K = 5120 (640 steps) one
+//     accumulator would drift where 160 short partials do not (partials of
+//     four k-blocks doubled the error against float64, at the same speed). Sum and
+//     partial take 128 registers, so a warpgroup has 64 rows of the 128 x
+//     128 tile; its epilogue adds bias and residual in f32 and takes the
+//     tanh-GELU of the unrounded sum (gemm.cuh's apply_act<float>).
 // Shapes it takes (sm90_takes, mirrored by ops/kernels/gemm.py): N % 128 ==
 // 0, K % 64 == 0, any M >= 1, 16-byte aligned operands. Other bf16 shapes
-// run gemm.cuh's mma.sync kernel; gemm_bf16 makes that choice.
+// run gemm.cuh's mma.sync kernel (gemm_bf16 makes that choice), other f32
+// shapes gemm.cuh's FMA kernel (gemm_f32).
 #pragma once
 
 #include "gemm.cuh"
 #include "sm90.cuh"
+#include "tf32.cuh"
 
 namespace ullsam {
 namespace {
@@ -73,31 +100,46 @@ constexpr int kSm90Threads = 288;  // two consumer warpgroups + one warp
 // padded to 136 floats (its float2 writes and 16-byte reads conflict-free)
 constexpr int kSm90StgLd = kSm90BN + 8;
 constexpr int kSm90StgBytes = 8 * 8 * kSm90StgLd * 4;  // the 8 warps
+// float32: a k-block of 32 floats (128 bytes), three stages
+constexpr int kSm90F32BK = 32, kSm90F32Stages = 3;
 
-// Shared memory of the kernel with a bf16 or an int8 W: the stages (A then
-// W, 1024 bytes to align them), the consumer warps' epilogue staging, the
-// mbarriers (full and empty a stage, and the two warpgroups' turns). With
-// int8 a tile has kBM = 144 rows of A (x): 1152 = 8 x 144 rows make 128
-// tiles of every short-N linear at the caption prompt (a wave of 132 SMs,
-// where 128-row tiles make 144, 1.09 waves), and 9216 = 64 x 144; its
-// staging holds a transposed block of the swapped product (144 rows of 8
-// + 4 floats a warp). Must match ops/kernels/gemm.py sm90_smem_bytes and
-// ops/kernels/int8_matmul.py sm90_smem_bytes.
-template <bool kInt8W>
+// the kinds of the kernel: bf16 A and W, bf16 A and int8 W (B12), f32
+enum Sm90Kind : int { kSm90Bf16 = 0, kSm90Int8 = 1, kSm90F32 = 2 };
+
+// Shared memory of the kernel of each kind: the stages (A then W, 1024
+// bytes to align them; f32 also W's lo plane), the consumer warps'
+// epilogue staging, the mbarriers (full and empty a stage, and the two
+// warpgroups' turns). With int8 a tile has kBM = 144 rows of A (x): 1152 =
+// 8 x 144 rows make 128 tiles of every short-N linear at the caption
+// prompt (a wave of 132 SMs, where 128-row tiles make 144, 1.09 waves),
+// and 9216 = 64 x 144; its staging holds a transposed block of the swapped
+// product (144 rows of 8 + 4 floats a warp). A k-block is 128 bytes of a
+// row in every kind (64 bf16, 32 f32). Must match ops/kernels/gemm.py
+// sm90_smem_bytes and ops/kernels/int8_matmul.py sm90_smem_bytes.
+template <int kKind>
 struct Sm90Layout {
+  static constexpr bool kInt8W = kKind == kSm90Int8;
+  static constexpr bool kF32 = kKind == kSm90F32;
   static constexpr int kBM = kInt8W ? 144 : kSm90BM;  // rows of A a tile
-  static constexpr int kStages = kInt8W ? 6 : kSm90Stages;
+  static constexpr int kBK = kF32 ? kSm90F32BK : kSm90BK;  // K a k-block
+  static constexpr int kStages = kInt8W ? 6 : kF32 ? kSm90F32Stages
+                                                   : kSm90Stages;
   static constexpr int kABytes = kBM * kSm90BK * 2;
   static constexpr int kWBytes = kSm90BN * kSm90BK * (kInt8W ? 1 : 2);
-  static constexpr int kStageBytes = kABytes + kWBytes;
+  static constexpr int kTxBytes = kABytes + kWBytes;  // what TMA brings
+  static constexpr int kStageBytes = kTxBytes + (kF32 ? kWBytes : 0);
   static constexpr int kStgLd = kInt8W ? 12 : kSm90StgLd;  // floats a row
   static constexpr int kStgBytes =
       kInt8W ? 8 * kBM * kStgLd * 4 : kSm90StgBytes;
   static constexpr int kSmemBytes = 1024 + kStages * kStageBytes +
                                     kStgBytes + (2 * kStages + 2) * 8;
+  // f32: a producer warpgroup, whose registers go to the consumers
+  // (setmaxnreg: sum, partial and A's split fragments need about 200)
+  static constexpr int kThreads = kF32 ? 384 : kSm90Threads;
   static_assert(kStageBytes % 1024 == 0, "stages stay 1024-byte aligned");
+  static_assert(kSmemBytes <= 232448, "one block");
 };
-constexpr int kSm90SmemBytes = Sm90Layout<false>::kSmemBytes;
+constexpr int kSm90SmemBytes = Sm90Layout<kSm90Bf16>::kSmemBytes;
 
 inline bool sm90_takes(int M, int N, int K) {
   return M >= 1 && N >= kSm90BN && N % kSm90BN == 0 && K >= kSm90BK &&
@@ -246,6 +288,40 @@ __device__ __forceinline__ void wgmma_m64n144k16_rs(float* d,
         "r"(accumulate));
 }
 
+// d[64 x 128] (+)= A[64 x 8] . B[128 x 8]^T in TF32: A from registers (tf32
+// values in the m64k8 fragment layout: a warp 16 rows, a0 / a1 rows g / g +
+// 8 at k = tq, a2 / a3 the same at k = tq + 4), B K-major in shared memory
+__device__ __forceinline__ void wgmma_tf32_m64n128k8_rs(float* d,
+                                                        const uint32_t* a,
+                                                        uint64_t db,
+                                                        int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}"
+      ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
 // B1's and B13's epilogue: bias, residual and activation in f32 on the
 // sum, out bf16 (gemm.cuh's apply_act)
 struct Sm90Bf16Epilogue {
@@ -286,23 +362,89 @@ struct Sm90Bf16Epilogue {
   }
 };
 
+// B1's and B13's float32 epilogue: bias and residual added in f32 to the
+// sum, the activation of the unrounded result (gemm.cuh's apply_act), out
+// f32
+struct Sm90F32Epilogue {
+  const float* bias;
+  const float* res;
+  float* out;
+  int N, act;
+  // v: columns n .. n + 7 of row m
+  __device__ __forceinline__ void operator()(int m, int n, float* v) const {
+    const size_t o = (size_t)m * N + n;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float4 x = make_float4(v[4 * h], v[4 * h + 1], v[4 * h + 2],
+                             v[4 * h + 3]);
+      if (bias) {
+        const float4 b = *reinterpret_cast<const float4*>(bias + n + 4 * h);
+        x = make_float4(x.x + b.x, x.y + b.y, x.z + b.z, x.w + b.w);
+      }
+      if (res) {
+        const float4 r = *reinterpret_cast<const float4*>(res + o + 4 * h);
+        x = make_float4(x.x + r.x, x.y + r.y, x.z + r.z, x.w + r.w);
+      }
+      *reinterpret_cast<float4*>(out + o + 4 * h) =
+          make_float4(apply_act<float>(x.x, act), apply_act<float>(x.y, act),
+                      apply_act<float>(x.z, act), apply_act<float>(x.w, act));
+    }
+  }
+};
+
+// The staged epilogue of a warp's 16 rows of an m64n128 accumulator (d[4i
+// + c]: row rr0 + g (+8 for c >= 2), column 8i + 2tq + (c & 1)) of the tile
+// at (m0, n0), 8 rows at a time through the warp's f32 staging ws: the
+// accumulators go in by their layout, then each lane takes 8 columns of a
+// row (a warp two whole 128-column rows) and hands them to the epilogue
+// functor (rows >= M masked)
+template <class Epi>
+__device__ __forceinline__ void sm90_stage_out(float* ws, const float* d,
+                                               int m0, int rr0, int n0, int M,
+                                               int lane, const Epi& epi) {
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < kSm90BN / 8; ++i)
+      *reinterpret_cast<float2*>(ws + g * kSm90StgLd + 8 * i + 2 * tq) =
+          make_float2(d[4 * i + 2 * hf], d[4 * i + 2 * hf + 1]);
+    __syncwarp();
+    const int rr = rr0 + hf * 8;  // row in the tile
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int c = lane + 32 * k, r = c >> 4, cc = (c & 15) * 8;
+      if (m0 + rr + r >= M) continue;
+      const float4 a0 =
+          *reinterpret_cast<const float4*>(ws + r * kSm90StgLd + cc);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(ws + r * kSm90StgLd + cc + 4);
+      float v[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      epi(m0 + rr + r, n0 + cc, v);
+    }
+  }
+}
+
 // With kInt8W the product is swapped: out^T = W . x^T, W's rows the wgmma
 // M (a consumer warpgroup's 64, converted from int8 into the register A
 // operand), x's tile of 144 rows the shared-memory B operand (n = 144), so
 // the accumulators hold out transposed and the epilogue transposes them
 // back through its staging.
-template <bool kInt8W, class Epi>
-__global__ void __launch_bounds__(kSm90Threads, 1)
+template <int kKind, class Epi>
+__global__ void __launch_bounds__(Sm90Layout<kKind>::kThreads, 1)
     gemm_nt_sm90(const __grid_constant__ CUtensorMap map_a,
                  const __grid_constant__ CUtensorMap map_w, const Epi epi,
                  int M, int N, int K) {
   using bf16 = __nv_bfloat16;
-  using L = Sm90Layout<kInt8W>;
+  using L = Sm90Layout<kKind>;
+  constexpr bool kInt8W = L::kInt8W;
   constexpr int kStages = L::kStages;
   extern __shared__ unsigned char smraw[];
   unsigned char* base = smraw + ((1024 - (smem_u32(smraw) & 1023)) & 1023);
   // stage s: A (x) [kBM][64] bf16 swizzled, then W [128][64] (bf16 in the
-  // 128-byte swizzle, or int8 in the 64-byte swizzle)
+  // 128-byte swizzle, or int8 in the 64-byte swizzle); f32: A [128][32]
+  // and W [128][32] in the 128-byte swizzle, then W's lo plane
   const auto stage_a = [&](int s) {
     return reinterpret_cast<bf16*>(base + s * L::kStageBytes);
   };
@@ -318,12 +460,12 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
   const int tid = threadIdx.x, wg = tid / 128;
   const int tiles_n = N / kSm90BN;
   const int tiles = (M + L::kBM - 1) / L::kBM * tiles_n;
-  const int kt = K / kSm90BK;
+  const int kt = K / L::kBK;
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
-      // released by the warpgroup that read it (int8: by both)
-      mbar_init(&empty[s], kInt8W ? 2 : 1);
+      // released by the warpgroup that read it (int8, f32: by both)
+      mbar_init(&empty[s], kInt8W || L::kF32 ? 2 : 1);
     }
     mbar_init(&turn[0], 1);
     mbar_init(&turn[1], 1);
@@ -333,16 +475,17 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
 
   // the block's tiles j = 0, 1, ... are tiles blockIdx.x + j * gridDim.x;
   // k-block kb of tile j sits in stage (j * kt + kb) % kStages
-  if (wg == 2) {  // the producer warp
+  if (wg == 2) {  // the producer warp (f32: warpgroup)
+    if constexpr (L::kF32) producer_registers();
     if (tid == 256) {
       int s = 0, ph = 0;
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
         const int m0 = t / tiles_n * L::kBM, n0 = t % tiles_n * kSm90BN;
         for (int kb = 0; kb < kt; ++kb) {
           mbar_wait(&empty[s], ph ^ 1);
-          mbar_expect_tx(&full[s], L::kStageBytes);
-          tma_load_2d(stage_a(s), &map_a, &full[s], kb * kSm90BK, m0);
-          tma_load_2d(stage_w(s), &map_w, &full[s], kb * kSm90BK, n0);
+          mbar_expect_tx(&full[s], L::kTxBytes);
+          tma_load_2d(stage_a(s), &map_a, &full[s], kb * L::kBK, m0);
+          tma_load_2d(stage_w(s), &map_w, &full[s], kb * L::kBK, n0);
           if (++s == kStages) s = 0, ph ^= 1;
         }
       }
@@ -352,6 +495,108 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
 
   const int lane = tid & 31, wrow = (tid & 127) >> 5;
   const int g = lane >> 2, tq = lane & 3;
+  if constexpr (L::kF32) {
+    // Cooperative, as int8: both consumer warpgroups take every tile of the
+    // block, warpgroup wg its rows 64 wg .. 64 wg + 63 (d[4i + c]: row 64
+    // wg + 16 wrow + g (+8 for c >= 2), column 8i + 2tq + (c & 1)). Stage
+    // s's W tile is split by all 256 consumer threads (16-byte chunks tid,
+    // tid + 256, ...: hi in place, lo kWBytes on) after its full barrier
+    // and before a named barrier; the next stage's split runs while this
+    // one's products do. Both warpgroups release every stage.
+    const auto split_w = [&](int s) {
+      float4* w = reinterpret_cast<float4*>(stage_w(s));
+      float4* wl = reinterpret_cast<float4*>(stage_w(s) + L::kWBytes);
+#pragma unroll
+      for (int c = tid; c < L::kWBytes / 16; c += 256) {
+        const float4 x = w[c];
+        uint32_t h[4], l[4];
+        tf32_split(x.x, h[0], l[0]);
+        tf32_split(x.y, h[1], l[1]);
+        tf32_split(x.z, h[2], l[2]);
+        tf32_split(x.w, h[3], l[3]);
+        w[c] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                           __uint_as_float(h[2]), __uint_as_float(h[3]));
+        wl[c] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                            __uint_as_float(l[2]), __uint_as_float(l[3]));
+      }
+      fence_proxy_async();  // the planes, written here, read by wgmma
+    };
+    consumer_registers();
+    const int r = wg * 64 + wrow * 16 + g;  // this thread's A rows r, r + 8
+    // this warp's A fragments of stage s's four 8-deep steps, split in
+    // registers: a[u] is row r + 8 (u & 1), column 8 ks + tq + 4 (u >> 1),
+    // in 16-byte chunk 2 ks + (u >> 1) of its row, swizzled (rows r and r +
+    // 8 share r & 7 = g: conflict-free)
+    const auto load_a = [&](int s, uint32_t (&ah)[4][4],
+                            uint32_t (&al)[4][4]) {
+      const unsigned char* a =
+          reinterpret_cast<const unsigned char*>(stage_a(s));
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int row = r + 8 * (u & 1), ch = 2 * ks + (u >> 1);
+          const float x = *reinterpret_cast<const float*>(
+              a + row * 128 + ((ch ^ (row & 7)) << 4) + tq * 4);
+          tf32_split(x, ah[ks][u], al[ks][u]);
+        }
+    };
+    uint32_t ah0[4][4], al0[4][4], ah1[4][4], al1[4][4];
+    if ((int)blockIdx.x < tiles) {
+      mbar_wait(&full[0], 0);
+      split_w(0);
+      load_a(0, ah0, al0);
+    }
+    named_bar_sync(1, 256);
+    int kg = 0;  // k-blocks consumed: k-block kg sits in stage kg % kStages
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = t / tiles_n * kSm90BM, n0 = t % tiles_n * kSm90BN;
+      float acc[64], part[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      // k-block kb (fragments ah, al, split when its stage landed): its 12
+      // products into a partial from zero, then, while they run, the next
+      // stage's W split and its A fragments (an, ln) loaded; then the
+      // partial is added to the sum
+      const auto step = [&](int kb, uint32_t (&ah)[4][4],
+                            uint32_t (&al)[4][4], uint32_t (&an)[4][4],
+                            uint32_t (&ln)[4][4]) {
+        const int s = kg % kStages;
+        const unsigned char* w = stage_w(s);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          const uint64_t dh = sw128_desc(w + ks * 32);
+          wgmma_tf32_m64n128k8_rs(part, ah[ks],
+                                  sw128_desc(w + L::kWBytes + ks * 32),
+                                  ks > 0);
+          wgmma_tf32_m64n128k8_rs(part, al[ks], dh, 1);
+          wgmma_tf32_m64n128k8_rs(part, ah[ks], dh, 1);
+        }
+        wgmma_commit();
+        if (kb + 1 < kt || t + (int)gridDim.x < tiles) {
+          const int s1 = (kg + 1) % kStages;
+          mbar_wait(&full[s1], ((kg + 1) / kStages) & 1);
+          split_w(s1);
+          load_a(s1, an, ln);
+        }
+        wgmma_wait<0>();
+        if ((tid & 127) == 0) mbar_arrive(&empty[s]);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] += part[i];
+        ++kg;
+        named_bar_sync(1, 256);  // the next stage's W is split
+      };
+      // kt = K / 32 is even (K % 64 == 0): the fragment sets alternate
+      for (int kb = 0; kb < kt; kb += 2) {
+        step(kb, ah0, al0, ah1, al1);
+        step(kb + 1, ah1, al1, ah0, al0);
+      }
+      float* ws = stg + (tid >> 5) * (L::kStgBytes / 32);
+      sm90_stage_out(ws, acc, m0, wg * 64 + wrow * 16, n0, M, lane, epi);
+    }
+    return;
+  }
   if constexpr (kInt8W) {
     // Cooperative: both consumer warpgroups take every tile of the block,
     // warpgroup wg the W rows 64 wg .. 64 wg + 63 of its tile (the wgmma
@@ -459,77 +704,63 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
     wgmma_wait<0>();
     if ((tid & 127) == 0) mbar_arrive(&empty[prev]);
 
-    // epilogue, 8 rows at a time through this warp's f32 staging: the
-    // accumulators go in by the accumulator layout (d[h][4i + c] is row
-    // 64 h + 16 wrow + g (+8 for c >= 2), column 8i + 2tq + (c & 1)), then
-    // each lane takes 8 columns of a row (a warp two whole 128-column
-    // rows) and hands them to the epilogue functor
+    // epilogue, through this warp's f32 staging (d[h] is rows 64 h ..)
     float* ws = stg + (tid >> 5) * (L::kStgBytes / 32);
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        __syncwarp();
-#pragma unroll
-        for (int i = 0; i < kSm90BN / 8; ++i)
-          *reinterpret_cast<float2*>(ws + g * L::kStgLd + 8 * i + 2 * tq) =
-              make_float2(d[h][4 * i + 2 * hf], d[h][4 * i + 2 * hf + 1]);
-        __syncwarp();
-        const int rr = h * 64 + wrow * 16 + hf * 8;  // row in the tile
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int c = lane + 32 * k, r = c >> 4, cc = (c & 15) * 8;
-          if (m0 + rr + r >= M) continue;
-          const float4 a0 =
-              *reinterpret_cast<const float4*>(ws + r * L::kStgLd + cc);
-          const float4 a1 =
-              *reinterpret_cast<const float4*>(ws + r * L::kStgLd + cc + 4);
-          float v[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-          epi(m0 + rr + r, n0 + cc, v);
-        }
-      }
+      sm90_stage_out(ws, d[h], m0, h * 64 + wrow * 16, n0, M, lane, epi);
   }
 }
 
-// the map of a row-major [rows, K] operand in boxes of [box_rows, 64]: bf16
-// in the 128-byte swizzle (wgmma reads it as it lands), or int8 in the
-// 64-byte swizzle (read 2 bytes a lane into wgmma's A fragments)
+// the map of a row-major [rows, K] operand in boxes of [box_rows, 128
+// bytes]: bf16 (64 a row) or f32 (32) in the 128-byte swizzle (wgmma reads
+// it as it lands), or int8 (64) in the 64-byte swizzle (read 2 bytes a lane
+// into wgmma's A fragments)
+enum MapType : int { kMapBf16 = 0, kMapInt8 = 1, kMapF32 = 2 };
+
 inline bool make_map(CUtensorMap* map, const void* p, int rows, int K,
-                     int box_rows, bool int8 = false) {
+                     int box_rows, MapType type = kMapBf16) {
   const EncodeTiledFn fn = encode_tiled();
   if (!fn) return false;
+  const int esize = type == kMapInt8 ? 1 : type == kMapF32 ? 4 : 2;
   const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)K * (int8 ? 1 : 2)};
-  const cuuint32_t box[2] = {(cuuint32_t)kSm90BK, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * esize};
+  const cuuint32_t box[2] = {(cuuint32_t)(type == kMapF32 ? kSm90F32BK
+                                                          : kSm90BK),
+                             (cuuint32_t)box_rows};
   const cuuint32_t estr[2] = {1, 1};
   return fn(map,
-            int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
-                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            type == kMapInt8  ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+            : type == kMapF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                              : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
             2, const_cast<void*>(p), dims, strides, box, estr,
             CU_TENSOR_MAP_INTERLEAVE_NONE,
-            int8 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+            type == kMapInt8 ? CU_TENSOR_MAP_SWIZZLE_64B
+                             : CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// One launch of gemm_nt_sm90 over A [M, K] bf16 and W [N, K] (bf16, or
-// int8 with kInt8W), sm90_takes(M, N, K), 16-byte aligned. Returns a
-// cudaError_t code.
-template <bool kInt8W, class Epi>
-int gemm_sm90_run(const __nv_bfloat16* A, const void* W, const Epi& epi,
-                  int M, int N, int K, cudaStream_t st) {
-  using L = Sm90Layout<kInt8W>;
+// One launch of gemm_nt_sm90 of kind kKind over A [M, K] (bf16, or f32)
+// and W [N, K] (bf16, int8 or f32), sm90_takes(M, N, K), 16-byte aligned.
+// Returns a cudaError_t code.
+template <int kKind, class Epi>
+int gemm_sm90_run(const void* A, const void* W, const Epi& epi, int M, int N,
+                  int K, cudaStream_t st) {
+  using L = Sm90Layout<kKind>;
+  const MapType ta = kKind == kSm90F32 ? kMapF32 : kMapBf16;
+  const MapType tw = kKind == kSm90Int8 ? kMapInt8 : ta;
   CUtensorMap ma, mw;
-  if (!make_map(&ma, A, M, K, L::kBM) ||
-      !make_map(&mw, W, N, K, kSm90BN, kInt8W))
+  if (!make_map(&ma, A, M, K, L::kBM, ta) ||
+      !make_map(&mw, W, N, K, kSm90BN, tw))
     return (int)cudaErrorInvalidValue;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      gemm_nt_sm90<kInt8W, Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gemm_nt_sm90<kKind, Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       L::kSmemBytes);
   if (attr != cudaSuccess) return (int)attr;
   const int tiles = (M + L::kBM - 1) / L::kBM * (N / kSm90BN);
   const int grid = tiles < sm_count() ? tiles : sm_count();
-  gemm_nt_sm90<kInt8W, Epi><<<grid, kSm90Threads, L::kSmemBytes, st>>>(
+  gemm_nt_sm90<kKind, Epi><<<grid, L::kThreads, L::kSmemBytes, st>>>(
       ma, mw, epi, M, N, K);
   return (int)cudaGetLastError();
 }
@@ -538,10 +769,27 @@ inline int gemm_nt_sm90_launch(const __nv_bfloat16* A, const __nv_bfloat16* W,
                                const __nv_bfloat16* bias,
                                const __nv_bfloat16* res, __nv_bfloat16* out,
                                int M, int N, int K, int act, cudaStream_t st) {
-  const int err = gemm_sm90_run<false>(
+  const int err = gemm_sm90_run<kSm90Bf16>(
       A, W, Sm90Bf16Epilogue{bias, res, out, N, act}, M, N, K, st);
   if (!err) ++gemm_launch_counts[kGemmSm90];
   return err;
+}
+
+inline int gemm_f32_sm90_launch(const float* A, const float* W,
+                                const float* bias, const float* res,
+                                float* out, int M, int N, int K, int act,
+                                cudaStream_t st) {
+  const int err = gemm_sm90_run<kSm90F32>(
+      A, W, Sm90F32Epilogue{bias, res, out, N, act}, M, N, K, st);
+  if (!err) ++gemm_launch_counts[kGemmF32Sm90];
+  return err;
+}
+
+inline bool aligned16(const void* a, const void* b, const void* c,
+                      const void* d, const void* e) {
+  return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+           reinterpret_cast<uintptr_t>(c) | reinterpret_cast<uintptr_t>(d) |
+           reinterpret_cast<uintptr_t>(e)) & 15) == 0;
 }
 
 // The bf16 products of B1 and B13: act(A W^T + bias + res) with res [M, N]
@@ -553,21 +801,28 @@ inline int gemm_bf16(const __nv_bfloat16* A, const __nv_bfloat16* W,
                      const __nv_bfloat16* bias, const __nv_bfloat16* res,
                      __nv_bfloat16* out, int M, int N, int K, int act,
                      cudaStream_t st) {
-  const bool aligned =
-      ((reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(W) |
-        reinterpret_cast<uintptr_t>(bias) | reinterpret_cast<uintptr_t>(res) |
-        reinterpret_cast<uintptr_t>(out)) & 15) == 0;
-  if (aligned && sm90_takes(M, N, K))
+  if (aligned16(A, W, bias, res, out) && sm90_takes(M, N, K))
     return gemm_nt_sm90_launch(A, W, bias, res, out, M, N, K, act, st);
   return gemm_nt<__nv_bfloat16>(A, W, bias, res, M, out, M, N, K, act, st);
 }
 
-// B1's and B13's products at either dtype: f32 on gemm.cuh's FMA kernel
-// (true f32), bf16 through gemm_bf16
+// The f32 products of B1 and B13: act(A W^T + bias + res), out f32. The
+// wgmma + TMA kernel (split TF32) takes the shapes sm90_takes accepts with
+// 16-byte aligned operands; every other shape runs gemm.cuh's FMA kernel
+// (K % 8 == 0). Mirrored by ops/kernels/gemm.py gemm_kernel.
+inline int gemm_f32(const float* A, const float* W, const float* bias,
+                    const float* res, float* out, int M, int N, int K,
+                    int act, cudaStream_t st) {
+  if (aligned16(A, W, bias, res, out) && sm90_takes(M, N, K))
+    return gemm_f32_sm90_launch(A, W, bias, res, out, M, N, K, act, st);
+  return gemm_nt(A, W, bias, res, M, out, M, N, K, act, st);
+}
+
+// B1's and B13's products at either dtype: gemm_f32 or gemm_bf16
 inline int gemm_linear(const float* A, const float* W, const float* bias,
                        const float* res, float* out, int M, int N, int K,
                        int act, cudaStream_t st) {
-  return gemm_nt(A, W, bias, res, M, out, M, N, K, act, st);
+  return gemm_f32(A, W, bias, res, out, M, N, K, act, st);
 }
 inline int gemm_linear(const __nv_bfloat16* A, const __nv_bfloat16* W,
                        const __nv_bfloat16* bias, const __nv_bfloat16* res,

@@ -12,9 +12,10 @@
 // What bounds it on this card: operations. At SAM ViT-H (C = 1280, F =
 // 5120) one windowed block's half is T = 4900 rows: 4 T C F = 128 GFLOP
 // against about 50 MB of operands and result, far above the H100's
-// ops:byte ridge. So the products run on the tensor cores in bf16
-// (gemm_sm90.cuh: wgmma fed by TMA, f32 accumulate); float32 stays true
-// f32 FMA (no TF32).
+// ops:byte ridge. So the products run on the tensor cores (gemm_sm90.cuh:
+// wgmma fed by TMA, f32 accumulate), in bf16, and in float32 in split TF32
+// (three TF32 products for each, f32-accurate, at 495 / 3 TFLOP/s where
+// the CUDA cores' FMA reach 67).
 //
 // Design: the TPU kernel keeps both weight matrices and a row chunk's
 // hidden activations in VMEM (tens of MB). A Hopper SM has 227 KB of shared
@@ -23,9 +24,9 @@
 //   2. gemm_linear y . W1^T + b1 with the tanh-GELU epilogue (the sum
 //      rounded to the type before the GELU) -> h [T, F];
 //   3. gemm_linear h . W2^T + b2 with x as the f32 residual operand -> out.
-// In bf16 both products take gemm_sm90.cuh's wgmma + TMA kernel where C and
-// F are multiples of 128 and 64 (every SAM width), gemm.cuh's mma.sync
-// kernel otherwise (gemm_bf16); in f32 gemm.cuh's FMA kernel.
+// Both products take gemm_sm90.cuh's wgmma + TMA kernel where C and F are
+// multiples of 128 and 64 (every SAM width); otherwise gemm.cuh's mma.sync
+// kernel in bf16 (gemm_bf16) and its FMA kernel in f32 (gemm_f32).
 // h is 50 MB in bf16 at T = 4900: written once and read once, 30 us of the
 // card's memory rate against the products' ~130 us at the bf16 peak.
 #include "gemm_sm90.cuh"
@@ -95,4 +96,21 @@ extern "C" int gemm_bf16_forward(const void* a, const void* w,
                    static_cast<const bf16*>(bias), static_cast<const bf16*>(res),
                    static_cast<bf16*>(out), M, N, K, act,
                    static_cast<cudaStream_t>(stream));
+}
+
+// One f32 product of B1 or B13 on its own: out [M, N] = act(a [M, K] . w [N,
+// K]^T + bias [N] + res [M, N]) (bias, res may be null; act 0 none, 2
+// tanh-GELU of the unrounded sum), through gemm_f32's choice of kernel.
+// Requires K % 8 == 0 (the FMA kernel's). Returns 0 or a cudaError_t.
+extern "C" int gemm_f32_forward(const void* a, const void* w,
+                                const void* bias, const void* res, void* out,
+                                int M, int N, int K, int act, void* stream) {
+  using namespace ullsam;
+  if (M <= 0 || N <= 0 || K % kGemmBK != 0 ||
+      (act != kActNone && act != kActGeluTanh))
+    return (int)cudaErrorInvalidValue;
+  return gemm_f32(static_cast<const float*>(a), static_cast<const float*>(w),
+                  static_cast<const float*>(bias),
+                  static_cast<const float*>(res), static_cast<float*>(out), M,
+                  N, K, act, static_cast<cudaStream_t>(stream));
 }

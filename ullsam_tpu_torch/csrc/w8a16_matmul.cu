@@ -582,11 +582,11 @@ extern "C" int w8a16_matmul(int dtype, const void* x, const void* q,
     } else if (sm90_takes(M, N, K)) {
       kernel = kW8Sm90;
       err = out_f32
-                ? gemm_sm90_run<true>(
+                ? gemm_sm90_run<kSm90Int8>(
                       xb, qw, W8Epilogue<float>{s, b, static_cast<float*>(out),
                                                 N},
                       M, N, K, st)
-                : gemm_sm90_run<true>(
+                : gemm_sm90_run<kSm90Int8>(
                       xb, qw,
                       W8Epilogue<__nv_bfloat16>{
                           s, b, static_cast<__nv_bfloat16*>(out), N},

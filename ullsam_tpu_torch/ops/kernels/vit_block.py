@@ -10,10 +10,11 @@ normed activations of pad tokens zeroed (edge windows of a padded grid).
 It replaces the TPU kernel ``ullsam_tpu/ops/pallas/vit_block.py``
 ``_window_attn_kernel`` (entry ``fused_window_attn``). On a CUDA tensor it
 launches the hand-written Hopper kernel ``csrc/window_attn.cu`` (see the
-note there: operation-bound; bf16 on the tensor cores, its qkv and proj
-products on the wgmma GEMM of ``gemm.py``, its core B3's; float32 by
-FMA); on a CPU tensor it runs ``window_attn_plain``, the same function in
-plain PyTorch. There is no fallback from the kernel to the plain version.
+note there: operation-bound; on the tensor cores, its qkv and proj
+products on the wgmma GEMM of ``gemm.py``, its core B3's; float32 in
+split TF32, three TF32 products for each); on a CPU tensor it runs
+``window_attn_plain``, the same function in plain PyTorch. There is no
+fallback from the kernel to the plain version.
 
 ``window_attn_block`` is the differentiable entry: a
 ``torch.autograd.Function`` (``WindowAttn``) whose forward is B1 and whose
@@ -27,9 +28,9 @@ B13, ``ln_mlp``, is the other half of every ViT block:
 
 It replaces ``_ln_mlp_kernel`` (entry ``fused_ln_mlp``), which the JAX
 package runs under ``ULLSAM_FUSED_VIT_MLP=1`` (``ln_mlp_supported``); on a
-CUDA tensor it launches ``csrc/ln_mlp.cu`` (in bf16 both products on the
-wgmma GEMM of ``gemm.py`` at every SAM width), on a CPU tensor
-``ln_mlp_plain``. ``fused_ln_mlp`` is its differentiable entry
+CUDA tensor it launches ``csrc/ln_mlp.cu`` (both products on the wgmma
+GEMM of ``gemm.py`` at every SAM width, float32 in split TF32), on a CPU
+tensor ``ln_mlp_plain``. ``fused_ln_mlp`` is its differentiable entry
 (``LnMlp``): the backward is the gradient of the plain chain, recomputed
 under autograd, as ``_ln_mlp_bwd`` takes the vjp of ``_ln_mlp_xla``.
 """
@@ -49,6 +50,8 @@ Tensor = torch.Tensor
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 80)  # SAM ViT-B / L, ViT-H
+
+_work = WA._work  # float64 stays float64, every other dtype f32
 
 
 def window_pad_mask(Bw: int, n: int, kh: int, kw: int, nwx: int, nwy: int,
@@ -71,8 +74,8 @@ def window_ln_mask(x: Tensor, norm_w: Tensor, norm_b: Tensor, kh: int,
     Bw, n, _ = x.shape
     y = L.layer_norm(x, norm_w, norm_b, eps=eps)
     if masked:
-        y = (y.float() * window_pad_mask(Bw, n, kh, kw, nwx, nwy, Hv, Wv,
-                                         x.device)).to(x.dtype)
+        y = (_work(y) * window_pad_mask(Bw, n, kh, kw, nwx, nwy, Hv, Wv,
+                                        x.device)).to(x.dtype)
     return y
 
 
@@ -80,24 +83,23 @@ def _window_chain(x: Tensor, norm_w: Tensor, norm_b: Tensor,
                   qkv_w: Tensor, qkv_b: Optional[Tensor], proj_w: Tensor,
                   proj_b: Optional[Tensor], rh: Tensor, rw: Tensor, core, *,
                   eps: float, nwx: int, nwy: int, Hv: int, Wv: int,
-                  masked: bool) -> Tensor:
+                  masked: bool, mm=torch.matmul) -> Tensor:
     """LN1 -> pad mask -> qkv -> ``core`` (B3 or its plain version) -> proj
     + residual, with the kernel's rounding points: LN output and qkv (after
     its bias) rounded to x.dtype, products accumulated in f32, the residual
-    sum in f32."""
+    sum in f32. ``mm`` takes the qkv and proj products."""
     dt = x.dtype
     Bw, n, C = x.shape
     kh, kw = rh.shape[0], rw.shape[0]
     y = window_ln_mask(x, norm_w, norm_b, kh, kw, eps=eps, nwx=nwx, nwy=nwy,
                        Hv=Hv, Wv=Wv, masked=masked)
-    qkv = torch.matmul(y.float(), qkv_w.to(dt).float().T)
+    qkv = mm(_work(y), _work(qkv_w.to(dt)).T)
     if qkv_b is not None:
-        qkv = qkv + qkv_b.to(dt).float()
+        qkv = qkv + _work(qkv_b.to(dt))
     o = core(qkv.to(dt).reshape(Bw * n, 3 * C), rh.to(dt), rw.to(dt))
-    out = x.float() + torch.matmul(o.float(), proj_w.to(dt).float().T
-                                   ).reshape(Bw, n, C)
+    out = _work(x) + mm(_work(o), _work(proj_w.to(dt)).T).reshape(Bw, n, C)
     if proj_b is not None:
-        out = out + proj_b.to(dt).float()
+        out = out + _work(proj_b.to(dt))
     return out.to(dt)
 
 
@@ -105,14 +107,20 @@ def window_attn_plain(x: Tensor, norm_w: Tensor, norm_b: Tensor,
                       qkv_w: Tensor, qkv_b: Optional[Tensor], proj_w: Tensor,
                       proj_b: Optional[Tensor], rh: Tensor, rw: Tensor, *,
                       num_heads: int, eps: float, nwx: int, nwy: int, Hv: int,
-                      Wv: int, masked: bool) -> Tensor:
+                      Wv: int, masked: bool, mm=torch.matmul) -> Tensor:
     """The function of the kernel in plain PyTorch, with the same rounding
     points: LN output, qkv (after its bias), p and o are rounded to
-    x.dtype; products accumulate in f32; the residual sum is f32."""
+    x.dtype; products accumulate in f32; the residual sum is f32. ``mm``
+    takes every product that the kernel runs on the tensor cores (qkv,
+    proj and the core's; ``tf32.mm_3xtf32``: the float32 kernel's split
+    TF32); float64 inputs compute in float64 throughout."""
     del num_heads  # the tables' head dim gives it
+
+    def core(qkv, rh_, rw_):
+        return WA.window_attn_core_plain(qkv, rh_, rw_, mm=mm)
     return _window_chain(x, norm_w, norm_b, qkv_w, qkv_b, proj_w, proj_b,
-                         rh, rw, WA.window_attn_core_plain, eps=eps, nwx=nwx,
-                         nwy=nwy, Hv=Hv, Wv=Wv, masked=masked)
+                         rh, rw, core, eps=eps, nwx=nwx, nwy=nwy, Hv=Hv,
+                         Wv=Wv, masked=masked, mm=mm)
 
 
 def _check(t: Optional[Tensor], name: str, shape, x: Tensor) -> None:
@@ -253,28 +261,32 @@ def window_attn_block(x: Tensor, norm_w: Tensor, norm_b: Tensor,
 
 
 def gelu_tanh(x: Tensor) -> Tensor:
-    """tanh-form GELU in f32, rounded back to x.dtype (``_gelu_tanh``)."""
-    f = x.float()
+    """tanh-form GELU in f32 (float64 for a float64 x), rounded back to
+    x.dtype (``_gelu_tanh``)."""
+    f = _work(x)
     inner = 0.7978845608028654 * (f + 0.044715 * (f * f * f))
     return (0.5 * f * (1.0 + torch.tanh(inner))).to(x.dtype)
 
 
 def ln_mlp_plain(x: Tensor, norm_w: Tensor, norm_b: Tensor, fc1_w: Tensor,
                  fc1_b: Optional[Tensor], fc2_w: Tensor,
-                 fc2_b: Optional[Tensor], *, eps: float) -> Tensor:
+                 fc2_b: Optional[Tensor], *, eps: float,
+                 mm=torch.matmul) -> Tensor:
     """B13 in plain PyTorch on rows x [T, C], with the kernel's rounding
     points: LN (one-pass, f32) rounded to x.dtype; fc1 + b1 summed in f32
     and rounded; tanh-GELU in f32, rounded; fc2 + b2 + x summed in f32 and
-    rounded once. Weights are taken at x.dtype."""
+    rounded once. Weights are taken at x.dtype. ``mm`` takes the two
+    products (``tf32.mm_3xtf32``: the float32 kernel's split TF32);
+    float64 inputs compute in float64 throughout."""
     dt = x.dtype
     y = L.layer_norm(x, norm_w, norm_b, eps=eps)
-    h = torch.matmul(y.float(), fc1_w.to(dt).float().T)
+    h = mm(_work(y), _work(fc1_w.to(dt)).T)
     if fc1_b is not None:
-        h = h + fc1_b.to(dt).float()
+        h = h + _work(fc1_b.to(dt))
     h = gelu_tanh(h.to(dt))
-    o = x.float() + torch.matmul(h.float(), fc2_w.to(dt).float().T)
+    o = _work(x) + mm(_work(h), _work(fc2_w.to(dt)).T)
     if fc2_b is not None:
-        o = o + fc2_b.to(dt).float()
+        o = o + _work(fc2_b.to(dt))
     return o.to(dt)
 
 

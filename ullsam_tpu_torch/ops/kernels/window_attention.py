@@ -30,16 +30,16 @@ chip: one launch, no scratch.
 
 The three compute one function at the JAX kernels' rounding points (f32
 logits, the exact row max and sum, the normalized p rounded before p.v),
-so in bfloat16 B3 (``csrc/window_attn.cu``), B15
-(``csrc/window_attn_twophase.cu``) and B1's core all launch the port's one
-bf16 window core, ``csrc/window_core.cuh``, and give bitwise-equal
-outputs; in float32 B3 and B15 keep their own CUDA-core kernels. B8 is
-``csrc/window_attn_bwd.cu``. On a CPU tensor each runs its plain version
-here. B3 and B15 take head dims 64 and 80 (in bfloat16 windows of at most
-16x16, as B8); B8 64 and 80 in both dtypes, windows of at most 16x16
-(bfloat16 on the tensor cores; float32 on them too, in split TF32: three
-TF32 products for each product, f32-accurate). There is no fallback from
-a kernel to its plain version. ``window_attention`` is the differentiable
+so B3 (``csrc/window_attn.cu``), B15 (``csrc/window_attn_twophase.cu``)
+and B1's core all launch the port's one window core of the dtype and give
+bitwise-equal outputs: in bfloat16 ``csrc/window_core.cuh``, in float32
+``csrc/window_core_f32.cuh`` (every product on the tensor cores in split
+TF32: three TF32 products for each, f32-accurate; its launches are counted
+in C, ``window_core_f32.launches``). B8 is ``csrc/window_attn_bwd.cu``. On
+a CPU tensor each runs its plain version here. B3, B15 and B8 take head
+dims 64 and 80 and windows of at most 16x16 in both dtypes (B8: bfloat16
+on the tensor cores; float32 on them too, in split TF32). There is no
+fallback from a kernel to its plain version. ``window_attention`` is the differentiable
 entry: a ``torch.autograd.Function`` whose forward is B3 (B15 under
 ``ULLSAM_WINDOW_TWOPHASE=1``, read at each call) and whose backward is B8
 on both devices.
@@ -53,6 +53,7 @@ from typing import Tuple
 import torch
 
 from ullsam_tpu_torch.ops.kernels import build, flags
+from ullsam_tpu_torch.ops.kernels.gemm import GemmLaunches
 
 Tensor = torch.Tensor
 
@@ -101,16 +102,20 @@ def _softmax_p(q, k, Rh, Rw, kh, kw, mm=torch.matmul):
     return torch.softmax(_window_logits(q, k, Rh, Rw, kh, kw, mm), dim=-1)
 
 
-def window_attn_core_plain(qkv: Tensor, rh: Tensor, rw: Tensor) -> Tensor:
+def window_attn_core_plain(qkv: Tensor, rh: Tensor, rw: Tensor,
+                           mm=torch.matmul) -> Tensor:
     """B3 in plain PyTorch, with the kernel's rounding points: tables taken
     at qkv.dtype, f32 logits and softmax, p rounded to qkv.dtype before
-    p.v, o rounded to qkv.dtype."""
+    p.v, o rounded to qkv.dtype. ``mm`` takes the products that the kernel
+    runs on the tensor cores (the rel-pos terms, q k^T and p v);
+    ``tf32.mm_3xtf32`` gives the float32 kernel's split TF32. Float64
+    inputs compute in float64 throughout."""
     dt = qkv.dtype
     kh, kw, hd = rh.shape[0], rw.shape[0], rh.shape[-1]
     n = kh * kw
     q, k, v = _split_heads(qkv, n, hd)
-    p = _softmax_p(q, k, rh.to(dt).float(), rw.to(dt).float(), kh, kw)
-    o = torch.matmul(p.to(dt).float(), v)               # [Bw, nh, n, hd]
+    p = _softmax_p(q, k, _work(rh.to(dt)), _work(rw.to(dt)), kh, kw, mm)
+    o = mm(_work(p.to(dt)), v)                           # [Bw, nh, n, hd]
     return o.permute(0, 2, 1, 3).reshape(qkv.shape[0], -1).to(dt)
 
 
@@ -119,12 +124,13 @@ def window_attn_core_twophase_plain(qkv: Tensor, rh: Tensor,
     """B15 in plain PyTorch, in its two phases: every head's f32 logits
     (scaled q.k plus the rel-pos bias) first, then softmax with p rounded
     to qkv.dtype before p.v and o rounded to qkv.dtype. B3's rounding
-    points, so the same function as ``window_attn_core_plain``."""
+    points, so the same function as ``window_attn_core_plain``. Float64
+    inputs compute in float64 throughout."""
     dt = qkv.dtype
     kh, kw, hd = rh.shape[0], rw.shape[0], rh.shape[-1]
     q, k, v = _split_heads(qkv, kh * kw, hd)
-    s = _window_logits(q, k, rh.to(dt).float(), rw.to(dt).float(), kh, kw)
-    p = torch.softmax(s, dim=-1).to(dt).float()
+    s = _window_logits(q, k, _work(rh.to(dt)), _work(rw.to(dt)), kh, kw)
+    p = _work(torch.softmax(s, dim=-1).to(dt))
     o = torch.matmul(p, v)                              # [Bw, nh, n, hd]
     return o.permute(0, 2, 1, 3).reshape(qkv.shape[0], -1).to(dt)
 
@@ -255,26 +261,30 @@ def core_smem_bytes(n: int, kh: int, kw: int, hd: int) -> int:
     return 2 * 2 * (2 * nk + half * 16) * ld + 4 * half * 16 * rl
 
 
-def twophase_smem_bytes(dtype: torch.dtype, n: int, kh: int, kw: int,
-                        hd: int) -> int:
-    """Shared memory of B15's kernel. bfloat16: the shared window core's
-    (``core_smem_bytes``). float32 (``window_attn_twophase.cu``
-    ``twophase_f32_smem``): 64 q rows d-major, one region for q row-major,
-    then each 64-key tile of k (d-major) and of v, the rows' rel-pos terms
-    and their logits [64][nk + 4]."""
-    if dtype == torch.bfloat16:
-        return core_smem_bytes(n, kh, kw, hd)
-    nk, rl = _nk(n), kh + kw
-    return 4 * (hd * 68 + max(hd * 68, 64 * (hd + 4)) + 64 * rl
-                + 64 * (nk + 4))
+# the slot rows of the float32 core's instances (``window_core_f32.cuh``
+# ``kCoreF32Nts``): a window of kh rows runs the first that holds them
+CORE_F32_SLOT_ROWS = (2, 4, 8, 14, 16)
+
+
+def core_f32_smem_bytes(n: int, kh: int, kw: int, hd: int) -> int:
+    """Shared memory of the float32 window core (``window_core_f32.cuh``
+    ``WinCoreF32Layout``), which B1, B3 and B15 launch in float32: k's and
+    then v's hi and lo planes [16 NT key slots][hd + 4] (NT the instance's
+    slot rows), a query half's rows [half * 16][hd + 4] and their rel-pos
+    terms [half * 16][kh + kw], all f32."""
+    nt = next(t for t in CORE_F32_SLOT_ROWS if t >= kh)
+    half = (_nk(n) // 16 + 1) // 2
+    ld = hd + 4
+    return 4 * (2 * 16 * nt * ld + half * 16 * ld + half * 16 * (kh + kw))
 
 
 def check_core_window(dtype: torch.dtype, kh: int, kw: int,
                       name: str) -> None:
-    """The bf16 core takes windows of at most 16 x 16 (a window row's keys
-    fill one 16-key slot; SAM's windows are 14 x 14); raises otherwise."""
-    if dtype == torch.bfloat16 and max(kh, kw) > 16:
-        raise ValueError(f"{name}: bfloat16 takes windows of at most 16x16 "
+    """The window cores of both dtypes take windows of at most 16 x 16 (a
+    window row's keys fill one 16-key slot; SAM's windows are 14 x 14);
+    raises otherwise."""
+    if max(kh, kw) > 16:
+        raise ValueError(f"{name}: {dtype} takes windows of at most 16x16 "
                          f"(one 16-key slot a window row); got {kh}x{kw}")
 
 
@@ -308,12 +318,18 @@ def window_attn_core(qkv: Tensor, rh: Tensor, rw: Tensor) -> Tensor:
 
 window_attn_core.launches = 0
 
+# launches of the float32 window core (``csrc/window_core_f32.cuh``), which
+# B1, B3 and B15 launch in float32, counted in C by each library that holds
+# it
+window_core_f32 = GemmLaunches(None, ("window_attn", "window_attn_twophase"),
+                               "window_core_f32_launch_count")
+
 
 def window_attn_core_twophase(qkv: Tensor, rh: Tensor, rw: Tensor) -> Tensor:
     """B15: B3's arguments and result (hd 64 or 80). CPU tensors run
     ``window_attn_core_twophase_plain``; CUDA tensors launch the kernel
-    (one launch, the logits kept on chip; only ``out`` is allocated; in
-    bfloat16 B3's own core) or raise."""
+    (one launch, the logits kept on chip; only ``out`` is allocated; B3's
+    own core of the dtype) or raise."""
     if qkv.device.type == "cpu":
         return window_attn_core_twophase_plain(qkv, rh, rw)
     name = "window_attn_core_twophase"

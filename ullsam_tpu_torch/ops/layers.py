@@ -58,8 +58,10 @@ def conv2d(x: Tensor, weight: Tensor, bias: Optional[Tensor] = None, *,
 
 def layer_norm(x: Tensor, weight: Tensor, bias: Tensor, *,
                eps: float = 1e-6) -> Tensor:
-    """LayerNorm over the last axis, f32 statistics, cast back."""
-    x32 = x.float()
+    """LayerNorm over the last axis, f32 statistics (float64 for a float64
+    x), cast back."""
+    wt = torch.float64 if x.dtype == torch.float64 else torch.float32
+    x32 = x.to(wt)
     m1 = x32.mean(-1, keepdim=True)
     if x.shape[-1] >= 32:
         m2 = (x32 * x32).mean(-1, keepdim=True)
@@ -68,7 +70,7 @@ def layer_norm(x: Tensor, weight: Tensor, bias: Tensor, *,
         # two-pass for tiny channel counts (cancellation in E[x^2]-E[x]^2)
         var = ((x32 - m1) ** 2).mean(-1, keepdim=True)
     y = (x32 - m1) * torch.rsqrt(var + eps)
-    y = y * weight.float() + bias.float()
+    y = y * weight.to(wt) + bias.to(wt)
     return y.to(x.dtype)
 
 

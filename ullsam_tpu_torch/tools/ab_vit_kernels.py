@@ -1,7 +1,8 @@
 """A/B timing of the ViT kernels B1, B2, B3, B8 (float32), B9 (both
 dtypes), B13, B14, B15 and of B12 (the int8 LLM linears) built from
 several source trees, in one process on one card, so that versions
-compare within one call (two calls may land on two cards).
+compare within one call (two calls may land on two cards). B1, B3, B13,
+B15 and the products of B1 / B13 also in float32.
 
     python -m ullsam_tpu_torch.tools.ab_vit_kernels [--only=B2,B12,...] \
         NAME=CSRC_DIR [...]
@@ -27,7 +28,12 @@ bias materialized for B2, B3, B14, B15 (for B9 its backward alone on a
 retained graph), the chain of four library calls for B13, F.linear on the
 dequantized weight for B12, and, where the version has the entry
 ``gemm_bf16_forward``, each bf16 product of B1 and B13 (proj and fc2 with
-their residual) beside ``F.linear`` (without it). ``--only`` keeps the
+their residual) beside ``F.linear`` (without it). In float32 (labels with
+"f32") B1 and B3 / B15 at both widths, B13 at ViT-H and, where a version
+has ``gemm_f32_forward``, each f32 product of B1 and B13; each such
+version's output is also held against a float64 evaluation of the plain
+version beside the plain float32 version's own error. Each version's
+output is compared bitwise with the first version's. ``--only`` keeps the
 cases whose label starts with one of the given prefixes (B1, B2, B3, B8,
 B9, B12, B13, B14, B15, GEMM). Needs a CUDA card.
 """
@@ -72,6 +78,7 @@ _ENTRIES = {
     "b13": ("ln_mlp", "ln_mlp_forward", [_I] + [_P] * 10 + [_I] * 3
             + [_F, _P]),
     "gemm": ("ln_mlp", "gemm_bf16_forward", [_P] * 5 + [_I] * 4 + [_P]),
+    "gemm_f32": ("ln_mlp", "gemm_f32_forward", [_P] * 5 + [_I] * 4 + [_P]),
     "b9": ("vit_flash_bwd", "vit_flash_attn_backward",
            [_I] + [_P] * 14 + [_I] * 5 + [_F, _P]),
     "b8": ("window_attn_bwd", "window_attn_bwd",
@@ -141,12 +148,101 @@ def _rel(a, b) -> float:
     """max|a - b| / max|b|, the worst over the outputs of a tuple."""
     if isinstance(a, tuple):
         return max(_rel(x, y) for x, y in zip(a, b))
-    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+    return float((a.double() - b.double()).abs().max()
+                 / b.double().abs().max())
+
+
+def _f64(plain, args, kw=None):
+    """A thunk: ``plain`` on ``args`` (their float tensors in float64)."""
+    return lambda: plain(*(a.double() if isinstance(a, torch.Tensor)
+                           and a.is_floating_point() else a for a in args),
+                         **(kw or {}))
+
+
+def f32_cases(gen, stream):
+    """The float32 cases of B3 / B15, B1 (both widths), B13 and the GEMM
+    (ViT-H; its products at ViT-B too), with float64 references."""
+    out = []
+    f32 = torch.float32
+    for tag, w in (("vit_b", MP.VIT_B), ("vit_h", MP.VIT_H)):
+        nh, hd = w["nh"], w["C"] // w["nh"]
+        (qkv, rh, rw), _, fl, _ = MP.window_core_case(f32, gen, nh=nh, hd=hd)
+        M, C = qkv.shape[0], qkv.shape[1] // 3
+        o = torch.empty((M, C), device="cuda")
+        q, k, v = WA._split_heads(qkv, 196, hd)
+        rel_h, rel_w = WA._rel_terms(q, rh, rw, 14, 14)
+        bias = (rel_h[..., :, None] + rel_w[..., None, :]).flatten(-2)
+        ref = WA.window_attn_core_plain(qkv, rh, rw)
+        for key in ("b3", "b15"):
+            out.append((f"{key.upper()} f32 {tag}", key,
+                        lambda f, qkv=qkv, rh=rh, rw=rw, o=o, M=M, C=C,
+                        nh=nh, hd=hd: f(0, qkv.data_ptr(), rh.data_ptr(),
+                                        rw.data_ptr(), o.data_ptr(), M // 196,
+                                        196, C, nh, hd, 14, 14, stream),
+                        o, ref, fl["fwd"],
+                        lambda q=q, k=k, v=v, b=bias:
+                        F.scaled_dot_product_attention(q, k, v, attn_mask=b),
+                        _f64(WA.window_attn_core_plain, (qkv, rh, rw))))
+        args, kw, fl1, _ = MP.window_attn_case(f32, gen, **w)
+        x = args[0]
+        Bw, n, C = x.shape
+        bufs = [torch.empty((Bw * n, c), device="cuda") for c in
+                (C, 3 * C, C)]
+        o1 = torch.empty_like(x)
+        out.append((f"B1 f32 {tag}", "b1",
+                    lambda f, a=args, kw=kw, bufs=bufs, o1=o1, C=C, nh=nh,
+                    hd=hd, Bw=Bw, n=n: f(
+                        0, *(t.data_ptr() for t in a),
+                        *(t.data_ptr() for t in bufs), o1.data_ptr(), Bw, n,
+                        C, nh, hd, 14, 14, kw["eps"], kw["nwx"], kw["nwy"],
+                        kw["Hv"], kw["Wv"], int(kw["masked"]), stream),
+                    o1, VB.window_attn_plain(*args, **kw), fl1, None,
+                    _f64(VB.window_attn_plain, args, kw)))
+    args, kw, fl, _ = MP.ln_mlp_case(f32, gen, T=4900, **MP.VIT_H)
+    x, lw, lb, w1, b1, w2, b2 = args
+    T, C = x.shape
+    Fd = w1.shape[0]
+    y, h = torch.empty_like(x), torch.empty((T, Fd), device="cuda")
+    o13 = torch.empty_like(x)
+    out.append(("B13 f32 vit_h T4900", "b13",
+                lambda f: f(0, *(t.data_ptr() for t in args), y.data_ptr(),
+                            h.data_ptr(), o13.data_ptr(), T, C, Fd,
+                            kw["eps"], stream),
+                o13, VB.ln_mlp_plain(*args, **kw), fl,
+                lambda: x + F.linear(F.gelu(F.linear(F.layer_norm(
+                    x, (C,), lw, lb, kw["eps"]), w1, b1),
+                    approximate="tanh"), w2, b2),
+                _f64(VB.ln_mlp_plain, args, kw)))
+    for tag, N, K, act, with_res in (
+            ("vit_h qkv", 3840, 1280, 0, False),
+            ("vit_h proj", 1280, 1280, 0, True),
+            ("vit_h fc1", 5120, 1280, 2, False),
+            ("vit_h fc2", 1280, 5120, 0, True),
+            ("vit_b qkv", 2304, 768, 0, False),
+            ("vit_b proj", 768, 768, 0, True)):
+        a = torch.randn(4900, K, generator=gen, device="cuda")
+        wt = torch.randn(N, K, generator=gen, device="cuda") * K ** -0.5
+        b = torch.randn(N, generator=gen, device="cuda") * 0.1
+        res = (torch.randn(4900, N, generator=gen, device="cuda")
+               if with_res else None)
+        go = torch.empty((4900, N), device="cuda")
+        actn = "gelu_tanh" if act else "none"
+        out.append((f"GEMM f32 {tag} M4900 N{N} K{K}"
+                    f"{' +residual' if with_res else ''}", "gemm_f32",
+                    lambda f, a=a, wt=wt, b=b, go=go, N=N, K=K, act=act,
+                    res=res: f(a.data_ptr(), wt.data_ptr(), b.data_ptr(),
+                               None if res is None else res.data_ptr(),
+                               go.data_ptr(), 4900, N, K, act, stream),
+                    go, G.gemm_plain(a, wt, b, res, actn), 2 * 4900 * N * K,
+                    lambda a=a, wt=wt, b=b: F.linear(a, wt, b),
+                    _f64(G.gemm_plain, (a, wt, b, res, actn))))
+    return out
 
 
 def cases(gen):
     """(label, entry, the C call, its output, the plain result, flops,
-    library call or None) at the main path's bf16 shapes."""
+    library call or None, float64 reference thunk or None) at the main
+    path's bf16 shapes, then the float32 cases (``f32_cases``)."""
     out = []
     stream = torch.cuda.current_stream().cuda_stream
     for tag, w in (("vit_b", MP.VIT_B), ("vit_h", MP.VIT_H)):
@@ -197,7 +293,7 @@ def cases(gen):
                         f(a.data_ptr(), wt.data_ptr(), b.data_ptr(),
                           None if res is None else res.data_ptr(),
                           go.data_ptr(), 4900, N, K, 0, stream),
-                        go, G.gemm_bf16_plain(a, wt, b, res),
+                        go, G.gemm_plain(a, wt, b, res),
                         2 * 4900 * N * K,
                         lambda a=a, wt=wt, b=b: F.linear(a, wt, b)))
     for tag, w in (("vit_b", MP.VIT_B), ("vit_h", MP.VIT_H)):
@@ -300,7 +396,7 @@ def cases(gen):
                         lambda f, x=x, w=w_lib, go=go, M=M, N=N, K=K:
                         f(x.data_ptr(), w.data_ptr(), None, None,
                           go.data_ptr(), M, N, K, 0, stream),
-                        go, G.gemm_bf16_plain(x, w_lib), 2 * M * N * K,
+                        go, G.gemm_plain(x, w_lib), 2 * M * N * K,
                         lambda x=x, w=w_lib: F.linear(x, w)))
     args, kw, fl, _ = MP.ln_mlp_case(torch.bfloat16, gen, T=4900, **MP.VIT_H)
     x, lw, lb, w1, b1, w2, b2 = args
@@ -328,10 +424,10 @@ def cases(gen):
                     res=res: f(a.data_ptr(), wt.data_ptr(), b.data_ptr(),
                                None if res is None else res.data_ptr(),
                                go.data_ptr(), T, N, K, act, stream),
-                    go, G.gemm_bf16_plain(
+                    go, G.gemm_plain(
                         a, wt, b, res, "gelu_tanh" if act else "none"),
                     2 * T * N * K, lambda a=a, wt=wt, b=b: F.linear(a, wt, b)))
-    return out
+    return [c + (None,) for c in out] + f32_cases(gen, stream)
 
 
 def main() -> None:
@@ -355,10 +451,12 @@ def main() -> None:
     order += order[::-1]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    for label, key, call, out, ref, flops, lib in cases(gen):
+    for label, key, call, out, ref, flops, lib, ref64 in cases(gen):
         if only and not label.startswith(only):
             continue
         have = [n for n in fns if key in fns[n]]
+        r64 = None if ref64 is None or not have else ref64()
+        first = None
         for name in list(have):
             err = call(fns[name][key])
             if err:
@@ -366,8 +464,23 @@ def main() -> None:
                 have.remove(name)
                 continue
             torch.cuda.synchronize()
+            got = (tuple(t.clone() for t in out) if isinstance(out, tuple)
+                   else out.clone())
+            same = ""
+            if first is None:
+                first = (name, got)
+            else:
+                eq = (all(torch.equal(a, b) for a, b in zip(got, first[1]))
+                      if isinstance(got, tuple)
+                      else torch.equal(got, first[1]))
+                same = (f", bitwise {'equal' if eq else 'unlike'} "
+                        f"{first[0]}'s")
+            f64 = ("" if r64 is None else
+                   f", against float64 {_rel(got.double(), r64):.3e} "
+                   f"(plain f32 {_rel(ref.double(), r64):.3e})")
             print(f"[check] {name} {label}: max|err| / max|plain| "
-                  f"{_rel(out, ref):.3e}")
+                  f"{_rel(got, ref):.3e}{f64}{same}")
+        del r64
         times = {}
         for name in [n for n in order if n in have]:
             times.setdefault(name, []).append(

@@ -1,7 +1,7 @@
 #!/usr/bin/env bash
 # The port's checks on the card in one command: the gpu-marked tests,
-# chip_smoke.py (with the ptxas report of the bf16 window core, the wgmma
-# GEMM and the mask decoder's fused kernels, and the GEMM's HGMMA / UTMALDG
+# chip_smoke.py (with the ptxas report of the window cores, the wgmma
+# GEMM's kinds and the mask decoder's fused kernels, and the GEMM's HGMMA / UTMALDG
 # count from cuobjdump; the B2 / B12 kernel lines, the caption's int8 /
 # bf16 prefill, B4-B7 and their fused kernels, the AMG sweeps), the ViT
 # regions of tools/profile_kernels.py (one warm ViT-H AMG image and its
@@ -45,12 +45,13 @@ grep -E 'FAIL|\[vit_h\]|\[gemm\]|hd-80|\[amg\]|\[train_vit_h\]|heads of 80' "$ou
 grep -E '\[kernels\] llm_flash|\[packed\]' "$out/smoke_${tag}.log" | cut -c1-500
 grep -E '\[kernels\] (decode_masks|two_way_transformer|upscale_hypernet|fused)' \
     "$out/smoke_${tag}.log" | cut -c1-400
-grep -E '\[kernels\] (vit_flash_attn|window_attn_core_bwd|w8a16_matmul bfloat16 M=(1152|9216))|\[caption\] (prefill|int8 batch 1|bf16 request|int8 request 1)' \
+grep -E '\[kernels\] (vit_flash_attn|window_attn |window_attn_core |window_attn_core_bwd|w8a16_matmul bfloat16 M=(1152|9216))|\[caption\] (prefill|int8 batch 1|bf16 request|int8 request 1)' \
     "$out/smoke_${tag}.log" | cut -c1-400
 grep -E '\[train\] (f32|bf16 flagship)' "$out/smoke_${tag}.log" | cut -c1-400
-# ptxas (-Xptxas -v) of the one bf16 window core at SAM's 14x14 windows
-# (NT = 14) and of the wgmma GEMM, from the build's own report
-grep -E '\[build\] .*(window_core_bf16<(64|80), 1[46]>|gemm_nt_sm90|vit_flash_sm90|vit_bwd_|bwd_tf32|image_stage|upscale_unit|t2i_part|llm_flash_sm90|llm_bwd_sm90)' \
+# ptxas (-Xptxas -v) of the window cores at SAM's 14x14 windows (NT = 14)
+# and at 16x16, and of the wgmma GEMM's kinds (<0> bf16, <1> int8 W, <2>
+# f32 in split TF32), from the build's own report
+grep -E '\[build\] .*(window_core_(bf16|f32)<(64|80), 1[46]>|gemm_nt_sm90|vit_flash_sm90|vit_bwd_|bwd_tf32|image_stage|upscale_unit|t2i_part|llm_flash_sm90|llm_bwd_sm90)' \
     "$out/smoke_${tag}.log"
 tail -2 "$out/smoke_${tag}.log" | cut -c1-300
 [ $rc -eq 0 ] || exit $rc
