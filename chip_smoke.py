@@ -14,12 +14,12 @@ sm_90a) and the CUDA toolkit. Phases, each printing what it found:
     CUDA events; the least time the card could take (bound; in float32
     f32-accurate products at their fastest, split TF32 at 495 / 3 TFLOP/s).
     The float32 bodies on the tensor cores in split TF32 (B1, B3, B8, B9,
-    B13, B15, the wgmma GEMM's f32 kind) also against a float64 evaluation
-    of their plain version: on every output within 4x the plain float32
-    version's own error. B4-B7's fused
-    bf16 kernels (B5's two image stages and their token -> image
-    attention, the upscale with and without statistics) also alone: time,
-    bound and achieved bandwidth.
+    B13, B15, B4-B7, the wgmma GEMM's f32 kind) also against a float64
+    evaluation of their plain version: on every output within 4x the plain
+    float32 version's own error. B4-B7's fused kernels in bf16 and float32
+    (B5's two image stages and their token -> image attention, the upscale
+    with and without statistics) also alone: time, bound and achieved
+    bandwidth.
  4. small-input reference: a small uLLSAM on the CPU (plain versions) and
     on the card (kernels) from the same weights must agree.
  5. main path at full width: SAM ViT-B + InternLM2-1.8B (random weights
@@ -30,10 +30,12 @@ sm_90a) and the CUDA toolkit. Phases, each printing what it found:
     the CPU (plain versions) against the card (kernels); then SAM ViT-B at
     full width on 1024x1024 images (a 32x32 point grid, 256 prompts a
     chunk): the deterministic sweep (thresholds and NMS off) in bfloat16,
-    1 warm and 3 timed images, one float32 image, and one bfloat16 image
-    with the upstream thresholds (0.88 / 0.95 / NMS 0.7); every bfloat16
-    chunk launches each fused decoder kernel its count a chunk, float32
-    none; the sweep's peak memory and its parts.
+    1 warm and 3 timed images, in float32 1 warm and 3 timed images, and
+    one bfloat16 image with the upstream thresholds (0.88 / 0.95 / NMS
+    0.7); every chunk launches each fused decoder kernel of its dtype its
+    count a chunk (float32 also the GEMM's f32 kind 25 times from the
+    token side), none of the other dtype's; each sweep's peak memory and
+    its parts.
  7. the segmentation train step: a small uLLSAM trained one f32 step on the
     CPU (plain versions) and on the card (kernels) from the same weights
     and batch, loss and every gradient compared; then the flagship (SAM
@@ -90,7 +92,9 @@ sm_90a) and the CUDA toolkit. Phases, each printing what it found:
     then ``build_sam("vit_h")`` at full width (random weights from the
     seed) on 1024x1024 images, the deterministic sweep: bf16 1 warm + 3
     timed images with exact launches (B1 28, B2 4, B4-B7 4 an image, the
-    fused decoder kernels their count a chunk), one f32 image; the encode
+    fused decoder kernels their count a chunk), 1 warm + 3 timed f32
+    images (the fused f32 decoder kernels their count a chunk) with the
+    sweep's peak and its parts; the encode
     alone under each route setting (1 warm + 5 timed, exact launches, each
     bf16 embedding against the default route's), and
     one bf16 image with all four switches on (B13 32, B14 4, B15 28). In
@@ -340,6 +344,8 @@ def check_decoder_kernels(card: str) -> dict:
     from ullsam_tpu_torch.tools.main_path import (AMG_CHUNK, decoder_cases,
                                                   decoder_outputs)
 
+    # f32: also each float output against a float64 evaluation of the plain
+    # version (f64_hold)
     tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -386,6 +392,13 @@ def check_decoder_kernels(card: str) -> dict:
                 f"{flops / ms / 1e9:.1f} TFLOP/s")
             entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            if dtype == torch.float32 and name in SPLIT_TF32:
+                entry.update(f64_hold(
+                    name, lambda *a, **k: decoder_outputs(
+                        name, plain(*a, **k))[0], args,
+                    decoder_outputs(name, kernel(*args, **kw))[0],
+                    decoder_outputs(name, plain(*args, **kw))[0], "kernels",
+                    kw))
             if dtype == torch.bfloat16:
                 rows[name].update(entry)
             else:
@@ -397,26 +410,29 @@ def check_decoder_kernels(card: str) -> dict:
 
 
 def check_fused_decoder_kernels(card: str) -> dict:
-    """The fused bf16 kernels inside B4-B7 alone at the AMG chunk (their
-    agreement with the plain chain is B4-B7's, above): each one's time,
-    bound and achieved bandwidth."""
+    """The fused kernels inside B4-B7 alone at the AMG chunk, bf16 and
+    float32 (names ending in ``_f32``; their agreement with the plain
+    chain is B4-B7's, above): each one's time, bound and achieved
+    bandwidth."""
     import torch
     from ullsam_tpu_torch.tools.main_path import (AMG_CHUNK,
                                                   fused_decoder_cases)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED)
     out = {}
-    for name, (call, flops, nbytes) in fused_decoder_cases(
-            gen, **AMG_CHUNK).items():
-        ms = cuda_time_ms(call, iters=10, warmup=2)
-        b_ms, b_by = bound_ms(flops, nbytes, torch.bfloat16)
-        say(f"[kernels] fused {name} bfloat16: {ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}: {flops / 1e9:.2f} GFLOP, "
-            f"{nbytes / 1e6:.1f} MB), {nbytes / ms / 1e6:.1f} GB/s, "
-            f"{flops / ms / 1e9:.1f} TFLOP/s (card: {card})")
-        out[name] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "gb_per_s": nbytes / ms / 1e6}
-    torch.cuda.empty_cache()
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        for name, (call, flops, nbytes) in fused_decoder_cases(
+                gen, dtype=dtype, **AMG_CHUNK).items():
+            ms = cuda_time_ms(call, iters=10, warmup=2)
+            b_ms, b_by = bound_ms(flops, nbytes, dtype)
+            say(f"[kernels] fused {name} {dname}: {ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}: {flops / 1e9:.2f} GFLOP, "
+                f"{nbytes / 1e6:.1f} MB), {nbytes / ms / 1e6:.1f} GB/s, "
+                f"{flops / ms / 1e9:.1f} TFLOP/s (card: {card})")
+            out[name] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                         "gb_per_s": nbytes / ms / 1e6}
+        torch.cuda.empty_cache()
     return out
 
 
@@ -460,7 +476,8 @@ def _sdpa_ms(q, k, v, bias, backward: bool, **kw) -> float:
 # F64_RATIO x the plain float32 version's own (the forward kernels at every
 # shape a phase runs them)
 FWD_TF32 = ("window_attn", "window_attn_core", "window_attn_core_twophase",
-            "ln_mlp")
+            "ln_mlp", "decode_masks", "two_way_transformer",
+            "upscale_hypernet_stats", "upscale_hypernet")
 SPLIT_TF32 = ("window_attn_core_bwd", "vit_flash_attn_bwd") + FWD_TF32
 F64_RATIO = 4.0
 
@@ -474,10 +491,15 @@ def f64_hold(name: str, plain, args, got, ref, pre: str, kw=None) -> dict:
 
     def tup(x):
         return x if isinstance(x, tuple) else (x,)
+
+    def double(t):  # a weights dict too (not its TF32 planes)
+        if isinstance(t, dict):
+            return {k: double(v) for k, v in t.items()
+                    if not k.endswith(("_hi", "_lo"))}
+        return (t.double() if isinstance(t, torch.Tensor)
+                and t.is_floating_point() else t)
     got, ref = tup(got), tup(ref)
-    ref64 = tup(plain(*(t.double() if isinstance(t, torch.Tensor)
-                        and t.is_floating_point() else t for t in args),
-                      **(kw or {})))
+    ref64 = tup(plain(*(double(t) for t in args), **(kw or {})))
     worst = [0.0, 0.0]
     bad = []
     for i, (a, b, r) in enumerate(zip(got, ref, ref64)):
@@ -928,23 +950,30 @@ def check_f32_kinds(tag: str, d: dict, c0: dict, f32: bool) -> dict:
 
 
 def fused_counts() -> dict:
-    """Launches of each fused bf16 kernel of B4-B7
-    (``decoder.FUSED_KERNELS``)."""
+    """Launches of each fused kernel of B4-B7 (``decoder.FUSED_KERNELS``,
+    bf16 and float32) and of the wgmma GEMM's f32 kind by B4-B7's token
+    side (``decoder.decoder_gemm_f32``, counted in C)."""
     from ullsam_tpu_torch.ops.kernels import decoder as D
-    return {k: c.launches for k, c in D.FUSED_KERNELS.items()}
+    return {**{k: c.launches for k, c in D.FUSED_KERNELS.items()},
+            "decoder_gemm_f32": D.decoder_gemm_f32.launches}
 
 
-# the fused bf16 kernels a bf16 AMG chunk launches (one B4 call)
+# the fused kernels an AMG chunk launches (one B4 call of 3 masks): bf16;
+# float32, with the token side's and the hypernet MLPs' first two layers'
+# products on the GEMM's f32 kind (19 + 2 x 3)
 FUSED_PER_CHUNK = {"image_stage1": 1, "image_stage2": 1, "t2i_part": 2,
                    "upscale_unit_stats": 1}
+FUSED_PER_CHUNK_F32 = {"image_stage1_f32": 1, "image_stage2_f32": 1,
+                       "t2i_part_f32": 2, "t2i_f32": 1,
+                       "upscale_unit_stats_f32": 1, "decoder_gemm_f32": 25}
 
 
 def check_fused(tag: str, f0: dict, chunks: int, bf16: bool) -> dict:
     """The fused kernels launched since f0: FUSED_PER_CHUNK a chunk on the
-    bf16 route, none on the f32 one."""
+    bf16 route, FUSED_PER_CHUNK_F32 on the float32 one."""
     d = {k: v - f0[k] for k, v in fused_counts().items() if v != f0[k]}
-    want = {k: v * chunks for k, v in FUSED_PER_CHUNK.items()} if bf16 \
-        else {}
+    want = {k: v * chunks for k, v in (
+        FUSED_PER_CHUNK if bf16 else FUSED_PER_CHUNK_F32).items()}
     if d != want:
         fail(f"{tag}: fused decoder kernels {d}, expected {want}")
     return d
@@ -962,7 +991,7 @@ def reset_counts() -> None:
     from ullsam_tpu_torch.ops.kernels import window_attention as WA
     for k in (*kernel_wrappers().values(), G.gemm_sm90, G.gemm_mma,
               G.gemm_sm90_f32, G.gemm_fma, WA.window_core_f32,
-              *D.FUSED_KERNELS.values()):
+              *D.FUSED_KERNELS.values(), D.decoder_gemm_f32, D.split_tf32):
         k.launches = 0
 
 
@@ -1025,7 +1054,8 @@ def amg_small_reference_check() -> None:
 
 
 def sweep_peak_parts(model, cfg, image) -> str:
-    """The parts of the AMG sweep's peak device memory (bf16): each step's
+    """The parts of the AMG sweep's peak device memory (at the model's
+    dtype): each step's
     peak above what was held when it started, for the encode, one chunk's
     B4 call (256 prompts) and the post-process of the 256 kept masks
     (``amg._upscale_threshold`` to 1024 x 1024), and the size of the
@@ -1152,12 +1182,24 @@ def amg_main_path() -> None:
     torch.cuda.synchronize()
     weights = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    _, _, m32, d32 = run(AutomaticMaskGenerator(cfg, model32, **sweep, **off),
-                         images[1], "f32 image 1 (TF32 off)")
+    g32 = AutomaticMaskGenerator(cfg, model32, **sweep, **off)
+    run(g32, images[0], "f32 warm image (TF32 off)")
+    timed32 = [run(g32, img, f"f32 image {i} (TF32 off)")
+               for i, img in enumerate(images[1:4], 1)]
     peak = torch.cuda.max_memory_allocated()
+    for _, d, _, data in timed32:
+        if d != want or len(data["iou_preds"]) != 256:
+            fail(f"AMG f32 launches per image {d}, expected {want}, "
+                 f"{len(data['iou_preds'])} masks")
+    _, _, m32, d32 = timed32[0]
+    total_s = sum(t[0] for t in timed32) / 1e3
+    say(f"[amg] f32 deterministic sweep, 3 timed images: "
+        f"{768 / total_s:.1f} masks/s, latency "
+        f"{', '.join(f'{t[0]:.1f}' for t in timed32)} ms")
     say(f"[amg] f32: weights {weights / 2**30:.3f} GiB resident, peak "
         f"{peak / 2**30:.3f} GiB, so {(peak - weights) / 2**30:.3f} GiB for "
-        f"the sweep")
+        f"the sweep; its parts: {sweep_peak_parts(model32, cfg, images[1])}")
+    del timed32
     both, i16, i32 = np.intersect1d(d16["candidate"], d32["candidate"],
                                     return_indices=True)
     agree = float((m16[torch.from_numpy(i16).cuda()]
@@ -2536,12 +2578,18 @@ def vit_h_main_path() -> None:
     torch.cuda.synchronize()
     weights = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    run(AutomaticMaskGenerator(cfg, model32, **sweep), images[1],
-        "f32 image 1 (TF32 off)", default)
+    g32 = AutomaticMaskGenerator(cfg, model32, **sweep)
+    run(g32, images[0], "f32 warm image (TF32 off)", default)
+    timed32 = [run(g32, img, f"f32 image {i} (TF32 off)", default)
+               for i, img in enumerate(images[1:4], 1)]
     peak = torch.cuda.max_memory_allocated()
+    say(f"[vit_h] f32 deterministic sweep, 3 timed images: "
+        f"{768 / (sum(t[0] for t in timed32) / 1e3):.1f} masks/s, latency "
+        f"{', '.join(f'{t[0]:.1f}' for t in timed32)} ms")
     say(f"[vit_h] f32: weights {weights / 2**30:.3f} GiB resident, peak "
         f"{peak / 2**30:.3f} GiB, so {(peak - weights) / 2**30:.3f} GiB for "
-        f"the sweep")
+        f"the sweep; its parts: {sweep_peak_parts(model32, cfg, images[1])}")
+    del timed32
     with switches({}), torch.no_grad():
         e32 = S.encode_image(model32.image_encoder, x.float()).float()
     scale = float((embs["default"] - e32).norm() / e32.norm())
@@ -2696,7 +2744,7 @@ def main() -> None:
     packed_small_reference_check()
     caption_small_reference_check()
     vit_h_small_reference_check()
-    by_path, gemm_by_path = {}, {}
+    by_path, gemm_by_path, fused_by_path = {}, {}, {}
     for path, drive in (("interactive", main_path), ("amg", amg_main_path),
                         ("train", train_main_path),
                         ("packed", packed_main_path),
@@ -2709,6 +2757,7 @@ def main() -> None:
         gemm_by_path[path] = c_counts()
         for k in ("gemm_sm90", "gemm_sm90_f32", "window_core_f32"):
             by_path[path][k] = gemm_by_path[path][k]
+        fused_by_path[path] = fused_counts()
         say(f"[main] launches on the {path} path: {by_path[path]}; "
             f"C-counted kernels {gemm_by_path[path]}")
     launches = {name: sum(c[name] for c in by_path.values()) for name in rows}
@@ -2717,6 +2766,16 @@ def main() -> None:
     for name, row in rows.items():
         row["launches"] = launches[name]
         row["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
+    # the fused kernels inside B4-B7 (bf16 and float32); those of an AMG
+    # chunk launched on the AMG paths (the upscale without statistics is
+    # B7's alone, which an AMG chunk does not call)
+    for name, row in rows["decode_masks"]["fused"].items():
+        row["launches_by_path"] = {p: c[name]
+                                   for p, c in fused_by_path.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
+        if not row["launches"] and (name in FUSED_PER_CHUNK
+                                    or name in FUSED_PER_CHUNK_F32):
+            fail(f"fused decoder kernel {name} never launched on a path")
     say(json.dumps({"kernels": list(rows.values())}))
     say(smi_line())
     say(json.dumps({"ok": True, "device": {

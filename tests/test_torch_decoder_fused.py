@@ -1,10 +1,11 @@
-"""The fused bf16 stages of the port's mask decoder (``ops/kernels/decoder.py``
+"""The fused stages of the port's mask decoder (``ops/kernels/decoder.py``
 ``_Stages``, run on the card by ``csrc/decoder_image.cu`` and
-``csrc/decoder_upscale.cu``) on the CPU: each stage's plain version against
-the plain primitive operations it replaces, bitwise, in float32 and
-bfloat16; the kernels' shape and unit rules; their shared-memory mirror
-against the constants of ``csrc/decoder_sm90.cuh``; their launch counters
-with no card. SAM's decoder widths (C = 256, Cd = 128, 8 heads, T = 7), an
+``csrc/decoder_upscale.cu``, in bf16 and in float32) on the CPU: each
+stage's plain version against the plain primitive operations it replaces,
+bitwise, in float32 and bfloat16; the kernels' shape and unit rules (128-row
+units in bf16, 64-row ones in float32); their shared-memory mirrors against
+the constants of ``csrc/decoder_sm90.cuh`` and ``csrc/decoder_f32.cuh``;
+their launch counters with no card. SAM's decoder widths (C = 256, Cd = 128, 8 heads, T = 7), an
 8x8 grid, 2 prompts. No jax."""
 
 import os
@@ -116,9 +117,26 @@ def test_unit_rule(n, units, slots, scratch):
     assert D.t2i_part_scratch(B, n, T) == scratch
 
 
+@pytest.mark.parametrize("n,units,slots,scratch", [
+    (64, 1, 1, B * 1 * T * 8 * 16),       # 8x8: one unit
+    (1000, 16, 16, B * 2 * T * 8 * 16),   # a ragged last unit
+    (1024, 16, 16, B * 2 * T * 8 * 16),   # 32x32
+    (4096, 64, 64, B * 8 * T * 8 * 16)])  # 64x64, the AMG grid
+def test_f32_unit_rule(n, units, slots, scratch):
+    """float32: 64 image rows a unit (the two warpgroups split each
+    product's columns), one token -> image partial a unit; block 1's
+    attention against the shared image (decoder_t2i_f32) takes a partial
+    of 18 floats a 512-row tile."""
+    f32 = torch.float32
+    assert D.units(n, f32) == units and D.partial_slots(n, f32) == slots
+    assert D.t2i_f32_scratch(B, n, T) == scratch * 18 // 16
+
+
 @pytest.mark.parametrize("dtype,C,Cd,heads,twt,up", [
     ("bfloat16", 256, 128, 8, True, True),    # SAM's decoder
-    ("float32", 256, 128, 8, False, False),   # f32 keeps the chain
+    ("float32", 256, 128, 8, True, True),     # f32 takes the fused kernels
+    ("float32", 128, 64, 4, False, False),    # f32 elsewhere keeps the chain
+    ("float16", 256, 128, 8, False, False),   # no kernel takes float16
     ("bfloat16", 128, 64, 4, False, False)])  # other widths keep it too
 def test_fused_route_rule(dtype, C, Cd, heads, twt, up):
     dt = getattr(torch, dtype)
@@ -153,6 +171,28 @@ def test_sm90_smem_mirror_matches_the_source():
         "kT2iRows"] == D.T2I_ROWS
 
 
+def test_f32_smem_mirror_matches_the_source():
+    """``f32_smem_bytes`` and its constants against csrc/decoder_f32.cuh
+    (with decoder_sm90.cuh's widths), under one block's 232,448 bytes: X
+    [64][256] and Q [64][128] f32, three ring slots of a [256][16] k-block
+    in both TF32 planes, three [16][132] prompt rows, the LayerNorm's
+    exchange, 8 mbarriers."""
+    c = {**_constants(os.path.join(CSRC, "decoder_sm90.cuh")),
+         **_constants(os.path.join(CSRC, "decoder_f32.cuh"))}
+    assert (c["kF32Rows"], c["kF32Stages"], c["kF32WK"],
+            c["kF32PromptLd"]) == (D.F32_UNIT_ROWS, D.F32_UNIT_STAGES,
+                                   D.F32_WK, D.F32_PROMPT_LD)
+    rows, C, Cd, tok = c["kF32Rows"], c["kUnitC"], c["kUnitCd"], c[
+        "kUnitMaxTok"]
+    x, q = rows * C * 4, rows * Cd * 4
+    slot = 2 * C * c["kF32WK"] * 4
+    prompt = 3 * tok * c["kF32PromptLd"] * 4
+    bars = 2 * c["kF32Stages"] + 2
+    assert D.f32_smem_bytes() == (1024 + x + q + c["kF32Stages"] * slot
+                                  + prompt + 2 * 2 * rows * 4 + bars * 8)
+    assert D.f32_smem_bytes() == 224064 <= D.SMEM_LIMIT
+
+
 def test_launch_counters_with_no_card(case):
     """The CPU runs the plain chain: no wrapper and no fused kernel counts
     a launch."""
@@ -161,11 +201,16 @@ def test_launch_counters_with_no_card(case):
     gen.manual_seed(1)
     before = ({k.__name__: k.launches for k in D.KERNELS},
               {k: c.launches for k, c in D.FUSED_KERNELS.items()})
-    assert set(before[1]) == {"image_stage1", "image_stage2", "t2i_part",
-                              "upscale_unit", "upscale_unit_stats"}
+    assert set(before[1]) == {
+        "image_stage1", "image_stage2", "t2i_part", "upscale_unit",
+        "upscale_unit_stats", "image_stage1_f32", "image_stage2_f32",
+        "t2i_part_f32", "t2i_f32", "upscale_unit_f32",
+        "upscale_unit_stats_f32"}
     cases = decoder_cases(torch.float32, gen, B=1, H=HW, W=HW, T=T, M=M)
     for name, (args, kw, _, _) in cases.items():
         getattr(D, name)(*args, **kw)
     after = ({k.__name__: k.launches for k in D.KERNELS},
              {k: c.launches for k, c in D.FUSED_KERNELS.items()})
     assert after == before
+    assert D.split_tf32.launches == 0 and "img2_w_hi" not in cases[
+        "decode_masks"][0][0]  # no TF32 planes are made on the CPU

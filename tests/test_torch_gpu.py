@@ -204,18 +204,103 @@ def test_decoder_fused_kernels_match_plain(cuda, B, HW, T):
                 assert torch.equal(a, b), name
 
 
-def test_decoder_other_widths_run_the_chain(cuda):
-    """bf16 at widths other than SAM's decoder (C = 128, 4 heads) takes the
-    chain of primitive kernels, held to the plain version; no fused kernel
-    launches."""
+# the fused f32 kernels one call of each wrapper launches
+_F32_FUSED = {"decode_masks": {"image_stage1_f32": 1, "image_stage2_f32": 1,
+                               "t2i_part_f32": 2, "t2i_f32": 1,
+                               "upscale_unit_stats_f32": 1},
+              "two_way_transformer": {"image_stage1_f32": 1,
+                                      "image_stage2_f32": 1,
+                                      "t2i_part_f32": 2, "t2i_f32": 1},
+              "upscale_hypernet_stats": {"upscale_unit_stats_f32": 1},
+              "upscale_hypernet": {"upscale_unit_f32": 1}}
+
+
+def _as_f64(args):
+    """A decoder case's arguments in float64 (the weights dict too)."""
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, torch.Tensor) and t.is_floating_point():
+            return t.double()
+        return t
+    return tuple(conv(a) for a in args)
+
+
+@pytest.mark.parametrize("B,HW,T", [(1, 32, 7), (1, 64, 16), (256, 32, 7),
+                                    (256, 64, 7), (3, 8, 7)])
+def test_decoder_fused_f32_kernels_match_plain(cuda, B, HW, T):
+    """float32 at SAM's decoder widths: B4-B7 on the fused f32 kernels
+    (split TF32, units of 64 rows), at two grids with B = 1 and 256 and a
+    grid of one unit: each fused f32 kernel launched as often as a call
+    needs (no bf16 one), within 1e-4 of max|plain|, the statistics exactly
+    the plain statistics of the kernel's own logits, two calls bitwise
+    equal, and each output's error against a float64 evaluation of the
+    plain version within 4x the plain float32 version's."""
+    from ullsam_tpu_torch.ops.kernels import decoder as D
+    from ullsam_tpu_torch.tools.main_path import (decoder_cases,
+                                                  decoder_outputs)
+    cases = decoder_cases(torch.float32, cuda, B=B, H=HW, W=HW, T=T, M=3)
+    for name, (args, kw, _, _) in cases.items():
+        kernel, plain = getattr(D, name), getattr(D, name + "_plain")
+        before = {k: c.launches for k, c in D.FUSED_KERNELS.items()}
+        got = kernel(*args, **kw)
+        torch.cuda.synchronize()
+        ran = {k: c.launches - before[k] for k, c in D.FUSED_KERNELS.items()
+               if c.launches != before[k]}
+        assert ran == _F32_FUSED[name], name
+        again = kernel(*args, **kw)
+        g_f, g_i, logits = decoder_outputs(name, got)
+        for a, b in zip(g_f + (g_i or ()),
+                        decoder_outputs(name, again)[0]
+                        + (decoder_outputs(name, again)[1] or ())):
+            assert torch.equal(a, b), name
+        del again
+        ref = plain(*args, **kw)
+        r_f = decoder_outputs(name, ref)[0]
+        for a, b in zip(g_f, r_f):
+            assert a.shape == b.shape and bool(torch.isfinite(a).all())
+            assert _rel_err(a, b) <= TOL["float32"], name
+        if g_i is not None:
+            for a, b in zip(g_i, D.upscale_stats_plain(logits, kw["thr"],
+                                                       kw["off"])):
+                assert torch.equal(a, b), name
+        r64 = decoder_outputs(name, plain(*_as_f64(args), **kw))[0]
+        for i, (a, b, r) in enumerate(zip(g_f, r_f, r64)):
+            err, err_plain = _rel_err64(a, r), _rel_err64(b, r)
+            assert err <= F64_RATIO * err_plain, (name, i, err, err_plain)
+        del got, ref, r64
+        torch.cuda.empty_cache()
+
+
+def test_decoder_f32_token_side_takes_the_f32_kind(cuda):
+    """float32 B4 at SAM's widths: the token side's products and the
+    hypernet MLPs' first two layers on the wgmma GEMM's f32 kind (19 + 2 M
+    launches a call, by decoder_twt's own count), the hypernets' last
+    layers (N = 32) on the FMA kernel."""
+    from ullsam_tpu_torch.ops.kernels import decoder as D
+    from ullsam_tpu_torch.tools.main_path import decoder_cases
+    (args, kw, _, _) = decoder_cases(torch.float32, cuda, B=2, H=16, W=16,
+                                     T=7, M=3)["decode_masks"]
+    D.decode_masks(*args, **kw)
+    before = D.decoder_gemm_f32.launches
+    D.decode_masks(*args, **kw)
+    torch.cuda.synchronize()
+    assert D.decoder_gemm_f32.launches - before == 19 + 2 * 3
+
+
+@pytest.mark.parametrize("dt", ["bfloat16", "float32"])
+def test_decoder_other_widths_run_the_chain(cuda, dt):
+    """bf16 and f32 at widths other than SAM's decoder (C = 128, 4 heads)
+    take the chain of primitive kernels, held to the plain version; no
+    fused kernel launches."""
     from ullsam_tpu_torch.core.config import MaskDecoderConfig
     from ullsam_tpu_torch.ops.kernels import decoder as D
     from ullsam_tpu_torch.tools.main_path import (decoder_cases,
                                                   decoder_outputs)
     cfg = MaskDecoderConfig(transformer_dim=128, transformer_num_heads=4,
                             transformer_mlp_dim=256)
-    cases = decoder_cases(torch.bfloat16, cuda, B=2, H=16, W=16, T=7, M=3,
-                          cfg=cfg)
+    cases = decoder_cases(getattr(torch, dt), cuda, B=2, H=16, W=16, T=7,
+                          M=3, cfg=cfg)
     before = {k: c.launches for k, c in D.FUSED_KERNELS.items()}
     for name, (args, kw, _, _) in cases.items():
         got = getattr(D, name)(*args, **kw)
@@ -224,7 +309,7 @@ def test_decoder_other_widths_run_the_chain(cuda):
         g_f, g_i, logits = decoder_outputs(name, got)
         for a, b in zip(g_f, decoder_outputs(name, ref)[0]):
             assert a.shape == b.shape and bool(torch.isfinite(a).all())
-            assert _rel_err(a, b) <= TOL["bfloat16"], name
+            assert _rel_err(a, b) <= TOL[dt], name
         if g_i is not None:
             for a, b in zip(g_i, D.upscale_stats_plain(logits, kw["thr"],
                                                        kw["off"])):

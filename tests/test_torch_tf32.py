@@ -14,8 +14,14 @@ with one TF32 pass misses that bar, so the test tells the two apart. So
 are the forward kernels' plain versions: B13 (``ln_mlp_plain``, both
 products on the GEMM's f32 kind), B3 (``window_attn_core_plain``: the
 rel-pos terms, q k^T and p v on the f32 window core) and B1
-(``window_attn_plain``: qkv, proj and B3's products). The card tests
-(``tests/test_torch_gpu.py``) hold the kernels themselves.
+(``window_attn_plain``: qkv, proj and B3's products). So are B4 and B6's
+plain chains (``decode_masks_plain``, ``upscale_hypernet_stats_plain``:
+every GEMM product, as the float32 fused decoder kernels and the GEMM's f32
+kind take them) at ``tests/test_torch_decoder.py``'s case: within 1e-5 of
+max|out| of the plain f32 chain, within its 1e-4 of the JAX XLA chain, and
+within 2x the plain f32 chain's own error against a float64 run of it; one
+TF32 pass misses both bounds. The card tests (``tests/test_torch_gpu.py``)
+hold the kernels themselves.
 """
 
 import jax.numpy as jnp
@@ -24,6 +30,9 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from test_torch_decoder import M, M_LO, OFF, THR
+from test_torch_decoder import HW as DEC_HW
+from test_torch_decoder import case as decoder_case  # noqa: F401 (fixture)
 from test_torch_train_kernels import (_b9_inputs, _flash_case, _pack_out,
                                       _pack_qkv, _pack_table, _rel, _unpack,
                                       _unpack_table, _window_core_case)
@@ -32,6 +41,7 @@ from ullsam_tpu.models.sam import image_encoder as JIE
 from ullsam_tpu.ops.pallas import flash_attention as JFA
 from ullsam_tpu.ops.pallas import vit_block as JVB
 from ullsam_tpu_torch.ops import attention as TA
+from ullsam_tpu_torch.ops.kernels import decoder as TD
 from ullsam_tpu_torch.ops.kernels import flash_attention as TFA
 from ullsam_tpu_torch.ops.kernels import tf32 as T
 from ullsam_tpu_torch.ops.kernels import vit_block as TVB
@@ -249,3 +259,47 @@ def test_b1_split_tf32_matches_tpu_kernel(hd):
     assert _rel(got, ref) < TOL, _rel(got, ref)
     one = TVB.window_attn_plain(*args, **kw, mm=_mm_1xtf32)
     assert _rel(one, ref) > 10 * TOL
+
+
+def _f64(t):
+    return ({k: v.double() for k, v in t.items()} if isinstance(t, dict)
+            else t.double())
+
+
+def _err64(x, ref64):
+    return float((x.double() - ref64).abs().max() / ref64.abs().max())
+
+
+@pytest.mark.parametrize("name", ["decode_masks", "upscale_hypernet_stats"])
+def test_b4_b6_split_tf32_matches_f32_chain(decoder_case, name):
+    """Plain B4 and B6 with every GEMM product in split TF32 (``mm=``, the
+    float32 fused decoder kernels' arithmetic) at C = 256, a 32x32 grid and
+    3 prompts: each float output within 1e-5 of max|out| of the plain f32
+    chain and within 1e-4 of the JAX XLA chain, and against a float64 run
+    of the plain chain within 2x the plain f32 chain's own error; one TF32
+    pass misses the first and the last."""
+    c = decoder_case
+    if name == "decode_masks":
+        fn, args = TD.decode_masks_plain, (c["w"], c["src"], c["pe"],
+                                           c["tokens"])
+        kw = dict(H=DEC_HW, W=DEC_HW, m_lo=M_LO, M=M, thr=THR, off=OFF,
+                  **c["kw"])
+        refs = (c["ref"]["q"], c["ref"]["logits"])
+    else:
+        fn = TD.upscale_hypernet_stats_plain
+        args = (c["w"], torch.tensor(c["ref"]["keys"].reshape(
+            -1, c["ref"]["keys"].shape[-1])), torch.tensor(c["ref"]["hyper"]))
+        kw = dict(H=DEC_HW, W=DEC_HW, thr=THR, off=OFF)
+        refs = (c["ref"]["logits"],)
+    n = len(refs)
+    f32 = fn(*args, **kw)[:n]
+    tf3 = fn(*args, **kw, mm=T.mm_3xtf32)[:n]
+    one = fn(*args, **kw, mm=_mm_1xtf32)[:n]
+    r64 = fn(*(_f64(a) for a in args), **kw)[:n]
+    for i, (a, b, o, r, x) in enumerate(zip(tf3, f32, one, r64, refs)):
+        assert r.dtype == torch.float64 and a.shape == b.shape
+        assert _rel(a, b) < TOL, (i, _rel(a, b))
+        np.testing.assert_allclose(a.numpy(), x, atol=1e-4, err_msg=str(i))
+        e3, e32, e1 = _err64(a, r), _err64(b, r), _err64(o, r)
+        assert e3 <= 2 * e32, (i, e3, e32)
+        assert _rel(o, b) > TOL and e1 > 2 * e32, (i, _rel(o, b), e1, e32)

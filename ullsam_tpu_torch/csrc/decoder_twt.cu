@@ -10,8 +10,12 @@
 //   * decoder_gemm: gemm.cuh (bf16 mma.sync / f32 FMA) with bias, a residual
 //     shared across row blocks, ReLU, bf16 or f32 output: the token
 //     projections and MLP for all prompts at once ([B*T, C] rows) and the
-//     hypernet MLPs; in f32 (and bf16 at other widths) also the per-prompt
-//     image-side products ([B*N, C] rows) and both upscale products.
+//     hypernet MLPs; at other widths also the per-prompt image-side
+//     products ([B*N, C] rows) and both upscale products. In f32 the
+//     shapes gemm_sm90.cuh's kernel takes (N % 128 == 0, K % 64 == 0, a
+//     plain residual) run its f32 kind (split TF32, ReLU as its epilogue's
+//     activation): every token-side product at SAM's widths and the
+//     hypernet MLPs' first two layers; the rest gemm.cuh's FMA kernel.
 //   * decoder_ln: row LayerNorm, one-pass f32 statistics.
 //   * decoder_self_attn: token self-attention, one block per (prompt, head).
 //   * decoder_t2i: token -> image attention over all N image rows, split
@@ -20,12 +24,14 @@
 //     normalises each probability with the whole row's max and sum, rounds
 //     it and accumulates p.v per tile; a third sums the tiles. Keys and
 //     values are shared (batch stride 0: block 1, against the image's k1 /
-//     v1, on every route) or per prompt (the f32 chain).
+//     v1; in f32 at SAM's widths decoder_image.cu's decoder_t2i_f32 takes
+//     it) or per prompt (the chain at other widths).
 //   * decoder_i2t: image -> token attention, one thread per (image row,
 //     head) over the <= 16 tokens, which sit in shared memory (f32 chain).
-// In bf16 at SAM's widths (C = 256, Cd = 128, 8 heads) the per-prompt image
-// side runs decoder_image.cu's two stages and token -> image attention
-// instead, and the upscale decoder_upscale.cu's fused kernel.
+// At SAM's widths (C = 256, Cd = 128, 8 heads), in bf16 and in f32, the
+// per-prompt image side runs decoder_image.cu's two stages and token ->
+// image attention instead, and the upscale decoder_upscale.cu's fused
+// kernels.
 //
 // What bounds it on this card. The token side at the AMG chunk (256
 // prompts, T = 7, B*T = 1792 rows): launches and latency; its products are
@@ -36,7 +42,8 @@
 // 256). The chain in bf16: bytes; the same products do 43-154 flop a byte
 // against the 295 the tensor cores need, and each [B*N, .] intermediate
 // passes through device memory between kernels (about 14.5 GB a chunk at
-// SAM's widths, which is why bf16 there takes the fused kernels).
+// SAM's widths in bf16, twice that in f32, which is why both dtypes there
+// take the fused kernels).
 //
 // The TPU layout tricks are gone: tokens are not padded to 16 (the T real
 // tokens are all there is), heads are indexed directly (16 wide in the
@@ -49,7 +56,7 @@
 // outputs.
 #include <math_constants.h>
 
-#include "gemm.cuh"
+#include "gemm_sm90.cuh"
 
 namespace ullsam {
 namespace {
@@ -419,11 +426,17 @@ extern "C" int decoder_gemm(int dtype, int out_f32, const void* A,
   if (M <= 0 || N <= 0 || (res && res_rows <= 0)) return cudaErrorInvalidValue;
   if (dtype == kF32) {
     if (K % kGemmBK) return cudaErrorInvalidValue;
-    return gemm_nt(static_cast<const float*>(A),
-                   static_cast<const float*>(W),
-                   static_cast<const float*>(bias),
-                   static_cast<const float*>(res), res_rows,
-                   static_cast<float*>(out), M, N, K, relu, st);
+    const auto* a = static_cast<const float*>(A);
+    const auto* w = static_cast<const float*>(W);
+    const auto* bs = static_cast<const float*>(bias);
+    const auto* rs = static_cast<const float*>(res);
+    auto* o = static_cast<float*>(out);
+    // the wgmma GEMM's f32 kind (split TF32) where it takes the shape and
+    // the residual is a plain one (not shared across row blocks)
+    if ((!rs || res_rows == M) && aligned16(a, w, bs, rs, o) &&
+        sm90_takes(M, N, K))
+      return gemm_f32_sm90_launch(a, w, bs, rs, o, M, N, K, relu, st);
+    return gemm_nt(a, w, bs, rs, res_rows, o, M, N, K, relu, st);
   }
   if (dtype != kBF16 || K % kMmaBK || N % 8) return cudaErrorInvalidValue;
   const auto* a = static_cast<const __nv_bfloat16*>(A);

@@ -4,8 +4,9 @@
 // Replaces the TPU kernels ullsam_tpu/ops/pallas/decoder.py `_upscale_kernel`
 // (:98, B7, entry `fused_upscale_hypernet`), `_upscale_stats_kernel` (:107)
 // + `_stats_of_block` (:148) (B6, entry `fused_upscale_hypernet_stats`) and
-// the upscale half of `_decode_kernel` (:835, B4). Two implementations,
-// chosen by ullsam_tpu_torch/ops/kernels/decoder.py (`fused_upscale`):
+// the upscale half of `_decode_kernel` (:835, B4). Three implementations,
+// chosen by ullsam_tpu_torch/ops/kernels/decoder.py (`fused_upscale`, the
+// dtype):
 //
 // bf16 at SAM's width (C = 256): one kernel, upscale_unit (decoder_sm90.cuh's
 // units and pipeline), everything per (prompt, 128 pixels) on chip: u1 =
@@ -24,7 +25,10 @@
 // epilogues on the CUDA cores, with two consumer warpgroups an SM to hide
 // their latency.
 //
-// Every other dtype and width (the f32 route): the chain
+// float32 at SAM's width: upscale_unit_f32 (below; decoder_f32.cuh's units
+// of 64 pixels, split TF32, exact erf GELUs), everything on chip as bf16's.
+//
+// Every other width: the chain
 //   1. u1 = keys @ convT1 + b1, f32 out        decoder_gemm (decoder_twt.cu)
 //   2. grouped LayerNorm over the four 2x2 sub-pixel groups, exact GELU,
 //      rounded                                  decoder_ln_gelu (here)
@@ -35,8 +39,9 @@
 //      [B, M, 4H, 4W] logits                   decoder_upscale_out (here)
 //   5. B6 only: hi / lo pixel counts at thr +- off and the row / column
 //      occupancy of logits > thr               decoder_mask_stats (here)
-// whose f32 products are operations-bound on the CUDA cores, and whose
-// intermediates (u1 1 GiB in f32, u2 1 GiB) pass through device memory.
+// whose f32 products run on the CUDA cores, and whose intermediates pass
+// through device memory (at SAM's width and the AMG chunk u1 and u2 would
+// be 1 GiB each in f32: 11.3 ms where upscale_unit_f32 takes 3.5).
 //
 // The TPU layout tricks are gone: the logits are written in the natural
 // spatial layout, not the block-column [B, N, M*16] one; convT2 is one
@@ -44,7 +49,7 @@
 // [C, 2C] one; the statistics need no placement matmuls. The counts and
 // the occupancy are integers, so block reductions plus atomicAdd / atomicOr
 // across blocks give exact, order-free results.
-#include "decoder_sm90.cuh"
+#include "decoder_f32.cuh"
 
 namespace ullsam {
 namespace {
@@ -560,6 +565,247 @@ int upscale_fused_launch(bool stats, const UpArgs& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+
+// ---- the fused float32 upscale (B7, and B6 with kStats) ------------------
+//
+// decoder_f32.cuh's units (prompt b, 64 pixels), products in split TF32:
+//   u1 = keys[rows] . W1^T + b1 (warpgroup wg columns 128 wg .., the
+//        sub-pixel groups (di, dj) = 2 wg, 2 wg + 1 whole), the grouped
+//        LayerNorm of each (pixel, group) over the quad (two passes) and
+//        the exact GELU (erff), into X;
+//   per group (di, dj): u2 = u1[:, 64 group ..] . W2^T + b2 (m64n64, K =
+//        64; warpgroup wg the sub-pixels (ei, ej) = (wg, 0), (wg, 1)), the
+//        exact GELU, and the hypernetwork dot of each sub-pixel's 32 values
+//        with hyper[b, m] (quad sums) into the logit staging [M][4 rows][64
+//        pixels][4 columns] f32 in Q;
+//   the staging out to the spatial logits, 16 bytes (4 columns) at a time,
+//        and with kStats the statistics of those values: counts by warp
+//        sums and atomicAdd, row occupancy by one atomicOr a set of lanes
+//        on one logit row (__match_any_sync), column occupancy by atomicOr.
+//        All integer, so exact and order-free.
+// No value rounds but f32 itself. What bounds it: by the data sheet,
+// operations (0.21 TFLOP of products at the AMG chunk: 1.25 ms at 495 / 3
+// TFLOP/s, against 1.07 GB of keys and 0.20 GB of logits, 0.38 ms). Each
+// unit reads W1's planes (512 KB) and W2's for each group (64 KB) from L2.
+
+struct UpF32Args {
+  CUtensorMap keys;          // [B*N, 256], boxes [64][32]
+  CUtensorMap w1_hi, w1_lo;  // convT1 as [256, 256]
+  CUtensorMap w2_hi, w2_lo;  // convT2 as [128, 64]
+  const float *b1, *lnw, *lnb, *b2;
+  const float* hyper;  // [B, M, 32]
+  float* out;          // [B, M, 4H, 4W]
+  int *counts, *rowany, *colany;
+  int B, N, H, W, M, U;
+  float hi_t, lo_t, thr, eps;
+};
+
+template <bool kStats>
+__global__ void __launch_bounds__(kUnitThreads, 1)
+    upscale_unit_f32(const __grid_constant__ UpF32Args a) {
+  extern __shared__ unsigned char smraw[];
+  const F32Smem sm(smraw);
+  const int tid = threadIdx.x;
+  if (tid == 0) sm.init();
+  __syncthreads();
+  const int units = a.B * a.U;
+  if (tid >= 256) {  // the producer warpgroup: one thread issues
+    producer_registers();
+    if (tid == 256) {
+      F32Producer p(sm);
+      int k = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x, ++k) {
+        const int tile = u / a.B, b = u % a.B;
+        p.rows(sm.x, &a.keys, 8, b * a.N + tile * kF32Rows, k);
+        for (int kb = 0; kb < kUnitC / kF32WK; ++kb)
+          p.weights(&a.w1_hi, &a.w1_lo, kb, kUnitC);
+        for (int gq = 0; gq < 4; ++gq)
+          for (int kb = 0; kb < 64 / kF32WK; ++kb)
+            p.weights(&a.w2_hi, &a.w2_lo, kb, kUnitCd);
+      }
+    }
+    return;
+  }
+
+  consumer_registers();
+  F32Consumer c(sm, tid);
+  const int lane = tid & 31, c0 = 128 * c.wg, c2 = 64 * c.wg;
+  float* stg = sm.q;  // [M][4 rows][64 pixels][4 columns]
+  const int H4 = 4 * a.H, W4 = 4 * a.W;
+  int k = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++k) {
+    const int tile = u / a.B, b = u % a.B, n0 = tile * kF32Rows;
+    const int nvalid = min(kF32Rows, a.N - n0);
+    c.wait_rows(k);
+    {
+      float acc[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      f32_acc_bias<16>(acc, a.b1 + c0, c.tq);
+      c.gemm<16>(acc, sm.x, kUnitC / kF32WK, kUnitC, c0);
+      // grouped LayerNorm: group gl = i >> 3 of the warpgroup's two (64
+      // columns, all in the quad), mean then variance
+      float m[2][2], rs[2][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int gl = 0; gl < 2; ++gl) {
+          float s = 0.f;
+#pragma unroll
+          for (int i = 8 * gl; i < 8 * gl + 8; ++i)
+            s += acc[4 * i + 2 * h] + acc[4 * i + 2 * h + 1];
+          m[h][gl] = quad_sum(s) * (1.f / 64);
+          float d2 = 0.f;
+#pragma unroll
+          for (int i = 8 * gl; i < 8 * gl + 8; ++i)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float d = acc[4 * i + 2 * h + e] - m[h][gl];
+              d2 = fmaf(d, d, d2);
+            }
+          rs[h][gl] = 1.f / sqrtf(quad_sum(d2) * (1.f / 64) + a.eps);
+        }
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int cc = 8 * (i & 7) + 2 * c.tq;
+        const float2 wf = __ldg(reinterpret_cast<const float2*>(a.lnw + cc));
+        const float2 bf = __ldg(reinterpret_cast<const float2*>(a.lnb + cc));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float y = (acc[4 * i + e] - m[e >> 1][i >> 3]) *
+                              rs[e >> 1][i >> 3] * ((e & 1) ? wf.y : wf.x) +
+                          ((e & 1) ? bf.y : bf.x);
+          acc[4 * i + e] = gelu_erf(y);
+        }
+      }
+      f32_acc_store<16>(sm.x, acc, c0, c);
+    }
+    fence_proxy_async();  // X's next rows come by TMA
+    c.sync();
+
+    // this thread's hypernet columns: hv[m][2j + e] = hyper[b, m, 8j + 2tq
+    // + e] (0 past M)
+    float hv[kMaxMasks][8];
+#pragma unroll
+    for (int m = 0; m < kMaxMasks; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float2 f = make_float2(0.f, 0.f);
+        if (m < a.M)
+          f = __ldg(reinterpret_cast<const float2*>(
+              a.hyper + ((size_t)b * a.M + m) * 32 + 8 * j + 2 * c.tq));
+        hv[m][2 * j] = f.x;
+        hv[m][2 * j + 1] = f.y;
+      }
+#pragma unroll 1
+    for (int gq = 0; gq < 4; ++gq) {  // (di, dj)
+      float d[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) d[i] = 0.f;
+      f32_acc_bias<8>(d, a.b2 + c2, c.tq);
+      c.gemm<8>(d, sm.x + 2 * gq * kF32TileKB, 64 / kF32WK, kUnitCd, c2);
+      // the last product read X: the next unit's rows may land there
+      // while this one's dots, logits and statistics run
+      if (gq == 3 && c.chief) mbar_arrive(sm.xempty);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) d[i] = gelu_erf(d[i]);
+      const int di = gq >> 1, dj = gq & 1;
+      // sub-pixel (ei, ej) = (wg, el): columns 32 el .. 32 el + 31 of the
+      // warpgroup's 64, this thread's d[4 (4 el + j) + 2h + (0, 1)]
+#pragma unroll
+      for (int m = 0; m < kMaxMasks; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int el = 0; el < 2; ++el) {
+            float q0 = 0.f, q1 = 0.f;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              q0 = fmaf(d[4 * (4 * el + j) + 2 * h], hv[m][2 * j], q0);
+              q1 = fmaf(d[4 * (4 * el + j) + 2 * h + 1], hv[m][2 * j + 1],
+                        q1);
+            }
+            const float v = quad_sum(q0 + q1);
+            if (m < a.M && c.tq == 0)
+              stg[((m * 4 + 2 * di + c.wg) * 64 + c.row(h)) * 4 + 2 * dj +
+                  el] = v;
+          }
+    }
+    c.sync();
+
+    // the staged logits out, and their statistics
+#pragma unroll 1
+    for (int base = 0; base < 64 * a.M; base += 256) {
+      const int idx = base + c.t;
+      if (idx >= 64 * a.M) continue;  // whole warps
+      const int m = idx >> 6, p = idx & 63;
+      const bool valid = p < nvalid;
+      const int n = n0 + p;
+      const int i = valid ? n / a.W : 0, j = valid ? n - i * a.W : 0;
+      const size_t plane = (size_t)b * a.M + m;
+      int hi = 0, lo = 0;
+      unsigned rowbits = 0, colbits = 0;
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(stg + ((m * 4 + s) * 64 + p) * 4);
+        if (!valid) continue;
+        *reinterpret_cast<float4*>(a.out + (plane * H4 + 4 * i + s) * W4 +
+                                   4 * j) = v;
+        if (kStats) {
+          const float f[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            hi += f[e] > a.hi_t;
+            lo += f[e] > a.lo_t;
+            const unsigned bit = f[e] > a.thr;
+            rowbits |= bit << s;
+            colbits |= bit << e;
+          }
+        }
+      }
+      if (kStats) {
+        hi = __reduce_add_sync(0xffffffffu, hi);
+        lo = __reduce_add_sync(0xffffffffu, lo);
+        if (lane == 0) {
+          atomicAdd(a.counts + 2 * plane, hi);
+          atomicAdd(a.counts + 2 * plane + 1, lo);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if ((colbits >> q) & 1)
+            atomicOr(a.colany + plane * W4 + 4 * j + q, 1);
+        const unsigned grp = __match_any_sync(0xffffffffu, valid ? i : -1);
+        const bool leader = valid && __ffs(grp) - 1 == lane;
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const unsigned bits = __ballot_sync(0xffffffffu, (rowbits >> s) & 1);
+          if (leader && (bits & grp))
+            atomicOr(a.rowany + plane * H4 + 4 * i + s, 1);
+        }
+      }
+    }
+  }
+}
+
+int upscale_f32_launch(bool stats, const UpF32Args& a, cudaStream_t st) {
+  static const cudaError_t attr[2] = {
+      cudaFuncSetAttribute(upscale_unit_f32<false>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kF32SmemBytes),
+      cudaFuncSetAttribute(upscale_unit_f32<true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kF32SmemBytes)};
+  if (attr[stats] != cudaSuccess) return (int)attr[stats];
+  const int units = a.B * a.U;
+  const int grid = units < sm_count() ? units : sm_count();
+  if (stats)
+    upscale_unit_f32<true><<<grid, kUnitThreads, kF32SmemBytes, st>>>(a);
+  else
+    upscale_unit_f32<false><<<grid, kUnitThreads, kF32SmemBytes, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace ullsam
 
@@ -659,4 +905,48 @@ extern "C" int decoder_upscale_fused(int stats, const void* keys,
       !make_map(&a.w2, w2, kUnitCd, 64, kUnitCd))
     return cudaErrorInvalidValue;
   return upscale_fused_launch(stats != 0, a, st);
+}
+
+// The fused float32 upscale at SAM's decoder width (the arguments of
+// decoder_upscale_fused, every tensor float32), on upscale_unit_f32: W1 and
+// W2 as their hi and lo planes (decoder_split_tf32)
+extern "C" int decoder_upscale_fused_f32(
+    int stats, const void* keys, const void* w1_hi, const void* w1_lo,
+    const void* b1, const void* lnw, const void* lnb, const void* w2_hi,
+    const void* w2_lo, const void* b2, const void* hyper, void* out,
+    int* counts, int* rowany, int* colany, int B, int H, int W, int M,
+    float hi_t, float lo_t, float thr, float eps, void* stream) {
+  using namespace ullsam;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B < 1 || H < 1 || W < 1 || M < 1 || M > kMaxMasks ||
+      (stats && !(counts && rowany && colany)))
+    return cudaErrorInvalidValue;
+  using F = const float*;
+  UpF32Args a{};
+  a.b1 = static_cast<F>(b1);
+  a.lnw = static_cast<F>(lnw);
+  a.lnb = static_cast<F>(lnb);
+  a.b2 = static_cast<F>(b2);
+  a.hyper = static_cast<F>(hyper);
+  a.out = static_cast<float*>(out);
+  a.counts = counts;
+  a.rowany = rowany;
+  a.colany = colany;
+  a.B = B;
+  a.N = H * W;
+  a.H = H;
+  a.W = W;
+  a.M = M;
+  a.U = f32_units(a.N);
+  a.hi_t = hi_t;
+  a.lo_t = lo_t;
+  a.thr = thr;
+  a.eps = eps;
+  if (!make_map(&a.keys, keys, B * a.N, kUnitC, kF32Rows, kMapF32) ||
+      !make_map_w64(&a.w1_hi, w1_hi, kUnitC, kUnitC, kUnitC) ||
+      !make_map_w64(&a.w1_lo, w1_lo, kUnitC, kUnitC, kUnitC) ||
+      !make_map_w64(&a.w2_hi, w2_hi, kUnitCd, 64, kUnitCd) ||
+      !make_map_w64(&a.w2_lo, w2_lo, kUnitCd, 64, kUnitCd))
+    return cudaErrorInvalidValue;
+  return upscale_f32_launch(stats != 0, a, st);
 }

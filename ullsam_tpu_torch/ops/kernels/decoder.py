@@ -27,18 +27,28 @@ stages from the primitives). Three ops objects:
   wrapper's plain version (``*_plain``) is the chain on ``_PLAIN``;
 * ``_CUDA``: the primitives as hand-written kernels (``csrc/decoder_twt.cu``,
   ``csrc/decoder_upscale.cu``), the stages composed from them, every
-  intermediate through device memory: float32, and bf16 at widths other
-  than SAM's decoder;
+  intermediate through device memory: widths other than SAM's decoder;
 * ``_CUDA_FUSED`` (bf16 at SAM's widths, ``fused_twt`` / ``fused_upscale``):
   the token side as ``_CUDA``; the image stages, their token -> image
   attention and the upscale on the wgmma + TMA kernels of
   ``csrc/decoder_image.cu`` and ``csrc/decoder_upscale.cu``, which keep
   each unit of (prompt, 128 image rows)'s intermediates on chip
-  (``csrc/decoder_sm90.cuh``; their notes say what bounds them).
+  (``csrc/decoder_sm90.cuh``; their notes say what bounds them);
+* ``_CUDA_FUSED_F32`` (float32 at SAM's widths): the same stages on the
+  float32 kernels of those files, units of (prompt, 64 image rows), their
+  products in split TF32 on wgmma (``csrc/decoder_f32.cuh``), each weight
+  read as its hi and lo TF32 planes (``tf32_planes``, made once when the
+  weights are packed); the token -> image attentions split as flash
+  decoding splits them (each unit's max, sum and sum of exp(s - max) v,
+  combined per prompt); the token side's products on the wgmma GEMM's f32
+  kind where it takes the shape.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernels or raises. The shared image-side projections (the JAX
-package's ``_twt_prologue``) are plain matmuls, ``image_side``: a caller
+launches the kernels or raises. The plain versions take ``mm`` for their
+GEMMs' products (``tf32.mm_3xtf32``: the float32 kernels' split TF32), and
+float64 inputs compute in float64 throughout. The shared image-side
+projections (the JAX package's ``_twt_prologue``) are plain matmuls,
+``image_side``: a caller
 that decodes many chunks of prompts against one image (the sweep) computes
 them once and passes them to every chunk's ``two_way_transformer`` /
 ``decode_masks`` as ``image``; without it each call computes them itself.
@@ -49,7 +59,8 @@ attention probabilities and outputs; the upscale's first product stays f32
 through its grouped LayerNorm and exact GELU, the second is rounded, its
 GELU (tanh in bf16, erf in f32, as ``layers.gelu``) rounded again before the
 hypernet dot (the fused bf16 upscale takes erf and tanh by approximations
-far under the bf16 rounding that follows them). Counters: B4, B5, B6 and B7 each count their CUDA launches;
+far under the bf16 rounding that follows them; float32 takes erff for
+both). Counters: B4, B5, B6 and B7 each count their CUDA launches;
 B4 runs B5 and B6, and B6 runs B7, so each stage counts too;
 ``FUSED_KERNELS`` counts each fused kernel's launches.
 """
@@ -64,6 +75,7 @@ import torch.nn.functional as F
 
 from ullsam_tpu_torch.ops import layers as L
 from ullsam_tpu_torch.ops.kernels import build
+from ullsam_tpu_torch.ops.kernels import gemm as G
 
 Tensor = torch.Tensor
 Weights = Dict[str, Tensor]
@@ -93,15 +105,38 @@ def sm90_smem_bytes() -> int:
             + (2 * UNIT_STAGES + 4) * 8)
 
 
-def units(N: int) -> int:
-    """Work units a prompt of N image rows (``decoder_image_units``)."""
-    return -(-N // UNIT_ROWS)
+# The fused float32 kernels' unit (csrc/decoder_f32.cuh): 64 image rows,
+# the two consumer warpgroups splitting each product's columns
+F32_UNIT_ROWS = 64       # kF32Rows
+F32_UNIT_STAGES = 3      # kF32Stages: weight ring slots
+F32_WK = 16              # kF32WK: K of a weight k-block (64 bytes)
+F32_PROMPT_LD = 132      # kF32PromptLd: floats a prompt row (128, padded)
 
 
-def partial_slots(N: int) -> int:
+def f32_smem_bytes() -> int:
+    """``kF32SmemBytes``: 1024 bytes to align, the X tile [64][256] and the
+    Q tile [64][128] f32, the weight ring of slots of a [256][16] f32
+    k-block in each of the hi and lo planes, three [16][132] f32 prompt
+    rows, the LayerNorm's exchange [2][2][64] f32, a full and an empty
+    mbarrier a slot, xfull and xempty."""
+    return (1024 + F32_UNIT_ROWS * UNIT_C * 4 + F32_UNIT_ROWS * UNIT_CD * 4
+            + F32_UNIT_STAGES * 2 * UNIT_C * F32_WK * 4
+            + 3 * UNIT_MAX_TOK * F32_PROMPT_LD * 4
+            + 2 * 2 * F32_UNIT_ROWS * 4 + (2 * F32_UNIT_STAGES + 2) * 8)
+
+
+def units(N: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Work units a prompt of N image rows: 128-row units in bf16
+    (``image_units``), 64-row ones in float32 (``f32_units``)."""
+    rows = F32_UNIT_ROWS if dtype == torch.float32 else UNIT_ROWS
+    return -(-N // rows)
+
+
+def partial_slots(N: int, dtype: torch.dtype = torch.bfloat16) -> int:
     """Token -> image logit partials a (prompt, token, head): one for each
-    warpgroup's 64 rows of a unit."""
-    return 2 * units(N)
+    warpgroup's 64 rows of a bf16 unit, one a float32 unit (whose two
+    warpgroups share its 64 rows)."""
+    return units(N, dtype) * (1 if dtype == torch.float32 else 2)
 
 
 def t2i_part_scratch(B: int, N: int, T: int, heads: int = UNIT_HEADS) -> int:
@@ -110,17 +145,25 @@ def t2i_part_scratch(B: int, N: int, T: int, heads: int = UNIT_HEADS) -> int:
     return B * -(-N // T2I_ROWS) * T * heads * 16
 
 
+def t2i_f32_scratch(B: int, N: int, T: int, heads: int = UNIT_HEADS) -> int:
+    """f32 scratch of ``decoder_t2i_f32``: a partial (max, sum exp and 16
+    sums) per (prompt, 512-row tile, token, head). The float32 stages'
+    token -> image attention (``decoder_t2i_part_f32``) takes none: its
+    partials are the stages' outputs."""
+    return B * -(-N // T2I_ROWS) * T * heads * (2 + 16)
+
+
 def fused_twt(dtype: torch.dtype, C: int, Cd: int, heads: int) -> bool:
-    """Whether B5 runs the fused bf16 image stages: bf16 at SAM's decoder
-    widths. Every other dtype and width runs the chain of primitive
+    """Whether B5 runs the fused image stages: bf16 or float32 at SAM's
+    decoder widths. Every other width runs the chain of primitive
     kernels."""
-    return dtype == torch.bfloat16 and (C, Cd, heads) == (
+    return dtype in _DTYPE_CODE and (C, Cd, heads) == (
         UNIT_C, UNIT_CD, UNIT_HEADS)
 
 
 def fused_upscale(dtype: torch.dtype, C: int) -> bool:
-    """Whether B6 / B7 run the fused bf16 upscale (C = 256)."""
-    return dtype == torch.bfloat16 and C == UNIT_C
+    """Whether B6 / B7 run the fused upscale (bf16 or float32, C = 256)."""
+    return dtype in _DTYPE_CODE and C == UNIT_C
 
 
 # ---------------------------------------------------------------------------
@@ -185,12 +228,44 @@ def pack_weights(md, dtype: torch.dtype) -> Weights:
     w["img2_w"] = torch.cat([w["l1.t2i_k_w"], w["l1.t2i_v_w"],
                              w["l1.i2t_q_w"]])
     w["imgf_w"] = torch.cat([w["fin_k_w"], w["fin_v_w"]])
+    C, Cd = w["up1_w"].shape[0], w["l0.t2i_q_w"].shape[0]
+    if (dtype == torch.float32 and w["img2_w"].is_cuda
+            and fused_twt(dtype, C, Cd, tw.layers[0].self_attn.num_heads)):
+        tf32_planes(w)
     return w
+
+
+# the weights the fused float32 kernels multiply by, as hi / lo TF32 planes
+TF32_PLANES = ("l0.i2t_out_w", "l1.i2t_out_w", "img2_w", "imgf_w", "up1_w",
+               "up2_w")
+
+
+def tf32_planes(w: Weights) -> Weights:
+    """Adds ``name + "_hi"`` = tf32(x) and ``name + "_lo"`` = tf32(x - hi)
+    (to nearest, ties away) of each float32 CUDA weight of
+    ``TF32_PLANES`` that lacks them, one ``decoder_split_tf32`` launch each
+    (counted by ``split_tf32``); returns w."""
+    for name in TF32_PLANES:
+        if name + "_hi" in w:
+            continue
+        x = w[name].contiguous()
+        hi, lo = torch.empty_like(x), torch.empty_like(x)
+        _launch("decoder_split_tf32", x, _ptr(x), _ptr(hi), _ptr(lo),
+                x.numel())
+        split_tf32.launches += 1
+        w[name + "_hi"], w[name + "_lo"] = hi, lo
+    return w
+
+
+def _w32(t: Tensor) -> Tensor:
+    """t in the plain chain's working type: float64 stays float64 (a
+    reference evaluation), every other dtype f32."""
+    return t if t.dtype == torch.float64 else t.float()
 
 
 def _lin32(x: Tensor, w: Weights, name: str) -> Tensor:
     """x @ W^T + b in f32 (the shared per-image projections)."""
-    return x.float() @ w[name + "_w"].float().T + w[name + "_b"].float()
+    return _w32(x) @ _w32(w[name + "_w"]).T + _w32(w[name + "_b"])
 
 
 # ---------------------------------------------------------------------------
@@ -201,7 +276,7 @@ def _lin32(x: Tensor, w: Weights, name: str) -> Tensor:
 def _heads_split(x: Tensor, batch: int, heads: int) -> Tensor:
     """[batch * n, h * d] -> [batch, h, n, d] in f32."""
     n = x.shape[0] // batch
-    return x.reshape(batch, n, heads, -1).transpose(1, 2).float()
+    return _w32(x.reshape(batch, n, heads, -1).transpose(1, 2))
 
 
 def _heads_merge(x: Tensor, dtype) -> Tensor:
@@ -218,7 +293,7 @@ def _attend(q: Tensor, k: Tensor, v: Tensor, qb: int, kb: int,
     qh = _heads_split(q, qb, heads)
     kh, vh = _heads_split(k, kb, heads), _heads_split(v, kb, heads)
     logits = qh @ kh.transpose(-1, -2) * qh.shape[-1] ** -0.5
-    p = torch.softmax(logits, dim=-1).to(q.dtype).float()
+    p = _w32(torch.softmax(logits, dim=-1).to(q.dtype))
     return _heads_merge(p @ vh, q.dtype)
 
 
@@ -279,15 +354,18 @@ class _Stages:
 
 
 class _PlainOps(_Stages):
-    """The primitive operations in plain PyTorch."""
+    """The primitive operations in plain PyTorch; ``mm`` takes the GEMMs'
+    products."""
 
-    @staticmethod
-    def gemm(a, w, b=None, res=None, relu=False, out_f32=False):
-        y = a.float() @ w.float().T
+    def __init__(self, mm=torch.matmul):
+        self.mm = mm
+
+    def gemm(self, a, w, b=None, res=None, relu=False, out_f32=False):
+        y = self.mm(_w32(a), _w32(w).T)
         if b is not None:
-            y = y + b.float()
+            y = y + _w32(b)
         if res is not None:
-            y = (y.view(-1, res.shape[0], y.shape[1]) + res.float()).view(
+            y = (y.view(-1, res.shape[0], y.shape[1]) + _w32(res)).view(
                 y.shape)
         if relu:
             y = y.relu()
@@ -321,7 +399,7 @@ class _PlainOps(_Stages):
         g = u.view(u.shape[0], 4, -1)
         m1 = g.mean(-1, keepdim=True)
         var = ((g * g).mean(-1, keepdim=True) - m1 * m1).clamp_min(0.0)
-        y = (g - m1) * torch.rsqrt(var + eps) * w.float() + b.float()
+        y = (g - m1) * torch.rsqrt(var + eps) * _w32(w) + _w32(b)
         return F.gelu(y).reshape(u.shape).to(dtype)
 
     @staticmethod
@@ -329,15 +407,15 @@ class _PlainOps(_Stages):
         """u2 [B*H*W, 16 * C8] (sub-pixels (di, dj, ei, ej)), hyper
         [B, M, C8] -> logits [B, M, 4H, 4W]."""
         B, M, C8 = hyper.shape
-        g = L.gelu(u2).float().view(B, H, W, 2, 2, 2, 2, C8)
-        out = torch.einsum("bhwijklc,bmc->bmhikwjl", g, hyper.float())
+        g = _w32(L.gelu(u2)).view(B, H, W, 2, 2, 2, 2, C8)
+        out = torch.einsum("bhwijklc,bmc->bmhikwjl", g, _w32(hyper))
         return out.reshape(B, M, 4 * H, 4 * W).to(u2.dtype)
 
     @staticmethod
     def stats(logits, thr, off):
         """(counts [B, M, 2] of logits > thr + off and > thr - off, rowany
         [B, M, 4H], colany [B, M, 4W] of logits > thr), int32."""
-        x = logits.float()
+        x = _w32(logits)
         hi = (x > thr + off).sum((-2, -1))
         lo = (x > thr - off).sum((-2, -1))
         z = x > thr
@@ -369,6 +447,14 @@ _SIGNATURES = {
     "decoder_t2i_part": ("decoder_image", [_P] * 5 + [_I, _I, _I, _F, _P]),
     "decoder_upscale_fused": ("decoder_upscale", [_I] + [_P] * 12
                               + [_I] * 4 + [_F] * 4 + [_P]),
+    "decoder_image_stage_f32": ("decoder_image", [_I] + [_P] * 20
+                                + [_I, _I, _I, _F, _F, _P]),
+    "decoder_t2i_part_f32": ("decoder_image", [_P] * 3 + [_I] * 3 + [_P]),
+    "decoder_split_tf32": ("decoder_image", [_P, _P, _P, _LL, _P]),
+    "decoder_t2i_f32": ("decoder_image", [_P, _P, _P, _I, _LL, _P, _P, _I,
+                                          _I, _I, _F, _P]),
+    "decoder_upscale_fused_f32": ("decoder_upscale", [_I] + [_P] * 14
+                                  + [_I] * 4 + [_F] * 4 + [_P]),
 }
 
 
@@ -566,24 +652,136 @@ class _CudaFusedOps(_CudaOps):
         return out if st is None else (out, *st)
 
 
+class _CudaFusedF32Ops(_CudaOps):
+    """float32 at SAM's decoder widths: ``_CudaFusedOps``'s stages on the
+    float32 kernels of ``csrc/decoder_image.cu`` and
+    ``csrc/decoder_upscale.cu`` (units of 64 image rows, split TF32), each
+    weight they multiply by read as its TF32 planes (``tf32_planes``);
+    block 1's token -> image attention on ``decoder_t2i_f32``; every other
+    operation as ``_CudaOps``. The stages' ``carry`` is [keys1
+    [B*N, C]]."""
+
+    @staticmethod
+    def _stage(stage, w, img, rows, kt, vt, qt, B, heads, eps):
+        src = img["src"]
+        N, C = src.shape
+        T, Cd = kt.shape[0] // B, kt.shape[1]
+        keys, kv = (torch.empty(B * N, C, device=src.device, dtype=src.dtype)
+                    for _ in range(2))
+        # each unit's token -> image partials: (max, sum exp) and the 16
+        # sums of exp(s - max) v of each (token, head)
+        ml, po = (torch.empty((B, partial_slots(N, src.dtype), T * heads, n),
+                              device=src.device, dtype=torch.float32)
+                  for n in (2, Cd // heads))
+        tf32_planes(w)
+        blk = f"l{stage - 1}."
+        kvw = "img2_w" if stage == 1 else "imgf_w"
+        _launch("decoder_image_stage_f32", src, stage, _ptr(rows), _ptr(src),
+                _ptr(img["res2"]), _ptr(img["resf"]),
+                _ptr(w[blk + "i2t_out_w_hi"]), _ptr(w[blk + "i2t_out_w_lo"]),
+                *(_ptr(w[blk + k]) for k in ("i2t_out_b", "norm4_w",
+                                             "norm4_b")),
+                _ptr(w[kvw + "_hi"]), _ptr(w[kvw + "_lo"]),
+                _ptr(w["img2_w_hi"]), _ptr(w["img2_w_lo"]), _ptr(kt),
+                _ptr(vt), _ptr(qt), _ptr(keys), _ptr(kv), _ptr(ml), _ptr(po),
+                B, N, T, (Cd // heads) ** -0.5, eps)
+        FUSED_KERNELS[f"image_stage{stage}_f32"].launches += 1
+        return keys, kv, (ml, po)
+
+    @staticmethod
+    def image_stage1(w, img, kt1, vt1, q2, B, heads, eps):
+        keys1, kv, part = _CudaFusedF32Ops._stage(1, w, img, img["qi1"], kt1,
+                                                  vt1, q2, B, heads, eps)
+        return kv, part, [keys1]
+
+    @staticmethod
+    def image_stage2(w, img, carry, kt2, vt2, qf, B, heads, eps):
+        return _CudaFusedF32Ops._stage(2, w, img, carry.pop(), kt2, vt2, qf,
+                                       B, heads, eps)
+
+    @staticmethod
+    def t2i_part(q, kv, part, B, heads):
+        """The stage's token -> image attention from its units' partials
+        ``part`` = (ml, po) alone (flash decoding; ``decoder_image.cu``)."""
+        BT, Cd = q.shape
+        T, N = BT // B, kv.shape[0] // B
+        ml, po = part
+        o = torch.empty((BT, Cd), device=q.device, dtype=q.dtype)
+        _launch("decoder_t2i_part_f32", q, _ptr(ml), _ptr(po), _ptr(o), B, N,
+                T)
+        FUSED_KERNELS["t2i_part_f32"].launches += 1
+        return o
+
+    @staticmethod
+    def t2i(q, k, v, B, heads, shared):
+        """Block 1's token -> image attention against the image's k1 / v1
+        (``shared``) on ``decoder_t2i_f32``: a 512-row tile's partials in
+        one pass over k and v, then ``t2i_part``'s combination."""
+        BT, Cd = q.shape
+        T = BT // B
+        N = k.shape[0] if shared else k.shape[0] // B
+        ld = _rows(k)
+        if _rows(v) != ld:
+            raise ValueError("decoder_t2i_f32: k and v need one row stride")
+        scratch = torch.empty(t2i_f32_scratch(B, N, T, heads),
+                              device=q.device, dtype=torch.float32)
+        o = torch.empty((BT, Cd), device=q.device, dtype=q.dtype)
+        _launch("decoder_t2i_f32", q, _ptr(q), _ptr(k), _ptr(v), ld,
+                0 if shared else N * ld, _ptr(scratch), _ptr(o), B, N, T,
+                (Cd // heads) ** -0.5)
+        FUSED_KERNELS["t2i_f32"].launches += 1
+        return o
+
+    @staticmethod
+    def upscale(w, keys, hyper, H, W, stats):
+        B, M, _ = hyper.shape
+        dev = keys.device
+        out = torch.empty((B, M, 4 * H, 4 * W), device=dev, dtype=keys.dtype)
+        st = None
+        thr, off = stats if stats is not None else (0.0, 0.0)
+        if stats is not None:
+            st = tuple(torch.zeros(shape, device=dev, dtype=torch.int32)
+                       for shape in ((B, M, 2), (B, M, 4 * H), (B, M, 4 * W)))
+        tf32_planes(w)
+        _launch("decoder_upscale_fused_f32", keys, int(st is not None),
+                _ptr(keys), _ptr(w["up1_w_hi"]), _ptr(w["up1_w_lo"]),
+                *(_ptr(w[k]) for k in ("up1_b", "up_ln_w", "up_ln_b")),
+                _ptr(w["up2_w_hi"]), _ptr(w["up2_w_lo"]), _ptr(w["up2_b"]),
+                _ptr(hyper), _ptr(out), *((None,) * 3 if st is None else
+                                          (_ptr(t) for t in st)),
+                B, H, W, M, thr + off, thr - off, thr, UPSCALE_LN_EPS)
+        name = "upscale_unit_f32" if st is None else "upscale_unit_stats_f32"
+        FUSED_KERNELS[name].launches += 1
+        return out if st is None else (out, *st)
+
+
 _PLAIN, _CUDA, _CUDA_FUSED = _PlainOps(), _CudaOps(), _CudaFusedOps()
+_CUDA_FUSED_F32 = _CudaFusedF32Ops()
 
 
 class KernelCount:
-    """The launches of one of the fused bf16 kernels, added to where the
-    kernel launches."""
+    """The launches of one of the fused kernels, added to where the kernel
+    launches."""
 
     def __init__(self, name: str):
         self.__name__ = name
         self.launches = 0
 
 
-# the fused bf16 kernels: decoder_image.cu's stages (one launch each a B5
-# call) and token -> image attention (two a B5 call), decoder_upscale.cu's
-# upscale without (B7) and with (B6) statistics
+# the fused kernels: decoder_image.cu's stages (one launch each a B5 call)
+# and token -> image attention (two a B5 call; float32 also block 1's
+# against the shared image, t2i_f32), decoder_upscale.cu's upscale without
+# (B7) and with (B6) statistics; bf16, and float32 (_f32)
 FUSED_KERNELS = {n: KernelCount(n) for n in (
     "image_stage1", "image_stage2", "t2i_part", "upscale_unit",
-    "upscale_unit_stats")}
+    "upscale_unit_stats", "image_stage1_f32", "image_stage2_f32",
+    "t2i_part_f32", "t2i_f32", "upscale_unit_f32", "upscale_unit_stats_f32")}
+# decoder_split_tf32: a float32 weight's TF32 planes, once a packing
+# (``tf32_planes``), not once a call
+split_tf32 = KernelCount("split_tf32")
+# the wgmma GEMM's f32 kind launched by decoder_gemm (the token side's and
+# the hypernet MLPs' float32 products), counted in C
+decoder_gemm_f32 = G.GemmLaunches(2, ("decoder_twt",))
 
 
 # ---------------------------------------------------------------------------
@@ -593,7 +791,7 @@ FUSED_KERNELS = {n: KernelCount(n) for n in (
 
 def _add(a: Tensor, b: Tensor) -> Tensor:
     """a + b rounded to a's dtype (the reference adds in the dtype)."""
-    return (a.float() + b.float()).to(a.dtype)
+    return (_w32(a) + _w32(b)).to(a.dtype)
 
 
 def image_side(w: Weights, src: Tensor, pe: Tensor) -> Weights:
@@ -608,17 +806,17 @@ def image_side(w: Weights, src: Tensor, pe: Tensor) -> Weights:
     N, Cd = src.shape[0], w["l0.t2i_q_w"].shape[0]
     src = src.contiguous()
     src_pe = _add(src, pe)
-    pe32 = pe.float()
+    pe32 = _w32(pe)
     return {
         "src": src,
         "k1": _lin32(src_pe, w, "l0.t2i_k").to(dt),
         "v1": _lin32(src, w, "l0.t2i_v").to(dt),
         "qi1": _lin32(src_pe, w, "l0.i2t_q").to(dt),
         "res2": torch.cat([_lin32(pe32, w, "l1.t2i_k"),
-                           w["l1.t2i_v_b"].float().expand(N, Cd),
+                           _w32(w["l1.t2i_v_b"]).expand(N, Cd),
                            _lin32(pe32, w, "l1.i2t_q")], dim=1).to(dt),
         "resf": torch.cat([_lin32(pe32, w, "fin_k"),
-                           w["fin_v_b"].float().expand(N, Cd)],
+                           _w32(w["fin_v_b"]).expand(N, Cd)],
                           dim=1).to(dt)}
 
 
@@ -734,20 +932,26 @@ def _check_dtypes(*ts: Tensor) -> None:
 
 
 def _cuda_ops(name: str, ref: Tensor, fused: bool = False):
-    """_CUDA_FUSED (``fused``: the shapes the fused bf16 kernels take) or
-    _CUDA for a CUDA tensor (the CPU's plain path is taken before);
-    anything else raises."""
+    """_CUDA_FUSED or _CUDA_FUSED_F32 by ref's dtype (``fused``: the shapes
+    the fused kernels take) or _CUDA for a CUDA tensor (the CPU's plain
+    path is taken before); anything else raises."""
     if ref.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {ref.device}")
-    return _CUDA_FUSED if fused else _CUDA
+    if not fused:
+        return _CUDA
+    return _CUDA_FUSED_F32 if ref.dtype == torch.float32 else _CUDA_FUSED
+
+
+def _plain_ops(mm) -> _PlainOps:
+    return _PLAIN if mm is torch.matmul else _PlainOps(mm)
 
 
 def two_way_transformer_plain(w: Weights, src: Tensor, pe: Tensor,
                               tokens: Tensor, *, heads: int, eps: float,
-                              image: Optional[Weights] = None
-                              ) -> Tuple[Tensor, Tensor]:
+                              image: Optional[Weights] = None,
+                              mm=torch.matmul) -> Tuple[Tensor, Tensor]:
     img = image_side(w, src, pe) if image is None else image
-    return _twt(_PLAIN, w, img, tokens, heads, eps)
+    return _twt(_plain_ops(mm), w, img, tokens, heads, eps)
 
 
 def two_way_transformer(w: Weights, src: Tensor, pe: Tensor, tokens: Tensor,
@@ -771,8 +975,8 @@ def two_way_transformer(w: Weights, src: Tensor, pe: Tensor, tokens: Tensor,
 
 
 def upscale_hypernet_plain(w: Weights, keys: Tensor, hyper: Tensor, *,
-                           H: int, W: int) -> Tensor:
-    return _PLAIN.upscale(w, keys, hyper, H, W, None)
+                           H: int, W: int, mm=torch.matmul) -> Tensor:
+    return _plain_ops(mm).upscale(w, keys, hyper, H, W, None)
 
 
 def upscale_hypernet(w: Weights, keys: Tensor, hyper: Tensor, *, H: int,
@@ -795,8 +999,9 @@ def upscale_stats_plain(logits: Tensor, thr: float, off: float):
 
 
 def upscale_hypernet_stats_plain(w: Weights, keys: Tensor, hyper: Tensor, *,
-                                 H: int, W: int, thr: float, off: float):
-    return _PLAIN.upscale(w, keys, hyper, H, W, (thr, off))
+                                 H: int, W: int, thr: float, off: float,
+                                 mm=torch.matmul):
+    return _plain_ops(mm).upscale(w, keys, hyper, H, W, (thr, off))
 
 
 def upscale_hypernet_stats(w: Weights, keys: Tensor, hyper: Tensor, *,
@@ -827,10 +1032,12 @@ def _decode(ops, twt, up_stats, w, src, pe, tokens, H, W, heads, eps, m_lo,
 def decode_masks_plain(w: Weights, src: Tensor, pe: Tensor, tokens: Tensor,
                        *, H: int, W: int, heads: int, eps: float, m_lo: int,
                        M: int, thr: float, off: float,
-                       image: Optional[Weights] = None):
-    return _decode(_PLAIN, two_way_transformer_plain,
-                   upscale_hypernet_stats_plain, w, src, pe, tokens, H, W,
-                   heads, eps, m_lo, M, thr, off, image)
+                       image: Optional[Weights] = None, mm=torch.matmul):
+    ops = _plain_ops(mm)
+    img = image_side(w, src, pe) if image is None else image
+    q, keys = _twt(ops, w, img, tokens, heads, eps)
+    hyper = _hyper(ops, w, q, m_lo, M)
+    return (q, *ops.upscale(w, keys, hyper, H, W, (thr, off)))
 
 
 def decode_masks(w: Weights, src: Tensor, pe: Tensor, tokens: Tensor, *,

@@ -23,12 +23,14 @@ Hand-written kernels compute it (``csrc/gemm_sm90.cuh`` ``gemm_bf16`` and
 * ``gemm_mma``: ``csrc/gemm.cuh``'s bf16 mma.sync kernel, for the other
   shapes (K % 32 == 0, N % 8 == 0), and for B4-B7's and B12's products;
 * ``gemm_fma``: ``csrc/gemm.cuh``'s float32 FMA kernel, for the other
-  float32 shapes (K % 8 == 0), and for B4-B7's float32 products.
+  float32 shapes (K % 8 == 0), and for B4-B7's float32 products at the
+  shapes the f32 kind does not take.
 
 Each kernel's launches are counted in C where it launches (one count per
 loaded library, read through ``gemm_launch_count``); ``gemm_sm90.launches``
-and the others sum them over the loaded libraries (``gemm_fma`` over B1's
-and B13's) and can be set to 0 like a wrapper's count. On a CPU tensor the
+and the others sum them over the loaded libraries (``gemm_sm90_f32`` and
+``gemm_fma`` over B1's and B13's) and can be set to 0 like a wrapper's
+count. On a CPU tensor the
 wrappers run ``gemm_plain``; on a CUDA tensor they launch a kernel or
 raise.
 """
@@ -119,7 +121,9 @@ class GemmLaunches:
 
 gemm_mma = GemmLaunches(0)
 gemm_sm90 = GemmLaunches(1)
-gemm_sm90_f32 = GemmLaunches(2)
+# the f32 kind's launches by B1 and B13 (B4-B7's float32 token-side products
+# launch it too, counted apart: ``decoder.decoder_gemm_f32``)
+gemm_sm90_f32 = GemmLaunches(2, ("window_attn", "ln_mlp"))
 # the FMA kernel's launches by B1 and B13 (B4-B7's float32 products launch
 # it too, from their own libraries)
 gemm_fma = GemmLaunches(3, ("window_attn", "ln_mlp"))

@@ -337,8 +337,12 @@ def decoder_cases(dtype: torch.dtype, gen: torch.Generator, B: int = 256,
     def nbytes(*ts):
         return sum(t.numel() for t in ts) * eb
 
-    w_twt = [v for k, v in w.items() if k.startswith(("l0.", "l1.", "fin_"))]
-    w_up = [v for k, v in w.items() if k.startswith("up")]
+    # the weights as the function takes them (not the TF32 planes the
+    # float32 kernels read them as)
+    own = {k: v for k, v in w.items() if not k.endswith(("_hi", "_lo"))}
+    w_twt = [v for k, v in own.items()
+             if k.startswith(("l0.", "l1.", "fin_"))]
+    w_up = [v for k, v in own.items() if k.startswith("up")]
     w_hyp = [w[f"hyper{m}.{j}_{x}"] for m in range(m_lo, m_lo + M)
              for j in range(3) for x in "wb"]
     logits = B * M * 16 * N
@@ -364,14 +368,16 @@ def decoder_cases(dtype: torch.dtype, gen: torch.Generator, B: int = 256,
 
 
 def fused_decoder_cases(gen: torch.Generator, B: int = 256, H: int = 64,
-                        W: int = 64, T: int = 7, M: int = 3) -> dict:
-    """The fused bf16 kernels of B4-B7 alone (``decoder._CudaFusedOps``) at
-    one decoder shape (default: the AMG chunk) on inputs drawn from ``gen``:
-    a dict name -> (call, flops, bytes), ``call()`` one launch. B5's two
-    image stages, the token -> image attention from stage 1's partials, the
-    upscale with and without statistics. Bytes count each input read once
-    and each output written once (weights included); flops the products
-    and the attention's."""
+                        W: int = 64, T: int = 7, M: int = 3,
+                        dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The fused kernels of B4-B7 alone at ``dtype`` (bf16:
+    ``decoder._CudaFusedOps``; float32: ``_CudaFusedF32Ops``, names ending
+    in ``_f32``) at one decoder shape (default: the AMG chunk) on inputs
+    drawn from ``gen``: a dict name -> (call, flops, bytes), ``call()`` one
+    launch. B5's two image stages, the token -> image attention from stage
+    1's partials, the upscale with and without statistics. Bytes count each
+    input read once and each output written once (weights included, as the
+    function takes them); flops the products and the attention's."""
     from ullsam_tpu_torch.core.config import MaskDecoderConfig
     from ullsam_tpu_torch.models.sam.mask_decoder import MaskDecoder
     from ullsam_tpu_torch.ops import layers as L
@@ -380,10 +386,11 @@ def fused_decoder_cases(gen: torch.Generator, B: int = 256, H: int = 64,
     cfg = MaskDecoderConfig()
     md = MaskDecoder(cfg, device=gen.device)
     L.init_module_(md, gen)
-    dt = torch.bfloat16
+    dt = dtype
     w = D.pack_weights(md, dt)
     C, Cd, heads, eps = 256, 128, cfg.transformer_num_heads, cfg.ln_eps
-    N, rows, eb = H * W, B * H * W, 2
+    N, rows, eb = H * W, B * H * W, torch.finfo(dt).bits // 8
+    sfx = "_f32" if dt == torch.float32 else ""
 
     def r(*shape, s=0.5):
         return (torch.randn(*shape, generator=gen, device=gen.device)
@@ -395,14 +402,19 @@ def fused_decoder_cases(gen: torch.Generator, B: int = 256, H: int = 64,
     img = D.image_side(w, r(N, C), r(N, C))
     kt1, vt1, kt2, vt2, q2, qf = (r(B * T, Cd) for _ in range(6))
     keys, hyper = r(rows, C, s=1.0), r(B, M, C // 8)
-    F = D._CUDA_FUSED
+    F = D._CUDA_FUSED_F32 if dt == torch.float32 else D._CUDA_FUSED
     keys1, kv, part = F._stage(1, w, img, img["qi1"], kt1, vt1, q2, B, heads,
                                eps)
     tok = 3 * B * T * Cd * eb
-    parts = B * D.partial_slots(N) * T * heads * 8
+    f32 = dt == torch.float32
+    # a stage's token -> image partials: (max, sum exp); in float32 also
+    # the 16 sums of exp(s - max) v (flash decoding: the p.v in the stage)
+    slots = B * D.partial_slots(N, dt) * T * heads
+    parts = slots * (8 + (64 if f32 else 0))
     out_prj = 2 * rows * Cd * C       # an i2t out-projection, K = Cd
     attn = 4 * rows * Cd * T          # an i2t: logits and p.v
-    logits = 2 * rows * Cd * T        # a stage's logit partials
+    logits = 2 * rows * Cd * T        # a stage's logits (and p.v in f32)
+    partials = logits * (2 if f32 else 1)
     s1_in = (N * (Cd + C + 2 * Cd) * eb + tok + nbytes(
         "l0.i2t_out_w", "l0.i2t_out_b", "l0.norm4_w", "l0.norm4_b")
         + 2 * Cd * C * eb)
@@ -414,24 +426,33 @@ def fused_decoder_cases(gen: torch.Generator, B: int = 256, H: int = 64,
                                    "up2_w", "up2_b")
             + hyper.numel() * eb + B * M * 16 * N * eb)
     st_b = B * M * (2 + 4 * H + 4 * W) * 4
-    return {
+    return {k + sfx: v for k, v in {
         "image_stage1": (
             lambda: F._stage(1, w, img, img["qi1"], kt1, vt1, q2, B, heads,
                              eps),
-            attn + out_prj + 2 * rows * C * 2 * Cd + logits,
+            attn + out_prj + 2 * rows * C * 2 * Cd + partials,
             s1_in + 2 * rows * C * eb + parts),
         "image_stage2": (
             lambda: F._stage(2, w, img, keys1, kt2, vt2, qf, B, heads, eps),
             2 * rows * C * Cd + attn + out_prj + 2 * rows * C * 2 * Cd
-            + logits, s2_in + 2 * rows * C * eb + parts),
-        "t2i_part": (lambda: F.t2i_part(q2, kv, part, B, heads), 2 * logits,
-                     rows * 2 * Cd * eb + parts + 2 * B * T * Cd * eb),
+            + partials, s2_in + 2 * rows * C * eb + parts),
+        # bf16: the probabilities and p.v over k | v; f32: the partials'
+        # combination alone
+        "t2i_part": (lambda: F.t2i_part(q2, kv, part, B, heads),
+                     2 * slots * 17 if f32 else 2 * logits,
+                     (0 if f32 else rows * 2 * Cd * eb) + parts
+                     + 2 * B * T * Cd * eb),
         "upscale_unit_stats": (
             lambda: F.upscale(w, keys, hyper, H, W, (0.0, 1.0)), up_fl,
             up_b + st_b),
         "upscale_unit": (lambda: F.upscale(w, keys, hyper, H, W, None),
                          up_fl, up_b),
-    }
+        # float32 only: block 1's token -> image attention against the
+        # shared k1 / v1
+        **({"t2i": (lambda: F.t2i(q2, img["k1"], img["v1"], B, heads, True),
+                    2 * B * T * N * Cd * 2, 2 * N * Cd * eb
+                    + 2 * B * T * Cd * eb)} if f32 else {}),
+    }.items()}
 
 
 def amg_inputs(rng: np.random.Generator, n_images: int, size: int = 1024):

@@ -1,7 +1,8 @@
 """Where the time goes on the card: torch.profiler over the port's kernels
 at the main path's shapes, over one full segmentation request, one
-automatic-mask-generation image, one flagship train step, one packed sft
-step and steady caption decode steps in bf16 and with the int8 LLM (inputs
+automatic-mask-generation image (bf16 and f32), one flagship train step,
+one packed sft step and steady caption decode steps in bf16 and with the
+int8 LLM (inputs
 from ``tools/main_path.py``, as ``chip_smoke.py`` checks and times them),
 and over one warm SAM ViT-H AMG image and its encode under each route
 setting of the JAX package's switches (regions ``vit_h_*``), one ViT-H
@@ -266,15 +267,18 @@ def main() -> None:
         _region(f"decode_masks_{dn}", lambda: D.decode_masks(*b4, **kw),
                 args, top=20)
 
-    if _wants(args, "amg_image_"):
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).replace("torch.", "")
+        if not _wants(args, f"amg_image_{dn}"):
+            continue
         sam = Sam(sam_vit_b(), device="cuda")
         L.init_module_(sam, gen)
         amg = AutomaticMaskGenerator(
-            sam_vit_b(), sam.to(torch.bfloat16), points_per_side=32,
+            sam_vit_b(), sam.to(dtype), points_per_side=32,
             points_per_batch=256, pred_iou_thresh=0.0,
             stability_score_thresh=0.0, box_nms_thresh=1.0, max_masks=256)
         image = amg_inputs(np.random.default_rng(0), 1)[0]
-        _region("amg_image_bfloat16", lambda: amg.generate_dense(image),
+        _region(f"amg_image_{dn}", lambda: amg.generate_dense(image),
                 args, iters=2, top=25)
         del sam, amg
         torch.cuda.empty_cache()
