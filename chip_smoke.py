@@ -14,9 +14,10 @@ sm_90a) and the CUDA toolkit. Phases, each printing what it found:
     CUDA events; the least time the card could take (bound; in float32
     f32-accurate products at their fastest, split TF32 at 495 / 3 TFLOP/s).
     The float32 bodies on the tensor cores in split TF32 (B1, B3, B8, B9,
-    B13, B15, B4-B7, the wgmma GEMM's f32 kind) also against a float64
-    evaluation of their plain version: on every output within 4x the plain
-    float32 version's own error. B4-B7's fused kernels in bf16 and float32
+    B10, B11, B13, B15, B4-B7, the wgmma GEMM's f32 kind) also against a
+    float64 evaluation of their plain version: on every output within 4x
+    the plain float32 version's own error (B10 and B11 also two calls
+    bitwise equal). B4-B7's fused kernels in bf16 and float32
     (B5's two image stages and their token -> image attention, the upscale
     with and without statistics) also alone: time, bound and achieved
     bandwidth.
@@ -55,7 +56,11 @@ sm_90a) and the CUDA toolkit. Phases, each printing what it found:
     in bfloat16 (the LLM, mlp1 and mlp2 train, SAM frozen, remat on), 1 warm
     and 3 timed steps on one packed row of two samples (1124 + 1224 tokens,
     two images), with exact launches per step, and one bfloat16
-    interactive segment_prefill with a 2560-token prompt.
+    interactive segment_prefill with a 2560-token prompt; then the flagship
+    again in float32 (the JAX CLI's default parameter dtype), 1 warm and 2
+    timed steps with exact launches (B10 48, B11 24 and the f32 kinds of
+    its encode), the LLM moving, SAM bit-identical, the peak above weights
+    and moments.
  9. caption generation with the int8 weight-only LLM: B12 against its plain
     version at every shape of InternLM2-1.8B's linears on the caption path:
     decode at batch 1 and 8, prefill of the 1152-token prompt at batch 1
@@ -478,7 +483,8 @@ def _sdpa_ms(q, k, v, bias, backward: bool, **kw) -> float:
 FWD_TF32 = ("window_attn", "window_attn_core", "window_attn_core_twophase",
             "ln_mlp", "decode_masks", "two_way_transformer",
             "upscale_hypernet_stats", "upscale_hypernet")
-SPLIT_TF32 = ("window_attn_core_bwd", "vit_flash_attn_bwd") + FWD_TF32
+SPLIT_TF32 = ("window_attn_core_bwd", "vit_flash_attn_bwd",
+              "llm_flash_attn", "llm_flash_attn_bwd") + FWD_TF32
 F64_RATIO = 4.0
 
 
@@ -626,7 +632,9 @@ def check_llm_kernels(card: str) -> dict:
     """B10 and B11 against their plain versions at the packed sft path's
     shape (one row of S = 2560, 16 query heads of 128 over 8 kv heads, the
     segment boundaries at 1124 and 2348), in bf16 and f32, every output
-    compared (lse on the rows that have a valid key). The bound counts the
+    compared (lse on the rows that have a valid key); in f32 (split TF32)
+    each output also against a float64 evaluation of the plain version
+    (``f64_hold``) and two calls bitwise equal. The bound counts the
     valid same-segment pairs these segment ids give; the causal half the
     TPU kernel's tiles cover is printed beside it. The library yardstick is
     scaled_dot_product_attention with the boolean block-diagonal causal
@@ -655,6 +663,18 @@ def check_llm_kernels(card: str) -> dict:
                  LF.llm_flash_attn_bwd_plain, bwd, "bwd")):
             got, ref = kernel(*args, **kw), plain(*args, **kw)
             torch.cuda.synchronize()
+            f64 = {}
+            if dtype == torch.float32:
+                # split TF32 against float64; the same bits every call
+                f64 = f64_hold(name, plain, args, got, ref, "kernels", kw)
+                again = kernel(*args, **kw)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                say(f"[kernels] {name} float32: two calls bitwise equal: "
+                    f"{same}")
+                if not same:
+                    fail(f"{name} float32 differs between two calls")
+                del again
             if name == "llm_flash_attn":
                 live = ref[1] > LF.NEG_INF / 2
                 got = (got[0], got[1][live])
@@ -691,7 +711,8 @@ def check_llm_kernels(card: str) -> dict:
                 f"{c_ms:.4f} ms; data-sheet peaks at 700 W, card: {card}), "
                 f"{fl / ms / 1e9:.1f} TFLOP/s of the same-segment work")
             entry = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                     **f64}
             if dtype == torch.bfloat16:
                 rows[name].update(entry)
             else:
@@ -1551,27 +1572,26 @@ def packed_small_reference_check() -> None:
         fail("small packed step: the card and the CPU disagree")
 
 
-def packed_main_path() -> None:
-    """SAM ViT-B + InternLM2-1.8B at full width (random weights from the
-    seed), bfloat16 parameters and moments, the sft settings (the LLM,
-    mlp1 and mlp2 train, SAM frozen, remat on): 1 warm and 3 timed steps on
-    one packed row (S = 2560: 1124 + 1224 tokens, two 1024x1024 images);
-    then one bfloat16 segment_prefill with a 2560-token prompt."""
+def packed_steps(cfg, dtype, timed: int):
+    """The flagship at ``cfg`` built from the seed in ``dtype`` parameters
+    and moments, the sft settings (the LLM, mlp1 and mlp2 train, SAM
+    frozen, remat on): 1 warm and ``timed`` timed steps on one packed row
+    (S = 2560: 1124 + 1224 tokens, two 1024x1024 images), each timed one
+    with exactly PACKED_PER_STEP launches and the f32 kinds its encode asks
+    (``check_f32_kinds``); the LLM tensors move and the frozen SAM weights
+    stay bit-identical; the peak above weights and moments. Returns the
+    model (its optimizer freed)."""
     import numpy as np
     import torch
-    from ullsam_tpu_torch.core.config import (FusionConfig, internlm2_1_8b,
-                                              sam_vit_b)
-    from ullsam_tpu_torch.models.ullsam import chat
     from ullsam_tpu_torch.models.ullsam import fusion as F
     from ullsam_tpu_torch.tools.main_path import (SFT_TRAIN,
-                                                  packed_train_batch,
-                                                  request_inputs)
+                                                  packed_train_batch)
     from ullsam_tpu_torch.train import step as S
 
-    cfg = FusionConfig(sam=sam_vit_b(), llm=internlm2_1_8b())
+    dn = {torch.bfloat16: "bf16", torch.float32: "f32"}[dtype]
+    f32 = dtype == torch.float32
     t0 = time.perf_counter()
-    model = F.build_ullsam(cfg, device="cuda", dtype=torch.bfloat16,
-                           seed=SEED)
+    model = F.build_ullsam(cfg, device="cuda", dtype=dtype, seed=SEED)
     tcfg = S.TrainConfig(total_steps=100, **SFT_TRAIN)
     torch.cuda.synchronize()
     weights = torch.cuda.memory_allocated()
@@ -1582,7 +1602,7 @@ def packed_main_path() -> None:
               for n, p in model.named_parameters() if n not in trained}
     n_train = sum(p.numel() for p in opt.params)
     n_all = sum(p.numel() for p in model.parameters())
-    say(f"[packed] flagship bf16 sft: {n_train / 1e9:.3f} B trainable "
+    say(f"[packed] flagship {dn} sft: {n_train / 1e9:.3f} B trainable "
         f"(LLM, mlp1, mlp2) of {n_all / 1e9:.3f} B, weights "
         f"{weights / 2**30:.3f} GiB, moments {moments / 2**30:.3f} GiB, "
         f"built in {time.perf_counter() - t0:.1f} s")
@@ -1592,6 +1612,7 @@ def packed_main_path() -> None:
 
     def run(tag):
         before = launch_counts()
+        c0 = c_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
         m = step(batch)
@@ -1601,39 +1622,62 @@ def packed_main_path() -> None:
              if v - before[k]}
         vals = {k: float(v) for k, v in m.items()}
         if not all(np.isfinite(list(vals.values()))):
-            fail(f"packed {tag}: non-finite metrics {vals}")
-        say(f"[packed] bf16 {tag}: {ms:.1f} ms (host clock, ends in "
+            fail(f"packed {dn} {tag}: non-finite metrics {vals}")
+        dc = check_f32_kinds(f"packed {dn} {tag}", d, c0, f32)
+        kinds = {k: v for k, v in dc.items() if v}
+        say(f"[packed] {dn} {tag}: {ms:.1f} ms (host clock, ends in "
             f"synchronize), loss {vals['loss']:.6f}, grad_norm "
-            f"{vals['grad_norm']:.6f}, launches {d}")
+            f"{vals['grad_norm']:.6f}, launches {d}"
+            + (f", C-counted {kinds}" if kinds else ""))
         return ms, d
 
     torch.cuda.reset_peak_memory_stats()
     run("step 1 (warm, lr 0)")
     snap = [p.detach().clone() for p in opt.params]
-    timed = [run(f"step {i}") for i in (2, 3, 4)]
+    runs = [run(f"step {i}") for i in range(2, 2 + timed)]
     peak = torch.cuda.max_memory_allocated()
-    for _, d in timed:
+    for _, d in runs:
         if d != PACKED_PER_STEP:
-            fail(f"packed launches per step {d}, expected {PACKED_PER_STEP}")
+            fail(f"packed {dn} launches per step {d}, expected "
+                 f"{PACKED_PER_STEP}")
     llm = [i for i, n in enumerate(opt.names)
            if n.startswith("fusion.language_model.")]
     moved = sum(not torch.equal(snap[i], opt.params[i]) for i in llm)
     same = all(torch.equal(p.detach().cpu(), frozen[n])
                for n, p in model.named_parameters() if n not in trained)
-    say(f"[packed] bf16: {moved} of {len(llm)} LLM tensors moved over steps "
-        f"2-4; frozen SAM weights bit-identical: {same}")
+    say(f"[packed] {dn}: {moved} of {len(llm)} LLM tensors moved over steps "
+        f"2-{1 + timed}; frozen SAM weights bit-identical: {same}")
     if not moved or not same:
-        fail("packed: the LLM weights did not move or frozen ones did")
-    lat = [t[0] for t in timed]
-    say(f"[packed] bf16 flagship sft step (SAM ViT-B + InternLM2-1.8B, one "
+        fail(f"packed {dn}: the LLM weights did not move or frozen ones did")
+    lat = [r[0] for r in runs]
+    say(f"[packed] {dn} flagship sft step (SAM ViT-B + InternLM2-1.8B, one "
         f"packed row of 2560 tokens, two images, remat on): "
         f"{', '.join(f'{x:.1f}' for x in lat)} ms, mean "
-        f"{sum(lat) / 3:.1f} ms, {2560 * 3 / sum(lat) * 1e3:.0f} tokens/s; "
-        f"peak {peak / 2**30:.3f} GiB (max_memory_allocated), so "
+        f"{sum(lat) / timed:.1f} ms, {2560 * timed / sum(lat) * 1e3:.0f} "
+        f"tokens/s; peak {peak / 2**30:.3f} GiB (max_memory_allocated), so "
         f"{(peak - weights - moments) / 2**30:.3f} GiB above weights and "
         f"moments")
     del opt, step, snap, frozen, batch
     torch.cuda.empty_cache()
+    return model
+
+
+def packed_main_path() -> None:
+    """SAM ViT-B + InternLM2-1.8B at full width (random weights from the
+    seed), the sft settings (``packed_steps``): bfloat16 parameters and
+    moments, 1 warm and 3 timed steps, then one bfloat16 segment_prefill
+    with a 2560-token prompt; then from the seed again in float32 (the JAX
+    CLI's default ``--param_dtype``), 1 warm and 2 timed steps. One model
+    is resident at a time."""
+    import numpy as np
+    import torch
+    from ullsam_tpu_torch.core.config import (FusionConfig, internlm2_1_8b,
+                                              sam_vit_b)
+    from ullsam_tpu_torch.models.ullsam import chat
+    from ullsam_tpu_torch.tools.main_path import request_inputs
+
+    cfg = FusionConfig(sam=sam_vit_b(), llm=internlm2_1_8b())
+    model = packed_steps(cfg, torch.bfloat16, 3)
 
     n_img = cfg.num_image_token
     pixels, ids, _, _ = request_inputs(cfg, np.random.default_rng(SEED), 1,
@@ -1657,6 +1701,10 @@ def packed_main_path() -> None:
         f"{ms:.1f} ms (host clock, ends in synchronize), launches {d}")
     if d != want:
         fail(f"long prefill launches {d}, expected {want}")
+    del model, dense, feats
+    torch.cuda.empty_cache()
+    packed_steps(cfg, torch.float32, 2)
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------

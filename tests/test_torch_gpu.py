@@ -643,6 +643,52 @@ def test_llm_flash_kernels_match_plain(cuda, dt, causal, B, S, nh, nkv, D,
         assert _rel_err(a, b) <= TOL[dt], (name, _rel_err(a, b))
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,nh,nkv,D,kind", [
+    (1, 2560, 16, 4, 128, "packed"),  # the sft row, groups of 4, D = 128
+    (1, 2560, 16, 16, 64, "packed"),  # groups of 1, D = 64
+    (2, 300, 8, 8, 128, "padded"),    # ragged S, groups of 1
+    (2, 130, 4, 1, 64, "empty")])     # groups of 4, rows with no valid key
+def test_llm_flash_f32_error_vs_float64(cuda, causal, B, S, nh, nkv, D,
+                                        kind):
+    """B10's and B11's float32 kernels (split TF32 on wgmma) against a
+    float64 evaluation of their plain versions: on o, lse (the rows with a
+    valid key), dq, dk and dv the max-relative error is at most 4x the
+    plain float32 version's own (TF32 off); two calls of each give bitwise
+    the same outputs (no atomics)."""
+    from ullsam_tpu_torch.ops.kernels import llm_flash_attention as LF
+    q, do = (torch.randn(B, S, nh, D, generator=cuda, device="cuda")
+             for _ in range(2))
+    k, v = (torch.randn(B, S, nkv, D, generator=cuda, device="cuda")
+            for _ in range(2))
+    q_seg, kv_seg = _llm_segments(B, S, kind)
+    fwd = [LF.llm_flash_attn(q, k, v, q_seg, kv_seg, nkv, causal)
+           for _ in range(2)]
+    o, lse = fwd[0]
+    dd = (do * o).sum(-1).transpose(1, 2).contiguous()
+    bwd = [LF.llm_flash_attn_bwd(q, k, v, q_seg, kv_seg, do, lse, dd, nkv,
+                                 causal) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip((*fwd[0], *bwd[0]), (*fwd[1], *bwd[1])):
+        assert torch.equal(a, b)
+    args = (q, k, v, q_seg, kv_seg)
+    plain = LF.llm_flash_attn_plain(*args, nkv, causal)
+    ref = LF.llm_flash_attn_plain(q.double(), k.double(), v.double(), q_seg,
+                                  kv_seg, nkv, causal)
+    live = ref[1] > LF.NEG_INF / 2
+    bargs = (q, k, v, q_seg, kv_seg, do, lse, dd)
+    plain_b = LF.llm_flash_attn_bwd_plain(*bargs, nkv, causal)
+    ref_b = LF.llm_flash_attn_bwd_plain(
+        *(t.double() if t.is_floating_point() else t for t in bargs), nkv,
+        causal)
+    names = ("o", "lse", "dq", "dk", "dv")
+    for name, a, b, r in zip(names, (o, lse[live], *bwd[0]),
+                             (plain[0], plain[1][live], *plain_b),
+                             (ref[0], ref[1][live], *ref_b)):
+        err, err_plain = _rel_err64(a, r), _rel_err64(b, r)
+        assert err <= 4 * err_plain, (name, err, err_plain)
+
+
 def test_packed_llm_gradients_on_card_match_cpu(cuda, monkeypatch):
     """A small InternLM2 (head dim 128, GQA 2:1) over two packed rows with
     padding, through the flash route (``LLM_FLASH_MIN`` lowered so B10 /

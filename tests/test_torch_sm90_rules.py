@@ -21,6 +21,11 @@ against the 232,448 bytes of shared memory an H100 block may use.
   (``F32Layout<D>``, split TF32) at head dims 64 and 80:
   ``bwd_sm90_smem_bytes`` and ``bwd_f32_smem_bytes`` against the source's
   constants and the block.
+* B10's and B11's float32 bodies (split TF32 on wgmma, ``llm_f32.cuh``):
+  ``llm_flash_attention.f32_smem_bytes`` / ``bwd_f32_smem_bytes`` at head
+  dims 64 and 128 against the sources' constants and the block beside the
+  static segment scan, and the scratch rules ``fwd_scratch_floats`` /
+  ``bwd_scratch_floats`` at the packed sft shape.
 
 The plain B12 and B2 stay held to the JAX package by
 ``tests/test_torch_quant.py`` and ``tests/test_torch_kernels.py``.
@@ -36,6 +41,7 @@ from ullsam_tpu_torch.ops.kernels import build
 from ullsam_tpu_torch.ops.kernels import flash_attention as FA
 from ullsam_tpu_torch.ops.kernels import gemm as G
 from ullsam_tpu_torch.ops.kernels import int8_matmul as Q
+from ullsam_tpu_torch.ops.kernels import llm_flash_attention as LF
 from ullsam_tpu_torch.ops.kernels import window_attention as WA
 from ullsam_tpu_torch.tools.main_path import (W8A16_DECODE_M, W8A16_LINEARS,
                                               W8A16_PREFILL_M)
@@ -241,3 +247,67 @@ def test_key_rows_per_tile_rule():
     assert FA.key_rows_per_tile(64) == 1
     assert [FA.key_rows_per_tile(k) for k in (32, 16, 8, 48, 4)] == [
         2, 4, 8, 0, 0]
+
+
+# seg_tiles.cuh SegTiles: n, ids[64], rows[64], starts[2], live[4096 / 32]
+SEG_TILES_BYTES = 4 + 64 * 4 + 64 * 4 + 2 * 4 + 4096 // 32 * 4
+
+
+@pytest.mark.parametrize("D,fwd,bwd", [(64, 99368, (132184, 148584)),
+                                       (128, 197672, (189528, 205928))])
+def test_llm_flash_f32_smem_fits_a_block(D, fwd, bwd):
+    """B10's float32 kernel (q hi / lo of 64 rows, two stages of 32 keys'
+    k and v^T planes) and B11's (dq: q and do fixed, three buffers of a
+    16-key tile at D = 128; dk / dv: k and v fixed, four buffers of a
+    16-query tile; both with p passed between two warpgroups) fit one
+    block with the static segment scan (1,036 bytes) at head dims 64 and
+    128."""
+    assert LF.f32_smem_bytes(D) == fwd
+    assert LF.bwd_f32_smem_bytes(D) == bwd
+    assert max(fwd, *bwd) + SEG_TILES_BYTES <= FA.SMEM_LIMIT == 232448
+
+
+def test_llm_flash_f32_mirror_matches_the_source():
+    """The tiles, stages, slots and scratch planes that
+    ``llm_flash_attention`` mirrors are those of ``llm_flash_attn.cu``,
+    ``llm_flash_bwd.cu`` and ``llm_f32.cuh``; the CUDA-core float32
+    bodies they replaced are gone."""
+    assert _const("llm_flash_attn.cu", r"kLf32FwdTile = (\d+)") == \
+        LF.F32_FWD_TILE
+    assert _const("llm_flash_attn.cu", r"kLf32FwdStages = (\d+)") == \
+        LF.F32_FWD_STAGES
+    src = "llm_flash_bwd.cu"
+    assert (_const(src, r"kTile = D > 64 \? (\d+)"),
+            _const(src, r"kTile = D > 64 \? \d+ : (\d+)")) == (
+        LF.bwd_f32_tile(128), LF.bwd_f32_tile(64))
+    hdr = "llm_f32.cuh"
+    assert _const(hdr, r"kLf32Rows = (\d+)") == 64
+    assert _const("llm_flash_attn.cu",
+                  r"kLf32FwdThreads = (\d+)") == 2 * 128
+    assert _const(src, r"kLf32BwdThreads = (\d+)") == 3 * 128
+    assert (_const(hdr, r"kLf32FwdQPlanes = (\d+)"),
+            _const(hdr, r"kLf32FwdKvPlanes = (\d+)")) == LF.F32_FWD_PLANES
+    assert (_const(hdr, r"kLf32BwdQPlanes = (\d+)"),
+            _const(hdr, r"kLf32BwdKvPlanes = (\d+)")) == LF.F32_BWD_PLANES
+    for source in ("llm_flash_attn.cu", "llm_flash_bwd.cu"):
+        with open(os.path.join(build.CSRC, source)) as f:
+            text = f.read()
+        for gone in ("llm_flash_f32", "llm_bwd_dq_f32", "llm_bwd_dkv_f32",
+                     "attn_fma.cuh"):
+            assert gone not in text, (source, gone)
+
+
+def test_llm_flash_scratch_rules_at_the_sft_shape():
+    """The wrappers' scratch at the packed sft shape (B = 1, S = 2560, 16
+    heads of 128 over 8): float32 B10 the hi / lo planes of q, k and v^T
+    (84 MB), B11 those of q, do, k, v and q^T, do^T, k^T (231 MB); bf16
+    B11 its dq sums (21 MB), bf16 B10 none. A ragged S pads to 64 rows."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    sft = (1, 2560, 16, 8, 128)
+    assert LF.fwd_scratch_floats(*sft, f32) == 2560 * 128 * (2 * 16 + 4 * 8)
+    assert LF.fwd_scratch_floats(*sft, bf16) == 0
+    assert LF.bwd_scratch_floats(*sft, f32) == 2560 * 128 * (8 * 16 + 6 * 8)
+    assert LF.bwd_scratch_floats(*sft, f32) * 4 == 230_686_720
+    assert LF.bwd_scratch_floats(*sft, bf16) == 16 * 2560 * 128
+    assert LF.bwd_scratch_floats(2, 300, 4, 1, 64, f32) == \
+        2 * 320 * 64 * (8 * 4 + 6)

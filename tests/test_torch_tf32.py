@@ -1,5 +1,5 @@
 """The split-TF32 ("3xTF32") arithmetic of the float32 bodies of B8, B9,
-B13, B3 and B1 (and of B15, which runs B3's core) on the CPU
+B13, B3, B1, B10 and B11 (and of B15, which runs B3's core) on the CPU
 (``ullsam_tpu_torch/ops/kernels/tf32.py``, the plain-torch emulation of
 ``csrc/tf32.cuh``).
 
@@ -11,6 +11,8 @@ held to the JAX package's float32 kernels in interpret mode at 1e-5 of
 max|ref| on every output, the parity that the JAX f32 path keeps
 (flash_attention.py:837-839), at head dims 64 and 80; the same dataflow
 with one TF32 pass misses that bar, so the test tells the two apart. So
+are the LLM flash attention's plain B10 and B11 (``_llm_flash_impl`` and
+``_llm_flash_bwd_impl``, head dims 64 and 128, a row with no valid key). So
 are the forward kernels' plain versions: B13 (``ln_mlp_plain``, both
 products on the GEMM's f32 kind), B3 (``window_attn_core_plain``: the
 rel-pos terms, q k^T and p v on the f32 window core) and B1
@@ -43,6 +45,7 @@ from ullsam_tpu.ops.pallas import vit_block as JVB
 from ullsam_tpu_torch.ops import attention as TA
 from ullsam_tpu_torch.ops.kernels import decoder as TD
 from ullsam_tpu_torch.ops.kernels import flash_attention as TFA
+from ullsam_tpu_torch.ops.kernels import llm_flash_attention as TLF
 from ullsam_tpu_torch.ops.kernels import tf32 as T
 from ullsam_tpu_torch.ops.kernels import vit_block as TVB
 from ullsam_tpu_torch.ops.kernels import window_attention as TWA
@@ -129,6 +132,53 @@ def test_b9_split_tf32_matches_tpu_kernel(D):
         assert _rel(a, b) < TOL, (name, _rel(a, b))
     one = TFA.vit_flash_attn_bwd_plain(*t, g, lse_t, dd, mm=_mm_1xtf32)
     assert max(_rel(a, b) for a, b in zip(one, ref)) > 10 * TOL
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_b10_b11_split_tf32_matches_tpu_kernel(D):
+    """Plain B10 and B11 with their products in split TF32 (the float32
+    kernels' arithmetic, csrc/llm_f32.cuh) against the interpret-mode f32
+    ``_llm_flash_impl`` (o; lse on the rows with a valid key) and
+    ``_llm_flash_bwd_impl`` (dq, dk, dv) at B = 2, S = 300, 4 query heads
+    over 2 kv heads, causal, with left padding, a second packed segment
+    and ten query rows whose segment no key has: within 1e-5 at head dims
+    64 and 128 (InternLM2's); one TF32 pass is not."""
+    rng = np.random.RandomState(D)
+    B, S, nh, nkv = 2, 300, 4, 2
+    q, g = (rng.randn(B, S, nh, D).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(B, S, nkv, D).astype(np.float32) for _ in range(2))
+    seg = np.ones((B, S), np.int32)
+    seg[0, :50] = 0        # left padding
+    seg[1, 200:] = 2       # packed second segment
+    q_seg, kv_seg = seg.copy(), seg
+    q_seg[0, 60:70] = 7    # no key has segment 7
+    jq, jk, jv, jg, jqs, jks = map(jnp.asarray, (q, k, v, g, q_seg, kv_seg))
+    with pltpu.force_tpu_interpret_mode():
+        o, lse = JFA._llm_flash_impl(jq, jk, jv, jqs, jks, nkv, True, 128,
+                                     128)
+        grads = JFA._llm_flash_bwd_impl(jq, jk, jv, jqs, jks, o, lse, jg,
+                                        nkv, True, 128, 128)
+    lse = np.array(lse)[:, :, :S, 0]
+    live = lse > TLF.NEG_INF / 2
+    assert live.sum() == live.size - 10 * nh
+    o = np.array(o)
+    want = [o, lse[live], *(np.asarray(x) for x in grads)]
+    ts = [torch.from_numpy(a) for a in (q, k, v)]
+    segs = (torch.from_numpy(q_seg), torch.from_numpy(kv_seg))
+    dd = torch.from_numpy(np.einsum("bshd,bshd->bhs", g, o))
+
+    def run(mm):
+        out, lse_t = TLF.llm_flash_attn_plain(*ts, *segs, nkv, True, mm=mm)
+        return [out, lse_t[torch.from_numpy(live)],
+                *TLF.llm_flash_attn_bwd_plain(*ts, *segs, torch.from_numpy(g),
+                                              torch.from_numpy(lse), dd, nkv,
+                                              True, mm=mm)]
+
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), run(T.mm_3xtf32),
+                          want):
+        assert _rel(a, b) < TOL, (name, _rel(a, b))
+    one = run(_mm_1xtf32)
+    assert max(_rel(a, b) for a, b in zip(one, want)) > 10 * TOL
 
 
 @pytest.mark.parametrize("K", [1280, 5120])

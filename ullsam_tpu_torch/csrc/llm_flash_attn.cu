@@ -24,8 +24,8 @@
 // What bounds it on this card: operations. At the packed-training shape
 // (B = 1, S = 2560, nh = 16, nkv = 8, D = 128, segments of 1124 and 1224
 // tokens) the same-segment pairs need 2 products of 2 D per pair and head,
-// 11.5 GFLOP, against ~31 MB of bytes. float32 stays true f32 FMA
-// (llm_flash_f32, no TF32), bounded by the 67 TFLOP/s f32 rate.
+// 11.5 GFLOP, against ~31 MB of bytes. In float32 the products are
+// f32-accurate at their fastest in split TF32 (495 / 3 TFLOP/s).
 //
 // bf16 design (llm_flash_sm90, llm_sm90.cuh's tiles):
 //   * A block is 64 queries of one (b, head): one consumer warpgroup and a
@@ -60,10 +60,27 @@
 // 1.2x one block of two; the block's own scan had cost 18%; issuing the
 // next tile's S before this tile's softmax, with S in two buffers, ran
 // slower.
+//
+// float32 design (llm_flash_tf32, llm_f32.cuh: split TF32 on wgmma + TMA):
+//   * A pre-pass (llm_split_f32) writes hi and lo planes of q pre-scaled
+//     (q * scale rounded in f32, as prescale_q) and of k, natural, and of v
+//     transposed ([D][Sp], keys in lf32_pi order): TF32 wgmma reads shared
+//     memory K-major only, and p.v contracts v along its rows.
+//   * A block is 64 queries of one (b, head): a consumer warpgroup and a
+//     producer warpgroup whose first thread loads q's hi and lo planes
+//     once and then k hi, k lo, v^T hi, v^T lo of 32 keys a stage through
+//     two stages (197.7 KB at D = 128: one block an SM). The walk is the
+//     bf16 body's, each live 64-key tile as two 32-key stages.
+//   * Per stage S = qs k^T on m64n32k8 in three products a k-step, in
+//     kLf32Chains chains from zero summed on the CUDA cores (a chain over
+//     all of D = 128, 48 products, would lose up to 24 ulps);
+//     the online softmax in f32 registers with expf; p is not rounded in
+//     f32, so it is split in registers into the A operand of p.v
+//     (m64nDk8, v^T hi and lo from the stage); each stage's p.v goes into
+//     a partial from zero and acc = alpha acc + partial on the CUDA cores.
+//     o = acc / l, lse = m + log l in f32.
 // Head dims 64 and 128 in both dtypes.
-#include "attn_fma.cuh"
-#include "llm_sm90.cuh"
-#include "seg_tiles.cuh"
+#include "llm_f32.cuh"
 
 namespace ullsam {
 namespace {
@@ -72,102 +89,228 @@ using bf16 = __nv_bfloat16;
 constexpr int kBQ = 64, kBK = 64;
 constexpr float kEmptyLse = -1e30f;
 
-// row strides (elements) and bases of one (b, head) pair
-struct Rows {
-  size_t q, kv;  // row strides of q / o and of k / v
-  size_t qoff, kvoff, segoff;
+// ---- float32: split TF32 on wgmma + TMA (see the note at the top) ---------
+
+constexpr int kLf32FwdTile = 32;      // keys a stage
+constexpr int kLf32FwdStages = 2;
+constexpr int kLf32FwdThreads = 256;  // a consumer and a producer warpgroup
+
+// The block's shared memory; must match ops/kernels/llm_flash_attention.py
+// f32_smem_bytes. 1024 bytes to align the planes; q's hi and lo planes of
+// 64 rows (q pre-scaled: 32 KB each at D = 128); the stages, each k hi, k
+// lo (natural planes of 32 keys) and v^T hi, v^T lo ([D][32]), 16 KB each
+// at D = 128; a full and an empty mbarrier a stage and one for q. At D =
+// 128: 1024 + 65536 + 2 x 65536 + 40 = 197,672 bytes.
+template <int D>
+struct Lf32FwdLayout {
+  static constexpr int kQ = kLf32Rows * D * 4;     // a q plane
+  static constexpr int kK = kLf32FwdTile * D * 4;  // a k or v^T plane
+  static constexpr int kStage = 4 * kK;
+  static constexpr int kSmem = 1024 + 2 * kQ + kLf32FwdStages * kStage +
+                               (2 * kLf32FwdStages + 1) * 8;
+  static_assert(kSmem + (int)sizeof(SegTiles) <= 232448, "one block");
 };
 
-__device__ __forceinline__ Rows rows_of(int b, int h, int S, int nh,
-                                        int nkv, int hd) {
-  Rows r;
-  r.q = (size_t)nh * hd;
-  r.kv = (size_t)nkv * hd;
-  r.qoff = (size_t)b * S * r.q + (size_t)h * hd;
-  r.kvoff = (size_t)b * S * r.kv + (size_t)(h / (nh / nkv)) * hd;
-  r.segoff = (size_t)b * S;
-  return r;
-}
+// the maps of the forward's scratch: `nat` [2 B nh Sp + 2 B nkv Sp][D] (q
+// hi, q lo, k hi, k lo) in boxes of 32 rows, `tr` [2 B nkv D][Sp] (v^T hi,
+// lo) in boxes of D rows by 32 keys
+struct Lf32FwdMaps {
+  CUtensorMap nat, tr;
+};
 
-// ---- float32: FMA on the CUDA cores ---------------------------------------
-
-template <int HD>
-constexpr size_t f32_smem_bytes() {
-  return sizeof(float) * AttnBlockF32<HD>::kSmemFloats +
-         sizeof(int) * (kBQ + kBK);
-}
-
-// grid (ceil(S / 64), nh, B), 256 threads
-template <int HD>
-__global__ void __launch_bounds__(256, 1)
-    llm_flash_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const int* __restrict__ qseg,
-                  const int* __restrict__ kseg, float* __restrict__ o,
-                  float* __restrict__ lse, int S, int nh, int nkv,
-                  int causal, float scale) {
-  using FB = AttnBlockF32<HD>;
-  constexpr int kLdT = FB::kLdT, kLdV = FB::kLdV;
-  extern __shared__ __align__(16) float sm[];
-  float* Qt = sm;                         // [HD][kLdT]  (d-major)
-  float* Kt = Qt + HD * kLdT;             // [HD][kLdT]  (d-major)
-  float* Vs = Kt + HD * kLdT;             // [kBK][kLdV]
-  float* Ps = Vs + kBK * kLdV;            // [kBQ][kLdP]
-  int* QSeg = reinterpret_cast<int*>(Ps + kBQ * FB::kLdP);  // [kBQ]
-  int* KSeg = QSeg + kBQ;                                   // [kBK]
-
-  const int tid = threadIdx.x;
-  const int NT = (S + kBK - 1) / kBK;
-  const int qt = NT - 1 - blockIdx.x;  // the longest rows first
-  const int h = blockIdx.y, b = blockIdx.z, q0 = qt * kBQ;
-  const Rows R = rows_of(b, h, S, nh, nkv, HD);
-
-  for (int e = tid; e < kBQ * HD; e += 256) {
-    const int r = e / HD, d = e % HD;
-    Qt[d * kLdT + r] =
-        q0 + r < S ? q[R.qoff + (size_t)(q0 + r) * R.q + d] * scale : 0.f;
-  }
-  if (tid < kBQ) QSeg[tid] = q0 + tid < S ? qseg[R.segoff + q0 + tid] : 0;
-
-  FB fb;
-  fb.begin(tid);
-  const int nkt = causal ? qt + 1 : NT;
+// grid (nh * ceil(S / 64), B), kLf32FwdThreads threads: o [B, S, nh, D] and
+// lse [B, nh, S] of 64 queries of one (b, head)
+template <int D>
+__global__ void __launch_bounds__(kLf32FwdThreads, 1)
+    llm_flash_tf32(const __grid_constant__ Lf32FwdMaps maps,
+                   const int* __restrict__ qseg, const int* __restrict__ kseg,
+                   float* __restrict__ o, float* __restrict__ lse, int S,
+                   int nh, int nkv, int causal) {
+  using L = Lf32FwdLayout<D>;
+  constexpr int kT = kLf32FwdTile, kSt = kLf32FwdStages;
+  extern __shared__ unsigned char smraw[];
+  unsigned char* base = align1024(smraw);  // q hi, q lo
+  unsigned char* stages = base + 2 * L::kQ;
+  uint64_t* full = reinterpret_cast<uint64_t*>(stages + kSt * L::kStage);
+  uint64_t* empty = full + kSt;
+  uint64_t* qbar = empty + kSt;
+  // stage s: k hi, k lo, v^T hi, v^T lo (i = 0..3)
+  const auto plane = [&](int s, int i) {
+    return stages + s * L::kStage + i * L::kK;
+  };
   __shared__ SegTiles tiles;
-  seg_own_ids(tiles, qseg + R.segoff, q0, S, tid);
-  seg_mark_live(tiles, kseg + R.segoff, 0, nkt, S, tid, 256);
-  for (int kt = seg_next_live(tiles, 0, nkt); kt < nkt;
-       kt = seg_next_live(tiles, kt + 1, nkt)) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // previous tile's Kt / Vs / Ps / KSeg are free
-    for (int e = tid; e < kBK * HD; e += 256) {
-      const int j = e / HD, d = e % HD;
-      const bool in = k0 + j < S;
-      const size_t gi = R.kvoff + (size_t)(k0 + j) * R.kv + d;
-      Kt[d * kLdT + j] = in ? k[gi] : 0.f;
-      Vs[j * kLdV + d] = in ? v[gi] : 0.f;
+
+  const int tid = threadIdx.x, B = gridDim.y;
+  const int NT = (S + kLf32Rows - 1) / kLf32Rows, Sp = NT * kLf32Rows;
+  const int h = blockIdx.x % nh, b = blockIdx.y;
+  const int qt = NT - 1 - blockIdx.x / nh;  // the longest rows first
+  const int q0 = qt * kLf32Rows, hk = h / (nh / nkv);
+  const int* qsb = qseg + (size_t)b * S;
+  const int* ksb = kseg + (size_t)b * S;
+  if (tid == 0) {
+    for (int s = 0; s < kSt; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // each consumer warp
     }
-    if (tid < kBK) KSeg[tid] = k0 + tid < S ? kseg[R.segoff + k0 + tid] : 0;
-    __syncthreads();
-    const auto bias = [&](int r, int key) {
-      const bool ok = key < S && KSeg[key - k0] == QSeg[r] &&
-                      (!causal || key <= q0 + r);
-      return ok ? 0.f : -INFINITY;
-    };
-    // q was pre-scaled (the reference's rounding point): logits scale 1
-    fb.tile(Qt, Kt, Vs, Ps, k0, 1.0f, bias);
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  const int nkt = causal ? qt + 1 : NT;
+  seg_own_ids(tiles, qsb, q0, S, tid);  // synchronises: the barriers exist
+  seg_mark_live(tiles, ksb, 0, nkt, S, tid, kLf32FwdThreads);
+
+  if (tid >= 128) {  // the producer warpgroup: one thread issues
+    if (tid == 128) {
+      const int qrow = (b * nh + h) * Sp + q0, qlo = B * nh * Sp;
+      mbar_expect_tx(qbar, 2 * L::kQ);
+      for (int i = 0; i < 2; ++i)
+        for (int r = 0; r < kLf32Rows; r += kT)
+          lf32_load_rows<D, kLf32Rows>(base + i * L::kQ, r, &maps.nat, qbar,
+                                       qrow + i * qlo + r);
+      const int krow = 2 * B * nh * Sp + (b * nkv + hk) * Sp;
+      const int klo = B * nkv * Sp;
+      const int vrow = (b * nkv + hk) * D, vlo = B * nkv * D;
+      int i = 0;
+      for (Lf32Walk<kT> w(tiles, 0, nkt, 1); w.valid(); w.next(), ++i) {
+        const int s = i % kSt, ph = (i / kSt) & 1, k0 = w.row0();
+        mbar_wait(&empty[s], ph ^ 1);
+        mbar_expect_tx(&full[s], L::kStage);
+        for (int j = 0; j < 2; ++j) {
+          lf32_load_rows<D, kT>(plane(s, j), 0, &maps.nat, &full[s],
+                                krow + j * klo + k0);
+          tma_load_2d(plane(s, 2 + j), &maps.tr, &full[s], k0,
+                      vrow + j * vlo);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: warp wr rows q0 + 16 wr .. + 15, a thread rows
+  // g and g + 8 of those, keys 8 j + 2 t, + 1 of a tile (accumulator slot
+  // 4 j + 2 hf + e)
+  const int lane = tid & 31, wr = tid >> 5, g = lane >> 2, t = lane & 3;
+  int row[2], rseg[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    row[hf] = q0 + wr * 16 + g + 8 * hf;
+    rseg[hf] = row[hf] < S ? qsb[row[hf]] : 0;
+  }
+  float ch[kLf32Chains][16], part[D / 2], oacc[D / 2];
+#pragma unroll
+  for (int c = 0; c < D / 2; ++c) part[c] = oacc[c] = 0.f;
+  float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
+  const auto fence_acc = [&] {
+#pragma unroll
+    for (int c = 0; c < kLf32Chains; ++c) reg_fence(ch[c]);
+    reg_fence(part);
+    reg_fence(oacc);
+  };
+  mbar_wait(qbar, 0);
+
+  int i = 0;
+  for (Lf32Walk<kT> w(tiles, 0, nkt, 1); w.valid(); w.next(), ++i) {
+    const int s = i % kSt, ph = (i / kSt) & 1, k0 = w.row0();
+    int kid[8];  // segment ids of the thread's keys 8 j + 2 t + e
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = k0 + 8 * j + 2 * t + e;
+        kid[2 * j + e] = key < S ? ksb[key] : 0;
+      }
+    mbar_wait(&full[s], ph);
+    // S = qs k^T in kLf32Chains chains from zero
+#pragma unroll
+    for (int c = 0; c < kLf32Chains; ++c)
+#pragma unroll
+      for (int x = 0; x < 16; ++x) ch[c][x] = 0.f;
+    fence_acc();
+    wgmma_fence();
+    lf32_logits<D, kT>(
+        ch,
+        [&](int ks, bool lo) {
+          return lf32_nat_desc<kLf32Rows>(base + (lo ? L::kQ : 0), ks);
+        },
+        [&](int ks, bool lo) {
+          return lf32_nat_desc<kT>(plane(s, lo ? 1 : 0), ks);
+        });
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc();
+
+    // the logits, masked, and the row maxima
+    float sv[16], mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int x = 0; x < 16; ++x) {
+      const int j = x >> 2, hf = (x >> 1) & 1, e = x & 1;
+      float v = ch[0][x];
+#pragma unroll
+      for (int c = 1; c < kLf32Chains; ++c) v += ch[c][x];
+      const int key = k0 + 8 * j + 2 * t + e;
+      const bool ok = key < S && kid[2 * j + e] == rseg[hf] &&
+                      (!causal || key <= row[hf]);
+      sv[x] = ok ? v : -INFINITY;
+      mx[hf] = fmaxf(mx[hf], sv[x]);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 1));
+      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 2));
+      alpha[hf] = expf(m[hf] - mx[hf]);
+      m[hf] = mx[hf];
+      l[hf] *= alpha[hf];
+    }
+    // p = exp(s - m), split into the A operand of k-step j: register 2 e +
+    // hf holds row g + 8 hf, key 8 j + 2 t + e (lf32_pi)
+    uint32_t ph_[4][4], pl_[4][4];
+#pragma unroll
+    for (int x = 0; x < 16; ++x) {
+      const int j = x >> 2, hf = (x >> 1) & 1, e = x & 1;
+      const float p = expf(sv[x] - m[hf]);
+      l[hf] += p;
+      tf32_split(p, ph_[j][2 * e + hf], pl_[j][2 * e + hf]);
+    }
+
+    // this tile's p v into a partial from zero
+#pragma unroll
+    for (int c = 0; c < D / 2; ++c) part[c] = 0.f;
+    fence_acc();
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kT / 8; ++j) {
+      const uint64_t vh = lf32_tr_desc<kT>(plane(s, 2), j);
+      const uint64_t vl = lf32_tr_desc<kT>(plane(s, 3), j);
+      lf32_rs<D>(part, ph_[j], vl);
+      lf32_rs<D>(part, pl_[j], vh);
+      lf32_rs<D>(part, ph_[j], vh);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc();
+    lf32_release(&empty[s], lane);
+#pragma unroll
+    for (int c = 0; c < D / 2; ++c)
+      oacc[c] = oacc[c] * alpha[(c >> 1) & 1] + part[c];
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + fb.ty * 4 + i;
-    if (r >= S) continue;
-    const bool live = fb.l[i] > 0.f;
-    const float inv = live ? 1.f / fb.l[i] : 0.f;
+  for (int hf = 0; hf < 2; ++hf) {
+    l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 1);
+    l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 2);
+    if (row[hf] >= S) continue;
+    const bool live = l[hf] > 0.f;
+    const float div = live ? l[hf] : 1.f;
+    float* out = o + ((size_t)b * S + row[hf]) * nh * D + (size_t)h * D;
 #pragma unroll
-    for (int c = 0; c < FB::kCols; ++c)
-      o[R.qoff + (size_t)r * R.q + fb.col0() + c] = fb.acc[i][c] * inv;
-    if (fb.tx == 0)
-      lse[((size_t)b * nh + h) * S + r] =
-          live ? fb.m[i] + logf(fb.l[i]) : kEmptyLse;
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(out + 8 * j + 2 * t) =
+          make_float2(oacc[4 * j + 2 * hf] / div,
+                      oacc[4 * j + 2 * hf + 1] / div);
+    if (t == 0)
+      lse[((size_t)b * nh + h) * S + row[hf]] =
+          live ? m[hf] + logf(l[hf]) : kLf32EmptyLse;
   }
 }
 
@@ -431,24 +574,50 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
   }
 }
 
+// the split pre-pass into `scratch` (q pre-scaled and k natural, v
+// transposed, hi and lo: B Sp D (2 nh + 4 nkv) floats), then the kernel
+template <int D>
+int launch_tf32(const float* q, const float* k, const float* v,
+                const int* qseg, const int* kseg, float* o, float* lse,
+                float* scratch, int B, int S, int nh, int nkv, int causal,
+                float scale, cudaStream_t st) {
+  const int Sp = (S + kLf32Rows - 1) / kLf32Rows * kLf32Rows;
+  const long long pq = (long long)B * nh * Sp, pk = (long long)B * nkv * Sp;
+  if (!scratch || 2 * (pq + pk) > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  float* nat = scratch;                     // q hi, q lo, k hi, k lo
+  float* vt = nat + 2 * (pq + pk) * D;      // v^T hi, v^T lo
+  int e;
+  if ((e = lf32_split<D>(q, B, S, Sp, nh, scale, nat, nullptr, st)) ||
+      (e = lf32_split<D>(k, B, S, Sp, nkv, 1.f, nat + 2 * pq * D, nullptr,
+                         st)) ||
+      (e = lf32_split<D>(v, B, S, Sp, nkv, 1.f, nullptr, vt, st)))
+    return e;
+  Lf32FwdMaps maps;
+  if (!lf32_map(&maps.nat, nat, 2 * (pq + pk), D, 32, kLf32FwdTile) ||
+      !lf32_map(&maps.tr, vt, 2LL * B * nkv * D, Sp, kLf32FwdTile, D))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = Lf32FwdLayout<D>::kSmem;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      llm_flash_tf32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  llm_flash_tf32<D>
+      <<<dim3(nh * (Sp / kLf32Rows), B), kLf32FwdThreads, smem, st>>>(
+          maps, qseg, kseg, o, lse, S, nh, nkv, causal);
+  return (int)cudaGetLastError();
+}
+
 template <int HD>
 int launch(int dtype, const void* q, const void* k, const void* v,
-           const int* qseg, const int* kseg, void* o, float* lse, int B,
-           int S, int nh, int nkv, int causal, float scale,
-           cudaStream_t st) {
-  if (dtype == kF32) {
-    const dim3 grid((S + kBQ - 1) / kBQ, nh, B);
-    const size_t smem = f32_smem_bytes<HD>();
-    const cudaError_t err = cudaFuncSetAttribute(
-        llm_flash_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    llm_flash_f32<HD><<<grid, 256, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), qseg, kseg, static_cast<float*>(o), lse,
-        S, nh, nkv, causal, scale);
-    return (int)cudaGetLastError();
-  }
+           const int* qseg, const int* kseg, void* o, float* lse,
+           float* scratch, int B, int S, int nh, int nkv, int causal,
+           float scale, cudaStream_t st) {
+  if (dtype == kF32)
+    return launch_tf32<HD>(static_cast<const float*>(q),
+                           static_cast<const float*>(k),
+                           static_cast<const float*>(v), qseg, kseg,
+                           static_cast<float*>(o), lse, scratch, B, S, nh,
+                           nkv, causal, scale, st);
   if (dtype == kBF16) {
     LlmFwdMaps maps;
     if (!make_llm_map(&maps.q, q, B, S, (long long)nh * HD, HD / 2) ||
@@ -481,14 +650,17 @@ int launch(int dtype, const void* q, const void* k, const void* v,
 
 // Plain C entry point (loaded with ctypes). Returns 0 or a cudaError_t.
 // dtype: 0 = float32, 1 = bfloat16 for q, k, v and o; q_seg, kv_seg int32;
-// lse float32 [B, nh, S]. Requires D in {64, 128}, nh % nkv == 0,
-// S <= 64 * kMaxSegTiles and 16-byte aligned tensors; scale is D^-1/2
-// rounded to q's dtype.
+// lse float32 [B, nh, S]; scratch float32, B Sp D (kLf32FwdQPlanes nh +
+// kLf32FwdKvPlanes nkv) floats in float32 (Sp = 64 ceil(S / 64)), unused
+// in bfloat16. Requires D in {64, 128}, nh % nkv == 0, S <= 64 *
+// kMaxSegTiles and 16-byte aligned tensors; scale is D^-1/2 rounded to q's
+// dtype.
 extern "C" int llm_flash_attn_forward(int dtype, const void* q, const void* k,
                                       const void* v, const void* q_seg,
                                       const void* kv_seg, void* o, void* lse,
-                                      int B, int S, int nh, int nkv, int D,
-                                      int causal, float scale, void* stream) {
+                                      void* scratch, int B, int S, int nh,
+                                      int nkv, int D, int causal, float scale,
+                                      void* stream) {
   using namespace ullsam;
   if (B < 1 || S < 1 || S > kSegTile * kMaxSegTiles || nkv < 1 ||
       nh % nkv != 0 || B > 65535 || nh > 65535)
@@ -497,11 +669,12 @@ extern "C" int llm_flash_attn_forward(int dtype, const void* q, const void* k,
   const int* qs = static_cast<const int*>(q_seg);
   const int* ks = static_cast<const int*>(kv_seg);
   float* lsef = static_cast<float*>(lse);
+  float* scr = static_cast<float*>(scratch);
   if (D == 64)
-    return launch<64>(dtype, q, k, v, qs, ks, o, lsef, B, S, nh, nkv, causal,
-                      scale, st);
+    return launch<64>(dtype, q, k, v, qs, ks, o, lsef, scr, B, S, nh, nkv,
+                      causal, scale, st);
   if (D == 128)
-    return launch<128>(dtype, q, k, v, qs, ks, o, lsef, B, S, nh, nkv,
+    return launch<128>(dtype, q, k, v, qs, ks, o, lsef, scr, B, S, nh, nkv,
                        causal, scale, st);
   return (int)cudaErrorInvalidValue;
 }

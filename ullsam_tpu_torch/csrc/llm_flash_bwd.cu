@@ -59,283 +59,536 @@
 // softmax (two buffers), with or without the softmax under the previous
 // tile's products, and a mask-free path for tile pairs of one segment ran
 // slower.
-// float32 stays true f32 FMA on the CUDA cores, two kernels and no atomics
-// (256 threads, 4 x 4 scores and 4 x D/16 outputs each): dq q-tile major,
-// dk + dv k-tile major walking the group's heads in turn, bounded by the
-// 67 TFLOP/s f32 rate.
-#include "llm_sm90.cuh"
-#include "seg_tiles.cuh"
+//
+// float32 (llm_split_f32, llm_bwd_dq_tf32, llm_bwd_dkv_tf32; llm_f32.cuh):
+// the same function on the tensor cores in split TF32, two kernels as on
+// the TPU and no atomics, so every call gives bitwise the same result.
+// They do 7 products (S and dP in both), 7/5 of the needed work.
+//   * A pre-pass writes the hi and lo planes of q, k, v and do as they are
+//     ([B H][Sp][D]) and of q, k and do transposed ([B H][D][Sp], 8-groups
+//     in lf32_pi order): TF32 wgmma reads shared memory K-major only, and
+//     dQ += ds k, dK += ds^T q and dV += p^T do contract along rows
+//     (231 MB at the sft shape).
+//   * A block holds 64 rows of one side fixed in shared memory, hi and lo
+//     (128 KB at D = 128), and streams the other side's live tiles of
+//     kTile rows (16 at D = 128, where four buffers of 32 rows would not
+//     fit beside them). Two consumer warpgroups split the work so that
+//     one's CUDA-core work and waits run under the other's products, and
+//     a producer warpgroup gives its registers to them (setmaxnreg); its
+//     first thread loads each tile's buffers, each released by the
+//     warpgroup that reads it once its products are done.
+//   * dq, query-major: 64 queries of one (b, head), q and do fixed.
+//     Warpgroup 0: S = q k^T and p; warpgroup 1: dP = do v^T, ds = p (dP
+//     - dd) with p passed through shared memory, and dQ += ds k (k^T).
+//   * dk + dv, key-major: 64 keys of one (b, kv head), k and v fixed; the
+//     walk takes the group's query heads in turn. Warpgroup 0: S^T = k
+//     q^T, p and dV += p^T do (do^T); warpgroup 1: dP^T = v do^T, ds^T and
+//     dK += ds^T q (q^T). dK and dV sum the group in registers.
+//   * S and dP sum their k-steps in kLf32Chains chains (12 products at D =
+//     128), folded on the CUDA cores. p and ds are split in registers into
+//     the A operands. A warpgroup issues its next tile's logits behind its
+//     output products and frees the buffer those read as soon as they are
+//     done, so its next load runs under the logits. dQ, dK and dV restart
+//     from zero every kLf32FlushRows rows of the walk, added to their f32
+//     rows in device memory (the block owns them).
+//   * Tiles are skipped as the bf16 body skips them (seg_tiles.cuh); rows
+//     past S are zero planes and masked; a block with no live tile writes
+//     zeros.
+#include "llm_f32.cuh"
 
 namespace ullsam {
 namespace {
 
 using bf16 = __nv_bfloat16;
-constexpr int kB = 64;         // query / key tile
-constexpr int kLdF = kB + 4;   // f32 d-major / score row stride
+constexpr int kB = 64;  // bf16: query / key tile
 
-// ---- float32: FMA on the CUDA cores ---------------------------------------
-// 256 threads; thread (ty, tx) = (tid / 16, tid % 16) holds a 4 x 4 block of
-// the 64 x 64 score tile (rows 4 ty.., columns 4 tx..) and rows 4 ty.. x
-// channels tx * HD / 16 .. of the 64 x HD output. Operands of the score
-// products sit d-major ([HD][kLdF]), operands of the output products
-// row-major ([64][HD + 4]).
+// ---- float32: split TF32 on wgmma + TMA (see the note at the top) ---------
 
-template <int HD>
-__device__ __forceinline__ void fma_tile(float (&s)[4][4], const float* at,
-                                         const float* bt, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < HD; ++d) {
-    const float4 a = *reinterpret_cast<const float4*>(at + d * kLdF + ty * 4);
-    const float4 b = *reinterpret_cast<const float4*>(bt + d * kLdF + tx * 4);
-    const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-  }
-}
+// The blocks' shared memory; must match ops/kernels/llm_flash_attention.py
+// bwd_f32_smem_bytes. A natural plane of R rows takes 4 R D bytes, a
+// transposed one [D][R] as much.
+// dq: 1024 bytes to align; q hi, q lo, do hi, do lo of the block's 64
+// queries; three buffers of a key tile, each a hi and a lo plane: k
+// (warpgroup 0's), v and k^T (warpgroup 1's); p passed from warpgroup 0
+// to 1, two buffers of [kTile / 2][128] f32; full and empty mbarriers a
+// buffer, two of each for p, one for q and do. At D = 128: 1024 + 131072
+// + 3 x 16384 + 8192 + 88 = 189,528.
+// dkv: k hi, k lo, v hi, v lo of the block's 64 keys; four buffers of a
+// query tile: q and do^T (warpgroup 0's), do and q^T (warpgroup 1's); the
+// p buffers; full and empty mbarriers a buffer, two of each for p, one
+// for k and v. At D = 128: 1024 + 131072 + 4 x 16384 + 8192 + 104 =
+// 205,928.
+constexpr int kLf32BwdThreads = 384;  // two consumer warpgroups + a producer
 
-// acc[4][HD/16] += P[4 ty.., :] ([64][kLdF]) . B[:, tx HD/16 ..] ([64][HD+4])
-template <int HD>
-__device__ __forceinline__ void fma_out(float (&acc)[4][HD / 16],
-                                        const float* P, const float* B,
-                                        int ty, int tx) {
-  constexpr int kC = HD / 16, kLdR = HD + 4;
-#pragma unroll 4
-  for (int m = 0; m < kB; ++m) {
-    float bv[kC];
-#pragma unroll
-    for (int u = 0; u < kC; u += 4) {
-      const float4 b4 =
-          *reinterpret_cast<const float4*>(B + m * kLdR + tx * kC + u);
-      bv[u] = b4.x, bv[u + 1] = b4.y, bv[u + 2] = b4.z, bv[u + 3] = b4.w;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float p = P[(ty * 4 + i) * kLdF + m];
-#pragma unroll
-      for (int u = 0; u < kC; ++u) acc[i][u] = fmaf(p, bv[u], acc[i][u]);
-    }
-  }
-}
+template <int D>
+struct Lf32BwdLayout {
+  static constexpr int kTile = D > 64 ? 16 : 32;  // rows of a streamed tile
+  static constexpr int kP64 = kLf32Rows * D * 4;   // a plane of 64 rows
+  static constexpr int kFixed = 4 * kP64;
+  static constexpr int kBuf = 2 * kTile * D * 4;   // a tile's hi, lo planes
+  static constexpr int kPx = 2 * kTile / 2 * 128 * 4;  // two p buffers
+  static constexpr int kDqSmem = 1024 + kFixed + 3 * kBuf + kPx + 11 * 8;
+  static constexpr int kDkvSmem = 1024 + kFixed + 4 * kBuf + kPx + 13 * 8;
+  static_assert(kDkvSmem + (int)sizeof(SegTiles) <= 232448, "one block");
+};
 
-// 64 rows [row0, row0 + 64) of a global array with row stride ld_g (HD
-// floats used) into smem, d-major and/or row-major (either may be null);
-// rows past S are zero
-template <int HD>
-__device__ __forceinline__ void load_f32(float* dmaj, float* rmaj,
-                                         const float* base, size_t ld_g,
-                                         int row0, int S, int tid) {
-  for (int e = tid; e < kB * HD; e += 256) {
-    const int r = e / HD, d = e % HD;
-    const float x = row0 + r < S ? base[(size_t)(row0 + r) * ld_g + d] : 0.f;
-    if (dmaj) dmaj[d * kLdF + r] = x;
-    if (rmaj) rmaj[r * (HD + 4) + d] = x;
-  }
-}
+// The maps of the backward's scratch: `nat` [4 B nh Sp + 4 B nkv Sp][D] (q
+// hi, q lo, do hi, do lo, k hi, k lo, v hi, v lo) and `tr` [4 B nh D + 2 B
+// nkv D][Sp] (q^T hi, q^T lo, do^T hi, do^T lo, k^T hi, k^T lo), in boxes
+// of kTile rows or columns.
+struct Lf32BwdMaps {
+  CUtensorMap nat, tr;
+};
 
-template <int HD>
-constexpr size_t dq_f32_smem() {
-  return sizeof(float) * (size_t)(4 * HD * kLdF + kB * (HD + 4) +
-                                  kB * kLdF + 4 * kB);
-}
-
-// grid (ceil(S / 64), nh, B): dq of 64 query rows, the longest first
-template <int HD>
-__global__ void __launch_bounds__(256, 1)
-    llm_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const int* __restrict__ qseg,
-                   const int* __restrict__ kseg,
-                   const float* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ dd, float* __restrict__ dq,
-                   int S, int nh, int nkv, int causal, float scale) {
-  constexpr int kC = HD / 16;
-  extern __shared__ __align__(16) float sm[];
-  float* Qt = sm;                  // [HD][kLdF] q
-  float* Gt = Qt + HD * kLdF;      // [HD][kLdF] do
-  float* Kt = Gt + HD * kLdF;      // [HD][kLdF]
-  float* Vt = Kt + HD * kLdF;      // [HD][kLdF]
-  float* Kr = Vt + HD * kLdF;      // [64 keys][HD + 4]
-  float* DS = Kr + kB * (HD + 4);  // [64 rows][kLdF]
-  float* LSE = DS + kB * kLdF;     // [64]
-  float* DD = LSE + kB;            // [64]
-  int* QSeg = reinterpret_cast<int*>(DD + kB);  // [64]
-  int* KSeg = QSeg + kB;                        // [64]
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int NT = (S + kB - 1) / kB;
-  const int qt = NT - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z, q0 = qt * kB;
-  const size_t ldq = (size_t)nh * HD, ldk = (size_t)nkv * HD;
-  const size_t qoff = (size_t)b * S * ldq + (size_t)h * HD;
-  const size_t kvoff = (size_t)b * S * ldk + (size_t)(h / (nh / nkv)) * HD;
-  const size_t rb = ((size_t)b * nh + h) * S;
-  load_f32<HD>(Qt, nullptr, q + qoff, ldq, q0, S, tid);
-  load_f32<HD>(Gt, nullptr, dout + qoff, ldq, q0, S, tid);
-  if (tid < kB) {
-    const bool in = q0 + tid < S;
-    LSE[tid] = in ? lse[rb + q0 + tid] : 0.f;
-    DD[tid] = in ? dd[rb + q0 + tid] : 0.f;
-    QSeg[tid] = in ? qseg[(size_t)b * S + q0 + tid] : 0;
-  }
-  float acc[4][kC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kC; ++j) acc[i][j] = 0.f;
-
-  const int nkt = causal ? qt + 1 : NT;
-  __shared__ SegTiles tiles;
-  seg_own_ids(tiles, qseg + (size_t)b * S, q0, S, tid);
-  seg_mark_live(tiles, kseg + (size_t)b * S, 0, nkt, S, tid, 256);
-  for (int kt = seg_next_live(tiles, 0, nkt); kt < nkt;
-       kt = seg_next_live(tiles, kt + 1, nkt)) {
-    const int k0 = kt * kB;
-    __syncthreads();  // previous tile's Kt / Vt / Kr / DS / KSeg are free
-    load_f32<HD>(Kt, Kr, k + kvoff, ldk, k0, S, tid);
-    load_f32<HD>(Vt, nullptr, v + kvoff, ldk, k0, S, tid);
-    if (tid < kB) KSeg[tid] = k0 + tid < S ? kseg[(size_t)b * S + k0 + tid]
-                                           : 0;
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    fma_tile<HD>(s, Qt, Kt, ty, tx);
-    fma_tile<HD>(dp, Gt, Vt, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx * 4 + j, row = q0 + r, key = k0 + c;
-        const bool ok = row < S && key < S && KSeg[c] == QSeg[r] &&
-                        (!causal || key <= row);
-        const float p = ok ? expf(s[i][j] * scale - LSE[r]) : 0.f;
-        DS[r * kLdF + c] = p * (dp[i][j] - DD[r]);
-      }
-    }
-    __syncthreads();
-    fma_out<HD>(acc, DS, Kr, ty, tx);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= S) continue;
-#pragma unroll
-    for (int j = 0; j < kC; ++j)
-      dq[qoff + (size_t)row * ldq + tx * kC + j] = acc[i][j] * scale;
-  }
-}
-
-template <int HD>
-constexpr size_t dkv_f32_smem() {
-  return sizeof(float) * (size_t)(4 * HD * kLdF + 2 * kB * (HD + 4) +
-                                  kB * kLdF + 4 * kB);
-}
-
-// grid (ceil(S / 64), nkv, B): dk and dv of 64 keys of one kv head
-template <int HD>
-__global__ void __launch_bounds__(256, 1)
-    llm_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
+// grid (nh * ceil(S / 64), B), kLf32BwdThreads threads: dq of 64 queries
+// of one (b, head), the longest walks first; lse, dd [B, nh, S].
+// Warpgroup 0 takes S = q k^T and p; warpgroup 1 dP = do v^T, ds = p (dP
+// - dd) (p from warpgroup 0 through shared memory) and dQ += ds k;
+// warpgroup 2 the loads.
+template <int D>
+__global__ void __launch_bounds__(kLf32BwdThreads, 1)
+    llm_bwd_dq_tf32(const __grid_constant__ Lf32BwdMaps maps,
                     const int* __restrict__ qseg,
                     const int* __restrict__ kseg,
-                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ dd, float* __restrict__ dk,
-                    float* __restrict__ dv, int S, int nh, int nkv,
-                    int causal, float scale) {
-  constexpr int kC = HD / 16;
-  extern __shared__ __align__(16) float sm[];
-  float* Kt = sm;                  // [HD][kLdF] keys
-  float* Vt = Kt + HD * kLdF;      // [HD][kLdF]
-  float* Qt = Vt + HD * kLdF;      // [HD][kLdF] q of the query tile
-  float* Gt = Qt + HD * kLdF;      // [HD][kLdF] do
-  float* Qr = Gt + HD * kLdF;      // [64 q][HD + 4]
-  float* Gr = Qr + kB * (HD + 4);  // [64 q][HD + 4]
-  float* PT = Gr + kB * (HD + 4);  // [64 keys][kLdF]: p, then ds
-  float* LSE = PT + kB * kLdF;     // [64]
-  float* DD = LSE + kB;            // [64]
-  int* QSeg = reinterpret_cast<int*>(DD + kB);  // [64]
-  int* KSeg = QSeg + kB;                        // [64]
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int NT = (S + kB - 1) / kB;
-  const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z, k0 = kt * kB;
-  const int group = nh / nkv;
-  const size_t ldq = (size_t)nh * HD, ldk = (size_t)nkv * HD;
-  const size_t kvoff = (size_t)b * S * ldk + (size_t)hk * HD;
-  const int qt0 = causal ? kt : 0;
+                    const float* __restrict__ dd, float* __restrict__ dq,
+                    int S, int nh, int nkv, int causal, float scale) {
+  using L = Lf32BwdLayout<D>;
+  constexpr int kT = L::kTile, kN = kT / 2, kBuf = L::kBuf;
+  constexpr int kFlush = kLf32FlushRows / kT;
+  enum { kK = 0, kV = 1, kKt = 2 };  // the tile buffers
+  extern __shared__ unsigned char smraw[];
+  unsigned char* base = align1024(smraw);  // q hi, q lo, do hi, do lo
+  unsigned char* bufs = base + L::kFixed;  // k | v, k^T (hi, lo)
+  float* px = reinterpret_cast<float*>(bufs + 3 * kBuf);  // [2][kN][128]
+  uint64_t* full = reinterpret_cast<uint64_t*>(px + 2 * kN * 128);
+  uint64_t* empty = full + 3;
+  uint64_t* pfull = empty + 3;
+  uint64_t* pempty = pfull + 2;
+  uint64_t* qbar = pempty + 2;
+  const auto buf = [&](int i) { return bufs + i * kBuf; };
   __shared__ SegTiles tiles;
-  seg_own_ids(tiles, kseg + (size_t)b * S, k0, S, tid);
-  seg_mark_live(tiles, qseg + (size_t)b * S, qt0, NT, S, tid, 256);
-  load_f32<HD>(Kt, nullptr, k + kvoff, ldk, k0, S, tid);
-  load_f32<HD>(Vt, nullptr, v + kvoff, ldk, k0, S, tid);
-  if (tid < kB) KSeg[tid] = k0 + tid < S ? kseg[(size_t)b * S + k0 + tid] : 0;
-  float adk[4][kC], adv[4][kC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kC; ++j) adk[i][j] = adv[i][j] = 0.f;
 
-  // the (head of the group, live query tile) pairs, in order
-  for (int jh = 0; jh < group; ++jh)
-    for (int qt = seg_next_live(tiles, qt0, NT); qt < NT;
-         qt = seg_next_live(tiles, qt + 1, NT)) {
-      const int h = hk * group + jh, q0 = qt * kB;
-      const size_t qoff = (size_t)b * S * ldq + (size_t)h * HD;
-      const size_t rb = ((size_t)b * nh + h) * S;
-      __syncthreads();  // previous pair's operands are free
-      load_f32<HD>(Qt, Qr, q + qoff, ldq, q0, S, tid);
-      load_f32<HD>(Gt, Gr, dout + qoff, ldq, q0, S, tid);
-      if (tid < kB) {
-        const bool in = q0 + tid < S;
-        LSE[tid] = in ? lse[rb + q0 + tid] : 0.f;
-        DD[tid] = in ? dd[rb + q0 + tid] : 0.f;
-        QSeg[tid] = in ? qseg[(size_t)b * S + q0 + tid] : 0;
-      }
-      __syncthreads();
-      float s[4][4], dp[4][4];
-      fma_tile<HD>(s, Kt, Qt, ty, tx);   // rows = keys, columns = queries
-      fma_tile<HD>(dp, Vt, Gt, ty, tx);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kc = ty * 4 + i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int qi = tx * 4 + j, key = k0 + kc, row = q0 + qi;
-          const bool ok = key < S && row < S && QSeg[qi] == KSeg[kc] &&
-                          (!causal || row >= key);
-          const float p = ok ? expf(s[i][j] * scale - LSE[qi]) : 0.f;
-          PT[kc * kLdF + qi] = p;
-          dp[i][j] = p * (dp[i][j] - DD[qi]);
+  const int tid = threadIdx.x, wg = tid >> 7, B = gridDim.y;
+  const int NT = (S + kLf32Rows - 1) / kLf32Rows, Sp = NT * kLf32Rows;
+  const int h = blockIdx.x % nh, b = blockIdx.y;
+  const int qt = NT - 1 - blockIdx.x / nh, q0 = qt * kLf32Rows;
+  const int hk = h / (nh / nkv);
+  const int* qsb = qseg + (size_t)b * S;
+  const int* ksb = kseg + (size_t)b * S;
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 4);  // each warp of the buffer's warpgroup
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&pfull[i], 4);   // warpgroup 0's warps: p written
+      mbar_init(&pempty[i], 4);  // warpgroup 1's: p read
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  const int nkt = causal ? qt + 1 : NT;
+  seg_own_ids(tiles, qsb, q0, S, tid);  // synchronises: the barriers exist
+  seg_mark_live(tiles, ksb, 0, nkt, S, tid, kLf32BwdThreads);
+
+  if (wg == 2) {  // the producer warpgroup: one thread issues
+    producer_registers();
+    if (tid == 256) {
+      const int pq = B * nh * Sp, pk = B * nkv * Sp;
+      const int qrow = (b * nh + h) * Sp + q0;
+      mbar_expect_tx(qbar, L::kFixed);
+      for (int i = 0; i < 4; ++i)  // q hi, q lo, do hi, do lo
+        for (int r = 0; r < kLf32Rows; r += kT)
+          lf32_load_rows<D, kLf32Rows>(base + i * L::kP64, r, &maps.nat,
+                                       qbar, i * pq + qrow + r);
+      // natural rows of k hi (then k lo, v hi, v lo), transposed of k^T
+      const int krow = 4 * pq + (b * nkv + hk) * Sp;
+      const int trow = 4 * B * nh * D + (b * nkv + hk) * D, tlo = B * nkv * D;
+      int n = 0;
+      for (Lf32Walk<kT> w(tiles, 0, nkt, 1); w.valid(); w.next(), ++n) {
+        const int k0 = w.row0(), ph = n & 1;
+        for (int i = 0; i < 3; ++i) {  // k, v, k^T: in the order of use
+          mbar_wait(&empty[i], ph ^ 1);
+          mbar_expect_tx(&full[i], kBuf);
+          for (int j = 0; j < 2; ++j) {
+            unsigned char* dst = buf(i) + j * (kBuf / 2);
+            if (i == kKt)
+              tma_load_2d(dst, &maps.tr, &full[i], k0, trow + j * tlo);
+            else
+              lf32_load_rows<D, kT>(dst, 0, &maps.nat, &full[i],
+                                    krow + (2 * i + j) * pk + k0);
+          }
         }
       }
-      __syncthreads();
-      fma_out<HD>(adv, PT, Gr, ty, tx);
-      __syncthreads();  // every thread has read p
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          PT[(ty * 4 + i) * kLdF + tx * 4 + j] = dp[i][j];
-      __syncthreads();
-      fma_out<HD>(adk, PT, Qr, ty, tx);
     }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty * 4 + i;
-    if (key >= S) continue;
-    const size_t r = kvoff + (size_t)key * ldk + tx * kC;
-#pragma unroll
-    for (int j = 0; j < kC; ++j) {
-      dk[r + j] = adk[i][j] * scale;
-      dv[r + j] = adv[i][j];
-    }
+    return;
   }
+  consumer_registers();
+
+  // a consumer thread: rows g and g + 8 of its warp's 16, keys 8 j + 2 t +
+  // e of a tile (accumulator slot 4 j + 2 hf + e)
+  const int t128 = tid & 127, lane = tid & 31, wr = t128 >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  int row[2], rseg[2];
+  float rv[2];  // lse (warpgroup 0) or dd (1) of the rows
+  float* dq_rows[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    row[hf] = q0 + wr * 16 + g + 8 * hf;
+    const bool in = row[hf] < S;
+    const size_t rb = ((size_t)b * nh + h) * S + row[hf];
+    rseg[hf] = in ? qsb[row[hf]] : 0;
+    rv[hf] = in ? (wg ? dd[rb] : lse[rb]) : 0.f;
+    dq_rows[hf] =
+        in ? dq + (((size_t)b * S + row[hf]) * nh + h) * D : nullptr;
+  }
+  float ch[kLf32Chains][kN], qacc[D / 2];
+#pragma unroll
+  for (int c = 0; c < D / 2; ++c) qacc[c] = 0.f;
+  const auto fence_acc = [&] {
+#pragma unroll
+    for (int c = 0; c < kLf32Chains; ++c) reg_fence(ch[c]);
+    reg_fence(qacc);
+  };
+  // S = q k^T (warpgroup 0) or dP = do v^T (1), in kLf32Chains chains from
+  // zero
+  const unsigned char* fixed = base + wg * 2 * L::kP64;
+  const int nat = wg ? kV : kK;
+  const auto issue_logits = [&] {
+#pragma unroll
+    for (int c = 0; c < kLf32Chains; ++c) {
+#pragma unroll
+      for (int x = 0; x < kN; ++x) ch[c][x] = 0.f;
+      reg_fence(ch[c]);
+    }
+    wgmma_fence();
+    lf32_logits<D, kT>(
+        ch,
+        [&](int ks, bool lo) {
+          return lf32_nat_desc<kLf32Rows>(fixed + (lo ? L::kP64 : 0), ks);
+        },
+        [&](int ks, bool lo) {
+          return lf32_nat_desc<kT>(buf(nat) + (lo ? kBuf / 2 : 0), ks);
+        });
+    wgmma_commit();
+  };
+  mbar_wait(qbar, 0);
+
+  Lf32Walk<kT> w(tiles, 0, nkt, 1);
+  int n = 0;
+  if (w.valid()) {
+    mbar_wait(&full[nat], 0);
+    issue_logits();
+  }
+  for (; w.valid(); ++n) {
+    const int k0 = w.row0(), ph = n & 1, pb = n & 1;
+    float* pxb = px + pb * kN * 128;
+    if (wg == 0) {
+      int kid[kN / 2];  // segment ids of the thread's keys 8 j + 2 t + e
+#pragma unroll
+      for (int j = 0; j < kT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + 8 * j + 2 * t + e;
+          kid[2 * j + e] = key < S ? ksb[key] : 0;
+        }
+      wgmma_wait<0>();  // this tile's S
+      fence_acc();
+      lf32_release(&empty[kK], lane);
+      mbar_wait(&pempty[pb], ((n >> 1) & 1) ^ 1);  // p of tile n - 2 read
+#pragma unroll
+      for (int x = 0; x < kN; ++x) {  // p = exp(s D^-1/2 - lse), valid keys
+        const int j = x >> 2, hf = (x >> 1) & 1, e = x & 1;
+        float v = ch[0][x];
+#pragma unroll
+        for (int c = 1; c < kLf32Chains; ++c) v += ch[c][x];
+        const int key = k0 + 8 * j + 2 * t + e;
+        const bool ok = key < S && row[hf] < S &&
+                        kid[2 * j + e] == rseg[hf] &&
+                        (!causal || key <= row[hf]);
+        pxb[x * 128 + t128] = ok ? expf(v * scale - rv[hf]) : 0.f;
+      }
+      lf32_release(&pfull[pb], lane);
+      w.next();
+      if (w.valid()) {  // the next tile's S
+        mbar_wait(&full[kK], (n + 1) & 1);
+        issue_logits();
+      }
+      continue;
+    }
+    wgmma_wait<0>();  // this tile's dP
+    fence_acc();
+    lf32_release(&empty[kV], lane);
+    if (n > 0 && n % kFlush == 0)
+      lf32_flush<D>(dq_rows, qacc, t, n == kFlush, 1.f);
+    // ds = p (dP - dd), split into the A operand of k-step j: register 2 e
+    // + hf holds row g + 8 hf, key 8 j + 2 t + e (lf32_pi)
+    uint32_t dh[kT / 8][4], dl[kT / 8][4];
+    mbar_wait(&pfull[pb], (n >> 1) & 1);
+#pragma unroll
+    for (int x = 0; x < kN; ++x) {
+      const int j = x >> 2, hf = (x >> 1) & 1, e = x & 1;
+      float v = ch[0][x];
+#pragma unroll
+      for (int c = 1; c < kLf32Chains; ++c) v += ch[c][x];
+      const float ds = pxb[x * 128 + t128] * (v - rv[hf]);
+      tf32_split(ds, dh[j][2 * e + hf], dl[j][2 * e + hf]);
+    }
+    lf32_release(&pempty[pb], lane);
+    mbar_wait(&full[kKt], ph);
+    fence_acc();
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kT / 8; ++j) {  // dQ += ds k
+      const uint64_t kh = lf32_tr_desc<kT>(buf(kKt), j);
+      const uint64_t kl = lf32_tr_desc<kT>(buf(kKt) + kBuf / 2, j);
+      lf32_rs<D>(qacc, dh[j], kl);
+      lf32_rs<D>(qacc, dl[j], kh);
+      lf32_rs<D>(qacc, dh[j], kh);
+    }
+    wgmma_commit();
+    w.next();
+    if (w.valid()) {  // the next tile's dP, issued behind this dQ
+      mbar_wait(&full[kV], (n + 1) & 1);
+      issue_logits();
+      wgmma_wait<1>();  // the dQ done, k^T free while dP runs
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_acc();
+    lf32_release(&empty[kKt], lane);
+  }
+  if (wg == 1) {
+    wgmma_wait<0>();
+    fence_acc();
+    lf32_flush<D>(dq_rows, qacc, t, n <= kFlush, scale);
+  }
+}
+
+// grid (nkv * ceil(S / 64), B), kLf32BwdThreads threads: dk and dv of 64
+// keys of one (b, kv head), summed over the group's query heads in turn.
+// Warpgroup 0 takes S^T = k q^T, p and dV += p^T do; warpgroup 1 dP^T = v
+// do^T, ds = p (dP - dd) (p from warpgroup 0 through shared memory) and
+// dK += ds^T q; warpgroup 2 the loads.
+template <int D>
+__global__ void __launch_bounds__(kLf32BwdThreads, 1)
+    llm_bwd_dkv_tf32(const __grid_constant__ Lf32BwdMaps maps,
+                     const int* __restrict__ qseg,
+                     const int* __restrict__ kseg,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ dd, float* __restrict__ dk,
+                     float* __restrict__ dv, int S, int nh, int nkv,
+                     int causal, float scale) {
+  using L = Lf32BwdLayout<D>;
+  constexpr int kT = L::kTile, kN = kT / 2, kBuf = L::kBuf;
+  constexpr int kFlush = kLf32FlushRows / kT;
+  enum { kQ = 0, kGt = 1, kG = 2, kQt = 3 };  // the tile buffers
+  extern __shared__ unsigned char smraw[];
+  unsigned char* base = align1024(smraw);  // k hi, k lo, v hi, v lo
+  unsigned char* bufs = base + L::kFixed;  // q, do^T | do, q^T (hi, lo)
+  float* px = reinterpret_cast<float*>(bufs + 4 * kBuf);  // [2][kN][128]
+  uint64_t* full = reinterpret_cast<uint64_t*>(px + 2 * kN * 128);
+  uint64_t* empty = full + 4;
+  uint64_t* pfull = empty + 4;
+  uint64_t* pempty = pfull + 2;
+  uint64_t* kvbar = pempty + 2;
+  const auto buf = [&](int i) { return bufs + i * kBuf; };
+  __shared__ SegTiles tiles;
+
+  const int tid = threadIdx.x, wg = tid >> 7, B = gridDim.y;
+  const int NT = (S + kLf32Rows - 1) / kLf32Rows, Sp = NT * kLf32Rows;
+  const int hk = blockIdx.x % nkv, b = blockIdx.y;
+  const int kt = blockIdx.x / nkv, k0 = kt * kLf32Rows;
+  const int group = nh / nkv, qt0 = causal ? kt : 0;
+  const int* qsb = qseg + (size_t)b * S;
+  const int* ksb = kseg + (size_t)b * S;
+  if (tid == 0) {
+    for (int i = 0; i < 4; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 4);  // each warp of the buffer's warpgroup
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&pfull[i], 4);   // warpgroup 0's warps: p written
+      mbar_init(&pempty[i], 4);  // warpgroup 1's: p read
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  seg_own_ids(tiles, ksb, k0, S, tid);  // synchronises: the barriers exist
+  seg_mark_live(tiles, qsb, qt0, NT, S, tid, kLf32BwdThreads);
+
+  if (wg == 2) {  // the producer warpgroup: one thread issues
+    producer_registers();
+    if (tid == 256) {
+      const int pq = B * nh * Sp, pk = B * nkv * Sp, tq = B * nh * D;
+      const int krow = 4 * pq + (b * nkv + hk) * Sp + k0;
+      mbar_expect_tx(kvbar, L::kFixed);
+      for (int i = 0; i < 4; ++i)  // k hi, k lo, v hi, v lo
+        for (int r = 0; r < kLf32Rows; r += kT)
+          lf32_load_rows<D, kLf32Rows>(base + i * L::kP64, r, &maps.nat,
+                                       kvbar, krow + i * pk + r);
+      int n = 0;
+      for (Lf32Walk<kT> w(tiles, qt0, NT, group); w.valid(); w.next(), ++n) {
+        const int h = hk * group + w.h, q0 = w.row0(), ph = n & 1;
+        const int qrow = (b * nh + h) * Sp + q0, trow = (b * nh + h) * D;
+        // in the order of first use: q, do (natural), do^T, q^T; plane i of
+        // the scratch: q hi, q lo, do hi, do lo (natural and transposed)
+        const int order[4] = {kQ, kG, kGt, kQt};
+        for (int o = 0; o < 4; ++o) {
+          const int i = order[o], first = i == kQ || i == kQt ? 0 : 2;
+          mbar_wait(&empty[i], ph ^ 1);
+          mbar_expect_tx(&full[i], kBuf);
+          for (int j = 0; j < 2; ++j) {
+            unsigned char* dst = buf(i) + j * (kBuf / 2);
+            if (i == kQ || i == kG)
+              lf32_load_rows<D, kT>(dst, 0, &maps.nat, &full[i],
+                                    (first + j) * pq + qrow);
+            else
+              tma_load_2d(dst, &maps.tr, &full[i], q0,
+                          (first + j) * tq + trow);
+          }
+        }
+      }
+    }
+    return;
+  }
+  consumer_registers();
+
+  // a consumer thread: keys (rows) g and g + 8 of its warp's 16, queries
+  // (columns) 8 j + 2 t + e of a tile (accumulator slot 4 j + 2 hf + e)
+  const int t128 = tid & 127, lane = tid & 31, wr = t128 >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int nat = wg ? kG : kQ, trn = wg ? kQt : kGt;  // this one's buffers
+  int key[2], kid[2];
+  float* out_rows[2];  // dV (warpgroup 0) or dK (1) rows
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    key[hf] = k0 + wr * 16 + g + 8 * hf;
+    const bool in = key[hf] < S;
+    kid[hf] = in ? ksb[key[hf]] : 0;
+    out_rows[hf] = in ? (wg ? dk : dv) + (((size_t)b * S + key[hf]) * nkv +
+                                          hk) * D
+                      : nullptr;
+  }
+  float ch[kLf32Chains][kN], acc[D / 2];
+#pragma unroll
+  for (int c = 0; c < D / 2; ++c) acc[c] = 0.f;
+  const auto fence_acc = [&] {
+#pragma unroll
+    for (int c = 0; c < kLf32Chains; ++c) reg_fence(ch[c]);
+    reg_fence(acc);
+  };
+  // S^T = k q^T (warpgroup 0) or dP^T = v do^T (1), in kLf32Chains chains
+  // from zero
+  const unsigned char* fixed = base + wg * 2 * L::kP64;
+  const auto issue_logits = [&] {
+#pragma unroll
+    for (int c = 0; c < kLf32Chains; ++c) {
+#pragma unroll
+      for (int x = 0; x < kN; ++x) ch[c][x] = 0.f;
+      reg_fence(ch[c]);
+    }
+    wgmma_fence();
+    lf32_logits<D, kT>(
+        ch,
+        [&](int ks, bool lo) {
+          return lf32_nat_desc<kLf32Rows>(fixed + (lo ? L::kP64 : 0), ks);
+        },
+        [&](int ks, bool lo) {
+          return lf32_nat_desc<kT>(buf(nat) + (lo ? kBuf / 2 : 0), ks);
+        });
+    wgmma_commit();
+  };
+  mbar_wait(kvbar, 0);
+
+  Lf32Walk<kT> w(tiles, qt0, NT, group);
+  int n = 0;
+  if (w.valid()) {
+    mbar_wait(&full[nat], 0);
+    issue_logits();
+  }
+  for (; w.valid(); ++n) {
+    const int h = hk * group + w.h, q0 = w.row0(), ph = n & 1, pb = n & 1;
+    // the thread's queries q0 + 8 j + 2 t + e: lse and segment ids
+    // (warpgroup 0) or dd (1)
+    float qv[kN / 2];
+    int qid[kN / 2];
+#pragma unroll
+    for (int j = 0; j < kT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int q = q0 + 8 * j + 2 * t + e;
+        const size_t rb = ((size_t)b * nh + h) * S + q;
+        const bool in = q < S;
+        qv[2 * j + e] = in ? (wg ? dd[rb] : lse[rb]) : 0.f;
+        qid[2 * j + e] = in && !wg ? qsb[q] : 0;
+      }
+    wgmma_wait<0>();  // this tile's logits
+    fence_acc();
+    lf32_release(&empty[nat], lane);
+    if (n > 0 && n % kFlush == 0)
+      lf32_flush<D>(out_rows, acc, t, n == kFlush, 1.f);
+    // p^T (0) or ds^T (1), split into the A operand of k-step j: register
+    // 2 e + hf holds key row g + 8 hf, query 8 j + 2 t + e
+    uint32_t fh[kT / 8][4], fl[kT / 8][4];
+    float* pxb = px + pb * kN * 128;
+    if (wg == 0) {
+      const int use = n >> 1;  // buffer pb's use count
+      mbar_wait(&pempty[pb], (use & 1) ^ 1);
+#pragma unroll
+      for (int x = 0; x < kN; ++x) {
+        const int j = x >> 2, hf = (x >> 1) & 1, e = x & 1;
+        float v = ch[0][x];
+#pragma unroll
+        for (int c = 1; c < kLf32Chains; ++c) v += ch[c][x];
+        const int q = q0 + 8 * j + 2 * t + e;
+        const bool ok = key[hf] < S && q < S && qid[2 * j + e] == kid[hf] &&
+                        (!causal || key[hf] <= q);
+        const float p = ok ? expf(v * scale - qv[2 * j + e]) : 0.f;
+        pxb[x * 128 + t128] = p;
+        tf32_split(p, fh[j][2 * e + hf], fl[j][2 * e + hf]);
+      }
+      lf32_release(&pfull[pb], lane);
+    } else {
+      mbar_wait(&pfull[pb], (n >> 1) & 1);
+#pragma unroll
+      for (int x = 0; x < kN; ++x) {
+        const int j = x >> 2, hf = (x >> 1) & 1, e = x & 1;
+        float v = ch[0][x];
+#pragma unroll
+        for (int c = 1; c < kLf32Chains; ++c) v += ch[c][x];
+        const float ds = pxb[x * 128 + t128] * (v - qv[2 * j + e]);
+        tf32_split(ds, fh[j][2 * e + hf], fl[j][2 * e + hf]);
+      }
+      lf32_release(&pempty[pb], lane);
+    }
+    mbar_wait(&full[trn], ph);
+    fence_acc();
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kT / 8; ++j) {  // dV += p^T do, or dK += ds^T q
+      const uint64_t bh = lf32_tr_desc<kT>(buf(trn), j);
+      const uint64_t bl = lf32_tr_desc<kT>(buf(trn) + kBuf / 2, j);
+      lf32_rs<D>(acc, fh[j], bl);
+      lf32_rs<D>(acc, fl[j], bh);
+      lf32_rs<D>(acc, fh[j], bh);
+    }
+    wgmma_commit();
+    w.next();
+    if (w.valid()) {  // the next tile's logits, issued behind these
+      mbar_wait(&full[nat], (n + 1) & 1);
+      issue_logits();
+      wgmma_wait<1>();  // dV or dK done, its buffer free while they run
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_acc();
+    lf32_release(&empty[trn], lane);
+  }
+  wgmma_wait<0>();
+  fence_acc();
+  lf32_flush<D>(out_rows, acc, t, n <= kFlush, wg ? scale : 1.f);
 }
 
 // ---- bf16: wgmma + TMA (see the note at the top) -------------------------
@@ -675,6 +928,49 @@ int launch_sm90(const bf16* q, const bf16* k, const bf16* v, const int* qseg,
   return (int)cudaGetLastError();
 }
 
+// the split pre-pass into `scratch` (natural q, do, k, v and transposed q,
+// do, k, hi and lo: B Sp D (8 nh + 6 nkv) floats), then the two kernels
+template <int D>
+int launch_tf32(const float* q, const float* k, const float* v,
+                const int* qseg, const int* kseg, const float* dout,
+                const float* lse, const float* dd, float* dq, float* dk,
+                float* dv, float* scratch, int B, int S, int nh, int nkv,
+                int causal, float scale, cudaStream_t st) {
+  using L = Lf32BwdLayout<D>;
+  const int NT = (S + kLf32Rows - 1) / kLf32Rows, Sp = NT * kLf32Rows;
+  const long long pq = (long long)B * nh * Sp, pk = (long long)B * nkv * Sp;
+  if (!scratch || 4 * (pq + pk) > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  float* nat = scratch;  // q, do, k, v (hi, lo each)
+  float* tr = nat + 4 * (pq + pk) * D;  // q^T, do^T, k^T
+  int e;
+  if ((e = lf32_split<D>(q, B, S, Sp, nh, 1.f, nat, tr, st)) ||
+      (e = lf32_split<D>(dout, B, S, Sp, nh, 1.f, nat + 2 * pq * D,
+                         tr + 2 * pq * D, st)) ||
+      (e = lf32_split<D>(k, B, S, Sp, nkv, 1.f, nat + 4 * pq * D,
+                         tr + 4 * pq * D, st)) ||
+      (e = lf32_split<D>(v, B, S, Sp, nkv, 1.f, nat + (4 * pq + 2 * pk) * D,
+                         nullptr, st)))
+    return e;
+  const long long nrows = 4 * (pq + pk), trows = (4LL * nh + 2 * nkv) * B * D;
+  Lf32BwdMaps maps;
+  if (!lf32_map(&maps.nat, nat, nrows, D, 32, L::kTile) ||
+      !lf32_map(&maps.tr, tr, trows, Sp, L::kTile, D))
+    return (int)cudaErrorInvalidValue;
+  static const int attr_q = set_smem(llm_bwd_dq_tf32<D>, L::kDqSmem);
+  static const int attr_kv = set_smem(llm_bwd_dkv_tf32<D>, L::kDkvSmem);
+  if (attr_q) return attr_q;
+  if (attr_kv) return attr_kv;
+  llm_bwd_dq_tf32<D>
+      <<<dim3(nh * NT, B), kLf32BwdThreads, L::kDqSmem, st>>>(
+          maps, qseg, kseg, lse, dd, dq, S, nh, nkv, causal, scale);
+  if ((e = (int)cudaGetLastError())) return e;
+  llm_bwd_dkv_tf32<D>
+      <<<dim3(nkv * NT, B), kLf32BwdThreads, L::kDkvSmem, st>>>(
+          maps, qseg, kseg, lse, dd, dk, dv, S, nh, nkv, causal, scale);
+  return (int)cudaGetLastError();
+}
+
 template <int HD>
 int launch(int dtype, const void* q, const void* k, const void* v,
            const int* qseg, const int* kseg, const void* dout,
@@ -683,20 +979,10 @@ int launch(int dtype, const void* q, const void* k, const void* v,
            float scale, cudaStream_t st) {
   if (dtype == kF32) {
     using F = const float*;
-    const int NT = (S + kB - 1) / kB;
-    const dim3 gq(NT, nh, B), gkv(NT, nkv, B);
-    int e;
-    if ((e = set_smem(llm_bwd_dq_f32<HD>, dq_f32_smem<HD>()))) return e;
-    llm_bwd_dq_f32<HD><<<gq, 256, dq_f32_smem<HD>(), st>>>(
-        F(q), F(k), F(v), qseg, kseg, F(dout), lse, dd,
-        static_cast<float*>(dq), S, nh, nkv, causal, scale);
-    if ((e = (int)cudaGetLastError())) return e;
-    if ((e = set_smem(llm_bwd_dkv_f32<HD>, dkv_f32_smem<HD>()))) return e;
-    llm_bwd_dkv_f32<HD><<<gkv, 256, dkv_f32_smem<HD>(), st>>>(
-        F(q), F(k), F(v), qseg, kseg, F(dout), lse, dd,
-        static_cast<float*>(dk), static_cast<float*>(dv), S, nh, nkv, causal,
-        scale);
-    return (int)cudaGetLastError();
+    return launch_tf32<HD>(F(q), F(k), F(v), qseg, kseg, F(dout), lse, dd,
+                           static_cast<float*>(dq), static_cast<float*>(dk),
+                           static_cast<float*>(dv), scratch, B, S, nh, nkv,
+                           causal, scale, st);
   }
   if (dtype == kBF16) {
     using H = const bf16*;
@@ -714,8 +1000,9 @@ int launch(int dtype, const void* q, const void* k, const void* v,
 // Plain C entry point (loaded with ctypes). Returns 0 or a cudaError_t.
 // dtype: 0 = float32, 1 = bfloat16 for q, k, v, do, dq, dk, dv; q_seg,
 // kv_seg int32 [B, S]; lse, dd float32 [B, nh, S]; scale D^-1/2 (f32). In
-// bf16, scratch is B S nh D floats (zeroed here, then dq's f32 sum);
-// float32 takes none. Requires D in {64, 128},
+// bf16, scratch is B nh Sp D floats (Sp = 64 ceil(S / 64); zeroed here,
+// then dq's f32 sum); in float32 B Sp D (kLf32BwdQPlanes nh +
+// kLf32BwdKvPlanes nkv) floats (the split planes). Requires D in {64, 128},
 // nh % nkv == 0, S <= 64 * kMaxSegTiles and 16-byte aligned tensors.
 extern "C" int llm_flash_attn_backward(
     int dtype, const void* q, const void* k, const void* v,

@@ -12,8 +12,10 @@ row with no valid key gives o = 0 and lse = NEG_INF. It replaces the TPU
 kernel ``ullsam_tpu/ops/pallas/flash_attention.py`` ``_llm_kernel`` (through
 ``_llm_flash_impl``; ``reference_attention`` is its XLA reference). On a
 CUDA tensor it launches ``csrc/llm_flash_attn.cu`` (see the note there:
-operation-bound; bf16 on the tensor cores, float32 by FMA); on a CPU tensor
-it runs ``llm_flash_attn_plain``. There is no fallback from the kernel.
+operation-bound; bf16 on ``wgmma``, float32 on ``wgmma`` in split TF32
+after a pre-pass that writes the operands' hi and lo planes into a scratch
+of ``fwd_scratch_floats``); on a CPU tensor it runs
+``llm_flash_attn_plain``. There is no fallback from the kernel.
 ``prescale_q`` (``flash_attention.py``) rounds q * D^-1/2 as the JAX
 package does: the product by D^-1/2 rounded to q's dtype.
 
@@ -23,7 +25,12 @@ B11, ``llm_flash_attn_bwd``, is its gradient (``_llm_bwd_dq_kernel`` and
 do, f32(q k^T) * D^-1/2 from unscaled q. In bf16 its kernel sums dq in
 f32 by reductions into a scratch the wrapper allocates
 (``bwd_scratch_floats``), in an order that varies from run to run, and so
-do dq's last bits; float32 runs two kernels with no such sum.
+do dq's last bits; float32 runs two kernels in split TF32 with no such
+sum, after a pre-pass into its scratch (the same rule), and gives the same
+bits every call. The plain versions take ``mm`` (``torch.matmul``; a test
+passes ``tf32.mm_3xtf32`` to run them through the float32 kernels'
+arithmetic). ``f32_smem_bytes`` and ``bwd_f32_smem_bytes`` mirror the
+float32 kernels' shared memory.
 ``llm_flash_attention`` is the differentiable entry with the JAX entry's
 signature: a ``torch.autograd.Function`` whose forward is B10 and whose
 backward is B11 on both devices.
@@ -42,12 +49,23 @@ from typing import Tuple
 import torch
 
 from ullsam_tpu_torch.ops.kernels import build
-from ullsam_tpu_torch.ops.kernels.flash_attention import prescale_q, q_scale
+from ullsam_tpu_torch.ops.kernels.flash_attention import (_work, prescale_q,
+                                                        q_scale)
 
 Tensor = torch.Tensor
 
 NEG_INF = -1e30  # lse of a row with no valid key (flash_attention.py:31)
 HEAD_DIMS = (64, 128)
+
+# The float32 kernels' split planes (csrc/llm_f32.cuh), each Sp x D floats
+# (Sp = S rounded up to 64), per query head and per kv head: the forward's
+# q (pre-scaled) and k hi / lo natural and v's transposed; the backward's
+# q and do natural and transposed, k natural and transposed, v natural
+F32_FWD_PLANES = (2, 4)
+F32_BWD_PLANES = (8, 6)
+# B10's float32 kernel streams 32-key stages, two of them
+# (csrc/llm_flash_attn.cu)
+F32_FWD_TILE, F32_FWD_STAGES = 32, 2
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -65,31 +83,36 @@ def _valid(q_seg: Tensor, kv_seg: Tensor, causal: bool) -> Tensor:
 
 def _heads(q: Tensor, k: Tensor, v: Tensor, num_kv_heads: int):
     """q [B, S, nh, D] -> [B, nh, S, D]; k, v [B, T, n_kv, D] -> [B, nh, T,
-    D] (kv head h // group for query head h), all f32."""
+    D] (kv head h // group for query head h), all in the working type
+    (``_work``: float64 stays, the rest f32)."""
     group = q.shape[2] // num_kv_heads
-    kh = k.float().transpose(1, 2).repeat_interleave(group, dim=1)
-    vh = v.float().transpose(1, 2).repeat_interleave(group, dim=1)
-    return q.float().transpose(1, 2), kh, vh
+    kh = _work(k).transpose(1, 2).repeat_interleave(group, dim=1)
+    vh = _work(v).transpose(1, 2).repeat_interleave(group, dim=1)
+    return _work(q).transpose(1, 2), kh, vh
 
 
 def llm_flash_attn_plain(q: Tensor, k: Tensor, v: Tensor, q_seg: Tensor,
                          kv_seg: Tensor, num_kv_heads: int,
-                         causal: bool = True) -> Tuple[Tensor, Tensor]:
+                         causal: bool = True,
+                         mm=torch.matmul) -> Tuple[Tensor, Tensor]:
     """The kernel's function in plain PyTorch (mask and logits
     materialized). Same rounding points as the kernel and
     ``_llm_flash_impl``: q pre-scaled (``prescale_q``), unnormalized p cast
-    to v.dtype before p.v, the output acc / l cast to q.dtype."""
+    to v.dtype before p.v, the output acc / l cast to q.dtype. ``mm`` takes
+    the two products (q k^T and p v); float64 inputs compute in float64
+    throughout, q * D^-1/2 included (an exact reference)."""
     dt = q.dtype
-    qs, kh, vh = _heads(prescale_q(q), k, v, num_kv_heads)
+    qs = (q * q.shape[-1] ** -0.5 if dt == torch.float64 else prescale_q(q))
+    qs, kh, vh = _heads(qs, k, v, num_kv_heads)
     valid = _valid(q_seg, kv_seg, causal)
-    logits = torch.matmul(qs, kh.transpose(-1, -2)).masked_fill(
+    logits = mm(qs, kh.transpose(-1, -2)).masked_fill(
         ~valid, float("-inf"))
     m = logits.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(logits - m)                         # 0 at invalid keys
     l = p.sum(dim=-1, keepdim=True)
     live = l > 0
-    o = torch.matmul(p.to(dt).float(), vh) / torch.where(live, l, 1.0)
+    o = mm(_work(p.to(dt)), vh) / torch.where(live, l, 1.0)
     lse = torch.where(live, m + torch.log(torch.where(live, l, 1.0)),
                       NEG_INF)[..., 0]
     return o.transpose(1, 2).to(dt), lse
@@ -121,7 +144,55 @@ def _check(fn: str, q: Tensor, tensors, num_kv_heads: int) -> None:
 def _kernel():
     p, i = ctypes.c_void_p, ctypes.c_int
     return build.function("llm_flash_attn", "llm_flash_attn_forward",
-                          [i] + [p] * 7 + [i] * 6 + [ctypes.c_float, p])
+                          [i] + [p] * 8 + [i] * 6 + [ctypes.c_float, p])
+
+
+def _sp(S: int) -> int:
+    """S rounded up to the kernels' 64-row tiles."""
+    return -(-S // 64) * 64
+
+
+def fwd_scratch_floats(B: int, S: int, nh: int, nkv: int, D: int,
+                       dtype: torch.dtype) -> int:
+    """f32 elements of B10's scratch: in float32 the split planes its
+    pre-pass writes (``F32_FWD_PLANES``: q pre-scaled and k, hi and lo,
+    natural; v's transposed), B Sp D (2 nh + 4 nkv); bf16 needs none."""
+    if dtype != torch.float32:
+        return 0
+    qp, kvp = F32_FWD_PLANES
+    return B * _sp(S) * D * (qp * nh + kvp * nkv)
+
+
+def f32_smem_bytes(D: int) -> int:
+    """``Lf32FwdLayout<D>::kSmem``: B10's float32 kernel. 1024 bytes to
+    align; q's hi and lo planes of 64 rows (4 D bytes a row); two stages of
+    k hi, k lo (natural, 32 keys) and v^T hi, v^T lo ([D][32]); a full and
+    an empty mbarrier a stage and one for q."""
+    plane = 4 * F32_FWD_TILE * D
+    return (1024 + 2 * 4 * 64 * D + F32_FWD_STAGES * 4 * plane
+            + (2 * F32_FWD_STAGES + 1) * 8)
+
+
+def bwd_f32_tile(D: int) -> int:
+    """Rows of the tiles that B11's float32 kernels stream
+    (``Lf32BwdLayout<D>::kTile``): at D = 128 the fixed 64 rows' hi and
+    lo planes take 128 KB, and four buffers of 32 rows would not fit
+    beside them."""
+    return 16 if D > 64 else 32
+
+
+def bwd_f32_smem_bytes(D: int) -> Tuple[int, int]:
+    """``Lf32BwdLayout<D>``: (dq's, dk / dv's) shared memory of B11's float32
+    kernels: 1024 bytes to align; the fixed 64 rows' four planes (q, do
+    or k, v; hi and lo), 4 x 64 D bytes each; the streamed tile's buffers,
+    each a hi and a lo plane of ``bwd_f32_tile`` rows (dq three: k, v,
+    k^T; dk / dv four: q, do^T, do, q^T); two buffers of p passed between
+    the warpgroups, [tile / 2][128] f32; the mbarriers (dq 11, dk / dv
+    13)."""
+    tile = bwd_f32_tile(D)
+    head = 1024 + 4 * 4 * 64 * D + 2 * tile // 2 * 128 * 4
+    buf = 2 * 4 * tile * D
+    return head + 3 * buf + 11 * 8, head + 4 * buf + 13 * 8
 
 
 def llm_flash_attn(q: Tensor, k: Tensor, v: Tensor, q_seg: Tensor,
@@ -146,13 +217,16 @@ def llm_flash_attn(q: Tensor, k: Tensor, v: Tensor, q_seg: Tensor,
         raise ValueError(f"llm_flash_attn: unsupported device {q.device}")
     o = torch.empty_like(q)
     lse = torch.empty((B, nh, S), device=q.device, dtype=torch.float32)
+    scratch = torch.empty(fwd_scratch_floats(B, S, nh, num_kv_heads, D,
+                                             q.dtype),
+                          device=q.device, dtype=torch.float32)
     fn = _kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), q_seg.data_ptr(), kv_seg.data_ptr(),
-                 o.data_ptr(), lse.data_ptr(), B, S, nh, num_kv_heads, D,
-                 int(causal), q_scale(D, q.dtype), stream)
+                 o.data_ptr(), lse.data_ptr(), scratch.data_ptr(), B, S, nh,
+                 num_kv_heads, D, int(causal), q_scale(D, q.dtype), stream)
     if err != 0:
         raise RuntimeError(f"llm_flash_attn kernel launch failed: "
                            f"cudaError {err}")
@@ -166,7 +240,8 @@ llm_flash_attn.launches = 0
 def llm_flash_attn_bwd_plain(q: Tensor, k: Tensor, v: Tensor, q_seg: Tensor,
                              kv_seg: Tensor, do: Tensor, lse: Tensor,
                              dd: Tensor, num_kv_heads: int,
-                             causal: bool = True) -> Tuple[Tensor, ...]:
+                             causal: bool = True,
+                             mm=torch.matmul) -> Tuple[Tensor, ...]:
     """B11 in plain PyTorch: (dq, dk, dv) at q.dtype.
 
     Scored as the TPU kernels score (flash_attention.py:604-612): s = f32(q
@@ -174,21 +249,22 @@ def llm_flash_attn_bwd_plain(q: Tensor, k: Tensor, v: Tensor, q_seg: Tensor,
     elsewhere). With ds = p (do v^T - dd): dq = (ds k) * D^-1/2, dk = (ds^T
     q) * D^-1/2, dv = p^T do, dk and dv summed in f32 over the group's query
     heads. p and ds are rounded to q.dtype before their products
-    (flash_attention.py:641-651)."""
+    (flash_attention.py:641-651). ``mm`` takes the five products; float64
+    inputs compute in float64 throughout."""
     dt = q.dtype
     B, S, nh, D = q.shape
     group = nh // num_kv_heads
     scale = D ** -0.5
     qh, kh, vh = _heads(q, k, v, num_kv_heads)
     valid = _valid(q_seg, kv_seg, causal)
-    s = torch.matmul(qh, kh.transpose(-1, -2)) * scale
-    p = torch.where(valid, torch.exp(s - lse[..., None]), 0.0)
-    g = do.to(dt).float().transpose(1, 2)             # [B, nh, S, D]
-    dp = torch.matmul(g, vh.transpose(-1, -2))
-    ds = (p * (dp - dd[..., None])).to(dt).float()
-    dq = torch.matmul(ds, kh) * scale
-    dk = torch.matmul(ds.transpose(-1, -2), qh) * scale  # [B, nh, T, D]
-    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), g)
+    s = mm(qh, kh.transpose(-1, -2)) * scale
+    p = torch.where(valid, torch.exp(s - lse.to(s.dtype)[..., None]), 0.0)
+    g = _work(do.to(dt)).transpose(1, 2)              # [B, nh, S, D]
+    dp = mm(g, vh.transpose(-1, -2))
+    ds = _work((p * (dp - dd.to(s.dtype)[..., None])).to(dt))
+    dq = mm(ds, kh) * scale
+    dk = mm(ds.transpose(-1, -2), qh) * scale  # [B, nh, T, D]
+    dv = mm(_work(p.to(dt)).transpose(-1, -2), g)
     T = k.shape[1]
 
     def per_kv(x: Tensor) -> Tensor:                  # sum the group
@@ -204,15 +280,18 @@ def _bwd_kernel():
                           [i] + [p] * 12 + [i] * 6 + [ctypes.c_float, p])
 
 
-def bwd_scratch_floats(B: int, S: int, nh: int, D: int,
+def bwd_scratch_floats(B: int, S: int, nh: int, nkv: int, D: int,
                        dtype: torch.dtype) -> int:
-    """f32 elements of B11's scratch: in bf16 the sum of dq, a chunk of
-    64 x D for each (b, head, 64-row query tile) (``csrc/llm_flash_bwd.cu``
+    """f32 elements of B11's scratch. bf16: the sum of dq, a chunk of 64 x
+    D for each (b, head, 64-row query tile) (``csrc/llm_flash_bwd.cu``
     zeroes it, adds each key block's partial into it by a bulk reduction
-    and converts it); float32 needs none."""
-    if dtype != torch.bfloat16:
-        return 0
-    return B * nh * -(-S // 64) * 64 * D
+    and converts it), B nh Sp D. float32: the split planes its pre-pass
+    writes (``F32_BWD_PLANES``: q, do, k, v natural and q, do, k
+    transposed, hi and lo), B Sp D (8 nh + 6 nkv)."""
+    if dtype == torch.bfloat16:
+        return B * nh * _sp(S) * D
+    qp, kvp = F32_BWD_PLANES
+    return B * _sp(S) * D * (qp * nh + kvp * nkv)
 
 
 def llm_flash_attn_bwd(q: Tensor, k: Tensor, v: Tensor, q_seg: Tensor,
@@ -241,7 +320,8 @@ def llm_flash_attn_bwd(q: Tensor, k: Tensor, v: Tensor, q_seg: Tensor,
         raise ValueError(f"llm_flash_attn_bwd: unsupported device "
                          f"{q.device}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    scratch = torch.empty(bwd_scratch_floats(B, S, nh, D, q.dtype),
+    scratch = torch.empty(bwd_scratch_floats(B, S, nh, num_kv_heads, D,
+                                             q.dtype),
                           device=q.device, dtype=torch.float32)
     fn = _bwd_kernel()
     with torch.cuda.device(q.device):

@@ -11,9 +11,17 @@ Each version is built with ``build.NVCC_FLAGS`` under ``csrc/_build/ab/``
 (each kernel's ptxas registers and spill bytes printed), checked against
 the plain versions at the packed sft path's shape (``tools/main_path.py``
 ``LLM_FLASH``) in bf16 and f32, then timed by CUDA events in the order
-given and again in reverse (a, b, ..., b, a). A backward whose C entry
-takes ``void* scratch`` (the wgmma body's f32 sums) gets one of
-``llm_flash_attention.bwd_scratch_floats``. Needs a CUDA card.
+given and again in reverse (a, b, ..., b, a). An entry whose C source
+takes ``void* scratch`` gets one: the backward's of
+``llm_flash_attention.bwd_scratch_floats`` (bf16's f32 dq sums, float32's
+split planes), the forward's of ``fwd_scratch_floats`` (float32's split
+planes). Each version's outputs are compared bitwise with the first
+version's (bf16 dq by the count of elements that differ, beside the first
+version's own count between two of its calls: its f32 sums land in an
+order that varies), in float32 also with a second call of the same
+version, and in float32 each output's error against a float64 evaluation
+of the plain version is printed beside the plain float32 version's own.
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -36,10 +44,10 @@ _ENTRIES = {"llm_flash_attn": "llm_flash_attn_forward",
 
 
 def _argtypes(src: str, scratch: bool) -> list:
-    if src == "llm_flash_attn":
-        return [_I] + [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P]
-    return [_I] + [_P] * (12 if scratch else 11) + [_I] * 6 \
-        + [ctypes.c_float, _P]
+    """The C entry's: the pointers (the forward's 7, the backward's 11, and
+    a scratch where the source takes one), 6 ints, scale, stream."""
+    ptrs = (7 if src == "llm_flash_attn" else 11) + int(scratch)
+    return [_I] + [_P] * ptrs + [_I] * 6 + [ctypes.c_float, _P]
 
 
 def ptxas_lines(log: str) -> list:
@@ -122,7 +130,8 @@ def device_ops(fn, iters: int = 10) -> str:
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
         if us > 0:
-            name = re.sub(r"\(.*", "", e.key).removeprefix("void ")
+            name = re.sub(r"\(.*", "", e.key.replace(
+                "(anonymous namespace)::", "")).removeprefix("void ")
             ms, n = us / iters / 1e3, e.count // iters
             rows.append((us, f"{name.split('::')[-1][:48]} {ms:.4f} ms ({n})"))
     return "; ".join(r for _, r in sorted(rows, reverse=True))
@@ -155,36 +164,77 @@ def main() -> None:
         q_scale = LF.q_scale(D, dtype)  # what the forward wrapper passes
         o, lse = torch.empty_like(q), torch.empty(B, nh, S, device="cuda")
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-        scratch = torch.empty(LF.bwd_scratch_floats(B, S, nh, D, dtype),
-                              device="cuda")
+        scratch = {
+            "llm_flash_attn": torch.empty(LF.fwd_scratch_floats(
+                B, S, nh, nkv, D, dtype), device="cuda"),
+            "llm_flash_bwd": torch.empty(LF.bwd_scratch_floats(
+                B, S, nh, nkv, D, dtype), device="cuda")}
         stream = torch.cuda.current_stream().cuda_stream
 
         def call(name, src):
             f, takes_scratch = fns[name][src]
             if src == "llm_flash_attn":
-                return lambda: f(code, q.data_ptr(), k.data_ptr(),
-                                 v.data_ptr(), seg.data_ptr(), seg.data_ptr(),
-                                 o.data_ptr(), lse.data_ptr(), B, S, nh, nkv,
-                                 D, 1, q_scale, stream)
-            ptrs = [q, k, v, seg, seg, do, lse_in, dd, dq, dk, dv]
+                ptrs = [q, k, v, seg, seg, o, lse]
+            else:
+                ptrs = [q, k, v, seg, seg, do, lse_in, dd, dq, dk, dv]
             if takes_scratch:
-                ptrs.append(scratch)
+                ptrs.append(scratch[src])
             ptrs = [t.data_ptr() for t in ptrs]
-            return lambda: f(code, *ptrs, B, S, nh, nkv, D, 1, scale, stream)
+            sc = q_scale if src == "llm_flash_attn" else scale
+            return lambda: f(code, *ptrs, B, S, nh, nkv, D, 1, sc, stream)
+
+        def outputs(name):
+            if call(name, "llm_flash_attn")() or call(name, "llm_flash_bwd")():
+                raise SystemExit(f"{name}: launch failed")
+            torch.cuda.synchronize()
+            return [t.clone() for t in (o, lse, dq, dk, dv)]
 
         ref = (*LF.llm_flash_attn_plain(q, k, v, seg, seg, nkv),
                *LF.llm_flash_attn_bwd_plain(q, k, v, seg, seg, do, lse_in,
                                             dd, nkv))
         dn = str(dtype).replace("torch.", "")
+        names = ("o", "lse", "dq", "dk", "dv")
+        first = None
+        if dtype == torch.float32:
+            r64 = (*LF.llm_flash_attn_plain(
+                *(t.double() for t in (q, k, v)), seg, seg, nkv),
+                *LF.llm_flash_attn_bwd_plain(
+                    *(t.double() for t in (q, k, v)), seg, seg, do.double(),
+                    lse_in.double(), dd.double(), nkv))
+            plain64 = [float((a.double() - r).abs().max() / r.abs().max())
+                       for a, r in zip(ref, r64)]
         for name in fns:
-            if call(name, "llm_flash_attn")() or call(name, "llm_flash_bwd")():
-                raise SystemExit(f"{name}: launch failed")
-            torch.cuda.synchronize()
+            got = outputs(name)
             errs = [float((a.float() - b.float()).abs().max()
-                          / b.float().abs().max())
-                    for a, b in zip((o, lse, dq, dk, dv), ref)]
+                          / b.float().abs().max()) for a, b in zip(got, ref)]
             print(f"[check] {name} {dn}: max|err| / max|plain| of o, lse, "
                   f"dq, dk, dv: {', '.join(f'{e:.2e}' for e in errs)}")
+            again = outputs(name)
+            if first is None:
+                first = got
+                diff = [int((a != b).sum()) for a, b in zip(got, again)]
+                print(f"[check] {name} {dn}: elements differing between two "
+                      f"calls of {', '.join(names)}: {diff}")
+            else:
+                diff = [int((a != b).sum()) for a, b in zip(got, first)]
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                print(f"[check] {name} {dn}: elements differing from "
+                      f"{order[0]}'s of {', '.join(names)}: {diff} (of "
+                      f"{', '.join(str(t.numel()) for t in got)}); two calls "
+                      f"bitwise equal: {same}")
+            if dtype == torch.float32:
+                e64 = [float((a.double() - r).abs().max() / r.abs().max())
+                       for a, r in zip(got, r64)]
+                ratio = [a / b for a, b in zip(e64, plain64)]
+                print(f"[f64] {name} {dn}: max|err| / max|f64| of "
+                      f"{', '.join(names)}: kernel "
+                      f"{', '.join(f'{e:.3e}' for e in e64)}; plain f32 "
+                      f"{', '.join(f'{e:.3e}' for e in plain64)}; ratio "
+                      f"{', '.join(f'{r:.2f}' for r in ratio)}")
+            del got, again
+        del first
+        if dtype == torch.float32:
+            del r64
         for src, kind, fl in (("llm_flash_attn", "B10", flops["fwd"]),
                               ("llm_flash_bwd", "B11", flops["bwd"])):
             times = {}
@@ -194,10 +244,9 @@ def main() -> None:
                 f"{n} {', '.join(f'{t:.4f}' for t in ts)} ms "
                 f"({fl / min(ts) / 1e9:.1f} TFLOP/s of the same-segment "
                 f"work)" for n, ts in times.items()))
-            if dtype == torch.bfloat16:
-                for name in fns:
-                    print(f"[ops] {kind} {dn} {name}: "
-                          + device_ops(call(name, src)))
+            for name in fns:
+                print(f"[ops] {kind} {dn} {name}: "
+                      + device_ops(call(name, src)))
 
 
 if __name__ == "__main__":

@@ -51,7 +51,7 @@ grep -E '\[train\] (f32|bf16 flagship)' "$out/smoke_${tag}.log" | cut -c1-400
 # ptxas (-Xptxas -v) of the window cores at SAM's 14x14 windows (NT = 14)
 # and at 16x16, and of the wgmma GEMM's kinds (<0> bf16, <1> int8 W, <2>
 # f32 in split TF32), from the build's own report
-grep -E '\[build\] .*(window_core_(bf16|f32)<(64|80), 1[46]>|gemm_nt_sm90|vit_flash_sm90|vit_bwd_|bwd_tf32|image_stage|upscale_unit|t2i_part|llm_flash_sm90|llm_bwd_sm90)' \
+grep -E '\[build\] .*(window_core_(bf16|f32)<(64|80), 1[46]>|gemm_nt_sm90|vit_flash_sm90|vit_bwd_|bwd_tf32|image_stage|upscale_unit|t2i_part|llm_flash_sm90|llm_bwd_sm90|llm_flash_tf32|llm_bwd_d(q|kv)_tf32|llm_split_f32)' \
     "$out/smoke_${tag}.log"
 tail -2 "$out/smoke_${tag}.log" | cut -c1-300
 [ $rc -eq 0 ] || exit $rc
@@ -85,4 +85,4 @@ grep -E -A20 '^== train_step' "$out/profile_train_${tag}.log"
 
 step profile_sft timeout 600 python -m ullsam_tpu_torch.tools.profile_kernels \
     --only packed_sft_step || { tail -40 "$out/profile_sft_${tag}.log"; exit 1; }
-grep -E -A20 '^== packed_sft_step' "$out/profile_sft_${tag}.log"
+grep -E -A32 "^== packed_sft_step" "$out/profile_sft_${tag}.log"

@@ -1,7 +1,8 @@
 """Where the time goes on the card: torch.profiler over the port's kernels
 at the main path's shapes, over one full segmentation request, one
 automatic-mask-generation image (bf16 and f32), one flagship train step,
-one packed sft step and steady caption decode steps in bf16 and with the
+one packed sft step (bf16, and ``packed_sft_step_float32``) and steady
+caption decode steps in bf16 and with the
 int8 LLM (inputs
 from ``tools/main_path.py``, as ``chip_smoke.py`` checks and times them),
 and over one warm SAM ViT-H AMG image and its encode under each route
@@ -215,6 +216,24 @@ def _vit_b_encode(args) -> None:
     torch.cuda.empty_cache()
 
 
+def _packed_f32(args, cfg) -> None:
+    """The packed sft step in float32 (the JAX CLI's default parameter
+    dtype; TF32 off in PyTorch; B10 and B11 in split TF32): the same
+    settings and batch as the bf16 region, on a float32 model built from
+    the seed (about 31 GB with its moments and gradients, beside the bf16
+    model)."""
+    f32 = F.build_ullsam(cfg, dtype=torch.float32, seed=0)
+    tcfg = S.TrainConfig(total_steps=100, **SFT_TRAIN)
+    step = S.make_train_step(cfg, tcfg, f32,
+                             S.make_trainable_optimizer(f32, tcfg))
+    batch = S.batch_on(f32, packed_train_batch(cfg,
+                                               np.random.default_rng(0)))
+    _region("packed_sft_step_float32", lambda: step(batch), args, iters=2,
+            top=30)
+    del f32, step, batch
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="chrome trace directory")
@@ -283,7 +302,7 @@ def main() -> None:
         del sam, amg
         torch.cuda.empty_cache()
     if not _wants(args, "request_", "train_step_", "packed_sft_step_",
-                  "caption_"):
+                  "packed_sft_step_float32", "caption_"):
         return
 
     cfg = FusionConfig(sam=sam_vit_b(), llm=internlm2_1_8b())
@@ -318,6 +337,8 @@ def main() -> None:
             iters=2, top=30)
     del step, batch
     torch.cuda.empty_cache()
+    if _wants(args, "packed_sft_step_float32"):
+        _packed_f32(args, cfg)
 
     # steady caption decode steps at batch 1 after the 1152-token prompt's
     # prefill, bf16 then with the LLM's linears int8 (B12, 121 a step)
