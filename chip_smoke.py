@@ -13,11 +13,11 @@ sm_90a) and the CUDA toolkit. Phases, each printing what it found:
     tolerance; kernel, plain and (where one exists) library-call times with
     CUDA events; the least time the card could take (bound; in float32
     f32-accurate products at their fastest, split TF32 at 495 / 3 TFLOP/s).
-    The float32 bodies on the tensor cores in split TF32 (B1, B3, B8, B9,
-    B10, B11, B13, B15, B4-B7, the wgmma GEMM's f32 kind) also against a
-    float64 evaluation of their plain version: on every output within 4x
-    the plain float32 version's own error (B10 and B11 also two calls
-    bitwise equal). B4-B7's fused kernels in bf16 and float32
+    The float32 bodies on the tensor cores in split TF32 (B1, B2, B3, B8,
+    B9, B10, B11, B13, B14, B15, B4-B7, the wgmma GEMM's f32 kind) also
+    against a float64 evaluation of their plain version: on every output
+    within 4x the plain float32 version's own error (B2, B10 and B11 also
+    two calls bitwise equal). B4-B7's fused kernels in bf16 and float32
     (B5's two image stages and their token -> image attention, the upscale
     with and without statistics) also alone: time, bound and achieved
     bandwidth.
@@ -293,6 +293,15 @@ def check_kernels(card: str) -> dict:
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 fail(f"{name} {dname} disagrees with its plain version")
+            if name == "vit_flash_attn" and dtype == torch.float32:
+                # no atomics in the split-TF32 body: two calls, the same bits
+                again = kernel(*args, **kw)
+                same = all(torch.equal(a, b) for a, b in zip(outs, again))
+                say(f"[kernels] {name} {dname}: two calls bitwise equal "
+                    f"{'ok' if same else 'FAIL'}")
+                if not same:
+                    fail(f"{name} {dname}: two calls differ")
+                del again
             f64 = (f64_hold(name, plain, args, outs, refs, "kernels", kw)
                    if dtype == torch.float32 and name in SPLIT_TF32 else {})
             ms = cuda_time_ms(lambda: kernel(*args, **kw), iters=20)
@@ -482,7 +491,8 @@ def _sdpa_ms(q, k, v, bias, backward: bool, **kw) -> float:
 # shape a phase runs them)
 FWD_TF32 = ("window_attn", "window_attn_core", "window_attn_core_twophase",
             "ln_mlp", "decode_masks", "two_way_transformer",
-            "upscale_hypernet_stats", "upscale_hypernet")
+            "upscale_hypernet_stats", "upscale_hypernet", "vit_flash_attn",
+            "vit_flash_attn_packed")
 SPLIT_TF32 = ("window_attn_core_bwd", "vit_flash_attn_bwd",
               "llm_flash_attn", "llm_flash_attn_bwd") + FWD_TF32
 F64_RATIO = 4.0

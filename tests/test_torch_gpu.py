@@ -126,6 +126,38 @@ def test_vit_flash_packed_kernel_matches_plain(cuda, dt, D, B, nh, KH, KW):
     assert _rel_err(lse, rlse) <= 1e-5
 
 
+@pytest.mark.parametrize("kind", ["B2", "B14"])
+@pytest.mark.parametrize("D", [64, 80])
+@pytest.mark.parametrize("KH,KW", [(64, 64), (4, 48)])
+def test_vit_flash_f32_error_vs_float64(cuda, kind, D, KH, KW):
+    """B2's and B14's float32 body (split TF32 on wgmma) against a float64
+    evaluation of its plain version, at SAM's 64x64 grid (rel_w from
+    registers) and at KW 48 (the per-logit bias; a last block of 64
+    queries): o and lse each within 4x the plain float32 version's error
+    (TF32 off); two calls give bitwise the same outputs (no atomics)."""
+    from ullsam_tpu_torch.ops.kernels import flash_attention as FA
+    N, nh = KH * KW, 3
+    rh, rw = (torch.randn(nh, N, K, generator=cuda, device="cuda") * 0.5
+              for K in (KH, KW))
+    if kind == "B2":
+        args = tuple(torch.randn(nh, N, D, generator=cuda, device="cuda")
+                     for _ in range(3)) + (rh, rw)
+        kernel, plain, kw = FA.vit_flash_attn, FA.vit_flash_attn_plain, {}
+    else:
+        args = (torch.randn(1, N, 3 * nh * D, generator=cuda,
+                            device="cuda"), rh, rw)
+        kernel = FA.vit_flash_attn_packed
+        plain, kw = FA.vit_flash_attn_packed_plain, {"nh": nh}
+    got, again = kernel(*args, **kw), kernel(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    ref = plain(*(t.double() for t in args), **kw)
+    for name, a, b, r in zip(("o", "lse"), got, plain(*args, **kw), ref):
+        err, err_plain = _rel_err64(a, r), _rel_err64(b, r)
+        assert err <= 4 * err_plain, (name, err, err_plain)
+
+
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,HW,M,T", [
     (3, 8, 3, 7),       # 64 image rows: fewer than a work unit's 128

@@ -145,6 +145,35 @@ def test_vit_flash_attn_plain_matches_tpu_kernel_and_xla():
     assert_close(o, xla, atol=2e-5, name="B2 o vs XLA")
 
 
+def test_vit_flash_plain_computes_float64_in_float64():
+    """Plain B2 and B14 on float64 inputs compute in float64 throughout (q
+    * D^-1/2 included): the result is not the float32 call's on the same
+    values, and within 1e-12 of max|ref| of a float64 ``torch.softmax``
+    reference (o and lse)."""
+    args = [torch.from_numpy(a).double() for a in _flash_case(seed=4)]
+    q, k, v, rel_h, rel_w = args
+    (BH, N, D), nh = q.shape, 2
+    bias = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(BH, N, N)
+    logits = q @ k.transpose(-1, -2) * D ** -0.5 + bias
+    ref = (torch.softmax(logits, -1) @ v, torch.logsumexp(logits, -1))
+    qkv = torch.cat([t.reshape(1, nh * N, D).reshape(1, nh, N, D)
+                     .transpose(1, 2).reshape(1, N, nh * D)
+                     for t in (q, k, v)], -1)
+    for name, plain, a in (
+            ("B2", TFA.vit_flash_attn_plain, (q, k, v, rel_h, rel_w)),
+            ("B14", lambda *a: TFA.vit_flash_attn_packed_plain(*a, nh),
+             (qkv, rel_h, rel_w))):
+        got = plain(*a)
+        f32 = plain(*(t.float() for t in a))
+        if name == "B14":
+            got = (got[0].reshape(N, nh, D).transpose(0, 1), got[1])
+            f32 = (f32[0].reshape(N, nh, D).transpose(0, 1), f32[1])
+        for x, y, r in zip(got, f32, ref):
+            assert x.dtype == torch.float64
+            assert not torch.equal(x, y.double()), name
+            assert float((x - r).abs().max() / r.abs().max()) <= 1e-12, name
+
+
 def test_wrappers_run_plain_on_cpu_without_launching():
     blk, xw, geom, nh, hd, ws = _window_case(np.float32, seed=2)
     args = _window_torch_args(blk, xw, ws, torch.float32)

@@ -21,6 +21,11 @@ against the 232,448 bytes of shared memory an H100 block may use.
   (``F32Layout<D>``, split TF32) at head dims 64 and 80:
   ``bwd_sm90_smem_bytes`` and ``bwd_f32_smem_bytes`` against the source's
   constants and the block.
+* B2 / B14's float32 body (``vit_flash_attn.cu`` ``vit_flash_tf32``, split
+  TF32 on wgmma): ``fwd_f32_smem_bytes`` (``F32Layout<D>``) at head dims 64
+  and 80 against the source's constants and the block, its bias rule
+  ``f32_bias_kw`` and its scratch rule ``fwd_f32_scratch_floats`` at ViT-B
+  and ViT-H; the CUDA-core body it replaced and ``attn_fma.cuh`` are gone.
 * B10's and B11's float32 bodies (split TF32 on wgmma, ``llm_f32.cuh``):
   ``llm_flash_attention.f32_smem_bytes`` / ``bwd_f32_smem_bytes`` at head
   dims 64 and 128 against the sources' constants and the block beside the
@@ -247,6 +252,69 @@ def test_key_rows_per_tile_rule():
     assert FA.key_rows_per_tile(64) == 1
     assert [FA.key_rows_per_tile(k) for k in (32, 16, 8, 48, 4)] == [
         2, 4, 8, 0, 0]
+
+
+@pytest.mark.parametrize("D,want", [(64, 197712), (80, 205888)])
+def test_flash_f32_smem_fits_a_block(D, want):
+    """B2 / B14's float32 body (two consumer warpgroups of 64 rows, qs hi
+    and lo of each, stages of k hi, k lo, v^T hi, v^T lo of 32 keys: 4 at
+    head dim 64, 3 at 80) fits one block."""
+    assert FA.fwd_f32_smem_bytes(D) == want <= FA.SMEM_LIMIT == 232448
+
+
+def test_flash_f32_mirror_matches_the_source():
+    """The block, tile, stage and scratch-plane constants that
+    ``flash_attention`` mirrors for B2 / B14's float32 body are those of
+    ``vit_flash_attn.cu``; the CUDA-core float32 body it replaced and the
+    header that body alone still used are gone."""
+    src = "vit_flash_attn.cu"
+    assert _const(src, r"kF32Rows = (\d+)") == FA.FWD_F32_ROWS
+    assert _const(src, r"kF32Threads = (\d+)") == 3 * 128
+    assert _const(src, r"kF32Keys = (\d+)") == FA.FWD_F32_KEYS
+    assert (_const(src, r"kStages = D > 64 \? (\d+)"),
+            _const(src, r"kStages = D > 64 \? \d+ : (\d+)")) == (
+        FA.FWD_F32_STAGES[80], FA.FWD_F32_STAGES[64])
+    assert _const(src, r"kF32NatPlanes = 4, kF32Planes = (\d+)") == \
+        FA.FWD_F32_PLANES
+    assert (_const(src, r"return KW >= (\d+) && \d+ % KW == 0 \? KW"),
+            _const(src, r"return KW >= \d+ && (\d+) % KW == 0 \? KW")) == (
+        8, 64)
+    with open(os.path.join(build.CSRC, src)) as f:
+        text = f.read()
+    for gone in ("vit_flash_f32", "attn_fma.cuh", "flash_smem_bytes",
+                 "launch_f32"):
+        assert gone not in text, gone
+    assert not os.path.exists(os.path.join(build.CSRC, "attn_fma.cuh"))
+
+
+def test_f32_bias_kw_rule():
+    """The float32 body takes rel_w from registers exactly when every
+    8-key block of a 32-key tile lies in one key-grid row and the tiles'
+    key columns repeat every one or two tiles (KW 8, 16, 32, 64); every
+    other KW keeps the per-logit bias. SAM's grids (KW = 64) take two
+    fragments in turns."""
+    for KW in range(1, 65):
+        keys = range(0, 64 * KW)
+        blocks = all(len({k // KW for k in range(b, b + 8)}) == 1
+                     for b in range(0, 64 * KW, 8))
+        cols = [[k % KW for k in keys[t:t + 32]]
+                for t in range(0, 64 * KW, 32)]
+        period = next(p for p in range(1, len(cols) + 1)
+                      if all(c == cols[i % p] for i, c in enumerate(cols)))
+        assert (FA.f32_bias_kw(KW) != 0) == (blocks and period <= 2), KW
+        assert FA.f32_bias_kw(KW) in (0, KW)
+    assert [FA.f32_bias_kw(k) for k in (64, 32, 16, 8, 48, 4)] == [
+        64, 32, 16, 8, 0, 0]
+
+
+def test_flash_f32_scratch_rule():
+    """B2 / B14's float32 scratch: the hi and lo planes of qs, k and v^T,
+    6 BH N D floats: 75,497,472 bytes at ViT-B's global blocks (12 heads of
+    64) and 125,829,120 at ViT-H's (16 of 80)."""
+    assert FA.fwd_f32_scratch_floats(12, 4096, 64) * 4 == 75_497_472
+    assert FA.fwd_f32_scratch_floats(16, 4096, 80) * 4 == 125_829_120
+    with open(os.path.join(build.CSRC, "vit_flash_attn.cu")) as f:
+        assert "? 4LL * ullsam::kF32Planes * BH * N * D" in f.read()
 
 
 # seg_tiles.cuh SegTiles: n, ids[64], rows[64], starts[2], live[4096 / 32]

@@ -1,7 +1,7 @@
 """The split-TF32 ("3xTF32") arithmetic of the float32 bodies of B8, B9,
-B13, B3, B1, B10 and B11 (and of B15, which runs B3's core) on the CPU
-(``ullsam_tpu_torch/ops/kernels/tf32.py``, the plain-torch emulation of
-``csrc/tf32.cuh``).
+B13, B3, B1, B10, B11, B2 and B14 (and of B15, which runs B3's core) on
+the CPU (``ullsam_tpu_torch/ops/kernels/tf32.py``, the plain-torch
+emulation of ``csrc/tf32.cuh``).
 
 The kernels take each f32 product as a_hi b_hi + a_hi b_lo + a_lo b_hi on
 TF32 values (hi = tf32(x), lo = tf32(x - hi), rounding to nearest with
@@ -13,16 +13,18 @@ max|ref| on every output, the parity that the JAX f32 path keeps
 with one TF32 pass misses that bar, so the test tells the two apart. So
 are the LLM flash attention's plain B10 and B11 (``_llm_flash_impl`` and
 ``_llm_flash_bwd_impl``, head dims 64 and 128, a row with no valid key). So
-are the forward kernels' plain versions: B13 (``ln_mlp_plain``, both
-products on the GEMM's f32 kind), B3 (``window_attn_core_plain``: the
-rel-pos terms, q k^T and p v on the f32 window core) and B1
-(``window_attn_plain``: qkv, proj and B3's products). So are B4 and B6's
-plain chains (``decode_masks_plain``, ``upscale_hypernet_stats_plain``:
-every GEMM product, as the float32 fused decoder kernels and the GEMM's f32
-kind take them) at ``tests/test_torch_decoder.py``'s case: within 1e-5 of
-max|out| of the plain f32 chain, within its 1e-4 of the JAX XLA chain, and
-within 2x the plain f32 chain's own error against a float64 run of it; one
-TF32 pass misses both bounds. The card tests (``tests/test_torch_gpu.py``)
+are B2 and B14's (``_vit_flash_impl`` and ``_vit_flash_packed_impl``, head
+dims 64 and 80). So are the forward kernels' plain versions: B13
+(``ln_mlp_plain``, both products on the GEMM's f32 kind), B3
+(``window_attn_core_plain``: the rel-pos terms, q k^T and p v on the f32
+window core) and B1 (``window_attn_plain``: qkv, proj and B3's products).
+So are B4 and B6's plain chains (``decode_masks_plain``,
+``upscale_hypernet_stats_plain``: every GEMM product, as the float32 fused
+decoder kernels and the GEMM's f32 kind take them) at
+``tests/test_torch_decoder.py``'s case: within 1e-5 of max|out| of the
+plain f32 chain, within its 1e-4 of the JAX XLA chain, and within 2x the
+plain f32 chain's own error against a float64 run of it; one TF32 pass
+misses both bounds. The card tests (``tests/test_torch_gpu.py``)
 hold the kernels themselves.
 """
 
@@ -132,6 +134,46 @@ def test_b9_split_tf32_matches_tpu_kernel(D):
         assert _rel(a, b) < TOL, (name, _rel(a, b))
     one = TFA.vit_flash_attn_bwd_plain(*t, g, lse_t, dd, mm=_mm_1xtf32)
     assert max(_rel(a, b) for a, b in zip(one, ref)) > 10 * TOL
+
+
+@pytest.mark.parametrize("D", [64, 80])
+def test_b2_b14_split_tf32_matches_tpu_kernel(D):
+    """Plain B2 and B14 with their two products (q k^T, p v) in split TF32
+    (the float32 kernel's arithmetic, csrc/vit_flash_attn.cu
+    vit_flash_tf32) against the interpret-mode f32 ``_vit_flash_impl`` and
+    ``_vit_flash_packed_impl`` (N = 256, blocks of 128; B14 as one image of
+    the case's two heads, each head's D channels left-aligned in a 128-lane
+    slot) on o and lse at head dims 64 and 80: within 1e-5; one TF32 pass is
+    not. The port computes first, on copies of the numpy inputs."""
+    args, _ = _flash_case(3, D=D)
+    q, k, v, rel_h, rel_w = args
+    nh, N = q.shape[0], q.shape[1]
+    qkv = np.concatenate([x.transpose(1, 0, 2).reshape(1, N, nh * D)
+                          for x in (q, k, v)], axis=-1)
+
+    def run(mm):
+        t = [torch.from_numpy(a.copy()) for a in args]
+        o2, lse2 = TFA.vit_flash_attn_packed_plain(
+            torch.from_numpy(qkv.copy()), t[3], t[4], nh, mm=mm)
+        return [*TFA.vit_flash_attn_plain(*t, mm=mm),
+                o2.reshape(N, nh, D).transpose(0, 1), lse2]
+
+    got, one = run(T.mm_3xtf32), run(_mm_1xtf32)
+    qkvp = np.pad(qkv.reshape(1, N, 3, nh, D),
+                  ((0, 0),) * 4 + ((0, 128 - D),)).reshape(1, N, -1)
+    with pltpu.force_tpu_interpret_mode():
+        o, lse = JFA._vit_flash_impl(*(jnp.asarray(a) for a in args),
+                                     128, 128)
+        op, lsep = JFA._vit_flash_packed_impl(
+            jnp.asarray(qkvp), jnp.asarray(rel_h), jnp.asarray(rel_w), nh,
+            D, 128, 128)
+    op = np.asarray(op).reshape(N, nh, 128)[..., :D].transpose(1, 0, 2)
+    want = [np.asarray(o), np.asarray(lse)[..., 0], op,
+            np.asarray(lsep)[..., 0]]
+    names = ("B2 o", "B2 lse", "B14 o", "B14 lse")
+    for name, a, b in zip(names, got, want):
+        assert _rel(a, b) < TOL, (name, _rel(a, b))
+    assert max(_rel(a, b) for a, b in zip(one, want)) > 10 * TOL
 
 
 @pytest.mark.parametrize("D", [64, 128])

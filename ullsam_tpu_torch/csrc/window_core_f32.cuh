@@ -16,9 +16,8 @@
 // windows x 16 heads of 80, n = 196) a call is 4.9 GFLOP of products, 30
 // us at the split-TF32 rate (495 / 3 TFLOP/s), against qkv and o (100 MB
 // in f32, 30 us at the memory rate). The earlier core ran every product by
-// FMA on the CUDA cores (window_attn_core_f32, 64-query blocks through
-// attn_fma.cuh's online softmax) and took 0.4924 ms there (H100 80GB HBM3,
-// 700 W).
+// FMA on the CUDA cores (window_attn_core_f32, 64-query blocks with an
+// online softmax) and took 0.4924 ms there (H100 80GB HBM3, 700 W).
 //
 // Design: the bf16 core's (window_core.cuh) on the tensor cores in split
 // TF32 (tf32.cuh): every product, the rel-pos terms included, is mma.sync

@@ -10,11 +10,16 @@ with bias[i, key] = rel_h[i, key // KW] + rel_w[i, key % KW], KH*KW = N.
 It replaces the TPU kernel ``ullsam_tpu/ops/pallas/flash_attention.py``
 ``_vit_kernel`` (entry ``vit_flash_attention``). On a CUDA tensor it launches
 the hand-written Hopper kernel ``csrc/vit_flash_attn.cu`` (see the note
-there: operation-bound; bf16 on wgmma fed by TMA, float32 by FMA); on a
-CPU tensor it runs ``vit_flash_attn_plain``. There is no fallback from the
-kernel. The bf16 body adds the bias from registers when a 64-key tile
-covers whole key-grid rows (``key_rows_per_tile``), and per logit from
-shared memory otherwise; ``sm90_smem_bytes`` mirrors its shared memory.
+there: operation-bound; bf16 on wgmma fed by TMA, float32 on wgmma in split
+TF32, three TF32 products a product, after a pre-pass that writes the hi
+and lo planes of qs, k and v^T into scratch the wrapper allocates,
+``fwd_f32_scratch_floats``); on a CPU tensor it runs
+``vit_flash_attn_plain``. There is no fallback from the kernel. The bf16
+body adds the bias from registers when a 64-key tile covers whole key-grid
+rows (``key_rows_per_tile``), and per logit from shared memory otherwise;
+``sm90_smem_bytes`` mirrors its shared memory. The float32 body streams
+32-key tiles and takes rel_w from registers when ``f32_bias_kw`` says so;
+``fwd_f32_smem_bytes`` mirrors its shared memory.
 
 B14, ``vit_flash_attn_packed(qkv, rel_h, rel_w, nh)``, is B2's function
 read straight from the qkv projection [B, N, 3C] (head h of q, k, v at
@@ -65,6 +70,11 @@ BWD_ROWS, BWD_STAGES, BWD_REL_LD, BWD_MAX_ROWS = 128, 4, 72, 16
 # rows, dk / dv's rel_w rows of 32 + 8 floats
 F32_ROWS, F32_TILE, F32_RW_LD = 64, 32, 40
 _BWD_KW = (8, 16, 32, 64)  # B9: KW divides a 64-key tile
+# B2 / B14's float32 body (vit_flash_tf32): 128 queries a block (two
+# warpgroups of 64), 32-key stages, 4 of them at head dim 64 and 3 at 80;
+# its scratch holds 6 planes of BH N D floats (qs, k, v^T; hi and lo)
+FWD_F32_ROWS, FWD_F32_KEYS, FWD_F32_PLANES = 128, 32, 6
+FWD_F32_STAGES = {64: 4, 80: 3}
 
 
 def q_scale(D: int, dtype: torch.dtype) -> float:
@@ -107,6 +117,34 @@ def sm90_smem_bytes(D: int) -> int:
     warpgroup's q."""
     return (1024 + (1 + FLASH_STAGES) * _tiles(D)
             + 2 * FLASH_ROWS * FLASH_REL_LD * 2 + (2 * FLASH_STAGES + 2) * 8)
+
+
+def f32_bias_kw(KW: int) -> int:
+    """``vit_flash_attn.cu`` ``f32_bias_kw``: the float32 body's bias path
+    for 32-key tiles. KW when it divides 64 and is at least 8: each 8-key
+    block of a tile lies in one key-grid row, so rel_w is one register
+    fragment for every tile (two in turns at KW = 64, a tile half a key
+    row) and rel_h 32 / KW values a row a tile; 0 for any other KW (both
+    factors per logit)."""
+    return KW if KW >= 8 and 64 % KW == 0 else 0
+
+
+def fwd_f32_smem_bytes(D: int) -> int:
+    """``F32Layout<D>::kSmem``: B2 / B14's float32 body. 1024 bytes to
+    align; qs hi and lo of each warpgroup's 64 rows (4 D bytes a row); the
+    stages (``FWD_F32_STAGES``), each k hi, k lo (32 keys, natural) and v^T
+    hi, v^T lo ([D][32]); a full and an empty mbarrier a stage and one for
+    each warpgroup's qs."""
+    stages = FWD_F32_STAGES[D]
+    return (1024 + 4 * 64 * 4 * D + stages * 4 * FWD_F32_KEYS * 4 * D
+            + (2 * stages + 2) * 8)
+
+
+def fwd_f32_scratch_floats(BH: int, N: int, D: int) -> int:
+    """Floats of B2 / B14's float32 scratch (``vit_flash_fwd_scratch_bytes``
+    / 4): the hi and lo planes of qs and k, natural, and of v transposed,
+    that its split pre-pass writes for the kernel's TMA loads."""
+    return FWD_F32_PLANES * BH * N * D
 
 
 def bwd_sm90_smem_bytes(D: int) -> Tuple[int, int]:
@@ -156,23 +194,33 @@ def bwd_f32_scratch_floats(BH: int, N: int, D: int) -> int:
     return 14 * BH * N * D
 
 
+def _work(t: Tensor) -> Tensor:
+    """t in the plain versions' working type: float64 stays float64 (an
+    exact reference), every other dtype computes in float32."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def vit_flash_attn_plain(q: Tensor, k: Tensor, v: Tensor, rel_h: Tensor,
-                         rel_w: Tensor) -> Tuple[Tensor, Tensor]:
+                         rel_w: Tensor, mm=torch.matmul
+                         ) -> Tuple[Tensor, Tensor]:
     """The kernel's function in plain PyTorch (bias materialized).
 
     Same rounding points as the kernel: q pre-scaled (``prescale_q``), rel
     factors taken at q.dtype, unnormalized p cast to v.dtype before p.v,
-    output acc / l cast to q.dtype."""
+    output acc / l cast to q.dtype. ``mm`` takes the two products (q k^T
+    and p v; ``tf32.mm_3xtf32``: the float32 kernel's split TF32); float64
+    inputs compute in float64 throughout, q * D^-1/2 included (an exact
+    reference)."""
     dt = q.dtype
     BH, N, D = q.shape
-    qs = prescale_q(q).float()
-    bias = (rel_h.to(dt).float()[..., :, None]
-            + rel_w.to(dt).float()[..., None, :]).reshape(BH, N, N)
-    logits = torch.matmul(qs, k.float().transpose(-1, -2)) + bias
+    qs = _work(q * D ** -0.5 if dt == torch.float64 else prescale_q(q))
+    bias = (_work(rel_h.to(dt))[..., :, None]
+            + _work(rel_w.to(dt))[..., None, :]).reshape(BH, N, N)
+    logits = mm(qs, _work(k).transpose(-1, -2)) + bias
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m)
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.matmul(p.to(dt).float(), v.float()) / l
+    o = mm(_work(p.to(dt)), _work(v)) / l
     lse = (m + torch.log(l))[..., 0]
     return o.to(dt), lse
 
@@ -180,7 +228,16 @@ def vit_flash_attn_plain(q: Tensor, k: Tensor, v: Tensor, rel_h: Tensor,
 def _kernel():
     p, i = ctypes.c_void_p, ctypes.c_int
     return build.function("vit_flash_attn", "vit_flash_attn_forward",
-                          [i] + [p] * 7 + [i] * 5 + [ctypes.c_float, p])
+                          [i] + [p] * 8 + [i] * 5 + [ctypes.c_float, p])
+
+
+def _fwd_scratch(BH: int, N: int, D: int, like: Tensor):
+    """The float32 body's scratch (``fwd_f32_scratch_floats``) on like's
+    device; bf16 needs none (None)."""
+    if like.dtype != torch.float32:
+        return None
+    return torch.empty(fwd_f32_scratch_floats(BH, N, D), device=like.device,
+                       dtype=torch.float32)
 
 
 def vit_flash_attn(q: Tensor, k: Tensor, v: Tensor, rel_h: Tensor,
@@ -216,13 +273,15 @@ def vit_flash_attn(q: Tensor, k: Tensor, v: Tensor, rel_h: Tensor,
                              f"and 16-byte aligned")
     o = torch.empty_like(q)
     lse = torch.empty((BH, N), device=q.device, dtype=torch.float32)
+    scratch = _fwd_scratch(BH, N, D, q)
     fn = _kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
-                 o.data_ptr(), lse.data_ptr(), BH, N, D, KH, KW,
-                 q_scale(D, q.dtype), stream)
+                 o.data_ptr(), lse.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), BH, N, D,
+                 KH, KW, q_scale(D, q.dtype), stream)
     if err != 0:
         raise RuntimeError(f"vit_flash_attn kernel launch failed: "
                            f"cudaError {err}")
@@ -248,11 +307,13 @@ def _merge(t: Tensor, B: int) -> Tensor:
 
 
 def vit_flash_attn_packed_plain(qkv: Tensor, rel_h: Tensor, rel_w: Tensor,
-                                nh: int) -> Tuple[Tensor, Tensor]:
+                                nh: int, mm=torch.matmul
+                                ) -> Tuple[Tensor, Tensor]:
     """B14 in plain PyTorch: qkv [B, N, 3C] -> (o [B, N, C], lse [B*nh, N]
-    f32), B2's function and rounding points on each head."""
+    f32), B2's function and rounding points on each head (``mm`` and
+    float64 as ``vit_flash_attn_plain``)."""
     q, k, v = (_heads(t, nh) for t in qkv.chunk(3, dim=-1))
-    o, lse = vit_flash_attn_plain(q, k, v, rel_h, rel_w)
+    o, lse = vit_flash_attn_plain(q, k, v, rel_h, rel_w, mm=mm)
     return _merge(o, qkv.shape[0]), lse
 
 
@@ -291,14 +352,16 @@ def vit_flash_attn_packed(qkv: Tensor, rel_h: Tensor, rel_w: Tensor,
                              f"aligned")
     o = torch.empty((B, N, C), device=qkv.device, dtype=qkv.dtype)
     lse = torch.empty((B * nh, N), device=qkv.device, dtype=torch.float32)
+    scratch = _fwd_scratch(B * nh, N, D, qkv)
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = build.function("vit_flash_attn", "vit_flash_attn_packed_forward",
-                        [i] + [p] * 5 + [i] * 6 + [ctypes.c_float, p])
+                        [i] + [p] * 6 + [i] * 6 + [ctypes.c_float, p])
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = fn(_DTYPE_CODE[qkv.dtype], qkv.data_ptr(), rel_h.data_ptr(),
-                 rel_w.data_ptr(), o.data_ptr(), lse.data_ptr(), B, nh, N, D,
-                 KH, KW, q_scale(D, qkv.dtype), stream)
+                 rel_w.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), B, nh, N,
+                 D, KH, KW, q_scale(D, qkv.dtype), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     vit_flash_attn_packed.launches += 1
@@ -312,12 +375,6 @@ def _drel(ds: Tensor, KH: int, KW: int) -> Tuple[Tensor, Tensor]:
     """Row sums of ds [BH, N, N] per key-grid row and column (f32)."""
     ds4 = ds.reshape(ds.shape[0], ds.shape[1], KH, KW)
     return ds4.sum(-1), ds4.sum(-2)
-
-
-def _work(t: Tensor) -> Tensor:
-    """t in the plain versions' working type: float64 stays float64 (an
-    exact reference), every other dtype computes in float32."""
-    return t if t.dtype == torch.float64 else t.float()
 
 
 def vit_flash_attn_bwd_plain(q: Tensor, k: Tensor, v: Tensor, rel_h: Tensor,

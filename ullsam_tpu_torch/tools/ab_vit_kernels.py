@@ -1,8 +1,8 @@
 """A/B timing of the ViT kernels B1, B2, B3, B8 (float32), B9 (both
 dtypes), B13, B14, B15 and of B12 (the int8 LLM linears) built from
 several source trees, in one process on one card, so that versions
-compare within one call (two calls may land on two cards). B1, B3, B13,
-B15 and the products of B1 / B13 also in float32.
+compare within one call (two calls may land on two cards). B1, B2, B3,
+B13, B14, B15 and the products of B1 / B13 also in float32.
 
     python -m ullsam_tpu_torch.tools.ab_vit_kernels [--only=B2,B12,...] \
         NAME=CSRC_DIR [...]
@@ -17,9 +17,10 @@ spills and C7515 advisories printed; with ``--only``, just the sources
 those cases need), checked against the plain versions
 at the main path's shapes (``tools/main_path.py``; bf16 unless stated: B1
 and B3 / B15 at ViT-B and ViT-H, B13 at ViT-H with T = 4900, B2, B14 and
-B9 at both widths' global blocks, B9 in float32 too (a version that
-refuses a case, as B9 before head dim 80, is left out of it; one without
-the float32 scratch argument is called without it), B8 in float32 at both
+B9 at both widths' global blocks, B2, B14 and B9 in float32 too (a version
+that refuses a case, as B9 before head dim 80, is left out of it; one
+without the float32 scratch argument is called without it; B2 and B14's
+outputs are o and lse), B8 in float32 at both
 widths' windows, B12 at each layer linear of InternLM2-1.8B at M = 1152
 and 9216, bf16 out as the caption's prefill calls it), then timed by CUDA
 events (20 launches after 3) in the order given and again in reverse (a,
@@ -64,9 +65,9 @@ _SOURCES = ("window_attn", "window_attn_twophase", "window_attn_bwd",
             "ln_mlp", "vit_flash_attn", "vit_flash_bwd", "w8a16_matmul")
 _ENTRIES = {
     "b2": ("vit_flash_attn", "vit_flash_attn_forward",
-           [_I] + [_P] * 7 + [_I] * 5 + [_F, _P]),
+           [_I] + [_P] * 8 + [_I] * 5 + [_F, _P]),
     "b14": ("vit_flash_attn", "vit_flash_attn_packed_forward",
-            [_I] + [_P] * 5 + [_I] * 6 + [_F, _P]),
+            [_I] + [_P] * 6 + [_I] * 6 + [_F, _P]),
     "b12": ("w8a16_matmul", "w8a16_matmul", [_I] + [_P] * 5 + [_I] * 4
             + [_P]),
     "b3": ("window_attn", "window_attn_core_forward",
@@ -115,6 +116,9 @@ def build_version(name: str, csrc: str, sources=_SOURCES) -> dict:
         print(f"[build] {name} {src}: registers {sorted(set(regs))}, spill "
               f"stores {sorted(set(spills))}, {log.count('C7515')} C7515 "
               f"advisories (wgmma serialized)")
+        for line in log.splitlines():
+            if "C7515" in line:
+                print(f"[build] {name} {src}: {line.strip()[:400]}")
         libs[src] = ctypes.CDLL(os.path.join(out, src + ".so"))
     fns = {}
     for key, (src, fn_name, argtypes) in _ENTRIES.items():
@@ -128,6 +132,12 @@ def build_version(name: str, csrc: str, sources=_SOURCES) -> dict:
             # before the float32 split pre-pass: no scratch argument
             fn.argtypes = argtypes[:14] + argtypes[15:]
             fns[key] = lambda *a, f=fn: f(*a[:14], *a[15:])
+        if key in ("b2", "b14") and not hasattr(
+                libs[src], "vit_flash_fwd_scratch_bytes"):
+            # before the float32 split pre-pass: no scratch argument
+            cut = 8 if key == "b2" else 6
+            fn.argtypes = argtypes[:cut] + argtypes[cut + 1:]
+            fns[key] = lambda *a, f=fn, c=cut: f(*a[:c], *a[c + 1:])
     return fns
 
 
@@ -296,38 +306,49 @@ def cases(gen):
                         go, G.gemm_plain(a, wt, b, res),
                         2 * 4900 * N * K,
                         lambda a=a, wt=wt, b=b: F.linear(a, wt, b)))
-    for tag, w in (("vit_b", MP.VIT_B), ("vit_h", MP.VIT_H)):
-        (q, k, v, rh, rw), _, fl, _ = MP.vit_flash_case(torch.bfloat16, gen,
-                                                        **w)
+    for (tag, w), dt in itertools.product(
+            (("vit_b", MP.VIT_B), ("vit_h", MP.VIT_H)),
+            (torch.bfloat16, torch.float32)):
+        f32 = dt == torch.float32
+        lab = "f32 " if f32 else ""
+        args, _, fl, _ = MP.vit_flash_case(dt, gen, **w)
+        q, k, v, rh, rw = args
         BH, N, D = q.shape
         o = torch.empty_like(q)
         lse = torch.empty((BH, N), device="cuda", dtype=torch.float32)
+        scratch = (torch.empty(FA.fwd_f32_scratch_floats(BH, N, D),
+                               device="cuda") if f32 else None)
         bias = (rh[..., :, None] + rw[..., None, :]).reshape(BH, N, N)
-        out.append((f"B2 {tag}", "b2",
-                    lambda f, q=q, k=k, v=v, rh=rh, rw=rw, o=o, lse=lse: f(
-                        1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        rh.data_ptr(), rw.data_ptr(), o.data_ptr(),
-                        lse.data_ptr(), q.shape[0], q.shape[1], q.shape[2],
-                        64, 64, q.shape[2] ** -0.5, stream),
-                    o, FA.vit_flash_attn_plain(q, k, v, rh, rw)[0], fl,
+        out.append((f"B2 {lab}{tag}", "b2",
+                    lambda f, a=args, o=o, lse=lse, s=scratch, f32=f32: f(
+                        0 if f32 else 1, *(t.data_ptr() for t in a),
+                        o.data_ptr(), lse.data_ptr(),
+                        None if s is None else s.data_ptr(), a[0].shape[0],
+                        a[0].shape[1], a[0].shape[2], 64, 64,
+                        FA.q_scale(a[0].shape[2], a[0].dtype), stream),
+                    (o, lse), FA.vit_flash_attn_plain(*args), fl,
                     lambda q=q, k=k, v=v, b=bias:
                     F.scaled_dot_product_attention(q[None], k[None], v[None],
-                                                   attn_mask=b[None])))
-        (qkv, rh2, rw2), kw2, fl2, _ = MP.vit_flash_packed_case(
-            torch.bfloat16, gen, **w)
+                                                   attn_mask=b[None]),
+                    _f64(FA.vit_flash_attn_plain, args) if f32 else None))
+        args2, kw2, fl2, _ = MP.vit_flash_packed_case(dt, gen, **w)
         nh = kw2["nh"]
-        C = qkv.shape[-1] // 3
-        o2 = torch.empty((1, N, C), device="cuda", dtype=torch.bfloat16)
+        C = args2[0].shape[-1] // 3
+        o2 = torch.empty((1, N, C), device="cuda", dtype=dt)
         lse2 = torch.empty((nh, N), device="cuda", dtype=torch.float32)
-        out.append((f"B14 {tag}", "b14",
-                    lambda f, qkv=qkv, rh=rh2, rw=rw2, o=o2, lse=lse2, nh=nh,
-                    N=N, D=C // nh: f(1, qkv.data_ptr(), rh.data_ptr(),
-                                 rw.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                                 1, nh, N, D, 64, 64, D ** -0.5, stream),
-                    o2, FA.vit_flash_attn_packed_plain(qkv, rh2, rw2, nh)[0],
+        out.append((f"B14 {lab}{tag}", "b14",
+                    lambda f, a=args2, o=o2, lse=lse2, s=scratch, nh=nh,
+                    N=N, D=C // nh, f32=f32: f(
+                        0 if f32 else 1, *(t.data_ptr() for t in a),
+                        o.data_ptr(), lse.data_ptr(),
+                        None if s is None else s.data_ptr(), 1, nh, N, D,
+                        64, 64, FA.q_scale(D, a[0].dtype), stream),
+                    (o2, lse2), FA.vit_flash_attn_packed_plain(*args2, nh),
                     fl2, lambda q=q, k=k, v=v, b=bias:
                     F.scaled_dot_product_attention(q[None], k[None], v[None],
-                                                   attn_mask=b[None])))
+                                                   attn_mask=b[None]),
+                    _f64(FA.vit_flash_attn_packed_plain, args2, kw2)
+                    if f32 else None))
         del bias
     for (tag, w), dt in itertools.product(
             (("vit_b", MP.FLASH_BWD), ("vit_h", MP.FLASH_BWD_VIT_H)),
@@ -427,7 +448,7 @@ def cases(gen):
                     go, G.gemm_plain(
                         a, wt, b, res, "gelu_tanh" if act else "none"),
                     2 * T * N * K, lambda a=a, wt=wt, b=b: F.linear(a, wt, b)))
-    return [c + (None,) for c in out] + f32_cases(gen, stream)
+    return [c + (None,) * (8 - len(c)) for c in out] + f32_cases(gen, stream)
 
 
 def main() -> None:
@@ -476,8 +497,8 @@ def main() -> None:
                 same = (f", bitwise {'equal' if eq else 'unlike'} "
                         f"{first[0]}'s")
             f64 = ("" if r64 is None else
-                   f", against float64 {_rel(got.double(), r64):.3e} "
-                   f"(plain f32 {_rel(ref.double(), r64):.3e})")
+                   f", against float64 {_rel(got, r64):.3e} "
+                   f"(plain f32 {_rel(ref, r64):.3e})")
             print(f"[check] {name} {label}: max|err| / max|plain| "
                   f"{_rel(got, ref):.3e}{f64}{same}")
         del r64

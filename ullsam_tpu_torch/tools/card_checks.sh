@@ -49,9 +49,10 @@ grep -E '\[kernels\] (vit_flash_attn|window_attn |window_attn_core |window_attn_
     "$out/smoke_${tag}.log" | cut -c1-400
 grep -E '\[train\] (f32|bf16 flagship)' "$out/smoke_${tag}.log" | cut -c1-400
 # ptxas (-Xptxas -v) of the window cores at SAM's 14x14 windows (NT = 14)
-# and at 16x16, and of the wgmma GEMM's kinds (<0> bf16, <1> int8 W, <2>
-# f32 in split TF32), from the build's own report
-grep -E '\[build\] .*(window_core_(bf16|f32)<(64|80), 1[46]>|gemm_nt_sm90|vit_flash_sm90|vit_bwd_|bwd_tf32|image_stage|upscale_unit|t2i_part|llm_flash_sm90|llm_bwd_sm90|llm_flash_tf32|llm_bwd_d(q|kv)_tf32|llm_split_f32)' \
+# and at 16x16, of the wgmma GEMM's kinds (<0> bf16, <1> int8 W, <2> f32 in
+# split TF32) and of the flash bodies (B2 / B14's f32 vit_flash_tf32 and
+# its pre-pass among them), from the build's own report
+grep -E '\[build\] .*(window_core_(bf16|f32)<(64|80), 1[46]>|gemm_nt_sm90|vit_flash_sm90|vit_flash_tf32|vit_split_f32|vit_bwd_|bwd_tf32|image_stage|upscale_unit|t2i_part|llm_flash_sm90|llm_bwd_sm90|llm_flash_tf32|llm_bwd_d(q|kv)_tf32|llm_split_f32)' \
     "$out/smoke_${tag}.log"
 tail -2 "$out/smoke_${tag}.log" | cut -c1-300
 [ $rc -eq 0 ] || exit $rc
