@@ -63,8 +63,9 @@ sm_90a) and the CUDA toolkit. Phases, each printing what it found:
     and moments.
  9. caption generation with the int8 weight-only LLM: B12 against its plain
     version at every shape of InternLM2-1.8B's linears on the caption path:
-    decode at batch 1 and 8, prefill of the 1152-token prompt at batch 1
-    and 8 (M = 1152, 9216), bf16 and f32 (phase 3's checks; decode with the
+    decode at batch 1 and 8, the serving engine's 256-token prompt segment
+    (M = 256), prefill of the 1152-token prompt at batch 1 and 8 (M = 1152,
+    9216), bf16 and f32 (phase 3's checks; decode with the
     weight cold in L2; each case launches exactly the B12 kernel that
     ``int8_matmul.w8a16_kernel`` names, by its own count: the GEMV at
     decode, the wgmma GEMM with an int8 operand at the bf16 prefill of the
@@ -123,14 +124,34 @@ sm_90a) and the CUDA toolkit. Phases, each printing what it found:
     held to (b) in loss and grad norm (rtol 1e-4) and every gradient; (d)
     held to (a)'s step 1 at 3x (a)'s distance from (c), and no less than
     phase 7's bf16 limits (1e-4, 1e-2).
-Each path (5-11) runs with every launch counter set to 0 just before it and
+12. serving: (a) a small f32 uLLSAM (the small ViT, a 2-layer LLM with
+    the flagship's vocab) through ``serve.engine.GenerationEngine`` with
+    its decode chunks as captured CUDA graphs, 6 greedy requests from
+    threads into 4 slots (image and text prompts, one in 3 prefill
+    segments), each request's tokens equal to batch-1 ``caption_ids``;
+    (b) SAM ViT-B + InternLM2-1.8B at full width, the engine at 8 slots,
+    max_len 2560, segments of 256, 8 steps a chunk, bf16 then int8: a warm
+    round, then 1, 4 and 8 concurrent image caption requests (a 1024x1024
+    uint8 image, the template's 1143-token prompt with a stub tokenizer)
+    and 8 text-only requests, 128 new tokens each: every request
+    completes, first tokens equal batch-1 ``caption_ids``', prefill logits
+    at most 2x as far (relative L2) as ``caption_ids``' from an f32 LLM of
+    the same weights, B12 121 launches a decode step in int8
+    (the graph keys' warm-ups) and none in bf16; tok/s, time to the first
+    token, chunk device time (CUDA events) against the worker loop, graphs
+    captured and their capture time, the peak above the weights,
+    ``phase_stats``; (c) the port's app at full width in bf16 with the
+    engine, on a free port, through ``_smoke``'s sequence.
+Each path (5-12) runs with every launch counter set to 0 just before it and
 read just after; in every request, image and step of paths 5-11 the float32
 kinds launch exactly as B1, B3, B13 and B15 ask (float32: two launches of
 the GEMM's f32 kind per B1 or B13, one of the f32 window core per B1, B3
 or B15, none of gemm.cuh's FMA GEMM from B1 or B13; bfloat16: none of
 them). Then the kernels JSON line (every kernel, the wgmma GEMM, its f32
 kind and the f32 window core; ``launches``: the sum over the paths;
-``launches_by_path``: each path's own count), the
+``launches_by_path``: each path's own count, launches that ran; B12's
+``serve_graphs``: the chunks and steps replayed from the serve path's
+graphs and B12's launches a decode step in their warm-ups), the
 nvidia-smi line, and the final status line.
 Any failure exits non-zero before the final line. No jax, no ullsam_tpu.
 """
@@ -1765,8 +1786,9 @@ def _graph_ms(call, weights: list, reps: int = 3) -> float:
 def check_w8a16_kernel(card: str) -> dict:
     """B12 against its plain version on the card at every case of
     ``tools/main_path.w8a16_cases`` (each of InternLM2-1.8B's linears at
-    the decode batches 1 and 8 and at the prefill of the caption prompt,
-    M = 1152 and 9216: the head's last N tile is ragged there), x in bf16
+    the decode batches 1 and 8, at the serving engine's prompt segment,
+    M = 256, and at the prefill of the caption prompt, M = 1152 and 9216:
+    the head's last N tile is ragged there), x in bf16
     and f32: the f32 output within 1e-5 of max|plain| (int8 -> x's type is
     exact, only the summation order differs), and with a bias and the cast
     to x's type (the main path's variant) within one step of that type at
@@ -2047,6 +2069,381 @@ def caption_main_path() -> None:
         f"{', '.join(f'{r[2]:.1f}' for r in timed)} ms; decode "
         f"{', '.join(f'{r[3]:.3f}' for r in timed)} ms a step")
     del model, lm
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 12: serving (the continuous-batching caption engine and the app)
+# ---------------------------------------------------------------------------
+
+# the chat template's special tokens at their ids in the deployed vocab
+SPECIAL_IDS = {"<|im_end|>": 92542, "<|im_start|>": 92543, "<img>": 92544,
+               "</img>": 92545, "<IMG_CONTEXT>": 92546}
+SERVE_NEW = 128          # new tokens of a full-width serve request
+SERVE_TIMEOUT = 300.0    # seconds a request may take
+SERVE_IMAGE_Q = "Describe the image in detail."
+SERVE_TEXT_QS = tuple(f"Question {i}: which stain marks structure {i}?"
+                      + " Answer briefly." * i for i in range(8))
+# the serve path's graphs: replayed chunks and steps, and B12's launches a
+# decode step counted in the keys' eager warm-ups
+SERVE = {}
+# the prefill-logits gate: the engine (256-token segments into a bf16
+# cache) and batch-1 ``caption_ids`` (one left-padded prefill) round the
+# same function, an f32 LLM holding the same weights, in another order; the
+# engine's relative L2 from that f32 reference may be at most this multiple
+# of ``caption_ids``' own
+SERVE_LOGIT_RATIO = 2.0
+
+
+class StubTokenizer:
+    """A stand-in for the InternLM2 tokenizer (its asset is not in the
+    repository): one id per character (3 + code point mod 90000) after a
+    BOS of 1, the template's special tokens at their real ids, pad 2."""
+    pad_token_id, bos_token_id = 2, 1
+
+    def __init__(self):
+        self._pat = re.compile("|".join(re.escape(t) for t in SPECIAL_IDS))
+
+    def encode(self, text, add_bos=True):
+        ids, pos = ([1] if add_bos else []), 0
+        for m in self._pat.finditer(text):
+            ids += [3 + ord(c) % 90000 for c in text[pos:m.start()]]
+            ids.append(SPECIAL_IDS[m.group()])
+            pos = m.end()
+        return ids + [3 + ord(c) % 90000 for c in text[pos:]]
+
+    def encode_batch(self, texts, pad_side="left", add_bos=None):
+        enc = [self.encode(t) for t in texts]
+        n = max(map(len, enc))
+        return ([[2] * (n - len(e)) + e for e in enc],
+                [[0] * (n - len(e)) + [1] * len(e) for e in enc])
+
+    def decode(self, ids, skip_special_tokens=True):
+        return "".join(chr(i - 3) for i in ids
+                       if 3 <= i < 90003 and not 0xD800 <= i - 3 < 0xE000)
+
+    def convert_tokens_to_ids(self, token):
+        return SPECIAL_IDS[token]
+
+
+def _restore_counts(saved: dict) -> None:
+    """Set each kernel wrapper's count back to ``saved``
+    (``launch_counts``): reference runs do not count on a path."""
+    for name, k in kernel_wrappers().items():
+        k.launches = saved[name]
+
+
+def _serve_refs(model, cfg, prompts: dict, new: int) -> dict:
+    """Batch-1 ``caption_ids`` of each prompt (name -> (ids, pixels)),
+    left-padded to a multiple of 128: name -> (tokens through the
+    first EOS, prefill logits f32 [V]); not counted on the path."""
+    import torch
+    from ullsam_tpu_torch.models.internlm2.generate import GenerationConfig
+    from ullsam_tpu_torch.models.ullsam import chat
+    saved = launch_counts()
+    gen = GenerationConfig(max_new_tokens=new,
+                           eos_token_id=SPECIAL_IDS["<|im_end|>"],
+                           pad_token_id=StubTokenizer.pad_token_id)
+    refs = {}
+    for name, (ids, pixels) in prompts.items():
+        first = []
+        toks, lens = chat.caption_ids(
+            model, cfg, pixels,
+            *chat.left_pad([ids], gen.pad_token_id), gen,
+            step_hook=lambda i, lg: first.append(lg[0].float()) if i == 0
+            else None)
+        refs[name] = (toks[0, :int(lens[0])].tolist(), first[0])
+    torch.cuda.synchronize()
+    _restore_counts(saved)
+    return refs
+
+
+def _graph_replays(eng) -> tuple:
+    """(chunks replayed, decode steps replayed) from captured graphs."""
+    chunks = sum(eng.replays.values())
+    steps = sum(n * key[0] for key, n in eng.replays.items())
+    return chunks, steps
+
+
+def _rel_l2(a, b) -> float:
+    """Relative L2 of ``a`` from the reference ``b``, in f32."""
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def _f32_llm(lm, quantized=None):
+    """An f32 copy of the bf16 LLM ``lm`` holding the weights a path
+    serves: with ``quantized`` (the engine's int8 copy of ``lm``) each of
+    its int8 linears' weights dequantized, q * scale, in f32."""
+    import copy
+
+    import torch
+    from ullsam_tpu_torch.models.internlm2.quant import QUANT_LAYER_LINEARS
+    ref = copy.deepcopy(lm).float()
+    if quantized is not None:
+        pairs = [(ref.output, quantized.output)]
+        for rl, ql in zip(ref.model.layers, quantized.model.layers):
+            for path in QUANT_LAYER_LINEARS:
+                owner, name = path.split(".")
+                pairs.append((getattr(getattr(rl, owner), name),
+                              getattr(getattr(ql, owner), name)))
+        with torch.no_grad():
+            for lin, q in pairs:
+                lin.weight.copy_(q.qweight.float() * q.qscale[:, None])
+    return ref
+
+
+def serve_small_reference_check() -> None:
+    """(a) A small f32 uLLSAM (the small ViT, a 2-layer LLM of hidden 64
+    with the flagship's vocab) on the card: ``GenerationEngine`` with CUDA
+    graphs, 6 greedy requests from threads into 4 slots (3 with a 256x256
+    uint8 image, prompts of 100-460 tokens, one in 3 prefill segments of
+    128), 24 new tokens each: every request's tokens equal batch-1
+    ``caption_ids`` of its prompt exactly."""
+    import dataclasses
+    import threading
+
+    import numpy as np
+    import torch
+    from ullsam_tpu_torch.core.config import InternLM2Config
+    from ullsam_tpu_torch.models.internlm2.generate import GenerationConfig
+    from ullsam_tpu_torch.models.ullsam import fusion as F
+    from ullsam_tpu_torch.serve.engine import GenerationEngine
+
+    cfg = dataclasses.replace(
+        small_config(), img_context_token_id=SPECIAL_IDS["<IMG_CONTEXT>"],
+        llm=InternLM2Config(vocab_size=92553, hidden_size=64,
+                            intermediate_size=128, num_hidden_layers=2,
+                            num_attention_heads=4, num_key_value_heads=2))
+    model = F.build_ullsam(cfg, device="cuda", seed=SEED)
+    rng = np.random.default_rng(SEED)
+    img = rng.integers(0, 256, (1, 256, 256, 3), dtype=np.uint8)
+    qs = [("Hi?", True), ("Describe the image.", False),
+          ("What is at the top left of the field?", True),
+          ("Describe every structure you see in detail. " * 6, False),
+          ("Count the cells.", False), ("Name one object.", True)]
+    eng = GenerationEngine(model, cfg, StubTokenizer(), max_batch=4,
+                           max_len=1024, cache_dtype=torch.float32,
+                           gen=GenerationConfig(max_new_tokens=24),
+                           prefill_chunk=128, device="cuda")
+    prompts = {i: (eng.prompt_ids(q, im), img if im else None)
+               for i, (q, im) in enumerate(qs)}
+    reqs = {}
+
+    def go(i):
+        reqs[i] = eng.submit_ids(*prompts[i], 24)
+        reqs[i].event.wait(SERVE_TIMEOUT)
+
+    threads = [threading.Thread(target=go, args=(i,)) for i in prompts]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(SERVE_TIMEOUT)
+    finally:
+        eng.shutdown()
+    if any(t.is_alive() for t in threads) or len(reqs) != len(qs):
+        fail("serve (a): a request did not finish")
+    for i, r in reqs.items():
+        if r.error is not None or not r.event.is_set():
+            fail(f"serve (a): request {i} failed: {r.error!r}")
+    lens = sorted(len(p[0]) for p in prompts.values())
+    refs = _serve_refs(model, cfg, {
+        i: (ids, None if pv is None else pv.astype(np.float32) / 255.0)
+        for i, (ids, pv) in prompts.items()}, 24)
+    same = [reqs[i].tokens == refs[i][0] for i in prompts]
+    chunks, steps = _graph_replays(eng)
+    say(f"[serve] (a) small f32 uLLSAM, GenerationEngine on the card, 6 "
+        f"greedy requests into 4 slots (prompts {lens[0]}-{lens[-1]} "
+        f"tokens, prefill segments of 128), 24 new tokens: tokens equal to "
+        f"batch-1 caption_ids {sum(same)} of 6; {int(eng.phase_stats['graphs'])}"
+        f" graphs captured {sorted(eng.graphs)}, {chunks} chunks "
+        f"({steps} steps) replayed; {smi_line()}")
+    if not all(same) or not chunks or max(lens) <= 256:
+        fail(f"serve (a): engine tokens differ from caption_ids (equal: "
+             f"{same}) or no graph ran ({chunks} replays)")
+    del model, eng
+    torch.cuda.empty_cache()
+
+
+def _serve_round(eng, tag, kind, n, prompts, refs, exact, card):
+    """n concurrent requests of ``kind`` ("image": the one image prompt;
+    "text": the text prompts in turn), SERVE_NEW new tokens each; gates on
+    completion, first tokens equal to ``refs``' (batch-1 ``caption_ids``)
+    and prefill logits: relative L2 from ``exact`` (the f32 LLM of the
+    same weights) at most SERVE_LOGIT_RATIO times ``refs``' own; prints
+    the round's figures. Returns (tok/s, share of whole sequences
+    equal)."""
+    import time as _t
+    ph0 = dict(eng.phase_stats)
+    names = (["image"] * n if kind == "image"
+             else [f"text{i}" for i in range(n)])
+    t0 = _t.perf_counter()
+    reqs = [eng.submit_ids(*prompts[m], SERVE_NEW) for m in names]
+    for r in reqs:
+        if not r.event.wait(SERVE_TIMEOUT) or r.error is not None:
+            fail(f"serve {tag} {kind} x{n}: a request failed or timed out "
+                 f"({r.error!r})")
+    wall = max(r.t_done for r in reqs) - t0
+    ntok = sum(len(r.tokens) for r in reqs)
+    if any(not 1 <= len(r.tokens) <= SERVE_NEW for r in reqs):
+        fail(f"serve {tag}: token counts {[len(r.tokens) for r in reqs]}")
+    rel = [_rel_l2(r.first_logits, exact[m][1]) for r, m in zip(reqs, names)]
+    tol = [SERVE_LOGIT_RATIO * _rel_l2(refs[m][1], exact[m][1])
+           for m in names]
+    to_ref = [_rel_l2(r.first_logits, refs[m][1])
+              for r, m in zip(reqs, names)]
+    first_ok = [r.tokens[0] == refs[m][0][0] for r, m in zip(reqs, names)]
+    same = sum(r.tokens == refs[m][0] for r, m in zip(reqs, names)) / n
+    ph = {k: eng.phase_stats[k] - ph0.get(k, 0.0) for k in eng.phase_stats}
+    chunks = max(ph.get("chunks", 0.0), 1.0)
+    loop_ms = sum(ph.get(k, 0.0) for k in ("admit", "dispatch", "commits",
+                                           "sync")) * 1e3 / chunks
+    dev_ms = ph.get("chunk_device", 0.0) * 1e3 / chunks
+    ttft = sorted((r.t_first - r.t_submit) * 1e3 for r in reqs)
+    say(f"[serve] {tag} {kind} x{n}: {ntok} tokens in {wall * 1e3:.1f} ms "
+        f"= {ntok / wall:.1f} tok/s (host clock, submit to last token); "
+        f"time to first token {ttft[0]:.1f}-{ttft[-1]:.1f} ms; "
+        f"{int(ph.get('chunks', 0))} chunks ({int(ph.get('steps', 0))} "
+        f"steps): {dev_ms:.3f} ms a chunk on the device (CUDA events around "
+        f"the replay), {loop_ms:.3f} ms of worker loop a chunk, busy share "
+        f"{dev_ms / max(loop_ms, 1e-9):.3f}; captures in the round "
+        f"{int(ph.get('graphs', 0))} ({ph.get('capture', 0.0):.2f} s); "
+        f"first tokens equal {sum(first_ok)} of {n}, prefill logits "
+        f"relative L2 from the f32 LLM {min(rel):.3e}-{max(rel):.3e} (tol "
+        f"{SERVE_LOGIT_RATIO}x caption_ids' own: {min(tol):.3e}-"
+        f"{max(tol):.3e}), from caption_ids {max(to_ref):.3e} (printed "
+        f"only), whole sequences "
+        f"equal to batch-1 caption_ids {same:.3f} (printed only); worker "
+        f"phases (s) { {k: round(v, 4) for k, v in ph.items()} }; {card}")
+    if not all(first_ok) or any(e > t for e, t in zip(rel, tol)):
+        fail(f"serve {tag} {kind} x{n}: first tokens {first_ok}, prefill "
+             f"logits relative L2 from the f32 LLM {rel} (tol {tol})")
+    return ntok / wall, same
+
+
+def serve_main_path() -> None:
+    """(b) SAM ViT-B + InternLM2-1.8B at full width (random bf16 weights
+    from the seed): ``GenerationEngine(max_batch=8, max_len=2560,
+    prefill_chunk=256, steps_per_dispatch=8)``, greedy, in bf16 and then
+    with ``quant="int8"``: a warm round (one image and one text request),
+    then 1, 4 and 8 concurrent image caption requests (one 1024x1024 uint8
+    image, 1024 <IMG_CONTEXT> + the template's text) and 8 text-only
+    requests, SERVE_NEW new tokens each. Every request completes, its first
+    token equals batch-1 ``caption_ids``' and its prefill logits lie at
+    most SERVE_LOGIT_RATIO times as far (relative L2) as ``caption_ids``'
+    from an f32 LLM that holds the same weights (in int8 the dequantized
+    ones); in int8 a decode step launches B12 121 times (counted in each
+    graph key's warm-up), in bf16 none. (c) the port's app
+    at full width in bf16 with ``--engine`` and the stub tokenizer on a free
+    port, driven through ``_smoke``."""
+    import numpy as np
+    import torch
+    from ullsam_tpu_torch.core.config import (FusionConfig, internlm2_1_8b,
+                                              sam_vit_b)
+    from ullsam_tpu_torch.models.ullsam import fusion as F
+    from ullsam_tpu_torch.ops.kernels import int8_matmul as Q
+    from ullsam_tpu_torch.serve import app as A
+    from ullsam_tpu_torch.serve.engine import GenerationEngine
+
+    card = smi_line()
+    cfg = FusionConfig(sam=sam_vit_b(), llm=internlm2_1_8b())
+    model = F.build_ullsam(cfg, device="cuda", dtype=torch.bfloat16,
+                           seed=SEED)
+    rng = np.random.default_rng(SEED)
+    img = rng.integers(0, 256, (1, 1024, 1024, 3), dtype=np.uint8)
+    tk = StubTokenizer()
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated()
+    for quant in (None, "int8"):
+        tag = quant or "bf16"
+        eng = GenerationEngine(model, cfg, tk, max_batch=8, max_len=2560,
+                               prefill_chunk=256, steps_per_dispatch=8,
+                               quant=quant, device="cuda")
+        prompts = {"image": (eng.prompt_ids(SERVE_IMAGE_Q, True), img)}
+        prompts.update({f"text{i}": (eng.prompt_ids(q, False), None)
+                        for i, q in enumerate(SERVE_TEXT_QS)})
+        text_lens = [len(p[0]) for k, p in prompts.items() if k != "image"]
+        lm = model.fusion.language_model
+        model.fusion.language_model = eng.lm     # the int8 copy in int8
+        scaled = {k: (ids, None if pv is None else pv.astype(np.float32) / 255)
+                  for k, (ids, pv) in prompts.items()}
+        try:
+            refs = _serve_refs(model, cfg, scaled, SERVE_NEW)
+            # the same function in f32: the LLM of the served weights
+            model.fusion.language_model = _f32_llm(
+                lm, eng.lm if quant else None)
+            exact = _serve_refs(model, cfg, scaled, 1)
+        finally:
+            model.fusion.language_model = lm
+        own = [_rel_l2(refs[k][1], exact[k][1]) for k in prompts]
+        say(f"[serve] {tag}: batch-1 caption_ids prefill logits against the "
+            f"f32 LLM of the same weights: relative L2 {min(own):.3e}-"
+            f"{max(own):.3e} (the engine's may be {SERVE_LOGIT_RATIO}x "
+            f"that); {card}")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        b12 = Q.w8a16_matmul.launches
+        warm = [eng.submit_ids(*prompts[k], SERVE_NEW)
+                for k in ("image", "text0")]
+        if any(not r.event.wait(SERVE_TIMEOUT) or r.error for r in warm):
+            fail(f"serve {tag}: the warm round failed")
+        say(f"[serve] {tag}: warm round (1 image + 1 text request), "
+            f"{int(eng.phase_stats['graphs'])} graphs captured in "
+            f"{eng.phase_stats['capture']:.2f} s; prompts: image "
+            f"{len(prompts['image'][0])} tokens, text {min(text_lens)}-"
+            f"{max(text_lens)}; {card}")
+        rates = {}
+        for kind, n in (("image", 1), ("image", 4), ("image", 8),
+                        ("text", 8)):
+            rates[(kind, n)] = _serve_round(eng, tag, kind, n, prompts,
+                                            refs, exact, card)
+        eng.shutdown()
+        if eng.error is not None:
+            fail(f"serve {tag}: the engine failed: {eng.error!r}")
+        peak = torch.cuda.max_memory_allocated() - weights
+        chunks, steps = _graph_replays(eng)
+        per_step = sorted(set(eng.step_launches.values()))
+        SERVE[tag] = {"graph_chunks": chunks, "graph_steps": steps,
+                      "b12_per_decode_step": per_step}
+        say(f"[serve] {tag}: tok/s image x1 {rates[('image', 1)][0]:.1f}, "
+            f"x4 {rates[('image', 4)][0]:.1f}, x8 "
+            f"{rates[('image', 8)][0]:.1f}, text x8 "
+            f"{rates[('text', 8)][0]:.1f}; {int(eng.phase_stats['graphs'])}"
+            f" graphs {sorted(eng.graphs)} captured in "
+            f"{eng.phase_stats['capture']:.2f} s; {chunks} chunks ({steps} "
+            f"decode steps) replayed; B12 launches a decode step by the "
+            f"warm-ups {per_step}; "
+            f"peak {peak / 2**30:.3f} GiB above the {weights / 2**30:.3f} "
+            f"GiB of weights (cache, int8 copy, row caches, graphs); "
+            f"phase_stats {dict(eng.phase_stats)}; {card}")
+        want = [float(B12_PER_PASS)] if quant else [0.0]
+        if per_step != want or (not quant
+                                and Q.w8a16_matmul.launches != b12):
+            fail(f"serve {tag}: B12 launches a decode step {per_step}, "
+                 f"expected {want}")
+        del eng
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    # (c) the app: its own full-width bf16 model and engine
+    t0 = time.perf_counter()
+    app = A.build_app(A.parse_args(["--engine", "--device", "cuda",
+                                    "--dtype", "bfloat16"]),
+                      tokenizer=StubTokenizer())
+    try:
+        ok = A.serve_smoke(app)
+    except AssertionError as e:
+        fail(f"serve (c): the app smoke failed: {e}")
+    finally:
+        app.engine.shutdown()
+    if not ok or app.engine.error is not None:
+        fail(f"serve (c): the app smoke failed ({app.engine.error!r})")
+    say(f"[serve] (c) app at full width, bf16, --engine, stub tokenizer: "
+        f"image, 2 clicks, mask, save, view, TIFF export, caption, caption "
+        f"stream ok in {time.perf_counter() - t0:.1f} s (model build "
+        f"included); {card}")
+    del app
     torch.cuda.empty_cache()
 
 
@@ -2802,13 +3199,15 @@ def main() -> None:
     packed_small_reference_check()
     caption_small_reference_check()
     vit_h_small_reference_check()
+    serve_small_reference_check()
     by_path, gemm_by_path, fused_by_path = {}, {}, {}
     for path, drive in (("interactive", main_path), ("amg", amg_main_path),
                         ("train", train_main_path),
                         ("packed", packed_main_path),
                         ("caption", caption_main_path),
                         ("vit_h", vit_h_main_path),
-                        ("train_vit_h", train_vit_h_main_path)):
+                        ("train_vit_h", train_vit_h_main_path),
+                        ("serve", serve_main_path)):
         reset_counts()
         drive()
         by_path[path] = launch_counts()
@@ -2834,6 +3233,11 @@ def main() -> None:
         if not row["launches"] and (name in FUSED_PER_CHUNK
                                     or name in FUSED_PER_CHUNK_F32):
             fail(f"fused decoder kernel {name} never launched on a path")
+    # the serve path's CUDA graphs: a replay runs B12 without passing
+    # through the wrapper, so ``launches`` holds the eager launches alone;
+    # beside them the chunks and steps replayed and B12's launches a decode
+    # step in the keys' warm-ups
+    rows["w8a16_matmul"]["serve_graphs"] = SERVE
     say(json.dumps({"kernels": list(rows.values())}))
     say(smi_line())
     say(json.dumps({"ok": True, "device": {

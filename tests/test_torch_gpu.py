@@ -1343,3 +1343,174 @@ def test_bf16_vit_kernels_take_no_f32_kernel(cuda, name, width):
     assert d == [0, 0, 0, 0 if name == "window_attn_core" else 4]
     assert torch.equal(got, again)
     assert _rel_err(got, plain(*args, **kw)) <= TOL["bfloat16"]
+
+
+# ---------------------------------------------------------------------------
+# the serving engine: decode chunks as captured CUDA graphs
+# ---------------------------------------------------------------------------
+
+_SPECIAL = {"<|im_end|>": 92542, "<|im_start|>": 92543, "<img>": 92544,
+            "</img>": 92545, "<IMG_CONTEXT>": 92546}
+
+
+class _StubTokenizer:
+    """One id per character after a BOS of 1, the chat template's special
+    tokens at their real ids, pad 2 (the tokenizer asset is not in the
+    repository)."""
+    pad_token_id = 2
+
+    def encode(self, text):
+        import re
+        ids, pos = [1], 0
+        for m in re.finditer("|".join(map(re.escape, _SPECIAL)), text):
+            ids += [3 + ord(c) % 90000 for c in text[pos:m.start()]]
+            ids.append(_SPECIAL[m.group()])
+            pos = m.end()
+        return ids + [3 + ord(c) % 90000 for c in text[pos:]]
+
+    def decode(self, ids):
+        return "".join(chr(i - 3) for i in ids
+                       if 3 <= i < 90003 and not 0xD800 <= i - 3 < 0xE000)
+
+    def convert_tokens_to_ids(self, token):
+        return _SPECIAL[token]
+
+
+def _serve_model():
+    """A small uLLSAM on the card (the kernels' ViT: hd 64, 14x14 windows,
+    one global block) with a 2-layer LLM of hidden 64 and the deployed
+    vocab, f32, and a 256x256 uint8 image."""
+    import numpy as np
+    from ullsam_tpu_torch.core.config import (FusionConfig, InternLM2Config,
+                                              MaskDecoderConfig,
+                                              PromptEncoderConfig, SamConfig,
+                                              ViTConfig)
+    from ullsam_tpu_torch.models.ullsam import fusion as F
+    cfg = FusionConfig(
+        sam=SamConfig(
+            vit=ViTConfig(img_size=256, patch_size=16, embed_dim=128,
+                          depth=3, num_heads=2, out_chans=64, window_size=14,
+                          global_attn_indexes=(1,)),
+            prompt_encoder=PromptEncoderConfig(
+                embed_dim=64, image_embedding_size=(16, 16),
+                input_image_size=(256, 256)),
+            mask_decoder=MaskDecoderConfig(transformer_dim=64,
+                                           transformer_mlp_dim=128,
+                                           transformer_num_heads=2,
+                                           iou_head_hidden_dim=32)),
+        llm=InternLM2Config(vocab_size=92553, hidden_size=64,
+                            intermediate_size=128, num_hidden_layers=2,
+                            num_attention_heads=4, num_key_value_heads=2),
+        vit_feature_dim=64)
+    img = np.random.default_rng(0).integers(0, 256, (1, 256, 256, 3),
+                                            dtype=np.uint8)
+    return cfg, F.build_ullsam(cfg, device="cuda", seed=0), img
+
+
+def _serve_engine(cfg, model, **kw):
+    from ullsam_tpu_torch.models.internlm2.generate import GenerationConfig
+    from ullsam_tpu_torch.serve.engine import GenerationEngine
+    return GenerationEngine(model, cfg, _StubTokenizer(), max_batch=2,
+                            max_len=512, cache_dtype=torch.float32,
+                            gen=GenerationConfig(max_new_tokens=12),
+                            prefill_chunk=128, device="cuda", **kw)
+
+
+def test_serve_engine_graphs_match_generate(cuda):
+    """f32 engine on the card, decode chunks replayed from captured graphs:
+    3 greedy requests (2 with the uint8 image) into 2 slots give exactly
+    the batch-1 ``caption_ids`` tokens of their prompts."""
+    import numpy as np
+    from ullsam_tpu_torch.models.internlm2.generate import GenerationConfig
+    from ullsam_tpu_torch.models.ullsam import chat
+    cfg, model, img = _serve_model()
+    eng = _serve_engine(cfg, model)
+    try:
+        prompts = [(eng.prompt_ids(q, im), img if im else None)
+                   for q, im in (("Describe.", True), ("Hi?", False),
+                                 ("Count the cells. " * 8, True))]
+        reqs = [eng.submit_ids(ids, pv, 12) for ids, pv in prompts]
+        assert all(r.event.wait(120) and r.error is None for r in reqs)
+    finally:
+        eng.shutdown()
+    assert eng.graphs and sum(eng.replays.values()) > 0
+    gen = GenerationConfig(max_new_tokens=12, eos_token_id=92542,
+                           pad_token_id=2)
+    for r, (ids, pv) in zip(reqs, prompts):
+        pixels = None if pv is None else pv.astype(np.float32) / 255
+        toks, lens = chat.caption_ids(model, cfg, pixels,
+                                      *chat.left_pad([ids], 2), gen)
+        assert r.tokens == toks[0, :int(lens[0])].tolist()
+
+
+def test_serve_engine_int8_counts_b12_per_step(cuda):
+    """``quant="int8"``: every captured key's warm-up launches B12 11 times
+    a decode step (2 layers x 5 linears + the head), the model's own LLM
+    stays unquantized, and the wrapper counts only launches that ran: the
+    prompt's segments (10 each, the head once on the last) and the
+    warm-ups, not the captures, which record the same launches."""
+    from ullsam_tpu_torch.ops import layers as L
+    from ullsam_tpu_torch.ops.kernels import int8_matmul as Q
+    cfg, model, _ = _serve_model()
+    eng = _serve_engine(cfg, model, quant="int8")
+    before = Q.w8a16_matmul.launches
+    try:
+        ids = eng.prompt_ids("Hi?", False)
+        r = eng.submit_ids(ids, None, 12)
+        assert r.event.wait(120) and r.error is None
+    finally:
+        eng.shutdown()
+    assert eng.step_launches and set(eng.step_launches.values()) == {11.0}
+    segments = -(-len(ids) // 128)
+    warm = sum(11 * key[0] for key in eng.graphs)
+    assert Q.w8a16_matmul.launches - before == 10 * segments + 1 + warm
+    assert isinstance(eng.lm.output, L.QuantLinear)
+    assert not isinstance(model.fusion.language_model.output, L.QuantLinear)
+
+
+@pytest.mark.parametrize("dynamic", [False, True])
+def test_serve_chunk_replay_is_bitwise_repeatable(cuda, dynamic):
+    """A captured decode chunk (8 steps, two active rows of different
+    lengths, greedy or per-row sampling from a fixed draw buffer), replayed
+    twice from the same inputs, emits bitwise-equal tokens and cache, equal
+    to the eager step's tokens."""
+    from ullsam_tpu_torch.models.internlm2.generate import (GenerationConfig,
+                                                            SamplingParams)
+    from ullsam_tpu_torch.serve import engine as E
+    cfg, model, _ = _serve_model()
+    eng = _serve_engine(cfg, model)
+    eng.shutdown()                 # drive the graphs from this thread
+    st = eng.state
+    st.cache.k.normal_(generator=cuda)
+    st.cache.v.normal_(generator=cuda)
+    st.cache.mask.zero_()
+    st.cache.mask[0, :40] = 1
+    st.cache.mask[1, :75] = 1
+    st.tokens.copy_(torch.tensor([5, 6]))
+    st.active.fill_(True)
+    E._upload_samp(st.samp, SamplingParams.from_configs(
+        [GenerationConfig(do_sample=dynamic, temperature=0.8, top_k=40,
+                          top_p=0.9)] * 2))
+    st.uniform.uniform_(generator=cuda)
+    inputs = [t.clone() for t in (st.cache.k, st.cache.v, st.cache.mask,
+                                  st.tokens)]
+
+    def reset():
+        for t, saved in zip((st.cache.k, st.cache.v, st.cache.mask,
+                             st.tokens), inputs):
+            t.copy_(saved)
+
+    key = (8, 512, dynamic)
+    with torch.inference_mode():
+        graph = eng._graph(key)
+        outs = []
+        for _ in range(2):
+            reset()
+            graph.replay()
+            torch.cuda.synchronize()
+            outs.append((st.emitted.clone(), st.cache.k.clone(),
+                         st.cache.mask.clone()))
+        reset()
+        eager = E._engine_step(eng.lm, cfg, st, 8, dynamic, 2, 512).clone()
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    assert torch.equal(outs[0][0], eager)

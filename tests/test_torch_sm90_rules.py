@@ -121,8 +121,9 @@ def test_w8a16_sm90_smem_fits_a_block():
 
 @pytest.mark.parametrize("M", W8A16_DECODE_M + W8A16_PREFILL_M)
 def test_w8a16_kernel_of_each_internlm2_linear(M):
-    """At decode (M = 1, 8) every linear runs the GEMV; at the caption
-    prompt's prefill (M = 1152, 9216) in bf16 wqkv, wo, w1 / w3 and w2 run
+    """At decode (M = 1, 8) every linear runs the GEMV; at the serving
+    engine's prompt segment (M = 256) and the caption prompt's prefill
+    (M = 1152, 9216) in bf16 wqkv, wo, w1 / w3 and w2 run
     the wgmma GEMM and the 92,553-column head the mma.sync GEMM; f32 x
     runs the FMA GEMM at prefill."""
     for N, K in W8A16_LINEARS:

@@ -1,6 +1,8 @@
-"""Longest-side resize geometry for SAM inference: the port's own copy of
-``ullsam_tpu/inference/transforms.py`` ``get_preprocess_shape`` and
-``ResizeLongestSide.apply_coords`` (that module imports jax)."""
+"""Host-side image geometry: the port's own copy of
+``ullsam_tpu/inference/transforms.py`` (that module imports jax):
+``get_preprocess_shape`` and ``ResizeLongestSide.apply_coords`` for SAM
+inference, and the serving app's ``pad_to_square`` / ``reverse_padding``
+/ ``normalize01`` (``:96-121``)."""
 
 from __future__ import annotations
 
@@ -32,3 +34,31 @@ class ResizeLongestSide:
         coords[..., 0] = coords[..., 0] * (new_w / old_w)
         coords[..., 1] = coords[..., 1] * (new_h / old_h)
         return coords
+
+
+def pad_to_square(image: np.ndarray, fill: int = 0):
+    """Center pad to square (app.py:111-143). Returns (padded, pad_info)
+    where pad_info = (top, bottom, left, right) for reverse_padding."""
+    h, w = image.shape[:2]
+    size = max(h, w)
+    top = (size - h) // 2
+    bottom = size - h - top
+    left = (size - w) // 2
+    right = size - w - left
+    pad_width = [(top, bottom), (left, right)] + [(0, 0)] * (image.ndim - 2)
+    return np.pad(image, pad_width, constant_values=fill), (top, bottom,
+                                                            left, right)
+
+
+def reverse_padding(image: np.ndarray, pad_info) -> np.ndarray:
+    """Undo pad_to_square (app.py:145-161)."""
+    top, bottom, left, right = pad_info
+    h, w = image.shape[:2]
+    return image[top:h - bottom if bottom else h,
+                 left:w - right if right else w]
+
+
+def normalize01(image: np.ndarray) -> np.ndarray:
+    """uint8 [H, W, 3] -> float32 [0, 1] (the uLLSAM serving path feeds
+    [0, 1] tensors, Normalize(mean=0, std=1), app.py:242-249)."""
+    return np.asarray(image, np.float32) / 255.0

@@ -1,5 +1,6 @@
 """Autoregressive generation over the fixed-shape KV cache
-(``ullsam_tpu/models/internlm2/generate.py:28-65,129-189``).
+(``ullsam_tpu/models/internlm2/generate.py:28-65,129-189``) and the serving
+engine's per-row sampling (``:68-126``).
 
 The JAX package runs prefill and an on-device ``while_loop``; here a host
 loop under ``torch.inference_mode()`` runs one decode step a token and stops
@@ -12,7 +13,7 @@ draws differ from JAX's for the same seed (greedy decoding is identical).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -62,6 +63,95 @@ def sample_token(logits: Tensor, gen: GenerationConfig,
         return torch.argmax(logits, dim=-1)
     probs = torch.softmax(apply_warpers(logits, gen), dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+@dataclasses.dataclass
+class SamplingParams:
+    """Per-row sampling knobs as [B] tensors, so one decode step serves
+    requests with different generation configs (the reference takes
+    temperature / top_p / top_k / do_sample per caption call,
+    app.py:443-459)."""
+    temperature: Tensor  # [B] f32
+    top_k: Tensor        # [B] int64; 0 = disabled
+    top_p: Tensor        # [B] f32; 1.0 = disabled
+    do_sample: Tensor    # [B] bool
+
+    FIELDS = ("temperature", "top_k", "top_p", "do_sample")
+
+    @staticmethod
+    def from_configs(gens: Sequence[Optional[GenerationConfig]],
+                     pad_to: Optional[int] = None,
+                     device=None) -> "SamplingParams":
+        """From a list of GenerationConfig (None rows, and rows up to
+        ``pad_to``, greedy), on ``device`` (default the CPU)."""
+        n = pad_to or len(gens)
+        t, k, p, s = [1.0] * n, [0] * n, [1.0] * n, [False] * n
+        for i, g in enumerate(gens):
+            if g is not None:
+                t[i], k[i], p[i], s[i] = (g.temperature, g.top_k, g.top_p,
+                                          g.do_sample)
+        return SamplingParams(
+            torch.tensor(t, dtype=torch.float32, device=device),
+            torch.tensor(k, dtype=torch.int64, device=device),
+            torch.tensor(p, dtype=torch.float32, device=device),
+            torch.tensor(s, dtype=torch.bool, device=device))
+
+    def map(self, fn: Callable[[Tensor], Tensor]) -> "SamplingParams":
+        """``fn`` applied to each of the four tensors."""
+        return SamplingParams(*(fn(getattr(self, n)) for n in self.FIELDS))
+
+
+def _dynamic_threshold(logits: Tensor, samp: SamplingParams):
+    """temperature -> top-k -> top-p with per-row knobs over one
+    descending sort: (l, sorted values, their vocab order, threshold), the
+    warped distribution keeping exactly the tokens with l >= threshold."""
+    logits = logits.float()
+    V = logits.shape[-1]
+    l = logits / samp.temperature.clamp_min(1e-6)[:, None]
+    vals, order = torch.sort(l, dim=-1, descending=True)
+    # top-k: keep values >= the k-th largest (k = 0 disables)
+    k = torch.where(samp.top_k > 0, samp.top_k, V)
+    kth = vals.gather(1, (k - 1).clamp(0, V - 1)[:, None])
+    # top-p on the post-top-k distribution: the nucleus is a prefix of the
+    # sort; threshold at its last value
+    in_k = torch.arange(V, device=l.device)[None, :] < k[:, None]
+    masked = vals.masked_fill(~in_k, float("-inf"))
+    probs = torch.softmax(masked, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    keep = (cum - probs) < samp.top_p[:, None]   # the top token always kept
+    n_keep = keep.sum(dim=-1).clamp_min(1)
+    pth = masked.gather(1, (n_keep - 1)[:, None])
+    return l, vals, order, torch.maximum(kth, pth)
+
+
+def warp_dynamic(logits: Tensor, samp: SamplingParams) -> Tensor:
+    """The per-row warped logits [B, V] f32 that ``sample_token_dynamic``
+    draws from, dropped tokens at -inf (HF warper semantics)."""
+    l, _, _, thr = _dynamic_threshold(logits, samp)
+    return l.masked_fill(l < thr, float("-inf"))
+
+
+def sample_token_dynamic(logits: Tensor, samp: SamplingParams,
+                         generator: Optional[torch.Generator] = None,
+                         uniform: Optional[Tensor] = None) -> Tensor:
+    """[B, V] -> [B] int64 with PER-ROW temperature / top-k / top-p /
+    do_sample (``generate.py:94-126``): greedy rows take the argmax, sampled
+    rows invert the CDF of the warped distribution over the one descending
+    sort at a uniform draw, ``uniform`` [B] or else drawn from
+    ``generator``. No host sync and no multinomial, so a captured decode
+    step takes its draws from a buffer the host refills between replays."""
+    greedy = torch.argmax(logits, dim=-1)
+    _, vals, order, thr = _dynamic_threshold(logits, samp)
+    p = torch.softmax(vals.masked_fill(vals < thr, float("-inf")), dim=-1)
+    cdf = torch.cumsum(p, dim=-1)
+    if uniform is None:
+        uniform = torch.rand(logits.shape[0], generator=generator,
+                             device=logits.device)
+    target = (uniform * cdf[:, -1])[:, None].contiguous()
+    idx = torch.searchsorted(cdf, target, right=True).clamp_max(
+        logits.shape[-1] - 1)
+    sampled = order.gather(1, idx)[:, 0]
+    return torch.where(samp.do_sample, sampled, greedy)
 
 
 def last_valid_index(attention_mask: Tensor) -> Tensor:

@@ -1,6 +1,8 @@
 """InternLM2 decoder-only LLM (``ullsam_tpu/models/internlm2/model.py``):
-the full-sequence forward without a cache (``:75-353``) and the KV-cache
-prefill / decode steps (``:142-154,361-528``).
+the full-sequence forward without a cache (``:75-353``), the KV-cache
+prefill / decode steps (``:142-154,361-528``) and the serving steps
+(``:421-469,625-715``): a prompt segment at a cache offset and the
+continuous-batching decode step with per-row write positions.
 
 RMSNorm in f32, RoPE with linear / dynamic-NTK scaling, GQA through the
 fused ``wqkv`` packing without ``repeat_kv``, SwiGLU, f32 softmax, untied
@@ -88,27 +90,34 @@ class DecoderLayer(nn.Module):
     def forward(self, x: Tensor, cos: Tensor, sin: Tensor,
                 kmask: Optional[Tensor], seg: Optional[Tensor] = None,
                 flash: bool = False,
-                cache: Optional[Tuple[Tensor, Tensor, int]] = None) -> Tensor:
+                cache: Optional[tuple] = None) -> Tensor:
         """``flash``: attention through B10 with ``seg`` [B, S] int32 as
         both segment ids (``kmask`` unused); else the plain route, with
-        ``seg`` (packed rows) or None. ``cache`` = (k_cache, v_cache, slot):
-        the layer against a KV cache (``_layer_body`` with ``k_cache``,
+        ``seg`` (packed rows) or None. ``cache`` = (k_cache, v_cache, slot,
+        W): the layer against a KV cache (``_layer_body`` with ``k_cache``,
         ``model.py:194-206``): the new k / v [B, S, n_kv, hd] are written in
-        place into k_cache / v_cache [B, max_len, n_kv, hd] at slots
-        [slot, slot + S) (cast to the cache dtype), then plain attention runs
-        over every slot, the cache cast back to q's dtype, under ``kmask``
-        [B, S | 1, max_len], which carries causality."""
+        place into k_cache / v_cache [B, max_len, n_kv, hd] (cast to the
+        cache dtype) at slots [slot, slot + S) for an int ``slot``, or, one
+        token a row, at slot[b] of row b for a [B] tensor ``slot``; then
+        plain attention runs over slots [0, W), that window alone cast back
+        to q's dtype, under ``kmask`` [B, S | 1, W], which carries
+        causality."""
         cfg = self.cfg
         B, S, _ = x.shape
         h = self.attention_norm(x)
         q, k, v = split_wqkv(self.attention.wqkv(h), cfg)
         q, k = apply_rope(q, k, cos, sin)
         if cache is not None:
-            k_cache, v_cache, slot = cache
-            k_cache[:, slot:slot + S] = k
-            v_cache[:, slot:slot + S] = v
-            attn = gqa_attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype),
-                                 kmask, cfg)
+            k_cache, v_cache, slot, W = cache
+            if isinstance(slot, int):
+                k_cache[:, slot:slot + S] = k
+                v_cache[:, slot:slot + S] = v
+            else:
+                rows = torch.arange(B, device=x.device)
+                k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
+                v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
+            attn = gqa_attention(q, k_cache[:, :W].to(q.dtype),
+                                 v_cache[:, :W].to(q.dtype), kmask, cfg)
         elif flash:
             attn = llm_flash_attention(q, k, v, seg, seg,
                                        cfg.num_key_value_heads, causal=True)
@@ -318,11 +327,50 @@ def internlm2_prefill(lm: InternLM2ForCausalLM, cfg: InternLM2Config,
     cache.mask[:, :S] = attention_mask
     mask = causal_mask(cache.mask, S, max_len)
     for i, layer in enumerate(lm.model.layers):
-        x = layer(x, cos, sin, mask, cache=(cache.k[i], cache.v[i], 0))
+        x = layer(x, cos, sin, mask,
+                  cache=(cache.k[i], cache.v[i], 0, max_len))
     cache.index = S
     last_hidden = lm.model.norm(x)
     return {"logits": lm.output(last_hidden),
             "last_hidden": last_hidden}, cache
+
+
+def internlm2_prefill_at(lm: InternLM2ForCausalLM, cfg: InternLM2Config,
+                         inputs_embeds: Tensor, chunk_mask: Tensor,
+                         cache: KVCache, start: int,
+                         compute_logits: bool = True,
+                         logit_rows=None) -> Tuple[dict, KVCache]:
+    """Chunked prefill (``model.py:421-469``): a right-packed [B, C, H]
+    prompt segment written in place at cache slots [start, start + C),
+    attending to everything cached so far plus the causal prefix of the
+    segment. chunk_mask [B, C] is the validity inside the segment (only a
+    prompt's last segment has a padded tail). Positions are start + i, the
+    dynamic-NTK length the cache's max_len. Attention reads slots [0, start
+    + C) alone (the JAX step masks the rest of max_len). ``compute_logits``
+    False skips the head; ``logit_rows`` (a slice or indices into the
+    segment) limits it to the rows a caller reads. Returns ({'last_hidden' [B, C, H],
+    'logits' [B, C | len(logit_rows), V] when asked}, cache)."""
+    x = inputs_embeds
+    B, C, _ = x.shape
+    max_len = cache.k.shape[2]
+    W = start + C
+    dev = x.device
+    qpos = start + torch.arange(C, device=dev)
+    cos, sin = rope_cos_sin(cfg, qpos[None].expand(B, C),
+                            ntk_seq_len=max_len)
+    cache.mask[:, start:W] = chunk_mask
+    causal = torch.arange(W, device=dev)[None, :] <= qpos[:, None]
+    ok = cache.mask[:, None, :W].bool() & causal[None]
+    mask = torch.where(ok, 0.0, NEG_INF).float()               # [B, C, W]
+    for i, layer in enumerate(lm.model.layers):
+        x = layer(x, cos, sin, mask, cache=(cache.k[i], cache.v[i], start, W))
+    cache.index = W
+    last_hidden = lm.model.norm(x)
+    out = {"last_hidden": last_hidden}
+    if compute_logits:
+        out["logits"] = lm.output(last_hidden if logit_rows is None
+                                  else last_hidden[:, logit_rows])
+    return out, cache
 
 
 def internlm2_decode_step(lm: InternLM2ForCausalLM, cfg: InternLM2Config,
@@ -341,7 +389,43 @@ def internlm2_decode_step(lm: InternLM2ForCausalLM, cfg: InternLM2Config,
     mask = torch.where(cache.mask[:, None, :].bool(), 0.0, NEG_INF).float()
     x = token_embeds
     for i, layer in enumerate(lm.model.layers):
-        x = layer(x, cos, sin, mask, cache=(cache.k[i], cache.v[i], slot))
+        x = layer(x, cos, sin, mask,
+                  cache=(cache.k[i], cache.v[i], slot, max_len))
     cache.index = slot + 1
+    logits = lm.output(lm.model.norm(x))[:, 0, :]
+    return logits, cache
+
+
+def internlm2_decode_step_multi(lm: InternLM2ForCausalLM,
+                                cfg: InternLM2Config, token_embeds: Tensor,
+                                cache: KVCache, active: Tensor,
+                                attend_len: Optional[int] = None
+                                ) -> Tuple[Tensor, KVCache]:
+    """Continuous-batching decode step (``model.py:625-715``) with per-row
+    write positions: rows are right-packed (tokens at slots [0, len)), and
+    row b writes its token at slot len_b = sum(mask[b]), in place, at
+    position len_b. Inactive rows (``active`` [B] bool False) write k / v
+    there too, as JAX does, but leave their mask alone, so a later
+    admission overwrites the slot. Attention reads slots [0, attend_len)
+    (every row's length after this step must fit; default all max_len).
+    A write past the last slot (a row decoding on past its budget) lands
+    in the last slot, where JAX drops it. No host sync: the step can be
+    captured in a CUDA graph. Returns (logits [B, V], cache).
+
+    ``_win``, ``gqa_attention_decode_split`` and the ``unroll`` /
+    ``split_attn`` switches of the JAX step keep XLA's scan from copying the
+    cache; an in-place step makes no such copy, so they are not ported."""
+    B = token_embeds.shape[0]
+    max_len = cache.k.shape[2]
+    W = max_len if attend_len is None else min(attend_len, max_len)
+    rows = torch.arange(B, device=token_embeds.device)
+    lens = cache.mask.sum(dim=-1)                                 # [B]
+    pos = lens.clamp_max(max_len - 1)
+    cos, sin = rope_cos_sin(cfg, lens[:, None], ntk_seq_len=max_len)
+    cache.mask[rows, pos] = torch.where(active, 1, cache.mask[rows, pos])
+    mask = torch.where(cache.mask[:, None, :W].bool(), 0.0, NEG_INF).float()
+    x = token_embeds
+    for i, layer in enumerate(lm.model.layers):
+        x = layer(x, cos, sin, mask, cache=(cache.k[i], cache.v[i], pos, W))
     logits = lm.output(lm.model.norm(x))[:, 0, :]
     return logits, cache

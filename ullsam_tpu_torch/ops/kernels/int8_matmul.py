@@ -29,6 +29,7 @@ calls ``w8a16_matmul_checked``, which checks only x on each call.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import Optional
@@ -183,3 +184,18 @@ def w8a16_matmul_checked(x: Tensor, qweight: Tensor, qscale: Tensor,
 
 
 w8a16_matmul.launches = 0
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Leave B12's counts (``w8a16_matmul.launches`` and
+    ``kernel_launches``) as they were across the block: a CUDA graph's
+    capture records launches that do not run then."""
+    saved = (w8a16_matmul.launches,
+             {k: c.launches for k, c in kernel_launches.items()})
+    try:
+        yield
+    finally:
+        w8a16_matmul.launches = saved[0]
+        for k, c in kernel_launches.items():
+            c.launches = saved[1][k]

@@ -8,7 +8,8 @@
 # encode under each route setting, the ViT-H segmentation train step in
 # bf16 and in f32 with and without remat, the ViT-B f32 step with remat, a
 # ViT-B encode), its ViT-B AMG image and B4 regions, and its segmentation
-# train step region and the packed sft step region: device-busy share,
+# train step region, the packed sft step region and the serving engine's
+# regions (an image admission, a replayed decode chunk): device-busy share,
 # peak memory and top device operations. Run from the root of a checkout on
 # a machine with one H100:
 #
@@ -48,6 +49,7 @@ grep -E '\[kernels\] (decode_masks|two_way_transformer|upscale_hypernet|fused)' 
 grep -E '\[kernels\] (vit_flash_attn|window_attn |window_attn_core |window_attn_core_bwd|w8a16_matmul bfloat16 M=(1152|9216))|\[caption\] (prefill|int8 batch 1|bf16 request|int8 request 1)' \
     "$out/smoke_${tag}.log" | cut -c1-400
 grep -E '\[train\] (f32|bf16 flagship)' "$out/smoke_${tag}.log" | cut -c1-400
+grep -E '\[serve\]' "$out/smoke_${tag}.log" | cut -c1-900
 # ptxas (-Xptxas -v) of the window cores at SAM's 14x14 windows (NT = 14)
 # and at 16x16, of the wgmma GEMM's kinds (<0> bf16, <1> int8 W, <2> f32 in
 # split TF32) and of the flash bodies (B2 / B14's f32 vit_flash_tf32 and
@@ -87,3 +89,7 @@ grep -E -A20 '^== train_step' "$out/profile_train_${tag}.log"
 step profile_sft timeout 600 python -m ullsam_tpu_torch.tools.profile_kernels \
     --only packed_sft_step || { tail -40 "$out/profile_sft_${tag}.log"; exit 1; }
 grep -E -A32 "^== packed_sft_step" "$out/profile_sft_${tag}.log"
+
+step profile_serve timeout 600 python -m ullsam_tpu_torch.tools.profile_kernels \
+    --only serve_ || { tail -40 "$out/profile_serve_${tag}.log"; exit 1; }
+grep -E -A16 "^== serve_" "$out/profile_serve_${tag}.log"

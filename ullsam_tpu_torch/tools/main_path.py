@@ -585,10 +585,11 @@ def llm_flash_case(dtype: torch.dtype, gen: torch.Generator, B: int = 1,
 W8A16_LINEARS = ((4096, 2048), (2048, 2048), (8192, 2048), (2048, 8192),
                  (92553, 2048))
 W8A16_DECODE_M = (1, 8)
-# ... and once a prefill, at M = 1152 tokens (the caption prompt) and 8 x
-# 1152 (the batch-8 request); there the head's last 128-column tile is
-# ragged (92553 % 128 = 9)
-W8A16_PREFILL_M = (1152, 9216)
+# ... and once a prefill, at M = 256 tokens (a prompt segment of the
+# serving engine, ``prefill_chunk``), 1152 (the caption prompt) and 8 x 1152
+# (the batch-8 request); there the head's last 128-column tile is ragged
+# (92553 % 128 = 9)
+W8A16_PREFILL_M = (256, 1152, 9216)
 # the caption request: 1024 <IMG_CONTEXT> + 64 text tokens, and a batch of 8
 # with distinct text lengths; both left-pad to S = 1152
 CAPTION_TEXT = 64

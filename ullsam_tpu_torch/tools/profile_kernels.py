@@ -11,7 +11,12 @@ segmentation train step (``vit_h_train_step_bfloat16``: SAM ViT-H +
 frozen InternLM2-1.8B, bf16 parameters and moments, remat off), the
 float32 steps (``vit_h_train_step_float32`` with and without ``_remat``,
 ``vit_b_train_step_float32_remat``: the JAX CLI's defaults) and a SAM
-ViT-B encode (``vit_b_encode_bfloat16``, the interactive request's).
+ViT-B encode (``vit_b_encode_bfloat16``, the interactive request's), and
+the serving engine's work in bf16 and int8 (``serve_admit_*``: one image
+caption request's admission, the encode, 5 prefill segments of 256, the
+first token and the splice; ``serve_chunk_*``: one decode chunk of 8
+steps over 8 rows at the image prompt's length, replayed from its captured
+CUDA graph).
 
     python -m ullsam_tpu_torch.tools.profile_kernels [--out DIR] [--only P]
 
@@ -234,6 +239,57 @@ def _packed_f32(args, cfg) -> None:
     torch.cuda.empty_cache()
 
 
+class _ServeTokenizer:
+    """The ids the engine asks of a tokenizer: EOS (the template's
+    <|im_end|>) and pad."""
+    pad_token_id = 2
+
+    @staticmethod
+    def convert_tokens_to_ids(token):
+        return 92542
+
+
+def _serve(args, model, cfg) -> None:
+    """The engine's admission of one image caption request (1024 image +
+    64 text tokens, 5 segments of 256) and one captured decode chunk (8
+    steps, 8 active rows of 1,100 tokens, window 1536), bf16 and int8."""
+    from ullsam_tpu_torch.serve.engine import GenerationEngine, Request
+    rng = np.random.default_rng(0)
+    ids = np.asarray([1, 11] + [cfg.img_context_token_id] * 1024
+                     + rng.integers(3, 90000, 62).tolist(), np.int64)
+    img = rng.integers(0, 256, (1, 1024, 1024, 3), dtype=np.uint8)
+    for quant in (None, "int8"):
+        tag = quant or "bfloat16"
+        if not _wants(args, f"serve_admit_{tag}", f"serve_chunk_{tag}"):
+            continue
+        eng = GenerationEngine(model, cfg, _ServeTokenizer(), max_batch=8,
+                               max_len=2560, quant=quant)
+        eng.shutdown()            # its internals run on this thread
+        st = eng.state
+
+        def admit():
+            pend = eng._admit_start(0, Request(ids, img, 128))
+            while eng._admit_advance(pend) is None:
+                pass
+
+        with torch.inference_mode():
+            _region(f"serve_admit_{tag}", admit, args, iters=3, top=25)
+            st.cache.mask.zero_()
+            st.cache.mask[:, :1100] = 1
+            st.active.fill_(True)
+            st.tokens.fill_(11)
+            mask = st.cache.mask.clone()
+            graph = eng._graph((8, 1536, False))
+
+            def chunk():
+                st.cache.mask.copy_(mask)
+                graph.replay()
+
+            _region(f"serve_chunk_{tag}", chunk, args, iters=8, top=25)
+        del eng, graph
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="chrome trace directory")
@@ -302,7 +358,7 @@ def main() -> None:
         del sam, amg
         torch.cuda.empty_cache()
     if not _wants(args, "request_", "train_step_", "packed_sft_step_",
-                  "packed_sft_step_float32", "caption_"):
+                  "packed_sft_step_float32", "caption_", "serve_"):
         return
 
     cfg = FusionConfig(sam=sam_vit_b(), llm=internlm2_1_8b())
@@ -339,6 +395,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     if _wants(args, "packed_sft_step_float32"):
         _packed_f32(args, cfg)
+
+    if _wants(args, "serve_"):
+        _serve(args, model, cfg)
 
     # steady caption decode steps at batch 1 after the 1152-token prompt's
     # prefill, bf16 then with the LLM's linears int8 (B12, 121 a step)
