@@ -142,7 +142,28 @@ sm_90a) and the CUDA toolkit. Phases, each printing what it found:
     captured and their capture time, the peak above the weights,
     ``phase_stats``; (c) the port's app at full width in bf16 with the
     engine, on a free port, through ``_smoke``'s sequence.
-Each path (5-12) runs with every launch counter set to 0 just before it and
+13. the rest of inference (``[rest]`` lines): (a) ``calibrate_amg_weights``
+    of a small SAM on the CPU and on the card from the same weights (drawn
+    tensors bitwise, probed ones within 1e-4); ``build_sam("vit_b")`` and
+    ``build_sam("vit_h")`` calibrated on the card and cast to bf16, the
+    production config (0.88 / 0.95 / NMS 0.7, 32x32 points, 256 a chunk, at
+    most 256 masks) on 1024x1024 images through ``generate_dense_batch``,
+    1 warm and 3 timed: masks committed (at least 8), images/s, the peak,
+    exact launches; one f32 image matched to bf16's (mean mask IoU >=
+    0.99, at least 0.7 of the smaller set in common); (b) on the
+    calibrated ViT-B in bf16, one crop layer (1 warm and 2 timed images;
+    each crop its own sweep), the device path against the host stitch at
+    crop NMS 1.0 (bitwise), two crop layers on a 768x1000 image (unequal
+    edge crops); (c) ``SamPredictor``: one
+    ``set_image`` (B1 8, B2 4), point, box and point-plus-mask-input
+    predictions timed with no kernel launched, 64 clicks tracking their
+    prompts; (d) the ``sam_vitb_full`` golden through B1 and B2 in f32 and
+    bf16 at ``tests/test_flagship_parity.py``'s tolerances; (e)
+    ``beam_search`` on InternLM2-1.8B, the 1152-token image prompt, 4 beams,
+    32 tokens, bf16 then int8: one beam equals greedy ``caption_ids``, the
+    beams' log-probability at least greedy's, B12 121 a pass in int8; (f)
+    the exported decoder loaded on the card against the eager function.
+Each path (5-13) runs with every launch counter set to 0 just before it and
 read just after; in every request, image and step of paths 5-11 the float32
 kinds launch exactly as B1, B3, B13 and B15 ask (float32: two launches of
 the GEMM's f32 kind per B1 or B13, one of the f32 window core per B1, B3
@@ -3142,6 +3163,651 @@ def train_vit_h_main_path() -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the rest of inference (calibration, multi-crop AMG, the
+# predictor, the full-size golden, beam search, the decoder export)
+# ---------------------------------------------------------------------------
+
+# the upstream production AMG config (pred_iou 0.88, stability 0.95, box
+# NMS 0.7), 32x32 points in chunks of 256, at most 256 masks
+PROD_AMG = dict(points_per_side=32, points_per_batch=256, max_masks=256,
+                pred_iou_thresh=0.88, stability_score_thresh=0.95,
+                box_nms_thresh=0.7)
+# B4-B7's launches in one AMG chunk of 256 prompts
+DECODER_CHUNK = {"decode_masks": 1, "two_way_transformer": 1,
+                 "upscale_hypernet_stats": 1, "upscale_hypernet": 1}
+ENCODE = {"vit_b": {"window_attn": 8, "vit_flash_attn": 4},
+          "vit_h": {"window_attn": 28, "vit_flash_attn": 4}}
+
+
+def _times(d: dict, n: int) -> dict:
+    return {k: v * n for k, v in d.items()}
+
+
+def _plus(*ds: dict) -> dict:
+    out = {}
+    for d in ds:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return {k: v for k, v in out.items() if v}
+
+
+def _since(before: dict) -> dict:
+    return {k: v - before[k] for k, v in launch_counts().items()
+            if v != before[k]}
+
+
+def _sweeps(variant: str, n: int, chunks: int = 4) -> dict:
+    """The launches of n AMG sweeps (an image or a crop each)."""
+    return _times(_plus(ENCODE[variant], _times(DECODER_CHUNK, chunks)), n)
+
+
+def _calibration_probed(name: str) -> bool:
+    """The tensors ``calibrate_amg_weights`` computes from probes; every
+    other one it writes is drawn with numpy or set to a constant."""
+    return (name.endswith("cross_attn_image_to_token.q_proj.bias")
+            or "iou_prediction_head.layers.2." in name
+            or ("output_hypernetworks_mlps" in name
+                and name.endswith("layers.2.bias")))
+
+
+def rest_small_reference_check() -> None:
+    """(a) ``calibrate_amg_weights`` of a small SAM (a tiny ViT under SAM's
+    full-width decoder on the 64x64 embedding; the calibration never runs
+    the encoder) on the CPU and on the card from the same weights: the
+    drawn and constant tensors bitwise, the probed ones within 1e-4 of
+    their largest magnitude (``tests/test_torch_calibrate.py``'s
+    tolerance against JAX)."""
+    import torch
+    from ullsam_tpu_torch.core.config import (MaskDecoderConfig,
+                                              PromptEncoderConfig, SamConfig,
+                                              ViTConfig)
+    from ullsam_tpu_torch.inference.calibrate import calibrate_amg_weights
+    from ullsam_tpu_torch.models.sam.sam import Sam
+    from ullsam_tpu_torch.ops import layers as L
+
+    cfg = SamConfig(
+        vit=ViTConfig(img_size=1024, patch_size=16, embed_dim=64, depth=2,
+                      num_heads=2, mlp_ratio=2.0, out_chans=256,
+                      window_size=8, global_attn_indexes=(1,)),
+        prompt_encoder=PromptEncoderConfig(image_embedding_size=(64, 64),
+                                           input_image_size=(1024, 1024),
+                                           mask_in_chans=16),
+        mask_decoder=MaskDecoderConfig())
+    cpu = Sam(cfg, device="cpu")
+    gen = torch.Generator()
+    gen.manual_seed(SEED)
+    L.init_module_(cpu, gen)
+    gpu = Sam(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    ref = calibrate_amg_weights(cpu, cfg).state_dict()
+    got = calibrate_amg_weights(gpu, cfg).state_dict()
+    worst, exact = 0.0, 0
+    for k, v in got.items():
+        v = v.cpu()
+        if _calibration_probed(k):
+            err = float((v - ref[k]).abs().max()) / max(
+                float(ref[k].abs().max()), 1e-30)
+            worst = max(worst, err)
+            if err > 1e-4:
+                fail(f"calibration on the card: {k} {err:.3e} from the CPU's"
+                     f" (tol 1e-4)")
+        elif not torch.equal(v, ref[k]):
+            fail(f"calibration on the card: {k} differs from the CPU's")
+        else:
+            exact += 1
+    say(f"[rest] (a) small SAM calibrated on the CPU and on the card: "
+        f"{exact} tensors bitwise equal, the probed ones at most "
+        f"{worst:.3e} of their largest magnitude apart (tol 1e-4)")
+
+
+def _match_iou(m16, d16, m32, d32):
+    """(bf16 masks, f32 masks kept, common candidates, their mean / min
+    mask IoU) of two committed sets matched by candidate index."""
+    import numpy as np
+    import torch
+    common, i16, i32 = np.intersect1d(d16["candidate"], d32["candidate"],
+                                      return_indices=True)
+    a = m16[torch.from_numpy(i16).cuda()]
+    b = m32[torch.from_numpy(i32).cuda()]
+    inter = (a & b).sum((1, 2)).float()
+    union = (a | b).sum((1, 2)).float().clamp_min(1)
+    ious = (inter / union).cpu().numpy()
+    return len(common), float(ious.mean()), float(ious.min())
+
+
+def rest_calibrated_amg(variant: str, images, card: str):
+    """(a) ``build_sam(variant)`` calibrated on the card, cast to bf16, the
+    production config on 1024x1024 images through ``generate_dense_batch``
+    (1 warm, 3 timed, as ``bench_amg_stats`` does), exact launches; one
+    f32 image matched to bf16's. Returns (the calibrated f32 and bf16
+    models, cfg, the bf16 ms an image)."""
+    import numpy as np
+    import torch
+    from ullsam_tpu_torch.inference.amg import AutomaticMaskGenerator
+    from ullsam_tpu_torch.inference.calibrate import calibrate_amg_weights
+    from ullsam_tpu_torch.models.sam import sam as S
+    from ullsam_tpu_torch.models.sam.registry import build_sam
+
+    cfg, model = build_sam(variant, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cal32 = calibrate_amg_weights(model, cfg)
+    torch.cuda.synchronize()
+    t_cal = time.perf_counter() - t0
+    del model
+    cal16 = S.Sam(cfg, device="cuda", dtype=torch.bfloat16)
+    cal16.load_state_dict(cal32.state_dict())
+    cal16.eval()
+    cal32.to("cpu")
+    torch.cuda.empty_cache()
+    gen16 = AutomaticMaskGenerator(cfg, cal16, **PROD_AMG)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    gen16.generate_dense_batch(images[:1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before, f0, c0 = launch_counts(), fused_counts(), c_counts()
+    t0 = time.perf_counter()
+    res = gen16.generate_dense_batch(images[1:4])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    d = _since(before)
+    want = _sweeps(variant, 3)
+    df = check_fused(f"calibrated {variant} AMG", f0, 12, True)
+    check_f32_kinds(f"calibrated {variant} AMG", d, c0, False)
+    counts = [len(data["iou_preds"]) for _, data in res]
+    for masks, data in res:
+        n = len(data["iou_preds"])
+        if (masks.dtype != torch.bool or tuple(masks.shape) != (n, 1024, 1024)
+                or not np.isfinite(data["iou_preds"]).all()
+                or not (data["iou_preds"] > 0.88).all()
+                or not (data["stability"] >= 0.95).all()
+                or not (data["areas"] > 0).all()):
+            fail(f"calibrated {variant} AMG: masks {tuple(masks.shape)}")
+    say(f"[rest] (a) calibrated {variant} (calibration {t_cal:.2f} s on the "
+        f"card), bf16, production config 0.88 / 0.95 / NMS 0.7, 3 timed "
+        f"images through generate_dense_batch: {counts} masks committed, "
+        f"{3 / dt:.3f} images/s ({dt * 1e3 / 3:.1f} ms an image, host "
+        f"clock, ends in synchronize), {sum(counts) / dt:.1f} masks/s, peak "
+        f"{peak / 2**30:.3f} GiB above the {held / 2**30:.3f} GiB held "
+        f"before (the weights and what earlier phases keep), launches {d},"
+        f" fused decoder kernels {df}; {card}")
+    if d != want:
+        fail(f"calibrated {variant} AMG: launches {d}, expected {want}")
+    if min(counts) < 8:
+        fail(f"calibrated {variant} AMG committed {counts} masks (at least "
+             f"8 an image expected)")
+    # one f32 image (TF32 off), matched to bf16's committed masks
+    m16, d16 = res[0]
+    del res
+    cal32.to("cuda")
+    gen32 = AutomaticMaskGenerator(cfg, cal32, **PROD_AMG)
+    before, f0, c0 = launch_counts(), fused_counts(), c_counts()
+    t0 = time.perf_counter()
+    m32, d32 = gen32.generate_dense(images[1])
+    torch.cuda.synchronize()
+    ms32 = (time.perf_counter() - t0) * 1e3
+    d = _since(before)
+    check_fused(f"calibrated {variant} AMG f32", f0, 4, False)
+    check_f32_kinds(f"calibrated {variant} AMG f32", d, c0, True)
+    if d != _sweeps(variant, 1):
+        fail(f"calibrated {variant} AMG f32: launches {d}")
+    n16, n32 = len(d16["candidate"]), len(d32["candidate"])
+    common, mean_iou, min_iou = _match_iou(m16, d16, m32, d32)
+    # the population is capped at max_masks, so the two dtypes' IoU
+    # predictions rank the last survivors differently: the sets' sizes are
+    # held within a tenth, at least 0.7 of the smaller set in common (the
+    # readings: 198 of 256 at ViT-B, 192 of 256 at ViT-H), and the masks
+    # they share to a mean IoU of 0.99
+    say(f"[rest] (a) calibrated {variant}, image 1 in f32 (TF32 off, "
+        f"{ms32:.1f} ms, first f32 image): {n32} masks against bf16's "
+        f"{n16}, {common} candidates in both (>= 0.7 of the smaller set), "
+        f"their mask IoU mean {mean_iou:.5f}, min {min_iou:.5f} (mean >= "
+        f"0.99)")
+    if abs(n16 - n32) > max(3, n32 // 10) \
+            or common < 0.7 * min(n16, n32) or mean_iou < 0.99:
+        fail(f"calibrated {variant}: bf16 and f32 committed sets disagree")
+    del m16, m32
+    return cal32, cal16, cfg, dt * 1e3 / 3
+
+
+def _crop_order(masks, d):
+    """A row order independent of the path: by source crop, iou,
+    stability, area, then the full-frame mask's box (bf16 IoU predictions
+    and stabilities of 1 tie often)."""
+    import numpy as np
+    from ullsam_tpu_torch.inference.amg import batched_mask_to_box
+    crop = (d["report_crop_boxes"] if "report_crop_boxes" in d
+            else d["crop_boxes"])
+    box = batched_mask_to_box(masks).cpu().numpy()
+    return np.lexsort((*box.T[::-1], d["areas"], d["stability"],
+                       d["iou_preds"], *crop.T[::-1]))
+
+
+def rest_multicrop(cfg, cal16, images, single_ms: float, card: str) -> None:
+    """(b) multi-crop AMG on the calibrated ViT-B in bf16: one crop layer
+    on 1024x1024 images (1 warm, 2 timed), the device path against the host
+    stitch at crop NMS 1.0, one two-layer image of 768x1000 (unequal edge
+    crops)."""
+    import numpy as np
+    import torch
+    from ullsam_tpu_torch.inference.amg import (AutomaticMaskGenerator,
+                                                generate_crop_boxes)
+
+    gen = AutomaticMaskGenerator(cfg, cal16, crop_n_layers=1, **PROD_AMG)
+    gen.generate_dense(images[0])
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lat = []
+    for img in images[1:3]:
+        before, f0 = launch_counts(), fused_counts()
+        t0 = time.perf_counter()
+        masks, data = gen.generate_dense(img)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        d = _since(before)
+        check_fused("multi-crop AMG", f0, 20, True)
+        n = len(data["iou_preds"])
+        if d != _sweeps("vit_b", 5) or tuple(masks.shape) != (
+                n, 1024, 1024) or not 0 < n <= 256 or not np.array_equal(
+                    data["areas"], masks.sum((1, 2)).cpu().numpy()):
+            fail(f"multi-crop AMG: launches {d}, masks "
+                 f"{tuple(masks.shape)}")
+        by_crop = {}
+        for b in data["report_crop_boxes"].astype(int).tolist():
+            by_crop[tuple(b)] = by_crop.get(tuple(b), 0) + 1
+    peak = torch.cuda.max_memory_allocated() - held
+    boxes1, _ = generate_crop_boxes((1024, 1024), 1, 512 / 1500)
+    sizes1 = sorted({(b[3] - b[1], b[2] - b[0]) for b in boxes1[1:]})
+    say(f"[rest] (b) calibrated vit_b bf16, crop_n_layers=1 (the full image "
+        f"and 4 crops, each swept by its own call, one cross-crop NMS and "
+        f"placement on the device), 2 timed 1024x1024 images: "
+        f"{', '.join(f'{t:.1f}' for t in lat)} ms (host clock; "
+        f"{min(lat) / single_ms:.2f}x the single-crop image's "
+        f"{single_ms:.1f} ms), crop sizes {sizes1}, {n} masks, by source crop {by_crop}, "
+        f"launches an image {d}, peak {peak / 2**30:.3f} GiB above what "
+        f"was held before; {card}")
+    del masks
+    # the device path against the host stitch, cross-crop NMS off: 8
+    # points a side, so every valid candidate of the 5 sweeps (at most
+    # 192 each) fits in max_masks and neither path drops one
+    kw = dict(PROD_AMG, points_per_side=8, max_masks=1024,
+              crop_n_layers=1, crop_nms_thresh=1.0)
+    md, dd = AutomaticMaskGenerator(cfg, cal16, **kw).generate_dense(
+        images[1])
+    mh, dh = AutomaticMaskGenerator(cfg, cal16, device_multicrop=False,
+                                    **kw).generate_dense(images[1])
+    od, oh = _crop_order(md, dd), _crop_order(mh, dh)
+    same = (len(od) == len(oh) and len(od) < 1024
+            and np.array_equal(dd["iou_preds"][od], dh["iou_preds"][oh])
+            and np.array_equal(dd["areas"][od], dh["areas"][oh])
+            and torch.equal(md[torch.from_numpy(od).cuda()],
+                            mh[torch.from_numpy(oh).cuda()]))
+    say(f"[rest] (b) device path vs host stitch (8 points a side, crop NMS "
+        f"1.0): {len(od)} and {len(oh)} masks, iou, areas and placed masks "
+        f"{'bitwise equal' if same else 'DIFFER'}")
+    if not same:
+        fail("multi-crop AMG: the device path and the host stitch differ")
+    del md, mh
+    # two layers on 768x1000: unequal edge crops
+    img = np.ascontiguousarray(images[3][:768, :1000])
+    boxes, _ = generate_crop_boxes((768, 1000), 2, 512 / 1500)
+    sizes = {(b[3] - b[1], b[2] - b[0]) for b in boxes[5:]}
+    gen2 = AutomaticMaskGenerator(cfg, cal16, crop_n_layers=2, **PROD_AMG)
+    before, f0 = launch_counts(), fused_counts()
+    t0 = time.perf_counter()
+    masks, data = gen2.generate_dense(img)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    d = _since(before)
+    n = len(data["iou_preds"])
+    check_fused("two-layer AMG", f0, 4 * len(boxes), True)
+    inside = True
+    for i, (x0, y0, x1, y1) in enumerate(
+            data["report_crop_boxes"].astype(int).tolist()):
+        outside = masks[i].clone()
+        outside[y0:y1, x0:x1] = False
+        inside &= not bool(outside.any())
+    say(f"[rest] (b) crop_n_layers=2 on a 768x1000 image: {len(boxes)} "
+        f"crops (layer-2 sizes {sorted(sizes)}), {ms:.1f} ms, {n} masks, "
+        f"launches {d}")
+    if len(sizes) < 2 or d != _sweeps("vit_b", len(boxes)) or not inside \
+            or tuple(masks.shape) != (n, 768, 1000) or n == 0:
+        fail(f"two-layer AMG: {n} masks {tuple(masks.shape)}, launches {d}")
+    del masks
+
+
+def rest_predictor(cfg, cal16, images, card: str) -> None:
+    """(c) ``SamPredictor`` on the calibrated ViT-B in bf16: one
+    ``set_image`` (B1 8, B2 4), then point, box and point-plus-mask-input
+    predictions, each timed, none launching a kernel; an 8x8 grid of
+    clicks tracks its prompts as ``tests/test_calibrate.py`` asks (at least
+    20 masks, median centroid distance under 15 pixels of the 256x256
+    low-res frame, 60 here)."""
+    import numpy as np
+    import torch
+    from ullsam_tpu_torch.inference.amg import build_point_grid
+    from ullsam_tpu_torch.inference.predictor import SamPredictor
+
+    pred = SamPredictor(cfg, cal16)
+    pred.set_image(images[0])
+    torch.cuda.synchronize()
+    before = launch_counts()
+    t0 = time.perf_counter()
+    pred.set_image(images[1])
+    torch.cuda.synchronize()
+    ms_set = (time.perf_counter() - t0) * 1e3
+    d = _since(before)
+    if d != ENCODE["vit_b"]:
+        fail(f"predictor set_image: launches {d}")
+    point = dict(point_coords=np.asarray([[300, 420]]),
+                 point_labels=np.asarray([1]))
+    _, _, low = pred.predict(**point)
+    cases = [("point", point),
+             ("box", dict(box=np.asarray([200, 250, 600, 700]),
+                          multimask_output=False)),
+             ("point + mask input", dict(point, mask_input=low[:, :1],
+                                         multimask_output=False))]
+    lines = []
+    for tag, kw in cases:
+        pred.predict(**kw)
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        masks, iou, low = pred.predict(**kw)
+        ms = (time.perf_counter() - t0) * 1e3
+        if _since(before):
+            fail(f"predictor {tag}: launched {_since(before)}")
+        M = 3 if kw.get("multimask_output", True) else 1
+        if masks.shape != (1, M, 1024, 1024) or iou.shape != (1, M) or \
+                not np.isfinite(low).all():
+            fail(f"predictor {tag}: masks {masks.shape}, iou {iou.shape}")
+        lines.append(f"{tag} {ms:.2f} ms")
+    errs = []
+    for x, y in build_point_grid(8) * 1024:
+        masks, _, _ = pred.predict(point_coords=np.asarray([[x, y]]),
+                                   point_labels=np.asarray([1]))
+        ys, xs = np.nonzero(masks[0, 0])
+        if len(xs):
+            errs.append(float(np.hypot(xs.mean() - x, ys.mean() - y)))
+    say(f"[rest] (c) SamPredictor on the calibrated vit_b, bf16: set_image "
+        f"{ms_set:.1f} ms (launches {d}), predict (host clock, masks to the "
+        f"host): {', '.join(lines)}, no kernel launched; 64 grid clicks: "
+        f"{len(errs)} masks, median centroid distance "
+        f"{float(np.median(errs)) if errs else float('nan'):.1f} px; {card}")
+    if len(errs) < 20 or float(np.median(errs)) > 60.0:
+        fail("predictor: the calibrated masks do not track their clicks")
+
+
+def rest_export(cfg, cal32, card: str) -> None:
+    """(f) the full decoder exported from the calibrated ViT-B (f32), loaded
+    back on the card, against the eager decoder function: within 1e-5 of
+    max|eager| (the same ops), no kernel launched."""
+    import torch
+    from ullsam_tpu_torch.inference.export import (export_decoder,
+                                                   load_exported_decoder,
+                                                   make_onnx_decoder_fn)
+
+    orig = (768, 1000)
+    t0 = time.perf_counter()
+    blob = export_decoder(cal32, cfg, num_points=3, batch=2, full=True,
+                          return_single_mask=True, orig_im_size=orig)
+    fn = load_exported_decoder(blob)
+    t_exp = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    args = (torch.randn(1, 64, 64, 256, generator=gen, device="cuda"),
+            torch.rand(2, 3, 2, generator=gen, device="cuda") * 1024,
+            torch.tensor([[1, 0, -1], [1, 1, -1]], device="cuda"),
+            torch.randn(2, 256, 256, 1, generator=gen, device="cuda"),
+            torch.tensor([1.0, 0.0], device="cuda"))
+    eager = make_onnx_decoder_fn(cfg, return_single_mask=True,
+                                 orig_im_size=orig)
+    before = launch_counts()
+    with torch.no_grad():
+        ref = eager(cal32, *args)
+    got = fn(*args)
+    ms_got = cuda_time_ms(lambda: fn(*args), 5)
+    with torch.no_grad():
+        ms_ref = cuda_time_ms(lambda: eager(cal32, *args), 5)
+    errs = [_rel(g, r) for g, r in zip(got, ref)]
+    say(f"[rest] (f) exported decoder (torch.export, {len(blob) / 2**20:.2f} "
+        f"MiB, traced and loaded in {t_exp:.1f} s) on the card against the "
+        f"eager function: upscaled, scores, low-res {', '.join(f'{e:.2e}' for e in errs)} "
+        f"of max|eager| (tol 1e-5), {ms_got:.3f} ms against {ms_ref:.3f} ms "
+        f"(CUDA events); {card}")
+    if _since(before) or max(errs) > 1e-5 or got[0].shape != (2, 1) + orig:
+        fail(f"exported decoder: errors {errs}, launches {_since(before)}")
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+
+
+def rest_golden(card: str) -> None:
+    """(d) ``tests/goldens/sam_vitb_full``: SAM ViT-B at full width on the
+    weights of ``tools/synth_weights.py`` against the PyTorch reference's
+    outputs, through B1 and B2 on the card: float32 (split TF32) at the
+    CPU test's tolerances (embedding 5e-3, iou 2e-3, low-res 5e-2, each
+    mask's IoU >= 0.99) and bfloat16 at ``tests/test_flagship_parity.py``'s
+    contract (confident pixels agree >= 0.999, each mask's IoU >= 0.98)."""
+    import numpy as np
+    import torch
+    from tools.synth_weights import manifest_from_arrays, synth_state_dict
+    from ullsam_tpu_torch.convert.from_jax import load_reference_state_dict
+    from ullsam_tpu_torch.core.config import sam_vit_b
+    from ullsam_tpu_torch.models.sam import sam as S
+
+    with np.load("tests/goldens/sam_vitb_full.npz") as z:
+        g = {k: z[k] for k in z.files}
+    cfg = sam_vit_b()
+    sd = synth_state_dict(manifest_from_arrays(g["manifest_keys"],
+                                               g["manifest_shapes"]))
+    image = (np.random.RandomState(123).rand(3, 786, 1024) * 255
+             ).astype(np.float32).transpose(1, 2, 0)
+    ref_masks = np.unpackbits(g["masks_packed"]).astype(bool)[
+        :int(np.prod(g["masks_shape"]))].reshape(g["masks_shape"])
+    ref_emb = torch.from_numpy(np.transpose(g["emb"].astype(np.float32),
+                                            (0, 2, 3, 1))).cuda()
+    ref_low = torch.from_numpy(g["low_res"].astype(np.float32)).cuda()
+    ref_logits = S.postprocess_masks(ref_low, (786, 1024), (768, 1000), cfg)
+    confident = (ref_logits.abs() > 0.02 * ref_logits.std()).cpu().numpy()
+    for dtype in (torch.float32, torch.bfloat16):
+        sam = load_reference_state_dict(
+            S.Sam(cfg, device="cuda", dtype=dtype), sd).eval()
+        before = launch_counts()
+        with torch.no_grad():
+            x = S.preprocess(torch.from_numpy(np.ascontiguousarray(
+                image)).cuda()[None], cfg).to(dtype)
+            emb = S.encode_image(sam.image_encoder, x)
+            low, iou = S.decode_masks(
+                sam.prompt_encoder, sam.mask_decoder, emb,
+                points=(torch.from_numpy(g["coords"]).cuda(),
+                        torch.from_numpy(g["labels"]).cuda()),
+                multimask_output=True)
+            final = S.postprocess_masks(low, (786, 1024), (768, 1000), cfg)
+        d = _since(before)
+        binary = (final > cfg.mask_threshold).cpu().numpy()
+        ious = [float(np.logical_and(binary[0, m], ref_masks[0, m]).sum()
+                      / max(np.logical_or(binary[0, m], ref_masks[0, m])
+                            .sum(), 1)) for m in range(3)]
+        e_emb = float((emb.float() - ref_emb).abs().max())
+        e_iou = float(np.abs(iou.float().cpu().numpy() - g["iou"]).max())
+        e_low = float(((low.float() - ref_low).abs() - 5e-2 * ref_low.abs())
+                      .max())
+        agree = float((binary == ref_masks)[confident].mean())
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        say(f"[rest] (d) sam_vitb_full golden, {tag} on the card: embedding "
+            f"max diff {e_emb:.3e}, iou {e_iou:.3e}, low-res max(|diff| - "
+            f"5e-2 |ref|) {e_low:.3e}, mask IoU "
+            f"{', '.join(f'{v:.5f}' for v in ious)}, confident-pixel "
+            f"agreement {agree:.5f}, launches {d}")
+        if d != ENCODE["vit_b"]:
+            fail(f"golden {tag}: launches {d}")
+        ok = (e_emb <= 5e-3 and e_iou <= 2e-3 and e_low <= 5e-2
+              and min(ious) >= 0.99) if tag == "f32" else (
+                  agree >= 0.999 and min(ious) >= 0.98)
+        if not ok:
+            fail(f"golden {tag}: outside the stated tolerances")
+        del sam
+
+
+def rest_beam_search(card: str) -> None:
+    """(e) ``beam_search`` on the flagship InternLM2-1.8B (random bf16
+    weights from the seed) on the fusion's 1152-token image prompt, 4
+    beams and 32 new tokens, in bf16 and then int8 (``quantize_llm_int8``):
+    one beam equals ``caption_ids``' greedy tokens up to greedy's first
+    eos; four beams score at least greedy's log-probability, both scored by
+    one forward, less the spread measured between that forward and the
+    search's own bf16 incremental scores; B12's
+    launches exact in int8 (121 a pass: the prefill and each of the 31
+    steps), none in bf16; a step's time from a 32-token and a 1-token
+    call."""
+    import numpy as np
+    import torch
+    from ullsam_tpu_torch.core.config import (FusionConfig, internlm2_1_8b,
+                                              sam_vit_b)
+    from ullsam_tpu_torch.models.internlm2 import model as LLM
+    from ullsam_tpu_torch.models.internlm2.generate import (GenerationConfig,
+                                                            beam_search)
+    from ullsam_tpu_torch.models.internlm2.quant import quantize_llm_int8
+    from ullsam_tpu_torch.models.ullsam import chat
+    from ullsam_tpu_torch.models.ullsam import fusion as F
+    from ullsam_tpu_torch.tools.main_path import caption_inputs
+
+    cfg = FusionConfig(sam=sam_vit_b(), llm=internlm2_1_8b())
+    model = F.build_ullsam(cfg, device="cuda", dtype=torch.bfloat16,
+                           seed=SEED)
+    lm = model.fusion.language_model
+    pixels, ids, mask = caption_inputs(cfg, np.random.default_rng(SEED))
+    T = 32
+    mask_d = torch.as_tensor(mask).cuda().int()
+
+    def logprob(embeds, toks):
+        """The continuation's log-probability under one forward over the
+        prompt and the tokens (through the first eos)."""
+        toks = toks.tolist()
+        if cfg.llm.eos_token_id in toks:
+            toks = toks[:toks.index(cfg.llm.eos_token_id) + 1]
+        t = torch.tensor([toks], device="cuda")
+        with torch.inference_mode():
+            x = torch.cat([embeds, LLM.embed_tokens(lm, t).to(embeds.dtype)],
+                          1)
+            m = torch.cat([mask_d, torch.ones_like(t, dtype=torch.int32)], 1)
+            lg = LLM.internlm2_forward(lm, cfg.llm, inputs_embeds=x,
+                                       attention_mask=m)["logits"]
+            lp = torch.log_softmax(lg[0, embeds.shape[1] - 1:-1].float(), -1)
+            return float(lp.gather(1, t[0][:, None]).sum())
+
+    for kind in ("bf16", "int8"):
+        if kind == "int8":
+            quantize_llm_int8(lm)
+            torch.cuda.empty_cache()
+        b12 = B12_PER_PASS if kind == "int8" else 0
+        greedy, _ = chat.caption_ids(model, cfg, pixels, ids, mask,
+                                     gen=GenerationConfig(max_new_tokens=T))
+        greedy = greedy[0].cpu()
+        with torch.inference_mode():
+            embeds = chat.embeds_with_image(
+                model, cfg, torch.as_tensor(ids).cuda().long(),
+                torch.as_tensor(pixels).cuda().float())
+        one, score1 = beam_search(lm, cfg.llm, embeds, mask_d,
+                                  num_beams=1, max_new_tokens=T)
+        beam_search(lm, cfg.llm, embeds, mask_d, num_beams=4,
+                    max_new_tokens=T)                       # warm
+        ms = {}
+        for n in (1, T):
+            before = launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks, score = beam_search(lm, cfg.llm, embeds, mask_d,
+                                      num_beams=4, max_new_tokens=n)
+            torch.cuda.synchronize()
+            ms[n] = (time.perf_counter() - t0) * 1e3
+            d = _since(before)
+            want = {"w8a16_matmul": b12 * n} if b12 else {}
+            if d != want:
+                fail(f"beam search {kind}, {n} new tokens: launches {d}, "
+                     f"expected {want}")
+        step = (ms[T] - ms[1]) / (T - 1)
+        eos = cfg.llm.eos_token_id
+        one = one.cpu()
+        lp_beam, lp_greedy, lp_one = (logprob(embeds, t) for t in
+                                      (toks.cpu(), greedy, one))
+
+        def length(t):
+            """The scored length: through the first eos, else all T."""
+            t = t.tolist()
+            return t.index(eos) + 1 if eos in t else T
+
+        # the search scores in bf16 step by step (a sum of log-probs over
+        # the length, length_penalty 1), the check by one forward: the
+        # slack is that disagreement, measured on both searches' tokens
+        slack = (abs(lp_beam - float(score) * length(toks.cpu()))
+                 + abs(lp_one - float(score1) * length(one)))
+        # a search keeps an eos candidate apart and extends its best other
+        # token, so one beam follows greedy up to greedy's first eos (all
+        # T tokens when greedy emits none)
+        upto = length(greedy) - 1 if eos in greedy.tolist() else T
+        same = upto > 0 and torch.equal(one[:upto], greedy[:upto])
+        say(f"[rest] (e) beam_search {kind}, flagship InternLM2-1.8B on the "
+            f"1152-token image prompt ({int(mask.sum())} valid), 4 beams, "
+            f"{T} new tokens: {ms[T]:.1f} ms ({ms[1]:.1f} ms with 1 token: "
+            f"prefill and the first top-k), {step:.3f} ms a step (host "
+            f"clock); score {float(score):.4f}; log-prob by one forward: "
+            f"beams {lp_beam:.4f}, greedy {lp_greedy:.4f} (beams >= greedy - "
+            f"{slack:.4f}, the spread measured between one forward and the "
+            f"searches' own scores); one beam equals caption_ids' greedy "
+            f"tokens over their first {upto}: {same}; launches a 32-token "
+            f"call {d}; {card}")
+        if toks.shape != (T,) or not np.isfinite(float(score)):
+            fail(f"beam search {kind}: tokens {tuple(toks.shape)}")
+        if lp_beam < lp_greedy - slack:
+            fail(f"beam search {kind}: beams {lp_beam} below greedy "
+                 f"{lp_greedy} - {slack}")
+        if not same:
+            fail(f"beam search {kind}: one beam {one.tolist()} differs from "
+                 f"greedy {greedy.tolist()} over the first {upto} tokens")
+    del model, lm
+    torch.cuda.empty_cache()
+
+
+def rest_main_path() -> None:
+    """Phase 13: the calibrated production AMG at ViT-B (with multi-crop,
+    the predictor and the export on its weights) and ViT-H, the full-size
+    golden, beam search."""
+    import numpy as np
+    import torch
+    from ullsam_tpu_torch.tools.main_path import amg_inputs
+
+    card = smi_line()
+    images = amg_inputs(np.random.default_rng(SEED + 13), 4)
+    cal32, cal16, cfg, single_ms = rest_calibrated_amg("vit_b", images,
+                                                       card)
+    rest_multicrop(cfg, cal16, images, single_ms, card)
+    rest_predictor(cfg, cal16, images, card)
+    rest_export(cfg, cal32, card)
+    del cal32, cal16
+    torch.cuda.empty_cache()
+    cal32, cal16, _, _ = rest_calibrated_amg("vit_h", images, card)
+    del cal32, cal16
+    torch.cuda.empty_cache()
+    rest_golden(card)
+    rest_beam_search(card)
+
+
+# every path in the order the run drives it
+PATHS = {"interactive": main_path, "amg": amg_main_path,
+         "train": train_main_path, "packed": packed_main_path,
+         "caption": caption_main_path, "vit_h": vit_h_main_path,
+         "train_vit_h": train_vit_h_main_path, "serve": serve_main_path,
+         "rest": rest_main_path}
+
+
 def main() -> None:
     try:
         import torch
@@ -3200,14 +3866,9 @@ def main() -> None:
     caption_small_reference_check()
     vit_h_small_reference_check()
     serve_small_reference_check()
+    rest_small_reference_check()
     by_path, gemm_by_path, fused_by_path = {}, {}, {}
-    for path, drive in (("interactive", main_path), ("amg", amg_main_path),
-                        ("train", train_main_path),
-                        ("packed", packed_main_path),
-                        ("caption", caption_main_path),
-                        ("vit_h", vit_h_main_path),
-                        ("train_vit_h", train_vit_h_main_path),
-                        ("serve", serve_main_path)):
+    for path, drive in PATHS.items():
         reset_counts()
         drive()
         by_path[path] = launch_counts()

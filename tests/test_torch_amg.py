@@ -214,8 +214,13 @@ def test_generate_dense_matches_jax(weights):
 
 
 def test_generator_refuses_multi_crop(weights):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TA.AutomaticMaskGenerator(TCFG, weights[1], crop_n_layers=1)
+    """Multi-crop generation is ported (``tests/test_torch_amg_multicrop.py``
+    holds it against JAX): crop layers are taken, and only a negative count
+    of them is refused."""
+    gen = TA.AutomaticMaskGenerator(TCFG, weights[1], crop_n_layers=2)
+    assert len(gen.point_grids) == 3 and gen.device_multicrop
+    with pytest.raises(ValueError, match="crop_n_layers"):
+        TA.AutomaticMaskGenerator(TCFG, weights[1], crop_n_layers=-1)
 
 
 @pytest.mark.parametrize("multimask", [True, False], ids=["multi", "single"])

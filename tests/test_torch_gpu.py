@@ -1514,3 +1514,132 @@ def test_serve_chunk_replay_is_bitwise_repeatable(cuda, dynamic):
         eager = E._engine_step(eng.lm, cfg, st, 8, dynamic, 2, 512).clone()
     assert all(torch.equal(a, b) for a, b in zip(*outs))
     assert torch.equal(outs[0][0], eager)
+
+
+# ---------------------------------------------------------------------------
+# the rest of inference: calibration, SamPredictor, multi-crop AMG
+# ---------------------------------------------------------------------------
+
+
+def _small_sam(prod_decoder_only=False):
+    """A small SAM with SAM's full-width decoder, random weights from seed
+    0, on the CPU: a ViT of head dim 64 with a padded window and a global
+    block (every kernel takes it), or, for the calibration (which never
+    runs the encoder), the tiny ViT of ``tests/test_torch_calibrate.py``
+    on the 64x64 embedding the calibration is tuned for."""
+    from ullsam_tpu_torch.core.config import (MaskDecoderConfig,
+                                              PromptEncoderConfig, SamConfig,
+                                              ViTConfig)
+    from ullsam_tpu_torch.models.sam.sam import Sam
+    from ullsam_tpu_torch.ops import layers as L
+    if prod_decoder_only:
+        cfg = SamConfig(
+            vit=ViTConfig(img_size=1024, patch_size=16, embed_dim=64,
+                          depth=2, num_heads=2, mlp_ratio=2.0,
+                          out_chans=256, window_size=8,
+                          global_attn_indexes=(1,)),
+            prompt_encoder=PromptEncoderConfig(
+                image_embedding_size=(64, 64), input_image_size=(1024, 1024),
+                mask_in_chans=16),
+            mask_decoder=MaskDecoderConfig())
+    else:
+        cfg = SamConfig(
+            vit=ViTConfig(img_size=256, patch_size=16, embed_dim=128,
+                          depth=3, num_heads=2, out_chans=256, window_size=14,
+                          global_attn_indexes=(1,)),
+            prompt_encoder=PromptEncoderConfig(
+                image_embedding_size=(16, 16), input_image_size=(256, 256)),
+            mask_decoder=MaskDecoderConfig())
+    cpu = Sam(cfg, device="cpu")
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    L.init_module_(cpu, gen)
+    gpu = Sam(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    return cfg, cpu.eval(), gpu.eval()
+
+
+def test_calibration_on_card_matches_cpu(cuda):
+    """``calibrate_amg_weights`` on the card against the CPU from the same
+    weights: every tensor within 1e-4 of its largest magnitude (the
+    tolerance ``tests/test_torch_calibrate.py`` states against JAX), the
+    drawn ones bitwise, the copy on the card."""
+    from ullsam_tpu_torch.inference.calibrate import calibrate_amg_weights
+    cfg, cpu, gpu = _small_sam(prod_decoder_only=True)
+    ref = calibrate_amg_weights(cpu, cfg).state_dict()
+    cal = calibrate_amg_weights(gpu, cfg)
+    assert next(cal.parameters()).device.type == "cuda"
+    for k, v in cal.state_dict().items():
+        err = float((v.cpu() - ref[k]).abs().max())
+        assert err <= 1e-4 * max(float(ref[k].abs().max()), 1e-30), (k, err)
+
+
+def test_predictor_on_card_matches_cpu(cuda):
+    """``SamPredictor`` on the card (B1, B2 in ``set_image``, the plain
+    decoder in ``predict``, no kernel there) against the CPU: embedding,
+    IoU and low-res logits within 1e-4 of max|CPU| (f32 with TF32 off),
+    masks on 99.9% of pixels."""
+    from ullsam_tpu_torch.inference.predictor import SamPredictor
+    from ullsam_tpu_torch.ops.kernels import flash_attention as FA
+    from ullsam_tpu_torch.ops.kernels import vit_block as VB
+    cfg, cpu, gpu = _small_sam()
+    image = (torch.rand(200, 240, 3, generator=torch.Generator().manual_seed(
+        1)) * 255).to(torch.uint8).numpy()
+    p_cpu, p_gpu = SamPredictor(cfg, cpu), SamPredictor(cfg, gpu)
+    p_cpu.set_image(image)
+    b0 = (VB.window_attn.launches, FA.vit_flash_attn.launches)
+    p_gpu.set_image(image)
+    assert (VB.window_attn.launches - b0[0],
+            FA.vit_flash_attn.launches - b0[1]) == (2, 1)
+    assert _rel_err(p_gpu.get_image_embedding().cpu(),
+                    p_cpu.get_image_embedding()) <= 1e-4
+    import numpy as np
+    point = dict(point_coords=np.asarray([[120, 90]]),
+                 point_labels=np.asarray([1]))
+    _, _, low = p_cpu.predict(**point)
+    for kw in (point, dict(box=np.asarray([30, 40, 180, 150]),
+                           multimask_output=False),
+               dict(point, mask_input=low[:, :1], multimask_output=False)):
+        launched = (VB.window_attn.launches, FA.vit_flash_attn.launches)
+        mg, ig, lg = p_gpu.predict(**kw)
+        assert (VB.window_attn.launches, FA.vit_flash_attn.launches) == \
+            launched
+        mc, ic, lc = p_cpu.predict(**kw)
+        assert float(np.abs(ig - ic).max()) <= 1e-4
+        assert float(np.abs(lg - lc).max()) <= 1e-4 * float(
+            np.abs(lc).max())
+        assert (mg == mc).mean() >= 0.999
+
+
+def test_multicrop_amg_on_card_matches_cpu(cuda):
+    """One crop layer on the device path, card against CPU: the same
+    committed candidates (each crop's sweep on the card is bitwise the
+    same as the host path's, so the host path must agree exactly), iou
+    and stability within 1e-4, masks on 99.9% of pixels."""
+    import numpy as np
+    from ullsam_tpu_torch.inference.amg import AutomaticMaskGenerator
+    cfg, cpu, gpu = _small_sam()
+    image = np.random.default_rng(0).integers(0, 256, (300, 360, 3),
+                                              dtype=np.uint8)
+    kw = dict(points_per_side=4, points_per_batch=16, crop_n_layers=1,
+              pred_iou_thresh=0.0, stability_score_thresh=0.0,
+              box_nms_thresh=1.0, crop_nms_thresh=1.0, max_masks=256)
+    mc, dc = AutomaticMaskGenerator(cfg, cpu, **kw).generate_dense(image)
+    mg, dg = AutomaticMaskGenerator(cfg, gpu, **kw).generate_dense(image)
+    mh, dh = AutomaticMaskGenerator(cfg, gpu, device_multicrop=False,
+                                    **kw).generate_dense(image)
+
+    def order(d):
+        crop = (d["report_crop_boxes"] if "report_crop_boxes" in d
+                else d["crop_boxes"])
+        return np.lexsort((d["stability"], d["iou_preds"], *crop.T[::-1]))
+
+    oc, og, oh = order(dc), order(dg), order(dh)
+    assert len(oc) == len(og) == len(oh) == 5 * 48
+    np.testing.assert_allclose(dg["iou_preds"][og], dc["iou_preds"][oc],
+                               atol=1e-4)
+    np.testing.assert_allclose(dg["stability"][og], dc["stability"][oc],
+                               atol=1e-4)
+    assert (mg.cpu().numpy()[og] == mc.numpy()[oc]).mean() >= 0.999
+    assert torch.equal(mg[torch.from_numpy(og).cuda()],
+                       mh[torch.from_numpy(oh).cuda()])

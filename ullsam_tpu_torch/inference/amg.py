@@ -1,24 +1,27 @@
-"""Automatic mask generation (AMG), single crop: point-grid sweep -> IoU and
-stability filter -> NMS -> masks at the image size.
+"""Automatic mask generation (AMG): point-grid sweep -> IoU and stability
+filter -> NMS -> masks at the image size, over one crop or a crop pyramid.
 
-The port's counterpart of ``ullsam_tpu/inference/amg.py`` for
-``crop_n_layers=0``:
+The port's counterpart of ``ullsam_tpu/inference/amg.py``:
   * the host helpers (``MaskData``, point grids, ``box_iou``, ``nms``, RLE,
     crop boxes, ``remove_small_regions`` through scipy) are copied, because
     that module imports jax;
   * ``amg_device_sweep`` keeps everything on the device until one packed
     stats read: resize the raw image, encode it (B1, B2), make the
     decoder's shared image side once, decode the prompt chunks through B4
-    (masks, IoU, stability and low-res boxes per candidate), filter, greedy NMS or top-k, gather the survivors, upscale
-    and threshold them to the image size;
+    (masks, IoU, stability and low-res boxes per candidate), filter,
+    greedy NMS or top-k, gather the survivors, upscale and threshold them
+    to the image size;
+  * with crops, each crop is its own ``amg_device_sweep`` of the uploaded
+    image, and ``_merge_crops_device`` runs the cross-crop NMS and places
+    the survivors into the full frame on the device;
   * ``AutomaticMaskGenerator`` has ``generate``, ``generate_dense`` and
-    ``generate_dense_batch``, with all three output modes.
-Multi-crop sweeps (``crop_n_layers > 0``) are not ported yet.
+    ``generate_dense_batch``, with all three output modes and crops
+    (``crop_n_layers``), on the device or stitched on the host.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -357,7 +360,8 @@ def amg_device_sweep(sam, cfg: SamConfig, image: Tensor, points: Tensor, *,
                      stability_offset: float, box_nms_thresh: float,
                      input_hw: Tuple[int, int], out_hw: Tuple[int, int],
                      n_real: int) -> Dict[str, Tensor]:
-    """One image through the whole sweep on ``sam``'s device and dtype.
+    """One image (or crop) through the whole sweep on ``sam``'s device and
+    dtype.
 
     image: [1, h, w, 3] raw (uint8 or float 0-255) on the device; points
     [n, 2] input-frame pixels, n % points_per_batch == 0, the first n_real
@@ -412,14 +416,74 @@ def amg_device_sweep(sam, cfg: SamConfig, image: Tensor, points: Tensor, *,
     return out
 
 
+def _merge_crops_device(outs: Sequence[Dict[str, Tensor]], crop_boxes,
+                        scales: Sequence[Tuple[float, float]],
+                        orig_hw: Tuple[int, int], crop_nms_thresh: float,
+                        final_k: int) -> Dict[str, Tensor]:
+    """Cross-crop NMS and survivor placement on the device, with no host
+    sync.
+
+    outs: each crop's ``amg_device_sweep`` (masks [M, ch, cw]), the full
+    image first; crop_boxes: their boxes [x0, y0, x1, y1] on the host;
+    scales: each sweep's low-res box scale (sh, sw). Every candidate's box
+    goes to the original frame, and all of them NMS together at
+    ``crop_nms_thresh``, smaller crops preferred (score 1 / (crop area + 1)
+    + 1e-9 * iou, in f32), keeping at most ``final_k``; each survivor's
+    mask is taken from its crop's sweep and written at the crop's offset
+    into a zeroed full-frame mask (slice assignment, one a crop)."""
+    H, W = orig_hw
+    dev = outs[0]["valid"].device
+    f32 = torch.float32
+    boxes, pref, crop_of, sizes = [], [], [], []
+    for out, (x0, y0, x1, y1), (sh, sw) in zip(outs, crop_boxes, scales):
+        M = out["valid"].shape[0]
+        off = torch.tensor([x0, y0, x0, y0], dtype=f32, device=dev)
+        boxes.append(out["boxes_low"] * torch.tensor(
+            [sw, sh, sw, sh], dtype=f32, device=dev) + off)
+        pref.append(torch.full((M,), 1.0 / (float(y1 - y0) * float(x1 - x0)
+                                            + 1.0), dtype=f32, device=dev))
+        crop_of.append(torch.tensor([x0, y0, x1, y1], dtype=f32,
+                                    device=dev).expand(M, 4))
+        sizes.append(M)
+    boxes, pref, crop_of = torch.cat(boxes), torch.cat(pref), \
+        torch.cat(crop_of)
+    valid = torch.cat([o["valid"] for o in outs])
+    iou = torch.cat([o["iou"] for o in outs])
+    stab = torch.cat([o["stability"] for o in outs])
+    scores = torch.where(valid, pref + 1e-9 * iou, float("-inf"))
+
+    idx, keep = _device_nms_topk(boxes, scores, crop_nms_thresh, final_k)
+
+    masks = torch.zeros((final_k, H, W), dtype=torch.bool, device=dev)
+    start = 0
+    for out, (x0, y0, x1, y1), M in zip(outs, crop_boxes, sizes):
+        rel = idx - start
+        mine = ((rel >= 0) & (rel < M))[:, None, None]
+        masks[:, y0:y1, x0:x1] |= out["masks"][rel.clamp(0, M - 1)] & mine
+        start += M
+    masks &= keep[:, None, None]
+    return {"masks": masks, "valid": keep, "iou": iou[idx],
+            "stability": stab[idx], "boxes": boxes[idx],
+            "crop_box_of": crop_of[idx], "areas": masks.sum((1, 2))}
+
+
 # ---------------------------------------------------------------------------
 # generator
 # ---------------------------------------------------------------------------
 
 
 class AutomaticMaskGenerator:
-    """SAM AMG on the port's ``Sam`` (single crop), at the model's dtype
-    and on its device."""
+    """SAM AMG on the port's ``Sam``, at the model's dtype and on its
+    device: the upstream generator contract, with crops.
+
+    ``crop_n_layers`` > 0 adds the crop pyramid of ``generate_crop_boxes``
+    (layer i: 2**i x 2**i crops overlapping by ``crop_overlap_ratio``, its
+    point grid thinned by ``crop_n_points_downscale_factor`` ** i). With
+    ``device_multicrop`` (the default) every crop sweeps on the device and
+    one cross-crop NMS (``crop_nms_thresh``, smaller crops preferred)
+    places the survivors into the full frame there; with it False every
+    crop is collected on its own and stitched on the host, as upstream
+    does."""
 
     def __init__(self, cfg: SamConfig, sam, points_per_side: int = 32,
                  points_per_batch: int = 256,
@@ -427,97 +491,231 @@ class AutomaticMaskGenerator:
                  stability_score_thresh: float = 0.95,
                  stability_score_offset: float = 1.0,
                  box_nms_thresh: float = 0.7, crop_n_layers: int = 0,
+                 crop_nms_thresh: float = 0.7,
+                 crop_overlap_ratio: float = 512 / 1500,
+                 crop_n_points_downscale_factor: int = 1,
                  min_mask_region_area: int = 0,
                  output_mode: str = "binary_mask",
-                 max_masks: Optional[int] = None):
-        if crop_n_layers != 0:
-            raise NotImplementedError(
-                "crop_n_layers > 0 (multi-crop AMG) is not ported yet: "
-                "ROADMAP.md, queue A, 'multi-crop AMG'")
+                 max_masks: Optional[int] = None,
+                 device_multicrop: bool = True):
+        if crop_n_layers < 0:
+            raise ValueError(f"crop_n_layers must be >= 0, not "
+                             f"{crop_n_layers}")
         if output_mode not in ("binary_mask", "uncompressed_rle",
                                "coco_rle"):
             raise ValueError(f"unknown output_mode {output_mode!r}")
         self.cfg = cfg
         self.sam = sam.eval()
         self.device = next(sam.parameters()).device
-        self.point_grid = build_point_grid(points_per_side)
+        self.point_grids = build_all_layer_point_grids(
+            points_per_side, crop_n_layers, crop_n_points_downscale_factor)
         self.points_per_batch = points_per_batch
         self.pred_iou_thresh = pred_iou_thresh
         self.stability_score_thresh = stability_score_thresh
         self.stability_score_offset = stability_score_offset
         self.box_nms_thresh = box_nms_thresh
+        self.crop_n_layers = crop_n_layers
+        self.crop_nms_thresh = crop_nms_thresh
+        self.crop_overlap_ratio = crop_overlap_ratio
         self.min_mask_region_area = min_mask_region_area
         self.output_mode = output_mode
         self.max_masks = max_masks
+        self.device_multicrop = device_multicrop
         self.transform = ResizeLongestSide(cfg.vit.img_size)
+        self._pts_cache: Dict[Tuple[int, Tuple[int, int]], tuple] = {}
+
+    # -- per-crop sweep ---------------------------------------------------
+
+    def _crop_points(self, layer_idx: int, crop_size: Tuple[int, int]):
+        """(the layer's grid in crop pixels, the input-frame points padded
+        to whole chunks on the device, the real count): made once for each
+        (layer, crop size)."""
+        key = (layer_idx, tuple(crop_size))
+        if key not in self._pts_cache:
+            points_for_image = (self.point_grids[layer_idx]
+                                * np.array(crop_size)[None, ::-1])
+            in_pts = self.transform.apply_coords(points_for_image, crop_size)
+            n = len(in_pts)
+            n_pad = -n % self.points_per_batch
+            if n_pad:
+                in_pts = np.concatenate([in_pts,
+                                         np.zeros((n_pad, 2), np.float32)])
+            self._pts_cache[key] = (points_for_image,
+                                    torch.from_numpy(in_pts).to(self.device),
+                                    n)
+        return self._pts_cache[key]
+
+    def _sweep_kw(self, n: int) -> dict:
+        return dict(points_per_batch=self.points_per_batch,
+                    max_out=min(self.max_masks or 512, n * 3),
+                    pred_iou_thresh=self.pred_iou_thresh,
+                    stability_thresh=self.stability_score_thresh,
+                    stability_offset=self.stability_score_offset,
+                    box_nms_thresh=self.box_nms_thresh, n_real=n)
+
+    def _upload(self, images: np.ndarray) -> Tensor:
+        return torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
 
     @torch.no_grad()
-    def _sweep(self, image: np.ndarray):
-        """Start one image's device sweep; returns a handle for
-        ``_collect``."""
-        orig_size = tuple(image.shape[:2])
-        input_hw = get_preprocess_shape(orig_size[0], orig_size[1],
+    def _process_crop(self, image: Tensor, crop_box: List[int],
+                      layer_idx: int, defer: bool = False):
+        """One crop's device sweep of the uploaded image [H, W, 3]. With
+        ``defer`` a handle for ``_collect_crop``, else its result."""
+        x0, y0, x1, y1 = crop_box
+        crop_size = (y1 - y0, x1 - x0)
+        input_hw = get_preprocess_shape(crop_size[0], crop_size[1],
                                         self.cfg.vit.img_size)
-        points_for_image = self.point_grid * np.array(orig_size)[None, ::-1]
-        in_pts = self.transform.apply_coords(points_for_image, orig_size)
-        n = len(in_pts)
-        n_pad = -n % self.points_per_batch
-        if n_pad:
-            in_pts = np.concatenate([in_pts, np.zeros((n_pad, 2), np.float32)])
-        max_out = min(self.max_masks or 512, n * 3)
+        points_for_image, in_pts, n = self._crop_points(layer_idx, crop_size)
+        kw = self._sweep_kw(n)
         out = amg_device_sweep(
-            self.sam, self.cfg,
-            torch.from_numpy(np.ascontiguousarray(image))[None].to(
-                self.device),
-            torch.from_numpy(in_pts).to(self.device),
-            points_per_batch=self.points_per_batch, max_out=max_out,
-            pred_iou_thresh=self.pred_iou_thresh,
-            stability_thresh=self.stability_score_thresh,
-            stability_offset=self.stability_score_offset,
-            box_nms_thresh=self.box_nms_thresh, input_hw=input_hw,
-            out_hw=orig_size, n_real=n)
-        return out, orig_size, input_hw, max_out, points_for_image, n
+            self.sam, self.cfg, image[None, y0:y1, x0:x1].contiguous(),
+            in_pts, input_hw=input_hw, out_hw=crop_size, **kw)
+        handle = (out, crop_box, crop_size, input_hw, kw["max_out"],
+                  points_for_image, n)
+        return handle if defer else self._collect_crop(*handle)
 
-    def _collect(self, handle) -> Tuple[MaskData, Tensor]:
-        """One host read of the packed stats -> (MaskData of the valid
-        masks, masks [max_out, H, W] bool on the device)."""
-        out, orig_size, input_hw, max_out, points_for_image, n = handle
+    def _collect_crop(self, out, crop_box, crop_size, input_hw, max_out,
+                      points_for_image, n) -> Tuple[MaskData, Tensor, int]:
+        """One host read of a crop's packed stats -> (MaskData of all
+        max_out rows, masks [max_out, ch, cw] bool on the device,
+        max_out)."""
         sp = out["stats_packed"].cpu().numpy()
         lr = 4 * self.cfg.prompt_encoder.image_embedding_size[0]
         boxes = sp[:, 4:8] * (self.cfg.vit.img_size / lr)
-        boxes[:, [0, 2]] *= orig_size[1] / input_hw[1]
-        boxes[:, [1, 3]] *= orig_size[0] / input_hw[0]
+        boxes[:, [0, 2]] *= crop_size[1] / input_hw[1]
+        boxes[:, [1, 3]] *= crop_size[0] / input_hw[0]
         indices = sp[:, 0].astype(np.int64)
         points = np.repeat(points_for_image, 3, axis=0)[
             np.clip(indices, 0, n * 3 - 1)]
-        crop_box = [0, 0, orig_size[1], orig_size[0]]
         data = MaskData(
             candidate=indices, iou_preds=sp[:, 2], stability=sp[:, 3],
             boxes=uncrop_boxes_xyxy(boxes, crop_box),
             points=uncrop_points(points.astype(np.float32), crop_box),
             areas=sp[:, 8].astype(np.int64), valid=sp[:, 1].astype(bool),
             crop_boxes=np.asarray([crop_box] * max_out, np.float32),
-            mask_slot=np.arange(max_out))
+            mask_slot=np.arange(max_out),
+            crop_index=np.zeros(max_out, np.int64))
+        return data, out["masks"], max_out
+
+    # -- crops on the device ----------------------------------------------
+
+    def _merge_scale(self, crop_hw, input_hw):
+        lr = 4 * self.cfg.prompt_encoder.image_embedding_size[0]
+        size = self.cfg.vit.img_size
+        return (size / lr * crop_hw[0] / input_hw[0],
+                size / lr * crop_hw[1] / input_hw[1])
+
+    @torch.no_grad()
+    def _collect_device_multicrop(self, image: Tensor, crop_boxes,
+                                  layer_idxs, orig_size):
+        """Any crop pyramid on the device: each crop (the full image first)
+        swept by its own ``amg_device_sweep`` of the uploaded image, then
+        one cross-crop NMS and placement; one host read, of the merge's
+        stats -> the MaskData of the valid survivors (masks already in the
+        full frame)."""
+        outs, scales = [], []
+        for box, li in zip(crop_boxes, layer_idxs):
+            out, _, crop_size, input_hw, *_ = self._process_crop(
+                image, box, li, defer=True)
+            outs.append(out)
+            scales.append(self._merge_scale(crop_size, input_hw))
+        merged = _merge_crops_device(outs, crop_boxes, scales,
+                                     tuple(orig_size), self.crop_nms_thresh,
+                                     self.max_masks or 512)
+        K = merged["valid"].shape[0]
+        sp = torch.cat([merged["valid"].float()[:, None],
+                        merged["iou"][:, None], merged["stability"][:, None],
+                        merged["boxes"], merged["areas"].float()[:, None],
+                        merged["crop_box_of"]], dim=-1).cpu().numpy()
+        full_box = [0, 0, orig_size[1], orig_size[0]]
+        data = MaskData(
+            iou_preds=sp[:, 1], stability=sp[:, 2], boxes=sp[:, 3:7],
+            points=np.zeros((K, 2), np.float32),
+            areas=sp[:, 7].astype(np.int64), valid=sp[:, 0].astype(bool),
+            # the masks are placed already: their crop box is the whole
+            # image; the source crop is reported apart
+            crop_boxes=np.asarray([full_box] * K, np.float32),
+            report_crop_boxes=sp[:, 8:12], mask_slot=np.arange(K),
+            crop_index=np.zeros(K, np.int64))
         data.filter(data["valid"])
-        if self.max_masks is not None and len(data["iou_preds"]) > \
-                self.max_masks:
+        return data, [merged["masks"]], orig_size
+
+    def _collect(self, image: np.ndarray):
+        """Sweep every crop. Returns (MaskData of the valid survivors after
+        the cross-crop NMS, each row with its crop_index and mask_slot; the
+        device masks of each crop (one full-frame array on the device
+        paths); the original size)."""
+        orig_size = tuple(image.shape[:2])
+        crop_boxes, layer_idxs = generate_crop_boxes(
+            orig_size, self.crop_n_layers, self.crop_overlap_ratio)
+        image = self._upload(image)
+        if self.device_multicrop and len(crop_boxes) > 1:
+            return self._collect_device_multicrop(image, crop_boxes,
+                                                  layer_idxs, orig_size)
+
+        data, device_masks = None, []
+        for ci, (crop_box, layer_idx) in enumerate(zip(crop_boxes,
+                                                       layer_idxs)):
+            cd, masks, max_out = self._process_crop(image, crop_box,
+                                                    layer_idx)
+            cd["crop_index"] = np.full(max_out, ci, np.int64)
+            device_masks.append(masks)
+            if data is None:
+                data = cd
+            else:
+                data.cat(cd)
+        data.filter(data["valid"])
+        if len(crop_boxes) > 1 and len(data["boxes"]):
+            # smaller crops first
+            cb = data["crop_boxes"]
+            areas = (cb[:, 2] - cb[:, 0]) * (cb[:, 3] - cb[:, 1])
+            data.filter(nms(data["boxes"], (1.0 / (areas + 1.0)).astype(
+                np.float32), self.crop_nms_thresh))
+        if (self.max_masks is not None
+                and len(data["iou_preds"]) > self.max_masks):
             data.filter(np.argsort(-data["iou_preds"])[:self.max_masks])
-        return data, out["masks"]
+        return data, device_masks, orig_size
+
+    def _masks_to_host(self, data: MaskData, device_masks, orig_size
+                       ) -> np.ndarray:
+        """The kept masks [K, H, W] bool on the host, each crop's uncropped
+        into the full frame."""
+        out = np.zeros((len(data["iou_preds"]), *orig_size), bool)
+        for ci, masks in enumerate(device_masks):
+            rows = np.flatnonzero(data["crop_index"] == ci)
+            if not len(rows):
+                continue
+            sel = masks[torch.from_numpy(data["mask_slot"][rows]).to(
+                masks.device)].cpu().numpy()
+            crop_box = data["crop_boxes"][rows[0]].astype(int).tolist()
+            out[rows] = uncrop_masks(sel, crop_box, *orig_size)
+        return out
 
     def generate_dense(self, image: np.ndarray) -> Tuple[Tensor, MaskData]:
-        """(masks [K, H, W] bool on the device, MaskData): no RLE, no bulk
-        host transfer, one small stats read."""
-        data, masks = self._collect(self._sweep(image))
-        return masks[torch.from_numpy(data["mask_slot"]).to(masks.device)], \
-            data
+        """(masks [K, H, W] bool on the device, MaskData): no RLE. A single
+        crop or the device crop paths read one small block of stats; the
+        host crop path stitches on the host and uploads."""
+        data, device_masks, orig_size = self._collect(image)
+        if len(device_masks) == 1:
+            masks = device_masks[0]
+            return masks[torch.from_numpy(data["mask_slot"]).to(
+                masks.device)], data
+        return torch.from_numpy(self._masks_to_host(
+            data, device_masks, orig_size)).to(self.device), data
 
     def generate_dense_batch(self, images) -> List[Tuple[Tensor, MaskData]]:
-        """Every image's sweep is queued on the device before any stats are
-        read. Returns [(masks on the device, MaskData)] per image."""
-        handles = [self._sweep(image) for image in images]
+        """Single crop: every image's sweep is queued on the device before
+        any stats are read. With crops, image by image. Returns [(masks on
+        the device, MaskData)] per image."""
+        if self.crop_n_layers:
+            return [self.generate_dense(image) for image in images]
+        handles = [self._process_crop(
+            self._upload(image), [0, 0, image.shape[1], image.shape[0]], 0,
+            defer=True) for image in images]
         results = []
         for handle in handles:
-            data, masks = self._collect(handle)
+            data, masks, _ = self._collect_crop(*handle)
+            data.filter(data["valid"])
             slots = data["mask_slot"]
             if not np.array_equal(slots, np.arange(masks.shape[0])):
                 masks = masks[torch.from_numpy(slots).to(masks.device)]
@@ -526,10 +724,10 @@ class AutomaticMaskGenerator:
 
     def generate(self, image: np.ndarray) -> List[Dict[str, Any]]:
         """image [H, W, 3] uint8 -> mask records (the upstream AMG output
-        contract), sorted by area."""
-        data, masks = self._collect(self._sweep(image))
-        masks_full = masks[torch.from_numpy(data["mask_slot"]).to(
-            masks.device)].cpu().numpy()
+        contract), sorted by area; ``crop_box`` is each mask's source
+        crop."""
+        data, device_masks, orig_size = self._collect(image)
+        masks_full = self._masks_to_host(data, device_masks, orig_size)
         K = len(masks_full)
         if self.min_mask_region_area > 0 and K:
             changed = np.zeros(K, bool)
@@ -552,9 +750,11 @@ class AutomaticMaskGenerator:
         rles = mask_to_rle(masks_full) if K else []
         boxes = (batched_mask_to_box(torch.from_numpy(masks_full)).numpy()
                  if K else np.zeros((0, 4)))
+        crop_col = (data["report_crop_boxes"] if "report_crop_boxes" in data
+                    else data["crop_boxes"])
         records = []
         for i in range(K):
-            crop_box = data["crop_boxes"][i].astype(int).tolist()
+            crop_box = crop_col[i].astype(int).tolist()
             rle, box = rles[i], boxes[i]
             records.append({
                 "segmentation": (masks_full[i]

@@ -208,3 +208,111 @@ def generate(lm: InternLM2ForCausalLM, cfg: InternLM2Config,
     lengths = torch.where(is_eos.any(-1), torch.argmax(is_eos.int(), -1) + 1,
                           T).int()
     return buf, lengths
+
+
+# ---------------------------------------------------------------------------
+# beam search (``generate.py:202-296``; the reference gets it through HF
+# generate and _reorder_cache, modeling_internlm2.py:1151-1158)
+# ---------------------------------------------------------------------------
+
+
+def _top_k(x: Tensor, k: int) -> Tuple[Tensor, Tensor]:
+    """The k largest of a 1-D tensor, descending, ties (``-inf`` among
+    them) in index order as ``jax.lax.top_k`` breaks them."""
+    vals, idx = torch.sort(x, descending=True, stable=True)
+    return vals[:k], idx[:k]
+
+
+@torch.inference_mode()
+def beam_search(lm: InternLM2ForCausalLM, cfg: InternLM2Config,
+                inputs_embeds: Tensor, attention_mask: Tensor,
+                num_beams: int = 4, max_new_tokens: int = 64,
+                eos_token_id: int = 2, pad_token_id: int = 2,
+                length_penalty: float = 1.0,
+                max_len: Optional[int] = None) -> Tuple[Tensor, Tensor]:
+    """Beam search for ONE prompt (inputs_embeds [1, S, H], attention_mask
+    [1, S]), ``num_beams`` explored, in the model's dtype (bf16, f32, or
+    int8 linears through B12).
+
+    The prompt prefills once and its cache is repeated across the beams;
+    each step scores every (beam, token), keeps the best eos candidate in a
+    finished pool of ``num_beams`` (length-penalized by (t + 2) **
+    ``length_penalty``) and the best ``num_beams`` others alive, and
+    reorders the cache rows by parent in place (``index_select`` along the
+    batch of k, v and mask; ``index`` is shared). The loop runs all
+    ``max_new_tokens - 1`` steps, as JAX's fixed-shape scan does, with no
+    host sync. Returns (tokens [max_new_tokens] int32, score []): the best
+    finished or (penalized by max_new_tokens ** ``length_penalty``) alive
+    hypothesis, eos included and pad after."""
+    B, S, _ = inputs_embeds.shape
+    if B != 1:
+        raise ValueError("beam_search explores the beams of one prompt")
+    K, T = num_beams, max_new_tokens
+    dev = inputs_embeds.device
+    if max_len is None:
+        max_len = S + T
+    ninf = float("-inf")
+    cache = init_cache(cfg, 1, max_len, dtype=inputs_embeds.dtype,
+                       device=dev)
+    mask = attention_mask.to(device=dev, dtype=torch.int32)
+    out, cache = internlm2_prefill(lm, cfg, inputs_embeds, mask, cache)
+    logp0 = torch.log_softmax(
+        out["logits"][0, last_valid_index(mask)[0]].float(), dim=-1)
+    del out
+    cache.k = cache.k.repeat_interleave(K, dim=1)
+    cache.v = cache.v.repeat_interleave(K, dim=1)
+    cache.mask = cache.mask.repeat_interleave(K, dim=0)
+
+    scores, tok = _top_k(logp0, K)
+    tok = tok.int()
+    buf = torch.full((K, T), pad_token_id, dtype=torch.int32, device=dev)
+    buf[:, 0] = tok
+    # beams that start with eos finish at once
+    is_eos0 = tok == eos_token_id
+    fin_scores = torch.where(is_eos0, scores / (1.0 ** length_penalty),
+                             ninf)
+    fin_buf = torch.where(is_eos0[:, None], buf, pad_token_id)
+    scores = scores.masked_fill(is_eos0, ninf)
+    eos_id = torch.tensor(eos_token_id, dtype=torch.int32, device=dev)
+
+    for t in range(T - 1):
+        emb = embed_tokens(lm, tok)[:, None, :].to(inputs_embeds.dtype)
+        logits, cache = internlm2_decode_step(lm, cfg, emb, cache)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        total = scores[:, None] + logp                         # [K, V]
+        V = total.shape[-1]
+        cand_scores, cand_idx = _top_k(total.reshape(-1), 2 * K)
+        cand_beam = cand_idx // V
+        cand_tok = (cand_idx % V).int()
+        cand_eos = cand_tok == eos_token_id
+
+        # finished pool: the best eos candidate replaces the worst entry
+        lp_den = float(t + 2) ** length_penalty
+        eos_scores = torch.where(cand_eos, cand_scores, ninf) / lp_den
+        best_eos = torch.argmax(eos_scores)
+        worst_fin = torch.argmin(fin_scores)
+        take = eos_scores[best_eos] > fin_scores[worst_fin]
+        new_row = buf[cand_beam[best_eos]].clone()
+        new_row[t + 1] = eos_id
+        slot = torch.arange(K, device=dev) == worst_fin
+        fin_scores = torch.where(take & slot, eos_scores[best_eos],
+                                 fin_scores)
+        fin_buf = torch.where((take & slot)[:, None], new_row[None], fin_buf)
+
+        # alive beams: the best K non-eos candidates; the cache follows its
+        # parents in place (the _reorder_cache analog)
+        keep_scores, keep = _top_k(cand_scores.masked_fill(cand_eos, ninf),
+                                   K)
+        parent = cand_beam[keep]
+        tok = cand_tok[keep]
+        cache.k.copy_(cache.k.index_select(1, parent))
+        cache.v.copy_(cache.v.index_select(1, parent))
+        cache.mask.copy_(cache.mask.index_select(0, parent))
+        buf = buf.index_select(0, parent)
+        buf[:, t + 1] = tok
+        scores = keep_scores
+
+    alive = scores / (float(T) ** length_penalty)
+    all_scores = torch.cat([fin_scores, alive])
+    best = torch.argmax(all_scores)
+    return torch.cat([fin_buf, buf])[best], all_scores[best]

@@ -16,7 +16,9 @@ the serving engine's work in bf16 and int8 (``serve_admit_*``: one image
 caption request's admission, the encode, 5 prefill segments of 256, the
 first token and the splice; ``serve_chunk_*``: one decode chunk of 8
 steps over 8 rows at the image prompt's length, replayed from its captured
-CUDA graph).
+CUDA graph), and the calibrated production AMG (``amg_prod_*``: SAM ViT-B
+through ``calibrate_amg_weights`` in bf16, 0.88 / 0.95 / NMS 0.7, one
+image and one image with one crop layer).
 
     python -m ullsam_tpu_torch.tools.profile_kernels [--out DIR] [--only P]
 
@@ -46,6 +48,7 @@ from torch.profiler import ProfilerActivity, profile
 from ullsam_tpu_torch.core.config import (FusionConfig, internlm2_1_8b,
                                           sam_vit_b, sam_vit_h)
 from ullsam_tpu_torch.inference.amg import AutomaticMaskGenerator
+from ullsam_tpu_torch.inference.calibrate import calibrate_amg_weights
 from ullsam_tpu_torch.models.internlm2 import model as LLM
 from ullsam_tpu_torch.models.internlm2.quant import quantize_llm_int8
 from ullsam_tpu_torch.models.sam import sam as SM
@@ -152,6 +155,25 @@ def _vit_h(args) -> None:
             _region(f"vit_h_encode_bfloat16_{route}",
                     lambda: SM.encode_image(sam.image_encoder, x), args,
                     iters=3, top=15)
+    del sam, amg
+    torch.cuda.empty_cache()
+
+
+def _amg_prod(args) -> None:
+    """The calibrated production AMG (``chip_smoke.py`` phase 13 (a), (b)):
+    SAM ViT-B (random weights, seed 0) calibrated and cast to bf16, the
+    generator's default thresholds (0.88 / 0.95 / NMS 0.7), 32x32 points in
+    chunks of 256, at most 256 masks; one image, then one crop layer."""
+    cfg, sam = build_sam("vit_b", seed=0, device="cuda")
+    sam = calibrate_amg_weights(sam, cfg).to(torch.bfloat16)
+    image = amg_inputs(np.random.default_rng(0), 1)[0]
+    for name, layers in (("amg_prod_image_bfloat16", 0),
+                         ("amg_prod_multicrop_image_bfloat16", 1)):
+        amg = AutomaticMaskGenerator(cfg, sam, points_per_side=32,
+                                     points_per_batch=256, max_masks=256,
+                                     crop_n_layers=layers)
+        _region(name, lambda: amg.generate_dense(image), args, iters=2,
+                top=25)
     del sam, amg
     torch.cuda.empty_cache()
 
@@ -305,6 +327,8 @@ def main() -> None:
         _vit_h(args)
     if _wants(args, "vit_h_train_step_bfloat16"):
         _vit_h_train(args)
+    if _wants(args, "amg_prod_"):
+        _amg_prod(args)
     for variant, remat in F32_STEPS:
         _train_f32(args, variant, remat)
     if _wants(args, "vit_b_encode_"):
