@@ -163,7 +163,24 @@ sm_90a) and the CUDA toolkit. Phases, each printing what it found:
     32 tokens, bf16 then int8: one beam equals greedy ``caption_ids``, the
     beams' log-probability at least greedy's, B12 121 a pass in int8; (f)
     the exported decoder loaded on the card against the eager function.
-Each path (5-13) runs with every launch counter set to 0 just before it and
+14. the training and evaluation CLIs (``[cli]`` lines) at full width
+    (SAM ViT-B + InternLM2-1.8B, random weights from the seed) on a
+    synthetic dataset of 4 1024x1024 PNGs with 3-4 instances each and the
+    stub tokenizer: (b) ``python -m ullsam_tpu_torch.train.cli --mode
+    segment --grad_accum 2 --instance_matching hungarian --max_steps 8
+    --epochs 2`` at the CLI's defaults (f32, remat), each step's loss,
+    grad norm and time, exact launches (B2 8 and B9 4 a micro-step, B1 8
+    and B2 4 an overlay), micro-step 1 held to a direct ``train/step.py``
+    call on the same example from the same weights (loss and grad norm
+    rtol 1e-4), and ``--epochs 1`` then ``--epochs 2 --resume`` held to
+    the straight run (each step's loss and grad norm rtol 1e-4, every
+    final trainable tensor as ``grad_gap`` 1e-3); (c) ``--mode sft --pack
+    --max_length 2560 --param_dtype bfloat16 --max_steps 2``, phase 8's
+    launches a step (B10 48, B11 24); (d) the eval CLI in the modes seg,
+    seg_amg and lm (``--limit 2``) on a reference-named ``.pt`` of (b)'s
+    model, every summary value finite, the first image's seg masks bitwise
+    equal to direct ``chat.point_segment`` calls.
+Each path (5-14) runs with every launch counter set to 0 just before it and
 read just after; in every request, image and step of paths 5-11 the float32
 kinds launch exactly as B1, B3, B13 and B15 ask (float32: two launches of
 the GEMM's f32 kind per B1 or B13, one of the f32 window core per B1, B3
@@ -3800,12 +3817,403 @@ def rest_main_path() -> None:
     rest_beam_search(card)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the training and evaluation CLIs
+# ---------------------------------------------------------------------------
+
+# ``python -m ullsam_tpu_torch.train.cli`` at its defaults (f32, remat) in
+# segment mode with the Hungarian matching over 2 epochs of 4 images
+CLI_SEG = ["--mode", "segment", "--grad_accum", "2", "--instance_matching",
+           "hungarian", "--max_steps", "8", "--log_every", "1",
+           "--image_log_every", "4", "--ckpt_every", "1000"]
+# its launches: 8 micro-steps with remat (B2 8, B9 4 each) and 2 overlay
+# forwards (B1 8, B2 4 each)
+CLI_SEG_LAUNCHES = {"vit_flash_attn": 8 * 8 + 2 * 4, "vit_flash_attn_bwd": 32,
+                    "window_attn": 16}
+CLI_SFT = ["--mode", "sft", "--pack", "--max_length", "2560",
+           "--param_dtype", "bfloat16", "--max_steps", "2", "--epochs", "1",
+           "--grad_accum", "2", "--log_every", "1"]
+
+
+def cli_dataset(root: str, n: int = 4, size: int = 1024) -> str:
+    """``n`` random RGB PNGs (size x size) under root/images, instance maps
+    of 3 or 4 discs under root/masks, and a jsonl of SFT rows
+    ({image_path, conversation}); returns the jsonl's path."""
+    import os
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED + 14)
+    for sub in ("images", "masks"):
+        os.makedirs(os.path.join(root, sub))
+    yy, xx = np.mgrid[:size, :size]
+    rows = []
+    for i in range(n):
+        img = rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
+        m = np.zeros((size, size), np.uint8)
+        for j in range(3 + i % 2):
+            cx, cy = rng.integers(size // 6, size - size // 6, 2)
+            r = int(rng.integers(size // 16, size // 7))
+            m[(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = j + 1
+        path = os.path.join(root, "images", f"{i}.png")
+        Image.fromarray(img).save(path)
+        Image.fromarray(m).save(os.path.join(root, "masks", f"{i}.png"))
+        rows.append({"image_path": path, "conversation": [
+            {"role": "user", "content": "Describe the image.\n<image>"},
+            {"role": "assistant", "content": "Cells on a plate."}]})
+    jsonl = os.path.join(root, "data.jsonl")
+    with open(jsonl, "w") as f:
+        f.write("".join(json.dumps(r) + "\n" for r in rows))
+    return jsonl
+
+
+def cli_metrics(out_dir: str) -> list:
+    import os
+    with open(os.path.join(out_dir, "logs", "metrics.jsonl")) as f:
+        return [r for r in map(json.loads, f) if "loss" in r]
+
+
+def _timed_steps(clock: list):
+    """A ``train.step.make_train_step`` that records, for each step of a
+    CLI run, (host ms since the previous step ended, host ms of the step
+    ending in synchronize): the first is what the loop spends outside the
+    step (waiting on ``PrefetchIterator``, ``batch_on``, logging)."""
+    import torch
+    from ullsam_tpu_torch.train import step as S
+    make = S.make_train_step
+
+    def make_timed(*a, **kw):
+        inner = make(*a, **kw)
+        last = [time.perf_counter()]
+
+        def step(batch):
+            t0 = time.perf_counter()
+            out = inner(batch)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            clock.append(((t0 - last[0]) * 1e3, (t1 - t0) * 1e3))
+            last[0] = t1
+            return out
+        return step
+    return make, make_timed
+
+
+def _busy_ms(fn) -> tuple:
+    """(host ms, device busy ms) of one ``fn()`` under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = 0.0
+    for e in prof.key_averages():
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = e.self_cuda_time_total
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy += dev / 1e3
+    return wall, busy
+
+
+def _trainable(model) -> dict:
+    return {n: p.detach().to("cpu", copy=True)
+            for n, p in model.named_parameters() if p.requires_grad}
+
+
+def cli_segment(tmp: str, data: str, card: str) -> str:
+    """(b) the segment CLI run, its direct-step hold and its resume hold;
+    returns the path of a reference-named .pt of the run's final model."""
+    import os
+    import numpy as np
+    import torch
+    from ullsam_tpu_torch.data import tokenizer as tok
+    from ullsam_tpu_torch.data.datasets import (DatasetConfig, SegDataset,
+                                                batch_iterator_sharded)
+    from ullsam_tpu_torch.models.ullsam import fusion as F
+    from ullsam_tpu_torch.train import cli as TCLI
+    from ullsam_tpu_torch.train import step as S
+
+    clock = []
+    make, S.make_train_step = _timed_steps(clock)
+
+    def run(name, *flags):
+        out = os.path.join(tmp, name)
+        before, c0 = launch_counts(), c_counts()
+        t = time.perf_counter()
+        model = TCLI.main(CLI_SEG + ["--data_path", data, "--output_dir",
+                                    out, *flags])
+        torch.cuda.synchronize()
+        d = {k: v - before[k] for k, v in launch_counts().items()
+             if v - before[k]}
+        return out, model, (time.perf_counter() - t) * 1e3, d, c0
+
+    try:
+        out, model, ms, d, c0 = run("seg", "--epochs", "2")
+    finally:
+        S.make_train_step = make
+    check_f32_kinds("cli segment", d, c0, True)
+    rows = cli_metrics(out)
+    if [r["step"] for r in rows] != list(range(1, 9)) or len(clock) != 8:
+        fail(f"cli segment: steps {[r['step'] for r in rows]}, "
+             f"{len(clock)} timed")
+    for r, (gap, step_ms) in zip(rows, clock):
+        if not all(np.isfinite(v) for v in r.values()):
+            fail(f"cli segment: non-finite metrics {r}")
+        say(f"[cli] segment step {r['step']}: loss {r['loss']:.6f}, "
+            f"grad_norm {r['grad_norm']:.6f}, iou {r['iou']:.4f}, "
+            f"batch_time {r['batch_time'] * 1e3:.1f} ms (the CLI's timer), "
+            f"step {step_ms:.1f} ms and {gap:.1f} ms before it outside the "
+            f"step (host clock)")
+    images = os.listdir(os.path.join(out, "logs", "images"))
+    say(f"[cli] segment run (SAM ViT-B + InternLM2-1.8B, f32, remat, "
+        f"--grad_accum 2, hungarian, 8 micro-steps, 2 epochs of 4 "
+        f"1024x1024 images): {ms:.0f} ms in all (build, data, steps, 2 "
+        f"overlays, 2 checkpoints); launches {d}; overlay images {images}; "
+        f"{card}")
+    if d != CLI_SEG_LAUNCHES or len(images) != 2:
+        fail(f"cli segment: launches {d}, expected {CLI_SEG_LAUNCHES}; "
+             f"images {images}")
+    loop = [g + s for g, s in clock[1:]]
+    final = _trainable(model)
+    cfg = model.cfg
+    pt = os.path.join(tmp, "ullsam.pt")
+    t = time.perf_counter()
+    torch.save({(k[len("fusion."):] if k.startswith("fusion.") else k):
+                v.to("cpu") for k, v in model.state_dict().items()}, pt)
+    say(f"[cli] final model saved as a reference-named .pt "
+        f"({os.path.getsize(pt) / 2**30:.2f} GiB) in "
+        f"{time.perf_counter() - t:.1f} s")
+    del model
+    torch.cuda.empty_cache()
+
+    # the direct step: train/step.py on the epoch's first example, from
+    # the seed's weights, as the CLI built them
+    saved = launch_counts()
+    tcfg = S.TrainConfig(total_steps=8, instance_matching="hungarian")
+    model = F.build_ullsam(cfg, device="cuda", seed=SEED)
+    opt = S.make_trainable_optimizer(model, tcfg, grad_accum=2)
+    step = S.make_train_step(cfg, tcfg, model, opt)
+    dcfg = DatasetConfig(data_path=data, img_size=cfg.sam.vit.img_size,
+                         num_image_token=cfg.num_image_token)
+    batch = next(batch_iterator_sharded(
+        SegDataset(dcfg, tok.load_tokenizer()), 1, seed=0, epoch=0))
+    batch = S.batch_on(model, batch)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    m = {k: float(v) for k, v in step(batch).items()}
+    direct_ms = (time.perf_counter() - t) * 1e3
+    wall, busy = _busy_ms(lambda: step(batch))
+    _restore_counts(saved)
+    del model, opt, step
+    torch.cuda.empty_cache()
+    errs = [abs(m[k] - rows[0][k]) / abs(rows[0][k])
+            for k in ("loss", "grad_norm")]
+    say(f"[cli] direct train/step.py step on the same example from the same "
+        f"weights: loss {m['loss']:.6f} (CLI {rows[0]['loss']:.6f}, rel "
+        f"{errs[0]:.2e}), grad_norm {m['grad_norm']:.6f} (CLI "
+        f"{rows[0]['grad_norm']:.6f}, rel {errs[1]:.2e}); rtol 1e-4 each")
+    if max(errs) > 1e-4:
+        fail("cli segment: step 1 disagrees with the direct step")
+    steps = [s for _, s in clock[1:]]
+    gaps = [g for g, _ in clock[1:]]
+    say(f"[cli] step time: direct step {direct_ms:.1f} ms (host clock, its "
+        f"first call), profiled again {wall:.1f} ms with {busy:.1f} ms "
+        f"device busy ({100 * busy / wall:.1f}%); CLI micro-steps 2-8: step "
+        f"mean {np.mean(steps):.1f} ms; outside it median "
+        f"{np.median(gaps):.1f} ms, mean {np.mean(gaps):.1f}, max "
+        f"{max(gaps):.1f} (step {2 + int(np.argmax(gaps))}: after an "
+        f"overlay, a checkpoint or an epoch's first batch); a loop "
+        f"iteration median {np.median(loop):.1f} ms, mean "
+        f"{np.mean(loop):.1f}, so the device is busy "
+        f"{100 * busy / np.median(loop):.1f}% of a median iteration and "
+        f"{100 * busy / np.mean(loop):.1f}% of the mean; {card}")
+
+    # resume at the epoch boundary: --epochs 1, then --epochs 2 --resume
+    saved = launch_counts()
+    clock.clear()
+    make, S.make_train_step = _timed_steps(clock)
+    try:
+        out1, model, _, _, _ = run("resumed", "--epochs", "1")
+        del model
+        out2, model, _, _, _ = run("resumed", "--epochs", "2", "--resume")
+    finally:
+        S.make_train_step = make
+    _restore_counts(saved)
+    resumed = _trainable(model)
+    del model
+    torch.cuda.empty_cache()
+    got = cli_metrics(out2)
+    if [r["step"] for r in got] != list(range(1, 9)):
+        fail(f"cli resume: steps {[r['step'] for r in got]}")
+    step_errs = [max(abs(g[k] - r[k]) / abs(r[k]) for k in ("loss",
+                                                           "grad_norm"))
+                 for g, r in zip(got, rows)]
+    worst, name = grad_gap(final, resumed)
+    same = all(torch.equal(final[n], resumed[n]) for n in final)
+    say(f"[cli] resume at the epoch boundary (--epochs 1, then --epochs 2 "
+        f"--resume) vs the straight run: per-step loss / grad_norm worst rel "
+        f"{max(step_errs):.2e} (rtol 1e-4); {len(final)} final trainable "
+        f"tensors, worst {worst:.2e} of max|param| ({name}; tol 1e-3), "
+        f"bitwise equal: {same}")
+    if max(step_errs) > 1e-4 or worst > 1e-3:
+        fail("cli resume: the resumed run disagrees with the straight one")
+    return pt
+
+
+def cli_sft(tmp: str, data: str, card: str) -> None:
+    """(c) ``--mode sft --pack --max_length 2560 --param_dtype bfloat16``,
+    2 steps of one packed row of two samples each: B10 and B11 launch
+    exactly as phase 8's packed step asks."""
+    import os
+    import numpy as np
+    import torch
+    from ullsam_tpu_torch.train import cli as TCLI
+
+    before = launch_counts()
+    out = os.path.join(tmp, "sft")
+    t = time.perf_counter()
+    model = TCLI.main(CLI_SFT + ["--data_path", data, "--output_dir", out])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    d = {k: v - before[k] for k, v in launch_counts().items()
+         if v - before[k]}
+    dtype = next(model.parameters()).dtype
+    del model
+    torch.cuda.empty_cache()
+    rows = cli_metrics(out)
+    for r in rows:
+        say(f"[cli] sft --pack step {r['step']}: loss {r['loss']:.6f}, "
+            f"grad_norm {r['grad_norm']:.6f}, batch_time "
+            f"{r['batch_time'] * 1e3:.1f} ms")
+    want = {k: 2 * v for k, v in PACKED_PER_STEP.items()}
+    say(f"[cli] sft --pack run ({dtype}, 2 packed rows of 2560 tokens): "
+        f"{ms:.0f} ms in all; launches {d}; {card}")
+    if ([r["step"] for r in rows] != [1, 2] or dtype != torch.bfloat16
+            or not all(np.isfinite(r["loss"]) for r in rows) or d != want):
+        fail(f"cli sft: steps {rows}, dtype {dtype}, launches {d}, expected "
+             f"{want}")
+
+
+def cli_eval(tmp: str, data: str, pt: str, card: str) -> None:
+    """(d) ``python -m ullsam_tpu_torch.eval.cli`` in the modes seg,
+    seg_amg and lm, ``--limit 2``, on (b)'s .pt: every summary value
+    finite; the masks of the first image's seg run bitwise equal to direct
+    ``chat.point_segment`` calls on the same model."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from ullsam_tpu_torch.convert import reference as R
+    from ullsam_tpu_torch.convert.from_jax import load_reference_state_dict
+    from ullsam_tpu_torch.core.config import (FusionConfig, internlm2_1_8b,
+                                              sam_vit_b)
+    from ullsam_tpu_torch.data import tokenizer as tok
+    from ullsam_tpu_torch.data.datasets import (DatasetConfig, SegDataset,
+                                                load_instance_map)
+    from ullsam_tpu_torch.eval import cli as ECLI
+    from ullsam_tpu_torch.eval.seg_metrics import instances_to_masks
+    from ullsam_tpu_torch.models.ullsam import chat
+    from ullsam_tpu_torch.models.ullsam import fusion as F
+
+    seen = []
+    point_segment = chat.point_segment
+
+    def recording(*a, **kw):
+        out = point_segment(*a, **kw)
+        seen.append((a[4], out[0].cpu()))
+        return out
+
+    for mode in ("seg", "seg_amg", "lm"):
+        before = launch_counts()
+        t = time.perf_counter()
+        chat.point_segment = recording
+        try:
+            summary = ECLI.main(["--mode", mode, "--data_path", data,
+                                 "--checkpoint", pt, "--limit", "2"])
+        finally:
+            chat.point_segment = point_segment
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        d = {k: v - before[k] for k, v in launch_counts().items()
+             if v - before[k]}
+        say(f"[cli] eval {mode} (--limit 2): {ms:.0f} ms in all, summary "
+            f"{json.dumps(summary, sort_keys=True)}, launches {d}; {card}")
+        if not summary or not all(np.isfinite(v) for v in summary.values()):
+            fail(f"cli eval {mode}: summary {summary}")
+        if mode == "seg_amg" and not all(d.get(k) for k in (
+                "window_attn", "vit_flash_attn", "decode_masks",
+                "two_way_transformer", "upscale_hypernet_stats")):
+            fail(f"cli eval seg_amg: launches {d}")
+
+    # the first image's masks against direct calls, from the same .pt
+    saved = launch_counts()
+    model = F.build_ullsam(FusionConfig(sam=sam_vit_b(), llm=internlm2_1_8b()),
+                           device="cuda", seed=0)
+    load_reference_state_dict(model, R.convert_fusion_state_dict(
+        R.load_torch_state_dict(pt)))
+    cfg = model.cfg
+    row = SegDataset(DatasetConfig(data_path=data), tok.load_tokenizer()
+                     ).rows[0]
+    size = cfg.sam.vit.img_size
+    pixel = np.asarray(Image.open(row["image_path"]).convert("RGB")
+                       .resize((size, size)))
+    gt = instances_to_masks(load_instance_map(
+        row["image_path"].replace("images", "masks"), size))
+    dense, feats = chat.segment_forward(model, cfg, tok.load_tokenizer(),
+                                        pixel.astype(np.float32)[None]
+                                        / 255.0)
+    same = []
+    for g, (clicks, mask) in zip(gt, seen):
+        ys, xs = np.nonzero(g)
+        want = np.asarray([[[float(xs.mean()), float(ys.mean())]]],
+                          np.float32)
+        m, _, _ = chat.point_segment(model, cfg, feats, dense, want,
+                                     np.asarray([[1]], np.int64))
+        same.append(np.array_equal(np.asarray(clicks), want)
+                    and torch.equal(m.cpu(), mask))
+    _restore_counts(saved)
+    del model
+    torch.cuda.empty_cache()
+    say(f"[cli] eval seg, image 0: {len(gt)} masks from the CLI against "
+        f"direct point_segment calls, bitwise equal: {same}")
+    if len(same) != len(gt) or not all(same):
+        fail("cli eval: the CLI's masks differ from direct point_segment")
+
+
+def cli_main_path() -> None:
+    """Phase 14: the train CLI (segment with --grad_accum 2 and the
+    Hungarian matching, its direct-step and resume holds; sft --pack in
+    bf16) and the eval CLI (seg, seg_amg, lm) at full width (SAM ViT-B +
+    InternLM2-1.8B, random weights from the seed) on a synthetic dataset
+    of 4 1024x1024 PNGs, with phase 12's stub tokenizer."""
+    import os
+    import tempfile
+    import torch
+    from ullsam_tpu_torch.data import tokenizer as tok
+
+    card = smi_line()
+    stub = StubTokenizer()
+    load = tok.load_tokenizer
+    tok.load_tokenizer = lambda path=None: stub
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            data = cli_dataset(os.path.join(tmp, "data"))
+            pt = cli_segment(tmp, data, card)
+            cli_sft(tmp, data, card)
+            cli_eval(tmp, data, pt, card)
+    finally:
+        tok.load_tokenizer = load
+    torch.cuda.empty_cache()
+
+
 # every path in the order the run drives it
 PATHS = {"interactive": main_path, "amg": amg_main_path,
          "train": train_main_path, "packed": packed_main_path,
          "caption": caption_main_path, "vit_h": vit_h_main_path,
          "train_vit_h": train_vit_h_main_path, "serve": serve_main_path,
-         "rest": rest_main_path}
+         "rest": rest_main_path, "cli": cli_main_path}
 
 
 def main() -> None:

@@ -1643,3 +1643,36 @@ def test_multicrop_amg_on_card_matches_cpu(cuda):
     assert (mg.cpu().numpy()[og] == mc.numpy()[oc]).mean() >= 0.999
     assert torch.equal(mg[torch.from_numpy(og).cuda()],
                        mh[torch.from_numpy(oh).cuda()])
+
+
+def test_train_cli_segment_on_card(cuda, tmp_path, monkeypatch):
+    """``python -m ullsam_tpu_torch.train.cli`` at full width on the card
+    (SAM ViT-B + InternLM2-1.8B from the seed, f32 with remat, the CLI's
+    defaults): 2 micro-steps of --grad_accum 2 with the Hungarian matching
+    on two synthetic 1024x1024 images, a stub tokenizer. Finite metrics,
+    the final checkpoint, and B2 / B9 launched by the steps."""
+    import json
+    import os
+
+    import ullsam_tpu_torch.data.tokenizer as tok
+    from torch_port_helpers import StubTokenizer, write_synthetic_dataset
+    from ullsam_tpu_torch.ops.kernels import flash_attention as FA
+    from ullsam_tpu_torch.train import cli
+
+    monkeypatch.setattr(tok, "load_tokenizer",
+                        lambda path=None: StubTokenizer())
+    data = write_synthetic_dataset(str(tmp_path / "data"), n=2,
+                                   img_size=1024)
+    out = str(tmp_path / "run")
+    b2, b9 = FA.vit_flash_attn.launches, FA.vit_flash_attn_bwd.launches
+    cli.main(["--mode", "segment", "--data_path", data, "--output_dir", out,
+              "--epochs", "1", "--grad_accum", "2", "--instance_matching",
+              "hungarian", "--log_every", "1", "--image_log_every", "0"])
+    with open(os.path.join(out, "logs", "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    assert [r["step"] for r in rows] == [1, 2]
+    for r in rows:
+        assert all(math.isfinite(v) for v in r.values()), r
+    assert os.path.isdir(os.path.join(out, "ckpt", "2"))
+    assert FA.vit_flash_attn.launches - b2 == 16   # 4 global blocks, remat
+    assert FA.vit_flash_attn_bwd.launches - b9 == 8

@@ -61,3 +61,94 @@ def tiny_fusion_config(C):
                               intermediate_size=64, num_hidden_layers=2,
                               num_attention_heads=4, num_key_value_heads=2),
         vit_feature_dim=16, img_context_token_id=50)
+
+
+# the chat template's special tokens at the real InternLM2 vocab's ids
+# (``data/tokenizer.py`` SPECIAL_TOKENS)
+SPECIAL_IDS = {"<|im_end|>": 92542, "<|im_start|>": 92543, "<img>": 92544,
+               "</img>": 92545, "<IMG_CONTEXT>": 92546}
+
+
+class StubTokenizer:
+    """A stand-in with the ``InternLM2Tokenizer`` interface (the real
+    tokenizer asset is not in the repository): one id per character (3 +
+    code point mod 90000) after a BOS of 1, the template's special tokens
+    at their real ids, pad 2. Its <IMG_CONTEXT> id is the default
+    ``img_context_token_id`` of both packages' FusionConfig."""
+    pad_token_id, bos_token_id = 2, 1
+
+    def __init__(self):
+        import re
+        self._pat = re.compile("|".join(re.escape(t) for t in SPECIAL_IDS))
+
+    def encode(self, text, add_bos=True):
+        ids, pos = ([1] if add_bos else []), 0
+        for m in self._pat.finditer(text):
+            ids += [3 + ord(c) % 90000 for c in text[pos:m.start()]]
+            ids.append(SPECIAL_IDS[m.group()])
+            pos = m.end()
+        return ids + [3 + ord(c) % 90000 for c in text[pos:]]
+
+    def encode_batch(self, texts, pad_side="left", add_bos=None):
+        enc = [self.encode(t) for t in texts]
+        n = max(map(len, enc))
+        return ([[2] * (n - len(e)) + e for e in enc],
+                [[0] * (n - len(e)) + [1] * len(e) for e in enc])
+
+    def decode(self, ids, skip_special_tokens=True):
+        return "".join(chr(i - 3) for i in ids
+                       if 3 <= i < 90003 and not 0xD800 <= i - 3 < 0xE000)
+
+    def convert_tokens_to_ids(self, token):
+        return SPECIAL_IDS[token]
+
+
+def patch_tokenizers(monkeypatch):
+    """Make both packages' ``load_tokenizer`` (looked up when a CLI's
+    ``main`` runs) return one StubTokenizer."""
+    import ullsam_tpu.data.tokenizer as jtok
+    import ullsam_tpu_torch.data.tokenizer as ttok
+
+    stub = StubTokenizer()
+    for mod in (jtok, ttok):
+        monkeypatch.setattr(mod, "load_tokenizer", lambda path=None: stub)
+    return stub
+
+
+def write_synthetic_dataset(root, n=4, img_size=64, n_inst=3,
+                            answer="Some cells.", pretrain=False):
+    """``tests/test_data_and_train_cli.py``'s synthetic set: ``n`` random
+    RGB PNGs under images/ and instance maps (``n_inst`` discs) under
+    masks/, and a jsonl of SFT rows ({image_path, conversation}; with
+    ``pretrain`` the {image, conversations} keys). Returns the jsonl's
+    path."""
+    import json
+    import os
+
+    from PIL import Image
+
+    img_dir = os.path.join(root, "images")
+    mask_dir = os.path.join(root, "masks")
+    os.makedirs(img_dir), os.makedirs(mask_dir)
+    rng = np.random.RandomState(0)
+    rows = []
+    for i in range(n):
+        img = (rng.rand(img_size, img_size, 3) * 255).astype(np.uint8)
+        mask = np.zeros((img_size, img_size), np.uint8)
+        yy, xx = np.mgrid[:img_size, :img_size]
+        for j in range(n_inst):
+            cx, cy = rng.randint(10, img_size - 10, 2)
+            r = rng.randint(4, 8) * img_size // 64
+            mask[(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = j + 1
+        ipath = os.path.join(img_dir, f"{i}.png")
+        Image.fromarray(img).save(ipath)
+        Image.fromarray(mask).save(os.path.join(mask_dir, f"{i}.png"))
+        conv = [{"role": "user", "content": "Describe the image.\n<image>"},
+                {"role": "assistant", "content": answer}]
+        rows.append({"image": ipath, "conversations": conv} if pretrain
+                    else {"image_path": ipath, "conversation": conv})
+    jsonl = os.path.join(root, "pretrain.jsonl" if pretrain else "data.jsonl")
+    with open(jsonl, "w") as f:
+        for r in rows:
+            f.write(json.dumps(r) + "\n")
+    return jsonl

@@ -12,8 +12,12 @@ inverse of ``ullsam_tpu/convert/torch_sam.py`` and ``torch_internlm2.py``:
   * stacked LLM layers [L, ...]          -> model.layers.{i}.*
   * int8 LLM qweight [.., in, out]       -> qweight [out, in] (+ qscale)
 
+``internvit_state_dict_from_jax`` does it for the JAX InternViT tower.
 ``load_reference_state_dict`` loads a reference-named state dict (such as
-the golden fixtures) into a module as it is.
+the golden fixtures) into a module as it is. ``jax_param_arrays`` goes the
+other way, a ``ULLSAM``'s parameters to the JAX package's flat param paths
+and layouts; ``unflatten_paths`` makes a flat dict of such paths a tree
+for ``fusion_state_dict_from_jax``.
 """
 
 from __future__ import annotations
@@ -216,6 +220,28 @@ def fusion_state_dict_from_jax(params_np: Mapping, cfg: FusionConfig
     return _tensors(arrays)
 
 
+def internvit_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX ``internvit_init`` tree (numpy leaves) -> the state dict of
+    ``models.internvit.model.InternViT``."""
+    out: Arrays = {"cls_token": np.asarray(params["cls_token"]),
+                   "pos_embed": np.asarray(params["pos_embed"])}
+    _conv(out, "patch_embed", params["patch_embed"])
+    for i, b in enumerate(params["blocks"]):
+        n = f"blocks.{i}."
+        _ln(out, n + "norm1", b["norm1"])
+        _ln(out, n + "norm2", b["norm2"])
+        _lin(out, n + "attn.qkv", b["attn"]["qkv"])
+        _lin(out, n + "attn.proj", b["attn"]["proj"])
+        for k in ("q_norm", "k_norm"):  # RMSNorm: a scale only
+            if k in b["attn"]:
+                out[f"{n}attn.{k}.weight"] = np.asarray(b["attn"][k]["scale"])
+        _lin(out, n + "mlp.lin1", b["mlp"]["fc1"])
+        _lin(out, n + "mlp.lin2", b["mlp"]["fc2"])
+        out[n + "ls1"] = np.asarray(b["ls1"])
+        out[n + "ls2"] = np.asarray(b["ls2"])
+    return _tensors(out)
+
+
 def load_reference_state_dict(module: nn.Module, arrays: Mapping,
                               prefix: str = "") -> nn.Module:
     """Load the ``prefix``-named entries of a reference state dict (numpy
@@ -228,8 +254,9 @@ def load_reference_state_dict(module: nn.Module, arrays: Mapping,
         key = prefix + name
         if key not in arrays:
             raise KeyError(f"reference state dict has no {key!r}")
-        sd[name] = torch.tensor(np.asarray(arrays[key])).to(
-            dtype=ref.dtype, device=ref.device)
+        v = arrays[key]
+        v = v if isinstance(v, torch.Tensor) else torch.tensor(np.asarray(v))
+        sd[name] = v.to(dtype=ref.dtype, device=ref.device)
     module.load_state_dict(sd, strict=True)
     return module
 
@@ -306,3 +333,63 @@ def jax_param_paths(model: nn.Module) -> Dict[str, str]:
             out[f"{mname}.{pname}" if mname else pname] = (
                 path if leaf is None else f"{path}.{leaf}")
     return out
+
+
+def jax_param_arrays(model: nn.Module) -> Arrays:
+    """{JAX param path: array in the JAX layout} of a ``ULLSAM`` (floats as
+    float32): the flattened tree that ``fusion_state_dict_from_jax`` maps
+    back to the same parameters. Linear kernels [in, out], convolutions
+    HWIO, transposed convolutions [kh, kw, I, O], the LLM's layers stacked
+    on a leading axis, the prompt encoder's point embeddings stacked and
+    its single-row embeddings as vectors."""
+    from ullsam_tpu_torch.ops import layers as L
+
+    paths = jax_param_paths(model)
+    mods = dict(model.named_modules())
+    groups: Dict[str, list] = {}
+    for name, p in model.named_parameters():
+        a = p.detach().cpu()
+        a = (a.float() if a.is_floating_point() else a).numpy()
+        mname, leaf = name.rpartition(".")[::2]
+        mod = mods[mname]
+        if leaf == "weight" and isinstance(mod, L.Linear):
+            a = a.T
+        elif leaf == "weight" and isinstance(mod, L.Conv2d):
+            a = a.transpose(2, 3, 1, 0)
+        elif leaf == "weight" and isinstance(mod, L.ConvTranspose2x2):
+            a = a.transpose(2, 3, 0, 1)
+        groups.setdefault(paths[name], []).append(a)
+    out: Arrays = {}
+    for path, arrs in groups.items():
+        if path.startswith("llm.layers."):  # named_parameters: layer order
+            out[path] = np.stack(arrs)
+        elif path.endswith(".point_embeds"):
+            out[path] = np.concatenate(arrs)
+        elif path.endswith((".not_a_point", ".no_mask")):
+            out[path] = arrs[0][0]
+        else:
+            (out[path],) = arrs
+        out[path] = np.ascontiguousarray(out[path])
+    return out
+
+
+def unflatten_paths(flat: Mapping[str, np.ndarray]) -> dict:
+    """{dotted path: leaf} -> nested dicts, a level whose keys are all
+    digits becoming a list (the JAX tree's block and layer lists)."""
+    tree: dict = {}
+    for path, leaf in flat.items():
+        node = tree
+        *heads, last = path.split(".")
+        for k in heads:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return lists(tree)

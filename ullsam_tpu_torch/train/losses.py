@@ -1,16 +1,17 @@
 """Segmentation losses (``ullsam_tpu/train/losses.py``): BCE-with-logits,
-Dice, binary IoU, their masked mean over padded instances, and the fused
-upsample + loss of the train step.
+Dice, binary IoU, their masked mean over padded instances, the fused
+upsample + loss of the train step, and the Hungarian-matched instance
+loss.
 
 Instances come padded with a validity mask [B, I] (1 = real instance)
-instead of Python-batched. The Hungarian-matched loss waits for an
-on-device assignment (ROADMAP).
+instead of Python-batched.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ullsam_tpu_torch.ops.resize import _bilinear_matrix
@@ -65,6 +66,98 @@ def instance_seg_loss(pred_logits: Tensor, gt_masks: Tensor,
     return _masked_means(bce_with_logits(pred_logits, gt_masks),
                          dice_loss(pred_logits, gt_masks),
                          binary_iou(pred_logits, gt_masks), valid)
+
+
+def hungarian_algorithm(cost: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Minimum-cost assignment of an [n, m] cost matrix -> (rows, cols),
+    min(n, m) pairs: a float32 numpy copy of optax 0.2.6's
+    ``optax.assignment.hungarian_algorithm`` (Jonker-Volgenant after
+    Scenic), step for step, so that ties (such as the equal costs of
+    padding columns) resolve to the same pairs. For n > m the matrix is
+    transposed and the pairs come back sorted by column, largest first,
+    as optax's ``top_k`` gives them."""
+    cost = np.asarray(cost, np.float32)
+    if cost.shape[0] == 0 or cost.shape[1] == 0:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    transpose = cost.shape[0] > cost.shape[1]
+    if transpose:
+        cost = cost.T
+    rows, cols = cost.shape
+    u = np.zeros(rows + 2, np.float32)   # row potentials (1-based, + a sink)
+    v = np.zeros(cols + 1, np.float32)   # column potentials
+    parent = np.zeros(cols + 1, np.int64)  # column -> row (1-based)
+    inf = np.float32(np.inf)
+    for row in range(rows):
+        parent[0] = row + 1
+        path = np.zeros(cols, np.int64)
+        used = np.zeros(cols + 1, bool)
+        minv = np.full(cols, inf, np.float32)
+        col = 0
+        while parent[col] != 0:
+            used[col] = True
+            unused = ~used[1:]
+            r = parent[col]
+            cur = cost[r - 1, :] - u[r] - v[1:]
+            cur = np.where(unused, cur, inf)
+            better = cur < minv
+            path = np.where(better, col, path)
+            minv = np.where(better, cur, minv)
+            col = int(np.argmin(np.where(unused, minv, inf))) + 1
+            delta = np.min(minv, where=unused, initial=inf)
+            np.add.at(u, np.where(used, parent, rows + 1), delta)
+            v = np.where(used, v - delta, v)
+            minv = np.where(unused, minv - delta, minv)
+        while col != 0:
+            new_col = path[col - 1]
+            parent[col] = parent[new_col]
+            col = new_col
+    if rows == cols:
+        assigned, idx = parent[1:] - 1, np.arange(rows)
+    else:
+        idx = np.argsort(-parent[1:], kind="stable")[:rows]
+        assigned = parent[1:][idx] - 1
+    return (idx, assigned) if transpose else (assigned, idx)
+
+
+def hungarian_instance_loss(pred_logits: Tensor, gt_masks: Tensor,
+                            gt_valid: Optional[Tensor] = None
+                            ) -> Tuple[Tensor, dict]:
+    """Hungarian-matched instance loss (``losses.py:47-105``; the
+    reference's ``variable_instance_loss``, train_joint_v2.py:698-940).
+
+    pred_logits [B, P, H, W]; gt_masks [B, G, H, W]; gt_valid [B, G] (1 =
+    real instance; None = all real); P >= G. The soft-IoU cost
+    1 - IoU(sigmoid(pred), gt) [B, P, G] is computed on the tensors'
+    device without gradient, invalid columns costing exactly 1.0. The
+    assignment runs on the host: one device-to-host copy of the cost a
+    step, then ``hungarian_algorithm`` per image (what optax runs on the
+    device in the JAX package; the reference used scipy). The predictions
+    and ground truths are gathered by the pairs (``take_along_dim``) and
+    go through ``instance_seg_loss`` with the pairs' validity; the
+    gradient flows through the gathered predictions only."""
+    B, P = pred_logits.shape[:2]
+    G = gt_masks.shape[1]
+    if P < G:
+        raise ValueError(f"need preds >= gt slots, got P={P} < G={G}")
+    dev = pred_logits.device
+    gt_valid = (torch.ones((B, G), device=dev) if gt_valid is None
+                else gt_valid.to(dev).float())
+    with torch.no_grad():
+        pf = torch.sigmoid(pred_logits.float()).reshape(B, P, -1)
+        gf = gt_masks.to(dev).float().reshape(B, G, -1)
+        inter = torch.einsum("bph,bgh->bpg", pf, gf)
+        union = pf.sum(-1)[:, :, None] + gf.sum(-1)[:, None, :] - inter
+        cost = 1.0 - inter / (union + 1e-7)
+        cost = torch.where(gt_valid[:, None, :] > 0, cost, 1.0)
+    pairs = [hungarian_algorithm(c) for c in cost.cpu().numpy()]
+    i_idx = torch.as_tensor(np.stack([p[0] for p in pairs]), device=dev)
+    j_idx = torch.as_tensor(np.stack([p[1] for p in pairs]), device=dev)
+    matched_pred = torch.take_along_dim(pred_logits,
+                                        i_idx[:, :, None, None], dim=1)
+    matched_gt = torch.take_along_dim(gt_masks.to(dev),
+                                      j_idx[:, :, None, None], dim=1)
+    pair_valid = torch.take_along_dim(gt_valid, j_idx, dim=1)
+    return instance_seg_loss(matched_pred, matched_gt, pair_valid)
 
 
 def _upsample(low: Tensor, mh: Tensor, mw: Tensor) -> Tensor:

@@ -21,8 +21,14 @@ optax's ``chain(clip_by_global_norm, adamw(schedule, mask=decay))``:
 
 Which parameters train and which decay is decided on the JAX package's
 param paths (``convert.from_jax.jax_param_paths``), with its regexes.
-``grad_accum`` (optax.MultiSteps) and the Hungarian matching wait for
-later slices (ROADMAP).
+
+``grad_accum`` > 1 wraps the optimizer in ``MultiSteps``, which follows
+``optax.MultiSteps`` (``optax/transforms/_accumulation.py``): each
+micro-step folds its gradients into a running mean (Welford, in the
+gradients' dtype); on micro-step k the clip and AdamW run on the mean and
+the mean resets; the other micro-steps leave the parameters as they are.
+``instance_matching="hungarian"`` re-matches predictions to ground truths
+by soft IoU before the loss (``losses.hungarian_instance_loss``).
 """
 
 from __future__ import annotations
@@ -38,7 +44,8 @@ from ullsam_tpu_torch.convert.from_jax import jax_param_paths
 from ullsam_tpu_torch.core.config import FusionConfig
 from ullsam_tpu_torch.models.ullsam import fusion as F
 from ullsam_tpu_torch.ops.resize import bilinear_resize
-from ullsam_tpu_torch.train.losses import upsampled_instance_seg_loss
+from ullsam_tpu_torch.train.losses import (hungarian_instance_loss,
+                                           upsampled_instance_seg_loss)
 
 Tensor = torch.Tensor
 
@@ -123,8 +130,7 @@ class AdamW:
         """Apply one update from ``grads`` (one per trainable parameter, in
         ``self.names`` order); returns the global norm before the clip."""
         b1, b2, tcfg = self.b1, self.b2, self.tcfg
-        norms = torch._foreach_norm(grads, 2, dtype=torch.float32)
-        g_norm = torch.linalg.vector_norm(torch.stack(norms))
+        g_norm = global_norm(grads)
         clip = torch.where(g_norm < tcfg.max_grad_norm,
                            torch.ones_like(g_norm),
                            tcfg.max_grad_norm / g_norm)
@@ -149,15 +155,81 @@ class AdamW:
         return g_norm
 
 
-def make_trainable_optimizer(model: torch.nn.Module,
-                             tcfg: TrainConfig) -> AdamW:
+    def state_dict(self) -> dict:
+        """The moments by parameter name and the count (what a checkpoint
+        keeps; the parameters themselves are saved beside it)."""
+        return {"mu": dict(zip(self.names, self.mu)),
+                "nu": dict(zip(self.names, self.nu)), "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        for name, mu, nu in zip(self.names, self.mu, self.nu):
+            mu.copy_(state["mu"][name])
+            nu.copy_(state["nu"][name])
+        self.count = int(state["count"])
+
+
+def global_norm(tensors: List[Tensor]) -> Tensor:
+    """sqrt of the sum of squares of every element, summed in f32."""
+    norms = torch._foreach_norm(tensors, 2, dtype=torch.float32)
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+class MultiSteps:
+    """Gradient accumulation over ``every_k`` micro-steps around ``inner``
+    (``optax.MultiSteps(inner, every_k_schedule=k)``, its defaults: the
+    mean, no skipping). The accumulator keeps the gradients' dtype, so
+    bf16 training accumulates in bf16 as the JAX step does."""
+
+    def __init__(self, inner: AdamW, every_k: int):
+        self.inner, self.every_k = inner, every_k
+        self.names, self.params = inner.names, inner.params
+        self.mini_step = 0
+        self.acc = [torch.zeros_like(p) for p in inner.params]
+
+    @torch.no_grad()
+    def step(self, grads: List[Tensor]) -> Tensor:
+        """Fold one micro-batch's ``grads`` into the mean (acc += (g - acc)
+        / (n + 1)); on the k-th micro-step clip + AdamW on the mean (its
+        count advances) and reset it. Returns the micro-batch's own global
+        norm (``metrics["grad_norm"]``)."""
+        g_norm = global_norm(grads)
+        diff = torch._foreach_sub(grads, self.acc)
+        torch._foreach_div_(diff, self.mini_step + 1)
+        torch._foreach_add_(self.acc, diff)
+        if self.mini_step == self.every_k - 1:
+            self.inner.step(self.acc)
+            for a in self.acc:
+                a.zero_()
+            self.mini_step = 0
+        else:
+            self.mini_step += 1
+        return g_norm
+
+    def state_dict(self) -> dict:
+        return {**self.inner.state_dict(), "mini_step": self.mini_step,
+                "acc": dict(zip(self.names, self.acc))}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        self.inner.load_state_dict(state)
+        for name, a in zip(self.names, self.acc):
+            a.copy_(state["acc"][name])
+        self.mini_step = int(state["mini_step"])
+
+
+def make_trainable_optimizer(model: torch.nn.Module, tcfg: TrainConfig,
+                             grad_accum: int = 1):
     """Freeze what does not train (``requires_grad_(False)``: no gradient is
     kept for it, activations still carry theirs) and return the optimizer
-    over what does."""
+    over what does: ``AdamW``, wrapped in ``MultiSteps`` when grad_accum >
+    1 (the reference trains with accumulation 8,
+    train_joint_v2.py:1584,1169-1188)."""
     train = trainable_mask(model, tcfg)
     for n, p in model.named_parameters():
         p.requires_grad_(train[n])
-    return AdamW(model, tcfg)
+    opt = AdamW(model, tcfg)
+    return MultiSteps(opt, grad_accum) if grad_accum > 1 else opt
 
 
 def batch_on(model: torch.nn.Module, batch: dict) -> dict:
@@ -197,10 +269,6 @@ def seg_loss_fn(model: F.ULLSAM, cfg: FusionConfig, tcfg: TrainConfig,
     [B, N] in place of attention_mask and all its images in pixel_values
     [n_images, S, S, 3]."""
     batch = batch_on(model, batch)
-    if tcfg.instance_matching != "indexed":
-        raise NotImplementedError(
-            "hungarian instance matching waits for an on-device assignment "
-            "(ROADMAP, queue A)")
     seg = tcfg.seg_weight != 0.0
     out = F.fusion_forward(
         model, cfg, batch["pixel_values"], batch["input_ids"],
@@ -214,8 +282,14 @@ def seg_loss_fn(model: F.ULLSAM, cfg: FusionConfig, tcfg: TrainConfig,
         metrics = {"llm_loss": out["loss"], "loss": out["loss"]}
         return out["loss"] * tcfg.llm_weight, metrics
     low = _low_res_masks(model, cfg, out, batch)
-    seg_loss, metrics = upsampled_instance_seg_loss(
-        low, batch["masks"], batch.get("instance_valid"))
+    if tcfg.instance_matching == "hungarian":
+        Hm, Wm = batch["masks"].shape[-2:]
+        seg_loss, metrics = hungarian_instance_loss(
+            bilinear_resize(low.float(), Hm, Wm), batch["masks"],
+            batch.get("instance_valid"))
+    else:
+        seg_loss, metrics = upsampled_instance_seg_loss(
+            low, batch["masks"], batch.get("instance_valid"))
     total = tcfg.seg_weight * seg_loss
     if tcfg.llm_weight and "loss" in out:
         total = total + tcfg.llm_weight * out["loss"]
@@ -225,10 +299,11 @@ def seg_loss_fn(model: F.ULLSAM, cfg: FusionConfig, tcfg: TrainConfig,
     return total, metrics
 
 
-def train_step(model: F.ULLSAM, opt: AdamW, batch: dict, cfg: FusionConfig,
+def train_step(model: F.ULLSAM, opt, batch: dict, cfg: FusionConfig,
                tcfg: TrainConfig) -> dict:
-    """One optimizer step over the trainable parameters; returns the
-    metrics (0-d tensors on the model's device, no host sync)."""
+    """One step of ``opt`` (``AdamW``, or a micro-step of ``MultiSteps``)
+    over the trainable parameters; returns the metrics (0-d tensors on the
+    model's device, no host sync)."""
     for p in opt.params:
         p.grad = None
     total, metrics = seg_loss_fn(model, cfg, tcfg, batch)
@@ -240,7 +315,7 @@ def train_step(model: F.ULLSAM, opt: AdamW, batch: dict, cfg: FusionConfig,
 
 
 def make_train_step(cfg: FusionConfig, tcfg: TrainConfig, model: F.ULLSAM,
-                    opt: AdamW) -> Callable[[dict], dict]:
+                    opt) -> Callable[[dict], dict]:
     """step(batch) -> metrics, updating ``model`` and ``opt`` in place."""
 
     def step(batch: dict) -> dict:
