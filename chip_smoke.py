@@ -180,7 +180,31 @@ sm_90a) and the CUDA toolkit. Phases, each printing what it found:
     seg_amg and lm (``--limit 2``) on a reference-named ``.pt`` of (b)'s
     model, every summary value finite, the first image's seg masks bitwise
     equal to direct ``chat.point_segment`` calls.
-Each path (5-14) runs with every launch counter set to 0 just before it and
+15. data and tensor parallelism and the native host ops (``[parallel]``
+    lines; rank processes are this script run as ``--parallel-rank CASE
+    RANK WORLD DIR``, two ranks on ``cuda:0`` over gloo, since NCCL refuses
+    two ranks on one device; any rank that exits non-zero fails the
+    phase): (1) a world-size-1 NCCL group, the flagship f32 step (no remat)
+    through a 1 x 1 mesh bitwise the direct step (metrics, every step-1
+    gradient, the weights after step 2); (2) dp 2, one row a rank, against
+    one process's step on both rows: loss and grad norm rtol DP_RTOL each
+    step, every step-1 gradient as ``grad_gap`` 1e-3, TRAIN_PER_STEP
+    launches a step on each rank, the ranks' weights bitwise equal after
+    step 2, each rank's peak beside the reckoning; (3) the tp 2 engine at
+    full width (8 kv heads, 4 a rank; int8, then bf16; chunks eager under
+    gloo), one image and one text request, a warm round then TP_NEW
+    tokens: first logits within TP_LOGIT_RTOL (relative L2) of batch-1 tp 1
+    ``caption_ids``, tokens equal through the first step whose reference
+    top-2 gap is under that of its logits' RMS, B12 launches exact on each
+    rank; (4) ``amg_sharded_sweep``, one 1024x1024 image a rank at ViT-B in
+    bf16, 32x32 points: every output of each image bitwise its
+    single-image sweep, each rank's launches one sweep's; (5) the native
+    host ops on this machine's CPU (the library must load) against numpy /
+    scipy on the 256 masks of (4)'s first image: RLE and the 8-connected
+    labelling bitwise (``remove_small_regions`` on 16 of them), the IoU
+    matrix within one float32 ulp, each timed both ways, the IoU's peak
+    host memory.
+Each path (5-15) runs with every launch counter set to 0 just before it and
 read just after; in every request, image and step of paths 5-11 the float32
 kinds launch exactly as B1, B3, B13 and B15 ask (float32: two launches of
 the GEMM's f32 kind per B1 or B13, one of the f32 window core per B1, B3
@@ -4208,15 +4232,621 @@ def cli_main_path() -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 15: data and tensor parallelism, image-parallel AMG, host ops
+# ---------------------------------------------------------------------------
+
+DP_RTOL = 1e-4       # dp 2 step's loss and grad norm against one process's
+# the tp 2 engine's first logits against batch-1 tp 1 ``caption_ids``'
+# (relative L2): bf16 at these random weights moves about 1e-2 under
+# another left padding alone (phase 12's reading), and tp 2 rounds each
+# rank's partial products to bf16 before their sum
+TP_LOGIT_RTOL = 5e-2
+TP_NEW = 32          # new tokens of a tp 2 engine request
+PARALLEL_RANKS: dict = {}   # the rank processes' launches, summed
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _all_counts() -> dict:
+    """Every launch counter: the wrappers', the C-counted kernels' and the
+    fused decoder kernels'."""
+    return {**launch_counts(), **c_counts(), **fused_counts()}
+
+
+def _uncounted(fn):
+    """``fn()`` with every launch counter set back afterwards: reference
+    runs do not count on a path."""
+    from ullsam_tpu_torch.ops.kernels import decoder as D
+    from ullsam_tpu_torch.ops.kernels import gemm as G
+    from ullsam_tpu_torch.ops.kernels import window_attention as WA
+    counters = {**kernel_wrappers(), "gemm_sm90": G.gemm_sm90,
+                "gemm_mma": G.gemm_mma, "gemm_sm90_f32": G.gemm_sm90_f32,
+                "gemm_fma": G.gemm_fma, "window_core_f32": WA.window_core_f32,
+                **D.FUSED_KERNELS, "decoder_gemm_f32": D.decoder_gemm_f32}
+    saved = {k: c.launches for k, c in counters.items()}
+    try:
+        return fn()
+    finally:
+        for k, c in counters.items():
+            c.launches = saved[k]
+
+
+def _run_ranks(case: str, world: int, workdir: str, inputs: dict,
+               timeout: float = 600.0) -> list:
+    """``world`` processes of ``chip_smoke.py --parallel-rank CASE`` on
+    cuda:0 over one gloo group (a file store in ``workdir``); fails, with
+    the rank's log, if any exits non-zero or outlives ``timeout`` (the
+    others are killed). Echoes the ranks' ``[parallel]`` lines and adds
+    their launch counts to PARALLEL_RANKS. Returns each rank's output."""
+    import os
+
+    import torch
+    os.makedirs(workdir, exist_ok=True)
+    torch.save(inputs, os.path.join(workdir, "inputs.pt"))
+    logs = [os.path.join(workdir, f"rank{r}.log") for r in range(world)]
+    procs = []
+    for r in range(world):
+        with open(logs[r], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--parallel-rank", case, str(r), str(world), workdir],
+                stdout=f, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        with open(logs[r]) as f:
+            text = f.read()
+        for line in text.splitlines():
+            if line.startswith("[parallel]"):
+                say(line)
+        if p.returncode:
+            fail(f"parallel {case}: rank {r} exited {p.returncode}:\n"
+                 f"{text[-4000:]}")
+    outs = [torch.load(os.path.join(workdir, f"out_{r}.pt"),
+                       weights_only=False) for r in range(world)]
+    for o in outs:
+        for k, v in o["counts"].items():
+            PARALLEL_RANKS[k] = PARALLEL_RANKS.get(k, 0) + v
+    return outs
+
+
+def _flagship():
+    from ullsam_tpu_torch.core.config import (FusionConfig, internlm2_1_8b,
+                                              sam_vit_b)
+    return FusionConfig(sam=sam_vit_b(), llm=internlm2_1_8b())
+
+
+def _dp_batch(cfg):
+    """Two flagship train rows (``train_batch`` twice from the seed)."""
+    import numpy as np
+    from ullsam_tpu_torch.tools.main_path import train_batch
+    rng = np.random.default_rng(SEED)
+    rows = [train_batch(cfg, rng) for _ in range(2)]
+    return {k: np.concatenate([r[k] for r in rows]) for k in rows[0]}
+
+
+def _two_steps(cfg, model, batch, tag: str):
+    """Two f32 steps (no remat) of a fresh optimizer: (metrics of each,
+    the step-1 gradients, the trainable weights after step 2), each step
+    with exactly TRAIN_PER_STEP launches."""
+    import torch
+    from ullsam_tpu_torch.train import step as S
+    tc = S.TrainConfig(total_steps=100, remat=False)
+    opt = S.make_trainable_optimizer(model, tc)
+    st = S.make_train_step(cfg, tc, model, opt)
+    batch = S.batch_on(model, batch)
+    out, grads = [], None
+    for i in (1, 2):
+        m, ms, d = _step_launches(st, batch, True, f"{tag} step {i}")
+        if d != TRAIN_PER_STEP:
+            fail(f"{tag} step {i}: launches {d}, expected {TRAIN_PER_STEP}")
+        out.append((m, ms))
+        if i == 1:
+            grads = {n: p.grad.detach().clone()
+                     for n, p in zip(opt.names, opt.params)
+                     if p.grad is not None}
+    weights = {n: p.detach().clone() for n, p in zip(opt.names, opt.params)}
+    return out, grads, weights
+
+
+def parallel_world_one(cfg, model, start, batch1) -> None:
+    """(1) One rank over NCCL: the f32 step through the new code (a 1 x 1
+    mesh with its process groups: the global loss denominators, the
+    gradient and metric all-reduces) bitwise the direct step, two steps
+    from the same weights."""
+    import torch
+    from ullsam_tpu_torch.parallel import distributed as D
+    from ullsam_tpu_torch.parallel import partitioning as P
+    D.initialize(init_method=f"tcp://127.0.0.1:{_free_port()}",
+                 world_size=1, rank=0, device="cuda")
+    try:
+        mesh = P.create_mesh(1, 1)
+        if mesh.backend != "nccl" or mesh.data_group is None:
+            fail(f"parallel: world size 1 mesh {mesh}")
+        direct = _two_steps(cfg, model, batch1, "parallel direct")
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                if n in start:
+                    p.copy_(start[n])
+        P.shard_params(model, mesh)
+        meshed = _two_steps(cfg, model, batch1, "parallel mesh 1x1")
+    finally:
+        model.mesh = None
+        D.shutdown()
+    same_m = all(a[0] == b[0] for a, b in zip(direct[0], meshed[0]))
+    same_g = all(torch.equal(direct[1][n], meshed[1][n]) for n in direct[1])
+    same_w = all(torch.equal(direct[2][n], meshed[2][n]) for n in direct[2])
+    say(f"[parallel] world size 1 over NCCL, f32 flagship step through the "
+        f"dp / tp code against the direct step: metrics bitwise {same_m}, "
+        f"{len(direct[1])} step-1 gradients bitwise {same_g}, trainable "
+        f"weights after step 2 bitwise {same_w}; step ms direct "
+        f"{[round(x[1], 1) for x in direct[0]]}, mesh "
+        f"{[round(x[1], 1) for x in meshed[0]]}")
+    if not (same_m and same_g and same_w):
+        fail("parallel: the 1 x 1 mesh step is not bitwise the direct step")
+
+
+def parallel_dp2(cfg, model, start, workdir: str) -> None:
+    """(2) dp 2 on one card: two gloo ranks on cuda:0, one row each, against
+    one process's step on both rows."""
+    import torch
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n in start:
+                p.copy_(start[n])
+    batch = _dp_batch(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ref, ref_grads, _ = _two_steps(cfg, model, batch, "parallel dp ref")
+    ref_peak = torch.cuda.max_memory_allocated() - base
+    ref_grads = {n: g.cpu() for n, g in ref_grads.items()}
+    n_all = sum(p.numel() for p in model.parameters())
+    n_train = sum(g.numel() for g in ref_grads.values())
+    del model
+    torch.cuda.empty_cache()
+    # reckoning: f32 weights, then gradients and two moments of the
+    # trainable ones, then one row's activations (about half the
+    # one-process step's two rows)
+    reckon = (4 * n_all + 12 * n_train) / 2**30 + ref_peak / 2 / 2**30
+    say(f"[parallel] dp 2: {n_all / 1e9:.3f} B f32 parameters, "
+        f"{n_train / 1e6:.1f} M trainable; reckoned per rank about "
+        f"{reckon:.1f} GiB (weights {4 * n_all / 2**30:.1f}, gradients and "
+        f"moments {12 * n_train / 2**30:.2f}, activations of one row about "
+        f"{ref_peak / 2 / 2**30:.1f}); the one-process step on 2 rows: "
+        f"{ref[0][1]:.1f} / {ref[1][1]:.1f} ms, peak {ref_peak / 2**30:.2f} "
+        f"GiB above its start")
+    outs = _run_ranks("dp", 2, workdir, {"batch": batch})
+    for r, o in enumerate(outs):
+        for i in (0, 1):
+            got, want = o["metrics"][i], ref[i][0]
+            errs = {k: abs(got[k] - want[k]) / abs(want[k])
+                    for k in ("loss", "grad_norm")}
+            say(f"[parallel] dp 2 rank {r} step {i + 1}: loss "
+                f"{got['loss']:.6f} (rel {errs['loss']:.2e}), grad_norm "
+                f"{got['grad_norm']:.6f} (rel {errs['grad_norm']:.2e}), "
+                f"{o['ms'][i]:.1f} ms; peak {o['peak'] / 2**30:.2f} GiB")
+            if max(errs.values()) > DP_RTOL:
+                fail(f"parallel dp 2 rank {r} step {i + 1}: {errs} above "
+                     f"{DP_RTOL}")
+    worst, name = grad_gap(ref_grads, outs[0]["grads"])
+    say(f"[parallel] dp 2: {len(ref_grads)} step-1 gradients (the mean over "
+        f"the ranks) against one process's, worst {worst:.2e} of max|grad| "
+        f"({name}; tol 1e-3)")
+    if worst > 1e-3 or set(outs[0]["grads"]) != set(ref_grads):
+        fail("parallel dp 2: gradients disagree")
+    same = outs[0]["hashes"] == outs[1]["hashes"]
+    say(f"[parallel] dp 2: the ranks' {len(outs[0]['hashes'])} trainable "
+        f"tensors bitwise equal after step 2: {same}")
+    if not same:
+        fail("parallel dp 2: the ranks' weights differ after the update")
+
+
+def _tp_refs(model, cfg, prompts: dict, quant) -> dict:
+    """Batch-1 ``caption_ids`` (tp 1) of each prompt: name -> (tokens
+    through the first EOS, f32 logits of each step [n, V]); uncounted."""
+    import copy
+
+    import torch
+    from ullsam_tpu_torch.models.internlm2.generate import GenerationConfig
+    from ullsam_tpu_torch.models.internlm2.quant import quantize_llm_int8
+    from ullsam_tpu_torch.models.ullsam import chat
+    gen = GenerationConfig(max_new_tokens=TP_NEW,
+                           eos_token_id=SPECIAL_IDS["<|im_end|>"],
+                           pad_token_id=StubTokenizer.pad_token_id)
+    lm = model.fusion.language_model
+    if quant:
+        model.fusion.language_model = quantize_llm_int8(copy.deepcopy(lm))
+    refs = {}
+    try:
+        for name, (ids, pixels) in prompts.items():
+            steps = []
+            toks, lens = _uncounted(lambda: chat.caption_ids(
+                model, cfg, pixels, *chat.left_pad([ids], gen.pad_token_id),
+                gen, step_hook=lambda i, lg: steps.append(lg[0].float())))
+            refs[name] = (toks[0, :int(lens[0])].tolist(),
+                          torch.stack(steps).cpu())
+    finally:
+        model.fusion.language_model = lm
+    torch.cuda.synchronize()
+    return refs
+
+
+def _tp_check(tag: str, refs: dict, got: dict) -> None:
+    """The engine's first logits within TP_LOGIT_RTOL (relative L2) of the
+    reference's; its tokens equal up to the first step whose reference
+    top-2 gap is under TP_LOGIT_RTOL of that step's logits' RMS."""
+    for name, (toks, steps) in refs.items():
+        first = got["first"][name]
+        rel = _rel_l2(first, steps[0])
+        top2 = steps.topk(2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1]) / steps.pow(2).mean(-1).sqrt()
+        close = (gap < TP_LOGIT_RTOL).nonzero()
+        k = int(close[0]) if len(close) else len(toks)
+        mine = got["tokens"][name]
+        same = mine[:k] == toks[:k]
+        say(f"[parallel] tp 2 engine {tag} {name}: first logits relative L2 "
+            f"{rel:.3e} (tol {TP_LOGIT_RTOL}), {len(mine)} tokens, equal to "
+            f"tp 1 through step {k} (the first top-2 gap under the tol: "
+            f"{'none' if k == len(toks) else f'step {k}'}): {same}")
+        if rel > TP_LOGIT_RTOL or not same:
+            fail(f"parallel tp 2 engine {tag} {name}: first logits rel "
+                 f"{rel:.3e} or tokens {mine[:k]} vs {toks[:k]}")
+
+
+def parallel_tp_amg(card: str, workdir: str):
+    """(3) The tp 2 engine at full width and (4) image-parallel AMG, in one
+    pair of gloo ranks on cuda:0. Returns rank 0's AMG masks of image 0
+    (bit-packed) for the host ops."""
+    import numpy as np
+    import torch
+    from ullsam_tpu_torch.models.ullsam import fusion as F
+    cfg = _flagship()
+    model = F.build_ullsam(cfg, device="cuda", dtype=torch.bfloat16,
+                           seed=SEED)
+    rng = np.random.default_rng(SEED)
+    img = rng.integers(0, 256, (1, 1024, 1024, 3), dtype=np.uint8)
+    tk = StubTokenizer()
+    from ullsam_tpu_torch.models.ullsam.conversation import build_chat_prompt
+    prompts = {
+        "image": (tk.encode(build_chat_prompt(
+            cfg.template, SERVE_IMAGE_Q, num_image_token=cfg.num_image_token,
+            has_image=True)), img),
+        "text": (tk.encode(build_chat_prompt(
+            cfg.template, SERVE_TEXT_QS[0],
+            num_image_token=cfg.num_image_token, has_image=False)), None)}
+    scaled = {k: (ids, None if pv is None else pv.astype(np.float32) / 255)
+              for k, (ids, pv) in prompts.items()}
+    refs = {q: _tp_refs(model, cfg, scaled, q) for q in ("int8", None)}
+    del model
+    torch.cuda.empty_cache()
+    outs = _run_ranks("tp_amg", 2, workdir, {"prompts": prompts})
+    for quant in ("int8", None):
+        tag = quant or "bf16"
+        got = outs[0][tag]
+        _tp_check(tag, refs[quant], got)
+        new = sum(len(t) for t in got["tokens"].values())
+        b12 = [o[tag]["b12"] for o in outs]
+        say(f"[parallel] tp 2 engine {tag}: chunks {outs[0][tag]['mode']}, "
+            f"{new} tokens of 2 concurrent requests (one image) in "
+            f"{got['ms']:.1f} ms after a warm round = "
+            f"{new / got['ms'] * 1e3:.1f} tok/s, decode alone "
+            f"{got['decode_tok_s']:.1f} tok/s (a gloo all-reduce of the "
+            f"[2, 1, 2048] bf16 activations takes "
+            f"{outs[0]['allreduce_ms']:.3f} ms, 48 a decode step); B12 "
+            f"launches per rank "
+            f"{b12} ({got['b12_want']} expected over both rounds: 121 a "
+            f"decode step, 120 a prefill segment and 1 for a prompt's head); "
+            f"{card}")
+        if quant and b12 != [got["b12_want"]] * 2:
+            fail(f"parallel tp 2 int8: B12 launches {b12}, expected "
+                 f"{got['b12_want']} on each rank")
+        if not quant and any(b12):
+            fail(f"parallel tp 2 bf16 launched B12 {b12}")
+    amg = outs[0]["amg"]
+    say(f"[parallel] AMG 2 ranks x 1 image (ViT-B bf16, 1024x1024, 32x32 "
+        f"points): {amg['masks']} masks committed, each rank's outputs "
+        f"bitwise its single-image sweep: {amg['same']}; sweep ms per rank "
+        f"{[round(o['amg_ms'], 1) for o in outs]}; launches per rank "
+        f"{[o['amg_launches'] for o in outs]}; {card}")
+    if not amg["same"]:
+        fail("parallel AMG: a rank's masks differ from its single-image "
+             "sweep")
+    for o in outs:
+        if o["amg_launches"] != _sweeps("vit_b", 1):
+            fail(f"parallel AMG launches {o['amg_launches']}, expected "
+                 f"{_sweeps('vit_b', 1)}")
+    return amg["packed"]
+
+
+def parallel_host_ops(packed, card: str) -> None:
+    """(5) The native host ops against numpy / scipy on the 256 masks of
+    one ViT-B AMG image, on this machine's CPU: RLE bitwise, the
+    8-connected labelling bitwise scipy's (and ``remove_small_regions``
+    bitwise on the first 16 masks, islands and holes), the IoU matrix
+    within one float32 ulp; each timed both ways, the IoU with its peak
+    host memory (tracemalloc)."""
+    import tracemalloc
+
+    import numpy as np
+    from scipy import ndimage
+    from ullsam_tpu_torch.eval.seg_metrics import _mask_iou_numpy
+    from ullsam_tpu_torch.inference.amg import (_mask_to_rle_numpy,
+                                                _remove_small_regions,
+                                                remove_small_regions)
+    from ullsam_tpu_torch.native import host_ops
+    if not host_ops.available():
+        fail(f"native host ops did not load: {host_ops.load_error()}")
+    masks = np.unpackbits(packed, axis=-1)[..., :1024].astype(bool)
+    masks = masks.reshape(-1, 1024, 1024)
+
+    def timed(fn):
+        tracemalloc.start()
+        t = time.perf_counter()
+        out = fn()
+        ms = (time.perf_counter() - t) * 1e3
+        peak = tracemalloc.get_traced_memory()[1]
+        tracemalloc.stop()
+        return out, ms, peak
+
+    eight = np.ones((3, 3))
+    r1 = timed(lambda: host_ops.mask_to_rle(masks))
+    r0 = timed(lambda: _mask_to_rle_numpy(masks))
+    c1 = timed(lambda: [host_ops.connected_components(m) for m in masks])
+    c0 = timed(lambda: [ndimage.label(m, structure=eight) for m in masks])
+    i1 = timed(lambda: host_ops.mask_iou_matrix(masks, masks))
+    i0 = timed(lambda: _mask_iou_numpy(masks, masks))
+    rle_same = r1[0] == r0[0]
+    comp_same = all(a[1] == b[1] and np.array_equal(a[0], b[0])
+                    for a, b in zip(c1[0], c0[0]))
+    few = masks[:16]
+    small_same = all(np.array_equal(
+        _remove_small_regions(m, 100, mode,
+                              host_ops.connected_components)[0],
+        remove_small_regions(m, 100, mode)[0])
+        for m in few for mode in ("islands", "holes"))
+    ulps = int(np.abs(i1[0].view(np.int32).astype(np.int64)
+                      - i0[0].view(np.int32).astype(np.int64)).max())
+    n_comp = sum(n for _, n in c1[0])
+    say(f"[parallel] host ops on {len(masks)} AMG masks of 1024x1024 "
+        f"(this machine's CPU): RLE native {r1[1]:.1f} ms, numpy "
+        f"{r0[1]:.1f} ms, counts equal {rle_same}; 8-connected labelling "
+        f"native {c1[1]:.1f} ms, scipy {c0[1]:.1f} ms, {n_comp} components, "
+        f"labels bitwise {comp_same} (remove_small_regions bitwise on "
+        f"{len(few)} masks, islands and holes: {small_same}); IoU "
+        f"{len(masks)}x"
+        f"{len(masks)} native {i1[1]:.1f} ms (peak {i1[2] / 2**20:.1f} MiB "
+        f"host), numpy {i0[1]:.1f} ms (peak {i0[2] / 2**20:.1f} MiB), "
+        f"{ulps} ulp apart at most; {card}")
+    if not (rle_same and comp_same and small_same and ulps <= 1):
+        fail("parallel: native host ops disagree with numpy / scipy")
+
+
+def parallel_main_path() -> None:
+    """Phase 15: (1) world size 1 over NCCL, (2) dp 2, (3) the tp 2
+    engine, (4) image-parallel AMG, (5) the host ops."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from ullsam_tpu_torch.models.ullsam import fusion as F
+    from ullsam_tpu_torch.tools.main_path import train_batch
+    card = smi_line()
+    t0 = time.perf_counter()
+    from ullsam_tpu_torch.train import step as S
+    cfg = _flagship()
+    model = F.build_ullsam(cfg, device="cuda", seed=SEED)
+    trains = S.trainable_mask(model, S.TrainConfig())
+    start = {n: p.detach().clone() for n, p in model.named_parameters()
+             if trains[n]}
+    batch1 = train_batch(cfg, np.random.default_rng(SEED))
+    with tempfile.TemporaryDirectory() as tmp:
+        parallel_world_one(cfg, model, start, batch1)
+        parallel_dp2(cfg, model, start, f"{tmp}/dp")
+        del model, start
+        torch.cuda.empty_cache()
+        packed = parallel_tp_amg(card, f"{tmp}/tp_amg")
+    parallel_host_ops(packed, card)
+    say(f"[parallel] phase 15 took {time.perf_counter() - t0:.1f} s")
+
+
+def _rank_dp(inp: dict, rank: int) -> dict:
+    import hashlib
+
+    import torch
+    from ullsam_tpu_torch.models.ullsam import fusion as F
+    from ullsam_tpu_torch.parallel import partitioning as P
+    cfg = _flagship()
+    model = F.build_ullsam(cfg, device="cuda", seed=SEED)
+    mesh = P.create_mesh(dp=2, tp=1)
+    P.shard_params(model, mesh)
+    torch.cuda.reset_peak_memory_stats()
+    steps, grads, weights = _two_steps(cfg, model,
+                                       P.shard_batch(inp["batch"], mesh),
+                                       f"parallel dp rank {rank}")
+    return {"metrics": [s[0] for s in steps], "ms": [s[1] for s in steps],
+            "peak": torch.cuda.max_memory_allocated(),
+            "grads": ({n: g.cpu() for n, g in grads.items()} if rank == 0
+                      else None),
+            "hashes": {n: hashlib.sha256(w.cpu().numpy().tobytes())
+                       .hexdigest() for n, w in weights.items()}}
+
+
+def _rank_engine(model, cfg, mesh, prompts, quant, rank) -> dict:
+    """One tp 2 engine: rank 0 submits both prompts at once, a warm round
+    of 4 new tokens and then a timed one of TP_NEW, and waits; the other
+    rank serves. Each rank's B12 launches over both rounds."""
+    import torch
+    from ullsam_tpu_torch.models.internlm2.generate import GenerationConfig
+    from ullsam_tpu_torch.serve.engine import GenerationEngine
+    b0 = w8a16_launches()
+    eng = GenerationEngine(model, cfg, StubTokenizer(), max_batch=4,
+                           max_len=2560, prefill_chunk=256,
+                           steps_per_dispatch=8, quant=quant,
+                           gen=GenerationConfig(max_new_tokens=TP_NEW),
+                           device="cuda", mesh=mesh)
+    out = {"mode": eng.chunk_mode}
+    if rank:
+        eng.wait(timeout=SERVE_TIMEOUT)
+        out["b12"] = w8a16_launches() - b0
+        return out
+    for new in (4, TP_NEW):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        reqs = {k: eng.submit_ids(ids, pv, new)
+                for k, (ids, pv) in prompts.items()}
+        for k, r in reqs.items():
+            if not r.event.wait(SERVE_TIMEOUT) or r.error is not None:
+                fail(f"tp 2 engine request {k}: {r.error}")
+        out["ms"] = (time.perf_counter() - t) * 1e3
+    eng.shutdown()
+    out["tokens"] = {k: r.tokens for k, r in reqs.items()}
+    out["first"] = {k: r.first_logits.float().cpu() for k, r in reqs.items()}
+    first = min(r.t_first for r in reqs.values())
+    last = max(r.t_done for r in reqs.values())
+    out["decode_tok_s"] = (sum(len(r.tokens) - 1 for r in reqs.values())
+                           / (last - first))
+    # B12 a prompt: 120 a segment (5 linears x 24 layers), the head once on
+    # the last segment's last row; 121 a decode step; two rounds
+    want = 121 * int(eng.phase_stats["steps"])
+    for ids, _ in prompts.values():
+        chunk = min(256, -(-len(ids) // 128) * 128)
+        want += 2 * (120 * -(-len(ids) // chunk) + 1)
+    out["b12_want"] = want
+    out["b12"] = w8a16_launches() - b0
+    return out
+
+
+def w8a16_launches() -> int:
+    from ullsam_tpu_torch.ops.kernels import int8_matmul as Q
+    return Q.w8a16_matmul.launches
+
+
+def _rank_tp_amg(inp: dict, rank: int) -> dict:
+    import numpy as np
+    import torch
+    from ullsam_tpu_torch.core.config import sam_vit_b
+    from ullsam_tpu_torch.inference import amg as A
+    from ullsam_tpu_torch.models.sam.sam import Sam
+    from ullsam_tpu_torch.models.ullsam import fusion as F
+    from ullsam_tpu_torch.ops import layers as L
+    from ullsam_tpu_torch.parallel import partitioning as P
+    from ullsam_tpu_torch.tools.main_path import amg_inputs
+    cfg = _flagship()
+    mesh = P.create_mesh(dp=1, tp=2)
+    model = F.build_ullsam(cfg, device="cuda", dtype=torch.bfloat16,
+                           seed=SEED)
+    # what a tp 2 decode step waits on 48 times (2 a layer): one gloo
+    # all-reduce of a [2, 1, 2048] bf16 CUDA tensor, staged through the host
+    x = torch.ones((2, 1, 2048), dtype=torch.bfloat16, device="cuda")
+    for _ in range(10):
+        torch.distributed.all_reduce(x)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(100):
+        torch.distributed.all_reduce(x)
+    torch.cuda.synchronize()
+    out = {"allreduce_ms": (time.perf_counter() - t) * 10}
+    # int8 first: it quantizes whole weights, then shards the model
+    for quant in ("int8", None):
+        out[quant or "bf16"] = _rank_engine(model, cfg, mesh, inp["prompts"],
+                                            quant, rank)
+    del model
+    torch.cuda.empty_cache()
+    # image-parallel AMG: one image a rank, the shared 32x32 grid
+    scfg = sam_vit_b()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    sam32 = Sam(scfg, device="cuda")
+    L.init_module_(sam32, gen)
+    sam = Sam(scfg, device="cuda", dtype=torch.bfloat16)
+    sam.load_state_dict(sam32.state_dict())
+    del sam32
+    images = np.stack(amg_inputs(np.random.default_rng(SEED), 2))
+    pts = (A.build_point_grid(32) * 1024).astype(np.float32)
+    kw = dict(points_per_batch=256, max_out=256)
+    with torch.no_grad():
+        A.amg_sharded_sweep(sam, scfg, images, pts, **kw)    # warm
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = A.amg_sharded_sweep(sam, scfg, images, pts, **kw)
+        torch.cuda.synchronize()
+        out["amg_ms"] = (time.perf_counter() - t) * 1e3
+        out["amg_launches"] = {k: v - before[k] for k, v in
+                               launch_counts().items() if v != before[k]}
+        if rank == 0:
+            ref = _uncounted(lambda: [A.amg_device_sweep(
+                sam, scfg, torch.from_numpy(images[d:d + 1]).cuda(),
+                torch.from_numpy(pts).cuda(), pred_iou_thresh=0.0,
+                stability_thresh=0.0, stability_offset=1.0,
+                box_nms_thresh=1.0, input_hw=(1024, 1024),
+                out_hw=(1024, 1024), n_real=len(pts), **kw)
+                for d in range(2)])
+            same = all(torch.equal(got[k][d], r[k])
+                       for d, r in enumerate(ref) for k in r)
+            out["amg"] = {"same": same,
+                          "masks": int(got["valid"].sum()),
+                          "packed": np.packbits(
+                              got["masks"][0].cpu().numpy(), axis=-1)}
+    return out
+
+
+RANK_CASES = {"dp": _rank_dp, "tp_amg": _rank_tp_amg}
+
+
+def parallel_rank(argv) -> None:
+    """The entry of a phase-15 rank process: ``chip_smoke.py
+    --parallel-rank CASE RANK WORLD WORKDIR`` (gloo on cuda:0, a file
+    store in WORKDIR; the kernels come from the parent's build)."""
+    import os
+
+    import torch
+    from ullsam_tpu_torch.ops.kernels import build
+    from ullsam_tpu_torch.parallel import distributed as D
+    case, rank, world, workdir = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    torch.cuda.set_device(0)
+    build.build_all()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    inp = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=False)
+    D.initialize(init_method="file://" + os.path.join(workdir, "store"),
+                 world_size=world, rank=rank, backend="gloo", device="cuda")
+    reset_counts()
+    out = RANK_CASES[case](inp, rank)
+    out["counts"] = _all_counts()
+    torch.save(out, os.path.join(workdir, f"out_{rank}.pt"))
+    D.barrier()
+    D.shutdown()
+
+
 # every path in the order the run drives it
 PATHS = {"interactive": main_path, "amg": amg_main_path,
          "train": train_main_path, "packed": packed_main_path,
          "caption": caption_main_path, "vit_h": vit_h_main_path,
          "train_vit_h": train_vit_h_main_path, "serve": serve_main_path,
-         "rest": rest_main_path, "cli": cli_main_path}
+         "rest": rest_main_path, "cli": cli_main_path,
+         "parallel": parallel_main_path}
 
 
 def main() -> None:
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        return parallel_rank(sys.argv[2:])
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -4278,12 +4908,18 @@ def main() -> None:
     by_path, gemm_by_path, fused_by_path = {}, {}, {}
     for path, drive in PATHS.items():
         reset_counts()
+        PARALLEL_RANKS.clear()
         drive()
-        by_path[path] = launch_counts()
-        gemm_by_path[path] = c_counts()
+        # the path's launches: this process's and its rank processes'
+        ranks = PARALLEL_RANKS
+        by_path[path] = {k: v + ranks.get(k, 0)
+                         for k, v in launch_counts().items()}
+        gemm_by_path[path] = {k: v + ranks.get(k, 0)
+                              for k, v in c_counts().items()}
         for k in ("gemm_sm90", "gemm_sm90_f32", "window_core_f32"):
             by_path[path][k] = gemm_by_path[path][k]
-        fused_by_path[path] = fused_counts()
+        fused_by_path[path] = {k: v + ranks.get(k, 0)
+                               for k, v in fused_counts().items()}
         say(f"[main] launches on the {path} path: {by_path[path]}; "
             f"C-counted kernels {gemm_by_path[path]}")
     launches = {name: sum(c[name] for c in by_path.values()) for name in rows}
@@ -4307,6 +4943,7 @@ def main() -> None:
     # beside them the chunks and steps replayed and B12's launches a decode
     # step in the keys' warm-ups
     rows["w8a16_matmul"]["serve_graphs"] = SERVE
+    say(f"[main] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": list(rows.values())}))
     say(smi_line())
     say(json.dumps({"ok": True, "device": {

@@ -11,8 +11,8 @@ parameters, so they start from the same weights.
 * ``pretrain`` and ``sft --pack``: each step's losses;
 * resuming at the epoch boundary (``--epochs 1``, then ``--epochs 2
   --resume``, one ``--max_steps``) is bitwise equal to never stopping;
-* an overlay image is written; ``--dp 2`` and ``--device cuda`` (no card
-  here) raise.
+* an overlay image is written; ``--dp 2`` and ``--tp 2`` in one process
+  and ``--device cuda`` (no card here) raise.
 
 Tolerances are ``tests/test_torch_train.py``'s: metrics rtol 1e-5 (atol
 1e-7), weights 2e-5 absolute. The JAX CLI runs once per mode (a module
@@ -199,13 +199,16 @@ def test_sft_pack_matches_jax(runs, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,error", [
-    (["--dp", "2"], NotImplementedError), (["--tp", "2"], NotImplementedError),
+    (["--dp", "2"], ValueError), (["--tp", "2"], ValueError),
     (["--device", "cuda"], RuntimeError)], ids=["dp2", "tp2", "cuda"])
 def test_refusals(runs, monkeypatch, flags, error):
+    """One process cannot be a mesh of two ranks (``create_mesh`` raises,
+    as the JAX CLI's does); with no card ``--device cuda`` raises. The
+    multi-rank runs are ``tests/test_torch_parallel.py``'s."""
     if flags[0] == "--device" and torch.cuda.is_available():
         pytest.skip("a card is present: cuda is a valid device")
     patch_tokenizers(monkeypatch)
-    with pytest.raises(error, match="ROADMAP A6|CUDA"):
+    with pytest.raises(error, match="need 2 processes|CUDA"):
         TCLI.main(COMMON + PRETRAIN + [
             "--data_path", runs["data"]["pretrain"],
             "--output_dir", str(runs["root"] / "refused"),

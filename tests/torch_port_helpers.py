@@ -6,6 +6,11 @@ on a few CPU threads so the tests stay small under the xdist workers."""
 import numpy as np
 import torch
 
+from ullsam_tpu_torch.core.device import cpu_warmup
+
+# the first multi-threaded exp / log / tanh / erf of a CPU process can be
+# off on one thread's half of the tensor: warm them up on one thread first
+cpu_warmup()
 torch.set_num_threads(2)
 
 
@@ -152,3 +157,66 @@ def write_synthetic_dataset(root, n=4, img_size=64, n_inst=3,
         for r in rows:
             f.write(json.dumps(r) + "\n")
     return jsonl
+
+
+def run_ranks(case, world, workdir, inputs, timeout=240):
+    """Run ``tests/torch_parallel_workers.py`` CASE as ``world`` gloo ranks
+    on the CPU (one process each, a ``file://`` store in ``workdir``) on
+    ``inputs`` (saved to ``workdir/inputs.pt``); returns each rank's
+    output. Raises, with the rank's log, as soon as any rank exits
+    non-zero (the others are killed), or after ``timeout`` seconds."""
+    return RankProcesses(case, world, workdir, inputs, timeout).join()
+
+
+class RankProcesses:
+    """``run_ranks`` in two halves: the ranks start here, so the caller
+    can compute its references meanwhile, and ``join()`` waits for them
+    and returns their outputs."""
+
+    def __init__(self, case, world, workdir, inputs, timeout=240):
+        import os
+        import subprocess
+        import sys
+        import time
+
+        os.makedirs(workdir, exist_ok=True)
+        torch.save(inputs, os.path.join(workdir, "inputs.pt"))
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, OMP_NUM_THREADS="1",
+                   PYTHONPATH=os.pathsep.join([os.path.dirname(here), here]))
+        script = os.path.join(here, "torch_parallel_workers.py")
+        self.workdir, self.world = workdir, world
+        self.logs = [os.path.join(workdir, f"log_{r}.txt")
+                     for r in range(world)]
+        self.procs = []
+        for r in range(world):
+            with open(self.logs[r], "w") as log:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, script, case, str(r), str(world),
+                     str(workdir)], env=env, stdout=log,
+                    stderr=subprocess.STDOUT))
+        self.deadline = time.monotonic() + timeout
+
+    def join(self):
+        import os
+        import time
+
+        procs = self.procs
+        try:
+            while any(p.poll() is None for p in procs):
+                bad = [r for r, p in enumerate(procs) if p.poll()]
+                if bad or time.monotonic() > self.deadline:
+                    break
+                time.sleep(0.05)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        errors = [f"rank {r} exited {p.returncode}:\n"
+                  + open(self.logs[r]).read()[-3000:]
+                  for r, p in enumerate(procs) if p.returncode]
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        return [torch.load(os.path.join(self.workdir, f"out_{r}.pt"),
+                           weights_only=False) for r in range(self.world)]

@@ -1,5 +1,6 @@
 """Segmentation evaluation metrics: the port's own copy of
-``ullsam_tpu/eval/seg_metrics.py`` (numpy and scipy on the host).
+``ullsam_tpu/eval/seg_metrics.py`` (numpy and scipy on the host; the IoU
+matrix through the native host ops when they load).
 
 The reference's docstrings point at eval scripts that were never committed
 (eval_uLLSAM_seg.py, app.py:214). This implements the standard instance-
@@ -14,6 +15,8 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 
+from ullsam_tpu_torch.native import host_ops
+
 
 def instances_to_masks(label_map: np.ndarray) -> np.ndarray:
     """uint instance map [H, W] -> [N, H, W] bool (ids sorted, bg excluded)."""
@@ -24,9 +27,19 @@ def instances_to_masks(label_map: np.ndarray) -> np.ndarray:
 
 
 def mask_iou_matrix(pred: np.ndarray, gt: np.ndarray) -> np.ndarray:
-    """[N, H, W] x [M, H, W] -> [N, M] IoU (float64 sums, float32 out)."""
+    """[N, H, W] x [M, H, W] -> [N, M] IoU, float32: the native version
+    (exact counts divided in float32) when the library loads, else
+    ``_mask_iou_numpy`` (float64 [N, H*W] copies, divided in float64 and
+    cast); the two may differ by one float32 ulp."""
     if len(pred) == 0 or len(gt) == 0:
         return np.zeros((len(pred), len(gt)), np.float32)
+    if host_ops.available():
+        return host_ops.mask_iou_matrix(pred, gt)
+    return _mask_iou_numpy(pred, gt)
+
+
+def _mask_iou_numpy(pred: np.ndarray, gt: np.ndarray) -> np.ndarray:
+    """``mask_iou_matrix`` in numpy (the plain reference)."""
     p = pred.reshape(len(pred), -1).astype(np.float64)
     g = gt.reshape(len(gt), -1).astype(np.float64)
     inter = p @ g.T

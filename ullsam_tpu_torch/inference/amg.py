@@ -4,13 +4,16 @@ filter -> NMS -> masks at the image size, over one crop or a crop pyramid.
 The port's counterpart of ``ullsam_tpu/inference/amg.py``:
   * the host helpers (``MaskData``, point grids, ``box_iou``, ``nms``, RLE,
     crop boxes, ``remove_small_regions`` through scipy) are copied, because
-    that module imports jax;
+    that module imports jax; RLE takes the native host ops
+    (``native/host_ops.py``) when they load, numpy otherwise;
   * ``amg_device_sweep`` keeps everything on the device until one packed
     stats read: resize the raw image, encode it (B1, B2), make the
     decoder's shared image side once, decode the prompt chunks through B4
     (masks, IoU, stability and low-res boxes per candidate), filter,
     greedy NMS or top-k, gather the survivors, upscale and threshold them
     to the image size;
+  * ``amg_sharded_sweep`` sweeps one image a rank over a process group and
+    gathers the results to rank 0;
   * with crops, each crop is its own ``amg_device_sweep`` of the uploaded
     image, and ``_merge_crops_device`` runs the cross-crop NMS and places
     the survivors into the full frame on the device;
@@ -30,6 +33,7 @@ from ullsam_tpu_torch.core.config import SamConfig
 from ullsam_tpu_torch.inference.transforms import (ResizeLongestSide,
                                                    get_preprocess_shape)
 from ullsam_tpu_torch.models.sam import sam as S
+from ullsam_tpu_torch.native import host_ops
 from ullsam_tpu_torch.ops.resize import (bilinear_resize_nhwc,
                                          sam_postprocess_matrix)
 
@@ -144,7 +148,15 @@ def nms(boxes: np.ndarray, scores: np.ndarray, iou_threshold: float
 
 def mask_to_rle(masks: np.ndarray) -> List[Dict[str, Any]]:
     """[B, H, W] bool -> uncompressed RLEs (column-major runs, starting with
-    a 0-run, as COCO)."""
+    a 0-run, as COCO): the native encoder when the library loads, else
+    ``_mask_to_rle_numpy``."""
+    if host_ops.available():
+        return host_ops.mask_to_rle(masks)
+    return _mask_to_rle_numpy(masks)
+
+
+def _mask_to_rle_numpy(masks: np.ndarray) -> List[Dict[str, Any]]:
+    """``mask_to_rle`` in numpy (the plain reference)."""
     B, H, W = masks.shape
     flat = masks.transpose(0, 2, 1).reshape(B, -1)
     out = []
@@ -249,13 +261,23 @@ def uncrop_masks(masks: np.ndarray, crop_box: List[int], orig_h: int,
 def remove_small_regions(mask: np.ndarray, area_thresh: float, mode: str
                          ) -> Tuple[np.ndarray, bool]:
     """Remove small connected components (``islands``) or fill small holes
-    (``holes``), 8-connected, through scipy.ndimage."""
+    (``holes``), 8-connected, labelled by scipy.ndimage (faster than the
+    native ``connected_components`` on the H100 machine's CPU: PERF.md)."""
     from scipy import ndimage
+    return _remove_small_regions(
+        mask, area_thresh, mode,
+        lambda w: ndimage.label(w, structure=np.ones((3, 3))))
+
+
+def _remove_small_regions(mask: np.ndarray, area_thresh: float, mode: str,
+                          label) -> Tuple[np.ndarray, bool]:
+    """``remove_small_regions`` with ``label`` (a uint8 [H, W] -> (int32
+    labels, count) 8-connected labelling)."""
     if mode not in ("holes", "islands"):
         raise ValueError(f"mode must be 'holes' or 'islands', not {mode!r}")
     correct_holes = mode == "holes"
     working = (correct_holes ^ mask).astype(np.uint8)
-    labels, n = ndimage.label(working, structure=np.ones((3, 3)))
+    labels, n = label(working)
     sizes = np.bincount(labels.ravel(), minlength=n + 1)[1:]
     small = [i + 1 for i, s in enumerate(sizes) if s < area_thresh]
     if not small:
@@ -414,6 +436,61 @@ def amg_device_sweep(sam, cfg: SamConfig, image: Tensor, points: Tensor, *,
          out["iou"][:, None], out["stability"][:, None], out["boxes_low"],
          out["areas"].float()[:, None]], dim=-1)
     return out
+
+
+def amg_sharded_sweep(sam, cfg: SamConfig, images, points, *,
+                      points_per_batch: int = 256, max_out: int = 256,
+                      pred_iou_thresh: float = 0.0,
+                      stability_thresh: float = 0.0,
+                      stability_score_offset: float = 1.0,
+                      box_nms_thresh: float = 1.0,
+                      input_hw: Optional[Tuple[int, int]] = None,
+                      out_hw: Optional[Tuple[int, int]] = None
+                      ) -> Optional[Dict[str, Tensor]]:
+    """Image-parallel AMG (``amg.py:1309-1362``): one image a rank.
+
+    images: [D, H, W, 3] raw (uint8 or float 0-255; host or device), D the
+    world size of the default process group (1 without one); points
+    [N, 2] the shared prompt grid in the input frame. Rank r sweeps
+    images[r] alone through ``amg_device_sweep`` on ``sam``'s device, with
+    no communication; then every result is gathered to rank 0, which
+    returns the per-image dicts stacked on a leading [D] axis (the other
+    ranks return None). Without a process group one process sweeps all D
+    images in turn. Each image's masks are bitwise its own
+    ``amg_device_sweep``'s."""
+    from ullsam_tpu_torch.parallel import distributed as D
+
+    dev = next(sam.parameters()).device
+    n_img, H, W = images.shape[:3]
+    world, rank = D.process_count(), D.process_index()
+    if world > 1 and n_img != world:
+        raise ValueError(f"amg_sharded_sweep: {n_img} images for {world} "
+                         f"ranks; give one image a rank")
+    pts = torch.as_tensor(points, dtype=torch.float32, device=dev)
+    n_real = pts.shape[0]
+    n_pad = -n_real % points_per_batch
+    if n_pad:
+        pts = torch.cat([pts, pts.new_zeros((n_pad, 2))])
+    img = cfg.vit.img_size
+    kw = dict(points_per_batch=points_per_batch, max_out=max_out,
+              pred_iou_thresh=pred_iou_thresh,
+              stability_thresh=stability_thresh,
+              stability_offset=stability_score_offset,
+              box_nms_thresh=box_nms_thresh,
+              input_hw=input_hw or (img, img), out_hw=out_hw or (H, W),
+              n_real=n_real)
+    mine = [rank] if world > 1 else range(n_img)
+    outs = [amg_device_sweep(
+        sam, cfg, torch.as_tensor(images[i:i + 1]).to(dev), pts, **kw)
+        for i in mine]
+    if world == 1:
+        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+    stacked = {}
+    for k, v in outs[0].items():     # the same keys in the same order
+        parts = D.gather_to_main(v)
+        if parts is not None:
+            stacked[k] = torch.stack(parts)
+    return stacked if rank == 0 else None
 
 
 def _merge_crops_device(outs: Sequence[Dict[str, Tensor]], crop_boxes,

@@ -25,6 +25,15 @@ documents share one row, tokens attend only within their own segment and
 RoPE positions restart at each segment.
 
 Layouts: activations [B, S, H]; q/k/v [B, S, heads, head_dim].
+
+Tensor parallelism (``parallel/partitioning.py`` ``shard_params``): a
+layer whose ``tp`` is a mesh holds its model index's share of ``wqkv``,
+``w1`` and ``w3`` (output rows: whole kv groups, so its own q, k and v
+heads) and of ``wo`` and ``w2`` (input columns). It runs attention on its
+heads alone, reads head counts from the tensors (never from the config),
+and sums the ``wo`` and ``w2`` products over the model group. The KV cache
+then holds the rank's kv heads (``init_cache(kv_heads=)``,
+``local_kv_heads``).
 """
 
 from __future__ import annotations
@@ -43,6 +52,8 @@ from ullsam_tpu_torch.ops import layers as L
 from ullsam_tpu_torch.ops.kernels.llm_flash_attention import (
     llm_flash_attention)
 from ullsam_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from ullsam_tpu_torch.parallel.distributed import (copy_to_model,
+                                                   row_parallel_linear)
 
 Tensor = torch.Tensor
 
@@ -70,13 +81,19 @@ class FeedForward(nn.Module):
         self.w3 = L.Linear(H, I, bias=False, **kw)
         self.w2 = L.Linear(I, H, bias=False, **kw)
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, tp=None) -> Tensor:
         """w2(silu(w1 x) * w3 x), the silu in f32 (``layers.py:320-327``);
-        each projection a ``Linear`` or a ``QuantLinear``."""
-        return self.w2(F.silu(self.w1(x).float()).to(x.dtype) * self.w3(x))
+        each projection a ``Linear`` or a ``QuantLinear``; under a mesh
+        ``tp`` w1 / w3 hold this rank's hidden units and the w2 product is
+        summed over the model group."""
+        x = copy_to_model(x, tp)
+        h = F.silu(self.w1(x).float()).to(x.dtype) * self.w3(x)
+        return row_parallel_linear(self.w2, h, tp)
 
 
 class DecoderLayer(nn.Module):
+    tp = None  # the mesh when its linears are sharded (shard_params)
+
     def __init__(self, cfg: InternLM2Config, *, device=None, dtype=None):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
@@ -105,7 +122,8 @@ class DecoderLayer(nn.Module):
         cfg = self.cfg
         B, S, _ = x.shape
         h = self.attention_norm(x)
-        q, k, v = split_wqkv(self.attention.wqkv(h), cfg)
+        q, k, v = split_wqkv(self.attention.wqkv(copy_to_model(h, self.tp)),
+                             cfg)
         q, k = apply_rope(q, k, cos, sin)
         if cache is not None:
             k_cache, v_cache, slot, W = cache
@@ -119,13 +137,14 @@ class DecoderLayer(nn.Module):
             attn = gqa_attention(q, k_cache[:, :W].to(q.dtype),
                                  v_cache[:, :W].to(q.dtype), kmask, cfg)
         elif flash:
-            attn = llm_flash_attention(q, k, v, seg, seg,
-                                       cfg.num_key_value_heads, causal=True)
+            attn = llm_flash_attention(q, k, v, seg, seg, k.shape[2],
+                                       causal=True)
         else:
             attn = gqa_attention(q, k, v, kmask, cfg, causal=True,
                                  seg=None if seg is None else (seg, seg))
-        x = x + self.attention.wo(attn.reshape(B, S, cfg.hidden_size))
-        return x + self.feed_forward(self.ffn_norm(x))
+        x = x + row_parallel_linear(self.attention.wo,
+                                    attn.reshape(B, S, -1), self.tp)
+        return x + self.feed_forward(self.ffn_norm(x), self.tp)
 
 
 class InternLM2Model(nn.Module):
@@ -159,12 +178,12 @@ def embed_tokens(lm: InternLM2ForCausalLM, input_ids: Tensor) -> Tensor:
 
 def split_wqkv(qkv: Tensor, cfg: InternLM2Config):
     """Unpack the fused wqkv output: [B, S, n_kv, groups + 2, hd] with the
-    q groups first, then k, then v."""
+    q groups first, then k, then v (n_kv: the kv heads the output holds,
+    all of them or a tensor-parallel rank's)."""
     B, S, _ = qkv.shape
     g = cfg.num_kv_groups
-    qkv = qkv.reshape(B, S, cfg.num_key_value_heads, g + 2, cfg.head_dim)
-    q = qkv[:, :, :, :g, :].reshape(B, S, cfg.num_attention_heads,
-                                    cfg.head_dim)
+    qkv = qkv.reshape(B, S, -1, g + 2, cfg.head_dim)
+    q = qkv[:, :, :, :g, :].reshape(B, S, -1, cfg.head_dim)
     return q, qkv[:, :, :, -2, :], qkv[:, :, :, -1, :]
 
 
@@ -180,8 +199,8 @@ def gqa_attention(q: Tensor, k: Tensor, v: Tensor, kmask: Optional[Tensor],
     seg_k [B, T]) confines attention to equal packed segments. Logits and
     softmax in f32; probabilities cast to v.dtype. Returns [B, S, nh, hd]."""
     B, S, nh, hd = q.shape
-    T = k.shape[1]
-    nkv, g = cfg.num_key_value_heads, cfg.num_kv_groups
+    T, nkv = k.shape[1], k.shape[2]
+    g = nh // nkv
     qg = q.reshape(B, S, nkv, g, hd).permute(0, 2, 3, 1, 4)
     qg = qg.reshape(B, nkv, g * S, hd).float()
     kt = k.permute(0, 2, 3, 1).float()                  # [B, nkv, hd, T]
@@ -286,11 +305,21 @@ class KVCache:
     index: int     # next write slot
 
 
+def local_kv_heads(lm: InternLM2ForCausalLM) -> int:
+    """The kv heads that this rank's layers compute: all of them, or a
+    tensor-parallel share."""
+    cfg, layer = lm.cfg, lm.model.layers[0]
+    tp = 1 if layer.tp is None else layer.tp.tp
+    return cfg.num_key_value_heads // tp
+
+
 def init_cache(cfg: InternLM2Config, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
-               device=None) -> KVCache:
-    shape = (cfg.num_hidden_layers, batch, max_len, cfg.num_key_value_heads,
-             cfg.head_dim)
+               device=None, kv_heads: Optional[int] = None) -> KVCache:
+    """A zeroed cache; ``kv_heads`` (default all) of a tensor-parallel
+    rank's share (``local_kv_heads``)."""
+    shape = (cfg.num_hidden_layers, batch, max_len,
+             kv_heads or cfg.num_key_value_heads, cfg.head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device),
                    mask=torch.zeros((batch, max_len), dtype=torch.int32,

@@ -38,10 +38,18 @@ through the tower, remat has nothing to save and the tower runs without
 it. The plain version keeps B1's rounding points, so in bfloat16 it
 rounds where B1 does rather than where the JAX XLA block does; in float32
 the two are the same function.
+
+Under tensor parallelism (``parallel/partitioning.py``) a block's qkv,
+proj, lin1 and lin2 are stored sharded and gathered whole when the block
+runs (``distributed.gathered``, inside the checkpointed function, so a
+remat recompute gathers again): B1, B2, B13 and B14 take whole weights, and
+every rank computes the whole block. ``shard_params`` marks such a block
+``tp_gathered``; an unmarked block (one process) skips the gather.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Tuple
 
 import torch
@@ -58,6 +66,7 @@ from ullsam_tpu_torch.ops.kernels import vit_block as VB
 from ullsam_tpu_torch.ops.kernels.flash_attention import (
     vit_flash_attention, vit_flash_attention_packed)
 from ullsam_tpu_torch.ops.kernels.window_attention import window_attention
+from ullsam_tpu_torch.parallel.distributed import gathered
 
 Tensor = torch.Tensor
 
@@ -96,6 +105,8 @@ class Attention(nn.Module):
 
 
 class Block(nn.Module):
+    tp_gathered = False     # set by ``shard_params``: weights stored sharded
+
     def __init__(self, cfg: ViTConfig, window_size: int, *, device=None,
                  dtype=None):
         super().__init__()
@@ -109,6 +120,11 @@ class Block(nn.Module):
         self.mlp = L.MLPBlock(C, int(C * cfg.mlp_ratio), **kw)
         self.window_size = window_size
         self.num_heads = cfg.num_heads
+
+    def _whole(self):
+        """The block's weights whole for its duration (a no-op unless
+        sharded)."""
+        return gathered(self) if self.tp_gathered else contextlib.nullcontext()
 
     def _mlp_half(self, x: Tensor, plain: bool = False) -> Tensor:
         """x + mlp(LN2(x)); B13 under ``ULLSAM_FUSED_VIT_MLP`` where it takes
@@ -164,8 +180,9 @@ class Block(nn.Module):
 
     def forward_global(self, x: Tensor, plain: bool = False) -> Tensor:
         """Global attention block on [B, H, W, C] (``plain``: remat)."""
-        h = self.global_attention(self.norm1(x), plain)
-        return self._mlp_half(x + h, plain)
+        with self._whole():
+            h = self.global_attention(self.norm1(x), plain)
+            return self._mlp_half(x + h, plain)
 
     def _window_attn_unfused(self, x: Tensor, rh: Tensor, rw: Tensor,
                              geom) -> Tensor:
@@ -192,6 +209,10 @@ class Block(nn.Module):
         (or the ``ULLSAM_FUSED_VIT_ATTN=0`` route; ``plain``: via B1's plain
         version, differentiated by autograd, no switch applies);
         geom = (nwx, nwy, Hv, Wv, masked)."""
+        with self._whole():
+            return self._forward_windows(xw, geom, plain)
+
+    def _forward_windows(self, xw: Tensor, geom, plain: bool) -> Tensor:
         Bw, ws, _, C = xw.shape
         nwx, nwy, Hv, Wv, masked = geom
         rh, rw = self.attn.rel_tables(ws, ws, xw.dtype)

@@ -23,13 +23,20 @@ from ullsam_tpu_torch.models.sam.image_encoder import ImageEncoder
 from ullsam_tpu_torch.models.sam.mask_decoder import MaskDecoder
 from ullsam_tpu_torch.models.sam.prompt_encoder import PromptEncoder
 from ullsam_tpu_torch.ops import layers as L
+from ullsam_tpu_torch.parallel.distributed import (copy_to_model,
+                                                   global_denominator,
+                                                   row_parallel_linear)
 
 Tensor = torch.Tensor
 
 
 class ProjMLP(nn.Sequential):
     """LN -> Linear -> GELU -> Linear, as the reference's Sequential
-    (parameters at indices 0, 1 and 3)."""
+    (parameters at indices 0, 1 and 3). Under a mesh ``tp``
+    (``shard_params``) fc1 holds this rank's hidden units and fc2 their
+    input columns, its product summed over the model group."""
+
+    tp = None
 
     def __init__(self, in_dim: int, mid: int, out: int, eps: float, *,
                  device=None, dtype=None):
@@ -39,7 +46,8 @@ class ProjMLP(nn.Sequential):
                          L.Linear(mid, out, **kw))
 
     def forward(self, x: Tensor) -> Tensor:
-        return self[3](L.gelu(self[1](self[0](x))))
+        h = L.gelu(self[1](copy_to_model(self[0](x), self.tp)))
+        return row_parallel_linear(self[3], h, self.tp)
 
 
 class Fusion(nn.Module):
@@ -211,7 +219,9 @@ def fusion_forward(model: ULLSAM, cfg: FusionConfig, pixel_values: Tensor,
         safe = torch.where(valid, targets, 0).long()
         logp = torch.log_softmax(logits, dim=-1)
         nll = -logp.gather(-1, safe[..., None])[..., 0]
-        denom = valid.sum().clamp_min(1)
+        # over data-parallel ranks: the global count's share
+        denom = global_denominator(valid.sum(),
+                                   getattr(model, "mesh", None))
         result["loss"] = torch.where(valid, nll, 0.0).sum() / denom
     if output_dense_prompt:
         image_hidden = gather_image_hidden(

@@ -19,6 +19,24 @@ request threads only enqueue. The worker keeps up to two chunks in flight:
 each chunk's tokens go to a pinned host buffer by a non-blocking copy and a
 recorded event, and the worker waits on that event when it consumes the
 chunk two loops later.
+
+Tensor parallelism (``mesh=``, the JAX engine's mode, ``engine.py:232-271,
+396-431``): every rank of the mesh's model group builds the engine over
+the same model; the parameters are sharded by ``parallel/partitioning.py``'s
+rules (int8 weights quantized whole, then sharded: a row-parallel shard
+keeps the whole per-channel scale, so its partial product is scaled, then
+summed) and the KV cache holds the rank's kv heads. The JAX engine has one
+controller; here each rank is a process. Rank 0 owns the queue: at the top
+of each worker loop it broadcasts what it took from the queue (prompt ids,
+pixels, budget, sampling settings) and whether to stop, every rank then
+runs the same loop on the same intake, and the uniform draws of sampled
+chunks and the first tokens are broadcast from rank 0. Each rank's logits
+are the same (an all-reduce gives every rank one sum), so their greedy
+tokens, and the host decisions that follow from them, agree. The other
+ranks call ``wait()``. A captured CUDA graph can hold NCCL collectives but
+not gloo's: under a gloo group (two ranks on one card) the chunks run
+eagerly; ``chunk_mode`` says which ("graph" or "eager"; always eager on the
+CPU).
 """
 
 from __future__ import annotations
@@ -46,6 +64,8 @@ from ullsam_tpu_torch.models.ullsam import fusion as F
 from ullsam_tpu_torch.models.ullsam.conversation import (build_chat_prompt,
                                                          get_conv_template)
 from ullsam_tpu_torch.ops.kernels.int8_matmul import uncounted, w8a16_matmul
+from ullsam_tpu_torch.parallel import distributed as D
+from ullsam_tpu_torch.parallel.partitioning import shard_params
 
 Tensor = torch.Tensor
 
@@ -146,6 +166,19 @@ def _engine_step(lm: LLM.InternLM2ForCausalLM, cfg: FusionConfig,
     return st.emitted[:, :n_steps]
 
 
+class _Backlog(collections.deque):
+    """A tensor-parallel engine's intake: what rank 0 took from its queue
+    and broadcast, in order, with the queue methods the loop calls."""
+
+    def empty(self) -> bool:
+        return not self
+
+    def get_nowait(self):
+        if not self:
+            raise queue.Empty
+        return self.popleft()
+
+
 @dataclasses.dataclass
 class Request:
     """One caption request; ``tokens`` grows as the worker resolves them,
@@ -173,14 +206,18 @@ class GenerationEngine:
     template's separator is EOS. ``phase_stats``: worker wall time by phase
     (admit, dispatch, commits, sync), chunks and decode steps dispatched,
     graphs captured and the capture time, and on the card the device time
-    of the replayed chunks (``chunk_device``, from CUDA events)."""
+    of the replayed chunks (``chunk_device``, from CUDA events).
+
+    ``mesh``: a ``parallel.distributed.Mesh`` with a model group (dp 1):
+    the tensor-parallel mode of the module docstring; ``model`` is sharded
+    in place."""
 
     def __init__(self, model: F.ULLSAM, cfg: FusionConfig, tokenizer,
                  max_batch: int = 4, max_len: int = 2560,
                  gen: Optional[GenerationConfig] = None,
                  cache_dtype: torch.dtype = torch.bfloat16, seed: int = 0,
                  steps_per_dispatch: int = 8, quant: Optional[str] = None,
-                 prefill_chunk: int = 256, device="cuda"):
+                 prefill_chunk: int = 256, device="cuda", mesh=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -189,11 +226,29 @@ class GenerationEngine:
             raise ValueError(f"GenerationEngine: the model is on {found}, "
                              f"the engine on {self.device}")
         lm = model.fusion.language_model
+        if quant == "int8" and any(hasattr(p, "tp_split")
+                                   for p in lm.parameters()):
+            raise ValueError("GenerationEngine: int8 quantizes whole "
+                             "weights; give it a model not yet sharded")
         if quant == "int8":
             # weight-only int8 LLM: decode streams every weight once a step
             lm = quantize_llm_int8(copy.deepcopy(lm))
         elif quant is not None:
             raise ValueError(f"unknown quant mode {quant!r}")
+        self.mesh = mesh if mesh is not None and mesh.model_group is not None \
+            else None
+        if self.mesh is not None:
+            shard_params(model, self.mesh)
+            if lm is not model.fusion.language_model:
+                shard_params(lm, self.mesh, prefix="fusion.language_model.")
+            self._group = self.mesh.model_group
+            self._src = self.mesh.data_index * self.mesh.tp  # model index 0
+            self._leader = self.mesh.model_index == 0
+        else:
+            self._leader = True
+        eager = self.device.type != "cuda" or (
+            self.mesh is not None and self.mesh.backend == "gloo")
+        self.chunk_mode = "eager" if eager else "graph"
         self.model, self.lm, self.cfg = model, lm, cfg
         self.tokenizer = tokenizer
         self.max_batch, self.max_len = max_batch, max_len
@@ -210,7 +265,8 @@ class GenerationEngine:
             tokens=torch.full((B,), self.gen.pad_token_id, dtype=torch.int64,
                               device=dev),
             cache=LLM.init_cache(cfg.llm, B, max_len, dtype=cache_dtype,
-                                 device=dev),
+                                 device=dev,
+                                 kv_heads=LLM.local_kv_heads(lm)),
             active=torch.zeros(B, dtype=torch.bool, device=dev),
             samp=SamplingParams.from_configs([], pad_to=B, device=dev),
             uniform=torch.zeros((self.steps_per_dispatch, B), device=dev),
@@ -234,6 +290,7 @@ class GenerationEngine:
         self.phase_stats = collections.defaultdict(float)
         self.error: Optional[BaseException] = None
         self.queue: "queue.Queue[Request]" = queue.Queue()
+        self._intake = self.queue if self.mesh is None else _Backlog()
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
@@ -264,6 +321,9 @@ class GenerationEngine:
         """Enqueue a tokenized prompt; returns its ``Request`` (wait on
         ``request.event``). pixel_values: None, [1, T, T, 3] float in
         [0, 1] or uint8 (converted on the device)."""
+        if not self._leader:
+            raise RuntimeError("a tensor-parallel engine takes requests on "
+                               "model index 0 only")
         if self.error is not None or not self._thread.is_alive():
             raise RuntimeError("GenerationEngine is not running") \
                 from self.error
@@ -325,8 +385,45 @@ class GenerationEngine:
             raise req.error
 
     def shutdown(self):
+        """Stop the worker (on rank 0 of a tensor-parallel engine this stops
+        every rank's, at the next loop)."""
         self._stop.set()
         self._thread.join(timeout=30)
+
+    def wait(self, timeout: Optional[float] = None) -> None:
+        """Block until the worker ends: the other ranks of a
+        tensor-parallel engine serve until rank 0 shuts down."""
+        self._thread.join(timeout)
+        if self.error is not None:
+            raise self.error
+
+    def _sync_intake(self) -> bool:
+        """Top of a worker loop; returns whether to stop. A tensor-parallel
+        engine's rank 0 broadcasts what it takes from its queue and its
+        stop flag; the other ranks queue the same requests."""
+        if self.mesh is None:
+            return self._stop.is_set()
+        taken = []
+        if self._leader:
+            while True:
+                try:
+                    taken.append(self.queue.get_nowait())
+                except queue.Empty:
+                    break
+        msg = [(r.input_ids, r.pixel_values, r.max_new_tokens, r.gen)
+               for r in taken]
+        msg, stop = D.broadcast_object((msg, self._stop.is_set()),
+                                       self._group, self._src)
+        if not self._leader:
+            taken = [Request(ids, pv, n, gen=gen) for ids, pv, n, gen in msg]
+        self._intake.extend(taken)
+        return stop
+
+    def _broadcast(self, t: Tensor) -> Tensor:
+        """Rank 0's ``t`` on every rank of a tensor-parallel engine."""
+        if self.mesh is not None:
+            D.broadcast_(t, self._group, self._src)
+        return t
 
     # -- internals --------------------------------------------------------
 
@@ -350,7 +447,8 @@ class GenerationEngine:
 
     def _row_cache(self) -> LLM.KVCache:
         return LLM.init_cache(self.cfg.llm, 1, self.max_len,
-                              dtype=self.cache_dtype, device=self.device)
+                              dtype=self.cache_dtype, device=self.device,
+                              kv_heads=LLM.local_kv_heads(self.lm))
 
     def _admit_start(self, slot: int, req: Request) -> dict:
         """Begin a chunked admission (``engine.py:439-461``): embed the
@@ -394,7 +492,8 @@ class GenerationEngine:
         if gen.do_sample:
             samp = SamplingParams.from_configs([gen]).map(
                 lambda t: _to_device(t, self.device))
-            tok = sample_token_dynamic(logits, samp, generator=self.generator)
+            tok = self._broadcast(sample_token_dynamic(
+                logits, samp, generator=self.generator))
         else:
             tok = torch.argmax(logits, dim=-1)
         _splice_slot(self.state.cache, row_cache, slot)
@@ -469,8 +568,10 @@ class GenerationEngine:
         n_steps, _, dynamic = key
         st = self.state
         if dynamic:
-            st.uniform[:n_steps].uniform_(generator=self.generator)
-        if self.device.type != "cuda":
+            self._broadcast(
+                st.uniform[:n_steps].uniform_(generator=self.generator))
+        if self.chunk_mode == "eager":
+            self.phase_stats["eager_chunks"] += 1
             return self._host_copy(self._run_step(key)), None
         graph = self._graph(key)
         start = torch.cuda.Event(enable_timing=True)
@@ -523,13 +624,14 @@ class GenerationEngine:
         st = self.state
         inflight = collections.deque()  # (handle, timing, [(slot, req)], n)
         commits = []          # [(slot, req, handle)] first tokens to read
-        while not self._stop.is_set():
+        intake = self._intake
+        while not self._sync_intake():
             # 1a. start chunked admissions into free slots (embeds only)
             _t0 = time.perf_counter()
             for slot in range(self.max_batch):
-                if self.slots[slot] is None and not self.queue.empty():
+                if self.slots[slot] is None and not intake.empty():
                     try:
-                        req = self.queue.get_nowait()
+                        req = intake.get_nowait()
                     except queue.Empty:
                         break
                     try:
@@ -575,7 +677,7 @@ class GenerationEngine:
                 # always steps_per_dispatch (odd tails would each be a new
                 # graph); the host trims at the budget
                 free_slot = len(active_slots) < self.max_batch
-                n_steps = (1 if (free_slot and not self.queue.empty())
+                n_steps = (1 if (free_slot and not intake.empty())
                            else self.steps_per_dispatch)
                 gens = [(self.slots[i].gen or self.gen)
                         if self.slot_active[i] else None
@@ -650,7 +752,7 @@ class GenerationEngine:
             ph["sync"] += time.perf_counter() - _t3
 
             if (dispatched is None and not active_slots
-                    and not self._pending_admissions):
+                    and not self._pending_admissions and self._leader):
                 try:
                     req = self.queue.get(timeout=0.05)
                     self.queue.put(req)  # re-enqueue; admit next loop

@@ -18,6 +18,12 @@ newest ``max_to_keep`` steps are kept.
 ``save_params_npz`` / ``load_params_npz`` read and write the JAX package's
 flat ``.npz`` (its param paths and layouts), so a file of either package
 loads in the other.
+
+Under data and tensor parallelism (``parallel/``) ``save_state`` gathers
+every sharded tensor whole (a collective on every rank), rank 0 writes and
+all ranks meet at a barrier; ``restore_state`` loads the whole tensors on
+every rank and keeps each rank's shard. A checkpoint is thus independent
+of the layout that wrote it, as orbax's global arrays are.
 """
 
 from __future__ import annotations
@@ -30,6 +36,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ullsam_tpu_torch.parallel import distributed as D
+from ullsam_tpu_torch.parallel.partitioning import full_tensor, local_shard
 
 _TMP = ".tmp-"
 
@@ -122,6 +131,43 @@ class CheckpointManager:
 
     def close(self) -> None:
         self._wait()
+
+
+_SHARDED_STATE = ("mu", "nu", "acc")   # per-parameter optimizer state
+
+
+def _map_state(opt, state: dict, fn) -> dict:
+    """``state`` with each per-parameter tensor replaced by ``fn(tensor,
+    its parameter)``."""
+    like = dict(zip(opt.names, opt.params))
+    return {k: ({n: fn(t, like[n]) for n, t in v.items()}
+                if k in _SHARDED_STATE else v) for k, v in state.items()}
+
+
+def save_state(ckpt: CheckpointManager, step: int, opt,
+               extra: Optional[dict] = None, wait: bool = False) -> bool:
+    """Save ``opt``'s parameters and state whole at ``step``: every rank
+    gathers, rank 0 writes (``CheckpointManager.save``), all meet at a
+    barrier. Returns whether rank 0 saved."""
+    params = {n: full_tensor(p) for n, p in zip(opt.names, opt.params)}
+    state = _map_state(opt, opt.state_dict(), full_tensor)
+    saved = False
+    if D.is_main_process():
+        saved = ckpt.save(step, params, state, extra=extra, wait=wait)
+    D.barrier()
+    return saved
+
+
+@torch.no_grad()
+def restore_state(ckpt: CheckpointManager, opt, map_location="cpu",
+                  step: Optional[int] = None) -> dict:
+    """Load a checkpoint into ``opt``'s parameters and state on every rank,
+    each keeping its shard; returns the ``extra`` dict."""
+    params, state, extra = ckpt.restore(step, map_location=map_location)
+    for name, p in zip(opt.names, opt.params):
+        p.copy_(local_shard(params[name], p))
+    opt.load_state_dict(_map_state(opt, state, local_shard))
+    return extra
 
 
 def save_params_npz(path: str, model: torch.nn.Module) -> None:

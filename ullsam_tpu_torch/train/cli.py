@@ -8,14 +8,27 @@ store_true / choices flags, the vision tower once per step, a true resume
 (scripts/train_all_joint_v2.sh: 24 epochs, batch 1, grad_accum 8, lr 1e-3).
 
 New here: ``--device`` (default ``cuda``; with no card it raises rather
-than falling back to the CPU), and ``--dp`` / ``--tp`` take only one
-device (0 or 1, and 1): data and tensor parallelism wait for the port of
-``parallel/`` (ROADMAP A6).
+than falling back to the CPU).
+
+Parallelism: one process a rank, started by a launcher (torchrun's
+``MASTER_ADDR`` / ``WORLD_SIZE`` / ``RANK``, or the JAX package's
+``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``;
+``parallel/distributed.py``). The ranks form a ``--dp`` x ``--tp`` mesh
+(``--dp 0``: world size // tp; the world size must be dp * tp). The
+parameters are sharded over ``--tp`` by ``parallel/partitioning.py``'s
+rules. ``--batch_size`` is the global batch of a micro-step, as in the JAX
+CLI on one host: data rank r takes the r-th of every dp rows of the
+epoch's order (``batch_iterator_sharded(process_index=r,
+process_count=dp)``), ``batch_size / dp`` of them (dp must divide it), so
+a global step holds the same rows as one process's, and the losses are
+the whole batch's. Printing, metrics, overlays and checkpoint writes
+happen on rank 0.
 
 Usage:
   python -m ullsam_tpu_torch.train.cli --mode segment --data_path data.jsonl \\
       --tokenizer_path /path/to/tokenizer_dir --output_dir runs/seg
   python -m ullsam_tpu_torch.train.cli --tiny --device cpu ...   # on a CPU
+  torchrun --nproc_per_node 8 -m ullsam_tpu_torch.train.cli --tp 2 ...
 """
 
 from __future__ import annotations
@@ -61,7 +74,9 @@ def build_parser() -> argparse.ArgumentParser:
     # optimization (reference hyperparams of record,
     # scripts/train_all_joint_v2.sh)
     p.add_argument("--epochs", type=int, default=24)
-    p.add_argument("--batch_size", type=int, default=1)
+    p.add_argument("--batch_size", type=int, default=1,
+                   help="global rows a micro-step; each data rank takes "
+                        "batch_size / dp of them")
     p.add_argument("--grad_accum", type=int, default=8)
     p.add_argument("--learning_rate", type=float, default=1e-3)
     p.add_argument("--weight_decay", type=float, default=0.01)
@@ -81,9 +96,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="comma-separated path regexes overriding defaults")
     # parallelism
     p.add_argument("--dp", type=int, default=0,
-                   help="0 or 1: one device (data parallelism: ROADMAP A6)")
+                   help="data-parallel ranks; 0 = world size // tp")
     p.add_argument("--tp", type=int, default=1,
-                   help="1: one device (tensor parallelism: ROADMAP A6)")
+                   help="tensor-parallel ranks (dp * tp = world size)")
     # logging / ckpt
     p.add_argument("--log_every", type=int, default=10)
     p.add_argument("--image_log_every", type=int, default=-1,
@@ -125,13 +140,20 @@ def make_configs(args):
                         llm=internlm2_1_8b())
 
 
-def check_one_device(args) -> None:
-    """--dp 0 / 1 with --tp 1; anything else raises (ROADMAP A6)."""
-    if args.dp not in (0, 1) or args.tp != 1:
-        raise NotImplementedError(
-            f"--dp {args.dp} --tp {args.tp}: the port trains on one device; "
-            f"data and tensor parallelism wait for the port of parallel/ "
-            f"(ROADMAP A6)")
+def make_mesh(args):
+    """Start the process group the launcher describes (none for one
+    process) and lay its ranks out as ``--dp`` x ``--tp``; raises
+    ``ValueError`` when the world size is not dp * tp."""
+    from ullsam_tpu_torch.parallel import distributed as D
+    from ullsam_tpu_torch.parallel.partitioning import create_mesh
+
+    D.initialize(device=args.device)
+    dp = args.dp or max(1, D.process_count() // args.tp)
+    mesh = create_mesh(dp=dp, tp=args.tp)
+    if args.batch_size % dp:
+        raise ValueError(f"--batch_size {args.batch_size} is not a multiple "
+                         f"of dp={dp}")
+    return mesh
 
 
 def load_warm_starts(model, args) -> None:
@@ -162,7 +184,6 @@ def load_warm_starts(model, args) -> None:
 def main(argv=None):
     """Train as the flags say; returns the model (its final weights)."""
     args = build_parser().parse_args(argv)
-    check_one_device(args)
 
     import torch
 
@@ -176,15 +197,23 @@ def main(argv=None):
     from ullsam_tpu_torch.data.tokenizer import load_tokenizer
     from ullsam_tpu_torch.models.ullsam import fusion as F
     from ullsam_tpu_torch.ops.resize import bilinear_resize_nhwc
-    from ullsam_tpu_torch.train.checkpoint import CheckpointManager
+    from ullsam_tpu_torch.parallel import distributed as D
+    from ullsam_tpu_torch.parallel.partitioning import shard_params
+    from ullsam_tpu_torch.train.checkpoint import (CheckpointManager,
+                                                   restore_state, save_state)
     from ullsam_tpu_torch.train.metrics import (MetricWriter, StepTimer,
                                                 segmentation_overlay)
     from ullsam_tpu_torch.train.step import (TrainConfig, batch_on,
                                              make_pred_masks_fn,
                                              make_train_step,
                                              make_trainable_optimizer)
+    from ullsam_tpu_torch.utils.logging import log0
 
     device = resolve_device(args.device)
+    mesh = make_mesh(args)
+    if device.type == "cuda" and mesh.backend == "nccl":
+        device = torch.device("cuda", torch.cuda.current_device())
+    main_rank = D.is_main_process()
     cfg = make_configs(args)
     tokenizer = load_tokenizer(args.tokenizer_path)
 
@@ -229,14 +258,20 @@ def main(argv=None):
 
     if args.param_dtype == "bfloat16":
         model = model.to(torch.bfloat16)
+    shard_params(model, mesh)
     opt = make_trainable_optimizer(model, tcfg,
                                    grad_accum=max(1, args.grad_accum))
     step_fn = make_train_step(cfg, tcfg, model, opt)
 
-    ckpt = CheckpointManager(os.path.join(args.output_dir, "ckpt"))
-    writer = MetricWriter(os.path.join(args.output_dir, "logs"),
-                          use_tensorboard=args.tensorboard,
-                          use_wandb=args.wandb)
+    ckpt_dir = os.path.join(args.output_dir, "ckpt")
+    if main_rank:       # rank 0 clears a cut-short save before the others
+        ckpt = CheckpointManager(ckpt_dir)
+    D.barrier()
+    if not main_rank:
+        ckpt = CheckpointManager(ckpt_dir)
+    writer = (MetricWriter(os.path.join(args.output_dir, "logs"),
+                           use_tensorboard=args.tensorboard,
+                           use_wandb=args.wandb) if main_rank else None)
 
     img_every = (20 * args.log_every if args.image_log_every < 0
                  else args.image_log_every)
@@ -245,28 +280,27 @@ def main(argv=None):
 
     start_step, start_epoch = 0, 0
     if args.resume and ckpt.latest_step() is not None:
-        params, opt_state, extra = ckpt.restore(map_location=device)
-        with torch.no_grad():
-            for name, p in zip(opt.names, opt.params):
-                p.copy_(params[name])
-        opt.load_state_dict(opt_state)
+        extra = restore_state(ckpt, opt, map_location=device)
         start_step = int(extra.get("step", ckpt.latest_step()))
         start_epoch = int(extra.get("epoch", 0))
-        print(f"resumed from step {start_step} (epoch {start_epoch})")
+        log0(f"resumed from step {start_step} (epoch {start_epoch})")
 
     def save(step, epoch, wait=False):
-        ckpt.save(step, dict(zip(opt.names, opt.params)), opt.state_dict(),
-                  extra={"step": step, "epoch": epoch}, wait=wait)
+        save_state(ckpt, step, opt, extra={"step": step, "epoch": epoch},
+                   wait=wait)
 
+    # this data rank's share of each global batch (the module docstring)
+    rows = args.batch_size // mesh.dp
+    shard = dict(process_index=mesh.data_index, process_count=mesh.dp)
     if args.pack and args.mode in ("pretrain", "sft"):
         def make_iter(epoch):
             return packed_batch_iterator_sharded(
-                dataset, args.batch_size, args.max_length,
-                tokenizer.pad_token_id, seed=args.seed, epoch=epoch)
+                dataset, rows, args.max_length, tokenizer.pad_token_id,
+                seed=args.seed, epoch=epoch, **shard)
     else:
         def make_iter(epoch):
-            return batch_iterator_sharded(dataset, args.batch_size,
-                                          seed=args.seed, epoch=epoch)
+            return batch_iterator_sharded(dataset, rows, seed=args.seed,
+                                          epoch=epoch, **shard)
 
     timer = StepTimer()
     step = start_step
@@ -279,33 +313,37 @@ def main(argv=None):
             metrics = step_fn(b)
             float(metrics["loss"])  # sync
             step += 1
-            if step % args.log_every == 0:
+            if step % args.log_every == 0 and main_rank:
                 m = {k: float(v) for k, v in metrics.items()}
                 m.update(timer.stop(args.batch_size))
                 writer.write(step, m)
-                print(f"epoch {epoch} step {step}: " +
-                      " ".join(f"{k}={v:.4f}" for k, v in m.items()))
+                log0(f"epoch {epoch} step {step}: " +
+                     " ".join(f"{k}={v:.4f}" for k, v in m.items()))
             if pred_fn is not None and step % img_every == 0:
-                # pred-vs-GT boundary overlay (train_joint_v2.py:1125-1167)
+                # pred-vs-GT boundary overlay (train_joint_v2.py:1125-1167);
+                # every rank runs the forward (its collectives), rank 0
+                # draws its first row
                 pred = pred_fn(model, b)
-                pred0 = pred[0, 0].cpu().numpy() > 0.0  # == sigmoid > 0.5
-                gt0 = b["masks"][0, 0].cpu().numpy() > 0.5
-                img0 = b["pixel_values"][0].float()
-                if tuple(img0.shape[:2]) != pred0.shape:
-                    img0 = bilinear_resize_nhwc(img0[None],
-                                                *pred0.shape)[0]
-                iou_val = float(metrics.get("iou", 0.0))
-                writer.log_image(
-                    step, "segmentation_example",
-                    segmentation_overlay(img0.cpu().numpy(), pred0, gt0),
-                    caption=(f"Epoch {epoch}, Step {step}, "
-                             f"IoU: {iou_val:.4f}"))
+                if main_rank:
+                    pred0 = pred[0, 0].cpu().numpy() > 0.0  # sigmoid > 0.5
+                    gt0 = b["masks"][0, 0].cpu().numpy() > 0.5
+                    img0 = b["pixel_values"][0].float()
+                    if tuple(img0.shape[:2]) != pred0.shape:
+                        img0 = bilinear_resize_nhwc(img0[None],
+                                                    *pred0.shape)[0]
+                    iou_val = float(metrics.get("iou", 0.0))
+                    writer.log_image(
+                        step, "segmentation_example",
+                        segmentation_overlay(img0.cpu().numpy(), pred0, gt0),
+                        caption=(f"Epoch {epoch}, Step {step}, "
+                                 f"IoU: {iou_val:.4f}"))
             if step % args.ckpt_every == 0:
                 save(step, epoch)
         save(step, epoch + 1, wait=True)
-    writer.close()
+    if writer is not None:
+        writer.close()
     ckpt.close()
-    print(f"done at step {step}; checkpoints in {args.output_dir}/ckpt")
+    log0(f"done at step {step}; checkpoints in {args.output_dir}/ckpt")
     return model
 
 

@@ -4,7 +4,11 @@ upsample + loss of the train step, and the Hungarian-matched instance
 loss.
 
 Instances come padded with a validity mask [B, I] (1 = real instance)
-instead of Python-batched.
+instead of Python-batched. Under data parallelism (a ``mesh`` with a data
+group) each rank divides its sums by its share of the whole batch's valid
+count (``distributed.global_denominator``), so the mean over the ranks is
+the whole batch's loss, as the JAX package's global mean is
+(``losses.py:211-212, 237-238``).
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import numpy as np
 import torch
 
 from ullsam_tpu_torch.ops.resize import _bilinear_matrix
+from ullsam_tpu_torch.parallel.distributed import global_denominator
 
 Tensor = torch.Tensor
 
@@ -47,10 +52,10 @@ def binary_iou(logits: Tensor, targets: Tensor, smooth: float = 1e-7) -> Tensor:
 
 
 def _masked_means(bce: Tensor, dice: Tensor, iou: Tensor,
-                  valid: Optional[Tensor]) -> Tuple[Tensor, dict]:
+                  valid: Optional[Tensor], mesh=None) -> Tuple[Tensor, dict]:
     valid = (torch.ones_like(bce) if valid is None
              else valid.to(bce.device).float())
-    denom = valid.sum().clamp_min(1.0)
+    denom = global_denominator(valid.sum(), mesh)
     bce_m, dice_m, iou_m = ((t * valid).sum() / denom
                             for t in (bce, dice, iou))
     total = bce_m + dice_m  # equal weights
@@ -59,13 +64,14 @@ def _masked_means(bce: Tensor, dice: Tensor, iou: Tensor,
 
 
 def instance_seg_loss(pred_logits: Tensor, gt_masks: Tensor,
-                      valid: Optional[Tensor] = None) -> Tuple[Tensor, dict]:
+                      valid: Optional[Tensor] = None,
+                      mesh=None) -> Tuple[Tensor, dict]:
     """Masked-mean BCE + Dice over instances: pred_logits, gt_masks
     [B, I, H, W]; valid [B, I]. Returns (total, {bce, dice, iou,
     seg_loss})."""
     return _masked_means(bce_with_logits(pred_logits, gt_masks),
                          dice_loss(pred_logits, gt_masks),
-                         binary_iou(pred_logits, gt_masks), valid)
+                         binary_iou(pred_logits, gt_masks), valid, mesh)
 
 
 def hungarian_algorithm(cost: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -120,7 +126,7 @@ def hungarian_algorithm(cost: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def hungarian_instance_loss(pred_logits: Tensor, gt_masks: Tensor,
-                            gt_valid: Optional[Tensor] = None
+                            gt_valid: Optional[Tensor] = None, mesh=None
                             ) -> Tuple[Tensor, dict]:
     """Hungarian-matched instance loss (``losses.py:47-105``; the
     reference's ``variable_instance_loss``, train_joint_v2.py:698-940).
@@ -157,7 +163,7 @@ def hungarian_instance_loss(pred_logits: Tensor, gt_masks: Tensor,
     matched_gt = torch.take_along_dim(gt_masks.to(dev),
                                       j_idx[:, :, None, None], dim=1)
     pair_valid = torch.take_along_dim(gt_valid, j_idx, dim=1)
-    return instance_seg_loss(matched_pred, matched_gt, pair_valid)
+    return instance_seg_loss(matched_pred, matched_gt, pair_valid, mesh)
 
 
 def _upsample(low: Tensor, mh: Tensor, mw: Tensor) -> Tensor:
@@ -204,7 +210,8 @@ class UpsampledSegSums(torch.autograd.Function):
 
 def upsampled_instance_seg_loss(low_logits: Tensor, gt_masks: Tensor,
                                 valid: Optional[Tensor] = None,
-                                smooth: float = 1e-7) -> Tuple[Tensor, dict]:
+                                smooth: float = 1e-7,
+                                mesh=None) -> Tuple[Tensor, dict]:
     """instance_seg_loss(bilinear_resize(low, H, W), gt), fused: the same
     BCE + Dice + IoU with no [.., H, W] residual kept for the backward.
     low_logits [B, I, h, w]; gt_masks [B, I, H, W]."""
@@ -218,4 +225,4 @@ def upsampled_instance_seg_loss(low_logits: Tensor, gt_masks: Tensor,
     bce = (s_sp - s_upgt) / float(H * W)
     dice = 1.0 - (2.0 * s_siggt + smooth) / (s_sig + s_gt + smooth)
     iou = ((s_hardgt + smooth) / (s_hard + s_gt - s_hardgt + smooth)).detach()
-    return _masked_means(bce, dice, iou, valid)
+    return _masked_means(bce, dice, iou, valid, mesh)

@@ -29,6 +29,16 @@ gradients' dtype); on micro-step k the clip and AdamW run on the mean and
 the mean resets; the other micro-steps leave the parameters as they are.
 ``instance_matching="hungarian"`` re-matches predictions to ground truths
 by soft IoU before the loss (``losses.hungarian_instance_loss``).
+
+Data and tensor parallelism follow the model's ``mesh``
+(``parallel/partitioning.py`` ``shard_params``; take the optimizer after
+it). The losses divide by each rank's share of the whole batch's valid
+counts; ``train_step`` replaces the gradients by their mean over the data
+group before the optimizer (on every micro-step of ``MultiSteps``, since
+the mean is linear) and the metrics by theirs, so every rank of a data
+group takes the same update. Under tensor parallelism ``global_norm``
+counts a sharded tensor's squares over its shards (an all-reduce over the
+model group) and a replicated tensor's once.
 """
 
 from __future__ import annotations
@@ -44,6 +54,10 @@ from ullsam_tpu_torch.convert.from_jax import jax_param_paths
 from ullsam_tpu_torch.core.config import FusionConfig
 from ullsam_tpu_torch.models.ullsam import fusion as F
 from ullsam_tpu_torch.ops.resize import bilinear_resize
+from ullsam_tpu_torch.parallel import distributed as D
+from ullsam_tpu_torch.parallel.partitioning import (is_sharded,
+                                                    mean_over_data,
+                                                    sync_grads)
 from ullsam_tpu_torch.train.losses import (hungarian_instance_loss,
                                            upsampled_instance_seg_loss)
 
@@ -124,13 +138,15 @@ class AdamW:
         self.count = 0
         self.tcfg, self.b1, self.b2, self.eps = tcfg, b1, b2, eps
         self.schedule = lr_schedule(tcfg)
+        self.mesh = getattr(model, "mesh", None)
+        self.sharded = [is_sharded(p) for p in self.params]
 
     @torch.no_grad()
     def step(self, grads: List[Tensor]) -> Tensor:
         """Apply one update from ``grads`` (one per trainable parameter, in
         ``self.names`` order); returns the global norm before the clip."""
         b1, b2, tcfg = self.b1, self.b2, self.tcfg
-        g_norm = global_norm(grads)
+        g_norm = global_norm(grads, self.sharded, self.mesh)
         clip = torch.where(g_norm < tcfg.max_grad_norm,
                            torch.ones_like(g_norm),
                            tcfg.max_grad_norm / g_norm)
@@ -169,10 +185,19 @@ class AdamW:
         self.count = int(state["count"])
 
 
-def global_norm(tensors: List[Tensor]) -> Tensor:
-    """sqrt of the sum of squares of every element, summed in f32."""
+def global_norm(tensors: List[Tensor], sharded: Optional[List[bool]] = None,
+                mesh=None) -> Tensor:
+    """sqrt of the sum of squares of every element, summed in f32. Where
+    ``sharded`` marks tensors split over ``mesh``'s model group, their
+    squares are summed over the group and the others' counted once."""
     norms = torch._foreach_norm(tensors, 2, dtype=torch.float32)
-    return torch.linalg.vector_norm(torch.stack(norms))
+    group = None if mesh is None else mesh.model_group
+    if group is None or not any(sharded or ()):
+        return torch.linalg.vector_norm(torch.stack(norms))
+    sq = torch.stack(norms) ** 2
+    mask = torch.tensor(sharded, device=sq.device)
+    split = D.all_reduce_(sq[mask].sum(), group)
+    return torch.sqrt(sq[~mask].sum() + split)
 
 
 class MultiSteps:
@@ -184,6 +209,7 @@ class MultiSteps:
     def __init__(self, inner: AdamW, every_k: int):
         self.inner, self.every_k = inner, every_k
         self.names, self.params = inner.names, inner.params
+        self.mesh, self.sharded = inner.mesh, inner.sharded
         self.mini_step = 0
         self.acc = [torch.zeros_like(p) for p in inner.params]
 
@@ -193,7 +219,7 @@ class MultiSteps:
         / (n + 1)); on the k-th micro-step clip + AdamW on the mean (its
         count advances) and reset it. Returns the micro-batch's own global
         norm (``metrics["grad_norm"]``)."""
-        g_norm = global_norm(grads)
+        g_norm = global_norm(grads, self.sharded, self.mesh)
         diff = torch._foreach_sub(grads, self.acc)
         torch._foreach_div_(diff, self.mini_step + 1)
         torch._foreach_add_(self.acc, diff)
@@ -269,6 +295,7 @@ def seg_loss_fn(model: F.ULLSAM, cfg: FusionConfig, tcfg: TrainConfig,
     [B, N] in place of attention_mask and all its images in pixel_values
     [n_images, S, S, 3]."""
     batch = batch_on(model, batch)
+    mesh = getattr(model, "mesh", None)
     seg = tcfg.seg_weight != 0.0
     out = F.fusion_forward(
         model, cfg, batch["pixel_values"], batch["input_ids"],
@@ -286,10 +313,10 @@ def seg_loss_fn(model: F.ULLSAM, cfg: FusionConfig, tcfg: TrainConfig,
         Hm, Wm = batch["masks"].shape[-2:]
         seg_loss, metrics = hungarian_instance_loss(
             bilinear_resize(low.float(), Hm, Wm), batch["masks"],
-            batch.get("instance_valid"))
+            batch.get("instance_valid"), mesh=mesh)
     else:
         seg_loss, metrics = upsampled_instance_seg_loss(
-            low, batch["masks"], batch.get("instance_valid"))
+            low, batch["masks"], batch.get("instance_valid"), mesh=mesh)
     total = tcfg.seg_weight * seg_loss
     if tcfg.llm_weight and "loss" in out:
         total = total + tcfg.llm_weight * out["loss"]
@@ -303,15 +330,20 @@ def train_step(model: F.ULLSAM, opt, batch: dict, cfg: FusionConfig,
                tcfg: TrainConfig) -> dict:
     """One step of ``opt`` (``AdamW``, or a micro-step of ``MultiSteps``)
     over the trainable parameters; returns the metrics (0-d tensors on the
-    model's device, no host sync)."""
+    model's device, no host sync). Under a mesh with a data group the
+    gradients and the metrics are first averaged over it."""
     for p in opt.params:
         p.grad = None
     total, metrics = seg_loss_fn(model, cfg, tcfg, batch)
     total.backward()
     grads = [p.grad if p.grad is not None else torch.zeros_like(p)
              for p in opt.params]
+    mesh = getattr(model, "mesh", None)
+    sync_grads(grads, mesh)
+    metrics = mean_over_data({k: v.detach() for k, v in metrics.items()},
+                             mesh)
     metrics["grad_norm"] = opt.step(grads)
-    return {k: v.detach() for k, v in metrics.items()}
+    return metrics
 
 
 def make_train_step(cfg: FusionConfig, tcfg: TrainConfig, model: F.ULLSAM,
