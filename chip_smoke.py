@@ -62,14 +62,18 @@ sm_90a) and the CUDA toolkit. Phases, each printing what it found:
     its encode), the LLM moving, SAM bit-identical, the peak above weights
     and moments.
  9. caption generation with the int8 weight-only LLM: B12 against its plain
-    version at every shape of InternLM2-1.8B's linears on the caption path:
-    decode at batch 1 and 8, the serving engine's 256-token prompt segment
-    (M = 256), prefill of the 1152-token prompt at batch 1 and 8 (M = 1152,
-    9216), bf16 and f32 (phase 3's checks; decode with the
+    version at every shape of InternLM2-1.8B's linears on the caption and
+    serving paths: decode at 1, 4, 8 and 16 rows, the serving engine's
+    prompt segments (M = 128, 256), prefill of the 1152-token prompt at
+    batch 1 and 8 (M = 1152, 9216), the tp 2 ranks' own linears at 4 and
+    256 rows, bf16 and f32 (phase 3's checks; decode with the
     weight cold in L2; each case launches exactly the B12 kernel that
-    ``int8_matmul.w8a16_kernel`` names, by its own count: the GEMV at
-    decode, the wgmma GEMM with an int8 operand at the bf16 prefill of the
-    layer linears); a small uLLSAM with its LLM quantized, 16 greedy
+    ``int8_matmul.w8a16_kernel`` names, by its own count, split over K as
+    ``int8_matmul.plan`` says, which the library's own plan must match: the GEMV at one row and for f32 x, the decode body on the
+    tensor cores at 2-16 rows in bf16, the wgmma GEMM with an int8 operand
+    at the bf16 prefill of the layer linears; a split call bitwise equal
+    when called again and when replayed from a CUDA graph); a small uLLSAM
+    with its LLM quantized, 16 greedy
     tokens of ``caption_ids`` with an image on the CPU (plain versions) and
     on the card (kernels), tokens identical and each step's logits within
     1e-4 of their max; then the flagship at full width in bfloat16
@@ -77,7 +81,8 @@ sm_90a) and the CUDA toolkit. Phases, each printing what it found:
     1152): 1 warm + 1 timed request and a left-padded batch of 8, then with
     ``quantize_llm_int8``, 1 warm + 3 timed and a batch of 8, each with
     prefill and per-step decode times, tokens/s, peak memory and exact
-    launches (int8: B12 121 a decode step and in the prefill; bf16: none),
+    launches (int8: B12 121 a decode step and in the prefill, each on the
+    kernel ``w8a16_kernel`` names at its rows; bf16: none),
     and the int8 prefill against bf16's at batch 1 and 8.
 10. SAM ViT-H automatic mask generation: B1, B2, B3 and (bf16) B8 at head
     dim 80 and the opt-in kernels B13 (fused LN + MLP), B14 (global
@@ -1809,6 +1814,33 @@ W8A16_KERNEL = ("w8a16_matmul", "ullsam_tpu_torch/csrc/w8a16_matmul.cu",
 # B12 launches of one decode step of InternLM2-1.8B, and of one prefill:
 # wqkv, wo, w1, w3, w2 in each of 24 layers, and the vocab head
 B12_PER_PASS = 5 * 24 + 1
+# (N, K, launches a pass) of those linears, and on a rank of the tp 2
+# engine (wqkv, w1 / w3 split by rows, wo, w2 by columns, the head whole)
+B12_LINEARS = ((4096, 2048, 24), (2048, 2048, 24), (8192, 2048, 48),
+               (2048, 8192, 24), (92553, 2048, 1))
+B12_TP2_LINEARS = ((2048, 2048, 24), (2048, 1024, 24), (4096, 2048, 48),
+                   (2048, 4096, 24), (92553, 2048, 1))
+
+
+def b12_pass(M: int, linears=B12_LINEARS, times: int = 1) -> dict:
+    """{B12 kernel: launches} of ``times`` bf16 passes at M rows over
+    ``linears`` on this card (``int8_matmul.w8a16_kernel``)."""
+    import torch
+    from ullsam_tpu_torch.ops.kernels import int8_matmul as Q
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for N, K, n in linears:
+        k = Q.w8a16_kernel(M, N, K, torch.bfloat16, sms)
+        out[k] = out.get(k, 0) + n * times
+    return out
+
+
+def _plus_counts(*ds: dict) -> dict:
+    out = {}
+    for d in ds:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return {k: v for k, v in out.items() if v}
 
 
 def _copies(t, min_bytes: int = 128 << 20) -> list:
@@ -1848,42 +1880,62 @@ def _graph_ms(call, weights: list, reps: int = 3) -> float:
 def check_w8a16_kernel(card: str) -> dict:
     """B12 against its plain version on the card at every case of
     ``tools/main_path.w8a16_cases`` (each of InternLM2-1.8B's linears at
-    the decode batches 1 and 8, at the serving engine's prompt segment,
-    M = 256, and at the prefill of the caption prompt, M = 1152 and 9216:
-    the head's last N tile is ragged there), x in bf16
-    and f32: the f32 output within 1e-5 of max|plain| (int8 -> x's type is
+    the decode batches 1, 4, 8 and 16, at the serving engine's prompt
+    segments, M = 128 and 256, and at the prefill of the caption prompt, M
+    = 1152 and 9216: the head's last N tile is ragged there; the tp 2
+    ranks' own linears at 4 and 256 rows), x in bf16
+    and f32 (f32 not at 4, 16 and 128 rows: its GEMV and FMA GEMM are those
+    of 8 and 256): the f32 output within 1e-5 of max|plain| (int8 -> x's type is
     exact, only the summation order differs), and with a bias and the cast
     to x's type (the main path's variant) within one step of that type at
     max|plain| (bf16: 2^(e - 8) for max|plain| in [2^(e-1), 2^e), up to 2^-7
     of it: two f32 sums that differ in their last bits can round to
-    neighbouring values; f32: 1e-5 of max|plain|). Kernel and library
-    times are device times (``_graph_ms``): at decode with a cold L2 (the
-    weight cycles through copies), at the layer linears' bf16 prefill (tens
-    of microseconds a launch, less than the host takes to issue one) on one
-    weight; the vocab head's prefill and f32 x run for milliseconds, so
-    CUDA events around 3 calls time them. Each case launches the kernel
-    ``int8_matmul.w8a16_kernel`` names, twice. The library
-    yardstick is F.linear on the dequantized weight in x's type (2 bytes a
-    weight in bf16): no PyTorch call computes W8A16 with f32 scales, and
-    the port never calls it."""
+    neighbouring values; f32: 1e-5 of max|plain|). The library's own plan
+    (``int8_matmul.c_plan``: kernel, K splits, the decode body's warps a
+    tile) must be the Python mirror's; a call that splits K (the decode
+    body's warps on a tile's K and its blocks, the wgmma GEMM's units at the
+    engine's segments) must give a bitwise equal result when called again
+    and when replayed from a CUDA graph. Kernel
+    and library times are device times (``_graph_ms``): at decode with a
+    cold L2 (the weight cycles through copies), at the layer linears' bf16
+    prefill (tens of microseconds a launch, less than the host takes to
+    issue one) on one weight; the vocab head's prefill and f32 x run for
+    milliseconds, so CUDA events around 3 calls time them. Each case
+    launches the kernel ``int8_matmul.w8a16_kernel`` names, twice. The
+    library yardstick is F.linear on the dequantized weight in x's type (2
+    bytes a weight in bf16): no PyTorch call computes W8A16 with f32
+    scales, and the port never calls it."""
     import math
 
     import torch
     import torch.nn.functional as F
     from ullsam_tpu_torch.ops.kernels import int8_matmul as Q
-    from ullsam_tpu_torch.tools.main_path import (W8A16_DECODE_M, w8a16_case,
-                                                  w8a16_cases)
+    from ullsam_tpu_torch.tools.main_path import (W8A16_DECODE_M, W8A16_TP2_M,
+                                                  w8a16_case, w8a16_cases)
 
     name, source, replaces = W8A16_KERNEL
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "cases": []}
+    decode_m = set(W8A16_DECODE_M) | set(m for m in W8A16_TP2_M if m <= 16)
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).replace("torch.", "")
         for M, N, K in w8a16_cases():
+            if dtype == torch.float32 and M in (4, 16, 128):
+                continue  # f32 x: the GEMV and the FMA GEMM, as at 8, 256
             (x, q, s), _, flops, nbytes = w8a16_case(dtype, gen, M, N, K)
             bias = torch.randn(N, generator=gen, device="cuda")
+            kname, nsplit, warps = Q.plan(M, N, K, dtype, sms)
+            if (Q.c_plan(M, N, K, dtype) != (kname, nsplit, warps)
+                    or Q.c_workspace(M, N, K, dtype)
+                    != Q.workspace(M, N, K, dtype, sms)):
+                fail(f"{name} {dname} M={M} N={N} K={K}: the library plans "
+                     f"{Q.c_plan(M, N, K, dtype)} with workspace "
+                     f"{Q.c_workspace(M, N, K, dtype)}, the mirror "
+                     f"{(kname, nsplit, warps)}, "
+                     f"{Q.workspace(M, N, K, dtype, sms)}")
             before = {k: c.launches for k, c in Q.kernel_launches.items()}
             got, ref = Q.w8a16_matmul(x, q, s), Q.w8a16_matmul_plain(x, q, s)
             got_c = Q.w8a16_matmul(x, q, s, bias, out_dtype=dtype)
@@ -1891,11 +1943,28 @@ def check_w8a16_kernel(card: str) -> dict:
             torch.cuda.synchronize()
             ran = [k for k, c in Q.kernel_launches.items()
                    if c.launches != before[k]]
-            kname = Q.w8a16_kernel(M, N, K, dtype)
             if ran != [kname] or (Q.kernel_launches[kname].launches
                                   - before[kname]) != 2:
                 fail(f"{name} {dname} M={M} N={N} K={K}: launched {ran}, "
                      f"expected {kname} twice")
+            same = ""
+            if nsplit > 1 or warps > 1:  # again, and from a graph's replay
+                with Q.uncounted():
+                    again = Q.w8a16_matmul(x, q, s, bias, out_dtype=dtype)
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph):
+                        replay = Q.w8a16_matmul(x, q, s, bias,
+                                                out_dtype=dtype)
+                    replay.zero_()
+                    graph.replay()
+                    torch.cuda.synchronize()
+                eq = torch.equal(again, got_c) and torch.equal(replay, got_c)
+                same = (f"; {nsplit} splits, {warps} warps a tile: again "
+                        f"and a graph replay bitwise equal {eq}")
+                if not eq:
+                    fail(f"{name} {dname} M={M} N={N} K={K}: a split call "
+                         f"is not bitwise repeatable")
+                del again, replay, graph
             err = float((got - ref).abs().max())
             rel = err / float(ref.abs().max())
             top = float(ref_c.float().abs().max())
@@ -1908,13 +1977,14 @@ def check_w8a16_kernel(card: str) -> dict:
                 f"max_abs_err="
                 f"{err:.3e} max_rel_err={rel:.3e} (f32 output, relative to "
                 f"max|plain|; tol 1e-05), with bias and cast to {dname} "
-                f"{rel_c:.3e} (tol {step:.3e}) {'ok' if ok else 'FAIL'}")
+                f"{rel_c:.3e} (tol {step:.3e}){same} "
+                f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 fail(f"{name} {dname} M={M} N={N} K={K} disagrees with its "
                      f"plain version")
             del got, ref, got_c, ref_c
             w_lib = (q.to(dtype) * s[:, None]).to(dtype)
-            if M in W8A16_DECODE_M:
+            if M in decode_m:
                 ms = _graph_ms(lambda w: Q.w8a16_matmul(x, w, s), _copies(q))
                 lib_ms = _graph_ms(lambda w: F.linear(x, w), _copies(w_lib))
             elif kname == "w8a16_sm90":  # tens of microseconds a launch
@@ -1930,8 +2000,8 @@ def check_w8a16_kernel(card: str) -> dict:
             del w_lib
             torch.cuda.empty_cache()
             b_ms, b_by = bound_ms(flops, nbytes, dtype)
-            say(f"[kernels] {name} {dname} M={M} N={N} K={K} ({kname}): "
-                f"kernel "
+            say(f"[kernels] {name} {dname} M={M} N={N} K={K} ({kname}, "
+                f"{nsplit} splits, {warps} warps a tile): kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (F.linear "
                 f"on the dequantized {dname} weight) {lib_ms:.4f} ms, bound "
                 f"{b_ms:.4f} ms ({b_by}: {flops / 1e9:.3f} GFLOP, "
@@ -1941,16 +2011,24 @@ def check_w8a16_kernel(card: str) -> dict:
             entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
             row["cases"].append({"dtype": dname, "M": M, "N": N, "K": K,
-                                 "kernel": kname, **entry})
+                                 "kernel": kname, "splits": nsplit,
+                                 "warps": warps, **entry})
             # the row's own numbers: w1, a layer's largest linear, at batch 1;
-            # its prefill entry w1 at the batch-1 prompt (the wgmma GEMM)
+            # its other entries w1 at a serve decode step's 8 rows (the
+            # tensor-core body), w2 at a 256-row prompt segment (the wgmma
+            # GEMM split over K) and w1 at the batch-1 caption prompt
             if (M, N, K) == (1, 8192, 2048):
                 if dtype == torch.bfloat16:
                     row.update(entry)
                 else:
                     row["float32"] = entry
-            if (M, N, K) == (1152, 8192, 2048) and dtype == torch.bfloat16:
-                row["prefill"] = {"kernel": kname, **entry}
+            if dtype == torch.bfloat16:
+                for key, case in (("decode8", (8, 8192, 2048)),
+                                  ("segment256", (256, 2048, 8192)),
+                                  ("prefill", (1152, 8192, 2048))):
+                    if (M, N, K) == case:
+                        row[key] = {"kernel": kname, "splits": nsplit,
+                                    **entry}
             del x, q, s, bias
         torch.cuda.empty_cache()
     return {name: row}
@@ -2067,12 +2145,14 @@ def caption_main_path() -> None:
                  for a, b in zip(counts, counts[1:])]
         # which B12 kernel each launch took: in the prefill the layer
         # linears the wgmma GEMM (M = B x 1152), the ragged head the
-        # mma.sync GEMM; at every decode step (M = B) the GEMV
+        # mma.sync GEMM; at every decode step (M = B) the GEMV at batch 1,
+        # the decode body on the tensor cores at batch 8
         k12 = [b12_before] + [c for _, _, c in marks]
         d12 = [{k: b[k] - a[k] for k in b if b[k] != a[k]}
                for a, b in zip(k12, k12[1:])]
-        want12 = ({"w8a16_sm90": B12_PER_PASS - 1, "w8a16_mma": 1}, {
-            "w8a16_gemv": B12_PER_PASS}) if b12 else ({}, {})
+        B = inputs[1].shape[0]
+        want12 = (b12_pass(B * inputs[1].shape[1]),
+                  b12_pass(B)) if b12 else ({}, {})
         if d12[0] != want12[0] or any(d != want12[1] for d in d12[1:]):
             fail(f"caption {tag}: B12 kernels prefill {d12[0]} (expected "
                  f"{want12[0]}), decode steps {d12[1:3]} (expected "
@@ -2081,7 +2161,7 @@ def caption_main_path() -> None:
                                    else {}))
         want_dec = {"w8a16_matmul": B12_PER_PASS} if b12 else {}
         bad = [d for d in diffs[1:] if d != want_dec]
-        B, n_tok = toks.shape[0], int(lens.sum())
+        n_tok = int(lens.sum())
         steps = len(marks) - 1
         pre_ms = (marks[0][0] - t) * 1e3
         dec_ms = (marks[-1][0] - marks[0][0]) * 1e3 / max(steps, 1)
@@ -2446,6 +2526,7 @@ def serve_main_path() -> None:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         b12 = Q.w8a16_matmul.launches
+        k12 = b12_counts()
         warm = [eng.submit_ids(*prompts[k], SERVE_NEW)
                 for k in ("image", "text0")]
         if any(not r.event.wait(SERVE_TIMEOUT) or r.error for r in warm):
@@ -2484,6 +2565,15 @@ def serve_main_path() -> None:
                                 and Q.w8a16_matmul.launches != b12):
             fail(f"serve {tag}: B12 launches a decode step {per_step}, "
                  f"expected {want}")
+        # int8: the decode steps' warm-ups at the 8 slots' rows, the prompt
+        # segments on the wgmma GEMM, each prompt's head on its last row
+        ran12 = {k for k, v in b12_counts().items() if v != k12[k]}
+        want12 = (set(b12_pass(8)) | set(b12_pass(256, B12_LINEARS[:4]))
+                  | set(b12_pass(1, B12_LINEARS[4:]))) if quant else set()
+        say(f"[serve] {tag}: B12 kernels launched {sorted(ran12)}")
+        if ran12 != want12:
+            fail(f"serve {tag}: B12 kernels {sorted(ran12)}, expected "
+                 f"{sorted(want12)}")
         del eng
         torch.cuda.empty_cache()
     del model
@@ -3763,6 +3853,7 @@ def rest_beam_search(card: str) -> None:
         ms = {}
         for n in (1, T):
             before = launch_counts()
+            k12 = b12_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             toks, score = beam_search(lm, cfg.llm, embeds, mask_d,
@@ -3771,9 +3862,14 @@ def rest_beam_search(card: str) -> None:
             ms[n] = (time.perf_counter() - t0) * 1e3
             d = _since(before)
             want = {"w8a16_matmul": b12 * n} if b12 else {}
-            if d != want:
+            # the prefill at the prompt's rows, then n - 1 steps at 4 beams
+            d12 = {k: v - k12[k] for k, v in b12_counts().items()
+                   if v != k12[k]}
+            want12 = _plus_counts(b12_pass(ids.shape[1]),
+                                  b12_pass(4, times=n - 1)) if b12 else {}
+            if d != want or d12 != want12:
                 fail(f"beam search {kind}, {n} new tokens: launches {d}, "
-                     f"expected {want}")
+                     f"B12 kernels {d12}, expected {want}, {want12}")
         step = (ms[T] - ms[1]) / (T - 1)
         eos = cfg.llm.eos_token_id
         one = one.cpu()
@@ -4555,6 +4651,11 @@ def parallel_tp_amg(card: str, workdir: str):
         if quant and b12 != [got["b12_want"]] * 2:
             fail(f"parallel tp 2 int8: B12 launches {b12}, expected "
                  f"{got['b12_want']} on each rank")
+        k12 = [o[tag]["b12_kernels"] for o in outs]
+        say(f"[parallel] tp 2 engine {tag}: B12 kernels per rank {k12}")
+        if k12 != [got["b12_kernels_want"]] * 2:
+            fail(f"parallel tp 2 {tag}: B12 kernels {k12}, expected "
+                 f"{got['b12_kernels_want']} on each rank")
         if not quant and any(b12):
             fail(f"parallel tp 2 bf16 launched B12 {b12}")
     amg = outs[0]["amg"]
@@ -4694,6 +4795,7 @@ def _rank_engine(model, cfg, mesh, prompts, quant, rank) -> dict:
     from ullsam_tpu_torch.models.internlm2.generate import GenerationConfig
     from ullsam_tpu_torch.serve.engine import GenerationEngine
     b0 = w8a16_launches()
+    k0 = b12_counts()
     eng = GenerationEngine(model, cfg, StubTokenizer(), max_batch=4,
                            max_len=2560, prefill_chunk=256,
                            steps_per_dispatch=8, quant=quant,
@@ -4703,6 +4805,8 @@ def _rank_engine(model, cfg, mesh, prompts, quant, rank) -> dict:
     if rank:
         eng.wait(timeout=SERVE_TIMEOUT)
         out["b12"] = w8a16_launches() - b0
+        out["b12_kernels"] = {k: v - k0[k] for k, v in b12_counts().items()
+                              if v != k0[k]}
         return out
     for new in (4, TP_NEW):
         torch.cuda.synchronize()
@@ -4723,11 +4827,21 @@ def _rank_engine(model, cfg, mesh, prompts, quant, rank) -> dict:
     # B12 a prompt: 120 a segment (5 linears x 24 layers), the head once on
     # the last segment's last row; 121 a decode step; two rounds
     want = 121 * int(eng.phase_stats["steps"])
+    steps = int(eng.phase_stats["steps"])
+    if quant:  # by kernel: steps at the 4 slots' rows, segments, heads
+        want12 = [b12_pass(4, B12_TP2_LINEARS, steps)]
     for ids, _ in prompts.values():
         chunk = min(256, -(-len(ids) // 128) * 128)
-        want += 2 * (120 * -(-len(ids) // chunk) + 1)
+        segs = -(-len(ids) // chunk)
+        want += 2 * (120 * segs + 1)
+        if quant:
+            want12 += [b12_pass(chunk, B12_TP2_LINEARS[:4], 2 * segs),
+                       b12_pass(1, B12_TP2_LINEARS[4:], 2)]
     out["b12_want"] = want
     out["b12"] = w8a16_launches() - b0
+    out["b12_kernels"] = {k: v - k0[k] for k, v in b12_counts().items()
+                          if v != k0[k]}
+    out["b12_kernels_want"] = _plus_counts(*want12) if quant else {}
     return out
 
 

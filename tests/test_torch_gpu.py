@@ -770,6 +770,17 @@ def test_packed_llm_gradients_on_card_match_cpu(cuda, monkeypatch):
 # 2048, wo 2048 x 2048, w1 / w3 8192 x 2048, w2 2048 x 8192) and beyond
 _W8_PREFILL = [(M, N, K) for M in (17, 129, 1152, 9216)
                for N in (2048, 4096, 8192) for K in (2048, 8192)]
+# the serving shapes: decode at 2-16 rows (the tensor-core body, split over
+# K) and the engine's prompt segments (the wgmma GEMM split over K), at each
+# linear of InternLM2-1.8B, the vocab head and the tp 2 ranks' own shapes
+_W8_LINEARS = ((4096, 2048), (2048, 2048), (8192, 2048), (2048, 8192),
+               (92553, 2048), (2048, 1024), (2048, 4096))
+_W8_SERVE = [(M, N, K) for M in (2, 4, 8, 16, 128, 256)
+             for N, K in _W8_LINEARS]
+
+
+def _sms() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
@@ -778,7 +789,7 @@ _W8_PREFILL = [(M, N, K) for M in (17, 129, 1152, 9216)
     (8, 2053, 8192),    # decode, batch 8, ragged N, K tiled in shared memory
     (3, 200, 48),       # K not a multiple of 32, N not of 8
     (1152, 4100, 2048),  # prefill (tensor cores in bf16), ragged N
-    (40, 300, 80)] + _W8_PREFILL)  # prefill, K % 32 == 16; the layer shapes
+    (40, 300, 80)] + _W8_PREFILL + _W8_SERVE)  # K % 32 == 16; layer shapes
 def test_w8a16_kernel_matches_plain(cuda, dt, M, N, K):
     """B12 against its plain version: the f32 output within 1e-5 of
     max|plain| (exact products, only the summation order differs), with
@@ -786,15 +797,22 @@ def test_w8a16_kernel_matches_plain(cuda, dt, M, N, K):
     one step of that dtype. Each call launches the kernel that
     ``w8a16_kernel`` names, by its own count: in bf16 at M > 16 with N %
     128 == 0 and K % 64 == 0 the wgmma GEMM (split-K where
-    ``sm90_splits`` says)."""
+    ``sm90_splits`` says), at 2 <= M <= 16 the decode body on the tensor
+    cores (K split as ``decode_plan`` says); the library's own plan
+    (``c_plan``) is the Python mirror's."""
     from ullsam_tpu_torch.ops.kernels import int8_matmul as Q
     from ullsam_tpu_torch.tools.main_path import w8a16_case
     dtype = getattr(torch, dt)
     (x, q, s), _, _, _ = w8a16_case(dtype, cuda, M, N, K)
     bias = torch.randn(N, generator=cuda, device="cuda")
-    name = Q.w8a16_kernel(M, N, K, dtype)
+    name = Q.w8a16_kernel(M, N, K, dtype, _sms())
     if dt == "bfloat16" and M > 16 and N % 128 == 0:
         assert name == "w8a16_sm90"
+    if dt == "bfloat16" and 2 <= M <= 16 and K % 64 == 0:
+        assert name == "w8a16_decode_tc"
+    assert Q.c_plan(M, N, K, dtype) == Q.plan(M, N, K, dtype, _sms())
+    assert Q.c_workspace(M, N, K, dtype) == Q.workspace(M, N, K, dtype,
+                                                        _sms())
     before = Q.w8a16_matmul.launches
     counts = {k: c.launches for k, c in Q.kernel_launches.items()}
     got = Q.w8a16_matmul(x, q, s)
@@ -813,14 +831,55 @@ def test_w8a16_kernel_matches_plain(cuda, dt, M, N, K):
     assert torch.equal(got_cast0, got.to(dtype))
     for out, bb in ((got_cast, bias), (got_cast0, None)):
         ref = Q.w8a16_matmul_plain(x, q, s, bb, dtype)
-        # one step of bf16 at max|plain| for the prefill shapes (two f32
-        # sums that differ in their last bits may round to neighbouring
-        # values), 2^-8 of it for the others as before
+        # one step of bf16 at max|plain| for the prefill and serving
+        # shapes (two f32 sums that differ in their last bits may round to
+        # neighbouring values), 2^-8 of it for the others as before
         top = float(ref.float().abs().max())
         step = (1e-5 * top if dtype == torch.float32
                 else 2.0 ** (math.frexp(top)[1] - 8)
-                if (M, N, K) in _W8_PREFILL else 2.0 ** -8 * top)
+                if (M, N, K) in _W8_PREFILL + _W8_SERVE
+                else 2.0 ** -8 * top)
         assert float((out.float() - ref.float()).abs().max()) <= step
+
+
+@pytest.mark.parametrize("M,N,K", [
+    (8, 2048, 2048), (8, 2048, 8192), (4, 2048, 1024), (16, 4096, 2048),
+    (16, 2048, 8192), (12, 2048, 8192), (8, 92553, 2048),
+    (256, 2048, 2048), (256, 4096, 2048), (128, 2048, 8192),
+    (256, 2048, 1024)])
+def test_w8a16_split_k_is_bitwise_and_replays(cuda, M, N, K):
+    """B12 at the serving shapes that split K (the decode body's warps on a
+    tile's K and, for w2 at 9-16 rows, its blocks; the wgmma GEMM's units:
+    a fixed order of the partials, tile counters that reset themselves)
+    and the head (no split): two calls are bitwise equal, and a CUDA graph
+    of the call, replayed twice with no memset in between, is bitwise the
+    eager call."""
+    from ullsam_tpu_torch.ops.kernels import int8_matmul as Q
+    from ullsam_tpu_torch.tools.main_path import w8a16_case
+    (x, q, s), _, _, _ = w8a16_case(torch.bfloat16, cuda, M, N, K)
+    bias = torch.randn(N, generator=cuda, device="cuda")
+    _, splits, warps = Q.plan(M, N, K, torch.bfloat16, _sms())
+    if (M, N) != (8, 92553):
+        assert splits > 1 or warps > 1
+    a = Q.w8a16_matmul(x, q, s, bias, out_dtype=torch.bfloat16)
+    b = Q.w8a16_matmul(x, q, s, bias, out_dtype=torch.bfloat16)
+    f = Q.w8a16_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    graph = torch.cuda.CUDAGraph()
+    before = Q.w8a16_matmul.launches
+    with Q.uncounted(), torch.cuda.graph(graph):
+        g = Q.w8a16_matmul(x, q, s, bias, out_dtype=torch.bfloat16)
+        gf = Q.w8a16_matmul(x, q, s)
+    assert Q.w8a16_matmul.launches == before
+    for _ in range(2):
+        g.zero_()
+        gf.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(g, a) and torch.equal(gf, f)
+    assert torch.equal(Q.w8a16_matmul(x, q, s, bias,
+                                      out_dtype=torch.bfloat16), a)
 
 
 def test_w8a16_wrapper_refusals(cuda):

@@ -61,8 +61,12 @@ def _rel(got, ref):
 
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-@pytest.mark.parametrize("M,K,N", [(8, 512, 1024), (1, 256, 384)])
+@pytest.mark.parametrize("M,K,N", [(8, 512, 1024), (1, 256, 384),
+                                   (4, 512, 1024), (16, 256, 384)])
 def test_plain_b12_matches_interpret_pallas(dt, M, K, N):
+    """The plain B12 against the interpret-mode Pallas kernel at the decode
+    rows of the card's bodies: 1 (the GEMV), 4 (a beam step, the tp 2
+    engine) and 8, 16 (the tensor-core body's two widths)."""
     jdt, tdt = DTYPES[dt]
     x, qw, qs = _operands(np.random.default_rng(M), M, K, N)
     bn = next(b for b in (512, 256, 128) if N % b == 0)

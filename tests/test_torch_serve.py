@@ -345,15 +345,16 @@ def test_app_smoke_with_engine(setup):
 def test_uncounted_restores_b12_counts():
     """``int8_matmul.uncounted``, which the engine wraps around a graph's
     capture (the capture records launches that do not run then), puts
-    B12's wrapper count and its per-kernel counts back as they were."""
+    B12's wrapper count and its per-kernel counts back as they were (the
+    engine's decode step at 2-16 rows runs the tensor-core body)."""
     from ullsam_tpu_torch.ops.kernels import int8_matmul as Q
-    gemv = Q.kernel_launches["w8a16_gemv"]
-    saved = (Q.w8a16_matmul.launches, gemv.launches)
+    step = Q.kernel_launches["w8a16_decode_tc"]
+    saved = (Q.w8a16_matmul.launches, step.launches)
     try:
-        Q.w8a16_matmul.launches, gemv.launches = 7, 3
+        Q.w8a16_matmul.launches, step.launches = 7, 3
         with Q.uncounted():
             Q.w8a16_matmul.launches += 121
-            gemv.launches += 121
-        assert (Q.w8a16_matmul.launches, gemv.launches) == (7, 3)
+            step.launches += 121
+        assert (Q.w8a16_matmul.launches, step.launches) == (7, 3)
     finally:
-        Q.w8a16_matmul.launches, gemv.launches = saved
+        Q.w8a16_matmul.launches, step.launches = saved

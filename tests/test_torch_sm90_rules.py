@@ -4,11 +4,15 @@ the CPU: each Python mirror against the constants of its CUDA source and
 against the 232,448 bytes of shared memory an H100 block may use.
 
 * ``int8_matmul.w8a16_kernel``: which of B12's kernels a call launches
-  (the decode GEMV at M <= 16, the wgmma GEMM at bf16 prefill where
+  (the decode body on the tensor cores at 2 <= M <= 16 in bf16, the GEMV at
+  M = 1 and for f32 x, the wgmma GEMM at bf16 prefill where
   ``gemm_sm90.cuh`` ``sm90_takes`` holds, the mma.sync GEMM for the ragged
   vocab head, the FMA GEMM for f32 x), at every InternLM2-1.8B linear and
-  the caption path's M; ``int8_matmul.sm90_smem_bytes`` (``Sm90Layout<
-  true>``); the per-kernel launch counts with no card.
+  the caption and serving paths' M; the split rules ``decode_plan`` and
+  ``sm90_splits`` and the workspace they ask for; the decode body's
+  constants and shared memory and ``int8_matmul.sm90_smem_bytes``
+  (``Sm90Layout<true>``) against the sources; the per-kernel launch counts
+  with no card.
 * ``flash_attention.sm90_smem_bytes`` (``FlashSm90Layout<D>``) at head
   dims 64 and 80, and ``key_rows_per_tile``: when a 64-key tile covers
   whole key-grid rows, so that the bias comes from registers.
@@ -49,7 +53,8 @@ from ullsam_tpu_torch.ops.kernels import int8_matmul as Q
 from ullsam_tpu_torch.ops.kernels import llm_flash_attention as LF
 from ullsam_tpu_torch.ops.kernels import window_attention as WA
 from ullsam_tpu_torch.tools.main_path import (W8A16_DECODE_M, W8A16_LINEARS,
-                                              W8A16_PREFILL_M)
+                                              W8A16_PREFILL_M,
+                                              W8A16_TP2_LINEARS, W8A16_TP2_M)
 
 
 def _const(source: str, pattern: str) -> int:
@@ -119,16 +124,67 @@ def test_w8a16_sm90_smem_fits_a_block():
     assert G.sm90_smem_bytes() <= G.SMEM_LIMIT
 
 
+def _squeezed(source: str) -> str:
+    with open(os.path.join(build.CSRC, source)) as f:
+        return re.sub(r"\s+", "", f.read())
+
+
+def test_w8a16_decode_tc_mirror_matches_the_source():
+    """The decode body's constants and the split rules' thresholds that
+    ``int8_matmul`` mirrors are those of ``w8a16_matmul.cu`` and
+    ``gemm_sm90.cuh``, and each rule doubles on the conditions the mirror
+    does."""
+    src = "w8a16_matmul.cu"
+    assert _const(src, r"kTcWarps = (\d+)") == Q.TC_WARPS
+    assert _const(src, r"kTcXBytes = (\d+) \* 1024") * 1024 == Q.TC_X_BYTES
+    assert _const(src, r"kTcMinM = (\d+)") == Q.TC_MIN_M
+    assert _const(src, r"kTcXPad = (\d+)") == Q.TC_X_PAD
+    assert _const(src, r"W8Kernel : int \{\s*kW8Gemv = 0, kW8Sm90 = 1, "
+                  r"kW8Mma = 2, kW8F32 = 3, kW8DecodeTc = (\d+)") == \
+        Q.KERNELS.index("w8a16_decode_tc")
+    assert _const("gemm_sm90.cuh", r"kSm90MinSplitKb = (\d+)") == \
+        Q.SM90_MIN_SPLIT_KB
+    assert (_const("gemm_sm90.cuh", r"kSm90PartFloats = (\d+) \* 144 / 2")
+            * 144 // 2) == Q.SM90_PART_FLOATS
+    text = _squeezed(src)
+    for cond in ("while(w<kTcWarps&&(N+8*kTcWarps/w-1)/(8*kTcWarps/w)<="
+                 "sms&&K%(2*w*64)==0)w*=2;",
+                 "while((longlong)mm*(K/s)*2>kTcXBytes){"
+                 "if(K%(2*s*w*64))return{0,0};s*=2;}"):
+        assert cond in text, cond
+    assert ("while(tiles*s*2<=sms&&kt%(2*s)==0&&kt/(2*s)>=kSm90MinSplitKb)"
+            "s*=2;") in _squeezed("gemm_sm90.cuh")
+
+
+def test_w8a16_decode_smem_fits_a_block():
+    """The decode body's shared memory (x's K slice of 8 or 16 rows in
+    bf16, padded; the warps' accumulators for the in-block sum; a flag) at
+    every decode shape of the serving and caption paths fits one block
+    (w2 at 16 rows the most: half its K a block), and two blocks fit an SM
+    at the head's shape, whose 724 groups are the only ones beyond one
+    wave (its launch bounds ask for two)."""
+    shapes = [(M, N, K) for M in range(2, 17)
+              for N, K in W8A16_LINEARS + W8A16_TP2_LINEARS]
+    most = max(Q.decode_smem_bytes(*s) for s in shapes)
+    assert most == Q.decode_smem_bytes(16, 2048, 8192) == (
+        16 * (4096 + Q.TC_X_PAD) * 2 + 8 * 2 * 32 * 16 + 4)
+    assert most <= G.SMEM_LIMIT
+    assert 2 * Q.decode_smem_bytes(16, 92553, 2048) <= G.SMEM_LIMIT
+
+
 @pytest.mark.parametrize("M", W8A16_DECODE_M + W8A16_PREFILL_M)
 def test_w8a16_kernel_of_each_internlm2_linear(M):
-    """At decode (M = 1, 8) every linear runs the GEMV; at the serving
-    engine's prompt segment (M = 256) and the caption prompt's prefill
-    (M = 1152, 9216) in bf16 wqkv, wo, w1 / w3 and w2 run
-    the wgmma GEMM and the 92,553-column head the mma.sync GEMM; f32 x
-    runs the FMA GEMM at prefill."""
+    """At a decode step's 4, 8 or 16 rows every linear runs the decode body
+    on the tensor cores, at batch 1 the GEMV; at the serving engine's
+    prompt segments (M = 128, 256) and the caption prompt's prefill (M =
+    1152, 9216) in bf16 wqkv, wo, w1 / w3 and w2 run the wgmma GEMM and the
+    92,553-column head the mma.sync GEMM; f32 x runs the GEMV at decode and
+    the FMA GEMM at prefill."""
     for N, K in W8A16_LINEARS:
-        if M <= 16:
+        if M == 1:
             want = "w8a16_gemv"
+        elif M <= 16:
+            want = "w8a16_decode_tc"
         elif N % 128:
             want = "w8a16_mma"
         else:
@@ -141,14 +197,91 @@ def test_w8a16_kernel_of_each_internlm2_linear(M):
 
 
 def test_w8a16_shape_rule():
-    """The wgmma GEMM takes bf16 x at M > 16 with N % 128 == 0 and K % 64
-    == 0 (``sm90_takes``); other widths keep the mma.sync GEMM."""
-    assert Q.w8a16_kernel(16, 128, 64) == "w8a16_gemv"
+    """The decode body takes bf16 x at 2 <= M <= 16 with K % 64 == 0 (its
+    64-byte chunks), any N (the ragged head masked); the GEMV the rest of M
+    <= 16. The wgmma GEMM takes bf16 x at M > 16 with N % 128 == 0 and K %
+    64 == 0 (``sm90_takes``); other widths keep the mma.sync GEMM."""
+    assert Q.w8a16_kernel(16, 128, 64) == "w8a16_decode_tc"
+    assert Q.w8a16_kernel(2, 92553, 2048) == "w8a16_decode_tc"
+    for M, N, K in ((1, 128, 64), (16, 128, 48), (8, 200, 80), (3, 200, 48)):
+        assert Q.w8a16_kernel(M, N, K) == "w8a16_gemv", (M, N, K)
+        assert Q.decode_plan(M, N, K) == (0, 0)
     assert Q.w8a16_kernel(17, 128, 64) == "w8a16_sm90"
     for M, N, K in ((17, 200, 64), (129, 4096, 48), (1152, 4100, 2048),
                     (40, 300, 80), (1152, 92553, 2048)):
         assert Q.w8a16_kernel(M, N, K) == "w8a16_mma", (M, N, K)
         assert not G.sm90_takes(M, N, K)
+    # a K whose x slice needs splitting but whose chunks do not halve
+    assert Q.decode_plan(16, 128, 4096 + 64) == (0, 0)
+
+
+def _units(M, N, K):
+    """(blocks a call runs, the decode body's warps a tile or 0, splits):
+    the decode body's groups of 128 / W rows or the wgmma GEMM's 144 x 128
+    tiles, times the splits."""
+    name, s, w = Q.plan(M, N, K)
+    if name == "w8a16_decode_tc":
+        return Q.decode_groups(M, N, K) * s, w, s
+    return -(-M // Q.W8_BM) * (N // G.SM90_BN) * s, w, s
+
+
+def test_w8a16_splits_fill_the_card_at_the_serving_shapes():
+    """At the serving engine's shapes (decode at 2-16 rows, prompt
+    segments of 128 and 256; the tp 2 ranks' own linears at their 4 rows
+    and 256) every layer linear runs 120-132 blocks or tiles x splits on
+    the H100's 132 SMs, one wave, where one block a 128-row group or tile
+    left most of them idle (wo and w2 at 16 groups or 32 tiles): decode by
+    W warps on a tile's K inside a block, prefill by split K. Decode splits
+    K across blocks only where x's slice would not fit (w2 at 9-16 rows:
+    two waves). The head (724 groups) and w1 / w3 at 256 rows (128 tiles)
+    fill it unsplit."""
+    layer = W8A16_LINEARS[:4]
+    shapes = [(M, N, K) for M in (2, 4, 8, 16, 128, 256) for N, K in layer]
+    shapes += [(M, N, K) for M in W8A16_TP2_M for N, K in W8A16_TP2_LINEARS]
+    for M, N, K in shapes:
+        units, w, s = _units(M, N, K)
+        if 8 < M <= 16 and (N, K) == (2048, 8192):
+            assert (units, w, s) == (256, 8, 2)
+            continue
+        assert 120 <= units <= Q.H100_SMS, (M, N, K, units, w, s)
+    assert _units(256, 8192, 2048) == (128, 0, 1)
+    assert _units(8, 92553, 2048) == (724, 1, 1)
+    # wo at 8 rows: 128 blocks of one 16-row tile, 8 warps on its K
+    assert _units(8, 2048, 2048) == (128, 8, 1)
+    assert _units(8, 4096, 2048) == (128, 4, 1)
+    assert _units(8, 8192, 2048) == (128, 2, 1)
+    # w2 at a 256-row segment: 2 x 16 tiles, 4 splits of 32 k-blocks
+    assert _units(256, 2048, 8192) == (128, 0, 4)
+
+
+@pytest.mark.parametrize("M", [1152, 9216])
+def test_w8a16_caption_prefill_keeps_one_split(M):
+    """The caption prompt's prefill (M = 1152: 128-512 tiles, a wave or
+    more) splits nothing, so its products are bitwise the unsplit
+    kernel's, and asks for no workspace."""
+    for N, K in W8A16_LINEARS[:4]:
+        assert Q.sm90_splits(M, N, K) == 1
+        assert Q.workspace(M, N, K) == (0, 0)
+
+
+def test_w8a16_workspace_rule():
+    """A split call's f32 partials: the decode body's 16-row tiles'
+    accumulators (a float4 a lane and 8 rows of x) of every block, a
+    counter a group; the wgmma GEMM's units' 256 threads x 72
+    accumulators, a counter a tile. A call that splits nothing across
+    blocks, f32 x included, asks for none. On a card with fewer SMs the
+    plans shrink."""
+    assert Q.workspace(16, 2048, 8192) == (128 * 2 * 1 * 2 * 32 * 4, 128)
+    assert Q.workspace(256, 4096, 2048) == (64 * 2 * 256 * 72, 64)
+    for M, N, K in ((8, 2048, 2048), (8, 92553, 2048), (1, 2048, 2048),
+                    (1152, 2048, 2048)):
+        assert Q.workspace(M, N, K) == (0, 0)
+    assert Q.workspace(8, 2048, 2048, torch.float32) == (0, 0)
+    assert Q.workspace(256, 2048, 2048, torch.float32) == (0, 0)
+    assert Q.decode_plan(8, 2048, 2048, sms=66) == (4, 1)
+    assert Q.sm90_splits(256, 2048, 2048, sms=66) == 2
+    # a unit keeps at least 4 k-blocks: K = 1024 at one tile stops at 4
+    assert Q.sm90_splits(128, 2048, 1024) == 4
 
 
 def test_w8a16_kernel_counts_need_no_card():

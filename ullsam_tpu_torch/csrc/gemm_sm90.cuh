@@ -58,7 +58,10 @@
 //     of shared memory a k-block against the bf16 W's 72 and ran at
 //     360-385 TFLOP/s where the bf16 GEMM ran 640-670; register-A operands
 //     with the warpgroups taking turns, 288-335; sharing a tile, 458-549;
-//     with 144-row tiles, 485-566.
+//     with 144-row tiles, 485-566. Where its tiles leave SMs idle (the
+//     serving engine's 128- and 256-row segments) it splits K
+//     (Sm90Split): each unit's f32 partial goes to a workspace and the
+//     tile's last unit adds them in a fixed order before the epilogue.
 //   * float32 (Sm90Layout<kSm90F32>, split TF32): a k-block is 32 floats
 //     (128 bytes, one row of the swizzle); each stage holds A's tile and W's
 //     as TMA lands them (three stages), and W's lo plane. The producer is a
@@ -144,6 +147,34 @@ constexpr int kSm90SmemBytes = Sm90Layout<kSm90Bf16>::kSmemBytes;
 inline bool sm90_takes(int M, int N, int K) {
   return M >= 1 && N >= kSm90BN && N % kSm90BN == 0 && K >= kSm90BK &&
          K % kSm90BK == 0;
+}
+
+// Split-K of the int8 kind (B12's prefill at the serving engine's 128- and
+// 256-row segments, where its tiles leave most SMs idle): unit u of tiles x
+// splits is tile u / splits over k-blocks [u % splits, + 1) x kt / splits.
+// A unit writes its f32 partial (its 256 consumer threads' 72 accumulators,
+// kSm90PartFloats) to ws; the last unit of a tile (counters[tile], which it
+// resets to 0 for the next launch) adds the partials in split order and
+// applies the epilogue once. The other kinds run splits = 1.
+struct Sm90Split {
+  int splits;
+  float* ws;
+  int* counters;
+};
+constexpr int kSm90MinSplitKb = 4;  // k-blocks a unit keeps at least
+constexpr int kSm90PartFloats = 256 * 144 / 2;  // a unit's partial
+
+// splits of the int8 kind: doubled while the units still fit in one wave
+// of the card's SMs and each keeps kSm90MinSplitKb k-blocks. 1 wherever the
+// tiles fill the card (M = 1152: 128-512 tiles). Mirrored by
+// ops/kernels/int8_matmul.py sm90_splits.
+inline int sm90_int8_splits(int M, int N, int K, int sms) {
+  const int tiles = (M + 143) / 144 * (N / kSm90BN), kt = K / kSm90BK;
+  int s = 1;
+  while (tiles * s * 2 <= sms && kt % (2 * s) == 0 &&
+         kt / (2 * s) >= kSm90MinSplitKb)
+    s *= 2;
+  return s;
 }
 
 // d[64 x 128] (+)= A[64 x 16] . B[128 x 16]^T, both from shared memory
@@ -431,11 +462,11 @@ __device__ __forceinline__ void sm90_stage_out(float* ws, const float* d,
 // operand), x's tile of 144 rows the shared-memory B operand (n = 144), so
 // the accumulators hold out transposed and the epilogue transposes them
 // back through its staging.
-template <int kKind, class Epi>
+template <int kKind, class Epi, bool kSplitK = false>
 __global__ void __launch_bounds__(Sm90Layout<kKind>::kThreads, 1)
     gemm_nt_sm90(const __grid_constant__ CUtensorMap map_a,
                  const __grid_constant__ CUtensorMap map_w, const Epi epi,
-                 int M, int N, int K) {
+                 const Sm90Split split, int M, int N, int K) {
   using bf16 = __nv_bfloat16;
   using L = Sm90Layout<kKind>;
   constexpr bool kInt8W = L::kInt8W;
@@ -474,14 +505,17 @@ __global__ void __launch_bounds__(Sm90Layout<kKind>::kThreads, 1)
   __syncthreads();
 
   // the block's tiles j = 0, 1, ... are tiles blockIdx.x + j * gridDim.x;
-  // k-block kb of tile j sits in stage (j * kt + kb) % kStages
+  // k-block kb of tile j sits in stage (j * kt + kb) % kStages. int8 walks
+  // units of tiles x splits the same way (Sm90Split), kts k-blocks each
+  const int splits = kSplitK ? split.splits : 1, kts = kt / splits;
   if (wg == 2) {  // the producer warp (f32: warpgroup)
     if constexpr (L::kF32) producer_registers();
     if (tid == 256) {
       int s = 0, ph = 0;
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      for (int u = blockIdx.x; u < tiles * splits; u += gridDim.x) {
+        const int t = u / splits, kb0 = (u - t * splits) * kts;
         const int m0 = t / tiles_n * L::kBM, n0 = t % tiles_n * kSm90BN;
-        for (int kb = 0; kb < kt; ++kb) {
+        for (int kb = kb0; kb < kb0 + kts; ++kb) {
           mbar_wait(&empty[s], ph ^ 1);
           mbar_expect_tx(&full[s], L::kTxBytes);
           tma_load_2d(stage_a(s), &map_a, &full[s], kb * L::kBK, m0);
@@ -608,12 +642,13 @@ __global__ void __launch_bounds__(Sm90Layout<kKind>::kThreads, 1)
     const int wr0 = wg * 64 + wrow * 16 + g;
     int kg = 0;  // k-blocks consumed: k-block kg sits in stage kg % kStages
     constexpr int kAcc = L::kBM / 2;  // n = kBM: kBM / 8 blocks of 4
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    for (int u = blockIdx.x; u < tiles * splits; u += gridDim.x) {
+      const int t = u / splits, sp = u - t * splits;
       const int m0 = t / tiles_n * L::kBM, n0 = t % tiles_n * kSm90BN;
       float d[kAcc];
 #pragma unroll
       for (int i = 0; i < kAcc; ++i) d[i] = 0.f;
-      for (int kb = 0; kb < kt; ++kb, ++kg) {
+      for (int kb = 0; kb < kts; ++kb, ++kg) {
         const int s = kg % kStages, ph = (kg / kStages) & 1;
         mbar_wait(&full[s], ph);
         const unsigned char* w = stage_w(s);
@@ -629,6 +664,69 @@ __global__ void __launch_bounds__(Sm90Layout<kKind>::kThreads, 1)
         wgmma_commit();
         wgmma_wait<0>();
         if ((tid & 127) == 0) mbar_arrive(&empty[s]);
+      }
+
+      if constexpr (kSplitK) {
+        // split-K: this unit's partial to the workspace in the
+        // accumulators' own layout (float4 c of consumer thread tid at
+        // unit x kAcc x 256 + (c x 256 + tid) x 4: 512 contiguous bytes a
+        // warp store); the tile's last unit adds the tile's partials in
+        // split order, each thread the same accumulators of every unit,
+        // and runs the epilogue once. No float atomics: two calls are
+        // bitwise equal.
+        __shared__ int last_unit;
+        const auto part = [&](int s) {
+          return reinterpret_cast<float4*>(split.ws) +
+                 (size_t)(t * splits + s) * (kAcc / 4) * 256 + tid;
+        };
+        {
+          float4* p = part(sp);
+#pragma unroll
+          for (int c = 0; c < kAcc / 4; ++c)
+            p[c * 256] = make_float4(d[4 * c], d[4 * c + 1], d[4 * c + 2],
+                                     d[4 * c + 3]);
+        }
+        __threadfence();
+        named_bar_sync(1, 256);
+        if (tid == 0) {
+          last_unit = atomicAdd(&split.counters[t], 1) == splits - 1;
+          if (last_unit) split.counters[t] = 0;  // ready for the next launch
+        }
+        // (every thread reads last_unit before the next unit's first
+        // barrier lets it change)
+        named_bar_sync(1, 256);
+        if (!last_unit) continue;
+        __threadfence();
+        // half the accumulators at a time: one split's float4s of them
+        // loaded before any is added (this unit's own from registers)
+        constexpr int kHalf = kAcc / 8;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float4 sum[kHalf];
+          for (int s = 0; s < splits; ++s) {
+            float4 p[kHalf];
+            const float4* q = part(s) + h * kHalf * 256;
+#pragma unroll
+            for (int c = 0; c < kHalf; ++c) {
+              const int i = 4 * (h * kHalf + c);
+              p[c] = s == sp ? make_float4(d[i], d[i + 1], d[i + 2], d[i + 3])
+                             : __ldcg(q + c * 256);
+            }
+#pragma unroll
+            for (int c = 0; c < kHalf; ++c)
+              sum[c] = s == 0 ? p[c]
+                              : make_float4(__fadd_rn(sum[c].x, p[c].x),
+                                            __fadd_rn(sum[c].y, p[c].y),
+                                            __fadd_rn(sum[c].z, p[c].z),
+                                            __fadd_rn(sum[c].w, p[c].w));
+          }
+#pragma unroll
+          for (int c = 0; c < kHalf; ++c) {
+            const int i = 4 * (h * kHalf + c);
+            d[i] = sum[c].x, d[i + 1] = sum[c].y;
+            d[i + 2] = sum[c].z, d[i + 3] = sum[c].w;
+          }
+        }
       }
 
       // epilogue, transposed through this warp's f32 staging: the
@@ -746,7 +844,8 @@ inline bool make_map(CUtensorMap* map, const void* p, int rows, int K,
 // Returns a cudaError_t code.
 template <int kKind, class Epi>
 int gemm_sm90_run(const void* A, const void* W, const Epi& epi, int M, int N,
-                  int K, cudaStream_t st) {
+                  int K, cudaStream_t st,
+                  const Sm90Split& split = Sm90Split{1, nullptr, nullptr}) {
   using L = Sm90Layout<kKind>;
   const MapType ta = kKind == kSm90F32 ? kMapF32 : kMapBf16;
   const MapType tw = kKind == kSm90Int8 ? kMapInt8 : ta;
@@ -754,14 +853,26 @@ int gemm_sm90_run(const void* A, const void* W, const Epi& epi, int M, int N,
   if (!make_map(&ma, A, M, K, L::kBM, ta) ||
       !make_map(&mw, W, N, K, kSm90BN, tw))
     return (int)cudaErrorInvalidValue;
+  const int units = (M + L::kBM - 1) / L::kBM * (N / kSm90BN) *
+                    (kKind == kSm90Int8 ? split.splits : 1);
+  const int grid = units < sm_count() ? units : sm_count();
+  if constexpr (kKind == kSm90Int8) {
+    if (split.splits > 1) {
+      static const cudaError_t attr = cudaFuncSetAttribute(
+          gemm_nt_sm90<kKind, Epi, true>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmemBytes);
+      if (attr != cudaSuccess) return (int)attr;
+      gemm_nt_sm90<kKind, Epi, true><<<grid, L::kThreads, L::kSmemBytes,
+                                       st>>>(ma, mw, epi, split, M, N, K);
+      return (int)cudaGetLastError();
+    }
+  }
   static const cudaError_t attr = cudaFuncSetAttribute(
       gemm_nt_sm90<kKind, Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       L::kSmemBytes);
   if (attr != cudaSuccess) return (int)attr;
-  const int tiles = (M + L::kBM - 1) / L::kBM * (N / kSm90BN);
-  const int grid = tiles < sm_count() ? tiles : sm_count();
   gemm_nt_sm90<kKind, Epi><<<grid, L::kThreads, L::kSmemBytes, st>>>(
-      ma, mw, epi, M, N, K);
+      ma, mw, epi, split, M, N, K);
   return (int)cudaGetLastError();
 }
 

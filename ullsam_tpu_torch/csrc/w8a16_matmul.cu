@@ -13,8 +13,40 @@
 //
 // What bounds it on an H100, and what the design does about it:
 //   * Decode (M <= 16): memory-bound. K.N int8 bytes stream once per call
-//     (w1 at M = 1: 16.8 MB, 5.0 us at 3.35 TB/s). w8a16_gemv gives each
-//     warp R whole rows of q; a lane reads 16 bytes of each row per step
+//     (w1 at M = 1: 16.8 MB, 5.0 us at 3.35 TB/s). With bf16 x at 2 <= M
+//     <= 16 (the serving engine's step at 8 rows, 4 beams, a batch of 8)
+//     w8a16_decode_tc runs the product on the tensor cores, swapped: out^T
+//     = W . x^T on mma.sync m16n8k16, a warp's 16 weight rows the A
+//     operand and x's rows, padded to 8 or 16, the n side. On the CUDA
+//     cores (w8a16_gemv) a lane did M x 16 f32 FMAs and 2M shared-memory
+//     reads of x for each 16 weight bytes: at 8 rows 4.3x its bound. Here
+//     the work per weight byte is the exact int8 -> bf16 conversion
+//     (byte-permute into the mantissa of 2^23, subtract, keep the top
+//     half: about 3 instructions a byte) and 1 / 128 of an mma whatever M
+//     is. A lane streams 16 contiguous bytes of each of its two rows from
+//     each 64-byte chunk (a quad of lanes covers the chunk), 4 chunks a
+//     step, two steps in flight: 16 16-byte loads a lane, 64 KB an SM,
+//     each asking L2 for its whole 256-byte line (a step's bytes of a
+//     row).
+//     The k order inside an mma is free when x follows it, so a lane's own
+//     bytes are its A fragment and x's B fragment is 4 consecutive bf16 at
+//     the same k (conflict-free 16-byte reads of a padded shared-memory
+//     slice). A block of 8 warps takes 128 / W weight rows: the W warps of
+//     each 16-row tile split its K and are added in warp order through
+//     shared memory, with W doubled (tc_plan) while the blocks still fit
+//     in one wave of the card's SMs (wo, w2: 16 rows a block, 8 warps on
+//     a tile's K; wqkv 32; w1 / w3 64; the head's 724 groups of 128 rows
+//     fill it at W = 1). Blocks split K (S) only where x's slice would
+//     not fit in 128 KB (w2 at 9-16 rows): each writes its tiles' f32
+//     partials to the workspace in the accumulators' own layout
+//     (coalesced), and the group's last block (a counter a group, which
+//     it resets to 0 for the next launch) adds them in split order and
+//     applies the scale, the bias and the cast once: no float atomics,
+//     two calls bitwise equal, one launch a call, and a
+//     captured CUDA graph replays it with no memset. The ragged head (N =
+//     92,553: 724 groups, no split) masks its last rows. M = 1 and f32 x
+//     keep w8a16_gemv (bf16 tensor cores would round f32 x): each warp
+//     gives R whole rows of q; a lane reads 16 bytes of each row per step
 //     (a warp: 512 contiguous bytes a row) with streaming loads, four
 //     16-byte loads in flight a lane, and blocks stay resident (persistent
 //     grid sized by the occupancy API). x lives in shared
@@ -39,9 +71,13 @@
 //     keeps its natural [N, K] layout, which the decode GEMV and the plain
 //     version read too. 144-row tiles make 128 tiles of wo and w2 at M =
 //     1152 (a wave of 132 SMs; 128-row tiles made 144, a second wave 9%
-//     full); split-K into 2 or 4 with 128-row tiles (f32 partials in a
-//     workspace, the last unit of a tile adding them) measured 7-40%
-//     slower for wqkv, wo and w1 and 5% faster for w2. The ragged
+//     full); split-K into 2 or 4 with 128-row tiles there measured 7-40%
+//     slower for wqkv, wo and w1 and 5% faster for w2. At the serving
+//     engine's segments (M = 128, 256: 16-64 tiles of wqkv, wo and w2)
+//     the tiles leave most SMs idle, so the kind splits K there
+//     (gemm_sm90.cuh sm90_int8_splits, the same fixed-order reduction in
+//     the tile's last unit, W8Epilogue once); M = 1152 and 9216 keep one
+//     split, bitwise the unsplit kernel. The ragged
 //     92,553-column head, other widths and f32 x keep the earlier kernels:
 //     bf16 x runs w8a16_gemm_mma (128 x 128 tiles, k-tile 32, mma.sync
 //     m16n8k16, the int8 tile staged by cp.async and converted to bf16 in
@@ -51,9 +87,12 @@
 //   * N is ragged (the head), masked by bounds checks; K must be a multiple
 //     of 16 (one 16-byte int8 vector), which the C entry and the wrapper
 //     check.
-// Which kernel a call launches is mirrored by ops/kernels/int8_matmul.py
-// w8a16_kernel, and each launch is counted (w8a16_launch_count).
-// Later work: split-K for the short-N decode shapes, a fused gate/up pair.
+// Which kernel a call launches and its splits are mirrored by
+// ops/kernels/int8_matmul.py w8a16_kernel and splits (w8a16_splits gives
+// this library's own plan), and each launch is counted
+// (w8a16_launch_count).
+// Later work: a fused gate/up pair (w1 and w3 read one x), the head's
+// prefill on the wgmma kind (its ragged last tile).
 #include <algorithm>
 
 #include "gemm_sm90.cuh"
@@ -62,8 +101,11 @@ namespace ullsam {
 namespace {
 
 // launches of each B12 kernel made through this library
-enum W8Kernel : int { kW8Gemv = 0, kW8Sm90 = 1, kW8Mma = 2, kW8F32 = 3 };
-long long w8_launch_counts[4] = {0, 0, 0, 0};
+enum W8Kernel : int {
+  kW8Gemv = 0, kW8Sm90 = 1, kW8Mma = 2, kW8F32 = 3, kW8DecodeTc = 4
+};
+constexpr int kW8Kernels = 5;
+long long w8_launch_counts[kW8Kernels] = {0, 0, 0, 0, 0};
 
 // int8 x4 (one word) -> 4 exact floats: b ^ 0x80 = b + 128 in [1, 255]
 // placed in the mantissa of 2^23, minus 2^23 + 128
@@ -218,6 +260,257 @@ __global__ void __launch_bounds__(kGemvThreads)
       }
     }
   }
+}
+
+// ---- decode, bf16 x, kTcMinM <= M <= 16: tensor cores, split K ---------
+// out^T = W . x^T on mma.sync m16n8k16: a warp's 16 weight rows are the A
+// operand, x's rows (padded to 8 NT) the n side. A lane streams 16 bytes of
+// each of its two rows (g, g + 8) from each 64-byte chunk (the quad of
+// lanes tq = 0..3 covers the chunk), kTcChunks chunks a step, two steps in
+// flight (16 16-byte loads a lane). The k order inside an mma is free as
+// long as x follows it: byte 4s + i of a lane's chunk is logical k 2tq + i
+// (i < 2) or 8 + 2tq + i - 2 of the step-s product, so the B fragment of
+// step s is the 4 consecutive bf16 of x at the same k (one 8-byte word of
+// shared memory), and A is the lane's own bytes converted exactly to bf16
+// in registers. A block of 8 warps takes 8 / W tiles of 16 weight rows and
+// x's K slice in shared memory; the W warps of a tile split its K and are
+// added in warp order through shared memory; S blocks split K only where
+// x's slice would not fit (kTcXBytes), adding their partials in the
+// group's last block.
+constexpr int kTcWarps = 8, kTcThreads = kTcWarps * 32;
+constexpr int kTcChunks = 4;            // 64-byte k-chunks a warp step
+constexpr int kTcXBytes = 128 * 1024;   // x's slice in shared memory at most
+constexpr int kTcMinM = 2;              // M = 1 keeps the GEMV
+constexpr int kTcXPad = 8;              // bf16 a staged x row is padded by
+constexpr int kTcSumSplits = 8;         // partials in flight a batch
+
+// the plan of the decode body (w = 0: it does not take the shape): W warps
+// a 16-row tile (rows a block 128 / W), doubled while the groups of rows
+// still fit twice in one wave of the card's SMs and a warp keeps whole
+// 64-byte chunks; S blocks on a K slice, doubled until x's slice (8 or 16
+// rows) fits kTcXBytes. Mirrored by ops/kernels/int8_matmul.py decode_plan.
+struct TcPlan {
+  int w, s;
+};
+inline TcPlan tc_plan(int M, int N, int K, int sms) {
+  if (M < kTcMinM || M > 16 || K % 64) return {0, 0};
+  const int mm = M <= 8 ? 8 : 16;
+  int w = 1;
+  while (w < kTcWarps && (N + 8 * kTcWarps / w - 1) / (8 * kTcWarps / w) <=
+                             sms && K % (2 * w * 64) == 0)
+    w *= 2;
+  int s = 1;
+  while ((long long)mm * (K / s) * 2 > kTcXBytes) {
+    if (K % (2 * s * w * 64)) return {0, 0};
+    s *= 2;
+  }
+  return {w, s};
+}
+
+// 16 weight bytes read once a call: not kept in L1, and the rest of their
+// 256-byte line fetched into L2 at once (a warp step reads 256 contiguous
+// bytes of each row, 64 of them a load)
+__device__ __forceinline__ uint4 ld_stream256(const int8_t* p) {
+  uint4 v;
+  asm volatile(
+      "ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
+// int8 x4 (one word) -> bf16 pairs: lo the first two bytes, hi the last two
+__device__ __forceinline__ void i8x4_to_bf16x2(uint32_t w, uint32_t& lo,
+                                               uint32_t& hi) {
+  float f[4];
+  i8x4_to_f32(w, f);
+  lo = pack_bf16_exact(f[0], f[1]);
+  hi = pack_bf16_exact(f[2], f[3]);
+}
+
+// y = sum * scale[n] (+ bias[n]), two f32 roundings as the plain version
+__device__ __forceinline__ float w8_epi(float v, const float* scale,
+                                        const float* bias, int n) {
+  const float y = __fmul_rn(v, scale[n]);
+  return bias ? __fadd_rn(y, bias[n]) : y;
+}
+
+template <int NT, typename OutT>
+__global__ void __launch_bounds__(kTcThreads, 2)
+    w8a16_decode_tc(const __nv_bfloat16* __restrict__ x,
+                    const int8_t* __restrict__ q,
+                    const float* __restrict__ scale,
+                    const float* __restrict__ bias, OutT* __restrict__ out,
+                    float* __restrict__ ws, int* __restrict__ counters,
+                    int M, int N, int K, int W, int S) {
+  extern __shared__ uint4 xs_vec[];
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(xs_vec);
+  __shared__ float4 red[kTcWarps][NT][32];  // the W warps of a tile
+  __shared__ int last_block;
+  const int tiles = kTcWarps / W;  // 16-row tiles a block
+  const int KB = K / S, KW = KB / W, ld = KB + kTcXPad, nch = KW / 64;
+  const int grp = blockIdx.x / S, sp = blockIdx.x - grp * S;
+  const int k0 = sp * KB;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rt = warp / W, wk = warp - rt * W;  // row tile, K part
+  const int g = lane >> 2, tq = lane & 3;
+  const int ra = (grp * tiles + rt) * 16 + g, rb = ra + 8;  // lane's rows
+  const bool va = ra < N, vb = rb < N;
+  const int kw0 = wk * KW;  // the warp's K part within the block's slice
+  const int8_t* qa = q + (size_t)(va ? ra : 0) * K + k0 + kw0 + 16 * tq;
+  const int8_t* qb = q + (size_t)(vb ? rb : 0) * K + k0 + kw0 + 16 * tq;
+  const int steps = (nch + kTcChunks - 1) / kTcChunks;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+
+  // step st's chunks of both rows
+  const auto load = [&](uint4 (&w)[kTcChunks][2], int st) {
+#pragma unroll
+    for (int j = 0; j < kTcChunks; ++j) {
+      const int c = st * kTcChunks + j;
+      w[j][0] = va && c < nch ? ld_stream256(qa + c * 64) : zero;
+      w[j][1] = vb && c < nch ? ld_stream256(qb + c * 64) : zero;
+    }
+  };
+  float acc[NT][4];
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+  const auto mma_step = [&](const uint4 (&w)[kTcChunks][2], int st) {
+#pragma unroll
+    for (int j = 0; j < kTcChunks; ++j) {
+      const int c = st * kTcChunks + j;
+      if (c >= nch) break;  // warp-uniform
+      const int kk = kw0 + c * 64 + 16 * tq;
+      uint4 xv[NT][2];
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        const uint4* xr =
+            reinterpret_cast<const uint4*>(xs + (8 * t + g) * ld + kk);
+        xv[t][0] = xr[0];
+        xv[t][1] = xr[1];
+      }
+      const uint32_t wa[4] = {w[j][0].x, w[j][0].y, w[j][0].z, w[j][0].w};
+      const uint32_t wb[4] = {w[j][1].x, w[j][1].y, w[j][1].z, w[j][1].w};
+#pragma unroll
+      for (int s4 = 0; s4 < 4; ++s4) {
+        uint32_t a[4];
+        i8x4_to_bf16x2(wa[s4], a[0], a[2]);
+        i8x4_to_bf16x2(wb[s4], a[1], a[3]);
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+          const uint4& h = xv[t][s4 >> 1];
+          const uint32_t b[2] = {s4 & 1 ? h.z : h.x, s4 & 1 ? h.w : h.y};
+          mma_bf16_16816(acc[t], a, b);
+        }
+      }
+    }
+  };
+
+  uint4 w0[kTcChunks][2], w1[kTcChunks][2];
+  load(w0, 0);  // two steps in flight while x's slice is staged
+  if (steps > 1) load(w1, 1);
+  {  // x[:, k0 : k0 + KB] -> xs [8 NT][ld] by cp.async, rows >= M zero
+    const int vpr = KB / 8;
+    for (int i = threadIdx.x; i < 8 * NT * vpr; i += kTcThreads) {
+      const int m = i / vpr, v = i - m * vpr;
+      cp_async16(smem_u32(xs + m * ld + v * 8),
+                 x + (size_t)(m < M ? m : 0) * K + k0 + v * 8, m < M);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+  for (int st = 0; st < steps; st += 2) {
+    mma_step(w0, st);
+    if (st + 2 < steps) load(w0, st + 2);
+    if (st + 1 >= steps) break;
+    mma_step(w1, st + 1);
+    if (st + 3 < steps) load(w1, st + 3);
+  }
+
+  // the W warps of a tile, added in warp order (its first warp keeps them)
+  if (W > 1) {
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+      red[warp][t][lane] =
+          make_float4(acc[t][0], acc[t][1], acc[t][2], acc[t][3]);
+    __syncthreads();
+    if (wk == 0)
+      for (int j = 1; j < W; ++j)
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+          const float4 r = red[warp + j][t][lane];
+          acc[t][0] = __fadd_rn(acc[t][0], r.x);
+          acc[t][1] = __fadd_rn(acc[t][1], r.y);
+          acc[t][2] = __fadd_rn(acc[t][2], r.z);
+          acc[t][3] = __fadd_rn(acc[t][3], r.w);
+        }
+  }
+  // acc[t][e] of a tile's first warp: out row m = 8t + 2tq + (e & 1),
+  // column n = ra (e < 2) or rb
+  const auto store = [&]() {
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = 8 * t + 2 * tq + (e & 1), n = e < 2 ? ra : rb;
+        if (m < M && n < N)
+          out[(size_t)m * N + n] = from_f<OutT>(w8_epi(acc[t][e], scale,
+                                                       bias, n));
+      }
+  };
+  if (S == 1) {
+    if (wk == 0) store();
+    return;
+  }
+  // split K across blocks: each tile's partial to the workspace in the
+  // accumulators' own layout (float4 t of lane l of tile rt of block b at
+  // ((b x tiles + rt) x NT + t) x 32 + l); the group's last block adds the
+  // S partials in split order and runs the epilogue once (no float atomics:
+  // two calls are bitwise equal), and resets the group's counter
+  float4* ws4 = reinterpret_cast<float4*>(ws);
+  const auto part = [&](int s, int t) {
+    return ws4 + ((size_t)((grp * S + s) * tiles + rt) * NT + t) * 32 + lane;
+  };
+  if (wk == 0)
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+      *part(sp, t) = make_float4(acc[t][0], acc[t][1], acc[t][2], acc[t][3]);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last_block = atomicAdd(&counters[grp], 1) == S - 1;
+    if (last_block) counters[grp] = 0;  // ready for the next launch
+  }
+  __syncthreads();
+  if (!last_block || wk != 0) return;
+  __threadfence();
+  for (int s0 = 0; s0 < S; s0 += kTcSumSplits) {
+    float4 p[kTcSumSplits][NT];
+#pragma unroll
+    for (int ss = 0; ss < kTcSumSplits; ++ss)
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+        p[ss][t] = s0 + ss < S ? __ldcg(part(s0 + ss, t))
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int ss = 0; ss < kTcSumSplits; ++ss)
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        if (s0 + ss >= S) continue;
+        if (s0 + ss == 0) {
+          acc[t][0] = p[ss][t].x, acc[t][1] = p[ss][t].y;
+          acc[t][2] = p[ss][t].z, acc[t][3] = p[ss][t].w;
+        } else {
+          acc[t][0] = __fadd_rn(acc[t][0], p[ss][t].x);
+          acc[t][1] = __fadd_rn(acc[t][1], p[ss][t].y);
+          acc[t][2] = __fadd_rn(acc[t][2], p[ss][t].z);
+          acc[t][3] = __fadd_rn(acc[t][3], p[ss][t].w);
+        }
+      }
+  }
+  store();
 }
 
 // ---- prefill, bf16: tensor-core GEMM with the int8 tile converted -------
@@ -545,6 +838,70 @@ int gemv(const T* x, const int8_t* q, const float* scale, const float* bias,
   return gemv_rows<T, 16>(x, q, scale, bias, out, out_f32, M, N, K, st);
 }
 
+template <int NT, typename OutT>
+int launch_decode_tc(const __nv_bfloat16* x, const int8_t* q,
+                     const float* scale, const float* bias, OutT* out,
+                     float* ws, int* counters, int M, int N, int K,
+                     TcPlan plan, cudaStream_t st) {
+  auto kernel = w8a16_decode_tc<NT, OutT>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kTcXBytes + 8 * NT * kTcXPad * 2);
+  if (attr != cudaSuccess) return (int)attr;
+  const int rows = 16 * kTcWarps / plan.w;
+  const int groups = (N + rows - 1) / rows;
+  const int smem = 8 * NT * (K / plan.s + kTcXPad) * 2;
+  kernel<<<groups * plan.s, kTcThreads, smem, st>>>(
+      x, q, scale, bias, out, ws, counters, M, N, K, plan.w, plan.s);
+  return (int)cudaGetLastError();
+}
+
+template <typename OutT>
+int decode_tc(const __nv_bfloat16* x, const int8_t* q, const float* scale,
+              const float* bias, OutT* out, float* ws, int* counters, int M,
+              int N, int K, TcPlan plan, cudaStream_t st) {
+  return M <= 8 ? launch_decode_tc<1>(x, q, scale, bias, out, ws, counters,
+                                      M, N, K, plan, st)
+                : launch_decode_tc<2>(x, q, scale, bias, out, ws, counters,
+                                      M, N, K, plan, st);
+}
+
+// the kernel a call launches (w8a16_kernel in ops/kernels/int8_matmul.py),
+// its K splits across blocks or units (1: none) and, for the decode body,
+// the warps a 16-row tile
+struct W8Plan {
+  int kernel, splits, warps;
+};
+W8Plan w8_plan(int dtype, int M, int N, int K) {
+  if (dtype == kF32) return {M <= 16 ? kW8Gemv : kW8F32, 1, 0};
+  if (M <= 16) {
+    const TcPlan tc = tc_plan(M, N, K, num_sms());
+    return tc.w ? W8Plan{kW8DecodeTc, tc.s, tc.w} : W8Plan{kW8Gemv, 1, 0};
+  }
+  if (!sm90_takes(M, N, K)) return {kW8Mma, 1, 0};
+  return {kW8Sm90, sm90_int8_splits(M, N, K, num_sms()), 0};
+}
+
+// the split-K workspace (f32 partials) and tile counters a call needs: the
+// decode body's tiles' accumulators (8 NT floats a lane) of every block,
+// the wgmma GEMM's units' kSm90PartFloats; a counter a row group or tile
+long long w8_ws_floats(const W8Plan& p, int M, int N) {
+  if (p.splits == 1) return 0;
+  if (p.kernel == kW8DecodeTc) {
+    const int rows = 16 * kTcWarps / p.warps, nt = M <= 8 ? 1 : 2;
+    return (long long)(N + rows - 1) / rows * p.splits * (kTcWarps / p.warps) *
+           nt * 32 * 4;
+  }
+  return (long long)(M + 143) / 144 * (N / kSm90BN) * p.splits *
+         kSm90PartFloats;
+}
+int w8_counters(const W8Plan& p, int M, int N) {
+  if (p.splits == 1) return 0;
+  return p.kernel == kW8DecodeTc
+             ? (N + 16 * kTcWarps / p.warps - 1) / (16 * kTcWarps / p.warps)
+             : (M + 143) / 144 * (N / kSm90BN);
+}
+
 }  // namespace
 }  // namespace ullsam
 
@@ -552,47 +909,62 @@ using namespace ullsam;
 
 // x [M, K] (dtype kF32 / kBF16), q [N, K] int8, scale [N] f32, bias [N] f32
 // or null -> out [M, N], f32 when out_f32 else x's type. All contiguous and
-// 16-byte aligned; K % 16 == 0. Returns a cudaError_t code (0 = launched).
+// 16-byte aligned; K % 16 == 0. ws: ws_floats f32 of split-K workspace,
+// counters: n_counters ints, zero (the kernels leave them zero), at least
+// what w8a16_splits' plan needs (null and 0 when it splits nothing).
+// Returns a cudaError_t code (0 = launched).
 extern "C" int w8a16_matmul(int dtype, const void* x, const void* q,
                             const void* scale, const void* bias, void* out,
-                            int out_f32, int M, int N, int K,
-                            cudaStream_t st) {
-  if (M < 1 || N < 1 || K < 16 || K % 16) return (int)cudaErrorInvalidValue;
+                            int out_f32, int M, int N, int K, void* ws,
+                            long long ws_floats, void* counters,
+                            int n_counters, cudaStream_t st) {
+  if (M < 1 || N < 1 || K < 16 || K % 16 || (dtype != kF32 && dtype != kBF16))
+    return (int)cudaErrorInvalidValue;
+  const W8Plan plan = w8_plan(dtype, M, N, K);
+  const int kernel = plan.kernel, splits = plan.splits;
+  if (ws_floats < w8_ws_floats(plan, M, N) ||
+      n_counters < w8_counters(plan, M, N))
+    return (int)cudaErrorInvalidValue;
   const int8_t* qw = static_cast<const int8_t*>(q);
   const float* s = static_cast<const float*>(scale);
   const float* b = static_cast<const float*>(bias);
-  int kernel, err;
+  float* wsf = static_cast<float*>(ws);
+  int* cnt = static_cast<int*>(counters);
+  int err;
   if (dtype == kF32) {
     const float* xf = static_cast<const float*>(x);
-    if (M <= 16) {
-      kernel = kW8Gemv;
+    if (kernel == kW8Gemv) {
       err = gemv<float>(xf, qw, s, b, out, 1, M, N, K, st);
     } else {
-      kernel = kW8F32;
       dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM);
       w8a16_gemm_f32<<<grid, 256, 0, st>>>(
           xf, qw, s, b, static_cast<float*>(out), M, N, K);
       err = (int)cudaGetLastError();
     }
-  } else if (dtype == kBF16) {
+  } else {
     const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-    if (M <= 16) {
-      kernel = kW8Gemv;
+    if (kernel == kW8Gemv) {
       err = gemv<__nv_bfloat16>(xb, qw, s, b, out, out_f32, M, N, K, st);
-    } else if (sm90_takes(M, N, K)) {
-      kernel = kW8Sm90;
+    } else if (kernel == kW8DecodeTc) {
+      const TcPlan tc{plan.warps, splits};
+      err = out_f32 ? decode_tc(xb, qw, s, b, static_cast<float*>(out), wsf,
+                                cnt, M, N, K, tc, st)
+                    : decode_tc(xb, qw, s, b,
+                                static_cast<__nv_bfloat16*>(out), wsf, cnt,
+                                M, N, K, tc, st);
+    } else if (kernel == kW8Sm90) {
+      const Sm90Split split{splits, wsf, cnt};
       err = out_f32
                 ? gemm_sm90_run<kSm90Int8>(
                       xb, qw, W8Epilogue<float>{s, b, static_cast<float*>(out),
                                                 N},
-                      M, N, K, st)
+                      M, N, K, st, split)
                 : gemm_sm90_run<kSm90Int8>(
                       xb, qw,
                       W8Epilogue<__nv_bfloat16>{
                           s, b, static_cast<__nv_bfloat16*>(out), N},
-                      M, N, K, st);
+                      M, N, K, st, split);
     } else {
-      kernel = kW8Mma;
       dim3 grid((N + kMmaBN - 1) / kMmaBN, (M + kMmaBM - 1) / kMmaBM);
       if (out_f32)
         w8a16_gemm_mma<float><<<grid, 256, 0, st>>>(
@@ -602,15 +974,38 @@ extern "C" int w8a16_matmul(int dtype, const void* x, const void* q,
             xb, qw, s, b, static_cast<__nv_bfloat16*>(out), M, N, K);
       err = (int)cudaGetLastError();
     }
-  } else {
-    return (int)cudaErrorInvalidValue;
   }
   if (!err) ++w8_launch_counts[kernel];
   return err;
 }
 
+// The plan of a call on this card: the kernel (W8Kernel) in the low byte,
+// its splits in the next, the decode body's warps a tile above them
+// (warps << 16 | splits << 8 | kernel); -1 for a shape the entry refuses.
+// Mirrored by ops/kernels/int8_matmul.py w8a16_kernel, splits and
+// decode_plan.
+extern "C" int w8a16_splits(int dtype, int M, int N, int K) {
+  if (M < 1 || N < 1 || K < 16 || K % 16 || (dtype != kF32 && dtype != kBF16))
+    return -1;
+  const W8Plan p = w8_plan(dtype, M, N, K);
+  return p.warps << 16 | p.splits << 8 | p.kernel;
+}
+
+// The split-K workspace (f32) and tile counters a call of this shape needs
+// on this card (0 for a call that splits nothing across blocks; -1 for a
+// shape the entry refuses): what ops/kernels/int8_matmul.py workspace
+// mirrors and allocates.
+extern "C" long long w8a16_workspace(int dtype, int M, int N, int K,
+                                     int counters) {
+  if (M < 1 || N < 1 || K < 16 || K % 16 || (dtype != kF32 && dtype != kBF16))
+    return -1;
+  const W8Plan p = w8_plan(dtype, M, N, K);
+  return counters ? w8_counters(p, M, N) : w8_ws_floats(p, M, N);
+}
+
 // launches of B12 kernel `kernel` made by this library so far: 0 the
-// decode GEMV, 1 the wgmma GEMM, 2 the mma.sync GEMM, 3 the f32 GEMM
+// decode GEMV, 1 the wgmma GEMM, 2 the mma.sync GEMM, 3 the f32 GEMM, 4 the
+// decode body on the tensor cores
 extern "C" long long w8a16_launch_count(int kernel) {
-  return kernel >= 0 && kernel < 4 ? w8_launch_counts[kernel] : -1;
+  return kernel >= 0 && kernel < kW8Kernels ? w8_launch_counts[kernel] : -1;
 }

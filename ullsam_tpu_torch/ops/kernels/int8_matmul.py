@@ -16,12 +16,20 @@ On a CUDA tensor it launches ``csrc/w8a16_matmul.cu`` (see the note there:
 decode memory-bound, prefill operation-bound; N ragged, K a multiple of 16)
 or raises; on a CPU tensor it runs ``w8a16_matmul_plain``. There is no
 fallback from the kernel: the card never dequantizes into a float matmul.
-Which of its four kernels a call launches is ``w8a16_kernel``: the decode
-GEMV at M <= 16; at prefill in bf16 the wgmma + TMA GEMM of
-``csrc/gemm_sm90.cuh`` with an int8 W operand where N % 128 == 0 and K % 64
-== 0 (every layer linear of InternLM2-1.8B), else the mma.sync GEMM (the
-ragged vocab head); f32 x at prefill the FMA GEMM. Each counts its launches
-in C (``kernel_launches``).
+Which of its five kernels a call launches is ``w8a16_kernel``: at 2 <= M <=
+16 with bf16 x the decode body on the tensor cores (split over K where
+``decode_plan`` says), at M = 1 or f32 x the CUDA-core GEMV; at prefill in
+bf16 the wgmma + TMA GEMM of ``csrc/gemm_sm90.cuh`` with an int8 W operand
+where N % 128 == 0 and K % 64 == 0 (every layer linear of InternLM2-1.8B;
+split over K where ``sm90_splits`` says: the serving engine's 128- and
+256-row segments), else the mma.sync GEMM (the ragged vocab head); f32 x at
+prefill the FMA GEMM. Each counts its launches in C (``kernel_launches``).
+A split call takes an f32 workspace of its partials (``torch.empty``) and
+the device's tile counters, which the kernels leave at zero: a captured
+CUDA graph replays it with no memset. Calls on one device share those
+counters, so they run in stream order (the port issues B12 from one stream
+at a time); the first split call on a device allocates them and must not
+be inside a graph capture.
 ``check_weights`` holds the weight operands to what the kernel takes; the
 decode path's ``QuantLinear`` runs it once on its CUDA buffers and then
 calls ``w8a16_matmul_checked``, which checks only x on each call.
@@ -44,10 +52,23 @@ Tensor = torch.Tensor
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the B12 kernels in csrc/w8a16_matmul.cu's order (W8Kernel)
-KERNELS = ("w8a16_gemv", "w8a16_sm90", "w8a16_mma", "w8a16_f32")
+KERNELS = ("w8a16_gemv", "w8a16_sm90", "w8a16_mma", "w8a16_f32",
+           "w8a16_decode_tc")
 kernel_launches = {name: GemmLaunches(i, ("w8a16_matmul",),
                                       "w8a16_launch_count")
                    for i, name in enumerate(KERNELS)}
+# an H100 SXM's SMs: the split rules' default; a call reads its card's
+H100_SMS = 132
+# the decode body on the tensor cores (w8a16_matmul.cu kTc*): warps a block
+# (each on 16 weight rows), x's slice in shared memory at most, the least M
+# it takes (M = 1 keeps the GEMV), the bf16 a staged x row is padded by
+TC_WARPS, TC_X_BYTES, TC_MIN_M, TC_X_PAD = 8, 131072, 2, 8
+# the int8 wgmma kind's split-K (gemm_sm90.cuh): k-blocks a unit keeps, and
+# a unit's f32 partial (its 256 consumer threads' 72 accumulators)
+SM90_MIN_SPLIT_KB, SM90_PART_FLOATS = 4, 256 * 72
+# the int8 kernel (gemm_sm90.cuh Sm90Layout<true>): x rows a tile, stages,
+# floats a staging row
+W8_BM, W8_STAGES, W8_STG_LD = 144, 6, 12
 
 
 def w8a16_matmul_plain(x: Tensor, qweight: Tensor, qscale: Tensor,
@@ -62,20 +83,101 @@ def w8a16_matmul_plain(x: Tensor, qweight: Tensor, qscale: Tensor,
     return y.to(out_dtype)
 
 
+def decode_plan(M: int, N: int, K: int, sms: int = H100_SMS) -> tuple:
+    """``w8a16_matmul.cu`` ``tc_plan``: (W, S) of the decode body on the
+    tensor cores for bf16 x [M, K] and qweight [N, K], (0, 0) where it does
+    not take the shape (M = 1, M > 16, K % 64). W warps of a block split a
+    16-row tile's K (a block takes 128 / W rows), doubled while the blocks
+    still fit in one wave of ``sms`` and a warp keeps whole 64-byte chunks;
+    S blocks split K, doubled until x's slice (M padded to 8 or 16 rows)
+    fits ``TC_X_BYTES``."""
+    if M < TC_MIN_M or M > 16 or K % 64:
+        return 0, 0
+    mm = 8 if M <= 8 else 16
+    w = 1
+    while (w < TC_WARPS and -(-N // (8 * TC_WARPS // w)) <= sms
+           and K % (2 * w * 64) == 0):
+        w *= 2
+    s = 1
+    while mm * (K // s) * 2 > TC_X_BYTES:
+        if K % (2 * s * w * 64):
+            return 0, 0
+        s *= 2
+    return w, s
+
+
+def decode_groups(M: int, N: int, K: int, sms: int = H100_SMS) -> int:
+    """Blocks of weight rows (128 / W each) of the decode body."""
+    w, _ = decode_plan(M, N, K, sms)
+    return -(-N // (16 * TC_WARPS // w))
+
+
+def sm90_splits(M: int, N: int, K: int, sms: int = H100_SMS) -> int:
+    """``gemm_sm90.cuh`` ``sm90_int8_splits``: the K splits of the int8
+    wgmma kind (144-row x tiles, 128 weight rows, 64-deep k-blocks),
+    doubled while tiles x splits still fit in one wave of ``sms`` and each
+    unit keeps ``SM90_MIN_SPLIT_KB`` k-blocks: 1 wherever the tiles fill
+    the card (M = 1152 and 9216)."""
+    tiles, kt = -(-M // W8_BM) * (N // SM90_BN), K // SM90_BK
+    s = 1
+    while (tiles * s * 2 <= sms and kt % (2 * s) == 0
+           and kt // (2 * s) >= SM90_MIN_SPLIT_KB):
+        s *= 2
+    return s
+
+
 def w8a16_kernel(M: int, N: int, K: int,
-                 dtype: torch.dtype = torch.bfloat16) -> str:
+                 dtype: torch.dtype = torch.bfloat16,
+                 sms: int = H100_SMS) -> str:
     """Which kernel ``csrc/w8a16_matmul.cu`` launches for x [M, K] of
-    ``dtype`` and qweight [N, K] (operands 16-byte aligned)."""
+    ``dtype`` and qweight [N, K] (operands 16-byte aligned) on a card of
+    ``sms`` SMs."""
     if M <= 16:
-        return "w8a16_gemv"
+        return ("w8a16_decode_tc" if dtype == torch.bfloat16
+                and decode_plan(M, N, K, sms)[0] else "w8a16_gemv")
     if dtype == torch.float32:
         return "w8a16_f32"
     return "w8a16_sm90" if sm90_takes(M, N, K) else "w8a16_mma"
 
 
-# the int8 kernel (gemm_sm90.cuh Sm90Layout<true>): x rows a tile, stages,
-# floats a staging row
-W8_BM, W8_STAGES, W8_STG_LD = 144, 6, 12
+def plan(M: int, N: int, K: int, dtype: torch.dtype = torch.bfloat16,
+         sms: int = H100_SMS) -> tuple:
+    """(kernel name, splits, the decode body's warps a tile or 0): the
+    mirror of the library's own plan (``c_plan``)."""
+    name = w8a16_kernel(M, N, K, dtype, sms)
+    if name == "w8a16_decode_tc":
+        w, s = decode_plan(M, N, K, sms)
+        return name, s, w
+    return name, sm90_splits(M, N, K, sms) if name == "w8a16_sm90" else 1, 0
+
+
+def workspace(M: int, N: int, K: int, dtype: torch.dtype = torch.bfloat16,
+              sms: int = H100_SMS) -> tuple:
+    """(f32 partials, tile counters) a call needs: the decode body's
+    16-row tiles' accumulators (8 or 16 floats a lane) of every block, a
+    counter a block row group; the wgmma GEMM's units'
+    ``SM90_PART_FLOATS``, a counter a tile; (0, 0) for a call that splits
+    nothing."""
+    name, s, w = plan(M, N, K, dtype, sms)
+    if s == 1:
+        return 0, 0
+    if name == "w8a16_decode_tc":
+        groups = decode_groups(M, N, K, sms)
+        nt = 1 if M <= 8 else 2
+        return groups * s * (TC_WARPS // w) * nt * 32 * 4, groups
+    tiles = -(-M // W8_BM) * (N // SM90_BN)
+    return tiles * s * SM90_PART_FLOATS, tiles
+
+
+def decode_smem_bytes(M: int, N: int, K: int, sms: int = H100_SMS) -> int:
+    """The decode body's shared memory at this shape: x's K slice of 8 or
+    16 rows in bf16, each padded by ``TC_X_PAD``; the warps' accumulators
+    for the in-block sum (a float4 a lane and 8 rows of x); the flag of a
+    group's last block."""
+    nt = 1 if M <= 8 else 2
+    _, s = decode_plan(M, N, K, sms)
+    return (8 * nt * (K // s + TC_X_PAD) * 2 + TC_WARPS * nt * 32 * 16
+            + 4)
 
 
 def sm90_smem_bytes() -> int:
@@ -124,7 +226,56 @@ def check_weights(qweight: Tensor, qscale: Tensor,
 def _kernel():
     p, i = ctypes.c_void_p, ctypes.c_int
     return build.function("w8a16_matmul", "w8a16_matmul",
-                          [i] + [p] * 5 + [i] * 4 + [p])
+                          [i] + [p] * 5 + [i] * 4
+                          + [p, ctypes.c_longlong, p, i, p])
+
+
+def c_plan(M: int, N: int, K: int,
+           dtype: torch.dtype = torch.bfloat16) -> tuple:
+    """(kernel name, splits, the decode body's warps a tile or 0) that the
+    built library plans on the current card (``w8a16_splits``): what
+    ``plan`` mirrors. Builds the library; needs a card."""
+    v = build.function("w8a16_matmul", "w8a16_splits",
+                       [ctypes.c_int] * 4)(_DTYPE_CODE[dtype], M, N, K)
+    if v < 0:
+        raise ValueError(f"w8a16_matmul refuses M={M} N={N} K={K}")
+    return KERNELS[v & 255], (v >> 8) & 255, v >> 16
+
+
+def c_workspace(M: int, N: int, K: int,
+                dtype: torch.dtype = torch.bfloat16) -> tuple:
+    """(f32 partials, tile counters) that the built library asks for on the
+    current card (``w8a16_workspace``): what ``workspace`` mirrors. Builds
+    the library; needs a card."""
+    f = build.function("w8a16_matmul", "w8a16_workspace",
+                       [ctypes.c_int] * 5, ctypes.c_longlong)
+    return tuple(f(_DTYPE_CODE[dtype], M, N, K, c) for c in (0, 1))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# each device's split-K tile counters (int32, zero between launches); a
+# buffer outgrown is kept, since a captured graph may still use it
+_COUNTERS: dict = {}
+_OUTGROWN: list = []
+
+
+def _counters(device: torch.device, n: int) -> Tensor:
+    buf = _COUNTERS.get(device.index)
+    if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "w8a16_matmul: the first split-K call on a device (which "
+                "allocates its tile counters) ran inside a CUDA graph "
+                "capture; call it once before capturing")
+        if buf is not None:
+            _OUTGROWN.append(buf)
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _COUNTERS[device.index] = buf
+    return buf
 
 
 def w8a16_matmul(x: Tensor, qweight: Tensor, qscale: Tensor,
@@ -168,9 +319,16 @@ def w8a16_matmul_checked(x: Tensor, qweight: Tensor, qscale: Tensor,
                          f"{qweight.shape[1]}]")
     M, N, K = x.shape[0], qweight.shape[0], x.shape[1]
     out = torch.empty((M, N), device=x.device, dtype=out_dtype)
+    n_ws, n_cnt = workspace(M, N, K, x.dtype, _sms(x.device.index))
+    ws = (torch.empty(n_ws, device=x.device, dtype=torch.float32)
+          if n_ws else None)
+    cnt = _counters(x.device, n_cnt) if n_cnt else None
     args = (_DTYPE_CODE[x.dtype], x.data_ptr(), qweight.data_ptr(),
             qscale.data_ptr(), 0 if bias is None else bias.data_ptr(),
-            out.data_ptr(), int(out_dtype == torch.float32), M, N, K)
+            out.data_ptr(), int(out_dtype == torch.float32), M, N, K,
+            0 if ws is None else ws.data_ptr(), n_ws,
+            0 if cnt is None else cnt.data_ptr(),
+            0 if cnt is None else cnt.numel())
     if x.device.index == torch.cuda.current_device():
         err = _kernel()(*args, torch.cuda.current_stream().cuda_stream)
     else:

@@ -21,9 +21,16 @@ B9 at both widths' global blocks, B2, B14 and B9 in float32 too (a version
 that refuses a case, as B9 before head dim 80, is left out of it; one
 without the float32 scratch argument is called without it; B2 and B14's
 outputs are o and lse), B8 in float32 at both
-widths' windows, B12 at each layer linear of InternLM2-1.8B at M = 1152
-and 9216, bf16 out as the caption's prefill calls it), then timed by CUDA
-events (20 launches after 3) in the order given and again in reverse (a,
+widths' windows, B12 at every shape of ``main_path.w8a16_cases`` but the
+head's prefill (decode at 1-16 rows, the serving engine's 128- and
+256-row segments, the caption prompt's 1152 and 9216, the tp 2 ranks'
+linears), bf16 out as the LLM's linears call it, and with f32 x at 1, 8
+and 256 rows; a version whose B12 entry takes a split-K workspace
+(``w8a16_workspace``) gets it as its own plan asks, an earlier one is
+called as it was), then timed by CUDA events (20 launches after 3; B12 at
+decode and the segments from a CUDA graph of its launches, decode with
+the weight cold in L2 and ``F.linear`` on copies of the dequantized
+weight beside it) in the order given and again in reverse (a,
 b, ..., b, a), beside the library yardsticks (TF32 off): SDPA with the
 bias materialized for B2, B3, B14, B15 (for B9 its backward alone on a
 retained graph), the chain of four library calls for B13, F.linear on the
@@ -69,7 +76,7 @@ _ENTRIES = {
     "b14": ("vit_flash_attn", "vit_flash_attn_packed_forward",
             [_I] + [_P] * 6 + [_I] * 6 + [_F, _P]),
     "b12": ("w8a16_matmul", "w8a16_matmul", [_I] + [_P] * 5 + [_I] * 4
-            + [_P]),
+            + [_P]),   # with split-K: _b12_entry's signature
     "b3": ("window_attn", "window_attn_core_forward",
            [_I] + [_P] * 4 + [_I] * 7 + [_P]),
     "b15": ("window_attn_twophase", "window_attn_twophase_forward",
@@ -138,7 +145,33 @@ def build_version(name: str, csrc: str, sources=_SOURCES) -> dict:
             cut = 8 if key == "b2" else 6
             fn.argtypes = argtypes[:cut] + argtypes[cut + 1:]
             fns[key] = lambda *a, f=fn, c=cut: f(*a[:c], *a[c + 1:])
+        if key == "b12" and hasattr(libs[src], "w8a16_workspace"):
+            fns[key] = _b12_entry(fn, libs[src])
     return fns
+
+
+def _b12_entry(fn, lib):
+    """B12's entry of a version with split-K (it plans splits and takes a
+    workspace and tile counters) as the earlier signature: each shape's f32
+    partials and zeroed counters allocated once, as the version's own
+    ``w8a16_workspace`` asks."""
+    fn.argtypes = ([_I] + [_P] * 5 + [_I] * 4
+                   + [_P, ctypes.c_longlong, _P, _I, _P])
+    size = lib.w8a16_workspace
+    size.argtypes, size.restype = [_I] * 5, ctypes.c_longlong
+    bufs = {}
+
+    def call(dtype, x, q, s, bias, out, out_f32, M, N, K, stream):
+        key = (dtype, M, N, K)
+        if key not in bufs:
+            n_ws = max(size(dtype, M, N, K, 0), 0)
+            bufs[key] = (torch.empty(max(n_ws, 1), device="cuda"), n_ws,
+                         torch.zeros(1 << 16, dtype=torch.int32,
+                                     device="cuda"))
+        ws, n_ws, cnt = bufs[key]
+        return fn(dtype, x, q, s, bias, out, out_f32, M, N, K,
+                  ws.data_ptr(), n_ws, cnt.data_ptr(), cnt.numel(), stream)
+    return call
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -396,20 +429,11 @@ def cases(gen):
                         stream),
                     outs, WA.window_attn_core_bwd_plain(qkv, rh, rw, do),
                     fl["bwd"], None))
-    for M in MP.W8A16_PREFILL_M:
+    for M in MP.W8A16_PREFILL_M[2:]:
         for N, K in MP.W8A16_LINEARS[:4]:
             (x, q8, sc), _, fl, _ = MP.w8a16_case(torch.bfloat16, gen, M, N,
                                                  K)
-            y = torch.empty((M, N), device="cuda", dtype=torch.bfloat16)
             w_lib = (q8.to(torch.bfloat16) * sc[:, None]).to(torch.bfloat16)
-
-            def call(f, x=x, q8=q8, sc=sc, y=y, M=M, N=N, K=K):
-                return f(1, x.data_ptr(), q8.data_ptr(), sc.data_ptr(), None,
-                         y.data_ptr(), 0, M, N, K, stream)
-            out.append((f"B12 M{M} N{N} K{K}", "b12", call, y,
-                        Q.w8a16_matmul_plain(x, q8, sc, None, torch.bfloat16),
-                        2 * M * N * K,
-                        lambda x=x, w=w_lib: F.linear(x, w)))
             # the bf16 wgmma GEMM of B1 / B13 on the dequantized weight:
             # B12's kernel without the int8 operand
             go = torch.empty((M, N), device="cuda", dtype=torch.bfloat16)
@@ -448,7 +472,80 @@ def cases(gen):
                     go, G.gemm_plain(
                         a, wt, b, res, "gelu_tanh" if act else "none"),
                     2 * T * N * K, lambda a=a, wt=wt, b=b: F.linear(a, wt, b)))
-    return [c + (None,) * (8 - len(c)) for c in out] + f32_cases(gen, stream)
+    return ([c + (None,) * (9 - len(c)) for c in out] + b12_cases(gen)
+            + [c + (None,) * (9 - len(c)) for c in f32_cases(gen, stream)])
+
+
+def _copies(t, min_bytes: int = 128 << 20) -> list:
+    """``t`` and clones of it, together at least ``min_bytes``: a launch
+    that cycles through them finds its weight outside the 50 MB L2, as each
+    decode step does."""
+    n = max(1, -(-min_bytes // (t.numel() * t.element_size())))
+    return [t] + [t.clone() for _ in range(n - 1)]
+
+
+def graph_ms(call, weights: list, reps: int = 3) -> float:
+    """Device time of one ``call(w)``, w cycling through ``weights``: the
+    launches captured in a CUDA graph and replayed (a decode-size launch
+    takes the host longer to issue than the card to run)."""
+    n = max(20, 2 * len(weights))
+    for w in weights[:2]:
+        call(w)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            call(weights[i % len(weights)])
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * n)
+
+
+def b12_cases(gen):
+    """B12 in bf16 (bf16 out, as the LLM's linears call it) at every shape
+    of ``main_path.w8a16_cases`` but the head's prefill: decode (M <= 16)
+    and the serving engine's segments (128, 256) timed from a CUDA graph,
+    decode with the weight cold in L2 (cycling through copies) and F.linear
+    on copies of the dequantized weight beside it; the caption prompt's
+    prefill (1152, 9216) by CUDA events as before. Then f32 x (the GEMV at
+    1 and 8 rows, the FMA GEMM at 256) on the layer linears."""
+    out = []
+    cases = [(torch.bfloat16, M, N, K) for M, N, K in MP.w8a16_cases()
+             if M <= 256 or N % 128 == 0]
+    cases += [(torch.float32, M, N, K) for M in (1, 8, 256)
+              for N, K in MP.W8A16_LINEARS[:4]]
+    for dtype, M, N, K in cases:
+        (x, q8, sc), _, fl, _ = MP.w8a16_case(dtype, gen, M, N, K)
+        y = torch.empty((M, N), device="cuda", dtype=dtype)
+        w_lib = (q8.to(dtype) * sc[:, None]).to(dtype)
+        code = 1 if dtype == torch.bfloat16 else 0
+
+        def call(f, w=q8, x=x, sc=sc, y=y, M=M, N=N, K=K, code=code):
+            return f(code, x.data_ptr(), w.data_ptr(), sc.data_ptr(), None,
+                     y.data_ptr(), 0, M, N, K,
+                     torch.cuda.current_stream().cuda_stream)
+        timer = None
+        if M <= 256:
+            cold = M <= 16
+
+            def timer(f, call=call, q8=q8, w_lib=w_lib, x=x, cold=cold):
+                ws = _copies(q8) if cold else [q8]
+                wl = _copies(w_lib) if cold else [w_lib]
+                if f is None:
+                    return graph_ms(lambda w: F.linear(x, w), wl)
+                return graph_ms(lambda w: call(f, w), ws)
+        tag = "" if dtype == torch.bfloat16 else " f32"
+        out.append((f"B12{tag} M{M} N{N} K{K}", "b12", call, y,
+                    Q.w8a16_matmul_plain(x, q8, sc, None, dtype),
+                    2 * M * N * K, lambda x=x, w=w_lib: F.linear(x, w),
+                    None, timer))
+    return out
 
 
 def main() -> None:
@@ -472,7 +569,7 @@ def main() -> None:
     order += order[::-1]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    for label, key, call, out, ref, flops, lib, ref64 in cases(gen):
+    for label, key, call, out, ref, flops, lib, ref64, timer in cases(gen):
         if only and not label.startswith(only):
             continue
         have = [n for n in fns if key in fns[n]]
@@ -505,8 +602,10 @@ def main() -> None:
         times = {}
         for name in [n for n in order if n in have]:
             times.setdefault(name, []).append(
-                cuda_ms(lambda f=fns[name][key]: call(f)))
-        lib_ms = None if lib is None else cuda_ms(lib)
+                cuda_ms(lambda f=fns[name][key]: call(f)) if timer is None
+                else timer(fns[name][key]))
+        lib_ms = (None if lib is None else
+                  cuda_ms(lib) if timer is None else timer(None))
         print(f"[time] {label}: " + "; ".join(
             f"{n} {', '.join(f'{t:.4f}' for t in ts)} ms "
             f"({flops / min(ts) / 1e9:.1f} TFLOP/s)"

@@ -581,15 +581,23 @@ def llm_flash_case(dtype: torch.dtype, gen: torch.Generator, B: int = 1,
 # ---------------------------------------------------------------------------
 
 # InternLM2-1.8B's linears as (N, K) = (out, in): wqkv, wo, w1 and w3, w2,
-# the vocab head; each runs B12 once a decode step at batch M
+# the vocab head; each runs B12 once a decode step at batch M: 1 and 8 (a
+# caption at batch 1 and 8, the serving engine's 8 slots), 4 (a 4-beam
+# step, the tp 2 engine's 4 slots) and 16
 W8A16_LINEARS = ((4096, 2048), (2048, 2048), (8192, 2048), (2048, 8192),
                  (92553, 2048))
-W8A16_DECODE_M = (1, 8)
-# ... and once a prefill, at M = 256 tokens (a prompt segment of the
-# serving engine, ``prefill_chunk``), 1152 (the caption prompt) and 8 x 1152
-# (the batch-8 request); there the head's last 128-column tile is ragged
-# (92553 % 128 = 9)
-W8A16_PREFILL_M = (256, 1152, 9216)
+W8A16_DECODE_M = (1, 4, 8, 16)
+# ... and once a prefill, at M = 128 and 256 tokens (the serving engine's
+# prompt segments, ``prefill_chunk``), 1152 (the caption prompt) and 8 x
+# 1152 (the batch-8 request); there the head's last 128-column tile is
+# ragged (92553 % 128 = 9)
+W8A16_PREFILL_M = (128, 256, 1152, 9216)
+# the layer linears on one rank of the tp 2 engine (Megatron: wqkv and w1 /
+# w3 split by rows, wo and w2 by columns; the head stays whole): the two
+# shapes that no tp 1 linear has, its decode at 4 rows and its prompt
+# segments of 256
+W8A16_TP2_LINEARS = ((2048, 1024), (2048, 4096))
+W8A16_TP2_M = (4, 256)
 # the caption request: 1024 <IMG_CONTEXT> + 64 text tokens, and a batch of 8
 # with distinct text lengths; both left-pad to S = 1152
 CAPTION_TEXT = 64
@@ -598,9 +606,10 @@ CAPTION_BATCH_TEXT = (64, 57, 50, 43, 36, 29, 22, 15)
 
 def w8a16_cases():
     """(M, N, K) of every B12 case: each linear at the decode batches, then
-    at the prefill sizes."""
+    at the prefill sizes, then the tp 2 ranks' own shapes."""
     return [(M, N, K) for M in W8A16_DECODE_M + W8A16_PREFILL_M
-            for N, K in W8A16_LINEARS]
+            for N, K in W8A16_LINEARS] + [
+        (M, N, K) for M in W8A16_TP2_M for N, K in W8A16_TP2_LINEARS]
 
 
 def w8a16_case(dtype: torch.dtype, gen: torch.Generator, M: int, N: int,
