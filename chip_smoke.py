@@ -1822,16 +1822,21 @@ B12_TP2_LINEARS = ((2048, 2048, 24), (2048, 1024, 24), (4096, 2048, 48),
                    (2048, 4096, 24), (92553, 2048, 1))
 
 
-def b12_pass(M: int, linears=B12_LINEARS, times: int = 1) -> dict:
-    """{B12 kernel: launches} of ``times`` bf16 passes at M rows over
-    ``linears`` on this card (``int8_matmul.w8a16_kernel``)."""
+def b12_pass(M: int, linears=B12_LINEARS, times: int = 1,
+             dtype=None) -> dict:
+    """{B12 kernel: launches} of ``times`` passes of x in ``dtype`` (bf16
+    by default) at M rows over ``linears`` on this card
+    (``int8_matmul.w8a16_kernel``; f32 prefill's pre-pass counted too:
+    ``call_launches``)."""
     import torch
     from ullsam_tpu_torch.ops.kernels import int8_matmul as Q
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
     for N, K, n in linears:
-        k = Q.w8a16_kernel(M, N, K, torch.bfloat16, sms)
-        out[k] = out.get(k, 0) + n * times
+        for k, c in Q.call_launches(
+                Q.w8a16_kernel(M, N, K, dtype or torch.bfloat16,
+                               sms)).items():
+            out[k] = out.get(k, 0) + c * n * times
     return out
 
 
@@ -1884,9 +1889,12 @@ def check_w8a16_kernel(card: str) -> dict:
     segments, M = 128 and 256, and at the prefill of the caption prompt, M
     = 1152 and 9216: the head's last N tile is ragged there; the tp 2
     ranks' own linears at 4 and 256 rows), x in bf16
-    and f32 (f32 not at 4, 16 and 128 rows: its GEMV and FMA GEMM are those
-    of 8 and 256): the f32 output within 1e-5 of max|plain| (int8 -> x's type is
-    exact, only the summation order differs), and with a bias and the cast
+    and f32 (x split exactly into three bf16 planes on the tensor cores at
+    2-16 rows and at the layer linears' prefill; the GEMV at one row, the
+    FMA GEMM for the head's prefill): the f32 output within 1e-5 of
+    max|plain| (int8 -> x's type is exact, only the summation order
+    differs), f32 x also against float64 (``f64_hold``: at most F64_RATIO
+    times the plain f32 version's error), and with a bias and the cast
     to x's type (the main path's variant) within one step of that type at
     max|plain| (bf16: 2^(e - 8) for max|plain| in [2^(e-1), 2^e), up to 2^-7
     of it: two f32 sums that differ in their last bits can round to
@@ -1899,8 +1907,8 @@ def check_w8a16_kernel(card: str) -> dict:
     and library times are device times (``_graph_ms``): at decode with a
     cold L2 (the weight cycles through copies), at the layer linears' bf16
     prefill (tens of microseconds a launch, less than the host takes to
-    issue one) on one weight; the vocab head's prefill and f32 x run for
-    milliseconds, so CUDA events around 3 calls time them. Each case
+    launch one) on one weight, f32 x's too; the vocab head's prefill runs
+    for milliseconds, so CUDA events around 3 calls time it. Each case
     launches the kernel ``int8_matmul.w8a16_kernel`` names, twice. The
     library yardstick is F.linear on the dequantized weight in x's type (2
     bytes a weight in bf16): no PyTorch call computes W8A16 with f32
@@ -1923,8 +1931,6 @@ def check_w8a16_kernel(card: str) -> dict:
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).replace("torch.", "")
         for M, N, K in w8a16_cases():
-            if dtype == torch.float32 and M in (4, 16, 128):
-                continue  # f32 x: the GEMV and the FMA GEMM, as at 8, 256
             (x, q, s), _, flops, nbytes = w8a16_case(dtype, gen, M, N, K)
             bias = torch.randn(N, generator=gen, device="cuda")
             kname, nsplit, warps = Q.plan(M, N, K, dtype, sms)
@@ -1941,10 +1947,10 @@ def check_w8a16_kernel(card: str) -> dict:
             got_c = Q.w8a16_matmul(x, q, s, bias, out_dtype=dtype)
             ref_c = Q.w8a16_matmul_plain(x, q, s, bias, dtype)
             torch.cuda.synchronize()
-            ran = [k for k, c in Q.kernel_launches.items()
-                   if c.launches != before[k]]
-            if ran != [kname] or (Q.kernel_launches[kname].launches
-                                  - before[kname]) != 2:
+            ran = {k: c.launches - before[k]
+                   for k, c in Q.kernel_launches.items()
+                   if c.launches != before[k]}
+            if ran != {k: 2 * c for k, c in Q.call_launches(kname).items()}:
                 fail(f"{name} {dname} M={M} N={N} K={K}: launched {ran}, "
                      f"expected {kname} twice")
             same = ""
@@ -1982,12 +1988,19 @@ def check_w8a16_kernel(card: str) -> dict:
             if not ok:
                 fail(f"{name} {dname} M={M} N={N} K={K} disagrees with its "
                      f"plain version")
+            hold = {}
+            if dtype == torch.float32:
+                hold = f64_hold(
+                    f"{name} M={M} N={N} K={K} ({kname})",
+                    lambda x, q, s: torch.matmul(x, q.to(x.dtype).t()) * s,
+                    (x, q, s), got, ref, "kernels")
             del got, ref, got_c, ref_c
             w_lib = (q.to(dtype) * s[:, None]).to(dtype)
             if M in decode_m:
                 ms = _graph_ms(lambda w: Q.w8a16_matmul(x, w, s), _copies(q))
                 lib_ms = _graph_ms(lambda w: F.linear(x, w), _copies(w_lib))
-            elif kname == "w8a16_sm90":  # tens of microseconds a launch
+            elif kname in ("w8a16_sm90", "w8a16_sm90_f32"):
+                # tens of microseconds a launch (f32 x at 9216 rows: ms)
                 ms = _graph_ms(lambda w: Q.w8a16_matmul(x, w, s), [q])
                 lib_ms = _graph_ms(lambda w: F.linear(x, w), [w_lib])
             else:  # the head, or f32 x: milliseconds a launch
@@ -1999,36 +2012,42 @@ def check_w8a16_kernel(card: str) -> dict:
                                     iters=3, warmup=1)
             del w_lib
             torch.cuda.empty_cache()
-            b_ms, b_by = bound_ms(flops, nbytes, dtype)
+            # f32 x times the int8 W (exact in bf16) is three exact bf16
+            # products (x split in three): its least time is theirs
+            x3 = dtype == torch.float32
+            b_ms, b_by = bound_ms(flops * (3 if x3 else 1), nbytes,
+                                  torch.bfloat16)
             say(f"[kernels] {name} {dname} M={M} N={N} K={K} ({kname}, "
                 f"{nsplit} splits, {warps} warps a tile): kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (F.linear "
                 f"on the dequantized {dname} weight) {lib_ms:.4f} ms, bound "
-                f"{b_ms:.4f} ms ({b_by}: {flops / 1e9:.3f} GFLOP, "
-                f"{nbytes / 1e6:.2f} MB; data-sheet peaks at 700 W, card: "
+                f"{b_ms:.4f} ms ({b_by}: {flops / 1e9:.3f} GFLOP"
+                f"{', as three bf16 products' if x3 else ''}"
+                f", {nbytes / 1e6:.2f} MB; data-sheet peaks at 700 W, card: "
                 f"{card}), {nbytes / ms / 1e6:.1f} GB/s, "
                 f"{flops / ms / 1e9:.1f} TFLOP/s")
             entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                     **hold}
             row["cases"].append({"dtype": dname, "M": M, "N": N, "K": K,
                                  "kernel": kname, "splits": nsplit,
                                  "warps": warps, **entry})
             # the row's own numbers: w1, a layer's largest linear, at batch 1;
             # its other entries w1 at a serve decode step's 8 rows (the
             # tensor-core body), w2 at a 256-row prompt segment (the wgmma
-            # GEMM split over K) and w1 at the batch-1 caption prompt
+            # GEMM split over K) and w1 at the batch-1 caption prompt, in
+            # bf16 and (f32_*) f32
             if (M, N, K) == (1, 8192, 2048):
                 if dtype == torch.bfloat16:
                     row.update(entry)
                 else:
                     row["float32"] = entry
-            if dtype == torch.bfloat16:
-                for key, case in (("decode8", (8, 8192, 2048)),
-                                  ("segment256", (256, 2048, 8192)),
-                                  ("prefill", (1152, 8192, 2048))):
-                    if (M, N, K) == case:
-                        row[key] = {"kernel": kname, "splits": nsplit,
-                                    **entry}
+            for key, case in (("decode8", (8, 8192, 2048)),
+                              ("segment256", (256, 2048, 8192)),
+                              ("prefill", (1152, 8192, 2048))):
+                if (M, N, K) == case:
+                    key = key if dtype == torch.bfloat16 else f"f32_{key}"
+                    row[key] = {"kernel": kname, "splits": nsplit, **entry}
             del x, q, s, bias
         torch.cuda.empty_cache()
     return {name: row}
@@ -2235,6 +2254,14 @@ SERVE = {}
 # engine's relative L2 from that f32 reference may be at most this multiple
 # of ``caption_ids``' own
 SERVE_LOGIT_RATIO = 2.0
+# the full-width engines of the serve phase: (tag, model dtype, quant, its
+# rounds of (request kind, concurrent requests), whether an admission's
+# device time is taken); the last is the app's --dtype float32 --quant int8,
+# one round of 8 image requests to keep the script's time
+SERVE_ROUNDS = (("image", 1), ("image", 4), ("image", 8), ("text", 8))
+SERVE_ENGINES = (("bf16", "bfloat16", None, SERVE_ROUNDS, False),
+                 ("int8", "bfloat16", "int8", SERVE_ROUNDS, False),
+                 ("f32 int8", "float32", "int8", (("image", 8),), True))
 
 
 class StubTokenizer:
@@ -2275,10 +2302,12 @@ def _restore_counts(saved: dict) -> None:
         k.launches = saved[name]
 
 
-def _serve_refs(model, cfg, prompts: dict, new: int) -> dict:
+def _serve_refs(model, cfg, prompts: dict, new: int,
+                cache_dtype=None) -> dict:
     """Batch-1 ``caption_ids`` of each prompt (name -> (ids, pixels)),
-    left-padded to a multiple of 128: name -> (tokens through the
-    first EOS, prefill logits f32 [V]); not counted on the path."""
+    left-padded to a multiple of 128, its cache in ``cache_dtype`` (default
+    the model's): name -> (tokens through the first EOS, prefill logits
+    f32 [V]); not counted on the path."""
     import torch
     from ullsam_tpu_torch.models.internlm2.generate import GenerationConfig
     from ullsam_tpu_torch.models.ullsam import chat
@@ -2293,7 +2322,7 @@ def _serve_refs(model, cfg, prompts: dict, new: int) -> dict:
             model, cfg, pixels,
             *chat.left_pad([ids], gen.pad_token_id), gen,
             step_hook=lambda i, lg: first.append(lg[0].float()) if i == 0
-            else None)
+            else None, cache_dtype=cache_dtype)
         refs[name] = (toks[0, :int(lens[0])].tolist(), first[0])
     torch.cuda.synchronize()
     _restore_counts(saved)
@@ -2332,6 +2361,23 @@ def _f32_llm(lm, quantized=None):
             for lin, q in pairs:
                 lin.weight.copy_(q.qweight.float() * q.qscale[:, None])
     return ref
+
+
+def _engine_refs(model, cfg, eng, scaled: dict, quant) -> tuple:
+    """(refs, exact) for ``eng``'s rounds: batch-1 ``caption_ids`` of each
+    prompt on the LLM the engine serves (its int8 copy in int8) with a
+    cache of the engine's dtype, SERVE_NEW tokens, and the first logits of
+    an f32 LLM holding the same weights (the dequantized ones in int8), its
+    cache f32; ``model``'s LLM is put back after."""
+    lm = model.fusion.language_model
+    model.fusion.language_model = eng.lm
+    try:
+        refs = _serve_refs(model, cfg, scaled, SERVE_NEW, eng.cache_dtype)
+        model.fusion.language_model = _f32_llm(lm, eng.lm if quant else None)
+        exact = _serve_refs(model, cfg, scaled, 1)
+    finally:
+        model.fusion.language_model = lm
+    return refs, exact
 
 
 def serve_small_reference_check() -> None:
@@ -2464,20 +2510,26 @@ def _serve_round(eng, tag, kind, n, prompts, refs, exact, card):
 
 
 def serve_main_path() -> None:
-    """(b) SAM ViT-B + InternLM2-1.8B at full width (random bf16 weights
-    from the seed): ``GenerationEngine(max_batch=8, max_len=2560,
-    prefill_chunk=256, steps_per_dispatch=8)``, greedy, in bf16 and then
-    with ``quant="int8"``: a warm round (one image and one text request),
-    then 1, 4 and 8 concurrent image caption requests (one 1024x1024 uint8
-    image, 1024 <IMG_CONTEXT> + the template's text) and 8 text-only
-    requests, SERVE_NEW new tokens each. Every request completes, its first
-    token equals batch-1 ``caption_ids``' and its prefill logits lie at
-    most SERVE_LOGIT_RATIO times as far (relative L2) as ``caption_ids``'
-    from an f32 LLM that holds the same weights (in int8 the dequantized
-    ones); in int8 a decode step launches B12 121 times (counted in each
-    graph key's warm-up), in bf16 none. (c) the port's app
-    at full width in bf16 with ``--engine`` and the stub tokenizer on a free
-    port, driven through ``_smoke``."""
+    """(b) SAM ViT-B + InternLM2-1.8B at full width (random weights from the
+    seed): ``GenerationEngine(max_batch=8, max_len=2560, prefill_chunk=256,
+    steps_per_dispatch=8)`` with the engine's bf16 cache, greedy, on each
+    of SERVE_ENGINES: a bf16 model, then with ``quant="int8"``, then the
+    app's ``--dtype float32 --quant int8`` (an f32 model, every int8
+    linear on B12 with f32 x: the decode body's f32 instance at the 8
+    slots' rows, the wgmma GEMM's at the prompt segments, none on the FMA
+    GEMM). Each takes a warm round (one image request, and one text request
+    where its rounds have text), then its rounds of concurrent image
+    caption requests (one 1024x1024 uint8 image, 1024 <IMG_CONTEXT> + the
+    template's text) or text-only requests, SERVE_NEW new tokens each.
+    Every request completes, its first token equals batch-1
+    ``caption_ids``' (on the engine's LLM and cache dtype) and its prefill
+    logits lie at most SERVE_LOGIT_RATIO times as far (relative L2) as
+    ``caption_ids``' from an f32 LLM that holds the same weights (in int8
+    the dequantized ones); in int8 a decode step launches B12 121 times
+    (counted in each graph key's warm-up), in bf16 none. The f32 engine
+    also prints an admission's device busy time. (c) the port's app at full
+    width in bf16 with ``--engine`` and the stub tokenizer on a free port,
+    driven through ``_smoke``."""
     import numpy as np
     import torch
     from ullsam_tpu_torch.core.config import (FusionConfig, internlm2_1_8b,
@@ -2489,89 +2541,95 @@ def serve_main_path() -> None:
 
     card = smi_line()
     cfg = FusionConfig(sam=sam_vit_b(), llm=internlm2_1_8b())
-    model = F.build_ullsam(cfg, device="cuda", dtype=torch.bfloat16,
-                           seed=SEED)
     rng = np.random.default_rng(SEED)
     img = rng.integers(0, 256, (1, 1024, 1024, 3), dtype=np.uint8)
     tk = StubTokenizer()
-    torch.cuda.synchronize()
-    weights = torch.cuda.memory_allocated()
-    for quant in (None, "int8"):
-        tag = quant or "bf16"
+    model, model_dtype = None, None
+    for tag, dname, quant, rounds, admission in SERVE_ENGINES:
+        dtype = getattr(torch, dname)
+        if dtype != model_dtype:
+            del model
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            model = F.build_ullsam(cfg, device="cuda", dtype=dtype,
+                                   seed=SEED)
+            model_dtype = dtype
+            torch.cuda.synchronize()
+            weights = torch.cuda.memory_allocated()
+            say(f"[serve] {dname} model built in "
+                f"{time.perf_counter() - t0:.1f} s; {card}")
         eng = GenerationEngine(model, cfg, tk, max_batch=8, max_len=2560,
                                prefill_chunk=256, steps_per_dispatch=8,
                                quant=quant, device="cuda")
         prompts = {"image": (eng.prompt_ids(SERVE_IMAGE_Q, True), img)}
-        prompts.update({f"text{i}": (eng.prompt_ids(q, False), None)
-                        for i, q in enumerate(SERVE_TEXT_QS)})
-        text_lens = [len(p[0]) for k, p in prompts.items() if k != "image"]
-        lm = model.fusion.language_model
-        model.fusion.language_model = eng.lm     # the int8 copy in int8
+        if any(kind == "text" for kind, _ in rounds):
+            prompts.update({f"text{i}": (eng.prompt_ids(q, False), None)
+                            for i, q in enumerate(SERVE_TEXT_QS)})
         scaled = {k: (ids, None if pv is None else pv.astype(np.float32) / 255)
                   for k, (ids, pv) in prompts.items()}
-        try:
-            refs = _serve_refs(model, cfg, scaled, SERVE_NEW)
-            # the same function in f32: the LLM of the served weights
-            model.fusion.language_model = _f32_llm(
-                lm, eng.lm if quant else None)
-            exact = _serve_refs(model, cfg, scaled, 1)
-        finally:
-            model.fusion.language_model = lm
+        refs, exact = _engine_refs(model, cfg, eng, scaled, quant)
         own = [_rel_l2(refs[k][1], exact[k][1]) for k in prompts]
-        say(f"[serve] {tag}: batch-1 caption_ids prefill logits against the "
-            f"f32 LLM of the same weights: relative L2 {min(own):.3e}-"
-            f"{max(own):.3e} (the engine's may be {SERVE_LOGIT_RATIO}x "
-            f"that); {card}")
+        say(f"[serve] {tag}: batch-1 caption_ids ({eng.cache_dtype} cache) "
+            f"prefill logits against the f32 LLM of the same weights: "
+            f"relative L2 {min(own):.3e}-{max(own):.3e} (the engine's may "
+            f"be {SERVE_LOGIT_RATIO}x that); {card}")
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         b12 = Q.w8a16_matmul.launches
         k12 = b12_counts()
         warm = [eng.submit_ids(*prompts[k], SERVE_NEW)
-                for k in ("image", "text0")]
+                for k in ("image", "text0") if k in prompts]
         if any(not r.event.wait(SERVE_TIMEOUT) or r.error for r in warm):
             fail(f"serve {tag}: the warm round failed")
-        say(f"[serve] {tag}: warm round (1 image + 1 text request), "
+        say(f"[serve] {tag}: warm round ({len(warm)} requests), "
             f"{int(eng.phase_stats['graphs'])} graphs captured in "
-            f"{eng.phase_stats['capture']:.2f} s; prompts: image "
-            f"{len(prompts['image'][0])} tokens, text {min(text_lens)}-"
-            f"{max(text_lens)}; {card}")
-        rates = {}
-        for kind, n in (("image", 1), ("image", 4), ("image", 8),
-                        ("text", 8)):
-            rates[(kind, n)] = _serve_round(eng, tag, kind, n, prompts,
-                                            refs, exact, card)
+            f"{eng.phase_stats['capture']:.2f} s; prompt lengths "
+            f"{sorted({len(p[0]) for p in prompts.values()})}; {card}")
+        rates = {r: _serve_round(eng, tag, *r, prompts, refs, exact, card)
+                 for r in rounds}
         eng.shutdown()
         if eng.error is not None:
             fail(f"serve {tag}: the engine failed: {eng.error!r}")
         peak = torch.cuda.max_memory_allocated() - weights
         chunks, steps = _graph_replays(eng)
         per_step = sorted(set(eng.step_launches.values()))
+        # int8: the decode steps' warm-ups at the 8 slots' rows, the prompt
+        # segments on the wgmma GEMM, each prompt's head on its last row
+        ran12 = {k: v - k12[k] for k, v in b12_counts().items()
+                 if v != k12[k]}
+        want12 = (set(b12_pass(8, dtype=dtype))
+                  | set(b12_pass(256, B12_LINEARS[:4], dtype=dtype))
+                  | set(b12_pass(1, B12_LINEARS[4:], dtype=dtype))
+                  ) if quant else set()
         SERVE[tag] = {"graph_chunks": chunks, "graph_steps": steps,
-                      "b12_per_decode_step": per_step}
-        say(f"[serve] {tag}: tok/s image x1 {rates[('image', 1)][0]:.1f}, "
-            f"x4 {rates[('image', 4)][0]:.1f}, x8 "
-            f"{rates[('image', 8)][0]:.1f}, text x8 "
-            f"{rates[('text', 8)][0]:.1f}; {int(eng.phase_stats['graphs'])}"
-            f" graphs {sorted(eng.graphs)} captured in "
+                      "b12_per_decode_step": per_step,
+                      "b12_kernels": sorted(ran12)}
+        adm = ""
+        if admission:
+            adm_wall, adm_busy = _admission_ms(eng, prompts["image"])
+            adm = (f"an image admission {adm_busy:.3f} ms busy on the device "
+                   f"of {adm_wall:.3f} ms (host clock; torch.profiler, one "
+                   f"admission after a warm one); ")
+        say(f"[serve] {tag}: tok/s "
+            + ", ".join(f"{kind} x{n} {rates[(kind, n)][0]:.1f}"
+                        for kind, n in rounds)
+            + f"; {adm}{int(eng.phase_stats['graphs'])} graphs "
+            f"{sorted(eng.graphs)} captured in "
             f"{eng.phase_stats['capture']:.2f} s; {chunks} chunks ({steps} "
             f"decode steps) replayed; B12 launches a decode step by the "
-            f"warm-ups {per_step}; "
-            f"peak {peak / 2**30:.3f} GiB above the {weights / 2**30:.3f} "
-            f"GiB of weights (cache, int8 copy, row caches, graphs); "
-            f"phase_stats {dict(eng.phase_stats)}; {card}")
+            f"warm-ups {per_step}; B12 kernels launched (eager: the prompt "
+            f"segments and the warm-ups) {ran12}; "
+            f"{Q.w8a16_matmul.launches - b12} B12 wrapper calls; peak "
+            f"{peak / 2**30:.3f} GiB above the {weights / 2**30:.3f} GiB of "
+            f"weights (cache, int8 copy, row caches, graphs); phase_stats "
+            f"{dict(eng.phase_stats)}; {card}")
         want = [float(B12_PER_PASS)] if quant else [0.0]
         if per_step != want or (not quant
                                 and Q.w8a16_matmul.launches != b12):
             fail(f"serve {tag}: B12 launches a decode step {per_step}, "
                  f"expected {want}")
-        # int8: the decode steps' warm-ups at the 8 slots' rows, the prompt
-        # segments on the wgmma GEMM, each prompt's head on its last row
-        ran12 = {k for k, v in b12_counts().items() if v != k12[k]}
-        want12 = (set(b12_pass(8)) | set(b12_pass(256, B12_LINEARS[:4]))
-                  | set(b12_pass(1, B12_LINEARS[4:]))) if quant else set()
-        say(f"[serve] {tag}: B12 kernels launched {sorted(ran12)}")
-        if ran12 != want12:
+        if set(ran12) != want12:
             fail(f"serve {tag}: B12 kernels {sorted(ran12)}, expected "
                  f"{sorted(want12)}")
         del eng
@@ -2597,6 +2655,30 @@ def serve_main_path() -> None:
         f"included); {card}")
     del app
     torch.cuda.empty_cache()
+
+
+
+def _admission_ms(eng, prompt) -> tuple:
+    """(wall, device busy) ms of one admission of ``prompt`` (ids, image:
+    the ViT encode, the prompt's segments of 256, the first token, the
+    splice) on this thread after a warm one, uncounted (torch.profiler)."""
+    import numpy as np
+    import torch
+    from ullsam_tpu_torch.ops.kernels import int8_matmul as Q
+    from ullsam_tpu_torch.serve.engine import Request
+    ids = np.asarray(prompt[0], np.int64)
+
+    def admit():
+        pend = eng._admit_start(0, Request(ids, prompt[1], SERVE_NEW))
+        while eng._admit_advance(pend) is None:
+            pass
+
+    saved = launch_counts()
+    with Q.uncounted(), torch.inference_mode():
+        admit()
+        out = _busy_ms(admit)
+    _restore_counts(saved)
+    return out
 
 
 # ---------------------------------------------------------------------------

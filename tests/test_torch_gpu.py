@@ -822,7 +822,7 @@ def test_w8a16_kernel_matches_plain(cuda, dt, M, N, K):
     torch.cuda.synchronize()
     assert Q.w8a16_matmul.launches == before + 4
     assert {k: c.launches - counts[k] for k, c in Q.kernel_launches.items()
-            } == {k: 4 if k == name else 0 for k in Q.KERNELS}
+            } == {k: 4 * Q.call_launches(name).get(k, 0) for k in Q.KERNELS}
     assert got.dtype == torch.float32 and got_cast.dtype == dtype
     assert _rel_err(got, Q.w8a16_matmul_plain(x, q, s)) <= 1e-5
     assert _rel_err(got_b, Q.w8a16_matmul_plain(x, q, s, bias)) <= 1e-5
@@ -880,6 +880,76 @@ def test_w8a16_split_k_is_bitwise_and_replays(cuda, M, N, K):
         assert torch.equal(g, a) and torch.equal(gf, f)
     assert torch.equal(Q.w8a16_matmul(x, q, s, bias,
                                       out_dtype=torch.bfloat16), a)
+
+
+@pytest.mark.parametrize("M,N,K", [
+    (2, 2048, 2048), (8, 2048, 8192), (16, 4096, 2048), (16, 92553, 2048),
+    (256, 2048, 8192), (256, 4096, 2048), (200, 2048, 2048),
+    (1152, 2048, 2048), (1152, 92553, 2048), (300, 4100, 2048),
+    (17, 200, 64), (40, 136, 2048)])
+def test_w8a16_f32_bodies_match_plain(cuda, M, N, K):
+    """The f32-x bodies (x split exactly into three bf16 planes, each
+    product on the bf16 tensor cores): the decode body at 2, 8 and 16 rows
+    (K split across a block's warps, and at 8 and 16 rows across blocks;
+    the ragged head), the wgmma GEMM at 200 and 256 rows (K split across
+    units), at 1152 (none) and at a ragged N (the head; 4100, whose rows
+    are not 16-byte aligned; 200 and 136, whose rows are, with a last tile
+    past N). Each call launches its f32 kind (the wgmma GEMM after its
+    pre-pass); the f32 output with a bias within 1e-5 of max|plain|, at
+    most 4x the plain f32 version's error against float64, two calls
+    bitwise equal, a CUDA graph's replay bitwise the eager call, and a call
+    into a longer buffer leaves everything after its M x N floats as it
+    was."""
+    from ullsam_tpu_torch.ops.kernels import int8_matmul as Q
+    from ullsam_tpu_torch.tools.main_path import w8a16_case
+    (x, q, s), _, _, _ = w8a16_case(torch.float32, cuda, M, N, K)
+    bias = torch.randn(N, generator=cuda, device="cuda")
+    name, splits, warps = Q.plan(M, N, K, torch.float32, _sms())
+    assert name == ("w8a16_decode_tc_f32" if M <= 16 else "w8a16_sm90_f32")
+    assert Q.c_plan(M, N, K, torch.float32) == (name, splits, warps)
+    assert Q.c_workspace(M, N, K, torch.float32) == Q.workspace(
+        M, N, K, torch.float32, _sms())
+    if M in (8, 16, 200, 256):
+        assert splits > 1
+    counts = {k: c.launches for k, c in Q.kernel_launches.items()}
+    a = Q.w8a16_matmul(x, q, s, bias)
+    b = Q.w8a16_matmul(x, q, s, bias)
+    torch.cuda.synchronize()
+    assert {k: c.launches - counts[k] for k, c in Q.kernel_launches.items()
+            } == {k: 2 * Q.call_launches(name).get(k, 0) for k in Q.KERNELS}
+    assert torch.equal(a, b)
+    ref = Q.w8a16_matmul_plain(x, q, s, bias)
+    assert _rel_err(a, ref) <= 1e-5
+    ref64 = (x.double() @ q.double().t()) * s.double() + bias.double()
+    top = float(ref64.abs().max())
+    err = float((a.double() - ref64).abs().max()) / top
+    err_plain = float((ref.double() - ref64).abs().max()) / top
+    assert err <= 4 * err_plain, (err, err_plain)
+    graph = torch.cuda.CUDAGraph()
+    with Q.uncounted(), torch.cuda.graph(graph):
+        g = Q.w8a16_matmul(x, q, s, bias)
+    for _ in range(2):
+        g.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(g, a)
+    # the columns past N are dropped, not written into the next row or past
+    # the end: the C entry into a buffer with a tail of sentinels
+    n_ws, n_cnt = Q.workspace(M, N, K, torch.float32, _sms())
+    ws = torch.empty(max(n_ws, 1), device="cuda")
+    cnt = Q._counters(x.device, n_cnt) if n_cnt else None
+    buf = torch.full((M * N + 4096,), 7.0, device="cuda")
+    with Q.uncounted():
+        err = Q._kernel()(0, x.data_ptr(), q.data_ptr(), s.data_ptr(),
+                          bias.data_ptr(), buf.data_ptr(), 1, M, N, K,
+                          ws.data_ptr(), n_ws,
+                          0 if cnt is None else cnt.data_ptr(),
+                          0 if cnt is None else cnt.numel(),
+                          torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(buf[:M * N].view(M, N), a)
+    assert bool((buf[M * N:] == 7.0).all())
 
 
 def test_w8a16_wrapper_refusals(cuda):

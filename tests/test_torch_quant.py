@@ -33,6 +33,7 @@ from ullsam_tpu_torch.models.internlm2 import model as TM
 from ullsam_tpu_torch.models.internlm2 import quant as TQ
 from ullsam_tpu_torch.ops import layers as TL
 from ullsam_tpu_torch.ops.kernels.int8_matmul import (check_weights,
+                                                      split_bf16x3,
                                                       w8a16_matmul,
                                                       w8a16_matmul_plain)
 
@@ -76,6 +77,61 @@ def test_plain_b12_matches_interpret_pallas(dt, M, K, N):
     got = w8a16_matmul(T(x).to(tdt), T(qw.T.copy()), T(qs))
     assert got.dtype == torch.float32 and got.shape == (M, N)
     assert _rel(got, ref) <= 1e-5
+
+
+def _rebuilt(x):
+    """b0 + b1 + b2 of ``split_bf16x3(x)`` in float64 (exact)."""
+    return sum(p.double() for p in split_bf16x3(x)).numpy()
+
+
+def test_split_bf16x3_rebuilds_x():
+    """f32 x is the sum of its three bf16 parts exactly: seeded normals
+    over exponents 2^-100 to 2^100, +-0, the largest f32 (which rounding
+    the first part would send to inf), and values from 2^-110 up. The edge
+    is below: a part cannot hold a bit under 2^-133 (bf16's least
+    subnormal), so x near 2^-126 (its last bits at 2^-149) is rebuilt
+    within 2^-134, exactly where its bits lie at or above 2^-133."""
+    rng = np.random.default_rng(23)
+    big = np.finfo(np.float32).max
+    x = np.concatenate([
+        np.ldexp(rng.standard_normal(4096), rng.integers(-100, 101, 4096)),
+        [0.0, -0.0, big, -big, 2.0 ** -110, -(2.0 ** -110) * 1.75],
+        np.ldexp(1.0 + rng.random(256), rng.integers(-110, -99, 256))
+        * rng.choice([-1.0, 1.0], 256)]).astype(np.float32)
+    parts = split_bf16x3(T(x))
+    assert all(p.dtype == torch.bfloat16 and p.shape == x.shape
+               for p in parts)
+    assert all(bool(torch.isfinite(p).all()) for p in parts)
+    np.testing.assert_array_equal(_rebuilt(T(x)), x.astype(np.float64))
+    assert np.array_equal(np.signbit(parts[0].float().numpy()),
+                          np.signbit(x))
+    assert torch.isinf(torch.tensor(big).bfloat16())
+    # near 2^-126: 23 random mantissa bits, the last ones below 2^-133
+    tiny = np.ldexp(1.0 + rng.integers(0, 2 ** 23, 512) / 2.0 ** 23,
+                    rng.integers(-127, -124, 512)).astype(np.float32)
+    tiny *= rng.choice([-1.0, 1.0], 512).astype(np.float32)
+    err = np.abs(_rebuilt(T(tiny)) - tiny.astype(np.float64))
+    assert err.max() <= 2.0 ** -134 and err.max() > 0
+    on_grid = (np.round(tiny.astype(np.float64) * 2.0 ** 133)
+               * 2.0 ** -133).astype(np.float32)
+    np.testing.assert_array_equal(_rebuilt(T(on_grid)),
+                                  on_grid.astype(np.float64))
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 512, 1024), (1, 256, 384),
+                                   (4, 512, 1024), (16, 256, 384)])
+def test_split_b12_matches_interpret_pallas(M, K, N):
+    """The f32 bodies' arithmetic, each of x's three bf16 parts times the
+    int8 weight, the products summed (in float64 here) and scaled, against
+    the interpret-mode Pallas kernel at f32 x, within 1e-5 of max|ref|."""
+    x, qw, qs = _operands(np.random.default_rng(M), M, K, N)
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax_w8a16(jnp.asarray(x), jnp.asarray(qw), jnp.asarray(qs),
+                        block_n=next(b for b in (512, 256, 128)
+                                     if N % b == 0))
+    w = T(qw).double()
+    got = sum(p.double() @ w for p in split_bf16x3(T(x))) * T(qs).double()
+    assert _rel(got.numpy(), ref) <= 1e-5
 
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])

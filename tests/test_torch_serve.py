@@ -211,6 +211,43 @@ def test_engine_matches_generate(setup, port_run):
         assert got == toks[0, :int(lens[0])].tolist(), i
 
 
+def test_bf16_cache_engine_matches_generate(setup):
+    """The engine's own default, a bf16 cache under the f32 model (the
+    app's ``--dtype float32``): each request's tokens are batch-1
+    ``caption_ids``' with a bf16 cache, up to and including the first EOS,
+    and its prefill logits within 1e-5 (relative L2) of that call's, where
+    the f32 cache's call lies further off (the bf16 cache reaches the
+    prefill's attention)."""
+    _, tcfg, _, model = setup
+    eng = _port_engine(setup, cache_dtype=torch.bfloat16)
+
+    def submit(i):
+        req = eng.submit_ids(*_prompt(i), MAX_NEW)
+        assert req.event.wait(60) and req.error is None, req.error
+        return req
+    try:
+        reqs = _concurrent(submit, 5)
+    finally:
+        eng.shutdown()
+    gen = TG.GenerationConfig(max_new_tokens=MAX_NEW, eos_token_id=92542,
+                              pad_token_id=2)
+    for i, req in enumerate(reqs):
+        ids, pv = _prompt(i)
+        out = {}
+        for dt in (torch.bfloat16, torch.float32):
+            first = []
+            toks, lens = TChat.caption_ids(
+                model, tcfg, pv, *TChat.left_pad([ids], 2), gen,
+                step_hook=lambda j, lg: first.append(lg[0]) if j == 0
+                else None, cache_dtype=dt)
+            out[dt] = toks[0, :int(lens[0])].tolist(), first[0]
+        assert req.tokens == out[torch.bfloat16][0], i
+        ref, f32 = out[torch.bfloat16][1], out[torch.float32][1]
+        near = float((req.first_logits - ref).norm() / ref.norm())
+        apart = float((f32 - ref).norm() / ref.norm())
+        assert near <= 1e-5 < apart, (i, near, apart)
+
+
 def test_chunked_prefill_matches_whole_prompt(setup):
     """A 320-character prompt in segments of 128 gives the greedy tokens of
     the same prompt prefilled whole (one segment of 384)."""

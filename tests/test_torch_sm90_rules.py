@@ -4,15 +4,17 @@ the CPU: each Python mirror against the constants of its CUDA source and
 against the 232,448 bytes of shared memory an H100 block may use.
 
 * ``int8_matmul.w8a16_kernel``: which of B12's kernels a call launches
-  (the decode body on the tensor cores at 2 <= M <= 16 in bf16, the GEMV at
-  M = 1 and for f32 x, the wgmma GEMM at bf16 prefill where
-  ``gemm_sm90.cuh`` ``sm90_takes`` holds, the mma.sync GEMM for the ragged
-  vocab head, the FMA GEMM for f32 x), at every InternLM2-1.8B linear and
+  (the decode body on the tensor cores at 2 <= M <= 16, the GEMV at M = 1,
+  the wgmma GEMM at prefill where ``gemm_sm90.cuh`` ``sm90_takes`` holds,
+  the mma.sync GEMM for the ragged vocab head; f32 x on the ``_f32``
+  instances of the decode body and the wgmma GEMM, the head included, x
+  split into three bf16 planes, the FMA GEMM only at other widths), at
+  every InternLM2-1.8B linear and
   the caption and serving paths' M; the split rules ``decode_plan`` and
   ``sm90_splits`` and the workspace they ask for; the decode body's
   constants and shared memory and ``int8_matmul.sm90_smem_bytes``
-  (``Sm90Layout<true>``) against the sources; the per-kernel launch counts
-  with no card.
+  (``Sm90Layout<kSm90Int8>`` and ``<kSm90Int8X3>``) against the sources;
+  the per-kernel launch counts with no card.
 * ``flash_attention.sm90_smem_bytes`` (``FlashSm90Layout<D>``) at head
   dims 64 and 80, and ``key_rows_per_tile``: when a 64-key tile covers
   whole key-grid rows, so that the bias comes from registers.
@@ -72,8 +74,15 @@ def test_w8a16_sm90_mirror_matches_the_source():
             _const(src, r"kSm90BK = (\d+)")) == (G.SM90_BM, G.SM90_BN,
                                                    G.SM90_BK)
     assert _const(src, r"kBM = kInt8W \? (\d+)") == Q.W8_BM
-    assert _const(src, r"kStages = kInt8W \? (\d+)") == Q.W8_STAGES
+    assert _const(src, r"kStages = kX3 \? \d+ : kInt8W \? (\d+)") == \
+        Q.W8_STAGES
     assert _const(src, r"kStgLd = kInt8W \? (\d+)") == Q.W8_STG_LD
+    # the f32-x kind: x's three planes a stage, its stages and the x rows
+    # its epilogue stages at a time
+    assert _const(src, r"kPlanes = kX3 \? (\d+)") == Q.X3_PLANES
+    assert _const(src, r"kStages = kX3 \? (\d+)") == Q.X3_STAGES
+    assert Q.W8_BM // _const(src, r"kStgRows = kX3 \? kBM / (\d+)") == \
+        Q.X3_STG_ROWS
 
 
 def test_gemm_f32_mirror_matches_the_source():
@@ -87,7 +96,10 @@ def test_gemm_f32_mirror_matches_the_source():
     assert (_const(src, r"kSm90F32BK = (\d+)"),
             _const(src, r"kSm90F32Stages = (\d+)")) == (G.SM90_F32_BK,
                                                         G.SM90_F32_STAGES)
-    assert _const(src, r"kThreads = kF32 \? (\d+)") == 3 * 128
+    # a producer warpgroup that gives its registers away (f32, and the
+    # int8 kind's f32-x instance)
+    assert "kRegs=kF32||kX3;" in _squeezed(src)
+    assert _const(src, r"kThreads = kRegs \? (\d+)") == 3 * 128
     assert G.sm90_f32_smem_bytes() == 183360 <= G.SMEM_LIMIT
     for C in (768, 1024, 1280):
         for N, K in ((3 * C, C), (C, C), (4 * C, C), (C, 4 * C)):
@@ -122,6 +134,13 @@ def test_w8a16_sm90_smem_fits_a_block():
     assert 1152 % Q.W8_BM == 0 and 9216 % Q.W8_BM == 0
     assert Q.sm90_smem_bytes() <= G.SMEM_LIMIT == 232448
     assert G.sm90_smem_bytes() <= G.SMEM_LIMIT
+    # f32 x: 3 stages of x's three 144 x 64 bf16 planes (1024-byte aligned
+    # each) and W's tile; the staging at 72 rows; a fourth stage would not
+    # fit
+    assert Q.sm90_smem_bytes(torch.float32) == 219200 <= G.SMEM_LIMIT
+    stage = Q.X3_PLANES * Q.W8_BM * G.SM90_BK * 2 + G.SM90_BN * G.SM90_BK
+    assert stage % 1024 == 0 and Q.W8_BM * G.SM90_BK * 2 % 1024 == 0
+    assert Q.sm90_smem_bytes(torch.float32) + stage > G.SMEM_LIMIT
 
 
 def _squeezed(source: str) -> str:
@@ -142,6 +161,13 @@ def test_w8a16_decode_tc_mirror_matches_the_source():
     assert _const(src, r"W8Kernel : int \{\s*kW8Gemv = 0, kW8Sm90 = 1, "
                   r"kW8Mma = 2, kW8F32 = 3, kW8DecodeTc = (\d+)") == \
         Q.KERNELS.index("w8a16_decode_tc")
+    assert _const(src, r"kW8Sm90F32 = (\d+)") == \
+        Q.KERNELS.index("w8a16_sm90_f32")
+    assert _const(src, r"kW8DecodeTcF32 = (\d+)") == \
+        Q.KERNELS.index("w8a16_decode_tc_f32")
+    assert _const(src, r"kW8SplitX3 = (\d+)") == \
+        Q.KERNELS.index("w8a16_split_x3")
+    assert _const(src, r"kW8Kernels = (\d+)") == len(Q.KERNELS)
     assert _const("gemm_sm90.cuh", r"kSm90MinSplitKb = (\d+)") == \
         Q.SM90_MIN_SPLIT_KB
     assert (_const("gemm_sm90.cuh", r"kSm90PartFloats = (\d+) \* 144 / 2")
@@ -149,11 +175,14 @@ def test_w8a16_decode_tc_mirror_matches_the_source():
     text = _squeezed(src)
     for cond in ("while(w<kTcWarps&&(N+8*kTcWarps/w-1)/(8*kTcWarps/w)<="
                  "sms&&K%(2*w*64)==0)w*=2;",
-                 "while((longlong)mm*(K/s)*2>kTcXBytes){"
-                 "if(K%(2*s*w*64))return{0,0};s*=2;}"):
+                 "while((longlong)planes*mm*(K/s)*2>kTcXBytes){"
+                 "if(K%(2*s*w*64))return{0,0};s*=2;}",
+                 "tc_plan(M,N,K,num_sms(),f32?3:1);"):
         assert cond in text, cond
     assert ("while(tiles*s*2<=sms&&kt%(2*s)==0&&kt/(2*s)>=kSm90MinSplitKb)"
             "s*=2;") in _squeezed("gemm_sm90.cuh")
+    assert ("if(planes==3&&s>1)for(inti=0;i<2&&w>1;++i)w/=2,s*=2;"
+            "return{w,s};") in text
 
 
 def test_w8a16_decode_smem_fits_a_block():
@@ -170,6 +199,19 @@ def test_w8a16_decode_smem_fits_a_block():
         16 * (4096 + Q.TC_X_PAD) * 2 + 8 * 2 * 32 * 16 + 4)
     assert most <= G.SMEM_LIMIT
     assert 2 * Q.decode_smem_bytes(16, 92553, 2048) <= G.SMEM_LIMIT
+    # f32 x: three bf16 planes of the slice, which splits K across blocks
+    # at fewer rows (K = 2048 from 9 rows on, w2 at 2-8 rows), and there
+    # blocks four times as tall; two blocks still fit an SM everywhere
+    f32 = torch.float32
+    most = max(Q.decode_smem_bytes(*s, dtype=f32) for s in shapes)
+    assert most == Q.decode_smem_bytes(16, 92553, 2048, dtype=f32) == (
+        3 * 16 * (1024 + Q.TC_X_PAD) * 2 + 8 * 2 * 32 * 16 + 4)
+    assert Q.decode_smem_bytes(8, 2048, 2048, dtype=f32) == (
+        3 * 8 * (2048 + Q.TC_X_PAD) * 2 + 8 * 1 * 32 * 16 + 4)
+    assert 2 * most <= G.SMEM_LIMIT
+    assert Q.decode_plan(8, 2048, 2048, dtype=f32) == (8, 1)
+    assert Q.decode_plan(16, 2048, 2048, dtype=f32) == (2, 8)
+    assert Q.decode_plan(8, 2048, 8192, dtype=f32) == (2, 16)
 
 
 @pytest.mark.parametrize("M", W8A16_DECODE_M + W8A16_PREFILL_M)
@@ -178,8 +220,10 @@ def test_w8a16_kernel_of_each_internlm2_linear(M):
     on the tensor cores, at batch 1 the GEMV; at the serving engine's
     prompt segments (M = 128, 256) and the caption prompt's prefill (M =
     1152, 9216) in bf16 wqkv, wo, w1 / w3 and w2 run the wgmma GEMM and the
-    92,553-column head the mma.sync GEMM; f32 x runs the GEMV at decode and
-    the FMA GEMM at prefill."""
+    92,553-column head the mma.sync GEMM. f32 x runs the f32 instances of
+    the decode body and the wgmma GEMM there, the head's prefill included,
+    and the GEMV at batch 1: no InternLM2-1.8B linear reaches the FMA
+    GEMM."""
     for N, K in W8A16_LINEARS:
         if M == 1:
             want = "w8a16_gemv"
@@ -190,17 +234,27 @@ def test_w8a16_kernel_of_each_internlm2_linear(M):
         else:
             want = "w8a16_sm90"
         assert Q.w8a16_kernel(M, N, K) == want, (M, N, K)
-        assert Q.w8a16_kernel(M, N, K, torch.float32) == (
-            "w8a16_gemv" if M <= 16 else "w8a16_f32")
+        want32 = {"w8a16_mma": "w8a16_sm90_f32"}.get(
+            want, want if want == "w8a16_gemv" else want + "_f32")
+        assert Q.w8a16_kernel(M, N, K, torch.float32) == want32, (M, N, K)
+        assert Q.plan(M, N, K, torch.float32)[1:] == (
+            Q.plan(M, N, K)[1:] if M > 16 else
+            (Q.decode_plan(M, N, K, dtype=torch.float32)[::-1]
+             if M > 1 else (1, 0)))
     assert [Q.w8a16_kernel(M, N, K) for N, K in W8A16_LINEARS].count(
         "w8a16_sm90") == (0 if M <= 16 else 4)
+    assert [Q.w8a16_kernel(M, N, K, torch.float32)
+            for N, K in W8A16_LINEARS].count("w8a16_f32") == 0
 
 
 def test_w8a16_shape_rule():
     """The decode body takes bf16 x at 2 <= M <= 16 with K % 64 == 0 (its
     64-byte chunks), any N (the ragged head masked); the GEMV the rest of M
     <= 16. The wgmma GEMM takes bf16 x at M > 16 with N % 128 == 0 and K %
-    64 == 0 (``sm90_takes``); other widths keep the mma.sync GEMM."""
+    64 == 0 (``sm90_takes``); other widths keep the mma.sync GEMM. f32 x
+    follows the same rules on its instances, except that its wgmma kind
+    also takes a ragged N >= 128 (``x3_takes``: the head), leaving the FMA
+    GEMM the other widths."""
     assert Q.w8a16_kernel(16, 128, 64) == "w8a16_decode_tc"
     assert Q.w8a16_kernel(2, 92553, 2048) == "w8a16_decode_tc"
     for M, N, K in ((1, 128, 64), (16, 128, 48), (8, 200, 80), (3, 200, 48)):
@@ -213,6 +267,24 @@ def test_w8a16_shape_rule():
         assert not G.sm90_takes(M, N, K)
     # a K whose x slice needs splitting but whose chunks do not halve
     assert Q.decode_plan(16, 128, 4096 + 64) == (0, 0)
+    # f32 x: the same shape rules on its instances
+    f32 = torch.float32
+    assert Q.w8a16_kernel(16, 128, 64, f32) == "w8a16_decode_tc_f32"
+    assert Q.w8a16_kernel(2, 92553, 2048, f32) == "w8a16_decode_tc_f32"
+    for M, N, K in ((1, 128, 64), (16, 128, 48), (8, 200, 80), (3, 200, 48)):
+        assert Q.w8a16_kernel(M, N, K, f32) == "w8a16_gemv", (M, N, K)
+    for M, N, K in ((17, 128, 64), (17, 200, 64), (1152, 92553, 2048),
+                    (1152, 4100, 2048)):
+        assert Q.w8a16_kernel(M, N, K, f32) == "w8a16_sm90_f32", (M, N, K)
+        assert Q.x3_takes(M, N, K)
+    for M, N, K in ((129, 4096, 48), (40, 300, 80), (17, 120, 64)):
+        assert Q.w8a16_kernel(M, N, K, f32) == "w8a16_f32", (M, N, K)
+    # the head's prefill: 724 tiles of 128 columns, the last 9 wide
+    assert Q.sm90_splits(1152, 92553, 2048) == 1
+    assert Q.workspace(256, 92553, 2048, f32) == (256 * 2048 * 3 // 2, 0)
+    # three planes split K at a shorter slice than bf16's one
+    assert Q.decode_plan(16, 128, 2048 + 64, dtype=f32) == (0, 0)
+    assert Q.decode_plan(16, 128, 2048 + 64) != (0, 0)
 
 
 def _units(M, N, K):
@@ -254,6 +326,31 @@ def test_w8a16_splits_fill_the_card_at_the_serving_shapes():
     assert _units(256, 2048, 8192) == (128, 0, 4)
 
 
+def test_w8a16_f32_plans_at_the_serving_shapes():
+    """f32 x keeps bf16's plans where its planes fit as bf16 x does: the
+    wgmma GEMM's splits at the engine's prompt segments (the same 144 x 128
+    tiles) and the decode body's warps a tile; its decode body splits K
+    across blocks as soon as x's three planes would not fit
+    ``TC_X_BYTES``, and no sooner, and then takes blocks four times as tall
+    (W / 4, at least 1; S to match), a warp's share of K unchanged."""
+    f32 = torch.float32
+    for M in (128, 256, 1152):
+        for N, K in W8A16_LINEARS[:4]:
+            assert Q.plan(M, N, K, f32) == (("w8a16_sm90_f32",)
+                                            + Q.plan(M, N, K)[1:])
+    for M in range(2, 17):
+        for N, K in W8A16_LINEARS + W8A16_TP2_LINEARS:
+            w, s = Q.decode_plan(M, N, K, dtype=f32)
+            wb = Q.decode_plan(M, N, K)[0]
+            mm = 8 if M <= 8 else 16
+            fits = -(-3 * mm * K * 2 // Q.TC_X_BYTES)  # the least split
+            least = 1 << (fits - 1).bit_length()
+            assert (w, s) == ((wb, 1) if least == 1 else
+                              (max(wb // 4, 1), least * wb // max(wb // 4, 1))
+                              ), (M, N, K)
+            assert K // s // w == K // least // wb  # a warp's K part
+
+
 @pytest.mark.parametrize("M", [1152, 9216])
 def test_w8a16_caption_prefill_keeps_one_split(M):
     """The caption prompt's prefill (M = 1152: 128-512 tiles, a wave or
@@ -269,19 +366,43 @@ def test_w8a16_workspace_rule():
     accumulators (a float4 a lane and 8 rows of x) of every block, a
     counter a group; the wgmma GEMM's units' 256 threads x 72
     accumulators, a counter a tile. A call that splits nothing across
-    blocks, f32 x included, asks for none. On a card with fewer SMs the
-    plans shrink."""
+    blocks asks for none, the f32 decode body's included; the f32 prefill
+    asks for x's three bf16 planes (1.5 M K floats) after any partials. On
+    a card with fewer SMs the plans shrink."""
     assert Q.workspace(16, 2048, 8192) == (128 * 2 * 1 * 2 * 32 * 4, 128)
     assert Q.workspace(256, 4096, 2048) == (64 * 2 * 256 * 72, 64)
     for M, N, K in ((8, 2048, 2048), (8, 92553, 2048), (1, 2048, 2048),
                     (1152, 2048, 2048)):
         assert Q.workspace(M, N, K) == (0, 0)
     assert Q.workspace(8, 2048, 2048, torch.float32) == (0, 0)
-    assert Q.workspace(256, 2048, 2048, torch.float32) == (0, 0)
+    assert Q.workspace(256, 2048, 2048, torch.float32) == (
+        32 * 4 * 256 * 72 + 256 * 2048 * 3 // 2, 32)
+    assert Q.workspace(1152, 2048, 8192, torch.float32) == (
+        1152 * 8192 * 3 // 2, 0)
+    assert Q.workspace(8, 2048, 8192, torch.float32) == (
+        32 * 16 * 4 * 1 * 32 * 4, 32)
     assert Q.decode_plan(8, 2048, 2048, sms=66) == (4, 1)
     assert Q.sm90_splits(256, 2048, 2048, sms=66) == 2
     # a unit keeps at least 4 k-blocks: K = 1024 at one tile stops at 4
     assert Q.sm90_splits(128, 2048, 1024) == 4
+
+
+@pytest.mark.parametrize("M", [1, 4, 8, 16, 128, 256, 1152])
+def test_w8a16_call_launches(M):
+    """A call's launches by kernel: the f32 prefill's wgmma GEMM after its
+    pre-pass ``w8a16_split_x3``, each once, every other kernel alone; every
+    name is one of ``KERNELS``, whose counts the C library keeps."""
+    for N, K in ((4096, 2048), (2048, 8192), (92553, 2048), (200, 64)):
+        for dtype in (torch.bfloat16, torch.float32):
+            name = Q.w8a16_kernel(M, N, K, dtype)
+            got = Q.call_launches(name)
+            assert set(got) <= set(Q.KERNELS)
+            if name == "w8a16_sm90_f32":
+                assert got == {"w8a16_split_x3": 1, name: 1}
+            else:
+                assert got == {name: 1}
+            assert (name == "w8a16_sm90_f32") == (
+                dtype == torch.float32 and M > 16 and K >= 64)
 
 
 def test_w8a16_kernel_counts_need_no_card():

@@ -62,6 +62,20 @@
 //     serving engine's 128- and 256-row segments) it splits K
 //     (Sm90Split): each unit's f32 partial goes to a workspace and the
 //     tile's last unit adds them in a fixed order before the epilogue.
+//   * int8 W with f32 x (kSm90Int8X3, B12 at f32 x): x comes as its three
+//     bf16 planes (w8a16_matmul.cu's pre-pass: x = b0 + b1 + b2 exactly),
+//     one [M, 3K] map whose three boxes land in each stage (three stages,
+//     54 KB of x a stage at 144 rows). Each W fragment, converted once,
+//     feeds three register-A wgmmas, one a plane, into a partial of the
+//     16-deep step from zero that the CUDA cores add to the f32 sum (the
+//     tensor cores' accumulation, truncating, would drift: the bf16 kind's
+//     one accumulator errs 8.6e-6 of max|out| at K = 8192): every
+//     product is exact (an int8 times a bf16), so the result differs from
+//     an f32 product only in the order and rounding of the sums, at three
+//     bf16 products for each (989 / 3 TFLOP/s, where split TF32 would
+//     need three TF32 ones, 495 / 3). The epilogue stages 72 of the
+//     tile's 144 x rows at a time; the split rule and Sm90Split are the
+//     int8 kind's.
 //   * float32 (Sm90Layout<kSm90F32>, split TF32): a k-block is 32 floats
 //     (128 bytes, one row of the swizzle); each stage holds A's tile and W's
 //     as TMA lands them (three stages), and W's lo plane. The producer is a
@@ -85,7 +99,9 @@
 //     128 tile; its epilogue adds bias and residual in f32 and takes the
 //     tanh-GELU of the unrounded sum (gemm.cuh's apply_act<float>).
 // Shapes it takes (sm90_takes, mirrored by ops/kernels/gemm.py): N % 128 ==
-// 0, K % 64 == 0, any M >= 1, 16-byte aligned operands. Other bf16 shapes
+// 0, K % 64 == 0, any M >= 1, 16-byte aligned operands; the kSm90Int8X3
+// kind also a ragged N >= 128 (w8_x3_takes, w8a16_matmul.cu), which its
+// epilogue masks. Other bf16 shapes
 // run gemm.cuh's mma.sync kernel (gemm_bf16 makes that choice), other f32
 // shapes gemm.cuh's FMA kernel (gemm_f32).
 #pragma once
@@ -106,8 +122,11 @@ constexpr int kSm90StgBytes = 8 * 8 * kSm90StgLd * 4;  // the 8 warps
 // float32: a k-block of 32 floats (128 bytes), three stages
 constexpr int kSm90F32BK = 32, kSm90F32Stages = 3;
 
-// the kinds of the kernel: bf16 A and W, bf16 A and int8 W (B12), f32
-enum Sm90Kind : int { kSm90Bf16 = 0, kSm90Int8 = 1, kSm90F32 = 2 };
+// the kinds of the kernel: bf16 A and W, bf16 A and int8 W (B12), f32,
+// and int8 W with f32 A given as its three bf16 planes (B12 at f32 x)
+enum Sm90Kind : int {
+  kSm90Bf16 = 0, kSm90Int8 = 1, kSm90F32 = 2, kSm90Int8X3 = 3
+};
 
 // Shared memory of the kernel of each kind: the stages (A then W, 1024
 // bytes to align them; f32 also W's lo plane), the consumer warps'
@@ -117,28 +136,37 @@ enum Sm90Kind : int { kSm90Bf16 = 0, kSm90Int8 = 1, kSm90F32 = 2 };
 // prompt (a wave of 132 SMs, where 128-row tiles make 144, 1.09 waves),
 // and 9216 = 64 x 144; its staging holds a transposed block of the swapped
 // product (144 rows of 8 + 4 floats a warp). A k-block is 128 bytes of a
-// row in every kind (64 bf16, 32 f32). Must match ops/kernels/gemm.py
-// sm90_smem_bytes and ops/kernels/int8_matmul.py sm90_smem_bytes.
+// row in every kind (64 bf16, 32 f32). With f32 x (kX3) a stage holds x's
+// three bf16 planes (54 KB at 144 rows), so three stages fit, and the
+// staging takes 72 of the tile's 144 x rows at a time. Must match
+// ops/kernels/gemm.py sm90_smem_bytes and ops/kernels/int8_matmul.py
+// sm90_smem_bytes.
 template <int kKind>
 struct Sm90Layout {
-  static constexpr bool kInt8W = kKind == kSm90Int8;
+  static constexpr bool kX3 = kKind == kSm90Int8X3;
+  static constexpr bool kInt8W = kKind == kSm90Int8 || kX3;
   static constexpr bool kF32 = kKind == kSm90F32;
   static constexpr int kBM = kInt8W ? 144 : kSm90BM;  // rows of A a tile
   static constexpr int kBK = kF32 ? kSm90F32BK : kSm90BK;  // K a k-block
-  static constexpr int kStages = kInt8W ? 6 : kF32 ? kSm90F32Stages
-                                                   : kSm90Stages;
-  static constexpr int kABytes = kBM * kSm90BK * 2;
+  static constexpr int kPlanes = kX3 ? 3 : 1;  // A's planes a stage
+  static constexpr int kStages = kX3 ? 3 : kInt8W ? 6 : kF32 ? kSm90F32Stages
+                                                           : kSm90Stages;
+  static constexpr int kPlaneBytes = kBM * kSm90BK * 2;
+  static constexpr int kABytes = kPlanes * kPlaneBytes;
   static constexpr int kWBytes = kSm90BN * kSm90BK * (kInt8W ? 1 : 2);
   static constexpr int kTxBytes = kABytes + kWBytes;  // what TMA brings
   static constexpr int kStageBytes = kTxBytes + (kF32 ? kWBytes : 0);
   static constexpr int kStgLd = kInt8W ? 12 : kSm90StgLd;  // floats a row
+  static constexpr int kStgRows = kX3 ? kBM / 2 : kBM;  // x rows staged
   static constexpr int kStgBytes =
-      kInt8W ? 8 * kBM * kStgLd * 4 : kSm90StgBytes;
+      kInt8W ? 8 * kStgRows * kStgLd * 4 : kSm90StgBytes;
   static constexpr int kSmemBytes = 1024 + kStages * kStageBytes +
                                     kStgBytes + (2 * kStages + 2) * 8;
-  // f32: a producer warpgroup, whose registers go to the consumers
-  // (setmaxnreg: sum, partial and A's split fragments need about 200)
-  static constexpr int kThreads = kF32 ? 384 : kSm90Threads;
+  // f32 and kX3: a producer warpgroup, whose registers go to the
+  // consumers (setmaxnreg: sum, partial and A's fragments need about 200;
+  // at 168, ptxas's cap for the block, they spill)
+  static constexpr bool kRegs = kF32 || kX3;
+  static constexpr int kThreads = kRegs ? 384 : kSm90Threads;
   static_assert(kStageBytes % 1024 == 0, "stages stay 1024-byte aligned");
   static_assert(kSmemBytes <= 232448, "one block");
 };
@@ -169,7 +197,8 @@ constexpr int kSm90PartFloats = 256 * 144 / 2;  // a unit's partial
 // tiles fill the card (M = 1152: 128-512 tiles). Mirrored by
 // ops/kernels/int8_matmul.py sm90_splits.
 inline int sm90_int8_splits(int M, int N, int K, int sms) {
-  const int tiles = (M + 143) / 144 * (N / kSm90BN), kt = K / kSm90BK;
+  const int tiles = (M + 143) / 144 * ((N + kSm90BN - 1) / kSm90BN),
+            kt = K / kSm90BK;
   int s = 1;
   while (tiles * s * 2 <= sms && kt % (2 * s) == 0 &&
          kt / (2 * s) >= kSm90MinSplitKb)
@@ -489,7 +518,9 @@ __global__ void __launch_bounds__(Sm90Layout<kKind>::kThreads, 1)
   uint64_t* turn = empty + kStages;  // turn[w]: warpgroup w may multiply
 
   const int tid = threadIdx.x, wg = tid / 128;
-  const int tiles_n = N / kSm90BN;
+  // (kX3 takes a ragged N, the vocab head: its last tile's W rows past N
+  // come back from TMA as zeros and its epilogue masks the columns)
+  const int tiles_n = (N + kSm90BN - 1) / kSm90BN;
   const int tiles = (M + L::kBM - 1) / L::kBM * tiles_n;
   const int kt = K / L::kBK;
   if (tid == 0) {
@@ -509,7 +540,7 @@ __global__ void __launch_bounds__(Sm90Layout<kKind>::kThreads, 1)
   // units of tiles x splits the same way (Sm90Split), kts k-blocks each
   const int splits = kSplitK ? split.splits : 1, kts = kt / splits;
   if (wg == 2) {  // the producer warp (f32: warpgroup)
-    if constexpr (L::kF32) producer_registers();
+    if constexpr (L::kRegs) producer_registers();
     if (tid == 256) {
       int s = 0, ph = 0;
       for (int u = blockIdx.x; u < tiles * splits; u += gridDim.x) {
@@ -518,7 +549,12 @@ __global__ void __launch_bounds__(Sm90Layout<kKind>::kThreads, 1)
         for (int kb = kb0; kb < kb0 + kts; ++kb) {
           mbar_wait(&empty[s], ph ^ 1);
           mbar_expect_tx(&full[s], L::kTxBytes);
-          tma_load_2d(stage_a(s), &map_a, &full[s], kb * L::kBK, m0);
+          // kX3: plane p of x's k-block kb is columns p K + kb kBK of the
+          // planes' [M, 3K] map
+#pragma unroll
+          for (int p = 0; p < L::kPlanes; ++p)
+            tma_load_2d(stage_a(s) + p * (L::kPlaneBytes / 2), &map_a,
+                        &full[s], p * K + kb * L::kBK, m0);
           tma_load_2d(stage_w(s), &map_w, &full[s], kb * L::kBK, n0);
           if (++s == kStages) s = 0, ph ^= 1;
         }
@@ -639,6 +675,7 @@ __global__ void __launch_bounds__(Sm90Layout<kKind>::kThreads, 1)
     // wgmma groups (ptxas serializes register-A operands written between a
     // group's fence and its wait), so it overlaps the other warpgroup's.
     // Both release every stage.
+    if constexpr (L::kX3) consumer_registers();
     const int wr0 = wg * 64 + wrow * 16 + g;
     int kg = 0;  // k-blocks consumed: k-block kg sits in stage kg % kStages
     constexpr int kAcc = L::kBM / 2;  // n = kBM: kBM / 8 blocks of 4
@@ -656,14 +693,39 @@ __global__ void __launch_bounds__(Sm90Layout<kKind>::kThreads, 1)
 #pragma unroll
         for (int k = 0; k < kSm90BK / 16; ++k) w8_frag(w, wr0, k, tq, af[k]);
         const bf16* a = stage_a(s);
-        wgmma_fence();
+        if constexpr (L::kX3) {
+          // each 16-deep step's three products into a partial from zero,
+          // the small planes first (b2, b1, then b0), added to the sum on
+          // the CUDA cores (round to nearest): the tensor cores' own
+          // accumulation loses up to about half an ulp of what it holds
+          // an mma, one way, so the sum never goes through it
 #pragma unroll
-        for (int k = 0; k < kSm90BK / 16; ++k)
-          wgmma_m64n144k16_rs(d, af[k], sw128_desc(a + k * 16),
-                              kb > 0 || k > 0);
-        wgmma_commit();
-        wgmma_wait<0>();
-        if ((tid & 127) == 0) mbar_arrive(&empty[s]);
+          for (int k = 0; k < kSm90BK / 16; ++k) {
+            float part[kAcc];
+            wgmma_fence();
+#pragma unroll
+            for (int p = L::kPlanes - 1; p >= 0; --p)
+              wgmma_m64n144k16_rs(
+                  part, af[k],
+                  sw128_desc(a + p * (L::kPlaneBytes / 2) + k * 16),
+                  p < L::kPlanes - 1);
+            wgmma_commit();
+            wgmma_wait<0>();
+            if (k == kSm90BK / 16 - 1 && (tid & 127) == 0)
+              mbar_arrive(&empty[s]);
+#pragma unroll
+            for (int i = 0; i < kAcc; ++i) d[i] = __fadd_rn(d[i], part[i]);
+          }
+        } else {
+          wgmma_fence();
+#pragma unroll
+          for (int k = 0; k < kSm90BK / 16; ++k)
+            wgmma_m64n144k16_rs(d, af[k], sw128_desc(a + k * 16),
+                                kb > 0 || k > 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          if ((tid & 127) == 0) mbar_arrive(&empty[s]);
+        }
       }
 
       if constexpr (kSplitK) {
@@ -731,30 +793,35 @@ __global__ void __launch_bounds__(Sm90Layout<kKind>::kThreads, 1)
 
       // epilogue, transposed through this warp's f32 staging: the
       // product's 8 rows g (+8 hf) are 8 columns of out (W rows n0 + nr
-      // ..), its 144 columns rows of out (m0 ..); staged as [144][8 + 4]
-      // (conflict-free stores and 16-byte loads), then a lane takes rows
-      // lane, lane + 32, ... of out, 8 columns each
+      // ..), its 144 columns rows of out (m0 ..); kStgRows of them at a
+      // time staged as [kStgRows][8 + 4] (conflict-free stores and 16-byte
+      // loads), then a lane takes rows lane, lane + 32, ... of out, 8
+      // columns each
       float* ws = stg + (tid >> 5) * (L::kStgBytes / 32);
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
-        __syncwarp();
-#pragma unroll
-        for (int i = 0; i < L::kBM / 8; ++i)
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            ws[(8 * i + 2 * tq + e) * L::kStgLd + g] = d[4 * i + 2 * hf + e];
-        __syncwarp();
         const int nr = wg * 64 + wrow * 16 + hf * 8;
 #pragma unroll
-        for (int k = 0; k < (L::kBM + 31) / 32; ++k) {
-          const int r = lane + 32 * k;
-          if (r >= L::kBM || m0 + r >= M) continue;
-          const float4 a0 =
-              *reinterpret_cast<const float4*>(ws + r * L::kStgLd);
-          const float4 a1 =
-              *reinterpret_cast<const float4*>(ws + r * L::kStgLd + 4);
-          float v[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-          epi(m0 + r, n0 + nr, v);
+        for (int r0 = 0; r0 < L::kBM; r0 += L::kStgRows) {
+          __syncwarp();
+#pragma unroll
+          for (int i = r0 / 8; i < (r0 + L::kStgRows) / 8; ++i)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              ws[(8 * i - r0 + 2 * tq + e) * L::kStgLd + g] =
+                  d[4 * i + 2 * hf + e];
+          __syncwarp();
+#pragma unroll
+          for (int k = 0; k < (L::kStgRows + 31) / 32; ++k) {
+            const int r = lane + 32 * k;
+            if (r >= L::kStgRows || m0 + r0 + r >= M) continue;
+            const float4 a0 =
+                *reinterpret_cast<const float4*>(ws + r * L::kStgLd);
+            const float4 a1 =
+                *reinterpret_cast<const float4*>(ws + r * L::kStgLd + 4);
+            float v[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+            epi(m0 + r0 + r, n0 + nr, v);
+          }
         }
       }
     }
@@ -839,8 +906,9 @@ inline bool make_map(CUtensorMap* map, const void* p, int rows, int K,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// One launch of gemm_nt_sm90 of kind kKind over A [M, K] (bf16, or f32)
-// and W [N, K] (bf16, int8 or f32), sm90_takes(M, N, K), 16-byte aligned.
+// One launch of gemm_nt_sm90 of kind kKind over A [M, K] (bf16, or f32;
+// kSm90Int8X3: x's bf16 planes [M, 3K]) and W [N, K] (bf16, int8 or f32),
+// sm90_takes(M, N, K), 16-byte aligned.
 // Returns a cudaError_t code.
 template <int kKind, class Epi>
 int gemm_sm90_run(const void* A, const void* W, const Epi& epi, int M, int N,
@@ -848,15 +916,17 @@ int gemm_sm90_run(const void* A, const void* W, const Epi& epi, int M, int N,
                   const Sm90Split& split = Sm90Split{1, nullptr, nullptr}) {
   using L = Sm90Layout<kKind>;
   const MapType ta = kKind == kSm90F32 ? kMapF32 : kMapBf16;
-  const MapType tw = kKind == kSm90Int8 ? kMapInt8 : ta;
+  const MapType tw = L::kInt8W ? kMapInt8 : ta;
   CUtensorMap ma, mw;
-  if (!make_map(&ma, A, M, K, L::kBM, ta) ||
+  // kX3: A is x's planes, [M, 3K] bf16 (row m: b0, b1, b2 of x's row m)
+  if (!make_map(&ma, A, M, L::kPlanes * K, L::kBM, ta) ||
       !make_map(&mw, W, N, K, kSm90BN, tw))
     return (int)cudaErrorInvalidValue;
-  const int units = (M + L::kBM - 1) / L::kBM * (N / kSm90BN) *
-                    (kKind == kSm90Int8 ? split.splits : 1);
+  const int units = (M + L::kBM - 1) / L::kBM *
+                    ((N + kSm90BN - 1) / kSm90BN) *
+                    (L::kInt8W ? split.splits : 1);
   const int grid = units < sm_count() ? units : sm_count();
-  if constexpr (kKind == kSm90Int8) {
+  if constexpr (L::kInt8W) {
     if (split.splits > 1) {
       static const cudaError_t attr = cudaFuncSetAttribute(
           gemm_nt_sm90<kKind, Epi, true>,

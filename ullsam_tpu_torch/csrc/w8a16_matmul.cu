@@ -6,7 +6,8 @@
 // weight), scale [N] f32 (per output channel), bias [N] f32 or none; the
 // sum in f32, the result rounded once to f32 or to x's type. int8 -> f32 is
 // exact (|q| <= 127), so a bf16 x gives exact products and only the order
-// of the sums differs from the plain version. Replaces the TPU kernel
+// of the sums differs from the plain version; an f32 x is split exactly
+// into three bf16 planes (below), so the same holds. Replaces the TPU kernel
 // ullsam_tpu/ops/pallas/int8_matmul.py `_w8a16_kernel` (scale on the f32
 // sum; the bias and the cast are the JAX linear's epilogue,
 // ullsam_tpu/ops/layers.py:76-81, fused here).
@@ -44,8 +45,9 @@
 //     applies the scale, the bias and the cast once: no float atomics,
 //     two calls bitwise equal, one launch a call, and a
 //     captured CUDA graph replays it with no memset. The ragged head (N =
-//     92,553: 724 groups, no split) masks its last rows. M = 1 and f32 x
-//     keep w8a16_gemv (bf16 tensor cores would round f32 x): each warp
+//     92,553: 724 groups, no split) masks its last rows. M = 1 keeps
+//     w8a16_gemv (x in bf16 or f32; the tensor-core body measured
+//     1.3-1.5x slower at one row): each warp
 //     gives R whole rows of q; a lane reads 16 bytes of each row per step
 //     (a warp: 512 contiguous bytes a row) with streaming loads, four
 //     16-byte loads in flight a lane, and blocks stay resident (persistent
@@ -77,13 +79,39 @@
 //     the tiles leave most SMs idle, so the kind splits K there
 //     (gemm_sm90.cuh sm90_int8_splits, the same fixed-order reduction in
 //     the tile's last unit, W8Epilogue once); M = 1152 and 9216 keep one
-//     split, bitwise the unsplit kernel. The ragged
-//     92,553-column head, other widths and f32 x keep the earlier kernels:
-//     bf16 x runs w8a16_gemm_mma (128 x 128 tiles, k-tile 32, mma.sync
-//     m16n8k16, the int8 tile staged by cp.async and converted to bf16 in
-//     shared memory before ldmatrix; it beats F.linear on the head); f32 x
-//     runs w8a16_gemm_f32, gemm.cuh's CUDA-core FMA GEMM with the int8
-//     tile converted as it is stashed.
+//     split, bitwise the unsplit kernel. With bf16 x the ragged
+//     92,553-column head and other widths keep w8a16_gemm_mma (128 x 128
+//     tiles, k-tile 32, mma.sync m16n8k16, the int8 tile staged by
+//     cp.async and converted to bf16 in shared memory before ldmatrix; it
+//     beats F.linear on the head). f32 x at widths the wgmma kind does not
+//     take (K % 64, N < 128) runs w8a16_gemm_f32, gemm.cuh's CUDA-core FMA
+//     GEMM with the int8 tile converted as it is stashed.
+//   * f32 x (the app's --dtype float32 --quant int8) on the bf16 tensor
+//     cores, exactly: x = b0 + b1 + b2 (split_bf16x3: b0 x cut to bf16, b1
+//     the remainder cut, b2 the rest, itself a bf16 wherever x's bits lie
+//     at or above 2^-133), so W . x = W . b0 + W . b1 + W . b2 with every
+//     product exact, at three bf16 products (3 / 989 of a peak second a
+//     TFLOP; split TF32 would need three TF32 ones, 3 / 495, and round x).
+//     Each 16-deep step's three products go into a partial from zero, the
+//     small planes first, that the CUDA cores add to the f32 sum (round to
+//     nearest): the tensor cores' accumulation truncates, and one
+//     accumulator over K = 8192 drifts to 8.6e-6 of max|out| (the bf16
+//     wgmma kind), where the plain f32 version errs about 3e-7. At
+//     2 <= M <= 16 w8a16_decode_tc<.., kX3> (w8a16_decode_tc_f32) stages
+//     x's K slice as its three planes, split as it is loaded (three times
+//     bf16's bytes, so tc_plan splits K across blocks at fewer rows: K =
+//     2048 from 9 rows, w2 from 2, and there gives a block up to 4x the
+//     rows, so that fewer blocks read x's slice as f32), each converted
+//     weight fragment feeding three mma.sync. At M > 16 where sm90_takes holds
+//     (w8a16_sm90_f32) a pre-pass (w8a16_split_x3) writes the planes into
+//     the workspace as [M, 3K] bf16 (6 bytes an element against x's 4)
+//     and gemm_sm90.cuh's kSm90Int8X3 kind lands three boxes a stage by
+//     TMA, W's fragment converted once for three wgmmas; splits as the
+//     int8 kind. Two launches, each counted (kW8SplitX3, kW8Sm90F32). It
+//     also takes the ragged head and any N of at least one tile
+//     (w8_x3_takes; caption_ids' prefill runs the head over every prompt
+//     row, 1152 at batch 1), its epilogue masking the last tile's columns
+//     past N.
 //   * N is ragged (the head), masked by bounds checks; K must be a multiple
 //     of 16 (one 16-byte int8 vector), which the C entry and the wrapper
 //     check.
@@ -92,8 +120,11 @@
 // this library's own plan), and each launch is counted
 // (w8a16_launch_count).
 // Later work: a fused gate/up pair (w1 and w3 read one x), the head's
-// prefill on the wgmma kind (its ragged last tile).
+// bf16 prefill on the wgmma kind (as f32 x's takes it), f32 x's decode slice
+// read by fewer blocks (each block of wo and w2 reads x's whole f32 slice,
+// twice the bytes of its 16 weight rows).
 #include <algorithm>
+#include <type_traits>
 
 #include "gemm_sm90.cuh"
 
@@ -102,10 +133,11 @@ namespace {
 
 // launches of each B12 kernel made through this library
 enum W8Kernel : int {
-  kW8Gemv = 0, kW8Sm90 = 1, kW8Mma = 2, kW8F32 = 3, kW8DecodeTc = 4
+  kW8Gemv = 0, kW8Sm90 = 1, kW8Mma = 2, kW8F32 = 3, kW8DecodeTc = 4,
+  kW8Sm90F32 = 5, kW8DecodeTcF32 = 6, kW8SplitX3 = 7
 };
-constexpr int kW8Kernels = 5;
-long long w8_launch_counts[kW8Kernels] = {0, 0, 0, 0, 0};
+constexpr int kW8Kernels = 8;
+long long w8_launch_counts[kW8Kernels] = {0, 0, 0, 0, 0, 0, 0, 0};
 
 // int8 x4 (one word) -> 4 exact floats: b ^ 0x80 = b + 128 in [1, 255]
 // placed in the mantissa of 2^23, minus 2^23 + 128
@@ -122,6 +154,40 @@ __device__ __forceinline__ void i8x16_to_f32(uint4 w, float* f) {
   i8x4_to_f32(w.y, f + 4);
   i8x4_to_f32(w.z, f + 8);
   i8x4_to_f32(w.w, f + 12);
+}
+
+// f32 x = b0 + b1 + b2 in bf16, exactly (int8_matmul.split_bf16x3): b0 is
+// x cut to its top 16 bits, b1 the remainder r1 = x - b0 (exact) cut the
+// same way, b2 = r1 - b1 (exact, at most 8 significant bits) rounded to
+// nearest, which changes it only where its bits lie below 2^-133 (bf16's
+// least subnormal: |x| < 2^-110). Cutting, not rounding, b0 keeps the
+// largest floats finite. Non-finite x gives NaN parts. Two values at once:
+// each part's bf16 pair packed into a word, the first in the low half.
+__device__ __forceinline__ void split_bf16x3(float x0, float x1,
+                                             uint32_t* h) {
+  const uint32_t u0 = __float_as_uint(x0), u1 = __float_as_uint(x1);
+  const float r0 = x0 - __uint_as_float(u0 & 0xffff0000u);
+  const float r1 = x1 - __uint_as_float(u1 & 0xffff0000u);
+  const uint32_t v0 = __float_as_uint(r0), v1 = __float_as_uint(r1);
+  const __nv_bfloat162 b2 =
+      __floats2bfloat162_rn(r0 - __uint_as_float(v0 & 0xffff0000u),
+                            r1 - __uint_as_float(v1 & 0xffff0000u));
+  h[0] = __byte_perm(u0, u1, 0x7632);
+  h[1] = __byte_perm(v0, v1, 0x7632);
+  h[2] = *reinterpret_cast<const uint32_t*>(&b2);
+}
+
+// 8 floats (two float4) -> the three planes' 8 bf16 each
+__device__ __forceinline__ void split8_bf16x3(float4 a, float4 b,
+                                              uint4* p) {
+  uint32_t h[4][3];
+  split_bf16x3(a.x, a.y, h[0]);
+  split_bf16x3(a.z, a.w, h[1]);
+  split_bf16x3(b.x, b.y, h[2]);
+  split_bf16x3(b.z, b.w, h[3]);
+#pragma unroll
+  for (int q = 0; q < 3; ++q)
+    p[q] = make_uint4(h[0][q], h[1][q], h[2][q], h[3][q]);
 }
 
 // one 16-byte vector of x as floats: 8 bf16 or 4 f32
@@ -276,7 +342,11 @@ __global__ void __launch_bounds__(kGemvThreads)
 // x's K slice in shared memory; the W warps of a tile split its K and are
 // added in warp order through shared memory; S blocks split K only where
 // x's slice would not fit (kTcXBytes), adding their partials in the
-// group's last block.
+// group's last block. With f32 x (kX3) the slice is staged as x's three
+// bf16 planes (split as it is loaded) and each converted weight fragment
+// runs three mmas, one a plane, into a partial from zero that the CUDA
+// cores add to the sum (the tensor cores' own accumulation, truncating,
+// would lose up to about half an ulp of the sum an mma).
 constexpr int kTcWarps = 8, kTcThreads = kTcWarps * 32;
 constexpr int kTcChunks = 4;            // 64-byte k-chunks a warp step
 constexpr int kTcXBytes = 128 * 1024;   // x's slice in shared memory at most
@@ -288,11 +358,19 @@ constexpr int kTcSumSplits = 8;         // partials in flight a batch
 // a 16-row tile (rows a block 128 / W), doubled while the groups of rows
 // still fit twice in one wave of the card's SMs and a warp keeps whole
 // 64-byte chunks; S blocks on a K slice, doubled until x's slice (8 or 16
-// rows) fits kTcXBytes. Mirrored by ops/kernels/int8_matmul.py decode_plan.
+// rows; planes 3 of them with f32 x) fits kTcXBytes. With f32 x, where
+// that splits K across blocks, a block takes up to 4x the rows (W / 4, S x
+// 4, a warp's K part unchanged): each block stages its slice of x as f32,
+// twice the bytes of bf16's, which at 16 rows a block outweighs its
+// weights (w2 at 8 rows: 64 KB of x for 32 KB of weights); taller blocks
+// read a quarter of it (w2 at 8 rows 0.0216 -> 0.0176 ms, every 16-row
+// linear 12-25% faster; where the slice fits, splitting K would cost more
+// than it saves: wo at 4 rows 0.0071 -> 0.0074). Mirrored by
+// ops/kernels/int8_matmul.py decode_plan.
 struct TcPlan {
   int w, s;
 };
-inline TcPlan tc_plan(int M, int N, int K, int sms) {
+inline TcPlan tc_plan(int M, int N, int K, int sms, int planes) {
   if (M < kTcMinM || M > 16 || K % 64) return {0, 0};
   const int mm = M <= 8 ? 8 : 16;
   int w = 1;
@@ -300,10 +378,12 @@ inline TcPlan tc_plan(int M, int N, int K, int sms) {
                              sms && K % (2 * w * 64) == 0)
     w *= 2;
   int s = 1;
-  while ((long long)mm * (K / s) * 2 > kTcXBytes) {
+  while ((long long)planes * mm * (K / s) * 2 > kTcXBytes) {
     if (K % (2 * s * w * 64)) return {0, 0};
     s *= 2;
   }
+  if (planes == 3 && s > 1)
+    for (int i = 0; i < 2 && w > 1; ++i) w /= 2, s *= 2;
   return {w, s};
 }
 
@@ -335,10 +415,10 @@ __device__ __forceinline__ float w8_epi(float v, const float* scale,
   return bias ? __fadd_rn(y, bias[n]) : y;
 }
 
-template <int NT, typename OutT>
+template <int NT, typename OutT, bool kX3 = false,
+          typename XT = std::conditional_t<kX3, float, __nv_bfloat16>>
 __global__ void __launch_bounds__(kTcThreads, 2)
-    w8a16_decode_tc(const __nv_bfloat16* __restrict__ x,
-                    const int8_t* __restrict__ q,
+    w8a16_decode_tc(const XT* __restrict__ x, const int8_t* __restrict__ q,
                     const float* __restrict__ scale,
                     const float* __restrict__ bias, OutT* __restrict__ out,
                     float* __restrict__ ws, int* __restrict__ counters,
@@ -360,6 +440,7 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   const int8_t* qa = q + (size_t)(va ? ra : 0) * K + k0 + kw0 + 16 * tq;
   const int8_t* qb = q + (size_t)(vb ? rb : 0) * K + k0 + kw0 + 16 * tq;
   const int steps = (nch + kTcChunks - 1) / kTcChunks;
+  const int plane = 8 * NT * ld;  // bf16 a plane of x's slice (kX3)
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
 
   // step st's chunks of both rows
@@ -382,6 +463,41 @@ __global__ void __launch_bounds__(kTcThreads, 2)
       const int c = st * kTcChunks + j;
       if (c >= nch) break;  // warp-uniform
       const int kk = kw0 + c * 64 + 16 * tq;
+      if constexpr (kX3) {
+        const uint32_t wa[4] = {w[j][0].x, w[j][0].y, w[j][0].z, w[j][0].w};
+        const uint32_t wb[4] = {w[j][1].x, w[j][1].y, w[j][1].z, w[j][1].w};
+#pragma unroll
+        for (int hx = 0; hx < 2; ++hx) {  // the chunk's 16-byte x halves
+          uint32_t a[2][4];  // the A fragments of steps 2 hx, 2 hx + 1
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            i8x4_to_bf16x2(wa[2 * hx + u], a[u][0], a[u][2]);
+            i8x4_to_bf16x2(wb[2 * hx + u], a[u][1], a[u][3]);
+          }
+#pragma unroll
+          for (int t = 0; t < NT; ++t) {
+            uint4 xq[3];
+#pragma unroll
+            for (int p = 0; p < 3; ++p)
+              xq[p] = reinterpret_cast<const uint4*>(
+                  xs + p * plane + (8 * t + g) * ld + kk)[hx];
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+              for (int p = 2; p >= 0; --p) {  // the small planes first
+                const uint32_t b[2] = {u ? xq[p].z : xq[p].x,
+                                       u ? xq[p].w : xq[p].y};
+                mma_bf16_16816(part, a[u], b);
+              }
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                acc[t][e] = __fadd_rn(acc[t][e], part[e]);
+            }
+          }
+        }
+        continue;
+      }
       uint4 xv[NT][2];
 #pragma unroll
       for (int t = 0; t < NT; ++t) {
@@ -410,7 +526,35 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   uint4 w0[kTcChunks][2], w1[kTcChunks][2];
   load(w0, 0);  // two steps in flight while x's slice is staged
   if (steps > 1) load(w1, 1);
-  {  // x[:, k0 : k0 + KB] -> xs [8 NT][ld] by cp.async, rows >= M zero
+  if constexpr (kX3) {
+    // f32 x[:, k0 : k0 + KB] -> its three bf16 planes [3][8 NT][ld], rows
+    // >= M zero: 8 floats an item, two items' loads in flight at once (the
+    // weight steps in flight hold 64 registers)
+    const int vpr = KB / 8, items = 8 * NT * vpr;
+    const float4 z4 = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i0 = threadIdx.x; i0 < items; i0 += 2 * kTcThreads) {
+      float4 f[2][2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int i = i0 + u * kTcThreads, m = i / vpr, v = i - m * vpr;
+        const bool ok = i < items && m < M;
+        const float4* src = reinterpret_cast<const float4*>(
+            x + (ok ? (size_t)m * K + k0 + v * 8 : 0));
+        f[u][0] = ok ? __ldg(src) : z4;
+        f[u][1] = ok ? __ldg(src + 1) : z4;
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int i = i0 + u * kTcThreads, m = i / vpr, v = i - m * vpr;
+        if (i >= items) break;
+        uint4 pv[3];
+        split8_bf16x3(f[u][0], f[u][1], pv);
+#pragma unroll
+        for (int p = 0; p < 3; ++p)
+          *reinterpret_cast<uint4*>(xs + p * plane + m * ld + v * 8) = pv[p];
+      }
+    }
+  } else {  // x[:, k0 : k0 + KB] -> xs [8 NT][ld] by cp.async, rows >= M zero
     const int vpr = KB / 8;
     for (int i = threadIdx.x; i < 8 * NT * vpr; i += kTcThreads) {
       const int m = i / vpr, v = i - m * vpr;
@@ -633,7 +777,11 @@ __global__ void __launch_bounds__(256)
 
 // ---- prefill, bf16 on the wgmma GEMM: B12's epilogue -------------------
 // v = columns n .. n + 7 of row m of the f32 sum: times scale[n], plus
-// bias[n] (two f32 roundings, as the plain version), rounded once to OutT
+// bias[n] (two f32 roundings, as the plain version), rounded once to OutT;
+// where the 8 columns reach past N (the f32-x kind's last tile at an N
+// that is not a multiple of 128, the vocab head's or one of 200) or the
+// rows are not 16-byte aligned (N % 8), column by column, the columns past
+// N dropped
 template <typename OutT>
 struct W8Epilogue {
   const float* scale;
@@ -641,6 +789,16 @@ struct W8Epilogue {
   OutT* out;
   int N;
   __device__ __forceinline__ void operator()(int m, int n, float* v) const {
+    if (N % 8 || n + 8 > N) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (n + e < N) {
+          float y = __fmul_rn(v[e], scale[n + e]);
+          if (bias) y = __fadd_rn(y, bias[n + e]);
+          out[(size_t)m * N + n + e] = from_f<OutT>(y);
+        }
+      return;
+    }
     const float4 s0 = *reinterpret_cast<const float4*>(scale + n);
     const float4 s1 = *reinterpret_cast<const float4*>(scale + n + 4);
     const float sc[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
@@ -838,26 +996,28 @@ int gemv(const T* x, const int8_t* q, const float* scale, const float* bias,
   return gemv_rows<T, 16>(x, q, scale, bias, out, out_f32, M, N, K, st);
 }
 
-template <int NT, typename OutT>
-int launch_decode_tc(const __nv_bfloat16* x, const int8_t* q,
-                     const float* scale, const float* bias, OutT* out,
-                     float* ws, int* counters, int M, int N, int K,
-                     TcPlan plan, cudaStream_t st) {
-  auto kernel = w8a16_decode_tc<NT, OutT>;
+template <int NT, typename OutT, typename XT>
+int launch_decode_tc(const XT* x, const int8_t* q, const float* scale,
+                     const float* bias, OutT* out, float* ws, int* counters,
+                     int M, int N, int K, TcPlan plan, cudaStream_t st) {
+  constexpr bool kX3 = std::is_same<XT, float>::value;
+  constexpr int planes = kX3 ? 3 : 1;
+  auto kernel = w8a16_decode_tc<NT, OutT, kX3>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kTcXBytes + 8 * NT * kTcXPad * 2);
+      kTcXBytes + planes * 8 * NT * kTcXPad * 2);
   if (attr != cudaSuccess) return (int)attr;
   const int rows = 16 * kTcWarps / plan.w;
   const int groups = (N + rows - 1) / rows;
-  const int smem = 8 * NT * (K / plan.s + kTcXPad) * 2;
+  const int smem = planes * 8 * NT * (K / plan.s + kTcXPad) * 2;
   kernel<<<groups * plan.s, kTcThreads, smem, st>>>(
       x, q, scale, bias, out, ws, counters, M, N, K, plan.w, plan.s);
   return (int)cudaGetLastError();
 }
 
-template <typename OutT>
-int decode_tc(const __nv_bfloat16* x, const int8_t* q, const float* scale,
+// x bf16 (out f32 or bf16) or f32 (its three planes; out f32)
+template <typename OutT, typename XT>
+int decode_tc(const XT* x, const int8_t* q, const float* scale,
               const float* bias, OutT* out, float* ws, int* counters, int M,
               int N, int K, TcPlan plan, cudaStream_t st) {
   return M <= 8 ? launch_decode_tc<1>(x, q, scale, bias, out, ws, counters,
@@ -866,40 +1026,104 @@ int decode_tc(const __nv_bfloat16* x, const int8_t* q, const float* scale,
                                       M, N, K, plan, st);
 }
 
+// the f32 prefill's pre-pass: x [M, K] f32 -> its planes [M, 3K] bf16 (row
+// m: b0, b1, b2 of x's row m; K % 8 == 0), 8 floats a thread
+__global__ void __launch_bounds__(256)
+    w8a16_split_x3(const float* __restrict__ x,
+                   __nv_bfloat16* __restrict__ xs, int M, int K) {
+  const int kv = K / 8;
+  const long long n = (long long)M * kv;
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < n;
+       i += (long long)gridDim.x * 256) {
+    const int m = (int)(i / kv), v = (int)(i - (long long)m * kv);
+    const float4* src = reinterpret_cast<const float4*>(x + (size_t)m * K +
+                                                        v * 8);
+    uint4 p[3];
+    split8_bf16x3(__ldg(src), __ldg(src + 1), p);
+    uint4* dst = reinterpret_cast<uint4*>(xs + (size_t)m * 3 * K) + v;
+    dst[0] = p[0];
+    dst[kv] = p[1];
+    dst[2 * kv] = p[2];
+  }
+}
+
 // the kernel a call launches (w8a16_kernel in ops/kernels/int8_matmul.py),
 // its K splits across blocks or units (1: none) and, for the decode body,
 // the warps a 16-row tile
 struct W8Plan {
   int kernel, splits, warps;
 };
-W8Plan w8_plan(int dtype, int M, int N, int K) {
-  if (dtype == kF32) return {M <= 16 ? kW8Gemv : kW8F32, 1, 0};
-  if (M <= 16) {
-    const TcPlan tc = tc_plan(M, N, K, num_sms());
-    return tc.w ? W8Plan{kW8DecodeTc, tc.s, tc.w} : W8Plan{kW8Gemv, 1, 0};
-  }
-  if (!sm90_takes(M, N, K)) return {kW8Mma, 1, 0};
-  return {kW8Sm90, sm90_int8_splits(M, N, K, num_sms()), 0};
+// The shapes the wgmma GEMM's f32-x kind takes: sm90_takes' and a ragged N
+// of at least one tile (the vocab head). Mirrored by
+// ops/kernels/int8_matmul.py x3_takes.
+inline bool w8_x3_takes(int M, int N, int K) {
+  return M >= 1 && N >= kSm90BN && K >= kSm90BK && K % kSm90BK == 0;
 }
 
-// the split-K workspace (f32 partials) and tile counters a call needs: the
-// decode body's tiles' accumulators (8 NT floats a lane) of every block,
-// the wgmma GEMM's units' kSm90PartFloats; a counter a row group or tile
-long long w8_ws_floats(const W8Plan& p, int M, int N) {
+// f32 x: the decode body with x's three planes at 2 <= M <= 16 (M = 1 and
+// K % 64 keep the GEMV), the wgmma GEMM over the planes at M > 16 where
+// w8_x3_takes holds (the head included; other widths the FMA GEMM)
+W8Plan w8_plan(int dtype, int M, int N, int K) {
+  const bool f32 = dtype == kF32;
+  if (M <= 16) {
+    const TcPlan tc = tc_plan(M, N, K, num_sms(), f32 ? 3 : 1);
+    return tc.w ? W8Plan{f32 ? kW8DecodeTcF32 : kW8DecodeTc, tc.s, tc.w}
+                : W8Plan{kW8Gemv, 1, 0};
+  }
+  if (!(f32 ? w8_x3_takes(M, N, K) : sm90_takes(M, N, K)))
+    return {f32 ? kW8F32 : kW8Mma, 1, 0};
+  return {f32 ? kW8Sm90F32 : kW8Sm90, sm90_int8_splits(M, N, K, num_sms()),
+          0};
+}
+
+inline bool w8_decode(int kernel) {
+  return kernel == kW8DecodeTc || kernel == kW8DecodeTcF32;
+}
+
+// the workspace (f32) a call needs: the split-K partials, the decode body's
+// tiles' accumulators (8 NT floats a lane) of every block or the wgmma
+// GEMM's units' kSm90PartFloats; then, for the f32 prefill, x's three bf16
+// planes (1.5 M K floats). A counter a row group or tile where K splits.
+long long w8_part_floats(const W8Plan& p, int M, int N) {
   if (p.splits == 1) return 0;
-  if (p.kernel == kW8DecodeTc) {
+  if (w8_decode(p.kernel)) {
     const int rows = 16 * kTcWarps / p.warps, nt = M <= 8 ? 1 : 2;
     return (long long)(N + rows - 1) / rows * p.splits * (kTcWarps / p.warps) *
            nt * 32 * 4;
   }
-  return (long long)(M + 143) / 144 * (N / kSm90BN) * p.splits *
+  return (long long)(M + 143) / 144 * ((N + kSm90BN - 1) / kSm90BN) *
+         p.splits *
          kSm90PartFloats;
+}
+long long w8_ws_floats(const W8Plan& p, int M, int N, int K) {
+  return w8_part_floats(p, M, N) +
+         (p.kernel == kW8Sm90F32 ? (long long)M * K * 3 / 2 : 0);
 }
 int w8_counters(const W8Plan& p, int M, int N) {
   if (p.splits == 1) return 0;
-  return p.kernel == kW8DecodeTc
+  return w8_decode(p.kernel)
              ? (N + 16 * kTcWarps / p.warps - 1) / (16 * kTcWarps / p.warps)
-             : (M + 143) / 144 * (N / kSm90BN);
+             : (M + 143) / 144 * ((N + kSm90BN - 1) / kSm90BN);
+}
+
+// the f32 prefill: the pre-pass writes x's planes after the partials in
+// ws, then the wgmma GEMM's f32-x kind reads them
+int w8_sm90_f32(const float* x, const int8_t* q, const float* scale,
+                const float* bias, float* out, int M, int N, int K,
+                const W8Plan& p, float* ws, int* counters, cudaStream_t st) {
+  __nv_bfloat16* planes =
+      reinterpret_cast<__nv_bfloat16*>(ws + w8_part_floats(p, M, N));
+  const long long items = (long long)M * K / 8;
+  const int grid = (int)std::min<long long>((items + 255) / 256,
+                                            8LL * num_sms());
+  w8a16_split_x3<<<grid, 256, 0, st>>>(x, planes, M, K);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  ++w8_launch_counts[kW8SplitX3];
+  return gemm_sm90_run<kSm90Int8X3>(planes, q,
+                                    W8Epilogue<float>{scale, bias, out, N},
+                                    M, N, K, st,
+                                    Sm90Split{p.splits, ws, counters});
 }
 
 }  // namespace
@@ -909,7 +1133,8 @@ using namespace ullsam;
 
 // x [M, K] (dtype kF32 / kBF16), q [N, K] int8, scale [N] f32, bias [N] f32
 // or null -> out [M, N], f32 when out_f32 else x's type. All contiguous and
-// 16-byte aligned; K % 16 == 0. ws: ws_floats f32 of split-K workspace,
+// 16-byte aligned; K % 16 == 0. ws: ws_floats f32 of workspace (split-K
+// partials, f32 x's planes),
 // counters: n_counters ints, zero (the kernels leave them zero), at least
 // what w8a16_splits' plan needs (null and 0 when it splits nothing).
 // Returns a cudaError_t code (0 = launched).
@@ -922,7 +1147,7 @@ extern "C" int w8a16_matmul(int dtype, const void* x, const void* q,
     return (int)cudaErrorInvalidValue;
   const W8Plan plan = w8_plan(dtype, M, N, K);
   const int kernel = plan.kernel, splits = plan.splits;
-  if (ws_floats < w8_ws_floats(plan, M, N) ||
+  if (ws_floats < w8_ws_floats(plan, M, N, K) ||
       n_counters < w8_counters(plan, M, N))
     return (int)cudaErrorInvalidValue;
   const int8_t* qw = static_cast<const int8_t*>(q);
@@ -933,12 +1158,17 @@ extern "C" int w8a16_matmul(int dtype, const void* x, const void* q,
   int err;
   if (dtype == kF32) {
     const float* xf = static_cast<const float*>(x);
+    float* of = static_cast<float*>(out);
     if (kernel == kW8Gemv) {
       err = gemv<float>(xf, qw, s, b, out, 1, M, N, K, st);
+    } else if (kernel == kW8DecodeTcF32) {
+      err = decode_tc(xf, qw, s, b, of, wsf, cnt, M, N, K,
+                      TcPlan{plan.warps, splits}, st);
+    } else if (kernel == kW8Sm90F32) {
+      err = w8_sm90_f32(xf, qw, s, b, of, M, N, K, plan, wsf, cnt, st);
     } else {
       dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM);
-      w8a16_gemm_f32<<<grid, 256, 0, st>>>(
-          xf, qw, s, b, static_cast<float*>(out), M, N, K);
+      w8a16_gemm_f32<<<grid, 256, 0, st>>>(xf, qw, s, b, of, M, N, K);
       err = (int)cudaGetLastError();
     }
   } else {
@@ -991,21 +1221,23 @@ extern "C" int w8a16_splits(int dtype, int M, int N, int K) {
   return p.warps << 16 | p.splits << 8 | p.kernel;
 }
 
-// The split-K workspace (f32) and tile counters a call of this shape needs
-// on this card (0 for a call that splits nothing across blocks; -1 for a
-// shape the entry refuses): what ops/kernels/int8_matmul.py workspace
-// mirrors and allocates.
+// The workspace (f32: split-K partials, f32 x's planes) and tile counters a
+// call of this shape needs on this card (0 for a call that splits nothing
+// across blocks and has no planes; -1 for a shape the entry refuses): what
+// ops/kernels/int8_matmul.py workspace mirrors and allocates.
 extern "C" long long w8a16_workspace(int dtype, int M, int N, int K,
                                      int counters) {
   if (M < 1 || N < 1 || K < 16 || K % 16 || (dtype != kF32 && dtype != kBF16))
     return -1;
   const W8Plan p = w8_plan(dtype, M, N, K);
-  return counters ? w8_counters(p, M, N) : w8_ws_floats(p, M, N);
+  return counters ? w8_counters(p, M, N) : w8_ws_floats(p, M, N, K);
 }
 
 // launches of B12 kernel `kernel` made by this library so far: 0 the
-// decode GEMV, 1 the wgmma GEMM, 2 the mma.sync GEMM, 3 the f32 GEMM, 4 the
-// decode body on the tensor cores
+// decode GEMV, 1 the wgmma GEMM, 2 the mma.sync GEMM, 3 the f32 FMA GEMM, 4
+// the decode body on the tensor cores, 5 the wgmma GEMM at f32 x, 6 the
+// decode body at f32 x, 7 the f32 prefill's pre-pass (w8a16_split_x3, one
+// before each launch of 5)
 extern "C" long long w8a16_launch_count(int kernel) {
   return kernel >= 0 && kernel < kW8Kernels ? w8_launch_counts[kernel] : -1;
 }

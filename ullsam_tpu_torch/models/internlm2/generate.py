@@ -165,12 +165,15 @@ def generate(lm: InternLM2ForCausalLM, cfg: InternLM2Config,
              gen: GenerationConfig, inputs_embeds: Tensor,
              attention_mask: Tensor,
              generator: Optional[torch.Generator] = None,
-             step_hook: Optional[Callable[[int, Tensor], None]] = None
+             step_hook: Optional[Callable[[int, Tensor], None]] = None,
+             cache_dtype: Optional[torch.dtype] = None
              ) -> Tuple[Tensor, Tensor]:
     """Up to ``gen.max_new_tokens`` continuation tokens.
 
     inputs_embeds [B, S, H] (image embeddings already scattered in);
-    attention_mask [B, S]. The cache holds S + max_new_tokens slots.
+    attention_mask [B, S]. The cache holds S + max_new_tokens slots, in
+    ``cache_dtype`` (default inputs_embeds' dtype; the serving engine keeps
+    bf16 under an f32 model).
     Returns (tokens [B, max_new_tokens] int32, pad_token_id after each
     row's EOS; lengths [B] int32, through the first EOS or max_new_tokens).
     ``step_hook(i, logits)``, when given, is called once token i has been
@@ -180,7 +183,8 @@ def generate(lm: InternLM2ForCausalLM, cfg: InternLM2Config,
     B, S, _ = inputs_embeds.shape
     T = gen.max_new_tokens
     dev = inputs_embeds.device
-    cache = init_cache(cfg, B, S + T, dtype=inputs_embeds.dtype, device=dev)
+    cache = init_cache(cfg, B, S + T, dtype=cache_dtype or inputs_embeds.dtype,
+                       device=dev)
     mask = attention_mask.to(device=dev, dtype=torch.int32)
     out, cache = internlm2_prefill(lm, cfg, inputs_embeds, mask, cache)
     rows = torch.arange(B, device=dev)

@@ -100,20 +100,23 @@ def embeds_with_image(model: F.ULLSAM, cfg: FusionConfig, input_ids: Tensor,
 def caption_ids(model: F.ULLSAM, cfg: FusionConfig, pixel_values, input_ids,
                 attention_mask, gen: Optional[GenerationConfig] = None,
                 generator: Optional[torch.Generator] = None,
-                step_hook: Optional[Callable[[int, Tensor], None]] = None
+                step_hook: Optional[Callable[[int, Tensor], None]] = None,
+                cache_dtype: Optional[torch.dtype] = None
                 ) -> Tuple[Tensor, Tensor]:
     """Generate from left-padded prompts: pixel_values [1, S, S, 3] or None,
     input_ids and attention_mask [B, N] (``left_pad``). Returns (tokens
     [B, max_new_tokens] int32, lengths [B] int32) as ``generate`` does;
     ``gen`` carries the template's EOS and the pad id (default
-    ``GenerationConfig()``); ``step_hook`` goes to ``generate``."""
+    ``GenerationConfig()``); ``step_hook`` and ``cache_dtype`` go to
+    ``generate``."""
     ids = _on(model, input_ids, torch.long)
     pixels = None if pixel_values is None else _on(model, pixel_values)
     embeds = embeds_with_image(model, cfg, ids, pixels)
     return generate(model.fusion.language_model, cfg.llm,
                     gen or GenerationConfig(), embeds,
                     _on(model, attention_mask, torch.int32),
-                    generator=generator, step_hook=step_hook)
+                    generator=generator, step_hook=step_hook,
+                    cache_dtype=cache_dtype)
 
 
 def _chat_gen(cfg: FusionConfig, tokenizer,

@@ -22,10 +22,11 @@ that refuses a case, as B9 before head dim 80, is left out of it; one
 without the float32 scratch argument is called without it; B2 and B14's
 outputs are o and lse), B8 in float32 at both
 widths' windows, B12 at every shape of ``main_path.w8a16_cases`` but the
-head's prefill (decode at 1-16 rows, the serving engine's 128- and
-256-row segments, the caption prompt's 1152 and 9216, the tp 2 ranks'
-linears), bf16 out as the LLM's linears call it, and with f32 x at 1, 8
-and 256 rows; a version whose B12 entry takes a split-K workspace
+head's prefill at 1152 and 9216 rows (decode at 1-16 rows, the serving
+engine's 128- and 256-row segments, the caption prompt's 1152 and 9216,
+the tp 2 ranks' linears), bf16 out as the LLM's linears call it, and
+with f32 x at every shape (f32 out, held also against float64); a
+version whose B12 entry takes a workspace
 (``w8a16_workspace``) gets it as its own plan asks, an earlier one is
 called as it was), then timed by CUDA events (20 launches after 3; B12 at
 decode and the segments from a CUDA graph of its launches, decode with
@@ -43,7 +44,8 @@ version's output is also held against a float64 evaluation of the plain
 version beside the plain float32 version's own error. Each version's
 output is compared bitwise with the first version's. ``--only`` keeps the
 cases whose label starts with one of the given prefixes (B1, B2, B3, B8,
-B9, B12, B13, B14, B15, GEMM). Needs a CUDA card.
+B9, B12, B13, B14, B15, GEMM, or a longer one such as "B12 f32 M8 ").
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -509,17 +511,17 @@ def graph_ms(call, weights: list, reps: int = 3) -> float:
 
 def b12_cases(gen):
     """B12 in bf16 (bf16 out, as the LLM's linears call it) at every shape
-    of ``main_path.w8a16_cases`` but the head's prefill: decode (M <= 16)
+    of ``main_path.w8a16_cases`` but the head's prefill at 1152 and 9216
+    rows (f32 x at every one): decode (M <= 16)
     and the serving engine's segments (128, 256) timed from a CUDA graph,
     decode with the weight cold in L2 (cycling through copies) and F.linear
     on copies of the dequantized weight beside it; the caption prompt's
-    prefill (1152, 9216) by CUDA events as before. Then f32 x (the GEMV at
-    1 and 8 rows, the FMA GEMM at 256) on the layer linears."""
+    prefill (1152, 9216) by CUDA events as before. Then f32 x at the same
+    shapes, f32 out, each version also against a float64 evaluation."""
     out = []
-    cases = [(torch.bfloat16, M, N, K) for M, N, K in MP.w8a16_cases()
-             if M <= 256 or N % 128 == 0]
-    cases += [(torch.float32, M, N, K) for M in (1, 8, 256)
-              for N, K in MP.W8A16_LINEARS[:4]]
+    cases = [(dtype, M, N, K) for dtype in (torch.bfloat16, torch.float32)
+             for M, N, K in MP.w8a16_cases()
+             if M <= 256 or N % 128 == 0 or dtype == torch.float32]
     for dtype, M, N, K in cases:
         (x, q8, sc), _, fl, _ = MP.w8a16_case(dtype, gen, M, N, K)
         y = torch.empty((M, N), device="cuda", dtype=dtype)
@@ -541,10 +543,13 @@ def b12_cases(gen):
                     return graph_ms(lambda w: F.linear(x, w), wl)
                 return graph_ms(lambda w: call(f, w), ws)
         tag = "" if dtype == torch.bfloat16 else " f32"
+        ref64 = None if dtype == torch.bfloat16 else (
+            lambda x=x, q8=q8, sc=sc: (x.double() @ q8.double().t())
+            * sc.double())
         out.append((f"B12{tag} M{M} N{N} K{K}", "b12", call, y,
                     Q.w8a16_matmul_plain(x, q8, sc, None, dtype),
                     2 * M * N * K, lambda x=x, w=w_lib: F.linear(x, w),
-                    None, timer))
+                    ref64, timer))
     return out
 
 
@@ -562,7 +567,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     versions = [a.split("=", 1) for a in args]
     sources = _SOURCES if only is None else tuple(sorted({
-        s for label in only for s in _LABEL_SOURCES[label]}))
+        s for label in only for s in _LABEL_SOURCES[label.split()[0]]}))
     fns = {name: build_version(name, os.path.abspath(d), sources)
            for name, d in versions}
     order = [n for n, _ in versions]

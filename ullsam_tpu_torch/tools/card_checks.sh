@@ -46,15 +46,16 @@ grep -E 'FAIL|\[vit_h\]|\[gemm\]|hd-80|\[amg\]|\[train_vit_h\]|heads of 80' "$ou
 grep -E '\[kernels\] llm_flash|\[packed\]' "$out/smoke_${tag}.log" | cut -c1-500
 grep -E '\[kernels\] (decode_masks|two_way_transformer|upscale_hypernet|fused)' \
     "$out/smoke_${tag}.log" | cut -c1-400
-grep -E '\[kernels\] (vit_flash_attn|window_attn |window_attn_core |window_attn_core_bwd|w8a16_matmul bfloat16 M=(1152|9216))|\[caption\] (prefill|int8 batch 1|bf16 request|int8 request 1)' \
+grep -E '\[kernels\] (vit_flash_attn|window_attn |window_attn_core |window_attn_core_bwd|w8a16_matmul bfloat16 M=(1152|9216)|w8a16_matmul float32 M=(8|256) )|\[caption\] (prefill|int8 batch 1|bf16 request|int8 request 1)' \
     "$out/smoke_${tag}.log" | cut -c1-400
 grep -E '\[train\] (f32|bf16 flagship)' "$out/smoke_${tag}.log" | cut -c1-400
 grep -E '\[serve\]' "$out/smoke_${tag}.log" | cut -c1-900
 # ptxas (-Xptxas -v) of the window cores at SAM's 14x14 windows (NT = 14)
 # and at 16x16, of the wgmma GEMM's kinds (<0> bf16, <1> int8 W, <2> f32 in
-# split TF32) and of the flash bodies (B2 / B14's f32 vit_flash_tf32 and
+# split TF32, <3> int8 W with f32 x in three bf16 planes), of B12's decode
+# body and of the flash bodies (B2 / B14's f32 vit_flash_tf32 and
 # its pre-pass among them), from the build's own report
-grep -E '\[build\] .*(window_core_(bf16|f32)<(64|80), 1[46]>|gemm_nt_sm90|vit_flash_sm90|vit_flash_tf32|vit_split_f32|vit_bwd_|bwd_tf32|image_stage|upscale_unit|t2i_part|llm_flash_sm90|llm_bwd_sm90|llm_flash_tf32|llm_bwd_d(q|kv)_tf32|llm_split_f32)' \
+grep -E '\[build\] .*(window_core_(bf16|f32)<(64|80), 1[46]>|gemm_nt_sm90|w8a16_decode_tc|w8a16_split_x3|vit_flash_sm90|vit_flash_tf32|vit_split_f32|vit_bwd_|bwd_tf32|image_stage|upscale_unit|t2i_part|llm_flash_sm90|llm_bwd_sm90|llm_flash_tf32|llm_bwd_d(q|kv)_tf32|llm_split_f32)' \
     "$out/smoke_${tag}.log"
 tail -2 "$out/smoke_${tag}.log" | cut -c1-300
 [ $rc -eq 0 ] || exit $rc
